@@ -1,0 +1,54 @@
+"""spectralmc_tpu_torch — the PyTorch/CUDA port of the JAX package.
+
+Complex-valued neural networks trained online on the DFT (characteristic
+function) of Monte-Carlo payoff distributions, served as a pricer. This
+package carries the main path — Sobol contracts → GBM Monte-Carlo → FFT →
+CVNN → Adam, with snapshot/resume and serving — on PyTorch, with the MC hot
+loop in a hand-written CUDA kernel for Hopper (``csrc/gbm_terminal.cu``).
+It imports neither JAX nor the JAX package; the tests hold it against both.
+"""
+
+__version__ = "0.1.0"
+
+# Lazy top-level API (PEP 562): importing the package does not import torch.
+_EXPORTS = {
+    "Result": "spectralmc_tpu_torch.core.result",
+    "Success": "spectralmc_tpu_torch.core.result",
+    "Failure": "spectralmc_tpu_torch.core.result",
+    "Precision": "spectralmc_tpu_torch.core.precision",
+    "BlackScholesContract": "spectralmc_tpu_torch.ops.gbm",
+    "SimulationParams": "spectralmc_tpu_torch.ops.gbm",
+    "build_simulation_params": "spectralmc_tpu_torch.ops.gbm",
+    "PathScheme": "spectralmc_tpu_torch.ops.gbm",
+    "PayoffKind": "spectralmc_tpu_torch.ops.gbm",
+    "ModelKind": "spectralmc_tpu_torch.ops.gbm",
+    "SimImplementation": "spectralmc_tpu_torch.ops.gbm",
+    "SamplingKind": "spectralmc_tpu_torch.ops.gbm",
+    "black_scholes_price": "spectralmc_tpu_torch.ops.analytic",
+    "BoundSpec": "spectralmc_tpu_torch.ops.sobol",
+    "SobolSampler": "spectralmc_tpu_torch.ops.sobol",
+    "build_cvnn_config": "spectralmc_tpu_torch.models.factory",
+    "build_model": "spectralmc_tpu_torch.models.factory",
+    "Activation": "spectralmc_tpu_torch.models.factory",
+    "LinearCfg": "spectralmc_tpu_torch.models.factory",
+    "GbmCVNNPricer": "spectralmc_tpu_torch.training.trainer",
+    "GbmCVNNPricerConfig": "spectralmc_tpu_torch.training.trainer",
+    "build_training_config": "spectralmc_tpu_torch.training.trainer",
+    "NoCommit": "spectralmc_tpu_torch.training.trainer",
+    "FinalCommit": "spectralmc_tpu_torch.training.trainer",
+}
+
+__all__ = ["__version__", *sorted(_EXPORTS)]
+
+
+def __dir__() -> list[str]:
+    return sorted(__all__)
+
+
+def __getattr__(name: str) -> object:
+    target = _EXPORTS.get(name)
+    if target is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(target), name)

@@ -1,0 +1,86 @@
+"""Build the package's CUDA sources with nvcc and load them with ctypes.
+
+Each kernel file under ``csrc/`` exposes a plain C entry point, so it builds
+in seconds with no PyTorch headers:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so <sources>
+
+The library lands in ``build/kernels/`` at the repository root, named by a
+hash of the sources and flags, so an unchanged source is built once per
+checkout. Nothing here runs at import time; the first launch builds. A build
+that fails raises with nvcc's own error output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LOCK = threading.Lock()
+_LOADED: dict[str, "BuiltLibrary"] = {}
+
+
+@dataclass(frozen=True)
+class BuiltLibrary:
+    """A loaded kernel library and how it came to be."""
+
+    lib: ctypes.CDLL
+    path: Path
+    build_seconds: float  # 0.0 when an existing build was reused
+    log: str  # nvcc's output (register and spill counts from -Xptxas -v)
+
+
+def find_nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; cannot build the CUDA kernels")
+
+
+def load_library(name: str, sources: tuple[str, ...]) -> BuiltLibrary:
+    """Build (once per content hash) and load ``csrc/<sources>`` as ``name``."""
+    with _LOCK:
+        cached = _LOADED.get(name)
+        if cached is not None:
+            return cached
+        paths = [CSRC / s for s in sources]
+        digest = hashlib.sha256()
+        for p in paths:
+            digest.update(p.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+        target = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+        seconds, log = 0.0, ""
+        if not target.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
+            start = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            seconds = time.perf_counter() - start
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}) building {name}:\n{log}")
+            os.replace(tmp, target)
+        built = BuiltLibrary(ctypes.CDLL(str(target)), target, seconds, log)
+        _LOADED[name] = built
+        return built

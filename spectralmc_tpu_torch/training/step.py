@@ -1,0 +1,182 @@
+"""The fused train step: Sobol → MC → FFT → CVNN forward/backward → Adam.
+
+The port of the JAX package's ``training/step.py``. There the step is one
+traced program; here it is eager PyTorch on one device with the same
+numerics, and the MC working set streams ``contract_chunk`` contracts at a
+time through ONE simulator call each (one kernel launch per chunk on the
+``"cuda"`` engine). Chunking is bit-transparent: each contract's stream and
+arithmetic are the same at any chunk size.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+from pydantic import BaseModel, ConfigDict
+
+from spectralmc_tpu_torch.models.factory import CVNN, param_key
+from spectralmc_tpu_torch.ops import rng
+from spectralmc_tpu_torch.ops.dispatch import (  # noqa: F401 — re-exported seam
+    contract_class,
+    contract_dim,
+    make_mean_target,
+    make_underlier_simulator,
+)
+from spectralmc_tpu_torch.ops.gbm import ForwardNormalization, SimulationParams, discounted_put
+from spectralmc_tpu_torch.ops.sobol import scale_to_bounds, sobol_unit
+from spectralmc_tpu_torch.ops.spectrum import payoff_spectrum
+from spectralmc_tpu_torch.training.adam_state import AdamState, adam_update_, warmup_cosine_rate
+
+
+class LRScheduleConfig(BaseModel):
+    """Warmup + cosine-decay learning-rate schedule (checkpoint-transparent:
+    its position is the Adam step count)."""
+
+    model_config = ConfigDict(frozen=True, extra="forbid")
+
+    peak: float
+    decay_steps: int
+    warmup_steps: int = 0
+    end_value: float = 0.0
+
+
+def make_optimizer(
+    learning_rate: float, lr_schedule: LRScheduleConfig | None = None
+) -> Callable[[int], float]:
+    """The learning rate as a function of the Adam count (the JAX package's
+    ``make_optimizer`` chooses the same constant rate or schedule)."""
+    if lr_schedule is None:
+        return lambda count: learning_rate
+    s = lr_schedule
+    return lambda count: warmup_cosine_rate(
+        count, peak=s.peak, warmup_steps=s.warmup_steps, decay_steps=s.decay_steps,
+        end_value=s.end_value,
+    )
+
+
+@dataclass(frozen=True)
+class SobolTable:
+    """Device-resident Sobol constants (directions/shift/bounds columns)."""
+
+    directions: torch.Tensor
+    shift: torch.Tensor
+    lower: torch.Tensor
+    upper: torch.Tensor
+
+
+def make_mc_spectrum(
+    sim: SimulationParams, *, device: torch.device
+) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """``(draw indices [C], contracts [C, 6]) -> [C, network]`` complex targets.
+
+    Contract ``i``'s stream key is ``fold_in(prng_key(mc_seed), draw[i])``;
+    its rows are MEAN-normalized (if configured), turned into discounted put
+    payoffs and reduced to the batch-mean spectrum.
+    """
+    dtype = sim.precision.to_torch()
+    base_key = rng.prng_key(sim.mc_seed, device)
+    normalize = sim.normalization == ForwardNormalization.MEAN
+    simulate = make_underlier_simulator(sim, rows=sim.batches_per_mc_run)
+    mean_target = make_mean_target(sim)
+
+    def mc_spectrum(draws: torch.Tensor, contracts: torch.Tensor) -> torch.Tensor:
+        key_words = rng.fold_in(base_key, draws)
+        rows = simulate(key_words, contracts)
+        put = discounted_put(
+            rows.reshape(rows.shape[0], -1),
+            contracts,
+            normalize=normalize,
+            dtype=dtype,
+            mean_target=mean_target(contracts),
+        )
+        return payoff_spectrum(put, batches=sim.batches_per_mc_run, network_size=sim.network_size)
+
+    return mc_spectrum
+
+
+def make_input_normalizer(
+    table: SobolTable, *, enabled: bool, dtype: torch.dtype
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Affine map of contract features onto [0, 1] from the Sobol bounds
+    (degenerate bounds pass through at 0)."""
+    if not enabled:
+        return lambda x: x
+    lower = table.lower.to(dtype)
+    span = table.upper.to(dtype) - lower
+    safe_span = torch.where(span == 0, torch.ones_like(span), span)
+    return lambda x: (x - lower) / safe_span
+
+
+def model_params(model: CVNN) -> dict[str, torch.Tensor]:
+    """Parameters keyed by the JAX parameter path (``layer_0/w_re``)."""
+    return {param_key(n): p for n, p in model.named_parameters()}
+
+
+@dataclass
+class StepState:
+    """What one batch reads and advances besides the model: Adam + counters."""
+
+    adam: AdamState
+    sobol_skip: int
+    mc_skip: int
+
+
+BatchFn = Callable[[StepState], tuple[torch.Tensor, torch.Tensor]]
+
+
+def make_fused_batch(
+    model: CVNN,
+    sim: SimulationParams,
+    table: SobolTable,
+    *,
+    batch_size: int,
+    learning_rate: float,
+    contract_chunk: int | None = None,
+    normalize_inputs: bool = False,
+    lr_schedule: LRScheduleConfig | None = None,
+) -> BatchFn:
+    """Build the single-device batch function.
+
+    ``one_batch(state)`` trains ``model`` (in place) on one batch, advances
+    ``state`` and returns ``(loss, grad_inf_norm)`` as 0-d float32 device
+    tensors — nothing is fetched to the host.
+    """
+    device = table.lower.device
+    dtype = sim.precision.to_torch()
+    mc_spectrum = make_mc_spectrum(sim, device=device)
+    rate = make_optimizer(learning_rate, lr_schedule)
+    lower = table.lower.to(dtype)
+    upper = table.upper.to(dtype)
+    normalize_fn = make_input_normalizer(table, enabled=normalize_inputs, dtype=dtype)
+    if contract_chunk is not None and batch_size % contract_chunk:
+        raise ValueError(
+            f"batch_size {batch_size} not divisible by contract_chunk {contract_chunk}"
+        )
+    chunk = batch_size if contract_chunk is None else min(contract_chunk, batch_size)
+    params = model_params(model)
+
+    def one_batch(state: StepState) -> tuple[torch.Tensor, torch.Tensor]:
+        unit = sobol_unit(table.directions, table.shift, state.sobol_skip, batch_size, dtype)
+        contracts = scale_to_bounds(unit, lower, upper)  # [B, 6]
+        draws = (state.mc_skip + torch.arange(batch_size, device=device)) & rng.MASK32
+        with torch.no_grad():
+            specs = torch.cat([
+                mc_spectrum(draws[i:i + chunk], contracts[i:i + chunk])
+                for i in range(0, batch_size, chunk)
+            ])
+        inputs = normalize_fn(contracts)  # the MC keeps raw market units
+        model.train()
+        out_re, out_im = model(inputs, torch.zeros_like(inputs))
+        loss = torch.mean(torch.square(out_re - specs.real.to(dtype))) + torch.mean(
+            torch.square(out_im - specs.imag.to(dtype))
+        )
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        grad_norm = torch.stack([g.abs().max() for g in grads.values()]).max()
+        adam_update_(params, grads, state.adam, rate(state.adam.count))
+        state.sobol_skip = (state.sobol_skip + batch_size) & rng.MASK32
+        state.mc_skip = (state.mc_skip + batch_size) & rng.MASK32
+        return loss.detach().to(torch.float32), grad_norm.to(torch.float32)
+
+    return one_batch
