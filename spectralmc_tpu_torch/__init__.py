@@ -3,8 +3,9 @@
 Complex-valued neural networks trained online on the DFT (characteristic
 function) of Monte-Carlo payoff distributions, served as a pricer. This
 package carries the main path — Sobol contracts → GBM Monte-Carlo → FFT →
-CVNN → Adam, with snapshot/resume and serving — on PyTorch, with the MC hot
-loop in a hand-written CUDA kernel for Hopper (``csrc/gbm_terminal.cu``).
+CVNN → Adam, with snapshot/resume and serving — on PyTorch for every flat
+GBM payoff but the American ones, with the MC hot loop in hand-written CUDA
+kernels for Hopper (``csrc/gbm_paths.cu``).
 It imports neither JAX nor the JAX package; the tests hold it against both.
 """
 

@@ -1,0 +1,381 @@
+// Flat GBM payoff underliers for a batch of contracts: the "cuda" MC engine.
+//
+// Replaces two kernels of the JAX package's ops/gbm_pallas.py:
+//   * _gbm_block_kernel (launched by _simulate_rows_pallas_f32): every payoff
+//     branch, both path schemes -- TERMINAL, barrier/lookback (running
+//     extreme), variance swap (sum of squared log-increments) and Asian
+//     (running sum, arithmetic or geometric);
+//   * _gbm_cliquet_block_kernel (launched by _simulate_cliquet_rows_pallas_f32):
+//     the cliquet sum of clipped period returns under log-Euler.
+// What they keep of the TPU kernels is the math and the draw order:
+//   * uniforms from the top 24 bits of a word: u1 = b·2^-24 + 2^-25 (so
+//     log u1 is finite), u2 = b·2^-24; Box–Muller radius r = sqrt(-2 ln u1);
+//   * TERMINAL under log-Euler: two steps share one draw, since
+//     z1 + z2 = r·(cos θ + sin θ) = r·√2·sin(θ + π/4); an odd tail takes one
+//     single step with z = r·cos θ;
+//   * barrier, lookback and Asian: one draw per step, z = r·cos θ -- every
+//     intermediate state is observed, so the pair-step does not apply;
+//   * variance swap under log-Euler: the pair-step survives the square,
+//     (a + b·z1)² + (a + b·z2)² = 2a² + b²·x + 2√2·a·b·√x·sin(θ + π/4) with
+//     x = r² = -2 ln u1; antithetic mirroring flips only the cross term; an
+//     odd tail takes one single step inc²; under Euler one draw per step
+//     with inc = log|1 + (r−q)dt + vol√dt·z|; the output is Σ inc² / T;
+//   * cliquet: one Gaussian per reset period, N(k·drift, k·vol²·dt) -- the
+//     exact law of the period's log-return -- with two periods sharing one
+//     draw through z1 = r·cos θ, z2 = r·sin θ, and one extra r·cos θ draw for
+//     an odd period count; u = Σ clip(e^L − 1, floor, cap);
+//   * reflection-Euler: x ← |x·(1 + (r−q)dt + vol√dt·z)|, a fresh z per step;
+//   * antithetic mirroring and one float written per path.
+// What they drop is what the TPU needed: the hardware PRNG (here a
+// Philox-4x32-10 stream keyed by the contract's two threefry words, with the
+// counter (path index lo, path index hi, call index, 0); draw j takes words
+// 2(j%2), 2(j%2)+1 of call j/2, so the stream is a pure function of (key,
+// global row, col, draw) and stays put under contract chunking or row
+// sharding), the polynomial sine, the rsqrt radius and the 256x256 VMEM
+// blocks. One thread owns one path and loops over time steps; the payoff
+// family is a template parameter, so each instantiation keeps only its own
+// state in registers (TERMINAL: log x; barrier/lookback: log x and the
+// running extreme; variance: the accumulator; Asian: log x and the sum;
+// cliquet: the accumulator).
+//
+// Bound on Hopper: the rate of transcendental and integer instructions. A
+// path reads 24 bytes of contract and 8 of key once and stores 4 bytes at the
+// end, so memory traffic is negligible; per draw it costs half a Philox call
+// (10 rounds of two 32-bit mul-hi/lo), one logf, one sqrtf and one
+// sinpif/cospif, plus the branch's own expf or logf per step. The design keeps the whole path in
+// registers and never materializes a normals matrix in device memory.
+//
+// Antithetic: global row r >= half reuses row r - half's words with z negated
+// (the threefry engine's global-half convention, not the TPU's in-block mirror).
+//
+// Contract: launches on the given stream, allocates nothing, does not
+// synchronise; each C entry point returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr uint32_t kPhiloxM0 = 0xD2511F53u;
+constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
+constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
+constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
+constexpr float kSqrt2 = 1.41421356f;
+constexpr float kTwoSqrt2 = 2.82842712f;
+
+// payoff families (the Python side's _FAMILY_CODE)
+constexpr int kTerminal = 0;
+constexpr int kBarrier = 1;   // variant: 1 = up-and-out, 0 = down-and-out
+constexpr int kLookback = 2;  // variant: 0 fixed call, 1 fixed put, 2 float call, 3 float put
+constexpr int kVariance = 3;
+constexpr int kAsian = 4;     // variant: 0 arithmetic, 1 geometric
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    if (i) {
+      k0 += kPhiloxW0;
+      k1 += kPhiloxW1;
+    }
+    const uint32_t hi0 = __umulhi(kPhiloxM0, c.x);
+    const uint32_t lo0 = kPhiloxM0 * c.x;
+    const uint32_t hi1 = __umulhi(kPhiloxM1, c.z);
+    const uint32_t lo1 = kPhiloxM1 * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
+}
+
+__device__ __forceinline__ float uniform_open(uint32_t w) {
+  return static_cast<float>(w >> 8) * 0x1p-24f + 0x1p-25f;
+}
+
+__device__ __forceinline__ float uniform_closed(uint32_t w) {
+  return static_cast<float>(w >> 8) * 0x1p-24f;
+}
+
+// One thread's path: its Philox counter, key and antithetic sign.
+struct PathStream {
+  uint32_t c0, c1, k0, k1;
+  float sign;
+  uint4 w;
+
+  // Uniforms (u1, u2) of draw j; a new Philox call every other draw.
+  __device__ __forceinline__ void draw(int j, float& u1, float& u2) {
+    if ((j & 1) == 0) w = philox4x32_10(make_uint4(c0, c1, j >> 1, 0u), k0, k1);
+    u1 = uniform_open((j & 1) ? w.z : w.x);
+    u2 = uniform_closed((j & 1) ? w.w : w.y);
+  }
+};
+
+// Sets up the thread's path; false when the thread has no path.
+__device__ __forceinline__ bool path_setup(const uint32_t* __restrict__ keys, int64_t rows,
+                                           int64_t cols, int64_t half, int64_t row_offset,
+                                           int64_t& local, int& c, PathStream& s) {
+  const int64_t n = rows * cols;
+  local = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (local >= n) return false;
+  c = blockIdx.y;
+  const int64_t lrow = local / cols;
+  const int64_t col = local - lrow * cols;
+  int64_t row = row_offset + lrow;
+  s.sign = 1.0f;
+  if (half > 0 && row >= half) {
+    row -= half;
+    s.sign = -1.0f;
+  }
+  const uint64_t path = static_cast<uint64_t>(row) * static_cast<uint64_t>(cols) +
+                        static_cast<uint64_t>(col);
+  s.c0 = static_cast<uint32_t>(path);
+  s.c1 = static_cast<uint32_t>(path >> 32);
+  s.k0 = keys[2 * c];
+  s.k1 = keys[2 * c + 1];
+  s.w = make_uint4(0u, 0u, 0u, 0u);
+  return true;
+}
+
+// The flat-GBM kernel, one instantiation per payoff family.
+template <int kFamily>
+__global__ void gbm_paths_kernel(const float* __restrict__ params,
+                                 const uint32_t* __restrict__ keys, float* __restrict__ out,
+                                 int64_t rows, int64_t cols, int timesteps, int scheme,
+                                 int variant, float barrier_rel, int64_t half,
+                                 int64_t row_offset) {
+  int64_t local;
+  int c;
+  PathStream s;
+  if (!path_setup(keys, rows, cols, half, row_offset, local, c, s)) return;
+  const int64_t n = rows * cols;
+  const float sign = s.sign;
+
+  const float* p = params + 6 * c;
+  const float spot = p[0], strike = p[1], maturity = p[2], rate = p[3], div = p[4],
+              vol = p[5];
+  // scalar set-up rounded op by op, as the plain version evaluates it
+  const float dt = __fdiv_rn(maturity, static_cast<float>(timesteps));
+  const float vol_sdt = __fmul_rn(vol, __fsqrt_rn(dt));
+  const float carry = __fsub_rn(rate, div);
+  float u1, u2;
+  float result;
+
+  if (scheme == 0) {  // log-Euler
+    const float drift =
+        __fmul_rn(__fsub_rn(carry, __fmul_rn(__fmul_rn(0.5f, vol), vol)), dt);
+    if constexpr (kFamily == kTerminal) {
+      const float two_drift = __fmul_rn(2.0f, drift);
+      const int pairs = timesteps / 2;
+      const int draws = pairs + (timesteps & 1);
+      float logx = logf(spot);
+      for (int j = 0; j < draws; ++j) {
+        s.draw(j, u1, u2);
+        const float rad = sqrtf(-2.0f * logf(u1));
+        if (j < pairs) {
+          const float z = sign * (rad * kSqrt2 * sinpif(2.0f * u2 + 0.25f));
+          logx = (logx + two_drift) + vol_sdt * z;
+        } else {
+          const float z = sign * (rad * cospif(2.0f * u2));
+          logx = (logx + drift) + vol_sdt * z;
+        }
+      }
+      result = expf(logx);
+    } else if constexpr (kFamily == kVariance) {
+      const float base_c = __fmul_rn(__fmul_rn(2.0f, drift), drift);
+      const float b_sq = __fmul_rn(vol_sdt, vol_sdt);
+      const float cross_c = __fmul_rn(__fmul_rn(kTwoSqrt2, drift), vol_sdt);
+      const int pairs = timesteps / 2;
+      const int draws = pairs + (timesteps & 1);
+      float acc = 0.0f;
+      for (int j = 0; j < draws; ++j) {
+        s.draw(j, u1, u2);
+        const float x = -2.0f * logf(u1);
+        if (j < pairs) {
+          const float sn = sqrtf(x) * sinpif(2.0f * u2 + 0.25f);
+          acc = acc + ((base_c + b_sq * x) + sign * (cross_c * sn));
+        } else {
+          const float z = sign * (sqrtf(x) * cospif(2.0f * u2));
+          const float inc = drift + vol_sdt * z;
+          acc = acc + inc * inc;
+        }
+      }
+      result = __fdiv_rn(acc, maturity);
+    } else {  // barrier, lookback, Asian: one draw per step
+      const float log0 = logf(spot);
+      float logx = log0;
+      float acc = (kFamily == kAsian) ? 0.0f : log0;  // the sum, or the running extreme
+      const bool up = (kFamily == kBarrier) ? (variant == 1) : (variant == 0 || variant == 3);
+      for (int j = 0; j < timesteps; ++j) {
+        s.draw(j, u1, u2);
+        const float z = sign * (sqrtf(-2.0f * logf(u1)) * cospif(2.0f * u2));
+        logx = (logx + drift) + vol_sdt * z;
+        if constexpr (kFamily == kAsian) {
+          acc = acc + (variant ? logx : expf(logx));
+        } else {
+          acc = up ? fmaxf(acc, logx) : fminf(acc, logx);
+        }
+      }
+      if constexpr (kFamily == kAsian) {
+        const float inv_n = static_cast<float>(1.0 / timesteps);
+        result = variant ? expf(acc * inv_n) : acc * inv_n;
+      } else if constexpr (kFamily == kBarrier) {
+        const float level = logf(__fmul_rn(spot, barrier_rel));
+        const bool knocked = up ? acc >= level : acc <= level;
+        result = knocked ? strike : expf(logx);
+      } else {
+        const float ext = expf(acc), terminal = expf(logx);
+        result = variant == 0 ? 2.0f * strike - ext
+               : variant == 1 ? ext
+               : variant == 2 ? strike - (terminal - ext)
+                              : strike - (ext - terminal);
+      }
+    }
+  } else {  // reflection-Euler: one draw per step
+    const float growth = __fadd_rn(1.0f, __fmul_rn(carry, dt));
+    if constexpr (kFamily == kVariance) {
+      float acc = 0.0f;
+      for (int j = 0; j < timesteps; ++j) {
+        s.draw(j, u1, u2);
+        const float z = sign * (sqrtf(-2.0f * logf(u1)) * cospif(2.0f * u2));
+        const float inc = logf(fabsf(growth + vol_sdt * z));
+        acc = acc + inc * inc;
+      }
+      result = __fdiv_rn(acc, maturity);
+    } else {
+      float x = spot;
+      float acc = (kFamily == kAsian) ? 0.0f : spot;
+      const bool up = (kFamily == kBarrier) ? (variant == 1) : (variant == 0 || variant == 3);
+      for (int j = 0; j < timesteps; ++j) {
+        s.draw(j, u1, u2);
+        const float z = sign * (sqrtf(-2.0f * logf(u1)) * cospif(2.0f * u2));
+        x = fabsf(x * (growth + vol_sdt * z));
+        if constexpr (kFamily == kAsian) {
+          acc = acc + (variant ? logf(x) : x);
+        } else if constexpr (kFamily != kTerminal) {
+          acc = up ? fmaxf(acc, x) : fminf(acc, x);
+        }
+      }
+      if constexpr (kFamily == kTerminal) {
+        result = x;
+      } else if constexpr (kFamily == kAsian) {
+        const float inv_n = static_cast<float>(1.0 / timesteps);
+        result = variant ? expf(acc * inv_n) : acc * inv_n;
+      } else if constexpr (kFamily == kBarrier) {
+        const float level = __fmul_rn(spot, barrier_rel);
+        const bool knocked = up ? acc >= level : acc <= level;
+        result = knocked ? strike : x;
+      } else {
+        result = variant == 0 ? 2.0f * strike - acc
+               : variant == 1 ? acc
+               : variant == 2 ? strike - (x - acc)
+                              : strike - (acc - x);
+      }
+    }
+  }
+  out[static_cast<int64_t>(c) * n + local] = result;
+}
+
+// The cliquet: one Gaussian per reset period (log-Euler only).
+__global__ void gbm_cliquet_kernel(const float* __restrict__ params,
+                                   const uint32_t* __restrict__ keys, float* __restrict__ out,
+                                   int64_t rows, int64_t cols, int timesteps, int reset_every,
+                                   float floor, float cap, int64_t half, int64_t row_offset) {
+  int64_t local;
+  int c;
+  PathStream s;
+  if (!path_setup(keys, rows, cols, half, row_offset, local, c, s)) return;
+  const int64_t n = rows * cols;
+  const float sign = s.sign;
+
+  const float* p = params + 6 * c;
+  const float maturity = p[2], rate = p[3], div = p[4], vol = p[5];
+  const float dt = __fdiv_rn(maturity, static_cast<float>(timesteps));
+  const float k = static_cast<float>(reset_every);
+  const float period_drift = __fmul_rn(
+      __fmul_rn(__fsub_rn(__fsub_rn(rate, div), __fmul_rn(__fmul_rn(0.5f, vol), vol)), dt), k);
+  const float period_vol = __fmul_rn(vol, __fsqrt_rn(__fmul_rn(dt, k)));
+  const int periods = timesteps / reset_every;
+  const int pairs = periods / 2;
+  const int draws = pairs + (periods & 1);
+  auto clipped = [&](float z) {
+    return fminf(fmaxf(expf(period_drift + period_vol * z) - 1.0f, floor), cap);
+  };
+  float acc = 0.0f;
+  float u1, u2;
+  for (int j = 0; j < draws; ++j) {
+    s.draw(j, u1, u2);
+    const float rad = sqrtf(-2.0f * logf(u1));
+    if (j < pairs) {
+      float sn, cs;
+      sincospif(2.0f * u2, &sn, &cs);
+      acc = (acc + clipped(sign * (rad * cs))) + clipped(sign * (rad * sn));
+    } else {
+      acc = acc + clipped(sign * (rad * cospif(2.0f * u2)));
+    }
+  }
+  out[static_cast<int64_t>(c) * n + local] = acc;
+}
+
+dim3 grid_of(int contracts, long long rows, long long cols, int threads) {
+  const long long paths = rows * cols;
+  return dim3(static_cast<unsigned>((paths + threads - 1) / threads),
+              static_cast<unsigned>(contracts));
+}
+
+}  // namespace
+
+extern "C" int gbm_paths_launch(const void* params, const void* keys, void* out, int contracts,
+                                long long rows, long long cols, int timesteps, int scheme,
+                                int family, int variant, float barrier_rel, long long half,
+                                long long row_offset, void* stream) {
+  const int threads = 256;
+  const dim3 grid = grid_of(contracts, rows, cols, threads);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* pp = static_cast<const float*>(params);
+  const uint32_t* kp = static_cast<const uint32_t*>(keys);
+  float* op = static_cast<float*>(out);
+  switch (family) {
+    case kTerminal:
+      gbm_paths_kernel<kTerminal><<<grid, threads, 0, st>>>(
+          pp, kp, op, rows, cols, timesteps, scheme, variant, barrier_rel, half, row_offset);
+      break;
+    case kBarrier:
+      gbm_paths_kernel<kBarrier><<<grid, threads, 0, st>>>(
+          pp, kp, op, rows, cols, timesteps, scheme, variant, barrier_rel, half, row_offset);
+      break;
+    case kLookback:
+      gbm_paths_kernel<kLookback><<<grid, threads, 0, st>>>(
+          pp, kp, op, rows, cols, timesteps, scheme, variant, barrier_rel, half, row_offset);
+      break;
+    case kVariance:
+      gbm_paths_kernel<kVariance><<<grid, threads, 0, st>>>(
+          pp, kp, op, rows, cols, timesteps, scheme, variant, barrier_rel, half, row_offset);
+      break;
+    case kAsian:
+      gbm_paths_kernel<kAsian><<<grid, threads, 0, st>>>(
+          pp, kp, op, rows, cols, timesteps, scheme, variant, barrier_rel, half, row_offset);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gbm_terminal_launch(const void* params, const void* keys, void* out,
+                                   int contracts, long long rows, long long cols,
+                                   int timesteps, int scheme, long long half,
+                                   long long row_offset, void* stream) {
+  return gbm_paths_launch(params, keys, out, contracts, rows, cols, timesteps, scheme,
+                          kTerminal, 0, 1.0f, half, row_offset, stream);
+}
+
+extern "C" int gbm_cliquet_launch(const void* params, const void* keys, void* out,
+                                  int contracts, long long rows, long long cols, int timesteps,
+                                  int reset_every, float floor, float cap, long long half,
+                                  long long row_offset, void* stream) {
+  const int threads = 256;
+  gbm_cliquet_kernel<<<grid_of(contracts, rows, cols, threads), threads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(params), static_cast<const uint32_t*>(keys),
+      static_cast<float*>(out), rows, cols, timesteps, reset_every, floor, cap, half,
+      row_offset);
+  return static_cast<int>(cudaGetLastError());
+}

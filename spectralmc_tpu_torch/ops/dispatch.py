@@ -1,10 +1,11 @@
-"""Model-family dispatch — the (ModelKind × SimImplementation) seam.
+"""Model-family dispatch — the (PayoffKind × SimImplementation) seam.
 
-The port of the JAX package's ``ops/dispatch.py`` for the main path: GBM
-dynamics, TERMINAL payoffs, pseudo-random paths. Every caller builds its
-simulator here. Simulators take a BATCH of contracts — one kernel launch per
-batch on the ``"cuda"`` engine — where the JAX package ``vmap``s a
-one-contract simulator.
+The port of the JAX package's ``ops/dispatch.py`` for GBM dynamics with
+pseudo-random paths and flat market data: every payoff kind but the
+American ones, on the threefry engine or the CUDA kernels. Every caller
+builds its simulator here. Simulators take a BATCH of contracts — one kernel
+launch per batch on the ``"cuda"`` engine — where the JAX package ``vmap``s
+a one-contract simulator.
 """
 
 from __future__ import annotations
@@ -16,14 +17,18 @@ import torch
 from spectralmc_tpu_torch.ops.gbm import (
     CONTRACT_DIM,
     BlackScholesContract,
+    PayoffKind,
     SimImplementation,
     SimulationParams,
     expected_underlier_mean,
     require_slice,
     resolve_implementation,
-    simulate_terminal_rows,
+    simulate_underlier_rows,
 )
-from spectralmc_tpu_torch.ops.gbm_cuda import simulate_terminal_rows_cuda
+from spectralmc_tpu_torch.ops.gbm_cuda import (
+    simulate_cliquet_rows_cuda,
+    simulate_underlier_rows_cuda,
+)
 
 Simulator = Callable[..., torch.Tensor]
 
@@ -42,8 +47,11 @@ def contract_dim(sim: SimulationParams) -> int:
 def make_underlier_simulator(sim: SimulationParams, *, rows: int) -> Simulator:
     """``(key_words [C, 2], contracts [C, 6], row_offset=0) -> [C, rows, network]``.
 
-    The engine is the one ``resolve_implementation`` says will run; both
-    engines key rows by GLOBAL index, so ``row_offset`` shards are stable.
+    The engine is the one ``resolve_implementation`` says will run: on
+    ``"cuda"`` cliquets go to the cliquet kernel and every other payoff to
+    the flat kernel, each with its knobs; on ``"xla"`` to the threefry
+    simulator. Both engines key rows by GLOBAL index, so ``row_offset``
+    shards are stable.
     """
     require_slice(sim)
     resolved = resolve_implementation(sim)
@@ -53,17 +61,39 @@ def make_underlier_simulator(sim: SimulationParams, *, rows: int) -> Simulator:
             "the 'pallas' engine draws the TPU hardware PRNG; this package cannot run it"
         )
     if resolved == SimImplementation.CUDA:
+        if sim.payoff == PayoffKind.CLIQUET:
+
+            def simulate_cliquet(
+                key_words: torch.Tensor, contracts: torch.Tensor, row_offset: int = 0
+            ) -> torch.Tensor:
+                return simulate_cliquet_rows_cuda(
+                    contracts.to(torch.float32),
+                    key_words,
+                    timesteps=sim.timesteps,
+                    rows=rows,
+                    cols=sim.network_size,
+                    reset_every=sim.cliquet_reset_every,
+                    floor=sim.cliquet_floor,
+                    cap=sim.cliquet_cap,
+                    antithetic_half=anti_half,
+                    row_offset=row_offset,
+                )
+
+            return simulate_cliquet
 
         def simulate_cuda(
             key_words: torch.Tensor, contracts: torch.Tensor, row_offset: int = 0
         ) -> torch.Tensor:
-            return simulate_terminal_rows_cuda(
+            return simulate_underlier_rows_cuda(
                 contracts.to(torch.float32),
                 key_words,
                 timesteps=sim.timesteps,
                 rows=rows,
                 cols=sim.network_size,
                 scheme=sim.scheme,
+                payoff=sim.payoff,
+                barrier_rel=sim.barrier_rel,
+                forward_start_step=sim.forward_start_step,
                 antithetic_half=anti_half,
                 row_offset=row_offset,
             )
@@ -75,7 +105,7 @@ def make_underlier_simulator(sim: SimulationParams, *, rows: int) -> Simulator:
     def simulate_xla(
         key_words: torch.Tensor, contracts: torch.Tensor, row_offset: int = 0
     ) -> torch.Tensor:
-        return simulate_terminal_rows(
+        return simulate_underlier_rows(
             key_words,
             contracts,
             timesteps=sim.timesteps,
@@ -83,21 +113,35 @@ def make_underlier_simulator(sim: SimulationParams, *, rows: int) -> Simulator:
             cols=sim.network_size,
             dtype=dtype,
             scheme=sim.scheme,
+            payoff=sim.payoff,
             row_offset=row_offset,
+            barrier_rel=sim.barrier_rel,
             antithetic_half=anti_half,
+            forward_start_step=sim.forward_start_step,
+            cliquet_reset_every=sim.cliquet_reset_every,
+            cliquet_floor=sim.cliquet_floor,
+            cliquet_cap=sim.cliquet_cap,
         )
 
     return simulate_xla
 
 
-def make_mean_target(sim: SimulationParams) -> Callable[[torch.Tensor], torch.Tensor]:
-    """``contracts [..., 6] -> E[underlier] [...]`` (the analytic forward)."""
+def make_mean_target(sim: SimulationParams) -> Callable[[torch.Tensor], torch.Tensor | None]:
+    """``contracts [..., 6] -> E[underlier] [...]``, the payoff's own analytic
+    mean (None where no closed form exists)."""
     require_slice(sim)
     dtype = sim.precision.to_torch()
 
-    def mean_target(contracts: torch.Tensor) -> torch.Tensor:
+    def mean_target(contracts: torch.Tensor) -> torch.Tensor | None:
         return expected_underlier_mean(
-            contracts, timesteps=sim.timesteps, payoff=sim.payoff, dtype=dtype
+            contracts,
+            timesteps=sim.timesteps,
+            payoff=sim.payoff,
+            dtype=dtype,
+            forward_start_step=sim.forward_start_step,
+            cliquet_reset_every=sim.cliquet_reset_every,
+            cliquet_floor=sim.cliquet_floor,
+            cliquet_cap=sim.cliquet_cap,
         )
 
     return mean_target

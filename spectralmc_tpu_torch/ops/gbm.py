@@ -1,9 +1,10 @@
-"""GBM Monte-Carlo engine, main-path subset, on torch tensors.
+"""GBM Monte-Carlo engine on torch tensors: the flat, pseudo-random payoff matrix.
 
-The port of the JAX package's ``ops/gbm.py`` for what the online pricer's
-main path runs: European (TERMINAL) payoffs on GBM dynamics with
-pseudo-random paths, log-Euler or reflection-Euler, optional antithetic
-mirroring, and MEAN forward normalization.
+The port of the JAX package's ``ops/gbm.py`` for GBM dynamics with
+pseudo-random paths and flat market data: every payoff kind but the
+American ones (TERMINAL, Asian, barrier, lookback, digital, variance swap,
+forward start, cliquet), log-Euler or reflection-Euler, optional antithetic
+mirroring, and MEAN normalization where E[underlier] has a closed form.
 
 Two engines, recorded in ``SimulationParams.implementation`` because they
 draw different bit streams:
@@ -11,8 +12,8 @@ draw different bit streams:
 * ``"xla"`` — the JAX package's canonical threefry stream: row ``r``'s
   normals at step ``t`` are ``normal(fold_in(fold_in(key, r), t), (cols,))``
   (``ops/rng.py`` reproduces the words of ``jax.random``). Plain tensor code.
-* ``"cuda"`` — the hand-written Hopper kernel with its own Philox-4x32-10
-  stream (``ops/gbm_cuda.py``, ``csrc/gbm_terminal.cu``).
+* ``"cuda"`` — the hand-written Hopper kernels with their own Philox-4x32-10
+  stream (``ops/gbm_cuda.py``, ``csrc/gbm_paths.cu``).
 
 ``"pallas"`` (the TPU hardware-PRNG stream) is a value the port parses but
 cannot run; the trainer refuses it.
@@ -25,6 +26,7 @@ kernel per contract chunk, not one per contract.
 from __future__ import annotations
 
 import enum
+import math
 from dataclasses import dataclass
 from typing import Any
 
@@ -47,6 +49,7 @@ MAX_TOTAL_PATHS_F64 = 500_000_000
 
 # ROADMAP.md queue items that port what this module refuses
 PAYOFF_QUEUE = "queue 1 item 15 (GBM payoff matrix and term structures)"
+AMERICAN_QUEUE = "queue 1 item 18 (American)"
 DYNAMICS_QUEUE = "queue 1 item 16 (dynamics)"
 QMC_QUEUE = "queue 1 item 17 (QMC)"
 
@@ -62,8 +65,9 @@ class ForwardNormalization(enum.Enum):
 
 
 class PayoffKind(enum.Enum):
-    """All payoff kinds of the JAX package, so its configs parse; the port
-    simulates TERMINAL and refuses the rest (``PAYOFF_QUEUE``)."""
+    """All payoff kinds of the JAX package (its ``PayoffKind`` docstring
+    defines each underlier); the port simulates every kind but the American
+    ones (``AMERICAN_QUEUE``)."""
 
     TERMINAL = "terminal"
     ASIAN_ARITHMETIC = "asian_arithmetic"
@@ -80,6 +84,37 @@ class PayoffKind(enum.Enum):
     VARIANCE_SWAP = "variance_swap"
     FORWARD_START = "forward_start"
     CLIQUET = "cliquet"
+
+
+BARRIER_PAYOFFS = frozenset({PayoffKind.BARRIER_UP_OUT, PayoffKind.BARRIER_DOWN_OUT})
+AMERICAN_PAYOFFS = frozenset({PayoffKind.AMERICAN_PUT, PayoffKind.AMERICAN_CALL})
+LOOKBACK_PAYOFFS = frozenset(
+    {
+        PayoffKind.LOOKBACK_FIXED_CALL,
+        PayoffKind.LOOKBACK_FIXED_PUT,
+        PayoffKind.LOOKBACK_FLOAT_CALL,
+        PayoffKind.LOOKBACK_FLOAT_PUT,
+    }
+)
+# kinds whose extreme is the running MAX (the others track the running MIN)
+LOOKBACK_MAX_PAYOFFS = frozenset({PayoffKind.LOOKBACK_FIXED_CALL, PayoffKind.LOOKBACK_FLOAT_PUT})
+
+
+def lookback_underlier(
+    payoff: PayoffKind, strike: torch.Tensor, extreme: torch.Tensor, terminal: torch.Tensor
+) -> torch.Tensor:
+    """The lookback kinds' synthetic underlier, encoded so that
+    ``df·max(K − u, 0)`` is the product: fixed call ``2K − M``, fixed put
+    ``m``, floating put ``K − (M − S_T)``, floating call ``K − (S_T − m)``.
+    ``extreme``/``terminal`` in linear price space; shared by both engines."""
+    if payoff == PayoffKind.LOOKBACK_FIXED_CALL:
+        return 2.0 * strike - extreme
+    if payoff == PayoffKind.LOOKBACK_FIXED_PUT:
+        return extreme
+    if payoff == PayoffKind.LOOKBACK_FLOAT_PUT:
+        return strike - (extreme - terminal)
+    assert payoff == PayoffKind.LOOKBACK_FLOAT_CALL
+    return strike - (terminal - extreme)
 
 
 class ModelKind(enum.Enum):
@@ -159,15 +194,98 @@ class SimulationParams(BaseModel):
 
 
 def require_slice(params: SimulationParams) -> None:
-    """Raise for a config outside the ported slice (GBM, TERMINAL, PSEUDO, flat)."""
+    """Raise for a config outside the ported slice: GBM, PSEUDO, flat market
+    data, any payoff but the American kinds."""
     if params.model != ModelKind.GBM or params.basket is not None:
         raise not_ported(f"model={params.model.value!r}", DYNAMICS_QUEUE)
-    if params.payoff != PayoffKind.TERMINAL:
-        raise not_ported(f"payoff={params.payoff.value!r}", PAYOFF_QUEUE)
+    if params.payoff in AMERICAN_PAYOFFS:
+        raise not_ported(f"payoff={params.payoff.value!r}", AMERICAN_QUEUE)
     if params.sampling != SamplingKind.PSEUDO:
         raise not_ported(f"sampling={params.sampling.value!r}", QMC_QUEUE)
     if params.term is not None:
         raise not_ported("a TermStructure", PAYOFF_QUEUE)
+
+
+def _invalid(field: str, value: object, reason: str) -> Failure:
+    return Failure(InvalidSimulationParams(field=field, value=value, reason=reason))
+
+
+def _payoff_knob_refusal(params: SimulationParams) -> Failure | None:
+    """The JAX package's payoff-knob checks, in its order, fields and reasons."""
+    payoff = params.payoff
+    if payoff in BARRIER_PAYOFFS:
+        if params.barrier_rel is None:
+            return _invalid("barrier_rel", None, f"payoff={payoff.value!r} requires barrier_rel")
+        if payoff == PayoffKind.BARRIER_UP_OUT and params.barrier_rel <= 1.0:
+            return _invalid("barrier_rel", params.barrier_rel,
+                            "up-and-out barrier must be > 1x spot")
+        if payoff == PayoffKind.BARRIER_DOWN_OUT and not 0.0 < params.barrier_rel < 1.0:
+            return _invalid("barrier_rel", params.barrier_rel,
+                            "down-and-out barrier must be in (0, 1)x spot")
+    elif params.barrier_rel is not None:
+        return _invalid("barrier_rel", params.barrier_rel,
+                        f"payoff={payoff.value!r} takes no barrier")
+    if payoff == PayoffKind.FORWARD_START:
+        if params.forward_start_step is None:
+            return _invalid("forward_start_step", None,
+                            "payoff='forward_start' requires forward_start_step")
+        if not 1 <= params.forward_start_step < params.timesteps:
+            return _invalid("forward_start_step", params.forward_start_step,
+                            "strike-setting date must be an interior grid index "
+                            "(1 <= m < timesteps)")
+    elif params.forward_start_step is not None:
+        return _invalid("forward_start_step", params.forward_start_step,
+                        f"payoff={payoff.value!r} takes no strike-setting date")
+    knobs = (params.cliquet_reset_every, params.cliquet_floor, params.cliquet_cap)
+    if payoff == PayoffKind.CLIQUET:
+        if any(k is None for k in knobs):
+            return _invalid("cliquet_reset_every", None,
+                            "payoff='cliquet' requires cliquet_reset_every, cliquet_floor "
+                            "and cliquet_cap")
+        every = params.cliquet_reset_every
+        if every < 1 or params.timesteps % every:
+            return _invalid("cliquet_reset_every", every,
+                            "must be >= 1 and divide timesteps (maturity is always a "
+                            "reset date)")
+        if params.timesteps // every < 2:
+            return _invalid("cliquet_reset_every", every,
+                            "a cliquet needs >= 2 reset periods (one period is a clipped "
+                            "forward — use payoff='terminal')")
+        if not -1.0 < params.cliquet_floor < params.cliquet_cap:
+            return _invalid("cliquet_floor", params.cliquet_floor,
+                            "need -1 < floor < cap (a period return cannot fall below "
+                            "-100%)")
+    elif any(k is not None for k in knobs):
+        return _invalid("cliquet_reset_every", params.cliquet_reset_every,
+                        f"payoff={payoff.value!r} takes no cliquet reset grid or clip levels")
+    if params.lsmc_cross_fit:
+        return _invalid("lsmc_cross_fit", True,
+                        f"payoff={payoff.value!r} has no LSMC regression to cross-fit")
+    if params.lsmc_fused_backward:
+        return _invalid("lsmc_fused_backward", True,
+                        f"payoff={payoff.value!r} has no LSMC backward induction")
+    return None
+
+
+def _normalization_refusal(params: SimulationParams) -> Failure | None:
+    """MEAN normalization's three refusals, with the JAX package's reasons."""
+    if params.normalization != ForwardNormalization.MEAN:
+        return None
+    if params.payoff == PayoffKind.DIGITAL:
+        return _invalid("normalization", params.normalization.value,
+                        "the digital ±1 underlier encoding is not scale-equivariant: "
+                        "multiplicative mean rescaling would corrupt the indicator; use "
+                        "normalization='none'")
+    if params.payoff == PayoffKind.CLIQUET:
+        return _invalid("normalization", params.normalization.value,
+                        "the cliquet sum of clipped returns is not scale-equivariant: "
+                        "multiplicative mean rescaling would move returns through the clip "
+                        "levels; use normalization='none'")
+    if not has_closed_form_mean(params.model, params.payoff):
+        return _invalid("normalization", params.normalization.value,
+                        f"E[underlier] has no closed form for {params.model.value}/"
+                        f"{params.payoff.value}; use normalization='none'")
+    return None
 
 
 def build_simulation_params(**kwargs: Any) -> Result[SimulationParams, GBMError]:
@@ -179,25 +297,13 @@ def build_simulation_params(**kwargs: Any) -> Result[SimulationParams, GBMError]
     require_slice(params)
     for field in ("timesteps", "network_size", "batches_per_mc_run"):
         if getattr(params, field) <= 0:
-            return Failure(
-                InvalidSimulationParams(
-                    field=field, value=getattr(params, field), reason="must be positive"
-                )
-            )
+            return _invalid(field, getattr(params, field), "must be positive")
     if params.mc_seed < 0:
-        return Failure(
-            InvalidSimulationParams(field="mc_seed", value=params.mc_seed, reason="must be >= 0")
-        )
+        return _invalid("mc_seed", params.mc_seed, "must be >= 0")
     if params.skip < 0:
-        return Failure(
-            InvalidSimulationParams(field="skip", value=params.skip, reason="must be >= 0")
-        )
+        return _invalid("skip", params.skip, "must be >= 0")
     if params.precision.is_complex():
-        return Failure(
-            InvalidSimulationParams(
-                field="precision", value=params.precision.value, reason="MC dtype must be real"
-            )
-        )
+        return _invalid("precision", params.precision.value, "MC dtype must be real")
     limit = MAX_TOTAL_PATHS_F64 if params.precision == Precision.float64 else MAX_TOTAL_PATHS_F32
     if params.total_paths > limit:
         return Failure(
@@ -208,55 +314,35 @@ def build_simulation_params(**kwargs: Any) -> Result[SimulationParams, GBMError]
                 reason="config-time path guardrail",
             )
         )
-    stray = {
-        "barrier_rel": params.barrier_rel,
-        "forward_start_step": params.forward_start_step,
-        "cliquet_reset_every": params.cliquet_reset_every,
-        "cliquet_floor": params.cliquet_floor,
-        "cliquet_cap": params.cliquet_cap,
-    }
-    for field, value in stray.items():
-        if value is not None:
-            return Failure(
-                InvalidSimulationParams(
-                    field=field, value=value, reason="payoff='terminal' takes no such knob"
-                )
-            )
-    if params.lsmc_cross_fit or params.lsmc_fused_backward:
-        return Failure(
-            InvalidSimulationParams(
-                field="lsmc_cross_fit" if params.lsmc_cross_fit else "lsmc_fused_backward",
-                value=True,
-                reason="payoff='terminal' has no LSMC regression",
-            )
-        )
+    refused = _payoff_knob_refusal(params)
+    if refused is not None:
+        return refused
     if params.antithetic and params.batches_per_mc_run % 2:
-        return Failure(
-            InvalidSimulationParams(
-                field="antithetic",
-                value=params.batches_per_mc_run,
-                reason="antithetic pairing needs an even batches_per_mc_run",
-            )
-        )
+        return _invalid("antithetic", params.batches_per_mc_run,
+                        "antithetic pairing needs an even batches_per_mc_run")
+    refused = _normalization_refusal(params)
+    if refused is not None:
+        return refused
     return Success(params)
 
 
 def has_closed_form_mean(model: ModelKind, payoff: PayoffKind) -> bool:
     """Whether analytic E[underlier] exists (gates MEAN normalization and
-    call-via-parity). GBM TERMINAL has the forward; the rest is not ported."""
+    call-via-parity): under GBM every payoff but the barrier, lookback and
+    American kinds, whose underliers' means have no closed form."""
     if model != ModelKind.GBM:
         raise not_ported(f"model={model.value!r}", DYNAMICS_QUEUE)
-    if payoff != PayoffKind.TERMINAL:
-        raise not_ported(f"payoff={payoff.value!r}", PAYOFF_QUEUE)
-    return True
+    return not (
+        payoff in BARRIER_PAYOFFS or payoff in AMERICAN_PAYOFFS or payoff in LOOKBACK_PAYOFFS
+    )
 
 
 def resolve_implementation(params: SimulationParams) -> SimImplementation:
     """The engine that will ACTUALLY execute for these params.
 
-    ``"cuda"`` runs wherever ``gbm_cuda.cuda_supported`` says the kernel
-    honors the request (the single source of truth), else the threefry
-    engine; the kernel takes any row count. ``"pallas"`` resolves to itself:
+    ``"cuda"`` runs wherever ``gbm_cuda.cuda_supported`` says the kernels
+    honor the request (the single source of truth), else the threefry
+    engine; the kernels take any row count. ``"pallas"`` resolves to itself:
     only the trainer's refusal stands between it and a run.
     """
     if params.implementation != SimImplementation.CUDA:
@@ -269,6 +355,7 @@ def resolve_implementation(params: SimulationParams) -> SimImplementation:
         payoff=params.payoff,
         sampling=params.sampling,
         term=params.term,
+        scheme=params.scheme,
     ):
         return SimImplementation.CUDA
     return SimImplementation.XLA
@@ -351,23 +438,228 @@ def simulate_terminal_rows(
     return x
 
 
+def simulate_underlier_rows(
+    contract_keys: torch.Tensor,
+    contracts: torch.Tensor,
+    *,
+    timesteps: int,
+    rows: int,
+    cols: int,
+    dtype: torch.dtype,
+    scheme: PathScheme,
+    payoff: PayoffKind,
+    row_offset: int = 0,
+    barrier_rel: float | None = None,
+    antithetic_half: int | None = None,
+    forward_start_step: int | None = None,
+    cliquet_reset_every: int | None = None,
+    cliquet_floor: float | None = None,
+    cliquet_cap: float | None = None,
+) -> torch.Tensor:
+    """Payoff underliers ``[C, rows, cols]`` on the threefry stream, for a
+    batch of contracts: the terminal value, the path average, the
+    knockout-masked terminal (strike on knocked paths), the lookback
+    encoding, the digital ``K ± 1``, the realized variance, the
+    forward-start ratio ``spot·S_T/S_m`` or the cliquet sum of clipped
+    period returns (``PayoffKind``).
+
+    The normals are ``simulate_terminal_rows``'s, keyed by (contract key,
+    global row, timestep), and every branch follows the JAX package's scan
+    op for op, so TERMINAL is identical to ``simulate_terminal_rows`` and the
+    two packages agree to the normals' ulps. Forward start walks the
+    t-keyed tail ``t = m..N−1``; a cliquet period closes when ``(t+1) % k
+    == 0``.
+    """
+    if payoff in AMERICAN_PAYOFFS:
+        raise not_ported(f"payoff={payoff.value!r}", AMERICAN_QUEUE)
+    if payoff in (PayoffKind.TERMINAL, PayoffKind.DIGITAL):
+        terminal = simulate_terminal_rows(
+            contract_keys, contracts, timesteps=timesteps, rows=rows, cols=cols, dtype=dtype,
+            scheme=scheme, row_offset=row_offset, antithetic_half=antithetic_half,
+        )
+        if payoff == PayoffKind.DIGITAL:
+            strike = contracts.to(dtype)[:, 1, None, None]
+            return strike + torch.sign(terminal - strike)
+        return terminal
+    c = contracts.to(dtype)
+    spot, strike, maturity, rate, div_yield, vol = (c[:, i, None, None] for i in range(6))
+    dt = maturity / timesteps
+    log_drift = (rate - div_yield - 0.5 * vol * vol) * dt
+    lin_drift = (rate - div_yield) * dt
+    vol_step = vol * torch.sqrt(dt)
+    keys, sign = row_keys(
+        contract_keys, rows=rows, row_offset=row_offset, antithetic_half=antithetic_half,
+        dtype=dtype,
+    )
+    shape = (c.shape[0], rows, cols)
+
+    def normals(t: int) -> torch.Tensor:
+        z = rng.normal(rng.fold_in(keys, t), (cols,)).to(dtype)
+        return z if sign is None else sign * z
+
+    def log_inc(t: int) -> torch.Tensor:
+        """The step's log-increment, state-free under both schemes."""
+        if scheme == PathScheme.LOG_EULER:
+            return log_drift + vol_step * normals(t)
+        return torch.log(torch.abs(1.0 + lin_drift + vol_step * normals(t)))
+
+    def add_inc(t: int, acc: torch.Tensor) -> torch.Tensor:
+        """``acc`` plus the step's log-increment, summed in the JAX scan's order."""
+        if scheme == PathScheme.LOG_EULER:
+            return acc + log_drift + vol_step * normals(t)
+        return acc + log_inc(t)
+
+    def walk(t: int, x: torch.Tensor) -> torch.Tensor:
+        """One step of the state: log S under log-Euler, S under Euler."""
+        if scheme == PathScheme.LOG_EULER:
+            return x + log_drift + vol_step * normals(t)
+        return torch.abs(x * (1.0 + lin_drift + vol_step * normals(t)))
+
+    if payoff == PayoffKind.FORWARD_START:
+        if forward_start_step is None:
+            raise ValueError("payoff='forward_start' requires forward_start_step")
+        acc = torch.zeros(shape, dtype=dtype, device=c.device)
+        for t in range(forward_start_step, timesteps):
+            acc = add_inc(t, acc)
+        return spot * torch.exp(acc)
+    if payoff == PayoffKind.CLIQUET:
+        if cliquet_reset_every is None or cliquet_floor is None or cliquet_cap is None:
+            raise ValueError("payoff='cliquet' requires its reset grid and clip levels")
+        floor_c = torch.tensor(cliquet_floor, dtype=dtype, device=c.device)
+        cap_c = torch.tensor(cliquet_cap, dtype=dtype, device=c.device)
+        per = torch.zeros(shape, dtype=dtype, device=c.device)
+        acc = torch.zeros(shape, dtype=dtype, device=c.device)
+        for t in range(timesteps):
+            per = add_inc(t, per)
+            if (t + 1) % cliquet_reset_every == 0:
+                acc = acc + torch.clamp(torch.exp(per) - 1.0, floor_c, cap_c)
+                per = torch.zeros_like(per)
+        return acc
+    if payoff == PayoffKind.VARIANCE_SWAP:
+        acc = torch.zeros(shape, dtype=dtype, device=c.device)
+        for t in range(timesteps):
+            inc = log_inc(t)
+            acc = acc + inc * inc
+        return acc / maturity
+    if scheme == PathScheme.LOG_EULER:
+        x0 = torch.zeros(shape, dtype=dtype, device=c.device) + torch.log(spot)
+    else:
+        x0 = torch.ones(shape, dtype=dtype, device=c.device) * spot
+    if payoff in BARRIER_PAYOFFS or payoff in LOOKBACK_PAYOFFS:
+        up = payoff == PayoffKind.BARRIER_UP_OUT or payoff in LOOKBACK_MAX_PAYOFFS
+        x, ext = x0, x0
+        for t in range(timesteps):
+            x = walk(t, x)
+            ext = torch.maximum(ext, x) if up else torch.minimum(ext, x)
+        if scheme == PathScheme.LOG_EULER:
+            terminal, extreme = torch.exp(x), torch.exp(ext)
+        else:
+            terminal, extreme = x, ext
+        if payoff in LOOKBACK_PAYOFFS:
+            return lookback_underlier(payoff, strike, extreme, terminal)
+        if barrier_rel is None:
+            raise ValueError(f"payoff={payoff.value!r} requires barrier_rel")
+        level = spot * torch.tensor(barrier_rel, dtype=dtype, device=c.device)
+        if scheme == PathScheme.LOG_EULER:
+            level = torch.log(level)
+        knocked = ext >= level if up else ext <= level
+        return torch.where(knocked, strike, terminal)
+    geometric = payoff == PayoffKind.ASIAN_GEOMETRIC
+    x, acc = x0, torch.zeros(shape, dtype=dtype, device=c.device)
+    for t in range(timesteps):
+        x = walk(t, x)
+        if scheme == PathScheme.LOG_EULER:
+            acc = acc + (x if geometric else torch.exp(x))
+        else:
+            acc = acc + (torch.log(x) if geometric else x)
+    mean = acc / timesteps
+    return torch.exp(mean) if geometric else mean
+
+
 # --------------------------------------------------------------------------
 # Payoffs
 # --------------------------------------------------------------------------
 
 
-def expected_underlier_mean(
-    contracts: torch.Tensor, *, timesteps: int, payoff: PayoffKind, dtype: torch.dtype
-) -> torch.Tensor:
-    """Analytic E[S_T] = spot·e^{(r−q)T} per contract ``[..., 6] -> [...]``.
+def _norm_cdf(x: torch.Tensor) -> torch.Tensor:
+    return 0.5 * (1.0 + torch.erf(x / math.sqrt(2.0)))
 
-    Exact for log-Euler; the continuous-limit value for reflection-Euler.
+
+def expected_clipped_lognormal_return(
+    mu: torch.Tensor, s: torch.Tensor, floor: torch.Tensor, cap: torch.Tensor
+) -> torch.Tensor:
+    """E[clip(e^X − 1, floor, cap)] for X ~ N(mu, s²), closed form:
+    floor·Φ(z_f) + e^{μ+s²/2}(Φ(z_c−s) − Φ(z_f−s)) − (Φ(z_c) − Φ(z_f))
+    + cap·(1 − Φ(z_c)) with z = (ln(1+level) − μ)/s. Broadcasts."""
+    zf = (torch.log1p(floor) - mu) / s
+    zc = (torch.log1p(cap) - mu) / s
+    body = torch.exp(mu + 0.5 * s * s) * (_norm_cdf(zc - s) - _norm_cdf(zf - s)) - (
+        _norm_cdf(zc) - _norm_cdf(zf)
+    )
+    return floor * _norm_cdf(zf) + body + cap * (1.0 - _norm_cdf(zc))
+
+
+def expected_underlier_mean(
+    contracts: torch.Tensor,
+    *,
+    timesteps: int,
+    payoff: PayoffKind,
+    dtype: torch.dtype,
+    forward_start_step: int | None = None,
+    cliquet_reset_every: int | None = None,
+    cliquet_floor: float | None = None,
+    cliquet_cap: float | None = None,
+) -> torch.Tensor | None:
+    """Analytic E[underlier] per contract ``[..., 6] -> [...]`` under flat
+    log-Euler GBM; None where no closed form exists (barrier, lookback,
+    American).
+
+    The MEAN-normalization target and the parity mean: the forward for
+    TERMINAL, the mean of the average for the Asian kinds, ``K + 2·N(d2) − 1``
+    for the digital, ``E[RV]`` for the variance swap, the tail forward for
+    forward start and ``Σ E[clip(R_j)]`` for the cliquet. Exact for log-Euler;
+    the continuous-limit value for reflection-Euler.
     """
-    del timesteps
-    if payoff != PayoffKind.TERMINAL:
-        raise not_ported(f"E[underlier] for payoff={payoff.value!r}", PAYOFF_QUEUE)
+    if payoff in BARRIER_PAYOFFS or payoff in AMERICAN_PAYOFFS or payoff in LOOKBACK_PAYOFFS:
+        return None
     c = contracts.to(dtype)
-    return c[..., 0] * torch.exp((c[..., 3] - c[..., 4]) * c[..., 2])
+    spot, strike, maturity, rate, div_yield, vol = (c[..., i] for i in range(6))
+    n = torch.tensor(float(timesteps), dtype=dtype, device=c.device)
+    dt = maturity / n
+    if payoff == PayoffKind.DIGITAL:
+        var = vol * vol * maturity
+        drift = (rate - div_yield) * maturity
+        d2 = (torch.log(spot / strike) + drift - 0.5 * var) / torch.sqrt(var)
+        return strike + 2.0 * _norm_cdf(d2) - 1.0
+    if payoff == PayoffKind.VARIANCE_SWAP:
+        a = (rate - div_yield - 0.5 * vol * vol) * dt
+        return n * (a * a + vol * vol * dt) / maturity
+    if payoff == PayoffKind.FORWARD_START:
+        if forward_start_step is None:
+            raise ValueError("payoff='forward_start' requires forward_start_step")
+        n_tail = torch.tensor(float(timesteps - forward_start_step), dtype=dtype, device=c.device)
+        return spot * torch.exp((rate - div_yield) * dt * n_tail)
+    if payoff == PayoffKind.CLIQUET:
+        if cliquet_reset_every is None or cliquet_floor is None or cliquet_cap is None:
+            raise ValueError("payoff='cliquet' requires its reset grid and clip levels")
+        k = cliquet_reset_every
+        mu_p = (rate - div_yield - 0.5 * vol * vol) * dt * k
+        s_p = vol * torch.sqrt(dt * torch.tensor(float(k), dtype=dtype, device=c.device))
+        floor_c = torch.tensor(cliquet_floor, dtype=dtype, device=c.device)
+        cap_c = torch.tensor(cliquet_cap, dtype=dtype, device=c.device)
+        periods = torch.tensor(float(timesteps // k), dtype=dtype, device=c.device)
+        return periods * expected_clipped_lognormal_return(mu_p, s_p, floor_c, cap_c)
+    if payoff == PayoffKind.TERMINAL:
+        return spot * torch.exp((rate - div_yield) * maturity)
+    if payoff == PayoffKind.ASIAN_ARITHMETIC:
+        # (1/N) Σ_{i=1..N} S0·e^{(r−q)·i·dt}, a finite geometric series
+        g = torch.exp((rate - div_yield) * dt)
+        series = torch.where(torch.abs(g - 1.0) < 1e-12, n, g * (g**n - 1.0) / (g - 1.0))
+        return spot * series / n
+    # ASIAN_GEOMETRIC: ln G ~ N(mu, s²) exactly under log-Euler
+    mu = torch.log(spot) + (rate - div_yield - 0.5 * vol * vol) * dt * (n + 1.0) / 2.0
+    s2 = vol * vol * dt * (n + 1.0) * (2.0 * n + 1.0) / (6.0 * n)
+    return torch.exp(mu + 0.5 * s2)
 
 
 @dataclass(frozen=True)

@@ -1,45 +1,102 @@
-"""The ``"cuda"`` MC engine: terminal GBM rows from a hand-written Hopper kernel.
+"""The ``"cuda"`` MC engine: flat GBM payoff underliers from hand-written Hopper kernels.
 
-``csrc/gbm_terminal.cu`` replaces the TERMINAL branch of the JAX package's
-``ops/gbm_pallas.py::_gbm_block_kernel`` (both path schemes); its header
+``csrc/gbm_paths.cu`` replaces the JAX package's
+``ops/gbm_pallas.py::_gbm_block_kernel`` (every payoff branch, both path
+schemes) and ``_gbm_cliquet_block_kernel`` (log-Euler cliquets); its header
 states what it keeps, what it drops and what bounds it. This module holds
 
-* ``simulate_terminal_rows_cuda`` — the public wrapper. A CPU tensor goes to
-  the plain twin; a CUDA tensor launches the kernel or raises. There is no
-  fallback between the two.
-* ``simulate_terminal_rows_cuda_plain`` — the twin: the same Philox words
-  and the same float32 arithmetic in torch ops. The CPU tests hold it
-  against the JAX kernel; the card holds the kernel against it.
+* the public wrappers ``simulate_underlier_rows_cuda`` and
+  ``simulate_cliquet_rows_cuda``. A CPU tensor goes to the plain twin; a
+  CUDA tensor launches the kernel or raises. There is no fallback between
+  the two.
+* the plain twins ``simulate_terminal_rows_cuda_plain``,
+  ``simulate_underlier_rows_cuda_plain`` and
+  ``simulate_cliquet_rows_cuda_plain``: the same Philox words and the same
+  float32 arithmetic in torch ops. The CPU tests hold them against the JAX
+  kernels; the card holds the kernels against them.
 * ``cuda_supported`` — the single source of truth for when the engine runs
   (``ops/gbm.py::resolve_implementation`` asks it).
-* ``CUDA_STREAM_VERSIONS`` — the stream's version, recorded by the trainer:
-  any change to the draw order or arithmetic is a new stream.
-* ``LAUNCHES`` — a plain count of kernel launches.
+* ``CUDA_STREAM_VERSIONS`` — the streams' versions, recorded by the trainer:
+  any change to the draw order or arithmetic is a new stream. ``gbm`` covers
+  the flat kernel's branches and the routes through its TERMINAL branch
+  (digital, and forward start at its tail length); the cliquet kernel is a
+  different program with its own key.
+* ``LAUNCHES`` (every launch of either entry point) and
+  ``LAUNCHES_BY_BRANCH`` (per branch group) — plain counts.
 
 The stream: Philox-4x32-10 keyed by the contract's two threefry key words
 (``fold_in(prng_key(mc_seed), draw)``), counter ``(path lo, path hi, call,
 0)`` with ``path = base_row·cols + col``. Draw ``j`` (two words) is words
-``2(j%2), 2(j%2)+1`` of call ``j // 2``. Log-Euler takes ``T // 2``
-pair-step draws and one single-step draw when ``T`` is odd; Euler one draw
-per step.
+``2(j%2), 2(j%2)+1`` of call ``j // 2``. TERMINAL and the variance swap
+under log-Euler take ``T // 2`` pair-step draws and one single-step draw
+when ``T`` is odd; the cliquet the same over its periods; every other branch
+one draw per step.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Callable
 
 import torch
 
-from spectralmc_tpu_torch.ops.gbm import ModelKind, PathScheme, PayoffKind, SamplingKind
+from spectralmc_tpu_torch.ops.gbm import (
+    AMERICAN_PAYOFFS,
+    BARRIER_PAYOFFS,
+    LOOKBACK_MAX_PAYOFFS,
+    LOOKBACK_PAYOFFS,
+    ModelKind,
+    PathScheme,
+    PayoffKind,
+    SamplingKind,
+    lookback_underlier,
+)
 from spectralmc_tpu_torch.ops.rng import MASK32, philox4x32
 
-CUDA_STREAM_VERSIONS: dict[str, int] = {"gbm": 1}
+CUDA_STREAM_VERSIONS: dict[str, int] = {"gbm": 1, "gbm_cliquet": 1}
 
+# branch groups, each a kernel instantiation of its own (the JSON record's rows)
+BRANCHES = ("terminal", "barrier", "lookback", "variance", "asian", "cliquet")
 LAUNCHES = 0
+LAUNCHES_BY_BRANCH: dict[str, int] = dict.fromkeys(BRANCHES, 0)
 
 _SQRT2 = math.sqrt(2.0)
 _SCHEME_CODE = {PathScheme.LOG_EULER: 0, PathScheme.EULER: 1}
+# csrc/gbm_paths.cu's kFamily codes
+_FAMILY_CODE = {"terminal": 0, "barrier": 1, "lookback": 2, "variance": 3, "asian": 4}
+_LOOKBACK_VARIANT = {
+    PayoffKind.LOOKBACK_FIXED_CALL: 0,
+    PayoffKind.LOOKBACK_FIXED_PUT: 1,
+    PayoffKind.LOOKBACK_FLOAT_CALL: 2,
+    PayoffKind.LOOKBACK_FLOAT_PUT: 3,
+}
+
+
+def reset_launches() -> None:
+    """Set every launch count to 0."""
+    global LAUNCHES
+    LAUNCHES = 0
+    for name in BRANCHES:
+        LAUNCHES_BY_BRANCH[name] = 0
+
+
+def branch_of(payoff: PayoffKind) -> str:
+    """The kernel branch a payoff runs: digital and forward start are routes
+    through TERMINAL."""
+    if payoff in (PayoffKind.TERMINAL, PayoffKind.DIGITAL, PayoffKind.FORWARD_START):
+        return "terminal"
+    if payoff in BARRIER_PAYOFFS:
+        return "barrier"
+    if payoff in LOOKBACK_PAYOFFS:
+        return "lookback"
+    if payoff == PayoffKind.VARIANCE_SWAP:
+        return "variance"
+    if payoff in (PayoffKind.ASIAN_ARITHMETIC, PayoffKind.ASIAN_GEOMETRIC):
+        return "asian"
+    if payoff == PayoffKind.CLIQUET:
+        return "cliquet"
+    raise ValueError(f"the cuda engine has no kernel for payoff={payoff.value!r}")
 
 
 def cuda_supported(
@@ -49,25 +106,35 @@ def cuda_supported(
     payoff: PayoffKind,
     sampling: SamplingKind,
     term: object = None,
+    scheme: PathScheme = PathScheme.LOG_EULER,
 ) -> bool:
-    """Whether the kernel honors the request: float32 GBM TERMINAL paths on
-    the pseudo-random stream with flat market data. Any row/column count."""
+    """Whether the kernels honor the request: float32 GBM paths on the
+    pseudo-random stream with flat market data, any payoff but the American
+    kinds; cliquets under log-Euler only (under Euler a period's log-return
+    is no Gaussian sum). Any row/column count."""
     return (
         dtype == torch.float32
         and model == ModelKind.GBM
-        and payoff == PayoffKind.TERMINAL
+        and payoff not in AMERICAN_PAYOFFS
+        and (payoff != PayoffKind.CLIQUET or scheme == PathScheme.LOG_EULER)
         and sampling == SamplingKind.PSEUDO
         and term is None
     )
 
 
-def cuda_stream_version(model: ModelKind) -> int:
+def cuda_stream_version(model: ModelKind, payoff: PayoffKind | None = None) -> int:
+    """The stream version a checkpoint records (``pallas_stream_version``'s
+    rule): the cliquet kernel under its own key, everything else under the
+    model family's."""
+    if payoff == PayoffKind.CLIQUET and model == ModelKind.GBM:
+        return CUDA_STREAM_VERSIONS["gbm_cliquet"]
     return CUDA_STREAM_VERSIONS[model.value]
 
 
-def draw_count(timesteps: int, scheme: PathScheme) -> int:
-    """Two-word draws one path consumes."""
-    if scheme == PathScheme.LOG_EULER:
+def draw_count(timesteps: int, scheme: PathScheme, payoff: PayoffKind = PayoffKind.TERMINAL) -> int:
+    """Two-word draws one path of a flat-kernel branch consumes (at the
+    branch's own step count: a forward start's is its tail)."""
+    if scheme == PathScheme.LOG_EULER and branch_of(payoff) in ("terminal", "variance"):
         return timesteps // 2 + timesteps % 2
     return timesteps
 
@@ -83,28 +150,33 @@ def _check(params: torch.Tensor, key_words: torch.Tensor) -> None:
         raise ValueError(f"params on {params.device}, key_words on {key_words.device}")
 
 
-def simulate_terminal_rows_cuda_plain(
+# --------------------------------------------------------------------------
+# The plain twins
+# --------------------------------------------------------------------------
+
+
+def _sinpi(x: torch.Tensor) -> torch.Tensor:
+    return torch.sin(math.pi * x.to(torch.float64)).to(torch.float32)
+
+
+def _cospi(x: torch.Tensor) -> torch.Tensor:
+    return torch.cos(math.pi * x.to(torch.float64)).to(torch.float32)
+
+
+def _stream(
     params: torch.Tensor,
     key_words: torch.Tensor,
     *,
-    timesteps: int,
     rows: int,
     cols: int,
-    scheme: PathScheme,
-    antithetic_half: int | None = None,
-    row_offset: int = 0,
-    words: torch.Tensor | None = None,
-) -> torch.Tensor:
-    """The kernel's plain twin: ``[C, rows, cols]`` float32 terminal values.
-
-    ``params`` is ``[C, 6]`` float32, ``key_words`` ``[C, 2]`` uint32 words
-    (any integer dtype). ``words`` (tests only) replaces the generator: a
-    tensor broadcastable to ``[C, rows, cols, calls, 4]`` of uint32 words.
-    Transcendentals run as torch ops; ``sin(π·x)`` is evaluated in float64
-    (of the same float32 argument) and rounded, standing in for the kernel's
-    ``sinpif``/``cospif``.
-    """
-    _check(params, key_words)
+    draws: int,
+    antithetic_half: int | None,
+    row_offset: int,
+    words: torch.Tensor | None,
+) -> tuple[torch.Tensor, Callable[[int], tuple[torch.Tensor, torch.Tensor]]]:
+    """``(sign [rows, 1], uniforms)``: ``uniforms(j)`` gives draw ``j``'s
+    ``(u1, u2)``, each ``[C, rows, cols]``, called in order ``j = 0, 1, …``
+    (each even ``j`` computes the Philox call the odd one reuses)."""
     device = params.device
     n_contracts = params.shape[0]
     kw = key_words.to(torch.int64) & MASK32
@@ -120,78 +192,30 @@ def simulate_terminal_rows_cuda_plain(
     c0 = (path & MASK32)[None]
     c1 = (path >> 32)[None]
     zero = torch.zeros_like(c0)
-    calls = -(-draw_count(timesteps, scheme) // 2)
+    calls = -(-draws // 2)
     if words is not None:
         words = torch.broadcast_to(
             words.to(torch.int64).to(device), (n_contracts, rows, cols, calls, 4)
         )
+    current: list[tuple[torch.Tensor, ...]] = []
 
-    def call_words(i: int) -> tuple[torch.Tensor, ...]:
-        if words is not None:
-            return tuple(words[..., i, k] for k in range(4))
-        return philox4x32((c0, c1, zero + i, zero), (k0, k1))
-
-    p = params
-    spot, maturity, rate, div, vol = (p[:, i, None, None] for i in (0, 2, 3, 4, 5))
-    dt = maturity / float(timesteps)
-    vol_sdt = vol * torch.sqrt(dt)
-    carry = rate - div
-
-    def draw(j: int, w: tuple[torch.Tensor, ...]) -> tuple[torch.Tensor, torch.Tensor]:
+    def uniforms(j: int) -> tuple[torch.Tensor, torch.Tensor]:
+        if j % 2 == 0:
+            i = j // 2
+            current[:] = [
+                tuple(words[..., i, k] for k in range(4)) if words is not None
+                else philox4x32((c0, c1, zero + i, zero), (k0, k1))
+            ]
+        w = current[0]
         a, b = (w[0], w[1]) if j % 2 == 0 else (w[2], w[3])
         u1 = (a >> 8).to(torch.float32) * 2.0**-24 + 2.0**-25
         u2 = (b >> 8).to(torch.float32) * 2.0**-24
-        return torch.sqrt(-2.0 * torch.log(u1)), u2
+        return u1, u2
 
-    def sinpi(x: torch.Tensor) -> torch.Tensor:
-        return torch.sin(math.pi * x.to(torch.float64)).to(torch.float32)
-
-    def cospi(x: torch.Tensor) -> torch.Tensor:
-        return torch.cos(math.pi * x.to(torch.float64)).to(torch.float32)
-
-    w: tuple[torch.Tensor, ...] = ()
-    if scheme == PathScheme.LOG_EULER:
-        drift = (carry - 0.5 * vol * vol) * dt
-        two_drift = 2.0 * drift
-        pairs = timesteps // 2
-        logx = torch.log(spot).expand(n_contracts, rows, cols)
-        for j in range(draw_count(timesteps, scheme)):
-            if j % 2 == 0:
-                w = call_words(j // 2)
-            rad, u2 = draw(j, w)
-            if j < pairs:
-                z = sign * (rad * _SQRT2 * sinpi(2.0 * u2 + 0.25))
-                logx = (logx + two_drift) + vol_sdt * z
-            else:
-                z = sign * (rad * cospi(2.0 * u2))
-                logx = (logx + drift) + vol_sdt * z
-        return torch.exp(logx)
-    growth = 1.0 + carry * dt
-    x = spot.expand(n_contracts, rows, cols)
-    for j in range(timesteps):
-        if j % 2 == 0:
-            w = call_words(j // 2)
-        rad, u2 = draw(j, w)
-        z = sign * (rad * cospi(2.0 * u2))
-        x = torch.abs(x * (growth + vol_sdt * z))
-    return x
+    return sign, uniforms
 
 
-def _kernel() -> ctypes.CDLL:
-    from spectralmc_tpu_torch.ops._build import load_library
-
-    lib = load_library("gbm_terminal", ("gbm_terminal.cu",)).lib
-    fn = lib.gbm_terminal_launch
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return lib
-
-
-def simulate_terminal_rows_cuda(
+def simulate_terminal_rows_cuda_plain(
     params: torch.Tensor,
     key_words: torch.Tensor,
     *,
@@ -201,37 +225,356 @@ def simulate_terminal_rows_cuda(
     scheme: PathScheme,
     antithetic_half: int | None = None,
     row_offset: int = 0,
+    words: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Terminal values ``[C, rows, cols]`` float32 on the Philox stream.
+    """The TERMINAL branch's plain twin: ``[C, rows, cols]`` float32 values.
 
-    CPU tensors run the plain twin; CUDA tensors launch the kernel on the
-    current stream (one launch for the whole contract batch). Any other
-    device, dtype or shape raises.
+    ``params`` is ``[C, 6]`` float32, ``key_words`` ``[C, 2]`` uint32 words
+    (any integer dtype). ``words`` (tests only) replaces the generator: a
+    tensor broadcastable to ``[C, rows, cols, calls, 4]`` of uint32 words.
+    Transcendentals run as torch ops; ``sin(π·x)`` is evaluated in float64
+    (of the same float32 argument) and rounded, standing in for the kernel's
+    ``sinpif``/``cospif``.
     """
-    global LAUNCHES
-    _check(params, key_words)
-    kwargs = dict(
-        timesteps=timesteps, rows=rows, cols=cols, scheme=scheme,
-        antithetic_half=antithetic_half, row_offset=row_offset,
+    return simulate_underlier_rows_cuda_plain(
+        params, key_words, timesteps=timesteps, rows=rows, cols=cols, scheme=scheme,
+        payoff=PayoffKind.TERMINAL, antithetic_half=antithetic_half, row_offset=row_offset,
+        words=words,
     )
-    if params.device.type == "cpu":
-        return simulate_terminal_rows_cuda_plain(params, key_words, **kwargs)
+
+
+def _tail_params(params: torch.Tensor, timesteps: int, forward_start_step: int) -> torch.Tensor:
+    """Forward start's TERMINAL route: maturity scaled by ``(N − m)/N`` (in
+    float32, as the JAX kernel route does), so ``dt`` is unchanged."""
+    scale = torch.tensor((timesteps - forward_start_step) / timesteps, dtype=torch.float32)
+    out = params.clone()
+    out[:, 2] = out[:, 2] * scale.to(params.device)
+    return out
+
+
+def _route_in(
+    payoff: PayoffKind, params: torch.Tensor, timesteps: int, forward_start_step: int | None
+) -> tuple[torch.Tensor, int]:
+    """The ``(params, timesteps)`` the kernel runs for ``payoff``."""
+    if payoff == PayoffKind.FORWARD_START:
+        if forward_start_step is None or not 1 <= forward_start_step < timesteps:
+            raise ValueError(f"forward start needs 1 <= forward_start_step < {timesteps}")
+        return _tail_params(params, timesteps, forward_start_step), timesteps - forward_start_step
+    return params, timesteps
+
+
+def _route_out(payoff: PayoffKind, values: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+    """Digital's transform of the TERMINAL draw: ``K + sign(S_T − K)``."""
+    if payoff == PayoffKind.DIGITAL:
+        strike = params[:, 1, None, None]
+        return strike + torch.sign(values - strike)
+    return values
+
+
+def simulate_underlier_rows_cuda_plain(
+    params: torch.Tensor,
+    key_words: torch.Tensor,
+    *,
+    timesteps: int,
+    rows: int,
+    cols: int,
+    scheme: PathScheme,
+    payoff: PayoffKind,
+    barrier_rel: float | None = None,
+    forward_start_step: int | None = None,
+    antithetic_half: int | None = None,
+    row_offset: int = 0,
+    words: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The flat kernel's plain twin: ``[C, rows, cols]`` float32 underliers of
+    any non-American, non-cliquet payoff (the cliquet's twin is
+    ``simulate_cliquet_rows_cuda_plain``). Same arguments as
+    ``simulate_terminal_rows_cuda_plain`` plus the payoff's knobs."""
+    _check(params, key_words)
+    branch = branch_of(payoff)
+    if branch == "cliquet":
+        raise ValueError("cliquets run simulate_cliquet_rows_cuda_plain")
+    if branch == "barrier" and barrier_rel is None:
+        raise ValueError(f"payoff={payoff.value!r} needs barrier_rel")
+    p, steps = _route_in(payoff, params, timesteps, forward_start_step)
+    sign, uniforms = _stream(
+        p, key_words, rows=rows, cols=cols, draws=draw_count(steps, scheme, payoff),
+        antithetic_half=antithetic_half, row_offset=row_offset, words=words,
+    )
+    n_contracts = p.shape[0]
+    spot, strike, maturity, rate, div, vol = (p[:, i, None, None] for i in range(6))
+    dt = maturity / float(steps)
+    vol_sdt = vol * torch.sqrt(dt)
+    carry = rate - div
+
+    def normal(j: int) -> torch.Tensor:
+        u1, u2 = uniforms(j)
+        return sign * (torch.sqrt(-2.0 * torch.log(u1)) * _cospi(2.0 * u2))
+
+    geometric = payoff == PayoffKind.ASIAN_GEOMETRIC
+    up = payoff == PayoffKind.BARRIER_UP_OUT or payoff in LOOKBACK_MAX_PAYOFFS
+
+    if scheme == PathScheme.LOG_EULER:
+        drift = (carry - 0.5 * vol * vol) * dt
+        if branch == "terminal":
+            two_drift = 2.0 * drift
+            pairs = steps // 2
+            logx = torch.log(spot).expand(n_contracts, rows, cols)
+            for j in range(draw_count(steps, scheme, payoff)):
+                u1, u2 = uniforms(j)
+                rad = torch.sqrt(-2.0 * torch.log(u1))
+                if j < pairs:
+                    z = sign * (rad * _SQRT2 * _sinpi(2.0 * u2 + 0.25))
+                    logx = (logx + two_drift) + vol_sdt * z
+                else:
+                    z = sign * (rad * _cospi(2.0 * u2))
+                    logx = (logx + drift) + vol_sdt * z
+            return _route_out(payoff, torch.exp(logx), p)
+        if branch == "variance":
+            base_c = 2.0 * drift * drift
+            b_sq = vol_sdt * vol_sdt
+            cross_c = 2.0 * _SQRT2 * drift * vol_sdt
+            pairs = steps // 2
+            acc = torch.zeros((n_contracts, rows, cols), dtype=torch.float32, device=p.device)
+            for j in range(draw_count(steps, scheme, payoff)):
+                u1, u2 = uniforms(j)
+                x = -2.0 * torch.log(u1)
+                if j < pairs:
+                    s = torch.sqrt(x) * _sinpi(2.0 * u2 + 0.25)
+                    acc = acc + ((base_c + b_sq * x) + sign * (cross_c * s))
+                else:
+                    z = sign * (torch.sqrt(x) * _cospi(2.0 * u2))
+                    inc = drift + vol_sdt * z
+                    acc = acc + inc * inc
+            return acc / maturity
+        log0 = torch.log(spot).expand(n_contracts, rows, cols)
+        logx, acc = log0, (torch.zeros_like(log0) if branch == "asian" else log0)
+        for j in range(steps):
+            logx = (logx + drift) + vol_sdt * normal(j)
+            if branch == "asian":
+                acc = acc + (logx if geometric else torch.exp(logx))
+            else:
+                acc = torch.maximum(acc, logx) if up else torch.minimum(acc, logx)
+        if branch == "asian":
+            mean = acc * float(1.0 / steps)
+            return torch.exp(mean) if geometric else mean
+        if branch == "barrier":
+            level = torch.log(spot * torch.tensor(barrier_rel, dtype=torch.float32))
+            knocked = acc >= level if up else acc <= level
+            return torch.where(knocked, strike, torch.exp(logx))
+        return lookback_underlier(payoff, strike, torch.exp(acc), torch.exp(logx))
+    growth = 1.0 + carry * dt
+    if branch == "variance":
+        acc = torch.zeros((n_contracts, rows, cols), dtype=torch.float32, device=p.device)
+        for j in range(steps):
+            inc = torch.log(torch.abs(growth + vol_sdt * normal(j)))
+            acc = acc + inc * inc
+        return acc / maturity
+    x = spot.expand(n_contracts, rows, cols)
+    acc = torch.zeros_like(x) if branch == "asian" else x
+    for j in range(steps):
+        x = torch.abs(x * (growth + vol_sdt * normal(j)))
+        if branch == "asian":
+            acc = acc + (torch.log(x) if geometric else x)
+        elif branch != "terminal":
+            acc = torch.maximum(acc, x) if up else torch.minimum(acc, x)
+    if branch == "terminal":
+        return _route_out(payoff, x, p)
+    if branch == "asian":
+        mean = acc * float(1.0 / steps)
+        return torch.exp(mean) if geometric else mean
+    if branch == "barrier":
+        level = spot * torch.tensor(barrier_rel, dtype=torch.float32)
+        knocked = acc >= level if up else acc <= level
+        return torch.where(knocked, strike, x)
+    return lookback_underlier(payoff, strike, acc, x)
+
+
+def _check_cliquet(timesteps: int, reset_every: int, floor: float, cap: float) -> None:
+    if reset_every < 1 or timesteps % reset_every or timesteps // reset_every < 2:
+        raise ValueError(
+            f"reset_every={reset_every} must divide timesteps={timesteps} into >= 2 periods"
+        )
+    if not -1.0 < floor < cap:
+        raise ValueError(f"need -1 < floor < cap, got floor={floor}, cap={cap}")
+
+
+def simulate_cliquet_rows_cuda_plain(
+    params: torch.Tensor,
+    key_words: torch.Tensor,
+    *,
+    timesteps: int,
+    rows: int,
+    cols: int,
+    reset_every: int,
+    floor: float,
+    cap: float,
+    antithetic_half: int | None = None,
+    row_offset: int = 0,
+    words: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The cliquet kernel's plain twin: ``[C, rows, cols]`` float32 sums
+    ``Σ_j clip(e^{L_j} − 1, floor, cap)`` with one Gaussian per reset period;
+    ``words`` as in ``simulate_terminal_rows_cuda_plain``."""
+    _check(params, key_words)
+    _check_cliquet(timesteps, reset_every, floor, cap)
+    periods = timesteps // reset_every
+    pairs = periods // 2
+    draws = pairs + periods % 2
+    sign, uniforms = _stream(
+        params, key_words, rows=rows, cols=cols, draws=draws, antithetic_half=antithetic_half,
+        row_offset=row_offset, words=words,
+    )
+    _, _, maturity, rate, div, vol = (params[:, i, None, None] for i in range(6))
+    dt = maturity / float(timesteps)
+    k = float(reset_every)
+    period_drift = (rate - div - 0.5 * vol * vol) * dt * k
+    period_vol = vol * torch.sqrt(dt * k)
+    floor_c = torch.tensor(floor, dtype=torch.float32)
+    cap_c = torch.tensor(cap, dtype=torch.float32)
+
+    def clipped(z: torch.Tensor) -> torch.Tensor:
+        ret = torch.exp(period_drift + period_vol * z) - 1.0
+        return torch.minimum(torch.maximum(ret, floor_c), cap_c)
+
+    acc = torch.zeros((params.shape[0], rows, cols), dtype=torch.float32, device=params.device)
+    for j in range(draws):
+        u1, u2 = uniforms(j)
+        rad = torch.sqrt(-2.0 * torch.log(u1))
+        if j < pairs:
+            acc = (acc + clipped(sign * (rad * _cospi(2.0 * u2)))) + clipped(
+                sign * (rad * _sinpi(2.0 * u2))
+            )
+        else:
+            acc = acc + clipped(sign * (rad * _cospi(2.0 * u2)))
+    return acc
+
+
+# --------------------------------------------------------------------------
+# The kernels and their wrappers
+# --------------------------------------------------------------------------
+
+
+def _kernel() -> ctypes.CDLL:
+    from spectralmc_tpu_torch.ops._build import load_library
+
+    lib = load_library("gbm_paths", ("gbm_paths.cu",)).lib
+    ll, i, vp, f = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+    lib.gbm_paths_launch.argtypes = [vp, vp, vp, i, ll, ll, i, i, i, i, f, ll, ll, vp]
+    lib.gbm_cliquet_launch.argtypes = [vp, vp, vp, i, ll, ll, i, i, f, f, ll, ll, vp]
+    lib.gbm_paths_launch.restype = ctypes.c_int
+    lib.gbm_cliquet_launch.restype = ctypes.c_int
+    return lib
+
+
+def _device_args(
+    params: torch.Tensor, key_words: torch.Tensor, timesteps: int, rows: int, cols: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Checked ``(params, int32 key words, out)`` for a launch on the card."""
     if params.device.type != "cuda":
         raise ValueError(f"the cuda engine runs on cpu (plain twin) or cuda, not {params.device}")
     if timesteps <= 0 or rows <= 0 or cols <= 0:
         raise ValueError(f"need positive timesteps/rows/cols, got {timesteps}/{rows}/{cols}")
     if params.shape[0] > 65535:
         raise ValueError(f"at most 65535 contracts per launch, got {params.shape[0]}")
-    params = params.contiguous()
-    words = (key_words.to(torch.int64) & MASK32)
+    words = key_words.to(torch.int64) & MASK32
     words = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32).contiguous()
     out = torch.empty((params.shape[0], rows, cols), dtype=torch.float32, device=params.device)
-    status = _kernel().gbm_terminal_launch(
-        params.data_ptr(), words.data_ptr(), out.data_ptr(), params.shape[0], rows, cols,
-        timesteps, _SCHEME_CODE[scheme], antithetic_half or 0, row_offset,
-        torch.cuda.current_stream(params.device).cuda_stream,
+    return params.contiguous(), words, out
+
+
+def _count(branch: str) -> None:
+    global LAUNCHES
+    LAUNCHES += 1
+    LAUNCHES_BY_BRANCH[branch] += 1
+
+
+def simulate_underlier_rows_cuda(
+    params: torch.Tensor,
+    key_words: torch.Tensor,
+    *,
+    timesteps: int,
+    rows: int,
+    cols: int,
+    scheme: PathScheme,
+    payoff: PayoffKind,
+    barrier_rel: float | None = None,
+    forward_start_step: int | None = None,
+    antithetic_half: int | None = None,
+    row_offset: int = 0,
+) -> torch.Tensor:
+    """Payoff underliers ``[C, rows, cols]`` float32 on the Philox stream, for
+    any non-American, non-cliquet payoff.
+
+    CPU tensors run the plain twin; CUDA tensors launch the flat kernel on
+    the current stream (one launch for the whole contract batch; digital and
+    forward start run its TERMINAL branch and transform the result). Any
+    other device, dtype or shape raises.
+    """
+    _check(params, key_words)
+    kwargs = dict(
+        timesteps=timesteps, rows=rows, cols=cols, scheme=scheme, payoff=payoff,
+        barrier_rel=barrier_rel, forward_start_step=forward_start_step,
+        antithetic_half=antithetic_half, row_offset=row_offset,
+    )
+    if params.device.type == "cpu":
+        return simulate_underlier_rows_cuda_plain(params, key_words, **kwargs)
+    branch = branch_of(payoff)
+    if branch == "cliquet":
+        raise ValueError("cliquets run simulate_cliquet_rows_cuda")
+    if branch == "barrier" and barrier_rel is None:
+        raise ValueError(f"payoff={payoff.value!r} needs barrier_rel")
+    p, steps = _route_in(payoff, params, timesteps, forward_start_step)
+    p, words, out = _device_args(p, key_words, steps, rows, cols)
+    if branch == "barrier":
+        variant = int(payoff == PayoffKind.BARRIER_UP_OUT)
+    elif branch == "lookback":
+        variant = _LOOKBACK_VARIANT[payoff]
+    else:
+        variant = int(payoff == PayoffKind.ASIAN_GEOMETRIC)
+    status = _kernel().gbm_paths_launch(
+        p.data_ptr(), words.data_ptr(), out.data_ptr(), p.shape[0], rows, cols, steps,
+        _SCHEME_CODE[scheme], _FAMILY_CODE[branch], variant,
+        1.0 if barrier_rel is None else barrier_rel, antithetic_half or 0, row_offset,
+        torch.cuda.current_stream(p.device).cuda_stream,
     )
     if status != 0:
-        raise RuntimeError(f"gbm_terminal_launch failed: cudaError {status}")
-    LAUNCHES += 1
+        raise RuntimeError(f"gbm_paths_launch failed: cudaError {status}")
+    _count(branch)
+    return _route_out(payoff, out, p)
+
+
+def simulate_cliquet_rows_cuda(
+    params: torch.Tensor,
+    key_words: torch.Tensor,
+    *,
+    timesteps: int,
+    rows: int,
+    cols: int,
+    reset_every: int,
+    floor: float,
+    cap: float,
+    antithetic_half: int | None = None,
+    row_offset: int = 0,
+) -> torch.Tensor:
+    """Cliquet underliers ``[C, rows, cols]`` float32 (log-Euler) on the
+    Philox stream: CPU tensors run the plain twin, CUDA tensors launch the
+    cliquet kernel or raise."""
+    _check(params, key_words)
+    kwargs = dict(
+        timesteps=timesteps, rows=rows, cols=cols, reset_every=reset_every, floor=floor,
+        cap=cap, antithetic_half=antithetic_half, row_offset=row_offset,
+    )
+    if params.device.type == "cpu":
+        return simulate_cliquet_rows_cuda_plain(params, key_words, **kwargs)
+    _check_cliquet(timesteps, reset_every, floor, cap)
+    p, words, out = _device_args(params, key_words, timesteps, rows, cols)
+    status = _kernel().gbm_cliquet_launch(
+        p.data_ptr(), words.data_ptr(), out.data_ptr(), p.shape[0], rows, cols, timesteps,
+        reset_every, floor, cap, antithetic_half or 0, row_offset,
+        torch.cuda.current_stream(p.device).cuda_stream,
+    )
+    if status != 0:
+        raise RuntimeError(f"gbm_cliquet_launch failed: cudaError {status}")
+    _count("cliquet")
     return out

@@ -182,7 +182,7 @@ def philox4x32(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Philox-4x32 (Salmon et al. 2011) on broadcast uint32 words (in int64).
 
-    The same rounds and constants as ``csrc/gbm_terminal.cu``; Random123's
+    The same rounds and constants as ``csrc/gbm_paths.cu``; Random123's
     known-answer vectors pin both.
     """
     c0, c1, c2, c3 = counter

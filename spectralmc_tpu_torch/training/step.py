@@ -72,8 +72,9 @@ def make_mc_spectrum(
     """``(draw indices [C], contracts [C, 6]) -> [C, network]`` complex targets.
 
     Contract ``i``'s stream key is ``fold_in(prng_key(mc_seed), draw[i])``;
-    its rows are MEAN-normalized (if configured), turned into discounted put
-    payoffs and reduced to the batch-mean spectrum.
+    its payoff underliers are MEAN-normalized to the payoff's own analytic
+    mean (if configured), turned into discounted put payoffs and reduced to
+    the batch-mean spectrum.
     """
     dtype = sim.precision.to_torch()
     base_key = rng.prng_key(sim.mc_seed, device)

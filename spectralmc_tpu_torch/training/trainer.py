@@ -14,7 +14,9 @@ and ``GbmCVNNPricer.create/train/snapshot/predict_price``.
   numpy arrays under the JAX package's keys, so a JAX ``snapshot()`` resumes
   here and resume is bit-exact on one device.
 * ``predict_price`` uploads the ``[N, D]`` contract matrix once and fetches
-  one packed ``[put | E[S_T] | residue]`` vector once.
+  one packed ``[put | E[u] | residue]`` vector once; calls follow by parity
+  on the payoff's own underlier where ``has_closed_form_mean`` holds, and
+  are NaN (with a warning) where it does not.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from spectralmc_tpu_torch.models.factory import (
 from spectralmc_tpu_torch.ops.gbm import (
     SimImplementation,
     SimulationParams,
+    has_closed_form_mean,
     require_slice,
     resolve_implementation,
 )
@@ -325,7 +328,7 @@ class GbmCVNNPricer:
             sim = sim.model_copy(update={"implementation": effective})
         stream_version = 0
         if effective == SimImplementation.CUDA:
-            stream_version = cuda_stream_version(sim.model)
+            stream_version = cuda_stream_version(sim.model, sim.payoff)
             if mid_stream and config.cuda_stream_version != stream_version:
                 return Failure(
                     EngineMismatch(
@@ -483,7 +486,8 @@ class GbmCVNNPricer:
 
     @torch.no_grad()
     def _predict_packed(self, arr: torch.Tensor) -> torch.Tensor:
-        """CVNN forward → IFFT → ``[put(m) | E[S_T](m) | residue]`` on device."""
+        """CVNN forward → IFFT → ``[put(m) | E[u](m) | residue]`` on device;
+        ``E[u]`` is NaN where the payoff has no closed-form mean."""
         dtype = self._sim.precision.to_torch()
         normalize_fn = make_input_normalizer(
             self._table, enabled=self._normalize_inputs, dtype=dtype
@@ -494,7 +498,10 @@ class GbmCVNNPricer:
         recovered = torch.fft.ifft(torch.complex(out_re, out_im), dim=1)
         put = torch.mean(recovered.real, dim=1)
         residue = torch.max(torch.abs(torch.mean(recovered.imag, dim=1)))
-        expected = make_mean_target(self._sim)(arr).to(put.dtype)
+        if has_closed_form_mean(self._sim.model, self._sim.payoff):
+            expected = make_mean_target(self._sim)(arr).to(put.dtype)
+        else:
+            expected = torch.full_like(put, float("nan"))
         return torch.cat([put, expected, residue.reshape(1)])
 
     def predict_price(
@@ -503,20 +510,24 @@ class GbmCVNNPricer:
         *,
         pad_to_bucket: bool = False,
     ) -> PricePrediction:
-        """Learned put prices, and calls by put-call parity, for a batch.
+        """Learned put prices, and calls by put-call parity on the payoff's
+        own underlier (``call − put = df·(E[u] − K)``), for a batch. Where
+        ``has_closed_form_mean`` is false (barrier, lookback) the call has no
+        parity route and is NaN, with a warning.
 
         One host→device copy of the ``[N, D]`` contract matrix and one
-        device→host copy of the packed result per call. ``pad_to_bucket``
-        pads the batch to the next power of two (repeating the last row) and
-        slices back; the forward is row-independent and batch norm uses its
-        running statistics, so the values do not change.
+        device→host copy of the packed result per call. The forward always
+        runs on the batch padded to the next power of two (repeating the last
+        row) and slices back: on the card, cuBLAS and the row-mean reduction
+        pick their kernels by the row count, so a row's last bits would
+        otherwise depend on the size of the batch it is served in.
+        ``pad_to_bucket`` (the JAX package's argument, which pads there) is
+        accepted and changes nothing.
         """
+        del pad_to_bucket
         np_dtype = self._sim.precision.to_np()
         host = _contracts_to_host(contracts, contract_class(self._sim), np_dtype)
-        arr = torch.from_numpy(host).to(self._device)
-        n = int(host.shape[0])
-        if pad_to_bucket:
-            arr, n = _pad_to_bucket(arr)
+        arr, n = _pad_to_bucket(torch.from_numpy(host).to(self._device))
         m = int(arr.shape[0])
         packed = self._predict_packed(arr).cpu().numpy()  # the one device->host copy
         put = packed[:m][:n]
@@ -524,7 +535,14 @@ class GbmCVNNPricer:
         residue = float(packed[2 * m])
         if residue > IFFT_RESIDUE_WARN:
             _LOG.warning("IFFT imaginary residue %.3g exceeds %.1g", residue, IFFT_RESIDUE_WARN)
-        # put-call parity on the host copy: call − put = df·(E[S_T] − K)
+        if not has_closed_form_mean(self._sim.model, self._sim.payoff):
+            _LOG.warning(
+                "no closed-form E[underlier] for %s/%s: call-via-parity unavailable",
+                self._sim.model.value,
+                self._sim.payoff.value,
+            )
+            return PricePrediction(put=put, call=np.full_like(put, np.nan), imag_residue=residue)
+        # put-call parity on the host copy: call − put = df·(E[u] − K)
         strike, maturity, rate = host[:, 1], host[:, 2], host[:, 3]
         df = np.exp(-rate * maturity)
         return PricePrediction(put=put, call=put + df * (expected - strike), imag_residue=residue)

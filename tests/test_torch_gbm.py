@@ -236,54 +236,72 @@ def test_cuda_engine_on_cpu_runs_the_twin_and_launches_nothing() -> None:
 
 def test_cuda_wrapper_rejects_bad_inputs() -> None:
     keys = torch.zeros((2, 2), dtype=torch.int64)
-    kw = dict(timesteps=2, rows=2, cols=2, scheme=tgbm.PathScheme.EULER)
+    kw = dict(timesteps=2, rows=2, cols=2, scheme=tgbm.PathScheme.EULER,
+              payoff=tgbm.PayoffKind.TERMINAL)
     with pytest.raises(TypeError):
-        gbm_cuda.simulate_terminal_rows_cuda(torch.zeros((2, 6), dtype=torch.float64), keys, **kw)
+        gbm_cuda.simulate_underlier_rows_cuda(torch.zeros((2, 6), dtype=torch.float64), keys,
+                                              **kw)
     with pytest.raises(ValueError):
-        gbm_cuda.simulate_terminal_rows_cuda(torch.zeros((2, 5)), keys, **kw)
+        gbm_cuda.simulate_underlier_rows_cuda(torch.zeros((2, 5)), keys, **kw)
     with pytest.raises(ValueError):
-        gbm_cuda.simulate_terminal_rows_cuda(torch.zeros((3, 6)), keys, **kw)
+        gbm_cuda.simulate_underlier_rows_cuda(torch.zeros((3, 6)), keys, **kw)
     with pytest.raises(ValueError):
-        gbm_cuda.simulate_terminal_rows_cuda(
+        gbm_cuda.simulate_underlier_rows_cuda(
             torch.zeros((2, 6), device="meta"), keys.to("meta"), **kw
         )
 
 
 def test_engine_resolution_and_slice_refusals() -> None:
+    base = dict(timesteps=2, network_size=4, batches_per_mc_run=2, mc_seed=0)
     f64 = tgbm.build_simulation_params(
-        timesteps=2, network_size=4, batches_per_mc_run=2, mc_seed=0, implementation="cuda",
-        precision="float64",
+        **base, implementation="cuda", precision="float64",
     ).expect("f64")
     assert tgbm.resolve_implementation(f64) == tgbm.SimImplementation.XLA
     assert tgbm.has_closed_form_mean(tgbm.ModelKind.GBM, tgbm.PayoffKind.TERMINAL)
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
-        tgbm.has_closed_form_mean(tgbm.ModelKind.GBM, tgbm.PayoffKind.DIGITAL)
-    for bad in (dict(payoff="asian_geometric"), dict(model="heston"),
-                dict(sampling="sobol_bb")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-            tgbm.build_simulation_params(timesteps=2, network_size=4, batches_per_mc_run=2,
-                                         mc_seed=0, **bad)
-    stray = tgbm.build_simulation_params(timesteps=2, network_size=4, batches_per_mc_run=2,
-                                         mc_seed=0, barrier_rel=1.2)
+    assert tgbm.has_closed_form_mean(tgbm.ModelKind.GBM, tgbm.PayoffKind.DIGITAL)
+    for ported in (dict(payoff="asian_geometric"), dict(payoff="digital", normalization="none")):
+        sim = tgbm.build_simulation_params(**base, implementation="cuda", **ported).expect("ok")
+        assert tgbm.resolve_implementation(sim) == tgbm.SimImplementation.CUDA
+    with pytest.raises(NotImplementedError, match="queue 1 item 16"):
+        tgbm.has_closed_form_mean(tgbm.ModelKind.HESTON, tgbm.PayoffKind.TERMINAL)
+    for bad, item in ((dict(payoff="american_put"), "item 18"), (dict(model="heston"), "item 16"),
+                      (dict(sampling="sobol_bb"), "item 17"), (dict(term=object()), "item 15")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
+            tgbm.build_simulation_params(**base, **bad)
+    stray = tgbm.build_simulation_params(**base, barrier_rel=1.2)
     assert stray.is_failure() and stray.error.field == "barrier_rel"
 
 
-def _require_card() -> torch.device:
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU; run on the card (README: the port's chip tests)")
-    return torch.device("cuda", 0)
+# The twin's TERMINAL values on real Philox words, recorded from the first
+# release of the "cuda" engine (stream gbm v1): [scheme, steps, antithetic
+# half, contract 0 values, contract 1 values] at rows 0, 3, 5, 7 and cols
+# 0..3 of an 8 x 4 block at row offset 2.
+TERMINAL_PIN = [
+    ("log_euler", 16, None,
+     ["0x1.07b05cp+7", "0x1.2c8fb2p+6", "0x1.e63efap+6", "0x1.daec0ep+6"],
+     ["0x1.f3e1ecp+5", "0x1.bcdc56p+6", "0x1.a37b7cp+6", "0x1.4d7b84p+6"]),
+    ("log_euler", 7, 4,
+     ["0x1.8148a2p+6", "0x1.0147d2p+6", "0x1.08043ap+6", "0x1.15873ap+7"],
+     ["0x1.d04344p+4", "0x1.950b6ep+6", "0x1.f1c0d4p+5", "0x1.69f966p+7"]),
+    ("euler", 5, None,
+     ["0x1.63a968p+6", "0x1.982052p+6", "0x1.4198bep+7", "0x1.39aad2p+6"],
+     ["0x1.71de32p+3", "0x1.82538ap+7", "0x1.2dd69ep+7", "0x1.a2cb34p+6"]),
+    ("euler", 6, 4,
+     ["0x1.88c0a2p+6", "0x1.0a4f6cp+6", "0x1.5d5ad6p+6", "0x1.7fd07cp+6"],
+     ["0x1.297512p+4", "0x1.0bc148p+7", "0x1.be1a94p+6", "0x1.3f975cp+6"]),
+]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("scheme", [tgbm.PathScheme.LOG_EULER, tgbm.PathScheme.EULER])
-def test_kernel_matches_twin_on_card(scheme) -> None:
-    """Tier 3 on the card, rtol 2e-5 (libm vs device intrinsics)."""
-    device = _require_card()
-    c = torch.from_numpy(_contracts(3, seed=6)).to(device)
-    keys = rng.fold_in(rng.prng_key(6), torch.arange(3)).to(device)
-    kw = dict(timesteps=9, rows=64, cols=96, scheme=scheme, antithetic_half=32)
-    before = gbm_cuda.LAUNCHES
-    got = gbm_cuda.simulate_terminal_rows_cuda(c, keys, **kw)
-    assert gbm_cuda.LAUNCHES == before + 1
-    want = gbm_cuda.simulate_terminal_rows_cuda_plain(c, keys, **kw)
-    torch.testing.assert_close(got, want, rtol=2e-5, atol=0.0)
+@pytest.mark.parametrize("scheme,steps,half,want0,want1", TERMINAL_PIN,
+                         ids=["log_euler_16", "log_euler_7_anti", "euler_5", "euler_6_anti"])
+def test_terminal_stream_is_pinned(scheme, steps, half, want0, want1) -> None:
+    """Tier 1, exact: the gbm v1 TERMINAL stream does not move under a refactor."""
+    c = torch.tensor([[100.0, 95.0, 1.0, 0.03, 0.01, 0.25], [80.0, 120.0, 2.0, 0.08, 0.0, 0.45]])
+    keys = rng.fold_in(rng.prng_key(2024), torch.arange(2))
+    out = gbm_cuda.simulate_terminal_rows_cuda_plain(
+        c, keys, timesteps=steps, rows=8, cols=4, scheme=tgbm.PathScheme(scheme),
+        antithetic_half=half, row_offset=2,
+    )
+    got = out[:, [0, 3, 5, 7], [0, 1, 2, 3]].double().numpy()
+    want = np.array([[float.fromhex(v) for v in row] for row in (want0, want1)])
+    np.testing.assert_array_equal(got, want)
