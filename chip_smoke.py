@@ -8,23 +8,30 @@ non-zero and no result line is printed):
 
 0. device       — require CUDA; print the card's name and power limit; apply
                   the deterministic numerics policy (runtime/torch_runtime.py).
-1. build        — build csrc/gbm_paths.cu with nvcc into build/kernels/;
-                  count the SASS instructions of each branch's log-Euler
-                  loop (cuobjdump) for the instruction cap of phase 2.
+1. build        — build csrc/gbm_paths.cu and csrc/dynamics_paths.cu with
+                  nvcc into build/kernels/; count the SASS
+                  instructions of each branch's log-Euler loop (cuobjdump)
+                  for the instruction cap of phase 2.
 2. kernel       — every kernel branch against its plain twin on the same
                   Philox words at C=4 x 2048 x 512 x 16: TERMINAL (and its
                   digital and forward-start routes), barrier up/down, the four
                   lookbacks, variance swap, arithmetic and geometric Asian
-                  under both schemes, and the cliquet under log-Euler; with
-                  antithetic on and off, and an odd step or period count for
-                  the pair-step branches. Continuous outputs agree to rtol
-                  2e-5 (the lookback encodings against the strike, the
-                  cliquet against its cap, where they cross zero); the
-                  barrier knock and the digital sign may flip on at most 1e-5
-                  of the paths, counted and printed. Each branch group, and
-                  its twin, is timed at the training chunk 256 x 2048 x 512 x
-                  16 (log-Euler) with CUDA events, beside its bound_ms and
-                  its share of the SASS instruction cap.
+                  under both schemes, and the cliquet under log-Euler; then
+                  the same payoffs on the curved-term, Heston (forward start
+                  a branch of its own) and Merton kernels; with antithetic on
+                  and off, and an odd step or period count for the pair-step
+                  branches. Continuous outputs agree to rtol 2e-5 (the
+                  lookback encodings against the strike, the cliquet against
+                  its cap, where they cross zero); the barrier knock and the
+                  digital sign may flip on at most 1e-5 of the paths, and at
+                  most 5e-6 of a Heston case's paths may miss, by no more
+                  than rtol 1e-3 (the root of a low variance amplifies an
+                  ulp; counted, with how low their variance went, and printed);
+                  the Merton kernel's jump counts equal its twin's exactly.
+                  Each branch group is timed at the training chunk 256 x 2048
+                  x 512 x 16 (log-Euler) with CUDA events, and its twin's
+                  second call at the same shape, beside its bound_ms and its
+                  share of the SASS instruction cap.
 3. oracle       — the "cuda" engine over 1,048,576 paths per contract, three
                   contracts, normalization "none": each payoff's discounted
                   MC price within 4 standard errors of the port's oracle
@@ -33,7 +40,12 @@ non-zero and no result line is printed):
                   cliquet; a lattice oracle's own error, estimated by
                   halving its lattice, joins the standard error in
                   quadrature); the arithmetic Asian's sample mean within 4 SE
-                  of ``expected_underlier_mean``.
+                  of ``expected_underlier_mean``. Then curved GBM against
+                  ``term_effective_black``, Heston against
+                  ``heston_call_price`` at 32 steps (the Euler scheme's bias
+                  at 16 steps is printed beside it, ungated) and Merton
+                  against ``merton_call_price``, each also on the martingale
+                  mean E[S_T] = S·e^{(r−q)T}.
 4. train        — TERMINAL: GbmCVNNPricer on the "cuda" engine at the
                   production model (256-wide head), 2048 x 512 paths x 16
                   steps per contract, 3 steps of 512 contracts in chunks of
@@ -49,15 +61,26 @@ non-zero and no result line is printed):
                   its kernel branch launched, a finite loss, finite puts, and
                   calls NaN exactly where E[u] has no closed form (barrier,
                   lookback), parity where it has.
-9. profile      — only with ``--profile``: for the TERMINAL and the Asian
-                  pricer, 10 warm train steps timed on the host clock to a
+9. heston       — phases 4-6 for a Heston pricer (10 inputs into the same
+                  256-wide head, TERMINAL, MEAN normalization): 6 launches of
+                  the Heston TERMINAL branch in 3 steps, bit-equal resume,
+                  serving with pad_to_bucket bit-equal and call-via-parity.
+10. families    — phase 8 for every other branch of the Heston kernel, every
+                  branch of the Merton kernel and every branch of the term
+                  kernel (a GBM pricer under vol and rate curves): one payoff
+                  per branch plus the digital and forward-start routes, one
+                  step at batch 64 each; calls NaN where the dynamics has no
+                  closed-form E[u], parity at the curves' mean rate where it has.
+11. profile     — only with ``--profile``: for the TERMINAL, the Asian and the
+                  Heston pricer, 10 warm train steps timed on the host clock to a
                   synchronised end, then torch.profiler over 3 train steps
                   and over 20 predict_price calls at N=64 (device kernel
                   time, busy share, launches, the heaviest kernels).
 
-Launch counts are set to 0 just before each main path (phases 4, 7 and 8)
-and read just after it: the TERMINAL branch's count comes from phases 4-6,
-the Asian branch's from phase 7 and every other branch's from phase 8. The
+Launch counts are set to 0 just before each main path (phases 4, 7, 8, 9 and
+10) and read just after it: the TERMINAL branch's count comes from phases
+4-6, the Asian branch's from phase 7, the Heston TERMINAL branch's from phase
+9 and every other branch's from phases 8 and 10. The
 last lines are the kernel record as JSON, the nvidia-smi line, and the
 result JSON.
 """
@@ -86,7 +109,7 @@ from spectralmc_tpu_torch.models.factory import (
     SequentialCfg,
     build_cvnn_config,
 )
-from spectralmc_tpu_torch.ops import analytic, gbm_cuda, rng
+from spectralmc_tpu_torch.ops import analytic, dynamics_cuda, gbm_cuda, rng
 from spectralmc_tpu_torch.ops._build import find_nvcc, load_library
 from spectralmc_tpu_torch.ops.dispatch import make_mean_target, make_underlier_simulator
 from spectralmc_tpu_torch.ops.gbm import (
@@ -96,11 +119,16 @@ from spectralmc_tpu_torch.ops.gbm import (
     ModelKind,
     PathScheme,
     PayoffKind,
+    SimulationParams,
+    TermStructure,
     build_simulation_params,
+    curved,
     expected_underlier_mean,
     has_closed_form_mean,
     terminal_to_prices,
 )
+from spectralmc_tpu_torch.ops.heston import HestonContract, heston_call_price
+from spectralmc_tpu_torch.ops.merton import MertonContract, merton_call_price
 from spectralmc_tpu_torch.ops.sobol import BoundSpec, SobolConfig, SobolSampler
 from spectralmc_tpu_torch.runtime.torch_runtime import get_torch_handle
 from spectralmc_tpu_torch.training.trainer import (
@@ -114,8 +142,28 @@ BATCH, CHUNK = 512, 256
 PAYOFF_BATCH = 64
 KERNEL_RTOL = 2e-5  # libm/sinpif ulps between torch ops and device intrinsics
 FLIP_SHARE = 1e-5  # barrier knocks and digital signs flipped by those ulps
+# Heston paths past KERNEL_RTOL: sqrt(max(v, 0)) is not Lipschitz at zero, so an
+# ulp of a small variance grows from step to step. At most HESTON_SHARE of a
+# case's paths may pass KERNEL_RTOL, none of them HESTON_CAP_RTOL (but a
+# flipped knock or sign), and the phase prints how low their variance went
+HESTON_SHARE = 5e-6
+HESTON_CAP_RTOL = 1e-3
+HESTON_LOW_VARIANCE = 1e-3  # "low": the path's least raw variance below this
 SOURCE = "spectralmc_tpu_torch/csrc/gbm_paths.cu"
+DYNAMICS_SOURCE = "spectralmc_tpu_torch/csrc/dynamics_paths.cu"
 REPLACES = {"cliquet": "spectralmc_tpu/ops/gbm_pallas.py:793"}  # the rest: :512
+# The kernels of csrc/dynamics_paths.cu: the TPU kernel each replaces
+FAMILIES = ("term", "heston", "merton")
+FAMILY_REPLACES = {
+    "term": "spectralmc_tpu/ops/gbm_pallas.py:387",
+    "heston": "spectralmc_tpu/ops/gbm_pallas.py:1989",
+    "merton": "spectralmc_tpu/ops/gbm_pallas.py:3171",
+}
+FAMILY_MODEL = {"gbm": "gbm", "term": "gbm", "heston": "heston", "merton": "merton_jump"}
+FAMILY_STREAM = {"term": "gbm_term", "heston": "heston", "merton": "merton_jump"}
+FAMILY_CONTRACT = {"gbm": BlackScholesContract, "term": BlackScholesContract,
+                   "heston": HestonContract, "merton": MertonContract}
+FORWARD_STEP = 6
 CLIQUET = dict(reset_every=4, floor=-0.05, cap=0.08)
 BOUNDS = {
     "spot": BoundSpec(lower=80.0, upper=120.0),
@@ -125,6 +173,62 @@ BOUNDS = {
     "div_yield": BoundSpec(lower=0.0, upper=0.04),
     "vol": BoundSpec(lower=0.15, upper=0.45),
 }
+# The dynamics families' market bounds and model bounds (the JAX package's
+# bench.py: Heston :535-552, Merton :597-603)
+MARKET_BOUNDS = {
+    "spot": BoundSpec(lower=95.0, upper=105.0),
+    "strike": BoundSpec(lower=95.0, upper=105.0),
+    "maturity": BoundSpec(lower=0.5, upper=1.5),
+    "rate": BoundSpec(lower=0.01, upper=0.05),
+    "div_yield": BoundSpec(lower=0.0, upper=0.02),
+}
+FAMILY_BOUNDS = {
+    "gbm": BOUNDS,
+    "term": BOUNDS,
+    "heston": {
+        **MARKET_BOUNDS,
+        "v0": BoundSpec(lower=0.03, upper=0.08),
+        "kappa": BoundSpec(lower=1.0, upper=2.5),
+        "theta": BoundSpec(lower=0.03, upper=0.08),
+        "xi": BoundSpec(lower=0.2, upper=0.5),
+        "rho": BoundSpec(lower=-0.8, upper=-0.3),
+    },
+    "merton": {
+        **MARKET_BOUNDS,
+        "vol": BoundSpec(lower=0.15, upper=0.25),
+        "lam": BoundSpec(lower=0.1, upper=0.8),
+        "jump_mean": BoundSpec(lower=-0.15, upper=0.0),
+        "jump_std": BoundSpec(lower=0.1, upper=0.25),
+    },
+}
+
+
+def term_of(steps: int) -> TermStructure:
+    """The curved market of the term kernel's phases (bench.py:982-985):
+    vol falling from 1.5x to 0.5x, rate rising from 0.5x to 1.5x."""
+    return TermStructure(vol_shape=tuple(1.5 - 1.0 * i / steps for i in range(steps)),
+                         rate_shape=tuple(0.5 + 1.0 * i / steps for i in range(steps)))
+
+
+def group_of(family: str, branch: str) -> str:
+    """The launch-count and record name of a family's branch."""
+    return branch if family == "gbm" else f"{family}_{branch}"
+
+
+def family_of(sim: SimulationParams) -> str:
+    if sim.model == ModelKind.HESTON:
+        return "heston"
+    if sim.model == ModelKind.MERTON_JUMP:
+        return "merton"
+    return "term" if curved(sim.term) is not None else "gbm"
+
+
+def branch_of(family: str, payoff: PayoffKind) -> str:
+    if family == "heston" and payoff == PayoffKind.FORWARD_START:
+        return "forward"  # the Heston kernel captures ln S_m in a branch of its own
+    return gbm_cuda.branch_of(payoff)
+
+
 # strike bounds in each payoff's own units (vol² for the variance swap,
 # return units for the cliquet)
 STRIKE_BOUNDS = {
@@ -156,7 +260,22 @@ FP32_OPS_PER_S = 67e12
 # over the SASS instructions one path-step of the log-Euler loop executes.
 LANES_PER_CLOCK = 132 * 4 * 32
 DRAW_OPS = 60
-UNIT_OPS = {"terminal": 3, "barrier": 4, "lookback": 4, "variance": 4, "asian": 5, "cliquet": 8}
+UNIT_OPS = {"terminal": 3, "barrier": 4, "lookback": 4, "variance": 4, "asian": 5, "cliquet": 8,
+            "forward": 4}
+# The term kernel draws as the flat kernel does and loads one table entry per
+# step (and one per pair): one more operation per unit; its tables add 8
+# bytes per step and per pair to each contract's input. A Heston step is one
+# draw with a second trigonometric output (1) plus z_s (3), v+ (1), the fused
+# root (2), the log-price update (6) and the variance update (6): 19 on top of
+# the draw, in place of the flat update's 3. A Merton step needs three of a
+# Philox call's four words (75), three uniforms (9), log, mul, sqrt, the
+# sincos pair and its argument (6), a count over 16 sorted levels (log2(16) =
+# 4 compares), the jump (5) and the pair's products (4): 103, then the
+# log-price update (4) in place of the flat 3; its level table adds 64 bytes
+# per contract. The kernel itself spends a whole call and 16 compares per
+# step: that is its own cost, not the function's.
+HESTON_STEP_OPS = 19
+MERTON_STEP_OPS = 103
 
 
 def phase(label: str, **findings: object) -> None:
@@ -178,15 +297,27 @@ def cuda_ms(fn, *, iters: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound_ms(branch: str, contracts: int, steps: int) -> tuple[float, str]:
-    """``(bound_ms, bound_by)`` of one launch at ``contracts x ROWS x COLS``
-    over ``steps`` log-Euler steps (the op model in the module header)."""
+def bound_ms(group: str, contracts: int, steps: int) -> tuple[float, str]:
+    """``(bound_ms, bound_by)`` of one launch of a branch group at
+    ``contracts x ROWS x COLS`` over ``steps`` log-Euler steps (the op model
+    in the module header)."""
+    family, _, branch = group.rpartition("_")
+    family = family or "gbm"
     paths = contracts * ROWS * COLS
     units = steps // CLIQUET["reset_every"] if branch == "cliquet" else steps
-    paired = branch in ("terminal", "variance", "cliquet")
+    paired = family in ("gbm", "term") and branch in ("terminal", "variance", "cliquet")
     draws = -(-units // 2) if paired else units
-    ops = paths * (draws * DRAW_OPS + units * UNIT_OPS[branch])
-    byte_count = contracts * 32 + paths * 4
+    byte_count = contracts * (4 * len(FAMILY_CONTRACT[family].model_fields) + 8) + paths * 4
+    if family == "merton":
+        ops = paths * units * (MERTON_STEP_OPS + UNIT_OPS[branch] + 1)
+        byte_count += contracts * 64
+    elif family == "heston":
+        ops = paths * units * (DRAW_OPS + HESTON_STEP_OPS + UNIT_OPS[branch])
+    else:
+        per_unit = UNIT_OPS[branch] + (1 if family == "term" else 0)
+        ops = paths * (draws * DRAW_OPS + units * per_unit)
+        if family == "term":
+            byte_count += contracts * 8 * (steps + max(steps // 2, 1))
     t_ops, t_bytes = ops / FP32_OPS_PER_S * 1e3, byte_count / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -216,75 +347,134 @@ def phase_device() -> tuple[torch.device, str, float]:
 
 
 def phase_build() -> dict[str, float]:
-    built = load_library("gbm_paths", ("gbm_paths.cu",))
-    ptxas = [ln.strip() for ln in built.log.splitlines() if "registers" in ln or "spill" in ln]
-    phase("build", source=SOURCE, library=built.path.name,
-          build_seconds=f"{built.build_seconds:.2f}", ptxas=repr(" | ".join(ptxas)))
-    return sass_instruction_counts(built.path)
+    """Build both kernel libraries (one nvcc each) and count their loops'
+    SASS instructions per path-step, per branch group."""
+    flat, dynamics = load_library(*gbm_cuda.LIBRARY), load_library(*dynamics_cuda.LIBRARY)
+    for source, built in ((SOURCE, flat), (DYNAMICS_SOURCE, dynamics)):
+        phase("build", source=source, library=built.path.name,
+              build_seconds=f"{built.build_seconds:.2f}",
+              registers_and_spill_bytes=ptxas_summary(built.log))
+    return sass_instruction_counts(flat.path, dynamics.path)
 
 
-def sass_instruction_counts(library: object) -> dict[str, float]:
-    """SASS instructions one log-Euler path-step executes, per branch, counted
-    from ``cuobjdump -sass`` of the built library.
+def ptxas_summary(log: str) -> dict[str, str]:
+    """``{kernel<family>: "N registers, S spill bytes"}`` from the output of
+    ``nvcc -Xptxas -v`` (empty when an existing build was reused)."""
+    kernel = (r"(gbm_paths_kernel|gbm_cliquet_kernel|gbm_term_kernel|heston_paths_kernel|"
+              r"merton_paths_kernel)(?:ILi(\d+)E)?")
+    found, name, spill = {}, None, 0
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '\S*?" + kernel, line)
+        if entry:
+            name = entry.group(1) + (f"<{entry.group(2)}>" if entry.group(2) else "")
+        spilled = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spilled:
+            spill = int(spilled.group(1)) + int(spilled.group(2))
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            found[name] = f"{used.group(1)} registers, {spill} spill bytes"
+            name = None
+    return found
 
-    In each instantiation the log-Euler loop is the loop whose body takes no
-    absolute value (the Euler loop's reflection). Of its N instructions, the
-    Philox block (a skipped region with >= 16 IMAD.WIDE.U32) runs every other
-    draw, a slow path holding a CALL (sqrtf's fix-up) never on these inputs,
-    and any other skipped region is the branch's once-per-path single step
-    (TERMINAL, variance, cliquet: subtracted) or the arithmetic Asian's
-    ``expf`` (kept). Per draw: N − calls − single − Philox/2; per path-step:
-    that over the steps a draw covers (2 for the pair-steps, 1 per step,
-    2·reset_every for the cliquet's period pairs).
-    """
+
+def cuobjdump_sass(library: object) -> str:
     cuobjdump = str(Path(find_nvcc()).parent / "cuobjdump")
-    text = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True, text=True,
+    return subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True, text=True,
                           check=True).stdout
-    counts, found = parse_instruction_counts(text)
+
+
+def sass_instruction_counts(flat: object, dynamics: object) -> dict[str, float]:
+    """SASS instructions one log-Euler path-step executes, per branch group,
+    counted from ``cuobjdump -sass`` of the built libraries.
+
+    In each instantiation of the flat kernel the log-Euler loop is the last
+    loop whose body takes no absolute value (the Euler loop's reflection);
+    the term, Heston and Merton kernels have one loop each (the longest). Of
+    a loop's N instructions, the Philox block (a skipped region with >= 16
+    IMAD.WIDE.U32) runs every other iteration where it is skipped at all (the
+    Merton kernel calls it every step, unskipped), and a slow path holding a
+    CALL (sqrtf's fix-up) never on these inputs. In the flat kernel any other
+    skipped region is the branch's once-per-path single step (TERMINAL,
+    variance, cliquet: subtracted) or the arithmetic Asian's ``expf`` (kept).
+    Per iteration: N − calls − single − Philox/2; per path-step: that over
+    the steps an iteration covers (2 for the pair-steps, 2·reset_every for
+    the cliquet's period pairs, else 1).
+    """
+    flat_kernels = {f"gbm_paths_kernelILi{code}E": b for b, code in gbm_cuda._FAMILY_CODE.items()}
+    flat_kernels["gbm_cliquet_kernel"] = "cliquet"
+    codes = {**gbm_cuda._FAMILY_CODE, "forward": 5}
+    dynamics_kernels = {
+        f"{kernel}ILi{code}E": f"{family}_{branch}"
+        for kernel, family in (("gbm_term_kernel", "term"), ("heston_paths_kernel", "heston"),
+                               ("merton_paths_kernel", "merton"))
+        for branch, code in codes.items()
+    }
+    steps = {"terminal": 2, "variance": 2, "cliquet": 2 * CLIQUET["reset_every"],
+             "term_terminal": 2, "term_variance": 2}
+    counts, found = parse_instruction_counts(
+        cuobjdump_sass(flat), flat_kernels, steps, pick_loop=last_loop_without_abs,
+        single_step=lambda group: group != "asian")
+    more, found_more = parse_instruction_counts(
+        cuobjdump_sass(dynamics), dynamics_kernels, steps,
+        pick_loop=lambda loops: max(loops, key=len), single_step=lambda group: False)
+    counts.update(more)
+    found.update(found_more)
     phase("sass", log_euler_loop=repr(found),
           instructions_per_path_step={b: round(c, 3) for b, c in counts.items()})
     return counts
 
 
-def parse_instruction_counts(text: str) -> tuple[dict[str, float], dict[str, str]]:
-    """``sass_instruction_counts`` on the text of ``cuobjdump -sass``."""
-    family = {f"gbm_paths_kernelILi{code}E": b for b, code in gbm_cuda._FAMILY_CODE.items()}
-    family["gbm_cliquet_kernel"] = "cliquet"
+SASS_LINE = r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;"
+SASS_BRANCH = r"\bBRA (?:!?P\d, )?0x([0-9a-f]+)"
+
+
+def last_loop_without_abs(loops: list[list[tuple[int, str]]]) -> list[tuple[int, str]]:
+    return [body for body in loops
+            if not any(re.search(r"\|R\d+\|", op) and not op.startswith("FSETP")
+                       for _, op in body)][-1]
+
+
+def parse_instruction_counts(
+    text: str, kernels: dict[str, str], steps_per_iteration: dict[str, int], *,
+    pick_loop: object, single_step: object,
+) -> tuple[dict[str, float], dict[str, str]]:
+    """``sass_instruction_counts``'s rule on the text of ``cuobjdump -sass``:
+    ``kernels`` maps a piece of a mangled kernel name to its branch group,
+    ``pick_loop`` chooses the log-Euler loop among a kernel's loops, and
+    ``single_step(group)`` says whether a skipped region that is neither the
+    Philox block nor a slow path runs once per path."""
     counts, found = {}, {}
     for block in text.split("Function : ")[1:]:
         name = block.split()[0]
-        branch = next((b for key, b in family.items() if key in name), None)
-        if branch is None:
+        group = next((g for key, g in kernels.items() if key in name), None)
+        if group is None:
             continue
-        ins = [(int(a, 16), op.strip())
-               for a, op in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", block)]
+        ins = [(int(a, 16), op.strip()) for a, op in re.findall(SASS_LINE, block)]
         at = {a: i for i, (a, _) in enumerate(ins)}
         loops = []
         for i, (addr, op) in enumerate(ins):
-            m = re.search(r"\bBRA (?:!?P\d, )?0x([0-9a-f]+)", op)
-            if m and int(m.group(1), 16) < addr and int(m.group(1), 16) in at:
-                body = ins[at[int(m.group(1), 16)]:i + 1]
-                if not any(re.search(r"\|R\d+\|", o) and not o.startswith("FSETP")
-                           for _, o in body):
-                    loops.append(body)
-        body = loops[-1]
+            back = re.search(SASS_BRANCH, op)
+            if back and int(back.group(1), 16) < addr and int(back.group(1), 16) in at:
+                loops.append(ins[at[int(back.group(1), 16)]:i + 1])
+        if not loops:
+            raise AssertionError(f"no loop found in the SASS of {group}")
+        body = pick_loop(loops)
         philox = calls = single = 0
-        for j, (addr, op) in enumerate(body):
-            m = re.search(r"\bBRA (?:!?P\d, )?0x([0-9a-f]+)", op)
-            if not (m and op.startswith("@") and addr < int(m.group(1), 16) <= body[-1][0]):
+        for addr, op in body:
+            skip = re.search(SASS_BRANCH, op)
+            if not (skip and op.startswith("@") and addr < int(skip.group(1), 16) <= body[-1][0]):
                 continue
-            region = [o for a, o in body if addr < a < int(m.group(1), 16)]
+            region = [o for a, o in body if addr < a < int(skip.group(1), 16)]
             if sum("IMAD.WIDE.U32" in o for o in region) >= 16:
                 philox += len(region)
             elif any("CALL" in o for o in region):
                 calls += len(region)
-            elif branch != "asian":
+            elif single_step(group):
                 single += len(region)
-        per_draw = len(body) - calls - single - philox / 2
-        steps_per_draw = {"terminal": 2, "variance": 2,
-                          "cliquet": 2 * CLIQUET["reset_every"]}.get(branch, 1)
-        counts[branch] = per_draw / steps_per_draw
-        found[branch] = f"{len(body)}-{calls}-{single}-{philox}/2={per_draw:g}/{steps_per_draw}"
+        per_iteration = len(body) - calls - single - philox / 2
+        steps = steps_per_iteration.get(group, 1)
+        counts[group] = per_iteration / steps
+        found[group] = f"{len(body)}-{calls}-{single}-{philox}/2={per_iteration:g}/{steps}"
     return counts, found
 
 
@@ -293,34 +483,66 @@ def parse_instruction_counts(text: str) -> tuple[dict[str, float], dict[str, str
 # --------------------------------------------------------------------------
 
 
-def kernel_inputs(device: torch.device, contracts: int, seed: int) -> tuple[torch.Tensor, ...]:
+def kernel_inputs(
+    device: torch.device, contracts: int, seed: int, family: str = "gbm"
+) -> tuple[torch.Tensor, ...]:
+    """Seeded contracts inside the family's bounds and their stream keys."""
     gen = np.random.default_rng(seed)
-    lo = np.array([80.0, 80.0, 0.25, 0.0, 0.0, 0.15])
-    hi = np.array([120.0, 120.0, 2.0, 0.08, 0.04, 0.45])
-    params = (lo + (hi - lo) * gen.random((contracts, 6))).astype(np.float32)
+    bounds = FAMILY_BOUNDS[family]
+    lo = np.array([b.lower for b in bounds.values()])
+    hi = np.array([b.upper for b in bounds.values()])
+    params = (lo + (hi - lo) * gen.random((contracts, len(lo)))).astype(np.float32)
     keys = rng.fold_in(rng.prng_key(7), torch.arange(contracts, dtype=torch.int64))
     return torch.from_numpy(params).to(device), keys.to(device)
 
 
-def run_pair(params, keys, payoff: PayoffKind, **kw: object) -> tuple[torch.Tensor, ...]:
-    """(kernel, twin) outputs for one case."""
-    if payoff == PayoffKind.CLIQUET:
-        return (gbm_cuda.simulate_cliquet_rows_cuda(params, keys, **kw),
-                gbm_cuda.simulate_cliquet_rows_cuda_plain(params, keys, **kw))
-    return (gbm_cuda.simulate_underlier_rows_cuda(params, keys, payoff=payoff, **kw),
-            gbm_cuda.simulate_underlier_rows_cuda_plain(params, keys, payoff=payoff, **kw))
+FAMILY_FNS = {
+    "term": (dynamics_cuda.simulate_term_rows_cuda, dynamics_cuda.simulate_term_rows_cuda_plain),
+    "heston": (dynamics_cuda.simulate_heston_rows_cuda,
+               dynamics_cuda.simulate_heston_rows_cuda_plain),
+    "merton": (dynamics_cuda.simulate_merton_rows_cuda,
+               dynamics_cuda.simulate_merton_rows_cuda_plain),
+}
+
+
+def kernel_and_twin(family: str, payoff: PayoffKind, kw: dict[str, object]) -> tuple:
+    """``(kernel, twin)``, each ``(params, keys) -> values`` for one case."""
+    if family == "gbm" and payoff == PayoffKind.CLIQUET:
+        fns = (gbm_cuda.simulate_cliquet_rows_cuda, gbm_cuda.simulate_cliquet_rows_cuda_plain)
+    elif family == "gbm":
+        fns = (gbm_cuda.simulate_underlier_rows_cuda, gbm_cuda.simulate_underlier_rows_cuda_plain)
+        kw = dict(kw, payoff=payoff)
+    else:
+        fns = FAMILY_FNS[family]
+        kw = dict(kw, payoff=payoff)
+        if family == "term":
+            kw["term"] = term_of(int(kw["timesteps"]))
+    return tuple(functools.partial(fn, **kw) for fn in fns)
 
 
 def compare(
-    device: torch.device, payoff: PayoffKind, contracts: int = 4, **kw: object
-) -> tuple[float, float, int]:
-    """``(max abs err, max scaled err, flips)`` of the kernel against its twin
-    over ``contracts`` contracts; raises past the tolerances."""
-    params, keys = kernel_inputs(device, contracts, seed=contracts + int(kw["timesteps"]))
-    got, want = run_pair(params, keys, payoff, **kw)
+    device: torch.device, payoff: PayoffKind, contracts: int = 4, family: str = "gbm",
+    warm_twin: bool = False, **kw: object,
+) -> dict[str, float]:
+    """The kernel against its twin over ``contracts`` contracts; raises past
+    the tolerances. Returns ``max_abs_err`` and ``max_rel`` over the agreeing
+    paths, ``flips`` (the paths past ``KERNEL_RTOL``), ``plain_ms`` (the
+    twin's one call by CUDA events, after one more when ``warm_twin``) and,
+    for a continuous Heston payoff, ``past_rel`` (the largest scaled error
+    among the paths past the tolerance) with ``past_low`` and ``all_low`` (how
+    many of those paths, and what share of all paths, had a low variance)."""
+    params, keys = kernel_inputs(device, contracts, contracts + int(kw["timesteps"]), family)
+    kernel, twin = kernel_and_twin(family, payoff, kw)
+    got = kernel(params, keys)
+    if warm_twin:
+        twin(params, keys)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = twin(params, keys)
+    stop.record()
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"{payoff.value}: kernel produced non-finite values at {kw}")
+        raise AssertionError(f"{family}/{payoff.value}: kernel produced non-finite values at {kw}")
     scale = want.abs()
     if payoff in LOOKBACK_PAYOFFS:
         scale = torch.maximum(scale, params[:, 1, None, None])
@@ -330,16 +552,29 @@ def compare(
     ok = err <= KERNEL_RTOL * scale
     flips = int((~ok).sum())
     jumps = payoff in BARRIER_PAYOFFS or payoff == PayoffKind.DIGITAL
-    allowed = int(FLIP_SHARE * got.numel()) if jumps else 0
+    share = (FLIP_SHARE if jumps else 0.0) + (HESTON_SHARE if family == "heston" else 0.0)
+    allowed = int(share * got.numel())
     if flips > allowed:
-        raise AssertionError(f"{payoff.value}: {flips} paths past rtol {KERNEL_RTOL} "
+        raise AssertionError(f"{family}/{payoff.value}: {flips} paths past rtol {KERNEL_RTOL} "
                              f"(allowed {allowed}) at {kw}")
     agree = torch.where(ok, err, torch.zeros_like(err))
-    return float(agree.max()), float((agree / scale).max()), flips
+    found = dict(max_abs_err=float(agree.max()), max_rel=float((agree / scale).max()),
+                 flips=flips, plain_ms=start.elapsed_time(stop))
+    if family == "heston" and not jumps and flips:
+        found["past_rel"] = float((err / scale)[~ok].max())
+        if found["past_rel"] > HESTON_CAP_RTOL:
+            raise AssertionError(f"heston/{payoff.value}: a path past rtol {KERNEL_RTOL} misses "
+                                 f"by {found['past_rel']:.3e} (cap {HESTON_CAP_RTOL}) at {kw}")
+        del got, want, err, agree, scale
+        trace: dict[str, torch.Tensor] = {}
+        twin(params, keys, trace=trace)
+        low = trace["min_variance"] < HESTON_LOW_VARIANCE
+        found.update(past_low=int(low[~ok].sum()), all_low=float(low.float().mean()))
+    return found
 
 
-def kernel_cases() -> list[tuple[str, PayoffKind, dict[str, object]]]:
-    """(branch, payoff, kwargs) for every case of phase 2."""
+def kernel_cases() -> list[tuple[str, str, PayoffKind, dict[str, object]]]:
+    """(group, family, payoff, kwargs) for every case of phase 2."""
     base = dict(rows=ROWS, cols=COLS)
     cases = []
     for scheme in (PathScheme.LOG_EULER, PathScheme.EULER):
@@ -351,7 +586,7 @@ def kernel_cases() -> list[tuple[str, PayoffKind, dict[str, object]]]:
                 cases.append(("variance", PayoffKind.VARIANCE_SWAP, dict(anti, timesteps=steps)))
             cases.append(("terminal", PayoffKind.DIGITAL, dict(anti, timesteps=STEPS)))
             cases.append(("terminal", PayoffKind.FORWARD_START,
-                          dict(anti, timesteps=STEPS, forward_start_step=6)))
+                          dict(anti, timesteps=STEPS, forward_start_step=FORWARD_STEP)))
             for payoff in (PayoffKind.BARRIER_UP_OUT, PayoffKind.BARRIER_DOWN_OUT):
                 cases.append(("barrier", payoff,
                               dict(anti, timesteps=STEPS, barrier_rel=KNOBS[payoff]["barrier_rel"])))
@@ -363,55 +598,100 @@ def kernel_cases() -> list[tuple[str, PayoffKind, dict[str, object]]]:
         for steps in (STEPS, 12):  # 4 periods, 3 periods (odd)
             cases.append(("cliquet", PayoffKind.CLIQUET,
                           dict(base, timesteps=steps, antithetic_half=half, **CLIQUET)))
+    cases = [(group, "gbm", payoff, kw) for group, payoff, kw in cases]
+    payoffs = [PayoffKind.TERMINAL, PayoffKind.DIGITAL, PayoffKind.FORWARD_START,
+               PayoffKind.BARRIER_UP_OUT, PayoffKind.BARRIER_DOWN_OUT,
+               *sorted(LOOKBACK_PAYOFFS, key=lambda p: p.value), PayoffKind.VARIANCE_SWAP,
+               PayoffKind.ASIAN_ARITHMETIC, PayoffKind.ASIAN_GEOMETRIC]
+    for family in FAMILIES:
+        for half in (None, ROWS // 2):
+            for payoff in payoffs:
+                pair_step = family == "term" and payoff in (PayoffKind.TERMINAL,
+                                                            PayoffKind.VARIANCE_SWAP)
+                for steps in ((STEPS, 15) if pair_step and half is None else (STEPS,)):
+                    kw = dict(base, timesteps=steps, antithetic_half=half)
+                    if payoff in BARRIER_PAYOFFS:
+                        kw["barrier_rel"] = KNOBS[payoff]["barrier_rel"]
+                    if payoff == PayoffKind.FORWARD_START:
+                        kw["forward_start_step"] = FORWARD_STEP
+                    cases.append((group_of(family, branch_of(family, payoff)), family, payoff, kw))
     return cases
 
 
 # the payoff each branch group is timed with at the training chunk
-TIMED = {
+TIMED_PAYOFF = {
     "terminal": (PayoffKind.TERMINAL, {}),
     "barrier": (PayoffKind.BARRIER_UP_OUT, dict(barrier_rel=1.25)),
     "lookback": (PayoffKind.LOOKBACK_FIXED_CALL, {}),
     "variance": (PayoffKind.VARIANCE_SWAP, {}),
     "asian": (PayoffKind.ASIAN_ARITHMETIC, {}),
     "cliquet": (PayoffKind.CLIQUET, CLIQUET),
+    "forward": (PayoffKind.FORWARD_START, dict(forward_start_step=FORWARD_STEP)),
 }
+# group -> (family, timed payoff, its knobs), in gbm_cuda.BRANCHES' order
+TIMED = {
+    group: (group.rpartition("_")[0] or "gbm", *TIMED_PAYOFF[group.rpartition("_")[2]])
+    for group in gbm_cuda.BRANCHES
+}
+
+
+def check_merton_counts(device: torch.device) -> int:
+    """The Merton kernel's jump counts against its twin's, exactly: with the
+    Gaussians switched off (vol = jump_std = 0) and unit jumps,
+    ``ln S_T − T·drift`` is the path's total count. Returns the jumps seen."""
+    c = torch.tensor([[1.0, 1.0, 1.0, 0.0, 0.0, 0.0, 2.5, 1.0, 0.0],
+                      [1.0, 1.0, 2.0, 0.0, 0.0, 0.0, 6.0, 1.0, 0.0]], device=device)
+    keys = rng.fold_in(rng.prng_key(4), torch.arange(2)).to(device)
+    kw = dict(timesteps=STEPS, rows=ROWS, cols=COLS, payoff=PayoffKind.TERMINAL,
+              antithetic_half=ROWS // 2)
+    drift = -c[:, 6] * (math.e - 1.0) * c[:, 2]  # the compensator over the whole path
+    kernel, twin = (torch.round(torch.log(fn(c, keys, **kw)) - drift[:, None, None])
+                    for fn in FAMILY_FNS["merton"])
+    if not torch.equal(kernel, twin):
+        raise AssertionError(f"Merton counts differ on {int((kernel != twin).sum())} paths")
+    if not torch.equal(kernel[:, :ROWS // 2], kernel[:, ROWS // 2:]):
+        raise AssertionError("an antithetic pair does not share its Merton counts")
+    return int(kernel.sum())
 
 
 def phase_kernel(
     device: torch.device, per_step: dict[str, float], max_sm_hz: float
 ) -> dict[str, dict[str, object]]:
-    record = {b: {"max_abs_err": 0.0, "max_rel": 0.0, "flips": 0, "cases": 0} for b in TIMED}
-    for branch, payoff, kw in kernel_cases():
-        abs_err, rel, flips = compare(device, payoff, **kw)
-        r = record[branch]
-        r["max_abs_err"] = max(r["max_abs_err"], abs_err)
-        r["max_rel"] = max(r["max_rel"], rel)
-        r["flips"] += flips
-        r["cases"] += 1
-    params, keys = kernel_inputs(device, CHUNK, seed=1)
-    for branch, (payoff, extra) in TIMED.items():
+    record = {g: {"max_abs_err": 0.0, "max_rel": 0.0, "flips": 0, "cases": 0} for g in TIMED}
+    past = {"paths": 0, "max_rel": 0.0, "low_variance": 0, "low_share_of_all_paths": 0.0}
+
+    def fold(group: str, found: dict[str, float]) -> None:
+        r = record[group]
+        r.update(max_abs_err=max(r["max_abs_err"], found["max_abs_err"]),
+                 max_rel=max(r["max_rel"], found["max_rel"]),
+                 flips=r["flips"] + found["flips"], cases=r["cases"] + 1)
+        if "past_rel" in found:
+            past.update(paths=past["paths"] + found["flips"],
+                        max_rel=max(past["max_rel"], found["past_rel"]),
+                        low_variance=past["low_variance"] + found["past_low"],
+                        low_share_of_all_paths=max(past["low_share_of_all_paths"],
+                                                   found["all_low"]))
+
+    for group, family, payoff, kw in kernel_cases():
+        fold(group, compare(device, payoff, family=family, **kw))
+    phase("kernel-counts", merton_jumps_equal_to_the_twins=check_merton_counts(device),
+          paths=2 * ROWS * COLS, steps=STEPS)
+    for group, (family, payoff, extra) in TIMED.items():
         kw = dict(timesteps=STEPS, rows=ROWS, cols=COLS, **extra)
-        if payoff != PayoffKind.CLIQUET:
+        if family == "gbm" and payoff != PayoffKind.CLIQUET:
             kw["scheme"] = PathScheme.LOG_EULER
-        abs_err, rel, flips = compare(device, payoff, CHUNK, **kw)  # the timed shape, checked
-        r = record[branch]
-        r.update(max_abs_err=max(r["max_abs_err"], abs_err), max_rel=max(r["max_rel"], rel),
-                 flips=r["flips"] + flips, cases=r["cases"] + 1)
-        if payoff == PayoffKind.CLIQUET:
-            kernel = lambda: gbm_cuda.simulate_cliquet_rows_cuda(params, keys, **kw)  # noqa: E731
-            plain = lambda: gbm_cuda.simulate_cliquet_rows_cuda_plain(params, keys, **kw)  # noqa: E731
-        else:
-            kernel = lambda: gbm_cuda.simulate_underlier_rows_cuda(  # noqa: E731
-                params, keys, payoff=payoff, **kw)
-            plain = lambda: gbm_cuda.simulate_underlier_rows_cuda_plain(  # noqa: E731
-                params, keys, payoff=payoff, **kw)
-        ms = cuda_ms(kernel)
-        plain_ms = cuda_ms(plain, iters=3, warmup=1)
-        bound, bound_by = bound_ms(branch, CHUNK, STEPS)
+        # the timed shape, checked; the twin's second call there is its time
+        found = compare(device, payoff, CHUNK, family, warm_twin=True, **kw)
+        fold(group, found)
+        r, plain_ms = record[group], found["plain_ms"]
+        params, keys = kernel_inputs(device, CHUNK, 1, family)
+        kernel, _ = kernel_and_twin(family, payoff, kw)
+        ms = cuda_ms(lambda: kernel(params, keys))
+        bound, bound_by = bound_ms(group, CHUNK, STEPS)
         path_steps = CHUNK * ROWS * COLS * STEPS
-        cap = LANES_PER_CLOCK * max_sm_hz / per_step[branch]
+        cap = LANES_PER_CLOCK * max_sm_hz / per_step[group]
         r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
-        phase("kernel", branch=branch, cases=r["cases"], max_rel_diff=f"{r['max_rel']:.3e}",
+        phase("kernel", branch=group, cases=r["cases"], max_rel_diff=f"{r['max_rel']:.3e}",
               max_abs_err=f"{r['max_abs_err']:.3e}", flips=r["flips"], rtol=KERNEL_RTOL,
               shape=f"{CHUNK}x{ROWS}x{COLS}x{STEPS}", timed=payoff.value,
               kernel_ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound:.3f}",
@@ -420,6 +700,9 @@ def phase_kernel(
               plain_path_steps_per_s=f"{path_steps / plain_ms * 1e3:.4e}",
               instruction_cap_path_steps_per_s=f"{cap:.4e}",
               share_of_instruction_cap=f"{path_steps / ms * 1e3 / cap:.4f}")
+    # the continuous Heston payoffs' paths past KERNEL_RTOL, and their cause
+    phase("kernel-heston-past-rtol", **past, max_rel_cap=HESTON_CAP_RTOL,
+          share_allowed=HESTON_SHARE, low_variance_below=HESTON_LOW_VARIANCE)
     return record
 
 
@@ -558,8 +841,80 @@ def phase_oracle(device: torch.device) -> None:
               **{f"{side}_mc_se_oracle_err_z": repr(v) for side, v in found.items()})
 
 
+# The families' oracle contracts: the GBM three under the curves of
+# ``term_of``; Heston at the centre of its bounds (2·kappa·theta >= xi²) and
+# Merton at the JAX bench's contract (bench.py:1041-1044), each at three strikes.
+FAMILY_ORACLE_CONTRACTS = {
+    "term": ORACLE_CONTRACTS,
+    "heston": [[100.0, k, 1.0, 0.03, 0.01, 0.04, 1.5, 0.04, 0.3, -0.7]
+               for k in (100.0, 110.0, 90.0)],
+    "merton": [[100.0, k, 1.0, 0.03, 0.01, 0.2, 0.5, -0.1, 0.25] for k in (100.0, 110.0, 90.0)],
+}
+HESTON_ORACLE_STEPS = 32  # the Euler scheme's bias must stay under the standard error
+
+
+def family_oracle(family: str, c: list[float], steps: int) -> tuple[float, float]:
+    """``(put, call)`` of the family's European oracle for one contract."""
+    if family == "term":
+        vs, rs, qs = term_of(steps).shapes(steps)
+        p = analytic.term_effective_black(*c, vol_shape=vs, rate_shape=rs, div_shape=qs)
+        return float(p.put), float(p.call)
+    price = heston_call_price if family == "heston" else merton_call_price
+    call, put = price(**dict(zip(FAMILY_CONTRACT[family].model_fields, c)))
+    return put, call
+
+
+def phase_oracle_families(device: torch.device) -> None:
+    """Curved GBM, Heston and Merton TERMINAL prices on the "cuda" engine
+    against their European oracles, and the sample mean of S_T against the
+    forward, each within 4 standard errors at 1,048,576 paths. Heston is
+    gated at 32 steps; its 16-step scores are printed ungated (past 4 they
+    would be the scheme's bias, not the kernel's)."""
+    for family in FAMILIES:
+        for steps in ((STEPS, HESTON_ORACLE_STEPS) if family == "heston" else (STEPS,)):
+            gated = family != "heston" or steps == HESTON_ORACLE_STEPS
+            curves = {"term": term_of(steps)} if family == "term" else {}
+            sim = build_simulation_params(
+                timesteps=steps, network_size=COLS, batches_per_mc_run=ROWS, mc_seed=3,
+                implementation="cuda", normalization="none", model=FAMILY_MODEL[family], **curves,
+            ).expect("oracle sim")
+            rows_of = make_underlier_simulator(sim, rows=ROWS)
+            base = FAMILY_ORACLE_CONTRACTS[family]
+            contracts = torch.tensor(base, dtype=torch.float32, device=device)
+            keys = rng.fold_in(rng.prng_key(sim.mc_seed, device), torch.arange(3, device=device))
+            group = group_of(family, "terminal")
+            before = gbm_cuda.LAUNCHES_BY_BRANCH[group]
+            u = rows_of(keys, contracts).reshape(3, -1)
+            if gbm_cuda.LAUNCHES_BY_BRANCH[group] != before + 1:
+                raise AssertionError(f"{family}: the oracle run did not launch {group}")
+            if not bool(torch.isfinite(u).all()):
+                raise AssertionError(f"{family}: non-finite terminal values")
+            prices = terminal_to_prices(u, contracts, normalize=False, dtype=torch.float32,
+                                        term=sim.term)
+            found = {}
+            samples = (("put", prices.put_payoffs), ("call", prices.call_payoffs), ("mean", u))
+            for side, pay in samples:
+                pay = pay.double()
+                mean = pay.mean(dim=1).cpu().numpy()
+                se = (pay.std(dim=1) / math.sqrt(pay.shape[1])).cpu().numpy()
+                for i, c in enumerate(base):
+                    if side == "mean":  # the martingale: E[S_T] = S·e^{(r−q)T} at the curves' means
+                        want = float(prices.forward[i])
+                    else:
+                        want = family_oracle(family, c, steps)[0 if side == "put" else 1]
+                    z = z_score(float(mean[i]), float(se[i]), want, 0.0)
+                    if gated and not z < 4.0:
+                        raise AssertionError(f"{family} {side} contract {i} at {steps} steps: MC "
+                                             f"{mean[i]:.6f} ± {se[i]:.2e} vs {want:.6f} (z={z:.2f})")
+                    found.setdefault(side, []).append(
+                        (round(float(mean[i]), 5), round(float(se[i]), 5), round(want, 5),
+                         round(z, 3)))
+            phase("oracle", family=family, payoff="terminal", steps=steps, paths=u.shape[1],
+                  gated=gated, **{f"{side}_mc_se_oracle_z": repr(v) for side, v in found.items()})
+
+
 # --------------------------------------------------------------------------
-# 4-8. the trainer: train, resume, serve
+# 4-10. the trainer: train, resume, serve
 # --------------------------------------------------------------------------
 
 
@@ -580,20 +935,25 @@ def production_cvnn():
     ).expect("cvnn")
 
 
-def bounds_for(payoff: PayoffKind) -> dict[str, BoundSpec]:
-    return {**BOUNDS, "strike": STRIKE_BOUNDS.get(payoff, BOUNDS["strike"])}
+def bounds_for(payoff: PayoffKind, family: str = "gbm") -> dict[str, BoundSpec]:
+    bounds = FAMILY_BOUNDS[family]
+    return {**bounds, "strike": STRIKE_BOUNDS.get(payoff, bounds["strike"])}
 
 
-def pricer_config(payoff: PayoffKind = PayoffKind.TERMINAL) -> GbmCVNNPricerConfig:
-    closed = has_closed_form_mean(ModelKind.GBM, payoff)
+def pricer_config(
+    payoff: PayoffKind = PayoffKind.TERMINAL, family: str = "gbm"
+) -> GbmCVNNPricerConfig:
+    model = ModelKind(FAMILY_MODEL[family])
+    closed = has_closed_form_mean(model, payoff)
     mean_ok = closed and payoff not in (PayoffKind.DIGITAL, PayoffKind.CLIQUET)
+    curves = {"term": term_of(STEPS)} if family == "term" else {}
     sim = build_simulation_params(
         timesteps=STEPS, network_size=COLS, batches_per_mc_run=ROWS, mc_seed=7,
-        implementation="cuda", payoff=payoff.value,
-        normalization="mean" if mean_ok else "none", **KNOBS.get(payoff, {}),
+        implementation="cuda", payoff=payoff.value, model=model.value,
+        normalization="mean" if mean_ok else "none", **KNOBS.get(payoff, {}), **curves,
     ).expect("sim")
-    return GbmCVNNPricerConfig(sim=sim, bounds=bounds_for(payoff), cvnn=production_cvnn(),
-                               normalize_inputs=True)
+    return GbmCVNNPricerConfig(sim=sim, bounds=bounds_for(payoff, family),
+                               cvnn=production_cvnn(), normalize_inputs=True)
 
 
 def train_steps(
@@ -614,9 +974,11 @@ def train_steps(
     return np.asarray(losses), seconds
 
 
-def phase_train(device: torch.device, payoff: PayoffKind, label: str) -> GbmCVNNPricer:
-    pricer = GbmCVNNPricer.create(pricer_config(payoff), device=device).expect("create")
-    branch = gbm_cuda.branch_of(payoff)
+def phase_train(
+    device: torch.device, payoff: PayoffKind, label: str, family: str = "gbm"
+) -> GbmCVNNPricer:
+    pricer = GbmCVNNPricer.create(pricer_config(payoff, family), device=device).expect("create")
+    branch = group_of(family, branch_of(family, payoff))
     before = gbm_cuda.LAUNCHES_BY_BRANCH[branch]
     losses, seconds = train_steps(pricer, 3)
     launched = gbm_cuda.LAUNCHES_BY_BRANCH[branch] - before
@@ -626,8 +988,9 @@ def phase_train(device: torch.device, payoff: PayoffKind, label: str) -> GbmCVNN
         raise AssertionError(f"{branch} kernel launched {launched} times in 3 steps, "
                              f"want {3 * BATCH // CHUNK}")
     snap = pricer.snapshot()
-    phase(label, payoff=payoff.value, engine=snap.sim.implementation.value,
-          normalization=snap.sim.normalization.value, stream_version=snap.cuda_stream_version,
+    phase(label, model=snap.sim.model.value, payoff=payoff.value,
+          inputs=len(FAMILY_CONTRACT[family].model_fields),
+          engine=snap.sim.implementation.value, normalization=snap.sim.normalization.value, stream_version=snap.cuda_stream_version,
           losses=losses.tolist(), launches=launched, step_seconds=[round(s, 4) for s in seconds],
           median_step_s=f"{statistics.median(seconds):.4f}",
           paths_per_contract=ROWS * COLS, batch=BATCH, chunk=CHUNK)
@@ -643,8 +1006,8 @@ def phase_resume(device: torch.device, pricer: GbmCVNNPricer, label: str) -> Non
     phase(label, continued=a.tolist(), resumed=b.tolist(), bit_equal=True)
 
 
-def held_out(payoff: PayoffKind, n: int) -> np.ndarray:
-    sampler = SobolSampler.create(BlackScholesContract, bounds_for(payoff),
+def held_out(payoff: PayoffKind, n: int, family: str = "gbm") -> np.ndarray:
+    sampler = SobolSampler.create(FAMILY_CONTRACT[family], bounds_for(payoff, family),
                                   SobolConfig(seed=7)).expect("sampler")
     return sampler.sample_array(n, device="cpu", start=1 << 20).numpy()
 
@@ -654,7 +1017,7 @@ def check_prices(pricer: GbmCVNNPricer, batch: np.ndarray, device: torch.device)
     call − put = df·(E[u] − K) to 1e-5, relative to the largest of the terms
     (the parity term, the strike and the put, whose float32 rounding the
     difference carries), with E[u] the payoff's own mean as the pricer
-    evaluates it on the card."""
+    evaluates it on the card and df at the curves' mean rate."""
     sim = pricer.snapshot().sim
     pred = pricer.predict_price(batch)
     if not np.all(np.isfinite(pred.put)):
@@ -665,7 +1028,8 @@ def check_prices(pricer: GbmCVNNPricer, batch: np.ndarray, device: torch.device)
         return pred
     mean = make_mean_target(sim)(torch.from_numpy(batch).to(device)).double().cpu().numpy()
     b = batch.astype(np.float64)
-    parity = np.exp(-b[:, 3] * b[:, 2]) * (mean - b[:, 1])
+    mean_rate = 1.0 if sim.term is None else sim.term.effective_factors(sim.timesteps)[1]
+    parity = np.exp(-b[:, 3] * mean_rate * b[:, 2]) * (mean - b[:, 1])
     gap = np.abs((pred.call - pred.put) - parity)
     scale = np.maximum(np.maximum(np.abs(parity), b[:, 1]), np.abs(pred.put))
     if not np.all(gap <= 1e-5 * scale):
@@ -675,8 +1039,9 @@ def check_prices(pricer: GbmCVNNPricer, batch: np.ndarray, device: torch.device)
 
 
 def phase_serve(pricer: GbmCVNNPricer, device: torch.device, label: str) -> dict[int, float]:
-    payoff = pricer.snapshot().sim.payoff
-    rows = held_out(payoff, 64)
+    sim = pricer.snapshot().sim
+    payoff, family = sim.payoff, family_of(sim)
+    rows = held_out(payoff, 64, family)
     p50 = {}
     for n in (1, 7, 64):
         batch = rows[:n]
@@ -692,7 +1057,7 @@ def phase_serve(pricer: GbmCVNNPricer, device: torch.device, label: str) -> dict
             times.append((time.perf_counter() - start) * 1e3)
         p50[n] = statistics.median(times)
     extra = {}
-    if payoff == PayoffKind.ASIAN_ARITHMETIC:
+    if payoff == PayoffKind.ASIAN_ARITHMETIC and family == "gbm":
         # the float32 series g(g^N − 1)/(g − 1) the pricer evaluates, against
         # float64: its cancellation costs ~1.2e-7/|g − 1| relative
         b = torch.from_numpy(rows)
@@ -701,7 +1066,7 @@ def phase_serve(pricer: GbmCVNNPricer, device: torch.device, label: str) -> dict
         f64 = expected_underlier_mean(b.double(), timesteps=STEPS, payoff=payoff,
                                       dtype=torch.float64)
         extra["mean_f32_vs_f64_max_rel"] = f"{float(((f32 - f64) / f64).abs().max()):.3e}"
-    phase(label, payoff=payoff.value, held_out_skip=1 << 20,
+    phase(label, model=sim.model.value, payoff=payoff.value, held_out_skip=1 << 20,
           puts_n64=np.round(pred.put[:4], 4).tolist(),
           p50_ms={k: round(v, 4) for k, v in p50.items()}, pad_bit_equal=True, parity_ok=True,
           **extra)
@@ -738,8 +1103,45 @@ def phase_payoffs(device: torch.device) -> None:
               calls="NaN" if np.all(np.isnan(pred.call)) else "parity")
 
 
+# Phase 10's pricers: one payoff per kernel branch of each family (Heston's
+# TERMINAL branch is phase 9's) and the routes through TERMINAL.
+FAMILY_PAYOFFS = (PayoffKind.TERMINAL, PayoffKind.DIGITAL, PayoffKind.FORWARD_START,
+                  PayoffKind.BARRIER_UP_OUT, PayoffKind.LOOKBACK_FLOAT_PUT,
+                  PayoffKind.VARIANCE_SWAP, PayoffKind.ASIAN_GEOMETRIC)
+
+
+def phase_families(device: torch.device) -> None:
+    for family in FAMILIES:
+        for payoff in FAMILY_PAYOFFS:
+            if family == "heston" and payoff == PayoffKind.TERMINAL:
+                continue
+            name = f"{family}/{payoff.value}"
+            pricer = GbmCVNNPricer.create(pricer_config(payoff, family),
+                                          device=device).expect(name)
+            group = group_of(family, branch_of(family, payoff))
+            before = gbm_cuda.LAUNCHES_BY_BRANCH[group]
+            losses, seconds = train_steps(pricer, 1, batch=PAYOFF_BATCH, chunk=PAYOFF_BATCH)
+            launched = gbm_cuda.LAUNCHES_BY_BRANCH[group] - before
+            snap = pricer.snapshot()
+            key = FAMILY_STREAM[family]
+            if snap.sim.implementation.value != "cuda":
+                raise AssertionError(f"{name}: engine {snap.sim.implementation.value}")
+            if snap.cuda_stream_version != gbm_cuda.CUDA_STREAM_VERSIONS[key] or launched != 1:
+                raise AssertionError(f"{name}: stream v{snap.cuda_stream_version}, "
+                                     f"{group} launches {launched}")
+            if not np.all(np.isfinite(losses)):
+                raise AssertionError(f"{name}: non-finite loss {losses}")
+            pred = check_prices(pricer, held_out(payoff, 8, family), device)
+            phase("families", model=snap.sim.model.value, curved=family == "term",
+                  payoff=payoff.value, engine="cuda", stream=f"{key}_v{snap.cuda_stream_version}",
+                  branch=group, launches=launched,
+                  normalization=snap.sim.normalization.value, loss=float(losses[0]),
+                  step_s=round(seconds[0], 4), puts=np.round(pred.put[:3], 5).tolist(),
+                  calls="NaN" if np.all(np.isnan(pred.call)) else "parity")
+
+
 # --------------------------------------------------------------------------
-# 9. profile
+# 11. profile
 # --------------------------------------------------------------------------
 
 
@@ -773,7 +1175,8 @@ def phase_profile(pricer: GbmCVNNPricer, label: str) -> None:
           profiled_steps=3, wall_ms=f"{wall:.3f}", kernel_ms=f"{busy:.3f}",
           busy=f"{busy / wall:.4f}", idle=f"{1 - busy / wall:.4f}", kernel_launches=launches,
           top=repr(top))
-    rows = held_out(pricer.snapshot().sim.payoff, 64)
+    sim = pricer.snapshot().sim
+    rows = held_out(sim.payoff, 64, family_of(sim))
     for _ in range(5):
         pricer.predict_price(rows)
     wall, busy, launches, top = profiled(lambda: [pricer.predict_price(rows) for _ in range(20)])
@@ -790,6 +1193,7 @@ def main() -> None:
     per_step = phase_build()
     kernel = phase_kernel(device, per_step, max_sm_hz)
     phase_oracle(device)
+    phase_oracle_families(device)
     launches: dict[str, int] = {}
     gbm_cuda.reset_launches()  # the TERMINAL path's count starts here
     pricer = phase_train(device, PayoffKind.TERMINAL, "train")
@@ -805,25 +1209,40 @@ def main() -> None:
     phase_payoffs(device)
     for branch in ("barrier", "lookback", "variance", "cliquet"):
         launches[branch] = gbm_cuda.LAUNCHES_BY_BRANCH[branch]
+    gbm_cuda.reset_launches()  # the Heston path's count starts here
+    heston = phase_train(device, PayoffKind.TERMINAL, "train-heston", "heston")
+    phase_resume(device, heston, "resume-heston")
+    phase_serve(heston, device, "serve-heston")
+    launches["heston_terminal"] = gbm_cuda.LAUNCHES_BY_BRANCH["heston_terminal"]
+    gbm_cuda.reset_launches()  # the other family branches' path starts here
+    phase_families(device)
+    for group in TIMED:
+        launches.setdefault(group, gbm_cuda.LAUNCHES_BY_BRANCH[group])
     missing = [b for b, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"the main paths never launched the {missing} kernel branches")
     if args.profile:
         phase_profile(pricer, "")
         phase_profile(asian, "-asian")
-    print(json.dumps({"kernels": [{
-        "name": f"gbm_{branch}",
-        "route": "cuda",
-        "source": SOURCE,
-        "replaces": REPLACES.get(branch, "spectralmc_tpu/ops/gbm_pallas.py:512"),
-        "launches": launches[branch],
-        "max_abs_err": kernel[branch]["max_abs_err"],
-        "ms": kernel[branch]["ms"],
-        "plain_ms": kernel[branch]["plain_ms"],
-        "bound_ms": kernel[branch]["bound_ms"],
-        "bound_by": kernel[branch]["bound_by"],
-        "library_ms": None,  # no single PyTorch call computes these functions
-    } for branch in TIMED]}))
+        phase_profile(heston, "-heston")
+    records = []
+    for group, (family, _, _) in TIMED.items():
+        flat = family == "gbm"
+        records.append({
+            "name": f"gbm_{group}" if family in ("gbm", "term") else group,
+            "route": "cuda",
+            "source": SOURCE if flat else DYNAMICS_SOURCE,
+            "replaces": (REPLACES.get(group, "spectralmc_tpu/ops/gbm_pallas.py:512") if flat
+                         else FAMILY_REPLACES[family]),
+            "launches": launches[group],
+            "max_abs_err": kernel[group]["max_abs_err"],
+            "ms": kernel[group]["ms"],
+            "plain_ms": kernel[group]["plain_ms"],
+            "bound_ms": kernel[group]["bound_ms"],
+            "bound_by": kernel[group]["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes these functions
+        })
+    print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

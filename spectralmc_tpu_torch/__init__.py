@@ -2,10 +2,11 @@
 
 Complex-valued neural networks trained online on the DFT (characteristic
 function) of Monte-Carlo payoff distributions, served as a pricer. This
-package carries the main path — Sobol contracts → GBM Monte-Carlo → FFT →
-CVNN → Adam, with snapshot/resume and serving — on PyTorch for every flat
-GBM payoff but the American ones, with the MC hot loop in hand-written CUDA
-kernels for Hopper (``csrc/gbm_paths.cu``).
+package carries the main path — Sobol contracts → Monte-Carlo → FFT → CVNN →
+Adam, with snapshot/resume and serving — on PyTorch for GBM (flat or under
+piecewise-constant term structures), Heston and Merton dynamics and every
+payoff but the American ones, with the MC hot loop in hand-written CUDA
+kernels for Hopper (``csrc/gbm_paths.cu``, ``csrc/dynamics_paths.cu``).
 It imports neither JAX nor the JAX package; the tests hold it against both.
 """
 
@@ -25,6 +26,12 @@ _EXPORTS = {
     "ModelKind": "spectralmc_tpu_torch.ops.gbm",
     "SimImplementation": "spectralmc_tpu_torch.ops.gbm",
     "SamplingKind": "spectralmc_tpu_torch.ops.gbm",
+    "TermStructure": "spectralmc_tpu_torch.ops.gbm",
+    "bootstrap_vol_shape": "spectralmc_tpu_torch.ops.gbm",
+    "HestonContract": "spectralmc_tpu_torch.ops.heston",
+    "heston_call_price": "spectralmc_tpu_torch.ops.heston",
+    "MertonContract": "spectralmc_tpu_torch.ops.merton",
+    "merton_call_price": "spectralmc_tpu_torch.ops.merton",
     "black_scholes_price": "spectralmc_tpu_torch.ops.analytic",
     "BoundSpec": "spectralmc_tpu_torch.ops.sobol",
     "SobolSampler": "spectralmc_tpu_torch.ops.sobol",

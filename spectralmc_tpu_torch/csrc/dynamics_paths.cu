@@ -1,0 +1,357 @@
+// Payoff underliers under curved GBM, Heston and Merton dynamics for a batch of
+// contracts: the "cuda" MC engine beyond flat GBM.
+//
+// Replaces three kernels of the JAX package's ops/gbm_pallas.py:
+//   * _gbm_term_block_kernel: log-Euler GBM under piecewise-constant curves.
+//     The draw order per branch is the flat kernel's (gbm_paths.cu); only the
+//     coefficients come from per-contract tables computed outside the kernel:
+//     step[t] = (drift_t·dt, vol_t·√dt) and pair[p] = (R, φ) with
+//     R = √(v_a² + v_b²), φ = atan2(v_a, v_b)/2π for the steps a = 2p,
+//     b = 2p + 1. TERMINAL advances two steps per draw with one sine even
+//     though the two vols differ: v_a·r·cos θ + v_b·r·sin θ = r·R·sin(θ + 2πφ);
+//     the variance swap takes both Box–Muller outputs of a draw as the two
+//     steps' normals (r·cos θ, r·sin θ); barrier, lookback and Asian take one
+//     draw per step with z = r·cos θ. An odd tail is one single step.
+//   * _heston_block_kernel: full-truncation Euler Heston. One draw per step:
+//     z_v = r·cos θ drives the variance, z_s = ρ·z_v + ρ̄·r·sin θ the spot, and
+//     √(v⁺·dt) is one square root. The RAW v stays the base of the recursion;
+//     only drift and diffusion see v⁺ = max(v, 0). The variance-swap branch
+//     sums its increment first, the others add term by term, as the TPU
+//     kernel does. Forward start walks the whole path and captures ln S_m
+//     after step m − 1.
+//   * _merton_block_kernel: the exact compensated Merton step. ONE Philox call
+//     per step: words 0, 1 give the Box–Muller pair (z_d = r·cos θ for the
+//     diffusion, z_j = r·sin θ for the jump size), word 2 the uniform of the
+//     Poisson count, word 3 is unused. The count is the number of the 16
+//     running-cdf levels at or below the uniform; the levels depend only on
+//     lam·dt and come in a per-contract table, so the kernel and its plain
+//     version compare one uniform against the same 16 floats and agree on
+//     every count. jump = n·μ_J + σ_J·√n·z_j. Antithetic rows flip the pair
+//     and share the counts.
+// What they drop is what the TPU needed: the hardware PRNG, the polynomial
+// sine, the 256x256 blocks, the SMEM tables and the unroll caps. One thread
+// owns one path and keeps its whole state in registers; every thread of a
+// block belongs to one contract (blockIdx.y), so a table entry is one
+// broadcast load through the read-only cache.
+//
+// Bound on Hopper: the rate of transcendental and integer instructions, as
+// for the flat kernel. Per step the Heston and Merton kernels add a second
+// trigonometric output and a square root; Merton runs a whole Philox call per
+// step and 16 compares.
+//
+// Contract: launches on the given stream, allocates nothing, does not
+// synchronise; each C entry point returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "path_stream.cuh"
+
+namespace {
+
+constexpr int kForward = 5;  // Heston only: spot·S_T/S_m with ln S_m captured
+constexpr int kPoissonTerms = 16;
+
+__device__ __forceinline__ bool tracks_max(int family, int variant) {
+  return family == kBarrier ? variant == 1 : (variant == 0 || variant == 3);
+}
+
+// The epilogue the branches share: `logx` the terminal log-price, `acc` the
+// running extreme (log), the running sum, or the captured ln S_m.
+template <int kFamily>
+__device__ __forceinline__ float finish(float logx, float acc, float spot, float strike,
+                                        float maturity, int timesteps, int variant,
+                                        float barrier_rel) {
+  if constexpr (kFamily == kTerminal) {
+    return expf(logx);
+  } else if constexpr (kFamily == kVariance) {
+    return __fdiv_rn(acc, maturity);
+  } else if constexpr (kFamily == kForward) {
+    return spot * expf(logx - acc);
+  } else if constexpr (kFamily == kAsian) {
+    const float inv_n = static_cast<float>(1.0 / timesteps);
+    return variant ? expf(acc * inv_n) : acc * inv_n;
+  } else if constexpr (kFamily == kBarrier) {
+    const float level = logf(__fmul_rn(spot, barrier_rel));
+    const bool knocked = tracks_max(kFamily, variant) ? acc >= level : acc <= level;
+    return knocked ? strike : expf(logx);
+  } else {
+    const float ext = expf(acc), terminal = expf(logx);
+    return variant == 0 ? 2.0f * strike - ext
+         : variant == 1 ? ext
+         : variant == 2 ? strike - (terminal - ext)
+                        : strike - (ext - terminal);
+  }
+}
+
+// Folds the new log-price into the branch's accumulator.
+template <int kFamily>
+__device__ __forceinline__ float observe(float acc, float logx, bool up, int variant) {
+  if constexpr (kFamily == kAsian) {
+    return acc + (variant ? logx : expf(logx));
+  } else if constexpr (kFamily == kBarrier || kFamily == kLookback) {
+    return up ? fmaxf(acc, logx) : fminf(acc, logx);
+  } else {
+    return acc;
+  }
+}
+
+// Log-Euler GBM under curves: step [C, T, 2], pair [C, max(T/2, 1), 2].
+template <int kFamily>
+__global__ void gbm_term_kernel(const float* __restrict__ params,
+                                const uint32_t* __restrict__ keys,
+                                const float2* __restrict__ step,
+                                const float2* __restrict__ pair, float* __restrict__ out,
+                                int64_t rows, int64_t cols, int timesteps, int variant,
+                                float barrier_rel, int64_t half, int64_t row_offset) {
+  int64_t local;
+  int c;
+  PathStream s;
+  if (!path_setup(keys, rows, cols, half, row_offset, local, c, s)) return;
+  const float sign = s.sign;
+  const float* p = params + 6 * c;
+  const float spot = p[0], strike = p[1], maturity = p[2];
+  const int pairs = timesteps / 2;
+  const float2* st = step + static_cast<int64_t>(c) * timesteps;
+  const float2* pr = pair + static_cast<int64_t>(c) * (pairs > 0 ? pairs : 1);
+  float u1, u2;
+  float logx = logf(spot);
+  float acc = (kFamily == kBarrier || kFamily == kLookback) ? logx : 0.0f;
+
+  if constexpr (kFamily == kTerminal) {
+    for (int j = 0; j < pairs; ++j) {
+      s.draw(j, u1, u2);
+      const float rad = sqrtf(-2.0f * logf(u1));
+      const float2 a = __ldg(st + 2 * j), b = __ldg(st + 2 * j + 1), rp = __ldg(pr + j);
+      const float z_mix = sign * ((rad * rp.x) * sinpif(2.0f * (u2 + rp.y)));
+      logx = (logx + (a.x + b.x)) + z_mix;
+    }
+    if (timesteps & 1) {
+      s.draw(pairs, u1, u2);
+      const float2 a = __ldg(st + timesteps - 1);
+      const float z = sign * (sqrtf(-2.0f * logf(u1)) * cospif(2.0f * u2));
+      logx = (logx + a.x) + a.y * z;
+    }
+  } else if constexpr (kFamily == kVariance) {
+    for (int j = 0; j < pairs; ++j) {
+      s.draw(j, u1, u2);
+      const float rad = sqrtf(-2.0f * logf(u1));
+      float sn, cs;
+      sincospif(2.0f * u2, &sn, &cs);
+      const float2 a = __ldg(st + 2 * j), b = __ldg(st + 2 * j + 1);
+      const float inc_a = a.x + a.y * (sign * (rad * cs));
+      const float inc_b = b.x + b.y * (sign * (rad * sn));
+      acc = (acc + inc_a * inc_a) + inc_b * inc_b;
+    }
+    if (timesteps & 1) {
+      s.draw(pairs, u1, u2);
+      const float2 a = __ldg(st + timesteps - 1);
+      const float z = sign * (sqrtf(-2.0f * logf(u1)) * cospif(2.0f * u2));
+      const float inc = a.x + a.y * z;
+      acc = acc + inc * inc;
+    }
+  } else {  // barrier, lookback, Asian: one draw per step
+    const bool up = tracks_max(kFamily, variant);
+    for (int j = 0; j < timesteps; ++j) {
+      s.draw(j, u1, u2);
+      const float2 a = __ldg(st + j);
+      const float z = sign * (sqrtf(-2.0f * logf(u1)) * cospif(2.0f * u2));
+      logx = (logx + a.x) + a.y * z;
+      acc = observe<kFamily>(acc, logx, up, variant);
+    }
+  }
+  out[static_cast<int64_t>(c) * rows * cols + local] =
+      finish<kFamily>(logx, acc, spot, strike, maturity, timesteps, variant, barrier_rel);
+}
+
+// Full-truncation Euler Heston: params [C, 10] = spot strike T r q v0 kappa
+// theta xi rho.
+template <int kFamily>
+__global__ void heston_paths_kernel(const float* __restrict__ params,
+                                    const uint32_t* __restrict__ keys, float* __restrict__ out,
+                                    int64_t rows, int64_t cols, int timesteps, int variant,
+                                    float barrier_rel, int forward_step, int64_t half,
+                                    int64_t row_offset) {
+  int64_t local;
+  int c;
+  PathStream s;
+  if (!path_setup(keys, rows, cols, half, row_offset, local, c, s)) return;
+  const float sign = s.sign;
+  const float* p = params + 10 * c;
+  const float spot = p[0], strike = p[1], maturity = p[2], rate = p[3], div = p[4],
+              v0 = p[5], kappa = p[6], theta = p[7], xi = p[8], rho = p[9];
+  // scalar set-up rounded op by op, as the plain version evaluates it
+  const float dt = __fdiv_rn(maturity, static_cast<float>(timesteps));
+  const float rho_bar = __fsqrt_rn(__fsub_rn(1.0f, __fmul_rn(rho, rho)));
+  const float rq_dt = __fmul_rn(__fsub_rn(rate, div), dt);
+  const float kdt = __fmul_rn(kappa, dt);
+  const float ktheta_dt = __fmul_rn(__fmul_rn(kappa, theta), dt);
+  const bool up = tracks_max(kFamily, variant);
+  float u1, u2;
+  float logx = logf(spot);
+  float v = v0;
+  float acc = (kFamily == kBarrier || kFamily == kLookback || kFamily == kForward) ? logx : 0.0f;
+  for (int j = 0; j < timesteps; ++j) {
+    s.draw(j, u1, u2);
+    const float rad = sqrtf(-2.0f * logf(u1));
+    float sn, cs;
+    sincospif(2.0f * u2, &sn, &cs);
+    const float z_v = sign * (rad * cs);
+    const float z_s = rho * z_v + rho_bar * (sign * (rad * sn));
+    const float v_plus = fmaxf(v, 0.0f);
+    const float sv = sqrtf(v_plus * dt);
+    if constexpr (kFamily == kVariance) {
+      const float inc = (rq_dt - (0.5f * v_plus) * dt) + sv * z_s;
+      logx = logx + inc;
+      acc = acc + inc * inc;
+    } else {
+      logx = ((logx + rq_dt) - (0.5f * v_plus) * dt) + sv * z_s;
+    }
+    v = ((v + ktheta_dt) - kdt * v_plus) + (xi * sv) * z_v;
+    if constexpr (kFamily == kForward) {
+      if (j == forward_step - 1) acc = logx;
+    } else {
+      acc = observe<kFamily>(acc, logx, up, variant);
+    }
+  }
+  out[static_cast<int64_t>(c) * rows * cols + local] =
+      finish<kFamily>(logx, acc, spot, strike, maturity, timesteps, variant, barrier_rel);
+}
+
+// The exact Merton step: params [C, 9] = spot strike T r q vol lam jump_mean
+// jump_std; levels [C, 16] the running Poisson cdf of lam·dt.
+template <int kFamily>
+__global__ void merton_paths_kernel(const float* __restrict__ params,
+                                    const uint32_t* __restrict__ keys,
+                                    const float* __restrict__ levels, float* __restrict__ out,
+                                    int64_t rows, int64_t cols, int timesteps, int variant,
+                                    float barrier_rel, int64_t half, int64_t row_offset) {
+  int64_t local;
+  int c;
+  PathStream s;
+  if (!path_setup(keys, rows, cols, half, row_offset, local, c, s)) return;
+  const float sign = s.sign;
+  const float* p = params + 9 * c;
+  const float spot = p[0], strike = p[1], maturity = p[2], rate = p[3], div = p[4],
+              vol = p[5], lam = p[6], jump_mean = p[7], jump_std = p[8];
+  const float dt = __fdiv_rn(maturity, static_cast<float>(timesteps));
+  const float vol_sdt = __fmul_rn(vol, __fsqrt_rn(dt));
+  const float m = __fsub_rn(
+      expf(__fadd_rn(jump_mean, __fmul_rn(__fmul_rn(0.5f, jump_std), jump_std))), 1.0f);
+  const float drift = __fmul_rn(
+      __fsub_rn(__fsub_rn(__fsub_rn(rate, div), __fmul_rn(lam, m)),
+                __fmul_rn(__fmul_rn(0.5f, vol), vol)),
+      dt);
+  float lv[kPoissonTerms];
+#pragma unroll
+  for (int k = 0; k < kPoissonTerms; ++k) lv[k] = __ldg(levels + kPoissonTerms * c + k);
+  const bool up = tracks_max(kFamily, variant);
+  float logx = logf(spot);
+  float acc = (kFamily == kBarrier || kFamily == kLookback) ? logx : 0.0f;
+  for (int t = 0; t < timesteps; ++t) {
+    const uint4 w = philox4x32_10(make_uint4(s.c0, s.c1, t, 0u), s.k0, s.k1);
+    const float rad = sqrtf(-2.0f * logf(uniform_open(w.x)));
+    float sn, cs;
+    sincospif(2.0f * uniform_closed(w.y), &sn, &cs);
+    const float z_d = sign * (rad * cs);
+    const float z_j = sign * (rad * sn);
+    const float u_c = uniform_closed(w.z);
+    float cnt = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kPoissonTerms; ++k) cnt += (u_c >= lv[k]) ? 1.0f : 0.0f;
+    const float jump = cnt * jump_mean + (jump_std * sqrtf(cnt)) * z_j;
+    if constexpr (kFamily == kVariance) {
+      const float inc = (drift + vol_sdt * z_d) + jump;
+      logx = logx + inc;
+      acc = acc + inc * inc;
+    } else {
+      logx = ((logx + drift) + vol_sdt * z_d) + jump;
+      acc = observe<kFamily>(acc, logx, up, variant);
+    }
+  }
+  out[static_cast<int64_t>(c) * rows * cols + local] =
+      finish<kFamily>(logx, acc, spot, strike, maturity, timesteps, variant, barrier_rel);
+}
+
+constexpr int kThreads = 256;
+
+}  // namespace
+
+// Launches KERNEL<family> for the families listed in the switch.
+#define LAUNCH_FAMILY(KERNEL, FAMILY, ...)                                              \
+  case FAMILY:                                                                          \
+    KERNEL<FAMILY><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(__VA_ARGS__); \
+    break;
+
+extern "C" int gbm_term_launch(const void* params, const void* keys, const void* step,
+                               const void* pair, void* out, int contracts, long long rows,
+                               long long cols, int timesteps, int family, int variant,
+                               float barrier_rel, long long half, long long row_offset,
+                               void* stream) {
+  const dim3 grid = grid_of(contracts, rows, cols, kThreads);
+  const float* pp = static_cast<const float*>(params);
+  const uint32_t* kp = static_cast<const uint32_t*>(keys);
+  const float2* sp = static_cast<const float2*>(step);
+  const float2* rp = static_cast<const float2*>(pair);
+  float* op = static_cast<float*>(out);
+#define TERM_ARGS pp, kp, sp, rp, op, rows, cols, timesteps, variant, barrier_rel, half, row_offset
+  switch (family) {
+    LAUNCH_FAMILY(gbm_term_kernel, kTerminal, TERM_ARGS)
+    LAUNCH_FAMILY(gbm_term_kernel, kBarrier, TERM_ARGS)
+    LAUNCH_FAMILY(gbm_term_kernel, kLookback, TERM_ARGS)
+    LAUNCH_FAMILY(gbm_term_kernel, kVariance, TERM_ARGS)
+    LAUNCH_FAMILY(gbm_term_kernel, kAsian, TERM_ARGS)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef TERM_ARGS
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int heston_paths_launch(const void* params, const void* keys, void* out,
+                                   int contracts, long long rows, long long cols,
+                                   int timesteps, int family, int variant, float barrier_rel,
+                                   int forward_step, long long half, long long row_offset,
+                                   void* stream) {
+  const dim3 grid = grid_of(contracts, rows, cols, kThreads);
+  const float* pp = static_cast<const float*>(params);
+  const uint32_t* kp = static_cast<const uint32_t*>(keys);
+  float* op = static_cast<float*>(out);
+#define HESTON_ARGS \
+  pp, kp, op, rows, cols, timesteps, variant, barrier_rel, forward_step, half, row_offset
+  switch (family) {
+    LAUNCH_FAMILY(heston_paths_kernel, kTerminal, HESTON_ARGS)
+    LAUNCH_FAMILY(heston_paths_kernel, kBarrier, HESTON_ARGS)
+    LAUNCH_FAMILY(heston_paths_kernel, kLookback, HESTON_ARGS)
+    LAUNCH_FAMILY(heston_paths_kernel, kVariance, HESTON_ARGS)
+    LAUNCH_FAMILY(heston_paths_kernel, kAsian, HESTON_ARGS)
+    LAUNCH_FAMILY(heston_paths_kernel, kForward, HESTON_ARGS)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef HESTON_ARGS
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int merton_paths_launch(const void* params, const void* keys, const void* levels,
+                                   void* out, int contracts, long long rows, long long cols,
+                                   int timesteps, int family, int variant, float barrier_rel,
+                                   long long half, long long row_offset, void* stream) {
+  const dim3 grid = grid_of(contracts, rows, cols, kThreads);
+  const float* pp = static_cast<const float*>(params);
+  const uint32_t* kp = static_cast<const uint32_t*>(keys);
+  const float* lp = static_cast<const float*>(levels);
+  float* op = static_cast<float*>(out);
+#define MERTON_ARGS pp, kp, lp, op, rows, cols, timesteps, variant, barrier_rel, half, row_offset
+  switch (family) {
+    LAUNCH_FAMILY(merton_paths_kernel, kTerminal, MERTON_ARGS)
+    LAUNCH_FAMILY(merton_paths_kernel, kBarrier, MERTON_ARGS)
+    LAUNCH_FAMILY(merton_paths_kernel, kLookback, MERTON_ARGS)
+    LAUNCH_FAMILY(merton_paths_kernel, kVariance, MERTON_ARGS)
+    LAUNCH_FAMILY(merton_paths_kernel, kAsian, MERTON_ARGS)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef MERTON_ARGS
+  return static_cast<int>(cudaGetLastError());
+}

@@ -57,15 +57,19 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; cannot build the CUDA kernels")
 
 
-def load_library(name: str, sources: tuple[str, ...]) -> BuiltLibrary:
-    """Build (once per content hash) and load ``csrc/<sources>`` as ``name``."""
+def load_library(
+    name: str, sources: tuple[str, ...], headers: tuple[str, ...] = ()
+) -> BuiltLibrary:
+    """Build (once per content hash) and load ``csrc/<sources>`` as ``name``;
+    ``headers`` are the ``csrc/`` files the sources include (hashed with
+    them, not handed to nvcc)."""
     with _LOCK:
         cached = _LOADED.get(name)
         if cached is not None:
             return cached
         paths = [CSRC / s for s in sources]
         digest = hashlib.sha256()
-        for p in paths:
+        for p in (*paths, *(CSRC / h for h in headers)):
             digest.update(p.read_bytes())
         digest.update(" ".join(NVCC_FLAGS).encode())
         target = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"

@@ -1,13 +1,13 @@
-"""Closed-form and lattice oracles under flat GBM (the JAX package's
-``ops/analytic.py``, flat signatures only).
+"""Closed-form and lattice oracles under GBM, flat or under piecewise-constant
+curves (the JAX package's ``ops/analytic.py``).
 
 The Black–Scholes, digital, geometric-Asian and forward-start prices are
 pure and broadcastable over float64 tensors. The discrete-grid barrier,
 lookback, variance and cliquet oracles run on the host in numpy/scipy
 float64, as the JAX package's do. Each shares the simulator's exact
 discrete monitoring grid, so it gates the MC estimator with no
-discretization slop. A piecewise-constant curve argument raises
-``NotImplementedError``: term structures are a later slice.
+discretization slop. Curve arguments follow ``ops/gbm.py::TermStructure``:
+per-step multipliers on vol, rate and dividend yield, empty meaning flat.
 """
 
 from __future__ import annotations
@@ -17,10 +17,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-
-from spectralmc_tpu_torch.core.errors import not_ported
-
-TERM_QUEUE = "queue 1 item 15 (term structures)"
 
 
 @dataclass(frozen=True, slots=True)
@@ -59,10 +55,34 @@ def _norm_cdf(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * (1.0 + torch.erf(x / math.sqrt(2.0)))
 
 
-def _flat_only(**shapes: tuple[float, ...]) -> None:
-    for name, shape in shapes.items():
-        if shape:
-            raise not_ported(f"a curve argument ({name})", TERM_QUEUE)
+Shape = tuple[float, ...]
+
+
+def _shapes(n: int, vol_shape: Shape, rate_shape: Shape, div_shape: Shape) -> tuple[Shape, ...]:
+    """The three shapes with empties expanded to ``n`` flat ones."""
+    flat = (1.0,) * n
+    return vol_shape or flat, rate_shape or flat, div_shape or flat
+
+
+def _effective(
+    vol_shape: Shape, rate_shape: Shape, div_shape: Shape
+) -> tuple[float, float, float]:
+    """(RMS vol, mean rate, mean div) factors of the curves (1 when empty)."""
+    n = max(len(vol_shape), len(rate_shape), len(div_shape), 1)
+    vs, rs, qs = _shapes(n, vol_shape, rate_shape, div_shape)
+    return math.sqrt(sum(v * v for v in vs) / n), sum(rs) / n, sum(qs) / n
+
+
+def _step_moments(
+    maturity: float, rate: float, div_yield: float, vol: float, n: int,
+    vol_shape: Shape, rate_shape: Shape, div_shape: Shape,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Per-step log-drift ``a_t`` and standard deviation ``b_t`` ``[n]``."""
+    vs, rs, qs = (np.asarray(x, dtype=np.float64)
+                  for x in _shapes(n, vol_shape, rate_shape, div_shape))
+    dt = maturity / n
+    vol_t = vol * vs
+    return (rate * rs - div_yield * qs - 0.5 * vol_t * vol_t) * dt, vol_t * np.sqrt(dt)
 
 
 def _prices(put, call, mean, strike, df) -> AnalyticPrices:  # noqa: ANN001
@@ -104,6 +124,28 @@ def black_scholes_price(
     return _prices(put, call, forward, k, df)
 
 
+def term_effective_black(
+    spot: torch.Tensor | float,
+    strike: torch.Tensor | float,
+    maturity: torch.Tensor | float,
+    rate: torch.Tensor | float,
+    div_yield: torch.Tensor | float,
+    vol: torch.Tensor | float,
+    *,
+    vol_shape: Shape,
+    rate_shape: Shape,
+    div_shape: Shape,
+) -> AnalyticPrices:
+    """European put/call under piecewise-constant curves, exact for the
+    log-Euler simulator: ln S_T is Gaussian with total variance
+    ``vol²·dt·Σ vs_j²`` and drift integral ``Σ(r·rs_j − q·qs_j)dt``, so the
+    flat Black formula applies at ``vol·sqrt(mean(vs²))``, ``r·mean(rs)``,
+    ``q·mean(qs)``."""
+    v_f, r_f, q_f = _effective(vol_shape, rate_shape, div_shape)
+    s, k, t, r, q, v = _f64(spot, strike, maturity, rate, div_yield, vol)
+    return black_scholes_price(s, k, t, r * r_f, q * q_f, v * v_f)
+
+
 def lognormal_black_price(
     mu: torch.Tensor | float,
     s2: torch.Tensor | float,
@@ -138,9 +180,12 @@ def digital_price(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(put, call) cash-or-nothing digital prices, one unit of cash:
     put = df·N(−d2), call = df·N(d2). Exact for the log-Euler simulator
-    (ln S_T is exactly Gaussian under the discrete scheme)."""
-    _flat_only(vol_shape=vol_shape, rate_shape=rate_shape, div_shape=div_shape)
+    (ln S_T is exactly Gaussian under the discrete scheme, flat or curved:
+    d2 at the effective parameters of ``term_effective_black``)."""
     s, k, t, r, q, v = _f64(spot, strike, maturity, rate, div_yield, vol)
+    if vol_shape or rate_shape or div_shape:
+        v_f, r_f, q_f = _effective(vol_shape, rate_shape, div_shape)
+        r, q, v = r * r_f, q * q_f, v * v_f
     df = torch.exp(-r * t)
     total_vol = v * torch.sqrt(t)
     d2 = (torch.log(s / k) + (r - q) * t - 0.5 * total_vol**2) / total_vol
@@ -168,6 +213,32 @@ def geometric_asian_price(
     return lognormal_black_price(mu, s2, k, r, t)
 
 
+def term_geometric_asian_price(
+    spot: float,
+    strike: float,
+    maturity: float,
+    rate: float,
+    div_yield: float,
+    vol: float,
+    *,
+    timesteps: int,
+    vol_shape: Shape = (),
+    rate_shape: Shape = (),
+    div_shape: Shape = (),
+) -> AnalyticPrices:
+    """Discrete geometric-Asian put/call under piecewise-constant curves:
+    the grid average of ln S is Gaussian with ``mu = ln S + Σ_j a_j·(N−j)/N``
+    and ``s² = Σ_j b_j²·((N−j)/N)²`` (``geometric_asian_price``'s closed sums
+    for flat shapes); discounting uses the curve rate integral."""
+    n = int(timesteps)
+    a, b = _step_moments(maturity, rate, div_yield, vol, n, vol_shape, rate_shape, div_shape)
+    w = (n - np.arange(n, dtype=np.float64)) / n
+    mu = math.log(spot) + float((a * w).sum())
+    s2 = float((b * b * w * w).sum())
+    r_eff = rate * _effective(vol_shape, rate_shape, div_shape)[1]
+    return lognormal_black_price(mu, s2, strike, r_eff, maturity)
+
+
 def forward_start_price(
     spot: float,
     strike: float,
@@ -182,16 +253,18 @@ def forward_start_price(
     rate_shape: tuple[float, ...] = (),
     div_shape: tuple[float, ...] = (),
 ) -> AnalyticPrices:
-    """Exact discrete-grid forward-start put/call under log-Euler GBM: the
-    underlier u = spot·S_T/S_m is lognormal in the tail increments alone,
-    ln u ~ N(ln spot + (N−m)·a, (N−m)·σ²·dt), discounted over the full
-    maturity. ``strike`` is absolute."""
-    _flat_only(vol_shape=vol_shape, rate_shape=rate_shape, div_shape=div_shape)
+    """Exact discrete-grid forward-start put/call under log-Euler GBM, flat
+    or curved: the underlier u = spot·S_T/S_m is lognormal in the tail
+    increments alone, ln u ~ N(ln spot + Σ_{t≥m} a_t, Σ_{t≥m} v_t²·dt),
+    discounted over the full curve. ``strike`` is absolute."""
     n, m = int(timesteps), int(start_step)
     dt = maturity / n
-    mu = math.log(spot) + sum((rate - div_yield - 0.5 * vol**2) * dt for _ in range(m, n))
-    s2 = sum(vol**2 * dt for _ in range(m, n))
-    return lognormal_black_price(mu, s2, strike, rate, maturity)
+    vs, rs, qs = _shapes(n, vol_shape, rate_shape, div_shape)
+    mu = math.log(spot) + sum(
+        (rate * rs[t] - div_yield * qs[t] - 0.5 * (vol * vs[t]) ** 2) * dt for t in range(m, n)
+    )
+    s2 = sum((vol * vs[t]) ** 2 * dt for t in range(m, n))
+    return lognormal_black_price(mu, s2, strike, rate * (sum(rs) / n), maturity)
 
 
 def _log_grid_gauss(x: np.ndarray):  # noqa: ANN202
@@ -200,6 +273,16 @@ def _log_grid_gauss(x: np.ndarray):  # noqa: ANN202
         return np.exp(-0.5 * z * z) / (sd * np.sqrt(2.0 * np.pi))
 
     return gauss
+
+
+def _transitions(gauss, x, dx, drift_t, sd_t):  # noqa: ANN001, ANN202
+    """The ``[to, from]`` transition matrices of steps 1..N−1, one shared
+    matrix when every step has the same law."""
+    shared = None
+    if (drift_t == drift_t[0]).all() and (sd_t == sd_t[0]).all():
+        shared = gauss(x + drift_t[0], float(sd_t[0])) * dx
+    for j in range(1, len(drift_t)):
+        yield shared if shared is not None else gauss(x + drift_t[j], float(sd_t[j])) * dx
 
 
 def discrete_barrier_price(
@@ -221,34 +304,33 @@ def discrete_barrier_price(
 ) -> AnalyticPrices:
     """Knock-out put/call monitored on the DISCRETE grid t_1..t_N, by density
     propagation on a uniform log grid (host numpy, float64): each log-Euler
-    step's transition is exactly Gaussian, and the knockout mask applies at
-    every monitor date. Knocked paths pay nothing."""
-    _flat_only(vol_shape=vol_shape, rate_shape=rate_shape, div_shape=div_shape)
+    step's transition is exactly Gaussian (with its own drift and σ under
+    curves), and the knockout mask applies at every monitor date. Knocked
+    paths pay nothing."""
     n = int(timesteps)
-    dt = maturity / n
-    drift = (rate - div_yield - 0.5 * vol * vol) * dt
-    sd = vol * math.sqrt(dt)
-    if sd <= 0.0:
+    drift_t, sd_t = _step_moments(maturity, rate, div_yield, vol, n,
+                                  vol_shape, rate_shape, div_shape)
+    if (sd_t <= 0.0).any():
         raise ValueError("discrete_barrier_price needs positive per-step vol")
-    total_sd = sd * math.sqrt(n)
+    total_sd = float(np.sqrt((sd_t * sd_t).sum()))
     ln_s0 = math.log(spot)
     ln_b = math.log(spot * barrier_rel)
-    lo = min(ln_s0 + n * drift - width_std * total_sd, ln_b - 4 * sd)
-    hi = max(ln_s0 + n * drift + width_std * total_sd, ln_b + 4 * sd)
+    lo = min(ln_s0 + drift_t.sum() - width_std * total_sd, ln_b - 4 * sd_t.max())
+    hi = max(ln_s0 + drift_t.sum() + width_std * total_sd, ln_b + 4 * sd_t.max())
     x = np.linspace(lo, hi, grid_points)
     dx = x[1] - x[0]
     survive = x < ln_b if up else x > ln_b
     gauss = _log_grid_gauss(x)
-    q = gauss(np.array([ln_s0 + drift]), sd)[:, 0] * dx
+    q = gauss(np.array([ln_s0 + drift_t[0]]), float(sd_t[0]))[:, 0] * dx
     q = np.where(survive, q, 0.0)
-    transition = gauss(x + drift, sd) * dx  # [to, from]
-    for _ in range(1, n):
-        q = np.where(survive, transition @ q, 0.0)
+    for step_t in _transitions(gauss, x, dx, drift_t, sd_t):
+        q = np.where(survive, step_t @ q, 0.0)
     s_t = np.exp(x)
-    df = math.exp(-rate * maturity)
+    _, r_f, q_f = _effective(vol_shape, rate_shape, div_shape)
+    df = math.exp(-rate * r_f * maturity)
     call = df * float((q * np.maximum(s_t - strike, 0.0)).sum())
     put = df * float((q * np.maximum(strike - s_t, 0.0)).sum())
-    forward = spot * math.exp((rate - div_yield) * maturity)
+    forward = spot * math.exp((rate * r_f - div_yield * q_f) * maturity)
     return _prices(put, call, forward, strike, df)
 
 
@@ -274,29 +356,28 @@ def lookback_price(
     E[(M−K)+] = max(S0−K, 0) + ∫_{max(K,S0)}^∞ (1 − survival(b)) db, over a
     ladder of levels in one batched propagation; symmetrically for the
     running min."""
-    _flat_only(vol_shape=vol_shape, rate_shape=rate_shape, div_shape=div_shape)
     n = int(timesteps)
-    dt = maturity / n
-    drift = (rate - div_yield - 0.5 * vol * vol) * dt
-    sd = vol * math.sqrt(dt)
-    if sd <= 0.0:
+    drift_t, sd_t = _step_moments(maturity, rate, div_yield, vol, n,
+                                  vol_shape, rate_shape, div_shape)
+    if (sd_t <= 0.0).any():
         raise ValueError("lookback_price needs positive per-step vol")
-    total_sd = sd * math.sqrt(n)
-    drift_sum = n * drift
+    total_sd = float(np.sqrt((sd_t * sd_t).sum()))
+    drift_sum = float(drift_t.sum())
     ln_s0 = math.log(spot)
     lo = ln_s0 + min(drift_sum, 0.0) - width_std * total_sd
     hi = ln_s0 + max(drift_sum, 0.0) + width_std * total_sd
     x = np.linspace(lo, hi, grid_points)
     dx = x[1] - x[0]
     gauss = _log_grid_gauss(x)
-    transition = gauss(x + drift, sd) * dx
+    transitions = list(_transitions(gauss, x, dx, drift_t, sd_t))
 
     def exceed_prob(ln_levels: np.ndarray, up: bool) -> np.ndarray:
         """P(extreme beyond level) per ladder level, one batched propagation."""
         survive = (x[:, None] < ln_levels[None, :]) if up else (x[:, None] > ln_levels[None, :])
-        q = np.where(survive, gauss(np.array([ln_s0 + drift]), sd) * dx, 0.0)  # [G, L]
-        for _ in range(1, n):
-            q = np.where(survive, transition @ q, 0.0)
+        first = gauss(np.array([ln_s0 + drift_t[0]]), float(sd_t[0])) * dx
+        q = np.where(survive, first, 0.0)  # [G, L]
+        for step_t in transitions:
+            q = np.where(survive, step_t @ q, 0.0)
         return 1.0 - q.sum(axis=0)
 
     def tail_integral(grid: np.ndarray, p: np.ndarray, c: float) -> float:
@@ -326,8 +407,9 @@ def lookback_price(
     p_below = exceed_prob(np.log(b_min), up=False)
     e_min = spot - head_integral(b_min, p_below, spot)
     fixed_put = max(strike - spot, 0.0) + head_integral(b_min, p_below, min(strike, spot))
-    df = math.exp(-rate * maturity)
-    forward = spot * math.exp((rate - div_yield) * maturity)
+    _, r_f, q_f = _effective(vol_shape, rate_shape, div_shape)
+    df = math.exp(-rate * r_f * maturity)
+    forward = spot * math.exp((rate * r_f - div_yield * q_f) * maturity)
     return LookbackPrices(
         fixed_call=df * fixed_call,
         fixed_put=df * fixed_put,
@@ -389,8 +471,8 @@ def cliquet_price(
     div_shape: tuple[float, ...] = (),
     grid: int = 1 << 16,
 ) -> AnalyticPrices:
-    """Exact discrete-grid cliquet put/call under log-Euler GBM (host
-    numpy/scipy lattice, float64): u = Σ_j clip(R_j, floor, cap) sums
+    """Exact discrete-grid cliquet put/call under log-Euler GBM, flat or
+    curved (host numpy/scipy lattice, float64): u = Σ_j clip(R_j, floor, cap) sums
     independent clipped period returns, each with a known mixed law (atoms
     at floor and cap plus a lognormal body) laid on a shared lattice
     anchored at ``local_floor``; the product of their FFTs is the sum's pmf.
@@ -398,13 +480,17 @@ def cliquet_price(
     from scipy.stats import norm
 
     del spot
-    _flat_only(vol_shape=vol_shape, rate_shape=rate_shape, div_shape=div_shape)
     n = int(timesteps)
     k = int(reset_every)
     periods = n // k
     dt = maturity / n
-    mu = sum((rate - div_yield - 0.5 * vol**2) * dt for _ in range(k))
-    s = math.sqrt(sum(vol**2 * dt for _ in range(k)))
+    vs, rs, qs = _shapes(n, vol_shape, rate_shape, div_shape)
+    mus, sds = [], []
+    for j in range(periods):
+        steps = range(j * k, (j + 1) * k)
+        mus.append(sum((rate * rs[t] - div_yield * qs[t] - 0.5 * (vol * vs[t]) ** 2) * dt
+                       for t in steps))
+        sds.append(math.sqrt(sum((vol * vs[t]) ** 2 * dt for t in steps)))
     # shared lattice: anchored at the floor, step h small enough that the
     # P-fold index sum stays inside the FFT grid (no circular wrap)
     h = (local_cap - local_floor) * periods / (grid - 8)
@@ -412,24 +498,23 @@ def cliquet_price(
     x = local_floor + h * np.arange(m_cells)
     edges = np.concatenate([x - h / 2, [x[-1] + h / 2]])
     ce = np.clip(edges, local_floor, local_cap)
-    pmf = np.zeros(grid)
-    pmf[:m_cells] = np.diff(norm.cdf((np.log1p(ce) - mu) / s))
-    pmf[0] += norm.cdf((math.log1p(local_floor) - mu) / s)
-    p_cap = 1.0 - norm.cdf((math.log1p(local_cap) - mu) / s)
-    j_f = (local_cap - local_floor) / h
-    j0 = min(int(math.floor(j_f)), m_cells - 1)
-    w1 = j_f - j0
-    pmf[j0] += p_cap * (1.0 - w1)
-    pmf[min(j0 + 1, m_cells - 1)] += p_cap * w1
-    pmf /= pmf.sum()
-    period_ft = np.fft.rfft(pmf)
     ft = np.ones(grid // 2 + 1, dtype=np.complex128)
-    for _ in range(periods):
-        ft *= period_ft
+    for mu, s in zip(mus, sds):
+        pmf = np.zeros(grid)
+        pmf[:m_cells] = np.diff(norm.cdf((np.log1p(ce) - mu) / s))
+        pmf[0] += norm.cdf((math.log1p(local_floor) - mu) / s)
+        p_cap = 1.0 - norm.cdf((math.log1p(local_cap) - mu) / s)
+        j_f = (local_cap - local_floor) / h
+        j0 = min(int(math.floor(j_f)), m_cells - 1)
+        w1 = j_f - j0
+        pmf[j0] += p_cap * (1.0 - w1)
+        pmf[min(j0 + 1, m_cells - 1)] += p_cap * w1
+        pmf /= pmf.sum()
+        ft *= np.fft.rfft(pmf)
     conv = np.maximum(np.fft.irfft(ft, grid), 0.0)
     conv /= conv.sum()
     xs = local_floor * periods + h * np.arange(grid)
-    df = math.exp(-rate * maturity)
+    df = math.exp(-rate * (sum(rs) / n) * maturity)
     put = df * float(np.sum(np.maximum(strike - xs, 0.0) * conv))
     call = df * float(np.sum(np.maximum(xs - strike, 0.0) * conv))
     return _prices(put, call, float(np.sum(xs * conv)), strike, df)

@@ -1,11 +1,12 @@
-"""Model-family dispatch — the (PayoffKind × SimImplementation) seam.
+"""Model-family dispatch — the (ModelKind × PayoffKind × SimImplementation) seam.
 
-The port of the JAX package's ``ops/dispatch.py`` for GBM dynamics with
-pseudo-random paths and flat market data: every payoff kind but the
-American ones, on the threefry engine or the CUDA kernels. Every caller
-builds its simulator here. Simulators take a BATCH of contracts — one kernel
-launch per batch on the ``"cuda"`` engine — where the JAX package ``vmap``s
-a one-contract simulator.
+The port of the JAX package's ``ops/dispatch.py``: the single mapping from
+``SimulationParams`` to the contract model, the underlier simulator and the
+analytic-mean target of its dynamics (GBM, Heston, Merton; flat or curved
+market data; every payoff kind but the American ones; the threefry engine
+or the CUDA kernels). Every caller builds its simulator here. Simulators
+take a BATCH of contracts — one kernel launch per batch on the ``"cuda"``
+engine — where the JAX package ``vmap``s a one-contract simulator.
 """
 
 from __future__ import annotations
@@ -17,41 +18,90 @@ import torch
 from spectralmc_tpu_torch.ops.gbm import (
     CONTRACT_DIM,
     BlackScholesContract,
+    ModelKind,
     PayoffKind,
     SimImplementation,
     SimulationParams,
+    curved,
     expected_underlier_mean,
     require_slice,
     resolve_implementation,
     simulate_underlier_rows,
 )
-from spectralmc_tpu_torch.ops.gbm_cuda import (
-    simulate_cliquet_rows_cuda,
-    simulate_underlier_rows_cuda,
+from spectralmc_tpu_torch.ops.heston import (
+    HESTON_CONTRACT_DIM,
+    HestonContract,
+    heston_expected_underlier_mean,
+    simulate_heston_underlier_rows,
+)
+from spectralmc_tpu_torch.ops.merton import (
+    MERTON_CONTRACT_DIM,
+    MertonContract,
+    merton_expected_underlier_mean,
+    simulate_merton_underlier_rows,
 )
 
 Simulator = Callable[..., torch.Tensor]
+
+_CONTRACTS: dict[ModelKind, tuple[type, int]] = {
+    ModelKind.GBM: (BlackScholesContract, CONTRACT_DIM),
+    ModelKind.HESTON: (HestonContract, HESTON_CONTRACT_DIM),
+    ModelKind.MERTON_JUMP: (MertonContract, MERTON_CONTRACT_DIM),
+}
 
 
 def contract_class(sim: SimulationParams) -> type:
     """The contract model for the sim's dynamics (the model-family seam)."""
     require_slice(sim)
-    return BlackScholesContract
+    return _CONTRACTS[sim.model][0]
 
 
 def contract_dim(sim: SimulationParams) -> int:
     require_slice(sim)
-    return CONTRACT_DIM
+    return _CONTRACTS[sim.model][1]
+
+
+def _cuda_simulator(sim: SimulationParams, *, rows: int, anti_half: int | None) -> Simulator:
+    """The kernel wrapper ``resolve_implementation`` chose, with its knobs."""
+    from spectralmc_tpu_torch.ops import dynamics_cuda, gbm_cuda
+
+    shape = dict(timesteps=sim.timesteps, rows=rows, cols=sim.network_size,
+                 antithetic_half=anti_half)
+    if sim.payoff == PayoffKind.CLIQUET:  # flat log-Euler GBM only
+        launch = gbm_cuda.simulate_cliquet_rows_cuda
+        knobs = dict(reset_every=sim.cliquet_reset_every, floor=sim.cliquet_floor,
+                     cap=sim.cliquet_cap)
+    else:
+        knobs = dict(payoff=sim.payoff, barrier_rel=sim.barrier_rel,
+                     forward_start_step=sim.forward_start_step)
+        if sim.model == ModelKind.HESTON:
+            launch = dynamics_cuda.simulate_heston_rows_cuda
+        elif sim.model == ModelKind.MERTON_JUMP:
+            launch = dynamics_cuda.simulate_merton_rows_cuda
+        elif curved(sim.term) is not None:
+            launch = dynamics_cuda.simulate_term_rows_cuda
+            knobs["term"] = sim.term
+        else:
+            launch = gbm_cuda.simulate_underlier_rows_cuda
+            knobs["scheme"] = sim.scheme
+
+    def simulate_cuda(
+        key_words: torch.Tensor, contracts: torch.Tensor, row_offset: int = 0
+    ) -> torch.Tensor:
+        return launch(contracts.to(torch.float32), key_words, row_offset=row_offset,
+                      **shape, **knobs)
+
+    return simulate_cuda
 
 
 def make_underlier_simulator(sim: SimulationParams, *, rows: int) -> Simulator:
-    """``(key_words [C, 2], contracts [C, 6], row_offset=0) -> [C, rows, network]``.
+    """``(key_words [C, 2], contracts [C, D], row_offset=0) -> [C, rows, network]``.
 
-    The engine is the one ``resolve_implementation`` says will run: on
-    ``"cuda"`` cliquets go to the cliquet kernel and every other payoff to
-    the flat kernel, each with its knobs; on ``"xla"`` to the threefry
-    simulator. Both engines key rows by GLOBAL index, so ``row_offset``
-    shards are stable.
+    The engine is the one ``resolve_implementation`` says will run, decided
+    here once: on ``"cuda"`` the kernel of the sim's dynamics (the cliquet,
+    flat, term, Heston or Merton kernel), on ``"xla"`` the threefry simulator
+    of its dynamics, with the term knob. Every engine keys rows by GLOBAL
+    index, so ``row_offset`` shards are stable.
     """
     require_slice(sim)
     resolved = resolve_implementation(sim)
@@ -61,90 +111,45 @@ def make_underlier_simulator(sim: SimulationParams, *, rows: int) -> Simulator:
             "the 'pallas' engine draws the TPU hardware PRNG; this package cannot run it"
         )
     if resolved == SimImplementation.CUDA:
-        if sim.payoff == PayoffKind.CLIQUET:
+        return _cuda_simulator(sim, rows=rows, anti_half=anti_half)
 
-            def simulate_cliquet(
-                key_words: torch.Tensor, contracts: torch.Tensor, row_offset: int = 0
-            ) -> torch.Tensor:
-                return simulate_cliquet_rows_cuda(
-                    contracts.to(torch.float32),
-                    key_words,
-                    timesteps=sim.timesteps,
-                    rows=rows,
-                    cols=sim.network_size,
-                    reset_every=sim.cliquet_reset_every,
-                    floor=sim.cliquet_floor,
-                    cap=sim.cliquet_cap,
-                    antithetic_half=anti_half,
-                    row_offset=row_offset,
-                )
-
-            return simulate_cliquet
-
-        def simulate_cuda(
-            key_words: torch.Tensor, contracts: torch.Tensor, row_offset: int = 0
-        ) -> torch.Tensor:
-            return simulate_underlier_rows_cuda(
-                contracts.to(torch.float32),
-                key_words,
-                timesteps=sim.timesteps,
-                rows=rows,
-                cols=sim.network_size,
-                scheme=sim.scheme,
-                payoff=sim.payoff,
-                barrier_rel=sim.barrier_rel,
-                forward_start_step=sim.forward_start_step,
-                antithetic_half=anti_half,
-                row_offset=row_offset,
-            )
-
-        return simulate_cuda
-
-    dtype = sim.precision.to_torch()
+    kwargs = dict(
+        timesteps=sim.timesteps, rows=rows, cols=sim.network_size,
+        dtype=sim.precision.to_torch(), payoff=sim.payoff, barrier_rel=sim.barrier_rel,
+        antithetic_half=anti_half, forward_start_step=sim.forward_start_step,
+        cliquet_reset_every=sim.cliquet_reset_every, cliquet_floor=sim.cliquet_floor,
+        cliquet_cap=sim.cliquet_cap, term=sim.term,
+    )
+    if sim.model == ModelKind.HESTON:
+        scan = simulate_heston_underlier_rows
+    elif sim.model == ModelKind.MERTON_JUMP:
+        scan = simulate_merton_underlier_rows
+    else:
+        scan = simulate_underlier_rows
+        kwargs["scheme"] = sim.scheme
 
     def simulate_xla(
         key_words: torch.Tensor, contracts: torch.Tensor, row_offset: int = 0
     ) -> torch.Tensor:
-        return simulate_underlier_rows(
-            key_words,
-            contracts,
-            timesteps=sim.timesteps,
-            rows=rows,
-            cols=sim.network_size,
-            dtype=dtype,
-            scheme=sim.scheme,
-            payoff=sim.payoff,
-            row_offset=row_offset,
-            barrier_rel=sim.barrier_rel,
-            antithetic_half=anti_half,
-            forward_start_step=sim.forward_start_step,
-            cliquet_reset_every=sim.cliquet_reset_every,
-            cliquet_floor=sim.cliquet_floor,
-            cliquet_cap=sim.cliquet_cap,
-        )
+        return scan(key_words, contracts, row_offset=row_offset, **kwargs)
 
     return simulate_xla
 
 
 def make_mean_target(sim: SimulationParams) -> Callable[[torch.Tensor], torch.Tensor | None]:
-    """``contracts [..., 6] -> E[underlier] [...]``, the payoff's own analytic
-    mean (None where no closed form exists)."""
+    """``contracts [..., D] -> E[underlier] [...]``, the payoff's own analytic
+    mean under the sim's dynamics and curves (None where no closed form
+    exists)."""
     require_slice(sim)
-    dtype = sim.precision.to_torch()
-
-    def mean_target(contracts: torch.Tensor) -> torch.Tensor | None:
-        return expected_underlier_mean(
-            contracts,
-            timesteps=sim.timesteps,
-            payoff=sim.payoff,
-            dtype=dtype,
-            forward_start_step=sim.forward_start_step,
-            cliquet_reset_every=sim.cliquet_reset_every,
-            cliquet_floor=sim.cliquet_floor,
-            cliquet_cap=sim.cliquet_cap,
-        )
-
-    return mean_target
+    kwargs = dict(timesteps=sim.timesteps, payoff=sim.payoff, dtype=sim.precision.to_torch(),
+                  forward_start_step=sim.forward_start_step, term=sim.term)
+    cliquet = dict(cliquet_reset_every=sim.cliquet_reset_every, cliquet_floor=sim.cliquet_floor,
+                   cliquet_cap=sim.cliquet_cap)
+    if sim.model == ModelKind.HESTON:
+        return lambda contracts: heston_expected_underlier_mean(contracts, **kwargs)
+    if sim.model == ModelKind.MERTON_JUMP:
+        return lambda contracts: merton_expected_underlier_mean(contracts, **kwargs, **cliquet)
+    return lambda contracts: expected_underlier_mean(contracts, **kwargs, **cliquet)
 
 
 __all__ = [

@@ -1,0 +1,567 @@
+"""The ``"cuda"`` MC engine beyond flat GBM: curved-term GBM, Heston and Merton.
+
+``csrc/dynamics_paths.cu`` replaces three kernels of the JAX package's
+``ops/gbm_pallas.py``: ``_gbm_term_block_kernel`` (log-Euler GBM under
+piecewise-constant curves), ``_heston_block_kernel`` (full-truncation Euler
+Heston) and ``_merton_block_kernel`` (the exact compensated Merton step);
+its header states what each keeps and drops. This module holds, for each,
+
+* the public wrapper (``simulate_term_rows_cuda``,
+  ``simulate_heston_rows_cuda``, ``simulate_merton_rows_cuda``): a CPU tensor
+  goes to the plain twin; a CUDA tensor launches the kernel or raises. There
+  is no fallback between the two, nor to the threefry engine:
+  ``ops/gbm.py::resolve_implementation`` decides the engine before a run.
+* the plain twin (``…_cuda_plain``): the same Philox words and the same
+  float32 arithmetic in torch ops, with the ``words=`` hook of
+  ``ops/gbm_cuda.py``'s twins. The CPU tests hold the twins against the JAX
+  kernels; the card holds the kernels against the twins.
+* what is computed outside the kernels, once per contract, in torch on the
+  contracts' device: ``term_coeff_tables`` (per-step ``(drift·dt, vol·√dt)``
+  and per-pair ``(R, φ)``) and ``poisson_levels`` (the 16 running-cdf levels
+  of ``lam·dt``). Kernel and twin read the same tables.
+
+The streams (``gbm_cuda.CUDA_STREAM_VERSIONS``): Philox-4x32-10 keyed by the
+contract's two threefry words, counter ``(path lo, path hi, call, 0)``.
+
+* ``gbm_term`` v1 — the flat kernel's draw order per branch: TERMINAL and
+  the variance swap take ``T // 2`` pair draws and one single draw when ``T``
+  is odd, every other branch one draw per step; draw ``j`` is words
+  ``2(j%2), 2(j%2)+1`` of call ``j // 2``. Digital transforms the TERMINAL
+  draw; forward start runs TERMINAL on the tables sliced to the tail.
+* ``heston`` v1 — one draw per step, same word layout: ``z_v = r·cos θ``,
+  ``z_s = ρ z_v + ρ̄ r·sin θ``. Digital transforms TERMINAL; forward start is
+  a branch of its own (it captures ``ln S_m``).
+* ``merton_jump`` v1 — ONE call per step ``t``: words 0, 1 the Box–Muller
+  pair (``z_d = r·cos θ``, ``z_j = r·sin θ``), word 2 the count's uniform,
+  word 3 unused. Antithetic rows flip the pair and share the counts. Digital
+  transforms TERMINAL; forward start runs TERMINAL at the tail length.
+
+Launch counts go to ``gbm_cuda.LAUNCHES`` and ``LAUNCHES_BY_BRANCH`` under
+``term_<branch>``, ``heston_<branch>`` and ``merton_<branch>``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from spectralmc_tpu_torch.ops.gbm import (
+    BARRIER_PAYOFFS,
+    LOOKBACK_MAX_PAYOFFS,
+    PayoffKind,
+    TermStructure,
+    lookback_underlier,
+)
+from spectralmc_tpu_torch.ops.gbm_cuda import (
+    _FAMILY_CODE,
+    _LOOKBACK_VARIANT,
+    _check,
+    _cospi,
+    _count,
+    _device_args,
+    _pair_draws,
+    _route_in,
+    _route_out,
+    _sinpi,
+    _stream,
+    branch_of,
+    uniform_closed,
+    uniform_open,
+)
+
+POISSON_TERMS = 16  # csrc/dynamics_paths.cu's kPoissonTerms
+_HESTON_FORWARD = 5  # csrc/dynamics_paths.cu's kForward
+
+
+def _variant(branch: str, payoff: PayoffKind) -> int:
+    """The kernels' ``variant`` argument for a branch."""
+    if branch == "barrier":
+        return int(payoff == PayoffKind.BARRIER_UP_OUT)
+    if branch == "lookback":
+        return _LOOKBACK_VARIANT[payoff]
+    return int(payoff == PayoffKind.ASIAN_GEOMETRIC)
+
+
+def _branch(payoff: PayoffKind, barrier_rel: float | None) -> str:
+    branch = branch_of(payoff)
+    if branch == "cliquet":
+        raise ValueError("cliquets of these dynamics run the threefry engine's scan")
+    if branch == "barrier" and barrier_rel is None:
+        raise ValueError(f"payoff={payoff.value!r} needs barrier_rel")
+    return branch
+
+
+def _finish(
+    branch: str,
+    payoff: PayoffKind,
+    logx: torch.Tensor,
+    acc: torch.Tensor,
+    *,
+    spot: torch.Tensor,
+    strike: torch.Tensor,
+    maturity: torch.Tensor,
+    steps: int,
+    barrier_rel: float | None,
+) -> torch.Tensor:
+    """The kernels' shared epilogue: ``logx`` the terminal log-price, ``acc``
+    the running log-extreme, the running sum or the captured ``ln S_m``."""
+    if branch == "terminal":
+        return torch.exp(logx)
+    if branch == "variance":
+        return acc / maturity
+    if branch == "forward":
+        return spot * torch.exp(logx - acc)
+    if branch == "asian":
+        mean = acc * float(1.0 / steps)
+        return torch.exp(mean) if payoff == PayoffKind.ASIAN_GEOMETRIC else mean
+    if branch == "barrier":
+        level = torch.log(spot * torch.tensor(barrier_rel, dtype=torch.float32))
+        up = payoff == PayoffKind.BARRIER_UP_OUT
+        knocked = acc >= level if up else acc <= level
+        return torch.where(knocked, strike, torch.exp(logx))
+    return lookback_underlier(payoff, strike, torch.exp(acc), torch.exp(logx))
+
+
+def _observe(branch: str, payoff: PayoffKind, acc: torch.Tensor, logx: torch.Tensor):  # noqa: ANN202
+    """Fold the new log-price into the branch's accumulator."""
+    if branch == "asian":
+        return acc + (logx if payoff == PayoffKind.ASIAN_GEOMETRIC else torch.exp(logx))
+    if branch in ("barrier", "lookback"):
+        up = payoff == PayoffKind.BARRIER_UP_OUT or payoff in LOOKBACK_MAX_PAYOFFS
+        return torch.maximum(acc, logx) if up else torch.minimum(acc, logx)
+    return acc
+
+
+# ops/_build.py::load_library's arguments for this module's kernels
+LIBRARY = ("dynamics_paths", ("dynamics_paths.cu",), ("path_stream.cuh",))
+
+
+def _library() -> ctypes.CDLL:
+    from spectralmc_tpu_torch.ops._build import load_library
+
+    lib = load_library(*LIBRARY).lib
+    ll, i, vp, f = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+    lib.gbm_term_launch.argtypes = [vp, vp, vp, vp, vp, i, ll, ll, i, i, i, f, ll, ll, vp]
+    lib.heston_paths_launch.argtypes = [vp, vp, vp, i, ll, ll, i, i, i, f, i, ll, ll, vp]
+    lib.merton_paths_launch.argtypes = [vp, vp, vp, vp, i, ll, ll, i, i, i, f, ll, ll, vp]
+    for fn in (lib.gbm_term_launch, lib.heston_paths_launch, lib.merton_paths_launch):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _stream_of(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# --------------------------------------------------------------------------
+# Curved-term GBM (gbm_pallas.py::_gbm_term_block_kernel)
+# --------------------------------------------------------------------------
+
+
+def term_coeff_tables(
+    params: torch.Tensor, shapes: tuple[tuple[float, ...], ...], timesteps: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(step [C, T, 2], pair [C, max(T//2, 1), 2])`` float32 tables of the
+    term kernel (``gbm_pallas.py::_term_coeff_tables`` per contract).
+
+    ``step[t] = (log-drift_t·dt, vol_t·√dt)``. ``pair[p]`` packs the
+    phase-shift constants that keep the Box–Muller pair-step alive under
+    per-step vols: ``v_a·r·cos θ + v_b·r·sin θ = r·R·sin(θ + 2πφ)`` with
+    ``R = √(v_a² + v_b²)`` and ``φ = atan2(v_a, v_b)/2π`` in turns (the flat
+    kernel's ``√2·sin(θ + π/4)`` is the ``v_a = v_b`` case).
+    """
+    vsa, rsa, qsa = (torch.tensor(s, dtype=torch.float32, device=params.device) for s in shapes)
+    maturity, rate, div, vol = (params[:, i, None] for i in (2, 3, 4, 5))
+    dt = maturity / float(timesteps)
+    vol_t = vol * vsa
+    drift = (rate * rsa - div * qsa - 0.5 * vol_t * vol_t) * dt
+    vol_sdt = vol_t * torch.sqrt(dt)
+    step = torch.stack([drift, vol_sdt], dim=2)
+    pairs = timesteps // 2
+    if pairs == 0:
+        return step.contiguous(), torch.zeros((params.shape[0], 1, 2), dtype=torch.float32,
+                                              device=params.device)
+    va, vb = vol_sdt[:, 0:2 * pairs:2], vol_sdt[:, 1:2 * pairs:2]
+    radius = torch.sqrt(va * va + vb * vb)
+    phi = torch.atan2(va, vb) * torch.tensor(1.0 / (2.0 * math.pi), dtype=torch.float32)
+    return step.contiguous(), torch.stack([radius, phi], dim=2).contiguous()
+
+
+def _term_route(
+    payoff: PayoffKind, params: torch.Tensor, term: TermStructure, timesteps: int,
+    forward_start_step: int | None,
+) -> tuple[torch.Tensor, int, tuple[tuple[float, ...], ...]]:
+    """The ``(params, timesteps, shapes)`` the term kernel runs for
+    ``payoff``: forward start is TERMINAL on the curves sliced to the tail."""
+    shapes = term.shapes(timesteps)
+    p, steps = _route_in(payoff, params, timesteps, forward_start_step)
+    if payoff == PayoffKind.FORWARD_START:
+        shapes = tuple(s[forward_start_step:] for s in shapes)
+    return p, steps, shapes
+
+
+def simulate_term_rows_cuda_plain(
+    params: torch.Tensor,
+    key_words: torch.Tensor,
+    *,
+    term: TermStructure,
+    timesteps: int,
+    rows: int,
+    cols: int,
+    payoff: PayoffKind,
+    barrier_rel: float | None = None,
+    forward_start_step: int | None = None,
+    antithetic_half: int | None = None,
+    row_offset: int = 0,
+    words: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The term kernel's plain twin: ``[C, rows, cols]`` float32 underliers of
+    any non-American, non-cliquet payoff under log-Euler GBM with curves.
+    ``params`` is ``[C, 6]`` float32; ``words`` (tests only) replaces the
+    generator as in ``gbm_cuda.simulate_terminal_rows_cuda_plain``."""
+    _check(params, key_words)
+    branch = _branch(payoff, barrier_rel)
+    p, steps, shapes = _term_route(payoff, params, term, timesteps, forward_start_step)
+    step, pair = term_coeff_tables(p, shapes, steps)
+    paired = branch in ("terminal", "variance")
+    pairs = steps // 2
+    draws = pairs + steps % 2 if paired else steps
+    sign, call = _stream(
+        p, key_words, rows=rows, cols=cols, calls=-(-draws // 2),
+        antithetic_half=antithetic_half, row_offset=row_offset, words=words,
+    )
+    uniforms = _pair_draws(call)
+    spot, strike, maturity = (p[:, i, None, None] for i in range(3))
+    drift = lambda t: step[:, t, 0, None, None]  # noqa: E731
+    vol_sdt = lambda t: step[:, t, 1, None, None]  # noqa: E731
+    shape = (p.shape[0], rows, cols)
+    logx = torch.log(spot).expand(shape)
+    acc = logx if branch in ("barrier", "lookback") else torch.zeros(shape, device=p.device)
+
+    def single(j: int) -> torch.Tensor:
+        u1, u2 = uniforms(j)
+        return sign * (torch.sqrt(-2.0 * torch.log(u1)) * _cospi(2.0 * u2))
+
+    if branch == "terminal":
+        for j in range(pairs):
+            u1, u2 = uniforms(j)
+            rad = torch.sqrt(-2.0 * torch.log(u1))
+            radius, phi = pair[:, j, 0, None, None], pair[:, j, 1, None, None]
+            z_mix = sign * ((rad * radius) * _sinpi(2.0 * (u2 + phi)))
+            logx = (logx + (drift(2 * j) + drift(2 * j + 1))) + z_mix
+        if steps % 2:
+            logx = (logx + drift(steps - 1)) + vol_sdt(steps - 1) * single(pairs)
+    elif branch == "variance":
+        for j in range(pairs):
+            u1, u2 = uniforms(j)
+            rad = torch.sqrt(-2.0 * torch.log(u1))
+            inc_a = drift(2 * j) + vol_sdt(2 * j) * (sign * (rad * _cospi(2.0 * u2)))
+            inc_b = drift(2 * j + 1) + vol_sdt(2 * j + 1) * (sign * (rad * _sinpi(2.0 * u2)))
+            acc = (acc + inc_a * inc_a) + inc_b * inc_b
+        if steps % 2:
+            inc = drift(steps - 1) + vol_sdt(steps - 1) * single(pairs)
+            acc = acc + inc * inc
+    else:
+        for j in range(steps):
+            logx = (logx + drift(j)) + vol_sdt(j) * single(j)
+            acc = _observe(branch, payoff, acc, logx)
+    out = _finish(branch, payoff, logx, acc, spot=spot, strike=strike, maturity=maturity,
+                  steps=steps, barrier_rel=barrier_rel)
+    return _route_out(payoff, out, p)
+
+
+def simulate_term_rows_cuda(
+    params: torch.Tensor,
+    key_words: torch.Tensor,
+    *,
+    term: TermStructure,
+    timesteps: int,
+    rows: int,
+    cols: int,
+    payoff: PayoffKind,
+    barrier_rel: float | None = None,
+    forward_start_step: int | None = None,
+    antithetic_half: int | None = None,
+    row_offset: int = 0,
+) -> torch.Tensor:
+    """Payoff underliers ``[C, rows, cols]`` float32 under log-Euler GBM with
+    piecewise-constant curves, on the Philox stream ``gbm_term``: CPU tensors
+    run the plain twin, CUDA tensors launch the term kernel (one launch for
+    the whole contract batch, after the two small table computations) or
+    raise."""
+    _check(params, key_words)
+    if params.device.type == "cpu":
+        return simulate_term_rows_cuda_plain(
+            params, key_words, term=term, timesteps=timesteps, rows=rows, cols=cols,
+            payoff=payoff, barrier_rel=barrier_rel, forward_start_step=forward_start_step,
+            antithetic_half=antithetic_half, row_offset=row_offset,
+        )
+    branch = _branch(payoff, barrier_rel)
+    p, steps, shapes = _term_route(payoff, params, term, timesteps, forward_start_step)
+    p, words, out = _device_args(p, key_words, steps, rows, cols)
+    step, pair = term_coeff_tables(p, shapes, steps)
+    status = _library().gbm_term_launch(
+        p.data_ptr(), words.data_ptr(), step.data_ptr(), pair.data_ptr(), out.data_ptr(),
+        p.shape[0], rows, cols, steps, _FAMILY_CODE[branch], _variant(branch, payoff),
+        1.0 if barrier_rel is None else barrier_rel, antithetic_half or 0, row_offset,
+        _stream_of(p.device),
+    )
+    if status != 0:
+        raise RuntimeError(f"gbm_term_launch failed: cudaError {status}")
+    _count(f"term_{branch}")
+    return _route_out(payoff, out, p)
+
+
+# --------------------------------------------------------------------------
+# Heston (gbm_pallas.py::_heston_block_kernel)
+# --------------------------------------------------------------------------
+
+
+def _heston_branch(payoff: PayoffKind, barrier_rel: float | None, timesteps: int,
+                   forward_start_step: int | None) -> str:
+    if payoff == PayoffKind.FORWARD_START:
+        if forward_start_step is None or not 1 <= forward_start_step < timesteps:
+            raise ValueError(f"forward start needs 1 <= forward_start_step < {timesteps}")
+        return "forward"
+    return _branch(payoff, barrier_rel)
+
+
+def simulate_heston_rows_cuda_plain(
+    params: torch.Tensor,
+    key_words: torch.Tensor,
+    *,
+    timesteps: int,
+    rows: int,
+    cols: int,
+    payoff: PayoffKind,
+    barrier_rel: float | None = None,
+    forward_start_step: int | None = None,
+    antithetic_half: int | None = None,
+    row_offset: int = 0,
+    words: torch.Tensor | None = None,
+    trace: dict[str, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """The Heston kernel's plain twin: ``[C, rows, cols]`` float32 underliers
+    of any non-American, non-cliquet payoff under full-truncation Euler.
+    ``params`` is ``[C, 10]`` float32 in ``HestonContract`` order; ``words``
+    (tests only) replaces the generator. The variance-swap branch sums its
+    increment first and the others add term by term, as the kernel does.
+    ``trace``, when given, receives ``"min_variance"``: each path's least raw
+    variance over the steps it took a root of (the start included)."""
+    _check(params, key_words, 10)
+    branch = _heston_branch(payoff, barrier_rel, timesteps, forward_start_step)
+    sign, call = _stream(
+        params, key_words, rows=rows, cols=cols, calls=-(-timesteps // 2),
+        antithetic_half=antithetic_half, row_offset=row_offset, words=words,
+    )
+    uniforms = _pair_draws(call)
+    spot, strike, maturity, rate, div, v0, kappa, theta, xi, rho = (
+        params[:, i, None, None] for i in range(10)
+    )
+    dt = maturity / float(timesteps)
+    rho_bar = torch.sqrt(1.0 - rho * rho)
+    rq_dt = (rate - div) * dt
+    kdt = kappa * dt
+    ktheta_dt = kappa * theta * dt
+    shape = (params.shape[0], rows, cols)
+    logx = torch.log(spot).expand(shape)
+    v = v0.expand(shape)
+    acc = logx if branch in ("barrier", "lookback", "forward") else torch.zeros(
+        shape, device=params.device)
+    for j in range(timesteps):
+        u1, u2 = uniforms(j)
+        rad = torch.sqrt(-2.0 * torch.log(u1))
+        z_v = sign * (rad * _cospi(2.0 * u2))
+        z_s = rho * z_v + rho_bar * (sign * (rad * _sinpi(2.0 * u2)))
+        v_plus = torch.clamp(v, min=0.0)
+        if trace is not None:
+            trace["min_variance"] = torch.minimum(trace.get("min_variance", v), v)
+        sv = torch.sqrt(v_plus * dt)
+        if branch == "variance":
+            inc = (rq_dt - (0.5 * v_plus) * dt) + sv * z_s
+            logx = logx + inc
+            acc = acc + inc * inc
+        else:
+            logx = ((logx + rq_dt) - (0.5 * v_plus) * dt) + sv * z_s
+        v = ((v + ktheta_dt) - kdt * v_plus) + (xi * sv) * z_v
+        if branch == "forward":
+            if j == forward_start_step - 1:
+                acc = logx
+        else:
+            acc = _observe(branch, payoff, acc, logx)
+    out = _finish(branch, payoff, logx, acc, spot=spot, strike=strike, maturity=maturity,
+                  steps=timesteps, barrier_rel=barrier_rel)
+    return _route_out(payoff, out, params)
+
+
+def simulate_heston_rows_cuda(
+    params: torch.Tensor,
+    key_words: torch.Tensor,
+    *,
+    timesteps: int,
+    rows: int,
+    cols: int,
+    payoff: PayoffKind,
+    barrier_rel: float | None = None,
+    forward_start_step: int | None = None,
+    antithetic_half: int | None = None,
+    row_offset: int = 0,
+) -> torch.Tensor:
+    """Payoff underliers ``[C, rows, cols]`` float32 under full-truncation
+    Euler Heston on the Philox stream ``heston``: CPU tensors run the plain
+    twin, CUDA tensors launch the Heston kernel (one launch for the whole
+    contract batch) or raise."""
+    _check(params, key_words, 10)
+    if params.device.type == "cpu":
+        return simulate_heston_rows_cuda_plain(
+            params, key_words, timesteps=timesteps, rows=rows, cols=cols, payoff=payoff,
+            barrier_rel=barrier_rel, forward_start_step=forward_start_step,
+            antithetic_half=antithetic_half, row_offset=row_offset,
+        )
+    branch = _heston_branch(payoff, barrier_rel, timesteps, forward_start_step)
+    p, words, out = _device_args(params, key_words, timesteps, rows, cols)
+    family = _HESTON_FORWARD if branch == "forward" else _FAMILY_CODE[branch]
+    status = _library().heston_paths_launch(
+        p.data_ptr(), words.data_ptr(), out.data_ptr(), p.shape[0], rows, cols, timesteps,
+        family, _variant(branch, payoff), 1.0 if barrier_rel is None else barrier_rel,
+        forward_start_step or 0, antithetic_half or 0, row_offset, _stream_of(p.device),
+    )
+    if status != 0:
+        raise RuntimeError(f"heston_paths_launch failed: cudaError {status}")
+    _count(f"heston_{branch}")
+    return _route_out(payoff, out, p)
+
+
+# --------------------------------------------------------------------------
+# Merton (gbm_pallas.py::_merton_block_kernel)
+# --------------------------------------------------------------------------
+
+
+def poisson_levels(mu: torch.Tensor) -> torch.Tensor:
+    """The 16 running Poisson(mu) cdf levels ``[..., 16]`` in float32:
+    ``p ← p·mu/k; cdf ← cdf + p`` from ``p = cdf = e^{−mu}``, in exactly that
+    order (``gbm_pallas.py::_poisson_counts``'s scalars). For ``mu <= 3.2``
+    the mass past the last level is below ``2^-24``, which no 24-bit uniform
+    reaches, so 16 levels lose no count."""
+    mu = mu.to(torch.float32)
+    p = torch.exp(-mu)
+    cdf = p
+    levels = []
+    for k in range(1, POISSON_TERMS + 1):
+        levels.append(cdf)
+        p = p * mu / float(k)
+        cdf = cdf + p
+    return torch.stack(levels, dim=-1).contiguous()
+
+
+def poisson_counts(u: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
+    """Inverse-cdf Poisson counts (float32): the number of ``levels``
+    (``[..., 16]``, broadcast against ``u``'s shape) at or below ``u``."""
+    cnt = torch.zeros_like(u)
+    for k in range(POISSON_TERMS):
+        cnt = cnt + (u >= levels[..., k]).to(torch.float32)
+    return cnt
+
+
+def merton_levels(params: torch.Tensor, timesteps: int) -> torch.Tensor:
+    """``poisson_levels`` of each contract's ``lam·dt``: ``[C, 16]``."""
+    return poisson_levels(params[:, 6] * (params[:, 2] / float(timesteps)))
+
+
+def simulate_merton_rows_cuda_plain(
+    params: torch.Tensor,
+    key_words: torch.Tensor,
+    *,
+    timesteps: int,
+    rows: int,
+    cols: int,
+    payoff: PayoffKind,
+    barrier_rel: float | None = None,
+    forward_start_step: int | None = None,
+    antithetic_half: int | None = None,
+    row_offset: int = 0,
+    words: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The Merton kernel's plain twin: ``[C, rows, cols]`` float32 underliers
+    of any non-American, non-cliquet payoff under the exact compensated
+    step. ``params`` is ``[C, 9]`` float32 in ``MertonContract`` order;
+    ``words`` (tests only) replaces the generator (``[C, rows, cols,
+    timesteps, 4]``: one call per step)."""
+    _check(params, key_words, 9)
+    branch = _branch(payoff, barrier_rel)
+    p, steps = _route_in(payoff, params, timesteps, forward_start_step)
+    sign, call = _stream(
+        p, key_words, rows=rows, cols=cols, calls=steps, antithetic_half=antithetic_half,
+        row_offset=row_offset, words=words,
+    )
+    spot, strike, maturity, rate, div, vol, lam, jump_mean, jump_std = (
+        p[:, i, None, None] for i in range(9)
+    )
+    dt = maturity / float(steps)
+    vol_sdt = vol * torch.sqrt(dt)
+    m = torch.exp(jump_mean + 0.5 * jump_std * jump_std) - 1.0
+    drift = (rate - div - lam * m - 0.5 * vol * vol) * dt
+    levels = merton_levels(p, steps)[:, None, None, :]
+    shape = (p.shape[0], rows, cols)
+    logx = torch.log(spot).expand(shape)
+    acc = logx if branch in ("barrier", "lookback") else torch.zeros(shape, device=p.device)
+    for t in range(steps):
+        w = call(t)
+        rad = torch.sqrt(-2.0 * torch.log(uniform_open(w[0])))
+        u2 = uniform_closed(w[1])
+        z_d = sign * (rad * _cospi(2.0 * u2))
+        z_j = sign * (rad * _sinpi(2.0 * u2))
+        cnt = poisson_counts(uniform_closed(w[2]), levels)
+        jump = cnt * jump_mean + (jump_std * torch.sqrt(cnt)) * z_j
+        if branch == "variance":
+            inc = (drift + vol_sdt * z_d) + jump
+            logx = logx + inc
+            acc = acc + inc * inc
+        else:
+            logx = ((logx + drift) + vol_sdt * z_d) + jump
+            acc = _observe(branch, payoff, acc, logx)
+    out = _finish(branch, payoff, logx, acc, spot=spot, strike=strike, maturity=maturity,
+                  steps=steps, barrier_rel=barrier_rel)
+    return _route_out(payoff, out, p)
+
+
+def simulate_merton_rows_cuda(
+    params: torch.Tensor,
+    key_words: torch.Tensor,
+    *,
+    timesteps: int,
+    rows: int,
+    cols: int,
+    payoff: PayoffKind,
+    barrier_rel: float | None = None,
+    forward_start_step: int | None = None,
+    antithetic_half: int | None = None,
+    row_offset: int = 0,
+) -> torch.Tensor:
+    """Payoff underliers ``[C, rows, cols]`` float32 under the exact Merton
+    step on the Philox stream ``merton_jump``: CPU tensors run the plain
+    twin, CUDA tensors launch the Merton kernel (one launch for the whole
+    contract batch, after the ``[C, 16]`` level table) or raise."""
+    _check(params, key_words, 9)
+    if params.device.type == "cpu":
+        return simulate_merton_rows_cuda_plain(
+            params, key_words, timesteps=timesteps, rows=rows, cols=cols, payoff=payoff,
+            barrier_rel=barrier_rel, forward_start_step=forward_start_step,
+            antithetic_half=antithetic_half, row_offset=row_offset,
+        )
+    branch = _branch(payoff, barrier_rel)
+    p, steps = _route_in(payoff, params, timesteps, forward_start_step)
+    p, words, out = _device_args(p, key_words, steps, rows, cols)
+    levels = merton_levels(p, steps)
+    status = _library().merton_paths_launch(
+        p.data_ptr(), words.data_ptr(), levels.data_ptr(), out.data_ptr(), p.shape[0], rows,
+        cols, steps, _FAMILY_CODE[branch], _variant(branch, payoff),
+        1.0 if barrier_rel is None else barrier_rel, antithetic_half or 0, row_offset,
+        _stream_of(p.device),
+    )
+    if status != 0:
+        raise RuntimeError(f"merton_paths_launch failed: cudaError {status}")
+    _count(f"merton_{branch}")
+    return _route_out(payoff, out, p)

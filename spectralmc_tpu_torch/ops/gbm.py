@@ -1,10 +1,12 @@
-"""GBM Monte-Carlo engine on torch tensors: the flat, pseudo-random payoff matrix.
+"""GBM Monte-Carlo engine on torch tensors: the pseudo-random payoff matrix.
 
-The port of the JAX package's ``ops/gbm.py`` for GBM dynamics with
-pseudo-random paths and flat market data: every payoff kind but the
-American ones (TERMINAL, Asian, barrier, lookback, digital, variance swap,
-forward start, cliquet), log-Euler or reflection-Euler, optional antithetic
-mirroring, and MEAN normalization where E[underlier] has a closed form.
+The port of the JAX package's ``ops/gbm.py`` for pseudo-random paths: the
+config model shared by every dynamics (GBM here, Heston in ``ops/heston.py``,
+Merton in ``ops/merton.py``), piecewise-constant ``TermStructure`` curves,
+and the GBM simulators for every payoff kind but the American ones
+(TERMINAL, Asian, barrier, lookback, digital, variance swap, forward start,
+cliquet), log-Euler or reflection-Euler, optional antithetic mirroring, and
+MEAN normalization where E[underlier] has a closed form.
 
 Two engines, recorded in ``SimulationParams.implementation`` because they
 draw different bit streams:
@@ -13,7 +15,7 @@ draw different bit streams:
   normals at step ``t`` are ``normal(fold_in(fold_in(key, r), t), (cols,))``
   (``ops/rng.py`` reproduces the words of ``jax.random``). Plain tensor code.
 * ``"cuda"`` — the hand-written Hopper kernels with their own Philox-4x32-10
-  stream (``ops/gbm_cuda.py``, ``csrc/gbm_paths.cu``).
+  stream (``ops/gbm_cuda.py`` and ``ops/dynamics_cuda.py``, ``csrc/``).
 
 ``"pallas"`` (the TPU hardware-PRNG stream) is a value the port parses but
 cannot run; the trainer refuses it.
@@ -28,7 +30,7 @@ from __future__ import annotations
 import enum
 import math
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable
 
 import torch
 from pydantic import BaseModel, ConfigDict
@@ -48,9 +50,8 @@ MAX_TOTAL_PATHS_F32 = 1_000_000_000
 MAX_TOTAL_PATHS_F64 = 500_000_000
 
 # ROADMAP.md queue items that port what this module refuses
-PAYOFF_QUEUE = "queue 1 item 15 (GBM payoff matrix and term structures)"
 AMERICAN_QUEUE = "queue 1 item 18 (American)"
-DYNAMICS_QUEUE = "queue 1 item 16 (dynamics)"
+BASKET_QUEUE = "queue 1 item 16 (dynamics: baskets, ops/basket.py)"
 QMC_QUEUE = "queue 1 item 17 (QMC)"
 
 
@@ -135,6 +136,125 @@ class SamplingKind(enum.Enum):
     SOBOL_BB = "sobol_bb"
 
 
+class TermStructure(BaseModel):
+    """Piecewise-constant relative curves over the simulation grid.
+
+    Each shape is a per-step multiplier on the corresponding contract field:
+    during step ``t`` the instantaneous parameters are ``vol·vol_shape[t]``,
+    ``rate·rate_shape[t]`` and ``div_yield·div_shape[t]``. An empty tuple
+    means flat (all ones). The contract scalars stay the Sobol-sampled
+    training features; the curves are desk configuration, checkpointed with
+    ``SimulationParams`` (they change the trained distribution, not the
+    threefry bit stream: the normals' keying is untouched).
+
+    The terminal law stays exactly lognormal, so the Black oracle holds at
+    the effective parameters ``vol·sqrt(mean(vs²))``, ``rate·mean(rs)``,
+    ``div·mean(qs)`` (``ops/analytic.py::term_effective_black``).
+    """
+
+    model_config = ConfigDict(frozen=True, extra="forbid")
+
+    vol_shape: tuple[float, ...] = ()
+    rate_shape: tuple[float, ...] = ()
+    div_shape: tuple[float, ...] = ()
+
+    def is_flat(self) -> bool:
+        return all(
+            all(v == 1.0 for v in shape)
+            for shape in (self.vol_shape, self.rate_shape, self.div_shape)
+        )
+
+    def n_steps(self) -> int | None:
+        """The grid length implied by the non-empty shapes (None = all flat)."""
+        for s in (self.vol_shape, self.rate_shape, self.div_shape):
+            if s:
+                return len(s)
+        return None
+
+    def shapes(self, timesteps: int) -> tuple[tuple[float, ...], ...]:
+        """(vol, rate, div) shapes with empties expanded to flat ones."""
+        flat = (1.0,) * timesteps
+        return (self.vol_shape or flat, self.rate_shape or flat, self.div_shape or flat)
+
+    def effective_factors(self, timesteps: int) -> tuple[float, float, float]:
+        """(RMS vol factor, mean rate factor, mean div factor): the exact
+        flat-equivalent multipliers for the terminal lognormal law."""
+        vs, rs, qs = self.shapes(timesteps)
+        n = float(timesteps)
+        return (math.sqrt(sum(v * v for v in vs) / n), sum(rs) / n, sum(qs) / n)
+
+
+def curved(term: "TermStructure | None") -> "TermStructure | None":
+    """``term`` if it bends anything, else None: an exactly-flat term is the
+    same program as no term, bit for bit, on every engine."""
+    return None if term is None or term.is_flat() else term
+
+
+def validate_term_structure(
+    term: TermStructure, *, timesteps: int
+) -> Result[TermStructure, GBMError]:
+    """Shape-length and positivity checks."""
+    for name, shape in (
+        ("vol_shape", term.vol_shape),
+        ("rate_shape", term.rate_shape),
+        ("div_shape", term.div_shape),
+    ):
+        if shape and len(shape) != timesteps:
+            return _invalid(f"term.{name}", len(shape),
+                            f"length must equal timesteps ({timesteps})")
+        if not all(math.isfinite(v) for v in shape):
+            return _invalid(f"term.{name}", shape, "entries must be finite")
+    if any(v < 0.0 for v in term.vol_shape):
+        return _invalid("term.vol_shape", term.vol_shape, "vol multipliers must be >= 0")
+    if term.vol_shape and not any(v > 0.0 for v in term.vol_shape):
+        return _invalid("term.vol_shape", term.vol_shape,
+                        "at least one step must have positive vol")
+    return Success(term)
+
+
+def bootstrap_vol_shape(
+    quotes: tuple[tuple[int, float], ...],
+    *,
+    timesteps: int,
+    reference_vol: float,
+) -> Result[tuple[float, ...], GBMError]:
+    """Strip a term structure of implied vols into a ``vol_shape``.
+
+    ``quotes`` are ``(grid step k, implied vol at t_k)`` pairs. Piecewise-flat
+    forward variance: steps in ``(k_{i-1}, k_i]`` get
+    ``v² = (k_i σ_i² − k_{i-1} σ_{i-1}²) / (k_i − k_{i-1})``, the unique
+    piecewise-constant curve that reproduces every quote exactly; beyond the
+    last quote the curve extends flat. A calendar-arbitrage strip (negative
+    forward variance) fails instead of emitting an imaginary vol.
+    """
+    if reference_vol <= 0.0 or not math.isfinite(reference_vol):
+        return _invalid("reference_vol", reference_vol, "must be > 0")
+    if not quotes:
+        return _invalid("quotes", (), "need >= 1 quote")
+    prev_k = 0
+    prev_total_var = 0.0
+    shape: list[float] = []
+    for k, sigma in quotes:
+        if not 0 < k <= timesteps:
+            return _invalid("quotes", k, f"expiry step must be in [1, {timesteps}]")
+        if k <= prev_k:
+            return _invalid("quotes", k, "expiry steps must be increasing")
+        if sigma <= 0.0 or not math.isfinite(sigma):
+            return _invalid("quotes", sigma, "implied vols must be > 0")
+        total_var = k * sigma * sigma  # in units of one grid step
+        fwd_var = (total_var - prev_total_var) / (k - prev_k)
+        if fwd_var < 0.0:
+            return _invalid("quotes", (k, sigma),
+                            "calendar arbitrage: total implied variance "
+                            f"decreases at step {k} "
+                            f"({total_var:.6g} < {prev_total_var:.6g})")
+        shape.extend([math.sqrt(fwd_var) / reference_vol] * (k - prev_k))
+        prev_k, prev_total_var = k, total_var
+    if prev_k < timesteps:
+        shape.extend([shape[-1]] * (timesteps - prev_k))
+    return Success(tuple(shape))
+
+
 class BlackScholesContract(BaseModel):
     """One European-option market scenario."""
 
@@ -157,8 +277,8 @@ class SimulationParams(BaseModel):
     ``total_paths = network_size * batches_per_mc_run``; the FFT length is
     ``network_size``; ``skip`` counts contract-simulations already drawn (the
     resume offset). The fields of features outside the slice (``basket``,
-    ``term``, the LSMC, cliquet and barrier knobs) are kept so a JAX config
-    maps 1:1; ``build_simulation_params`` refuses them.
+    the LSMC knobs) are kept so a JAX config maps 1:1;
+    ``build_simulation_params`` refuses them.
     """
 
     model_config = ConfigDict(frozen=True, extra="forbid")
@@ -186,7 +306,7 @@ class SimulationParams(BaseModel):
     cliquet_floor: float | None = None
     cliquet_cap: float | None = None
     sampling: SamplingKind = SamplingKind.PSEUDO
-    term: Any = None
+    term: TermStructure | None = None
 
     @property
     def total_paths(self) -> int:
@@ -194,16 +314,15 @@ class SimulationParams(BaseModel):
 
 
 def require_slice(params: SimulationParams) -> None:
-    """Raise for a config outside the ported slice: GBM, PSEUDO, flat market
-    data, any payoff but the American kinds."""
-    if params.model != ModelKind.GBM or params.basket is not None:
-        raise not_ported(f"model={params.model.value!r}", DYNAMICS_QUEUE)
+    """Raise for a config outside the ported slice: GBM, Heston or Merton
+    dynamics on pseudo-random paths, flat or curved market data, any payoff
+    but the American kinds."""
+    if params.model == ModelKind.BASKET_GBM or params.basket is not None:
+        raise not_ported(f"model={params.model.value!r} with a BasketSpec", BASKET_QUEUE)
     if params.payoff in AMERICAN_PAYOFFS:
         raise not_ported(f"payoff={params.payoff.value!r}", AMERICAN_QUEUE)
     if params.sampling != SamplingKind.PSEUDO:
         raise not_ported(f"sampling={params.sampling.value!r}", QMC_QUEUE)
-    if params.term is not None:
-        raise not_ported("a TermStructure", PAYOFF_QUEUE)
 
 
 def _invalid(field: str, value: object, reason: str) -> Failure:
@@ -314,9 +433,22 @@ def build_simulation_params(**kwargs: Any) -> Result[SimulationParams, GBMError]
                 reason="config-time path guardrail",
             )
         )
+    if params.model == ModelKind.MERTON_JUMP and params.scheme != PathScheme.LOG_EULER:
+        return _invalid("scheme", params.scheme.value,
+                        "Merton jump-diffusion samples the exact log-space transition; "
+                        "only log-Euler is defined")
     refused = _payoff_knob_refusal(params)
     if refused is not None:
         return refused
+    if params.term is not None:
+        if params.model == ModelKind.HESTON and any(v != 1.0 for v in params.term.vol_shape):
+            return _invalid("term", "vol_shape",
+                            "Heston has no deterministic vol curve — its instantaneous vol "
+                            "IS the variance process (v0/kappa/theta/xi contract fields); "
+                            "rate_shape/div_shape curves are supported")
+        checked_term = validate_term_structure(params.term, timesteps=params.timesteps)
+        if isinstance(checked_term, Failure):
+            return checked_term
     if params.antithetic and params.batches_per_mc_run % 2:
         return _invalid("antithetic", params.batches_per_mc_run,
                         "antithetic pairing needs an even batches_per_mc_run")
@@ -327,14 +459,27 @@ def build_simulation_params(**kwargs: Any) -> Result[SimulationParams, GBMError]
 
 
 def has_closed_form_mean(model: ModelKind, payoff: PayoffKind) -> bool:
-    """Whether analytic E[underlier] exists (gates MEAN normalization and
-    call-via-parity): under GBM every payoff but the barrier, lookback and
-    American kinds, whose underliers' means have no closed form."""
-    if model != ModelKind.GBM:
-        raise not_ported(f"model={model.value!r}", DYNAMICS_QUEUE)
-    return not (
-        payoff in BARRIER_PAYOFFS or payoff in AMERICAN_PAYOFFS or payoff in LOOKBACK_PAYOFFS
-    )
+    """Whether analytic E[underlier] exists for this (dynamics, payoff) pair
+    (gates MEAN normalization and call-via-parity).
+
+    No dynamics has one for the barrier, lookback and American kinds. GBM
+    has one for every other payoff. Heston and Merton keep the discounted
+    spot a martingale (TERMINAL, arithmetic Asian, forward start) and lose
+    the geometric average; Merton's exact transitions also give the digital,
+    variance-swap and cliquet means as series, which Heston's Euler scheme
+    does not.
+    """
+    if model == ModelKind.BASKET_GBM:
+        raise not_ported(f"model={model.value!r}", BASKET_QUEUE)
+    if payoff in BARRIER_PAYOFFS or payoff in AMERICAN_PAYOFFS or payoff in LOOKBACK_PAYOFFS:
+        return False
+    if payoff in (PayoffKind.DIGITAL, PayoffKind.VARIANCE_SWAP, PayoffKind.CLIQUET):
+        return model != ModelKind.HESTON
+    if payoff == PayoffKind.FORWARD_START:
+        return True
+    if model in (ModelKind.HESTON, ModelKind.MERTON_JUMP):
+        return payoff != PayoffKind.ASIAN_GEOMETRIC
+    return True
 
 
 def resolve_implementation(params: SimulationParams) -> SimImplementation:
@@ -342,8 +487,9 @@ def resolve_implementation(params: SimulationParams) -> SimImplementation:
 
     ``"cuda"`` runs wherever ``gbm_cuda.cuda_supported`` says the kernels
     honor the request (the single source of truth), else the threefry
-    engine; the kernels take any row count. ``"pallas"`` resolves to itself:
-    only the trainer's refusal stands between it and a run.
+    engine; the kernels take any row count. The decision is made here, once,
+    before a run: no wrapper falls back on its own. ``"pallas"`` resolves to
+    itself: only the trainer's refusal stands between it and a run.
     """
     if params.implementation != SimImplementation.CUDA:
         return params.implementation
@@ -390,6 +536,50 @@ def row_keys(
     return keys, sign
 
 
+def term_tensors(
+    term: TermStructure, timesteps: int, dtype: torch.dtype, device: torch.device
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The (vol, rate, div) shapes as ``[T]`` tensors, empties expanded."""
+    return tuple(  # type: ignore[return-value]
+        torch.tensor(shape, dtype=dtype, device=device) for shape in term.shapes(timesteps)
+    )
+
+
+StepCoeff = Callable[[int], torch.Tensor]
+
+
+def _step_coeffs(
+    term: TermStructure | None,
+    *,
+    timesteps: int,
+    rate: torch.Tensor,
+    div_yield: torch.Tensor,
+    vol: torch.Tensor,
+    dt: torch.Tensor,
+    sqrt_dt: torch.Tensor,
+) -> tuple[StepCoeff, StepCoeff, StepCoeff]:
+    """t-indexed ``(log_drift, lin_drift, vol_step)`` accessors, each
+    broadcastable against ``[C, rows, cols]``.
+
+    ``log_drift(t) = (r_t − q_t − v_t²/2)·dt``, ``lin_drift(t) = (r_t − q_t)·dt``,
+    ``vol_step(t) = v_t·√dt``. Without a term the values are the flat
+    scalars, built with exactly the flat arithmetic, so the flat stream is
+    unchanged.
+    """
+    if term is None:
+        ld = (rate - div_yield - 0.5 * vol * vol) * dt
+        lin = (rate - div_yield) * dt
+        vstep = vol * sqrt_dt
+        return (lambda t: ld), (lambda t: lin), (lambda t: vstep)
+    vsa, rsa, qsa = term_tensors(term, timesteps, vol.dtype, vol.device)
+    vol_t = vol[..., None] * vsa
+    carry = rate[..., None] * rsa - div_yield[..., None] * qsa
+    ld_arr = (carry - 0.5 * vol_t * vol_t) * dt[..., None]
+    lin_arr = carry * dt[..., None]
+    vstep_arr = vol_t * sqrt_dt[..., None]
+    return (lambda t: ld_arr[..., t]), (lambda t: lin_arr[..., t]), (lambda t: vstep_arr[..., t])
+
+
 def simulate_terminal_rows(
     contract_keys: torch.Tensor,
     contracts: torch.Tensor,
@@ -401,6 +591,7 @@ def simulate_terminal_rows(
     scheme: PathScheme,
     row_offset: int = 0,
     antithetic_half: int | None = None,
+    term: TermStructure | None = None,
 ) -> torch.Tensor:
     """Terminal GBM values ``[C, rows, cols]`` on the threefry stream.
 
@@ -409,12 +600,16 @@ def simulate_terminal_rows(
     at step ``t`` are ``normal(fold_in(fold_in(key, row_offset + r), t),
     (cols,))``, as in the JAX package, so the two agree to the normals'
     ulps. Only the ``[C, rows, cols]`` state is live; each step's normals
-    are drawn and consumed inside the loop.
+    are drawn and consumed inside the loop. A curved ``term`` gives each step
+    its own coefficients; a flat one is no term.
     """
     c = contracts.to(dtype)
     spot, _, maturity, rate, div_yield, vol = (c[:, i, None, None] for i in range(6))
     dt = maturity / timesteps
-    sqrt_dt = torch.sqrt(dt)
+    log_drift, lin_drift, vol_step = _step_coeffs(
+        curved(term), timesteps=timesteps, rate=rate, div_yield=div_yield, vol=vol, dt=dt,
+        sqrt_dt=torch.sqrt(dt),
+    )
     keys, sign = row_keys(
         contract_keys, rows=rows, row_offset=row_offset, antithetic_half=antithetic_half,
         dtype=dtype,
@@ -424,17 +619,14 @@ def simulate_terminal_rows(
         z = rng.normal(rng.fold_in(keys, t), (cols,)).to(dtype)
         return z if sign is None else sign * z
 
-    vol_step = vol * sqrt_dt
     if scheme == PathScheme.LOG_EULER:
-        log_drift = (rate - div_yield - 0.5 * vol * vol) * dt
         logx = torch.zeros((c.shape[0], rows, cols), dtype=dtype, device=c.device) + torch.log(spot)
         for t in range(timesteps):
-            logx = logx + log_drift + vol_step * normals(t)
+            logx = logx + log_drift(t) + vol_step(t) * normals(t)
         return torch.exp(logx)
-    lin_drift = (rate - div_yield) * dt
     x = torch.ones((c.shape[0], rows, cols), dtype=dtype, device=c.device) * spot
     for t in range(timesteps):
-        x = torch.abs(x * (1.0 + lin_drift + vol_step * normals(t)))  # reflection
+        x = torch.abs(x * (1.0 + lin_drift(t) + vol_step(t) * normals(t)))  # reflection
     return x
 
 
@@ -455,6 +647,7 @@ def simulate_underlier_rows(
     cliquet_reset_every: int | None = None,
     cliquet_floor: float | None = None,
     cliquet_cap: float | None = None,
+    term: TermStructure | None = None,
 ) -> torch.Tensor:
     """Payoff underliers ``[C, rows, cols]`` on the threefry stream, for a
     batch of contracts: the terminal value, the path average, the
@@ -468,14 +661,15 @@ def simulate_underlier_rows(
     op for op, so TERMINAL is identical to ``simulate_terminal_rows`` and the
     two packages agree to the normals' ulps. Forward start walks the
     t-keyed tail ``t = m..N−1``; a cliquet period closes when ``(t+1) % k
-    == 0``.
+    == 0``. A curved ``term`` gives each step its own coefficients in every
+    branch; a flat one is no term.
     """
     if payoff in AMERICAN_PAYOFFS:
         raise not_ported(f"payoff={payoff.value!r}", AMERICAN_QUEUE)
     if payoff in (PayoffKind.TERMINAL, PayoffKind.DIGITAL):
         terminal = simulate_terminal_rows(
             contract_keys, contracts, timesteps=timesteps, rows=rows, cols=cols, dtype=dtype,
-            scheme=scheme, row_offset=row_offset, antithetic_half=antithetic_half,
+            scheme=scheme, row_offset=row_offset, antithetic_half=antithetic_half, term=term,
         )
         if payoff == PayoffKind.DIGITAL:
             strike = contracts.to(dtype)[:, 1, None, None]
@@ -484,9 +678,10 @@ def simulate_underlier_rows(
     c = contracts.to(dtype)
     spot, strike, maturity, rate, div_yield, vol = (c[:, i, None, None] for i in range(6))
     dt = maturity / timesteps
-    log_drift = (rate - div_yield - 0.5 * vol * vol) * dt
-    lin_drift = (rate - div_yield) * dt
-    vol_step = vol * torch.sqrt(dt)
+    log_drift, lin_drift, vol_step = _step_coeffs(
+        curved(term), timesteps=timesteps, rate=rate, div_yield=div_yield, vol=vol, dt=dt,
+        sqrt_dt=torch.sqrt(dt),
+    )
     keys, sign = row_keys(
         contract_keys, rows=rows, row_offset=row_offset, antithetic_half=antithetic_half,
         dtype=dtype,
@@ -500,20 +695,20 @@ def simulate_underlier_rows(
     def log_inc(t: int) -> torch.Tensor:
         """The step's log-increment, state-free under both schemes."""
         if scheme == PathScheme.LOG_EULER:
-            return log_drift + vol_step * normals(t)
-        return torch.log(torch.abs(1.0 + lin_drift + vol_step * normals(t)))
+            return log_drift(t) + vol_step(t) * normals(t)
+        return torch.log(torch.abs(1.0 + lin_drift(t) + vol_step(t) * normals(t)))
 
     def add_inc(t: int, acc: torch.Tensor) -> torch.Tensor:
         """``acc`` plus the step's log-increment, summed in the JAX scan's order."""
         if scheme == PathScheme.LOG_EULER:
-            return acc + log_drift + vol_step * normals(t)
+            return acc + log_drift(t) + vol_step(t) * normals(t)
         return acc + log_inc(t)
 
     def walk(t: int, x: torch.Tensor) -> torch.Tensor:
         """One step of the state: log S under log-Euler, S under Euler."""
         if scheme == PathScheme.LOG_EULER:
-            return x + log_drift + vol_step * normals(t)
-        return torch.abs(x * (1.0 + lin_drift + vol_step * normals(t)))
+            return x + log_drift(t) + vol_step(t) * normals(t)
+        return torch.abs(x * (1.0 + lin_drift(t) + vol_step(t) * normals(t)))
 
     if payoff == PayoffKind.FORWARD_START:
         if forward_start_step is None:
@@ -605,12 +800,13 @@ def expected_underlier_mean(
     timesteps: int,
     payoff: PayoffKind,
     dtype: torch.dtype,
+    term: TermStructure | None = None,
     forward_start_step: int | None = None,
     cliquet_reset_every: int | None = None,
     cliquet_floor: float | None = None,
     cliquet_cap: float | None = None,
 ) -> torch.Tensor | None:
-    """Analytic E[underlier] per contract ``[..., 6] -> [...]`` under flat
+    """Analytic E[underlier] per contract ``[..., 6] -> [...]`` under
     log-Euler GBM; None where no closed form exists (barrier, lookback,
     American).
 
@@ -618,37 +814,71 @@ def expected_underlier_mean(
     TERMINAL, the mean of the average for the Asian kinds, ``K + 2·N(d2) − 1``
     for the digital, ``E[RV]`` for the variance swap, the tail forward for
     forward start and ``Σ E[clip(R_j)]`` for the cliquet. Exact for log-Euler;
-    the continuous-limit value for reflection-Euler.
+    the continuous-limit value for reflection-Euler. With a curved ``term``
+    the means follow the per-step curves exactly (cumulative drift sums
+    replace the flat geometric series); a flat term takes the flat formulas
+    bit for bit.
     """
     if payoff in BARRIER_PAYOFFS or payoff in AMERICAN_PAYOFFS or payoff in LOOKBACK_PAYOFFS:
         return None
+    term = curved(term)
     c = contracts.to(dtype)
     spot, strike, maturity, rate, div_yield, vol = (c[..., i] for i in range(6))
     n = torch.tensor(float(timesteps), dtype=dtype, device=c.device)
     dt = maturity / n
+    if term is not None:
+        vsa, rsa, qsa = term_tensors(term, timesteps, dtype, c.device)
+        vol_t = vol[..., None] * vsa  # [..., T]
+        lin = (rate[..., None] * rsa - div_yield[..., None] * qsa) * dt[..., None]
+        var_t = vol_t * vol_t * dt[..., None]
+        a_t = lin - 0.5 * var_t  # per-step log-drift
     if payoff == PayoffKind.DIGITAL:
-        var = vol * vol * maturity
-        drift = (rate - div_yield) * maturity
+        if term is not None:
+            var = torch.sum(var_t, dim=-1)
+            drift = torch.sum(lin, dim=-1)
+        else:
+            var = vol * vol * maturity
+            drift = (rate - div_yield) * maturity
         d2 = (torch.log(spot / strike) + drift - 0.5 * var) / torch.sqrt(var)
         return strike + 2.0 * _norm_cdf(d2) - 1.0
     if payoff == PayoffKind.VARIANCE_SWAP:
+        if term is not None:
+            return torch.sum(a_t * a_t + var_t, dim=-1) / maturity
         a = (rate - div_yield - 0.5 * vol * vol) * dt
         return n * (a * a + vol * vol * dt) / maturity
     if payoff == PayoffKind.FORWARD_START:
         if forward_start_step is None:
             raise ValueError("payoff='forward_start' requires forward_start_step")
+        if term is not None:
+            return spot * torch.exp(torch.sum(lin[..., forward_start_step:], dim=-1))
         n_tail = torch.tensor(float(timesteps - forward_start_step), dtype=dtype, device=c.device)
         return spot * torch.exp((rate - div_yield) * dt * n_tail)
     if payoff == PayoffKind.CLIQUET:
         if cliquet_reset_every is None or cliquet_floor is None or cliquet_cap is None:
             raise ValueError("payoff='cliquet' requires its reset grid and clip levels")
         k = cliquet_reset_every
-        mu_p = (rate - div_yield - 0.5 * vol * vol) * dt * k
-        s_p = vol * torch.sqrt(dt * torch.tensor(float(k), dtype=dtype, device=c.device))
         floor_c = torch.tensor(cliquet_floor, dtype=dtype, device=c.device)
         cap_c = torch.tensor(cliquet_cap, dtype=dtype, device=c.device)
+        if term is not None:
+            lead = a_t.shape[:-1]
+            mu_j = torch.sum(a_t.reshape(*lead, timesteps // k, k), dim=-1)
+            s_j = torch.sqrt(torch.sum(var_t.reshape(*lead, timesteps // k, k), dim=-1))
+            return torch.sum(expected_clipped_lognormal_return(mu_j, s_j, floor_c, cap_c), dim=-1)
+        mu_p = (rate - div_yield - 0.5 * vol * vol) * dt * k
+        s_p = vol * torch.sqrt(dt * torch.tensor(float(k), dtype=dtype, device=c.device))
         periods = torch.tensor(float(timesteps // k), dtype=dtype, device=c.device)
         return periods * expected_clipped_lognormal_return(mu_p, s_p, floor_c, cap_c)
+    if term is not None:
+        cum_lin = torch.cumsum(lin, dim=-1)  # drift integral up to each t_k
+        if payoff == PayoffKind.TERMINAL:
+            return spot * torch.exp(cum_lin[..., -1])
+        if payoff == PayoffKind.ASIAN_ARITHMETIC:
+            return spot * torch.mean(torch.exp(cum_lin), dim=-1)
+        # ASIAN_GEOMETRIC: mu = ln S0 + Σ a_j (N−j)/N, s² = Σ b_j² ((N−j)/N)²
+        w = (n - torch.arange(timesteps, dtype=dtype, device=c.device)) / n
+        mu = torch.log(spot) + torch.sum(a_t * w, dim=-1)
+        s2 = torch.sum(var_t * w * w, dim=-1)
+        return torch.exp(mu + 0.5 * s2)
     if payoff == PayoffKind.TERMINAL:
         return spot * torch.exp((rate - div_yield) * maturity)
     if payoff == PayoffKind.ASIAN_ARITHMETIC:
@@ -679,13 +909,19 @@ def normalized_terminal(
     normalize: bool,
     dtype: torch.dtype,
     mean_target: torch.Tensor | None = None,
+    term: TermStructure | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(terminal', strike, forward, df)``, each batch-shaped ``[C, 1]``
     except ``terminal'`` ``[C, P]``: with ``normalize`` the sample mean of
     each contract's row is rescaled to ``mean_target`` (default: the
-    forward)."""
+    forward). ``contracts`` is ``[C, D]`` of any dynamics: the five market
+    fields lead. With a ``term``, discounting and the forward use the
+    curve-effective rates ``rate·mean(rs)`` and ``div·mean(qs)``."""
     c = contracts.to(dtype)
     spot, strike, maturity, rate, div_yield = (c[:, i, None] for i in range(5))
+    if term is not None and term.n_steps() is not None:
+        _, mean_rate, mean_div = term.effective_factors(term.n_steps() or 1)
+        rate, div_yield = rate * mean_rate, div_yield * mean_div
     forward = spot * torch.exp((rate - div_yield) * maturity)
     df = torch.exp(-rate * maturity)
     if normalize:
@@ -701,11 +937,12 @@ def discounted_put(
     normalize: bool,
     dtype: torch.dtype,
     mean_target: torch.Tensor | None = None,
+    term: TermStructure | None = None,
 ) -> torch.Tensor:
     """The put payoff vector ``[C, P]`` alone — what the training target
     needs, without materializing the call vector."""
     terminal, strike, _, df = normalized_terminal(
-        terminal, contracts, normalize=normalize, dtype=dtype, mean_target=mean_target
+        terminal, contracts, normalize=normalize, dtype=dtype, mean_target=mean_target, term=term
     )
     return df * torch.clamp(strike - terminal, min=0.0)
 
@@ -717,11 +954,12 @@ def terminal_to_prices(
     normalize: bool,
     dtype: torch.dtype,
     mean_target: torch.Tensor | None = None,
+    term: TermStructure | None = None,
 ) -> SimPrices:
     """Payoff vectors from underlier values ``[C, P]``, with optional MEAN
     normalization of each contract's row to ``mean_target``."""
     terminal, strike, forward, df = normalized_terminal(
-        terminal, contracts, normalize=normalize, dtype=dtype, mean_target=mean_target
+        terminal, contracts, normalize=normalize, dtype=dtype, mean_target=mean_target, term=term
     )
     put = df * torch.clamp(strike - terminal, min=0.0)
     call = df * torch.clamp(terminal - strike, min=0.0)

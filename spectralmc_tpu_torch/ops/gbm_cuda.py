@@ -14,15 +14,16 @@ states what it keeps, what it drops and what bounds it. This module holds
   ``simulate_cliquet_rows_cuda_plain``: the same Philox words and the same
   float32 arithmetic in torch ops. The CPU tests hold them against the JAX
   kernels; the card holds the kernels against them.
-* ``cuda_supported`` — the single source of truth for when the engine runs
-  (``ops/gbm.py::resolve_implementation`` asks it).
+* ``cuda_supported`` — the single source of truth for when the engine runs,
+  for every dynamics (``ops/gbm.py::resolve_implementation`` asks it).
 * ``CUDA_STREAM_VERSIONS`` — the streams' versions, recorded by the trainer:
   any change to the draw order or arithmetic is a new stream. ``gbm`` covers
   the flat kernel's branches and the routes through its TERMINAL branch
   (digital, and forward start at its tail length); the cliquet kernel is a
-  different program with its own key.
-* ``LAUNCHES`` (every launch of either entry point) and
-  ``LAUNCHES_BY_BRANCH`` (per branch group) — plain counts.
+  different program with its own key, and so are the curved-term, Heston
+  and Merton kernels of ``ops/dynamics_cuda.py``.
+* ``LAUNCHES`` (every launch of any entry point) and ``LAUNCHES_BY_BRANCH``
+  (per kernel and branch group) — plain counts.
 
 The stream: Philox-4x32-10 keyed by the contract's two threefry key words
 (``fold_in(prng_key(mc_seed), draw)``), counter ``(path lo, path hi, call,
@@ -50,14 +51,25 @@ from spectralmc_tpu_torch.ops.gbm import (
     PathScheme,
     PayoffKind,
     SamplingKind,
+    TermStructure,
+    curved,
     lookback_underlier,
 )
 from spectralmc_tpu_torch.ops.rng import MASK32, philox4x32
 
-CUDA_STREAM_VERSIONS: dict[str, int] = {"gbm": 1, "gbm_cliquet": 1}
+CUDA_STREAM_VERSIONS: dict[str, int] = {
+    "gbm": 1, "gbm_cliquet": 1, "gbm_term": 1, "heston": 1, "merton_jump": 1,
+}
 
-# branch groups, each a kernel instantiation of its own (the JSON record's rows)
-BRANCHES = ("terminal", "barrier", "lookback", "variance", "asian", "cliquet")
+# branch groups, each a kernel instantiation of its own: the flat kernel's and
+# the cliquet, then ops/dynamics_cuda.py's three kernels
+FLAT_BRANCHES = ("terminal", "barrier", "lookback", "variance", "asian")
+BRANCHES = (
+    *FLAT_BRANCHES, "cliquet",
+    *(f"term_{b}" for b in FLAT_BRANCHES),
+    *(f"heston_{b}" for b in (*FLAT_BRANCHES, "forward")),
+    *(f"merton_{b}" for b in FLAT_BRANCHES),
+)
 LAUNCHES = 0
 LAUNCHES_BY_BRANCH: dict[str, int] = dict.fromkeys(BRANCHES, 0)
 
@@ -105,29 +117,46 @@ def cuda_supported(
     model: ModelKind,
     payoff: PayoffKind,
     sampling: SamplingKind,
-    term: object = None,
+    term: TermStructure | None = None,
     scheme: PathScheme = PathScheme.LOG_EULER,
 ) -> bool:
-    """Whether the kernels honor the request: float32 GBM paths on the
-    pseudo-random stream with flat market data, any payoff but the American
-    kinds; cliquets under log-Euler only (under Euler a period's log-return
-    is no Gaussian sum). Any row/column count."""
-    return (
-        dtype == torch.float32
-        and model == ModelKind.GBM
-        and payoff not in AMERICAN_PAYOFFS
-        and (payoff != PayoffKind.CLIQUET or scheme == PathScheme.LOG_EULER)
-        and sampling == SamplingKind.PSEUDO
-        and term is None
-    )
+    """Whether a kernel honors the request: float32 paths on the
+    pseudo-random stream, GBM, Heston or Merton dynamics, any payoff but the
+    American kinds, any row/column count, and
+
+    * cliquets only for flat GBM under log-Euler (the per-period kernel; the
+      other dynamics carry period-start state or per-step jumps, curves
+      break the period's Gaussian sum, and under Euler it is none);
+    * a curved term only for GBM under log-Euler (the term kernel); curved
+      Heston and Merton run their threefry scans;
+    * Heston and Merton under log-Euler only (Merton is refused otherwise at
+      config time; Heston's step is its own scheme).
+
+    A flat term is no term.
+    """
+    if dtype != torch.float32 or sampling != SamplingKind.PSEUDO or payoff in AMERICAN_PAYOFFS:
+        return False
+    if model not in (ModelKind.GBM, ModelKind.HESTON, ModelKind.MERTON_JUMP):
+        return False
+    is_curved = curved(term) is not None
+    if payoff == PayoffKind.CLIQUET:
+        return model == ModelKind.GBM and scheme == PathScheme.LOG_EULER and not is_curved
+    if is_curved:
+        return model == ModelKind.GBM and scheme == PathScheme.LOG_EULER
+    return True
 
 
-def cuda_stream_version(model: ModelKind, payoff: PayoffKind | None = None) -> int:
+def cuda_stream_version(
+    model: ModelKind, payoff: PayoffKind | None = None, *, term: bool = False
+) -> int:
     """The stream version a checkpoint records (``pallas_stream_version``'s
-    rule): the cliquet kernel under its own key, everything else under the
+    rule): the cliquet kernel under its own key, a genuinely curved term on
+    GBM (``term=True``) under the term kernel's, everything else under the
     model family's."""
-    if payoff == PayoffKind.CLIQUET and model == ModelKind.GBM:
+    if payoff == PayoffKind.CLIQUET and model == ModelKind.GBM and not term:
         return CUDA_STREAM_VERSIONS["gbm_cliquet"]
+    if term and model == ModelKind.GBM:
+        return CUDA_STREAM_VERSIONS["gbm_term"]
     return CUDA_STREAM_VERSIONS[model.value]
 
 
@@ -139,11 +168,11 @@ def draw_count(timesteps: int, scheme: PathScheme, payoff: PayoffKind = PayoffKi
     return timesteps
 
 
-def _check(params: torch.Tensor, key_words: torch.Tensor) -> None:
+def _check(params: torch.Tensor, key_words: torch.Tensor, dim: int = 6) -> None:
     if params.dtype != torch.float32:
         raise TypeError(f"params must be float32, got {params.dtype}")
-    if params.ndim != 2 or params.shape[1] != 6:
-        raise ValueError(f"params must be [C, 6], got {tuple(params.shape)}")
+    if params.ndim != 2 or params.shape[1] != dim:
+        raise ValueError(f"params must be [C, {dim}], got {tuple(params.shape)}")
     if key_words.ndim != 2 or key_words.shape != (params.shape[0], 2):
         raise ValueError(f"key_words must be [C, 2], got {tuple(key_words.shape)}")
     if key_words.device != params.device:
@@ -163,20 +192,24 @@ def _cospi(x: torch.Tensor) -> torch.Tensor:
     return torch.cos(math.pi * x.to(torch.float64)).to(torch.float32)
 
 
+Uniforms = Callable[[int], tuple[torch.Tensor, torch.Tensor]]
+Words = Callable[[int], tuple[torch.Tensor, ...]]
+
+
 def _stream(
     params: torch.Tensor,
     key_words: torch.Tensor,
     *,
     rows: int,
     cols: int,
-    draws: int,
+    calls: int,
     antithetic_half: int | None,
     row_offset: int,
     words: torch.Tensor | None,
-) -> tuple[torch.Tensor, Callable[[int], tuple[torch.Tensor, torch.Tensor]]]:
-    """``(sign [rows, 1], uniforms)``: ``uniforms(j)`` gives draw ``j``'s
-    ``(u1, u2)``, each ``[C, rows, cols]``, called in order ``j = 0, 1, …``
-    (each even ``j`` computes the Philox call the odd one reuses)."""
+) -> tuple[torch.Tensor, Words]:
+    """``(sign [rows, 1], call)``: ``call(i)`` gives Philox call ``i``'s four
+    words, each ``[C, rows, cols]`` (from ``words`` when given: a tensor
+    broadcastable to ``[C, rows, cols, calls, 4]``)."""
     device = params.device
     n_contracts = params.shape[0]
     kw = key_words.to(torch.int64) & MASK32
@@ -192,27 +225,43 @@ def _stream(
     c0 = (path & MASK32)[None]
     c1 = (path >> 32)[None]
     zero = torch.zeros_like(c0)
-    calls = -(-draws // 2)
     if words is not None:
         words = torch.broadcast_to(
             words.to(torch.int64).to(device), (n_contracts, rows, cols, calls, 4)
         )
+
+    def call(i: int) -> tuple[torch.Tensor, ...]:
+        if words is not None:
+            return tuple(words[..., i, k] for k in range(4))
+        return philox4x32((c0, c1, zero + i, zero), (k0, k1))
+
+    return sign, call
+
+
+def uniform_open(word: torch.Tensor) -> torch.Tensor:
+    """``(0, 1)`` float32 from a word's top 24 bits: ``b·2^-24 + 2^-25``."""
+    return (word >> 8).to(torch.float32) * 2.0**-24 + 2.0**-25
+
+
+def uniform_closed(word: torch.Tensor) -> torch.Tensor:
+    """``[0, 1)`` float32 from a word's top 24 bits: ``b·2^-24``."""
+    return (word >> 8).to(torch.float32) * 2.0**-24
+
+
+def _pair_draws(call: Words) -> Uniforms:
+    """``uniforms(j)``: draw ``j``'s ``(u1, u2)`` from words ``2(j%2),
+    2(j%2)+1`` of call ``j // 2``, called in order ``j = 0, 1, …`` (each even
+    ``j`` computes the Philox call the odd one reuses)."""
     current: list[tuple[torch.Tensor, ...]] = []
 
     def uniforms(j: int) -> tuple[torch.Tensor, torch.Tensor]:
         if j % 2 == 0:
-            i = j // 2
-            current[:] = [
-                tuple(words[..., i, k] for k in range(4)) if words is not None
-                else philox4x32((c0, c1, zero + i, zero), (k0, k1))
-            ]
+            current[:] = [call(j // 2)]
         w = current[0]
         a, b = (w[0], w[1]) if j % 2 == 0 else (w[2], w[3])
-        u1 = (a >> 8).to(torch.float32) * 2.0**-24 + 2.0**-25
-        u2 = (b >> 8).to(torch.float32) * 2.0**-24
-        return u1, u2
+        return uniform_open(a), uniform_closed(b)
 
-    return sign, uniforms
+    return uniforms
 
 
 def simulate_terminal_rows_cuda_plain(
@@ -297,10 +346,11 @@ def simulate_underlier_rows_cuda_plain(
     if branch == "barrier" and barrier_rel is None:
         raise ValueError(f"payoff={payoff.value!r} needs barrier_rel")
     p, steps = _route_in(payoff, params, timesteps, forward_start_step)
-    sign, uniforms = _stream(
-        p, key_words, rows=rows, cols=cols, draws=draw_count(steps, scheme, payoff),
+    sign, call = _stream(
+        p, key_words, rows=rows, cols=cols, calls=-(-draw_count(steps, scheme, payoff) // 2),
         antithetic_half=antithetic_half, row_offset=row_offset, words=words,
     )
+    uniforms = _pair_draws(call)
     n_contracts = p.shape[0]
     spot, strike, maturity, rate, div, vol = (p[:, i, None, None] for i in range(6))
     dt = maturity / float(steps)
@@ -421,10 +471,11 @@ def simulate_cliquet_rows_cuda_plain(
     periods = timesteps // reset_every
     pairs = periods // 2
     draws = pairs + periods % 2
-    sign, uniforms = _stream(
-        params, key_words, rows=rows, cols=cols, draws=draws, antithetic_half=antithetic_half,
-        row_offset=row_offset, words=words,
+    sign, call = _stream(
+        params, key_words, rows=rows, cols=cols, calls=-(-draws // 2),
+        antithetic_half=antithetic_half, row_offset=row_offset, words=words,
     )
+    uniforms = _pair_draws(call)
     _, _, maturity, rate, div, vol = (params[:, i, None, None] for i in range(6))
     dt = maturity / float(timesteps)
     k = float(reset_every)
@@ -455,10 +506,14 @@ def simulate_cliquet_rows_cuda_plain(
 # --------------------------------------------------------------------------
 
 
+# ops/_build.py::load_library's arguments for this module's kernels
+LIBRARY = ("gbm_paths", ("gbm_paths.cu",), ("path_stream.cuh",))
+
+
 def _kernel() -> ctypes.CDLL:
     from spectralmc_tpu_torch.ops._build import load_library
 
-    lib = load_library("gbm_paths", ("gbm_paths.cu",)).lib
+    lib = load_library(*LIBRARY).lib
     ll, i, vp, f = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_float
     lib.gbm_paths_launch.argtypes = [vp, vp, vp, i, ll, ll, i, i, i, i, f, ll, ll, vp]
     lib.gbm_cliquet_launch.argtypes = [vp, vp, vp, i, ll, ll, i, i, f, f, ll, ll, vp]

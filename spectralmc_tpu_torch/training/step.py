@@ -69,7 +69,7 @@ class SobolTable:
 def make_mc_spectrum(
     sim: SimulationParams, *, device: torch.device
 ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
-    """``(draw indices [C], contracts [C, 6]) -> [C, network]`` complex targets.
+    """``(draw indices [C], contracts [C, D]) -> [C, network]`` complex targets.
 
     Contract ``i``'s stream key is ``fold_in(prng_key(mc_seed), draw[i])``;
     its payoff underliers are MEAN-normalized to the payoff's own analytic
@@ -91,6 +91,7 @@ def make_mc_spectrum(
             normalize=normalize,
             dtype=dtype,
             mean_target=mean_target(contracts),
+            term=sim.term,
         )
         return payoff_spectrum(put, batches=sim.batches_per_mc_run, network_size=sim.network_size)
 
@@ -160,7 +161,7 @@ def make_fused_batch(
 
     def one_batch(state: StepState) -> tuple[torch.Tensor, torch.Tensor]:
         unit = sobol_unit(table.directions, table.shift, state.sobol_skip, batch_size, dtype)
-        contracts = scale_to_bounds(unit, lower, upper)  # [B, 6]
+        contracts = scale_to_bounds(unit, lower, upper)  # [B, D]
         draws = (state.mc_skip + torch.arange(batch_size, device=device)) & rng.MASK32
         with torch.no_grad():
             specs = torch.cat([

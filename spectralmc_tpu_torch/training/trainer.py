@@ -17,6 +17,10 @@ and ``GbmCVNNPricer.create/train/snapshot/predict_price``.
   one packed ``[put | E[u] | residue]`` vector once; calls follow by parity
   on the payoff's own underlier where ``has_closed_form_mean`` holds, and
   are NaN (with a warning) where it does not.
+* The dynamics (GBM, Heston, Merton) change nothing in kind: the contract
+  class and its width (6, 10, 9 — the CVNN's input width follows), the
+  simulator and the mean target come from ``ops/dispatch.py``, and the
+  stream version is recorded per (model, payoff, curved term).
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from spectralmc_tpu_torch.models.factory import (
 from spectralmc_tpu_torch.ops.gbm import (
     SimImplementation,
     SimulationParams,
+    curved,
     has_closed_form_mean,
     require_slice,
     resolve_implementation,
@@ -328,7 +333,9 @@ class GbmCVNNPricer:
             sim = sim.model_copy(update={"implementation": effective})
         stream_version = 0
         if effective == SimImplementation.CUDA:
-            stream_version = cuda_stream_version(sim.model, sim.payoff)
+            stream_version = cuda_stream_version(
+                sim.model, sim.payoff, term=curved(sim.term) is not None
+            )
             if mid_stream and config.cuda_stream_version != stream_version:
                 return Failure(
                     EngineMismatch(
@@ -512,8 +519,9 @@ class GbmCVNNPricer:
     ) -> PricePrediction:
         """Learned put prices, and calls by put-call parity on the payoff's
         own underlier (``call − put = df·(E[u] − K)``), for a batch. Where
-        ``has_closed_form_mean`` is false (barrier, lookback) the call has no
-        parity route and is NaN, with a warning.
+        ``has_closed_form_mean`` is false (barrier, lookback; under Heston
+        also the geometric Asian, digital, variance swap and cliquet) the
+        call has no parity route and is NaN, with a warning.
 
         One host→device copy of the ``[N, D]`` contract matrix and one
         device→host copy of the packed result per call. The forward always
@@ -542,7 +550,10 @@ class GbmCVNNPricer:
                 self._sim.payoff.value,
             )
             return PricePrediction(put=put, call=np.full_like(put, np.nan), imag_residue=residue)
-        # put-call parity on the host copy: call − put = df·(E[u] − K)
+        # put-call parity on the host copy: call − put = df·(E[u] − K), with
+        # a term structure discounting at the curve-effective rate r·mean(rs)
         strike, maturity, rate = host[:, 1], host[:, 2], host[:, 3]
-        df = np.exp(-rate * maturity)
+        term = self._sim.term
+        mean_rate = 1.0 if term is None else term.effective_factors(self._sim.timesteps)[1]
+        df = np.exp(-rate * mean_rate * maturity)
         return PricePrediction(put=put, call=put + df * (expected - strike), imag_residue=residue)

@@ -4,8 +4,8 @@ Tier 2, float64, rtol 1e-6 (absolute floor 1e-9 of the price scale where a
 price is near zero): the closed forms evaluate the same formulas in torch
 instead of jnp; the lattice oracles (barrier, lookback, cliquet) run the
 same numpy/scipy arithmetic, with their grids cut down so the whole file
-takes seconds. A curve argument is refused with the ROADMAP item that ports
-term structures.
+takes seconds. Curve arguments are taken as the JAX package takes them
+(``test_torch_term.py`` holds them on a grid).
 """
 
 from __future__ import annotations
@@ -109,11 +109,19 @@ def test_cliquet_price_matches_jax(c, every: int, floor: float, cap: float) -> N
 
 
 def test_curve_arguments_are_refused() -> None:
+    """No curve argument is refused any more: each oracle that took
+    ``NotImplementedError`` for one now prices under it as the JAX package
+    does, and an empty shape still means flat."""
     c = GRID[0]
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
-        ta.digital_price(*c, vol_shape=(1.0, 1.2))
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
-        ta.discrete_barrier_price(*c, timesteps=2, barrier_rel=1.2, up=True, rate_shape=(1.0, 1.0))
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
-        ta.cliquet_price(*c, timesteps=4, reset_every=2, local_floor=0.0, local_cap=0.1,
-                         div_shape=(1.0,) * 4)
+    for got, want in zip(ta.digital_price(*c, vol_shape=(1.0, 1.2)),
+                         ja.digital_price(*c, vol_shape=(1.0, 1.2))):
+        _close(got, want, 1.0)
+    kw = dict(timesteps=2, barrier_rel=1.2, up=True, grid_points=257)
+    for g, w in zip(_fields(ta.discrete_barrier_price(*c, rate_shape=(1.0, 1.0), **kw)),
+                    _fields(ta.discrete_barrier_price(*c, **kw))):
+        _close(g, w, c[0])
+    cq = dict(timesteps=4, reset_every=2, local_floor=0.0, local_cap=0.1, grid=1 << 12)
+    for g, w in zip(_fields(ta.cliquet_price(*c, div_shape=(1.5, 1.0, 1.0, 0.5), **cq)),
+                    _fields(ja.cliquet_price(*c, div_shape=(1.5, 1.0, 1.0, 0.5), **cq))):
+        _close(g, w, 0.1)
+    assert not hasattr(ta, "_flat_only")

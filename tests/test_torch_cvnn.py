@@ -177,6 +177,29 @@ def test_factory_model_from_jax_weights_matches() -> None:
     _compare(jm._tree, tm, params, state, width=6, seed=8)
 
 
+@pytest.mark.parametrize("input_dim", [10, 9], ids=["heston", "merton"])
+def test_family_width_first_layer_carries_jax_weights(input_dim: int) -> None:
+    """The Heston (10 inputs) and Merton (9 inputs) first layers, in ≠ out:
+    seeded init bit-exact, and JAX weights carried across give the same
+    forward (``_compare``'s tolerances)."""
+    jm = jf.build_model(_config(jf, 8), input_dim=input_dim, output_dim=16).expect("jax model")
+    tm = tf.build_model(_config(tf, 8), input_dim=input_dim, output_dim=16).expect("port model")
+    params, state = jm.init()
+    want, got = jf.get_state_dict(params, state), tf.get_state_dict(tm)
+    assert got["params/layer_0/layer_0/w_re"].shape == want["params/layer_0/layer_0/w_re"].shape
+    assert input_dim in got["params/layer_0/layer_0/w_re"].shape
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    gen = np.random.default_rng(input_dim)
+    params = _randomize(params, gen)
+    state = _randomize(state, gen, positive=("var_re", "var_im", "c_rr", "c_ii"))
+    tf.load_state_dict(tm, jf.get_state_dict(params, state)).expect("load")
+    back = tf.get_state_dict(tm)
+    for key, value in jf.get_state_dict(params, state).items():
+        np.testing.assert_array_equal(back[key], value, err_msg=key)
+    _compare(jm._tree, tm, params, state, width=input_dim, seed=8)
+
+
 def test_load_state_dict_refuses_mismatches() -> None:
     tm = tf.build_model(_config(tf, 8), input_dim=6, output_dim=16).expect("port model")
     flat = tf.get_state_dict(tm)

@@ -263,11 +263,19 @@ def test_engine_resolution_and_slice_refusals() -> None:
         sim = tgbm.build_simulation_params(**base, implementation="cuda", **ported).expect("ok")
         assert tgbm.resolve_implementation(sim) == tgbm.SimImplementation.CUDA
     with pytest.raises(NotImplementedError, match="queue 1 item 16"):
-        tgbm.has_closed_form_mean(tgbm.ModelKind.HESTON, tgbm.PayoffKind.TERMINAL)
-    for bad, item in ((dict(payoff="american_put"), "item 18"), (dict(model="heston"), "item 16"),
-                      (dict(sampling="sobol_bb"), "item 17"), (dict(term=object()), "item 15")):
+        tgbm.has_closed_form_mean(tgbm.ModelKind.BASKET_GBM, tgbm.PayoffKind.TERMINAL)
+    for bad, item in ((dict(payoff="american_put"), "item 18"),
+                      (dict(model="basket_gbm"), "item 16"), (dict(basket=object()), "item 16"),
+                      (dict(sampling="sobol_bb"), "item 17")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
             tgbm.build_simulation_params(**base, **bad)
+    curve = tgbm.TermStructure(rate_shape=(0.5, 1.5))
+    for admitted in (dict(model="heston"), dict(model="merton_jump"), dict(term=curve),
+                     dict(model="heston", term=curve), dict(model="merton_jump", term=curve)):
+        sim = tgbm.build_simulation_params(**base, implementation="cuda", **admitted).expect("ok")
+        curved_family = "term" in admitted and "model" in admitted
+        want = tgbm.SimImplementation.XLA if curved_family else tgbm.SimImplementation.CUDA
+        assert tgbm.resolve_implementation(sim) == want
     stray = tgbm.build_simulation_params(**base, barrier_rel=1.2)
     assert stray.is_failure() and stray.error.field == "barrier_rel"
 
