@@ -8,10 +8,12 @@ non-zero and no result line is printed):
 
 0. device       — require CUDA; print the card's name and power limit; apply
                   the deterministic numerics policy (runtime/torch_runtime.py).
-1. build        — build csrc/gbm_paths.cu and csrc/dynamics_paths.cu with
-                  nvcc into build/kernels/; count the SASS
+1. build        — build csrc/gbm_paths.cu, csrc/dynamics_paths.cu,
+                  csrc/basket_paths.cu and csrc/qmc_paths.cu with nvcc into
+                  build/kernels/, one nvcc each, all started together; print
+                  each kernel's registers and spills; count the SASS
                   instructions of each branch's log-Euler loop (cuobjdump)
-                  for the instruction cap of phase 2.
+                  for the instruction cap of phases 2 and 12.
 2. kernel       — every kernel branch against its plain twin on the same
                   Philox words at C=4 x 2048 x 512 x 16: TERMINAL (and its
                   digital and forward-start routes), barrier up/down, the four
@@ -71,18 +73,48 @@ non-zero and no result line is printed):
                   per branch plus the digital and forward-start routes, one
                   step at batch 64 each; calls NaN where the dynamics has no
                   closed-form E[u], parity at the curves' mean rate where it has.
-11. profile     — only with ``--profile``: for the TERMINAL, the Asian and the
-                  Heston pricer, 10 warm train steps timed on the host clock to a
-                  synchronised end, then torch.profiler over 3 train steps
-                  and over 20 predict_price calls at N=64 (device kernel
-                  time, busy share, launches, the heaviest kernels).
+12. basket-kernel — the basket kernel (3 assets; 1 and 8 too) against its
+                  twin on the same Philox words at 8 contracts x 2048 x 512 x
+                  16: every payoff of every branch group under both combines
+                  (the digital and the geometric forward start through
+                  TERMINAL), rtol 2e-5, knocks and signs flipped on at most
+                  1e-5 of the paths; each branch group timed at 32 contracts
+                  (CUDA events; the twin's second call) beside its bound and
+                  its SASS cap share.
+13. qmc-kernel  — the QMC bridge kernel against its twin for F = 1, 2, 3 and
+                  a padded case (T·F > 64) at 4 x 2048 x 512 points: the Sobol
+                  words equal, the normals within 2 ulps, the bridged normals
+                  within atol 1e-5; the fused walk bit-equal to the bridge
+                  kernel walked by the torch scan; both timed beside bounds.
+14. oracle-qmc  — the geometric basket against geometric_basket_price, a
+                  1-asset arithmetic basket against Black–Scholes, SOBOL_BB
+                  GBM TERMINAL and geometric Asian and SOBOL_BB Heston
+                  against their oracles (4 SE); the RMSE ratio of pseudo to
+                  QMC at an equal budget (bench.py:879-904).
+15. train-basket, train-qmc-asian — phases 4-6 for the 3-asset arithmetic
+                  basket (bench.py:684-688; TERMINAL, MEAN normalization,
+                  stream basket_gbm v1) and for the SOBOL_BB geometric-Asian
+                  GBM pricer (MEAN normalization, recorded engine "xla", the
+                  fused walk launched once per chunk), each at the
+                  production batch and head.
+16. families-basket-qmc — one step at batch 64 per basket branch (geometric
+                  TERMINAL and variance swap; arithmetic barrier, Asian,
+                  lookback, forward start) and per SOBOL_BB family (GBM
+                  arithmetic Asian, Heston, the 3-asset basket, Merton: the
+                  bridge kernel at F = 1, 2, 3, 1).
+11. profile     — only with ``--profile``, after phase 16: for the TERMINAL,
+                  the Asian, the Heston, the basket and the SOBOL_BB
+                  geometric-Asian pricer, 10 warm train steps timed on the
+                  host clock to a synchronised end, then torch.profiler over 3
+                  train steps and over 20 predict_price calls at N=64 (device
+                  kernel time, busy share, launches, the heaviest kernels).
 
-Launch counts are set to 0 just before each main path (phases 4, 7, 8, 9 and
-10) and read just after it: the TERMINAL branch's count comes from phases
-4-6, the Asian branch's from phase 7, the Heston TERMINAL branch's from phase
-9 and every other branch's from phases 8 and 10. The
-last lines are the kernel record as JSON, the nvidia-smi line, and the
-result JSON.
+Launch counts are set to 0 just before each main path (phases 4, 7, 8, 9,
+10, 15 and 16) and read just after it: the TERMINAL branch's count comes from
+phases 4-6, the Asian branch's from phase 7, the Heston TERMINAL branch's
+from phase 9, the basket TERMINAL branch's and the fused walk's from phase
+15 and every other branch's from phases 8, 10 and 16. The last lines are the
+kernel record as JSON, the nvidia-smi line, and the result JSON.
 """
 
 from __future__ import annotations
@@ -109,8 +141,17 @@ from spectralmc_tpu_torch.models.factory import (
     SequentialCfg,
     build_cvnn_config,
 )
-from spectralmc_tpu_torch.ops import analytic, dynamics_cuda, gbm_cuda, rng
+from spectralmc_tpu_torch.ops import (
+    analytic,
+    basket_cuda,
+    dynamics_cuda,
+    gbm_cuda,
+    qmc,
+    qmc_cuda,
+    rng,
+)
 from spectralmc_tpu_torch.ops._build import find_nvcc, load_library
+from spectralmc_tpu_torch.ops.basket import build_basket_spec
 from spectralmc_tpu_torch.ops.dispatch import make_mean_target, make_underlier_simulator
 from spectralmc_tpu_torch.ops.gbm import (
     BARRIER_PAYOFFS,
@@ -119,12 +160,14 @@ from spectralmc_tpu_torch.ops.gbm import (
     ModelKind,
     PathScheme,
     PayoffKind,
+    SamplingKind,
     SimulationParams,
     TermStructure,
     build_simulation_params,
     curved,
     expected_underlier_mean,
     has_closed_form_mean,
+    simulate_terminal_rows,
     terminal_to_prices,
 )
 from spectralmc_tpu_torch.ops.heston import HestonContract, heston_call_price
@@ -159,10 +202,26 @@ FAMILY_REPLACES = {
     "heston": "spectralmc_tpu/ops/gbm_pallas.py:1989",
     "merton": "spectralmc_tpu/ops/gbm_pallas.py:3171",
 }
-FAMILY_MODEL = {"gbm": "gbm", "term": "gbm", "heston": "heston", "merton": "merton_jump"}
-FAMILY_STREAM = {"term": "gbm_term", "heston": "heston", "merton": "merton_jump"}
+FAMILY_MODEL = {"gbm": "gbm", "term": "gbm", "heston": "heston", "merton": "merton_jump",
+                "basket": "basket_gbm"}
+FAMILY_STREAM = {"term": "gbm_term", "heston": "heston", "merton": "merton_jump",
+                 "basket": "basket_gbm"}
 FAMILY_CONTRACT = {"gbm": BlackScholesContract, "term": BlackScholesContract,
-                   "heston": HestonContract, "merton": MertonContract}
+                   "heston": HestonContract, "merton": MertonContract,
+                   "basket": BlackScholesContract}
+# The basket kernel (csrc/basket_paths.cu) and the QMC generator's two
+# kernels (csrc/qmc_paths.cu), and the TPU kernels they replace
+BASKET_SOURCE = "spectralmc_tpu_torch/csrc/basket_paths.cu"
+BASKET_REPLACES = "spectralmc_tpu/ops/gbm_pallas.py:2484"
+QMC_SOURCE = "spectralmc_tpu_torch/csrc/qmc_paths.cu"
+QMC_REPLACES = {"qmc_bridge": "spectralmc_tpu/ops/qmc_pallas.py:98",
+                "qmc_walk": "spectralmc_tpu/ops/qmc_pallas.py:280"}
+# The JAX bench's basket (bench.py:684-688): 3 assets, arithmetic combine
+BASKET_KW = dict(weights=(0.5, 0.3, 0.2),
+                 correlation=((1.0, 0.4, 0.2), (0.4, 1.0, 0.3), (0.2, 0.3, 1.0)))
+BASKET_SPEC = build_basket_spec(**BASKET_KW).expect("basket spec")
+GEOMETRIC_SPEC = build_basket_spec(**BASKET_KW, combine="geometric").expect("basket spec")
+QMC_SEED = 31  # the JAX bench's mc_seed for SOBOL_BB (bench.py:870)
 FORWARD_STEP = 6
 CLIQUET = dict(reset_every=4, floor=-0.05, cap=0.08)
 BOUNDS = {
@@ -200,6 +259,8 @@ FAMILY_BOUNDS = {
         "jump_mean": BoundSpec(lower=-0.15, upper=0.0),
         "jump_std": BoundSpec(lower=0.1, upper=0.25),
     },
+    # the JAX bench's basket domain (bench.py:578)
+    "basket": {**MARKET_BOUNDS, "vol": BoundSpec(lower=0.2, upper=0.3)},
 }
 
 
@@ -220,12 +281,16 @@ def family_of(sim: SimulationParams) -> str:
         return "heston"
     if sim.model == ModelKind.MERTON_JUMP:
         return "merton"
+    if sim.model == ModelKind.BASKET_GBM:
+        return "basket"
     return "term" if curved(sim.term) is not None else "gbm"
 
 
-def branch_of(family: str, payoff: PayoffKind) -> str:
+def branch_of(family: str, payoff: PayoffKind, spec: object = BASKET_SPEC) -> str:
     if family == "heston" and payoff == PayoffKind.FORWARD_START:
         return "forward"  # the Heston kernel captures ln S_m in a branch of its own
+    if family == "basket":
+        return basket_cuda.basket_branch(payoff, spec)
     return gbm_cuda.branch_of(payoff)
 
 
@@ -322,6 +387,62 @@ def bound_ms(group: str, contracts: int, steps: int) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+# The basket kernel's op model per path-step of A assets: ⌈A/2⌉ draws
+# (DRAW_OPS each, plus 2 for the second trigonometric output and its
+# product), the Cholesky mix (A(A+1)/2 multiply-adds), the A state updates (2
+# each) and what the branch reads each step: the basket value (arithmetic:
+# A exp and A multiply-adds; geometric: A multiply-adds and one exp) and one
+# more operation (max, min or add; the geometric Asian a log besides); the
+# variance swap its step log-return (geometric: A multiply-adds; arithmetic:
+# the value, a division and a log) and a multiply-add. TERMINAL and the
+# forward start read the value once per path. A path moves 32 bytes in and 4
+# out; the spec travels as a kernel argument.
+def basket_step_ops(assets: int, branch: str, geometric: bool, variant: int = 0) -> int:
+    pairs = (assets + 1) // 2
+    ops = pairs * (DRAW_OPS + 2) + assets * (assets + 1) // 2 + 2 * assets
+    value = assets + 1 if geometric else 2 * assets
+    if branch in ("barrier", "lookback"):
+        ops += value + 1
+    elif branch == "asian":
+        ops += value + 1 + variant
+    elif branch == "variance":
+        ops += (assets if geometric else value + 2) + 1
+    return ops
+
+
+def basket_bound_ms(contracts: int, steps: int, assets: int, branch: str,
+                    geometric: bool, variant: int = 0) -> tuple[float, str]:
+    paths = contracts * ROWS * COLS
+    ops = paths * steps * basket_step_ops(assets, branch, geometric, variant)
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_bytes = (contracts * 32 + paths * 4) / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# The QMC generator's op model per point and flat dimension: the word (one
+# XOR: the gray-code step from the previous point), the inverse CDF (the
+# 24-bit uniform: 4; erf⁻¹: x², log1p, the branch's 8 multiply-adds and the
+# final products: 13), and the bridge product's multiply-adds, counted over
+# the bridge matrix's nonzeros only (what this run's data needs); the walk
+# adds 4 per step. Bytes: the output (T·F floats per point for the bridge
+# kernel, one for the walk), the padded normals read, the tables.
+QMC_WORD_OPS, QMC_NORMAL_OPS, WALK_STEP_OPS = 1, 17, 4
+
+
+def qmc_bound_ms(contracts: int, steps: int, factors: int, count: int,
+                 walk: bool = False) -> tuple[float, str]:
+    sdims = qmc.qmc_sobol_dims(steps, factors)
+    nnz = int(np.count_nonzero(qmc.brownian_bridge_matrix(steps)))
+    per_point = (sdims * (QMC_WORD_OPS + QMC_NORMAL_OPS) + factors * nnz
+                 + (steps * WALK_STEP_OPS if walk else 0))
+    t_ops = contracts * count * per_point / FP32_OPS_PER_S * 1e3
+    out = count * (1 if walk else steps * factors) * 4
+    pad = count * (steps * factors - sdims) * 4
+    tables = sdims * 33 * 4 + steps * steps * 4
+    t_bytes = (contracts * (out + pad) + tables) / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 # --------------------------------------------------------------------------
 # 0-1. device and build
 # --------------------------------------------------------------------------
@@ -347,26 +468,35 @@ def phase_device() -> tuple[torch.device, str, float]:
 
 
 def phase_build() -> dict[str, float]:
-    """Build both kernel libraries (one nvcc each) and count their loops'
-    SASS instructions per path-step, per branch group."""
-    flat, dynamics = load_library(*gbm_cuda.LIBRARY), load_library(*dynamics_cuda.LIBRARY)
-    for source, built in ((SOURCE, flat), (DYNAMICS_SOURCE, dynamics)):
-        phase("build", source=source, library=built.path.name,
-              build_seconds=f"{built.build_seconds:.2f}",
-              registers_and_spill_bytes=ptxas_summary(built.log))
-    return sass_instruction_counts(flat.path, dynamics.path)
+    """Build the four kernel libraries, one nvcc each, all started together,
+    and count their loops' SASS instructions per path-step, per branch group."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    libraries = ((SOURCE, gbm_cuda.LIBRARY), (DYNAMICS_SOURCE, dynamics_cuda.LIBRARY),
+                 (BASKET_SOURCE, basket_cuda.LIBRARY), (QMC_SOURCE, qmc_cuda.LIBRARY))
+    start = time.perf_counter()
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        built = list(pool.map(lambda lib: load_library(*lib[1]), libraries))
+    wall = time.perf_counter() - start
+    for (source, _), lib in zip(libraries, built):
+        phase("build", source=source, library=lib.path.name,
+              build_seconds=f"{lib.build_seconds:.2f}", all_builds_wall_s=f"{wall:.2f}",
+              registers_and_spill_bytes=ptxas_summary(lib.log))
+    return sass_instruction_counts(built[0].path, built[1].path, built[2].path)
 
 
 def ptxas_summary(log: str) -> dict[str, str]:
     """``{kernel<family>: "N registers, S spill bytes"}`` from the output of
     ``nvcc -Xptxas -v`` (empty when an existing build was reused)."""
     kernel = (r"(gbm_paths_kernel|gbm_cliquet_kernel|gbm_term_kernel|heston_paths_kernel|"
-              r"merton_paths_kernel)(?:ILi(\d+)E)?")
+              r"merton_paths_kernel|basket_paths_kernel|qmc_bridge_kernel|qmc_walk_kernel)"
+              r"(?:ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?)?")
     found, name, spill = {}, None, 0
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '\S*?" + kernel, line)
         if entry:
-            name = entry.group(1) + (f"<{entry.group(2)}>" if entry.group(2) else "")
+            args = ",".join(g for g in entry.groups()[1:] if g)
+            name = entry.group(1) + (f"<{args}>" if args else "")
         spilled = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spilled:
             spill = int(spilled.group(1)) + int(spilled.group(2))
@@ -383,7 +513,7 @@ def cuobjdump_sass(library: object) -> str:
                           check=True).stdout
 
 
-def sass_instruction_counts(flat: object, dynamics: object) -> dict[str, float]:
+def sass_instruction_counts(flat: object, dynamics: object, basket: object) -> dict[str, float]:
     """SASS instructions one log-Euler path-step executes, per branch group,
     counted from ``cuobjdump -sass`` of the built libraries.
 
@@ -398,7 +528,10 @@ def sass_instruction_counts(flat: object, dynamics: object) -> dict[str, float]:
     variance, cliquet: subtracted) or the arithmetic Asian's ``expf`` (kept).
     Per iteration: N − calls − single − Philox/2; per path-step: that over
     the steps an iteration covers (2 for the pair-steps, 2·reset_every for
-    the cliquet's period pairs, else 1).
+    the cliquet's period pairs, else 1). The basket kernel's 3-asset
+    arithmetic instantiations (one loop each, the longest) hold two Philox
+    blocks per step, of which one runs: the rule's Philox/2 counts exactly
+    that; the forward start's capture of B_m runs once per path (subtracted).
     """
     flat_kernels = {f"gbm_paths_kernelILi{code}E": b for b, code in gbm_cuda._FAMILY_CODE.items()}
     flat_kernels["gbm_cliquet_kernel"] = "cliquet"
@@ -417,6 +550,13 @@ def sass_instruction_counts(flat: object, dynamics: object) -> dict[str, float]:
     more, found_more = parse_instruction_counts(
         cuobjdump_sass(dynamics), dynamics_kernels, steps,
         pick_loop=lambda loops: max(loops, key=len), single_step=lambda group: False)
+    counts.update(more)
+    found.update(found_more)
+    basket_kernels = {f"basket_paths_kernelILi3ELi{code}ELb0E": f"basket_{branch}"
+                      for branch, code in codes.items()}  # the 3-asset arithmetic basket
+    more, found_more = parse_instruction_counts(
+        cuobjdump_sass(basket), basket_kernels, {}, pick_loop=lambda loops: max(loops, key=len),
+        single_step=lambda group: group == "basket_forward")
     counts.update(more)
     found.update(found_more)
     phase("sass", log_euler_loop=repr(found),
@@ -502,6 +642,8 @@ FAMILY_FNS = {
                dynamics_cuda.simulate_heston_rows_cuda_plain),
     "merton": (dynamics_cuda.simulate_merton_rows_cuda,
                dynamics_cuda.simulate_merton_rows_cuda_plain),
+    "basket": (basket_cuda.simulate_basket_rows_cuda,
+               basket_cuda.simulate_basket_rows_cuda_plain),
 }
 
 
@@ -628,10 +770,11 @@ TIMED_PAYOFF = {
     "cliquet": (PayoffKind.CLIQUET, CLIQUET),
     "forward": (PayoffKind.FORWARD_START, dict(forward_start_step=FORWARD_STEP)),
 }
-# group -> (family, timed payoff, its knobs), in gbm_cuda.BRANCHES' order
+# group -> (family, timed payoff, its knobs), in gbm_cuda.BRANCHES' order; the
+# basket and QMC kernels have phases of their own
 TIMED = {
     group: (group.rpartition("_")[0] or "gbm", *TIMED_PAYOFF[group.rpartition("_")[2]])
-    for group in gbm_cuda.BRANCHES
+    for group in gbm_cuda.BRANCHES if not group.startswith(("basket_", "qmc_"))
 }
 
 
@@ -941,15 +1084,20 @@ def bounds_for(payoff: PayoffKind, family: str = "gbm") -> dict[str, BoundSpec]:
 
 
 def pricer_config(
-    payoff: PayoffKind = PayoffKind.TERMINAL, family: str = "gbm"
+    payoff: PayoffKind = PayoffKind.TERMINAL, family: str = "gbm", *,
+    sampling: str = "pseudo", spec: object = BASKET_SPEC,
 ) -> GbmCVNNPricerConfig:
     model = ModelKind(FAMILY_MODEL[family])
-    closed = has_closed_form_mean(model, payoff)
+    basket = spec if family == "basket" else None
+    closed = has_closed_form_mean(model, payoff, combine=basket.combine if basket else None)
     mean_ok = closed and payoff not in (PayoffKind.DIGITAL, PayoffKind.CLIQUET)
     curves = {"term": term_of(STEPS)} if family == "term" else {}
+    if basket is not None:
+        curves["basket"] = basket
     sim = build_simulation_params(
-        timesteps=STEPS, network_size=COLS, batches_per_mc_run=ROWS, mc_seed=7,
-        implementation="cuda", payoff=payoff.value, model=model.value,
+        timesteps=STEPS, network_size=COLS, batches_per_mc_run=ROWS,
+        mc_seed=QMC_SEED if sampling == "sobol_bb" else 7, implementation="cuda",
+        payoff=payoff.value, model=model.value, sampling=sampling,
         normalization="mean" if mean_ok else "none", **KNOBS.get(payoff, {}), **curves,
     ).expect("sim")
     return GbmCVNNPricerConfig(sim=sim, bounds=bounds_for(payoff, family),
@@ -975,10 +1123,14 @@ def train_steps(
 
 
 def phase_train(
-    device: torch.device, payoff: PayoffKind, label: str, family: str = "gbm"
+    device: torch.device, payoff: PayoffKind, label: str, family: str = "gbm", *,
+    sampling: str = "pseudo", group: str | None = None,
 ) -> GbmCVNNPricer:
-    pricer = GbmCVNNPricer.create(pricer_config(payoff, family), device=device).expect("create")
-    branch = group_of(family, branch_of(family, payoff))
+    """3 steps at the production batch; ``group`` (default: the payoff's
+    kernel branch) must launch once per chunk."""
+    pricer = GbmCVNNPricer.create(pricer_config(payoff, family, sampling=sampling),
+                                  device=device).expect("create")
+    branch = group or group_of(family, branch_of(family, payoff))
     before = gbm_cuda.LAUNCHES_BY_BRANCH[branch]
     losses, seconds = train_steps(pricer, 3)
     launched = gbm_cuda.LAUNCHES_BY_BRANCH[branch] - before
@@ -989,8 +1141,9 @@ def phase_train(
                              f"want {3 * BATCH // CHUNK}")
     snap = pricer.snapshot()
     phase(label, model=snap.sim.model.value, payoff=payoff.value,
-          inputs=len(FAMILY_CONTRACT[family].model_fields),
-          engine=snap.sim.implementation.value, normalization=snap.sim.normalization.value, stream_version=snap.cuda_stream_version,
+          sampling=snap.sim.sampling.value, inputs=len(FAMILY_CONTRACT[family].model_fields),
+          engine=snap.sim.implementation.value, normalization=snap.sim.normalization.value,
+          stream_version=snap.cuda_stream_version, kernel=branch,
           losses=losses.tolist(), launches=launched, step_seconds=[round(s, 4) for s in seconds],
           median_step_s=f"{statistics.median(seconds):.4f}",
           paths_per_contract=ROWS * COLS, batch=BATCH, chunk=CHUNK)
@@ -1022,7 +1175,8 @@ def check_prices(pricer: GbmCVNNPricer, batch: np.ndarray, device: torch.device)
     pred = pricer.predict_price(batch)
     if not np.all(np.isfinite(pred.put)):
         raise AssertionError(f"{sim.payoff.value}: non-finite puts {pred.put}")
-    if not has_closed_form_mean(sim.model, sim.payoff):
+    combine = sim.basket.combine if sim.basket is not None else None
+    if not has_closed_form_mean(sim.model, sim.payoff, combine=combine):
         if not np.all(np.isnan(pred.call)):
             raise AssertionError(f"{sim.payoff.value}: calls should be NaN, got {pred.call}")
         return pred
@@ -1141,6 +1295,368 @@ def phase_families(device: torch.device) -> None:
 
 
 # --------------------------------------------------------------------------
+# 12-16. baskets and QMC path sampling
+# --------------------------------------------------------------------------
+
+BASKET_CASE_CONTRACTS = 8  # contracts per kernel-vs-twin case
+BASKET_TIMED_CONTRACTS = 32  # kernel, twin and bound of each timed basket group
+BASKET_TIMED = {  # branch group -> (payoff, knobs), timed on the 3-asset arithmetic basket
+    "basket_terminal": (PayoffKind.TERMINAL, {}),
+    "basket_barrier": (PayoffKind.BARRIER_UP_OUT, dict(barrier_rel=1.25)),
+    "basket_lookback": (PayoffKind.LOOKBACK_FIXED_CALL, {}),
+    "basket_variance": (PayoffKind.VARIANCE_SWAP, {}),
+    "basket_asian": (PayoffKind.ASIAN_ARITHMETIC, {}),
+    "basket_forward": (PayoffKind.FORWARD_START, dict(forward_start_step=FORWARD_STEP)),
+}
+
+
+def spec_of(assets: int, combine: str) -> object:
+    """The bench's 3-asset basket, or 1 asset, or 8 (equal weights,
+    correlation 0.3/(1 + |i − j|), spread multipliers)."""
+    if assets == 3:
+        return BASKET_SPEC if combine == "arithmetic" else GEOMETRIC_SPEC
+    corr = tuple(tuple(1.0 if i == j else 0.3 / (1 + abs(i - j)) for j in range(assets))
+                 for i in range(assets))
+    return build_basket_spec(
+        weights=(1.0 / assets,) * assets, correlation=corr, combine=combine,
+        spot_multipliers=tuple(1.0 + 0.02 * a for a in range(assets)),
+        vol_multipliers=tuple(1.2 - 0.05 * a for a in range(assets)),
+    ).expect("spec")
+
+
+def basket_cases() -> list[tuple[str, PayoffKind, dict[str, object]]]:
+    """(group, payoff, kwargs) of the basket kernel's cases: every payoff of
+    every branch group under both combines at 3 assets (antithetic), and one
+    payoff per branch group at 1 and 8 assets."""
+    all_payoffs = [PayoffKind.TERMINAL, PayoffKind.DIGITAL, PayoffKind.FORWARD_START,
+                   PayoffKind.BARRIER_UP_OUT, PayoffKind.BARRIER_DOWN_OUT,
+                   *sorted(LOOKBACK_PAYOFFS, key=lambda p: p.value), PayoffKind.VARIANCE_SWAP,
+                   PayoffKind.ASIAN_ARITHMETIC, PayoffKind.ASIAN_GEOMETRIC]
+    cases = []
+    for combine in ("arithmetic", "geometric"):
+        for assets, payoffs, half in ((3, all_payoffs, ROWS // 2),
+                                      (1, [p for p, _ in BASKET_TIMED.values()], None),
+                                      (8, [p for p, _ in BASKET_TIMED.values()], None)):
+            spec = spec_of(assets, combine)
+            for payoff in payoffs:
+                kw = dict(rows=ROWS, cols=COLS, timesteps=STEPS, spec=spec,
+                          antithetic_half=half, **KNOBS.get(payoff, {}))
+                cases.append((f"basket_{basket_cuda.basket_branch(payoff, spec)}", payoff, kw))
+    return cases
+
+
+def phase_basket_kernel(
+    device: torch.device, per_step: dict[str, float], max_sm_hz: float
+) -> dict[str, dict[str, object]]:
+    """The basket kernel against its twin on every case at 8 contracts of
+    2048 x 512 x 16 (rtol 2e-5; knocks and signs flipped on at most 1e-5 of
+    the paths), then each branch group timed at 32 contracts (CUDA events;
+    the twin's second call) beside its bound and its SASS cap share."""
+    record = {g: {"max_abs_err": 0.0, "max_rel": 0.0, "flips": 0, "cases": 0}
+              for g in BASKET_TIMED}
+    for group, payoff, kw in basket_cases():
+        found = compare(device, payoff, BASKET_CASE_CONTRACTS, "basket", **kw)
+        r = record[group]
+        r.update(max_abs_err=max(r["max_abs_err"], found["max_abs_err"]),
+                 max_rel=max(r["max_rel"], found["max_rel"]),
+                 flips=r["flips"] + found["flips"], cases=r["cases"] + 1)
+    for group, (payoff, extra) in BASKET_TIMED.items():
+        kw = dict(timesteps=STEPS, rows=ROWS, cols=COLS, spec=BASKET_SPEC, **extra)
+        found = compare(device, payoff, BASKET_TIMED_CONTRACTS, "basket", warm_twin=True, **kw)
+        params, keys = kernel_inputs(device, BASKET_TIMED_CONTRACTS, 1, "basket")
+        kernel, _ = kernel_and_twin("basket", payoff, kw)
+        ms = cuda_ms(lambda: kernel(params, keys))
+        branch = group.removeprefix("basket_")
+        bound, bound_by = basket_bound_ms(BASKET_TIMED_CONTRACTS, STEPS, 3, branch, False)
+        path_steps = BASKET_TIMED_CONTRACTS * ROWS * COLS * STEPS
+        cap = LANES_PER_CLOCK * max_sm_hz / per_step[group]
+        r = record[group]
+        r.update(ms=ms, plain_ms=found["plain_ms"], bound_ms=bound, bound_by=bound_by)
+        phase("kernel-basket", branch=group, cases=r["cases"],
+              max_rel_diff=f"{r['max_rel']:.3e}", max_abs_err=f"{r['max_abs_err']:.3e}",
+              flips=r["flips"], rtol=KERNEL_RTOL, assets=3, combine="arithmetic",
+              shape=f"{BASKET_TIMED_CONTRACTS}x{ROWS}x{COLS}x{STEPS}", timed=payoff.value,
+              kernel_ms=f"{ms:.3f}", plain_ms=f"{found['plain_ms']:.3f}",
+              bound_ms=f"{bound:.3f}", bound_by=bound_by, share_of_bound=f"{bound / ms:.4f}",
+              sass_per_path_step=round(per_step[group], 3),
+              kernel_path_steps_per_s=f"{path_steps / ms * 1e3:.4e}",
+              share_of_instruction_cap=f"{path_steps / ms * 1e3 / cap:.4f}")
+    return record
+
+
+QMC_CONTRACTS = 4  # contracts per generator case at the production 2048 x 512 points
+QMC_CASES = [(STEPS, 1, 0), (STEPS, 2, 37 * COLS), (STEPS, 3, 0), (32, 3, 5 * COLS)]
+WORD_ULPS = 2  # identity-bridge normals: kernel vs twin, in float32 ulps (log1pf)
+BRIDGE_ATOL = 1e-5  # bridged normals: the ulps above through T multiply-adds, |B| <= 1
+
+
+def qmc_inputs(device: torch.device, contracts: int, steps: int, factors: int,
+               start: int) -> dict[str, object]:
+    """The generator's arguments for ``contracts`` seeded keys."""
+    keys = rng.fold_in(rng.prng_key(QMC_SEED, device), torch.arange(contracts, device=device))
+    sdims, dirs, shift, pad_keys = qmc._draw_tables(keys, steps, factors, QMC_SEED)
+    pad = None
+    if sdims < steps * factors:
+        pad = qmc.qmc_pad_normals(pad_keys, range(sdims, steps * factors), rows=ROWS,
+                                  cols=COLS, row_offset=start // COLS)
+    bridge = torch.as_tensor(qmc.brownian_bridge_matrix(steps), dtype=torch.float32,
+                             device=device)
+    return dict(directions=dirs, shift=shift, bridge=bridge, start=start, timesteps=steps,
+                factors=factors, count=ROWS * COLS, pad=pad)
+
+
+def walk_scalars(device: torch.device, contracts: int) -> tuple[torch.Tensor, ...]:
+    c = torch.tensor(ORACLE_CONTRACTS, dtype=torch.float32, device=device)[
+        torch.arange(contracts, device=device) % 3]
+    spot, _, maturity, rate, div, vol = (c[:, i] for i in range(6))
+    dt = maturity / STEPS
+    return torch.log(spot), (rate - div - 0.5 * vol * vol) * dt, vol * torch.sqrt(dt)
+
+
+def phase_qmc_kernel(device: torch.device) -> dict[str, dict[str, object]]:
+    """Kernel #13 against its twin for F = 1, 2, 3 and a padded case (T·F >
+    64): the Sobol words equal, the normals (identity bridge) within
+    ``WORD_ULPS`` ulps, the bridged normals within ``BRIDGE_ATOL``; kernel
+    #14 equal bit for bit to #13 walked by the torch scan (T = 16, 7, 64);
+    each timed at 4 contracts of 2048 x 512 points (CUDA events; the twin's
+    second call) beside its bound, #14 also at the training chunk."""
+    record = {"qmc_bridge": {"max_abs_err": 0.0, "cases": 0},
+              "qmc_walk": {"max_abs_err": 0.0, "cases": 0}}
+    for steps, factors, start in QMC_CASES:
+        kw = qmc_inputs(device, QMC_CONTRACTS, steps, factors, start)
+        sdims = kw["directions"].shape[0]
+        words = torch.empty((QMC_CONTRACTS, sdims, ROWS * COLS), dtype=torch.int32,
+                            device=device)
+        got = qmc_cuda.bridge_normals(**kw, words_out=words)
+        want_words = qmc_cuda.sobol_words(kw["directions"], kw["shift"], start, ROWS * COLS)
+        if not torch.equal(words.to(torch.int64) & rng.MASK32, want_words):
+            raise AssertionError(f"qmc words differ at T={steps} F={factors}")
+        del words, want_words
+        eye = dict(kw, bridge=torch.eye(steps, dtype=torch.float32, device=device))
+        z_kernel, z_twin = qmc_cuda.bridge_normals(**eye), qmc_cuda.bridge_normals_plain(**eye)
+        ulp = torch.abs(torch.nextafter(z_twin, torch.full_like(z_twin, math.inf)) - z_twin)
+        ulps = float(((z_kernel - z_twin).abs() / ulp).max())
+        del z_kernel, z_twin, ulp
+        want = qmc_cuda.bridge_normals_plain(**kw)
+        err = float((got - want).abs().max())
+        if ulps > WORD_ULPS or err > BRIDGE_ATOL or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"qmc bridge T={steps} F={factors}: {ulps} ulps, err {err}")
+        r = record["qmc_bridge"]
+        r.update(max_abs_err=max(r["max_abs_err"], err), cases=r["cases"] + 1)
+        phase("kernel-qmc", kernel="qmc_bridge", timesteps=steps, factors=factors,
+              padded_dims=steps * factors - sdims, start=start, words_equal=True,
+              normal_max_ulps=ulps, ulps_allowed=WORD_ULPS, bridged_max_abs_err=f"{err:.3e}",
+              atol=BRIDGE_ATOL)
+        del got, want
+    for steps in (STEPS, 7, 64):
+        kw = qmc_inputs(device, QMC_CONTRACTS, steps, 1, 3 * COLS)
+        scalars = walk_scalars(device, QMC_CONTRACTS)
+        got = qmc_cuda.walk_acc(kw["directions"], kw["shift"], kw["bridge"], kw["start"],
+                                *scalars, timesteps=steps, count=ROWS * COLS)
+        eff = qmc_cuda.bridge_normals(**kw)[:, :, 0]
+        logx = torch.zeros_like(got) + scalars[0][:, None]
+        acc = torch.zeros_like(got)
+        for t in range(steps):
+            logx = logx + scalars[1][:, None] + scalars[2][:, None] * eff[:, t]
+            acc = acc + logx
+        if not torch.equal(got, acc):
+            raise AssertionError(f"qmc walk T={steps}: {int((got != acc).sum())} sums differ "
+                                 "from the bridge kernel walked by the scan")
+        twin = qmc_cuda.walk_acc_plain(kw["directions"], kw["shift"], kw["bridge"], kw["start"],
+                                       *scalars, timesteps=steps, count=ROWS * COLS)
+        err = float((got - twin).abs().max())
+        r = record["qmc_walk"]
+        r.update(max_abs_err=max(r["max_abs_err"], err), cases=r["cases"] + 1)
+        phase("kernel-qmc", kernel="qmc_walk", timesteps=steps, bit_equal_to_bridge_plus_scan=True,
+              max_abs_err_vs_twin=f"{err:.3e}")
+        del got, acc, eff, twin
+    kw = qmc_inputs(device, QMC_CONTRACTS, STEPS, 1, 0)
+    bridge_args = {k: kw[k] for k in ("directions", "shift", "bridge", "start")}
+    scalars = walk_scalars(device, QMC_CONTRACTS)
+    timed = {
+        "qmc_bridge": (lambda: qmc_cuda.bridge_normals(**kw),
+                       lambda: qmc_cuda.bridge_normals_plain(**kw),
+                       qmc_bound_ms(QMC_CONTRACTS, STEPS, 1, ROWS * COLS)),
+        "qmc_walk": (lambda: qmc_cuda.walk_acc(**bridge_args, log_spot=scalars[0],
+                                               drift=scalars[1], vol_sdt=scalars[2],
+                                               timesteps=STEPS, count=ROWS * COLS),
+                     lambda: qmc_cuda.walk_acc_plain(*bridge_args.values(), *scalars,
+                                                     timesteps=STEPS, count=ROWS * COLS),
+                     qmc_bound_ms(QMC_CONTRACTS, STEPS, 1, ROWS * COLS, walk=True)),
+    }
+    for name, (kernel, twin, (bound, bound_by)) in timed.items():
+        ms = cuda_ms(kernel)
+        twin()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        twin()
+        stop.record()
+        stop.synchronize()
+        record[name].update(ms=ms, plain_ms=start.elapsed_time(stop), bound_ms=bound,
+                            bound_by=bound_by)
+        phase("kernel-qmc-time", kernel=name, shape=f"{QMC_CONTRACTS}x{ROWS}x{COLS}x{STEPS}",
+              kernel_ms=f"{ms:.3f}", plain_ms=f"{record[name]['plain_ms']:.3f}",
+              bound_ms=f"{bound:.4f}", bound_by=bound_by, share_of_bound=f"{bound / ms:.4f}",
+              points_per_s=f"{QMC_CONTRACTS * ROWS * COLS / ms * 1e3:.4e}")
+    chunk = dict(bridge_args, shift=kw["shift"].repeat(CHUNK // QMC_CONTRACTS, 1))
+    big = tuple(x.repeat(CHUNK // QMC_CONTRACTS) for x in scalars)
+    ms = cuda_ms(lambda: qmc_cuda.walk_acc(**chunk, log_spot=big[0], drift=big[1],
+                                           vol_sdt=big[2], timesteps=STEPS, count=ROWS * COLS),
+                 iters=5)
+    bound, bound_by = qmc_bound_ms(CHUNK, STEPS, 1, ROWS * COLS, walk=True)
+    phase("kernel-qmc-time", kernel="qmc_walk", shape=f"{CHUNK}x{ROWS}x{COLS}x{STEPS}",
+          kernel_ms=f"{ms:.3f}", bound_ms=f"{bound:.3f}", bound_by=bound_by,
+          share_of_bound=f"{bound / ms:.4f}")
+    return record
+
+
+def mc_z(pay: torch.Tensor, want: float) -> tuple[float, float, float]:
+    """(mean, standard error, z) of a ``[P]`` sample against ``want``."""
+    pay = pay.double()
+    mean, se = float(pay.mean()), float(pay.std() / math.sqrt(pay.numel()))
+    return mean, se, z_score(mean, se, want, 0.0)
+
+
+def gate(label: str, prices: object, oracle: list[tuple[float, float]]) -> list[tuple]:
+    """Each contract's MC put and call within 4 SE of ``oracle``'s."""
+    found = []
+    for i, (put, call) in enumerate(oracle):
+        for side, pay, want in (("put", prices.put_payoffs[i], put),
+                                ("call", prices.call_payoffs[i], call)):
+            mean, se, z = mc_z(pay, want)
+            if not z < 4.0:
+                raise AssertionError(f"{label} {side} contract {i}: MC {mean:.6f} ± {se:.2e} "
+                                     f"vs oracle {want:.6f} (z={z:.2f})")
+            found.append((side, round(mean, 5), round(se, 5), round(want, 5), round(z, 3)))
+    return found
+
+
+def phase_oracle_basket_qmc(device: torch.device) -> None:
+    """Over 1,048,576 paths per contract, three contracts, normalization
+    "none": the geometric basket on the cuda engine against
+    ``geometric_basket_price``, a 1-asset arithmetic basket against
+    ``black_scholes_price``; SOBOL_BB GBM TERMINAL and geometric Asian against
+    ``black_scholes_price`` and ``geometric_asian_price``, SOBOL_BB Heston
+    TERMINAL at 32 steps against ``heston_call_price``; each within 4
+    standard errors (the per-path standard error, which over-states RQMC's).
+    Then the RMSE ratio of pseudo to QMC at an equal budget, the JAX bench's
+    (bench.py:879-904): 16 estimates of the ATM call from 16 x 256 paths."""
+    contracts = torch.tensor(ORACLE_CONTRACTS, dtype=torch.float32, device=device)
+    one = build_basket_spec(weights=(1.0,), correlation=((1.0,),)).expect("one asset")
+    cases = [("geometric basket", "basket", GEOMETRIC_SPEC, "pseudo", PayoffKind.TERMINAL,
+              STEPS, "basket_terminal"),
+             ("1-asset arithmetic basket", "basket", one, "pseudo", PayoffKind.TERMINAL, STEPS,
+              "basket_terminal"),
+             ("sobol_bb gbm", "gbm", None, "sobol_bb", PayoffKind.TERMINAL, STEPS, None),
+             ("sobol_bb gbm", "gbm", None, "sobol_bb", PayoffKind.ASIAN_GEOMETRIC, STEPS,
+              "qmc_walk"),
+             ("sobol_bb heston", "heston", None, "sobol_bb", PayoffKind.TERMINAL,
+              HESTON_ORACLE_STEPS, "qmc_bridge")]
+    for label, family, spec, sampling, payoff, steps, group in cases:
+        extra = {"basket": spec} if spec is not None else {}
+        sim = build_simulation_params(
+            timesteps=steps, network_size=COLS, batches_per_mc_run=ROWS, mc_seed=QMC_SEED,
+            implementation="cuda", normalization="none", payoff=payoff.value,
+            model=FAMILY_MODEL[family], sampling=sampling, **extra,
+        ).expect(label)
+        base = ORACLE_CONTRACTS if family != "heston" else FAMILY_ORACLE_CONTRACTS["heston"]
+        c = torch.tensor(base, dtype=torch.float32, device=device)
+        keys = rng.fold_in(rng.prng_key(sim.mc_seed, device), torch.arange(3, device=device))
+        before = dict(gbm_cuda.LAUNCHES_BY_BRANCH)
+        u = make_underlier_simulator(sim, rows=ROWS)(keys, c).reshape(3, -1)
+        if group is not None and gbm_cuda.LAUNCHES_BY_BRANCH[group] != before[group] + 1:
+            raise AssertionError(f"{label}: the oracle run did not launch {group}")
+        if not bool(torch.isfinite(u).all()):
+            raise AssertionError(f"{label}: non-finite underliers")
+        if family == "heston":
+            oracle = [family_oracle("heston", row, steps) for row in base]
+        elif spec is not None:
+            oracle = [(float(p.put), float(p.call)) for p in
+                      (analytic.geometric_basket_price(*row, spec=spec) for row in base)]
+        elif payoff == PayoffKind.ASIAN_GEOMETRIC:
+            oracle = [(float(p.put), float(p.call)) for p in
+                      (analytic.geometric_asian_price(*row, timesteps=steps) for row in base)]
+        else:
+            oracle = [(float(p.put), float(p.call)) for p in
+                      (analytic.black_scholes_price(*row) for row in base)]
+        prices = terminal_to_prices(u, c, normalize=False, dtype=torch.float32)
+        found = gate(f"{label}/{payoff.value}", prices, oracle)
+        phase("oracle", family=label, sampling=sampling, payoff=payoff.value, steps=steps,
+              engine=sim.implementation.value, paths=u.shape[1], kernel=group,
+              side_mc_se_oracle_z=repr(found))
+    del u
+    spot, strike, maturity, rate, div, vol = ORACLE_CONTRACTS[0]
+    truth = float(analytic.black_scholes_price(*ORACLE_CONTRACTS[0]).call)
+    c = contracts[:1]
+    df = math.exp(-rate * maturity)
+    errors = {}
+    for sampling in (SamplingKind.PSEUDO, SamplingKind.SOBOL_BB):
+        est = []
+        for i in range(16):
+            key = rng.fold_in(rng.prng_key(77, device), torch.tensor([i], device=device))
+            rows = simulate_terminal_rows(key, c, timesteps=STEPS, rows=16, cols=256,
+                                          dtype=torch.float32, scheme=PathScheme.LOG_EULER,
+                                          sampling=sampling, mc_seed=QMC_SEED)
+            est.append(df * float(torch.clamp(rows - strike, min=0.0).double().mean()))
+        errors[sampling.value] = math.sqrt(sum((e - truth) ** 2 for e in est) / len(est))
+    phase("oracle-qmc-rmse", truth=round(truth, 6), reps=16, paths_per_rep=16 * 256,
+          rmse_pseudo=f"{errors['pseudo']:.4e}", rmse_sobol_bb=f"{errors['sobol_bb']:.4e}",
+          rmse_ratio_pseudo_over_qmc=f"{errors['pseudo'] / max(errors['sobol_bb'], 1e-12):.2f}")
+
+
+# Phase 16's pricers: (label, family, spec, sampling, payoff, kernel group)
+FAMILY_PRICERS = [
+    ("geometric basket", "basket", GEOMETRIC_SPEC, "pseudo", PayoffKind.TERMINAL,
+     "basket_terminal"),
+    ("basket", "basket", BASKET_SPEC, "pseudo", PayoffKind.BARRIER_UP_OUT, "basket_barrier"),
+    ("basket", "basket", BASKET_SPEC, "pseudo", PayoffKind.ASIAN_ARITHMETIC, "basket_asian"),
+    ("basket", "basket", BASKET_SPEC, "pseudo", PayoffKind.LOOKBACK_FLOAT_PUT, "basket_lookback"),
+    ("geometric basket", "basket", GEOMETRIC_SPEC, "pseudo", PayoffKind.VARIANCE_SWAP,
+     "basket_variance"),
+    ("basket", "basket", BASKET_SPEC, "pseudo", PayoffKind.FORWARD_START, "basket_forward"),
+    ("sobol_bb gbm", "gbm", None, "sobol_bb", PayoffKind.ASIAN_ARITHMETIC, "qmc_bridge"),
+    ("sobol_bb heston", "heston", None, "sobol_bb", PayoffKind.TERMINAL, "qmc_bridge"),
+    ("sobol_bb basket", "basket", BASKET_SPEC, "sobol_bb", PayoffKind.TERMINAL, "qmc_bridge"),
+    ("sobol_bb merton", "merton", None, "sobol_bb", PayoffKind.TERMINAL, "qmc_bridge"),
+]
+
+
+def phase_basket_qmc_families(device: torch.device) -> None:
+    """One step at batch 64 (one chunk) per pricer of ``FAMILY_PRICERS``:
+    the engine and stream recorded (SOBOL_BB: the threefry engine, version
+    0), its kernel launched once, a finite loss and puts, calls NaN exactly
+    where E[u] has no closed form. The SOBOL_BB chunk's normals tensor
+    ``[64, T, F, 2048·512]`` float32 is printed (12.9 GB at F = 3)."""
+    for label, family, spec, sampling, payoff, group in FAMILY_PRICERS:
+        cfg = pricer_config(payoff, family, sampling=sampling, spec=spec)
+        pricer = GbmCVNNPricer.create(cfg, device=device).expect(label)
+        before = gbm_cuda.LAUNCHES_BY_BRANCH[group]
+        losses, seconds = train_steps(pricer, 1, batch=PAYOFF_BATCH, chunk=PAYOFF_BATCH)
+        launched = gbm_cuda.LAUNCHES_BY_BRANCH[group] - before
+        snap = pricer.snapshot()
+        engine = "xla" if sampling == "sobol_bb" else "cuda"
+        version = 0 if sampling == "sobol_bb" else gbm_cuda.CUDA_STREAM_VERSIONS["basket_gbm"]
+        if snap.sim.implementation.value != engine or snap.cuda_stream_version != version:
+            raise AssertionError(f"{label}/{payoff.value}: engine {snap.sim.implementation.value}"
+                                 f" stream v{snap.cuda_stream_version}")
+        if launched != 1 or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"{label}/{payoff.value}: {group} launches {launched}, "
+                                 f"loss {losses}")
+        pred = check_prices(pricer, held_out(payoff, 8, family), device)
+        factors = {"heston": 2, "basket": 3}.get(family, 1)
+        normals_gb = PAYOFF_BATCH * STEPS * factors * ROWS * COLS * 4 / 1e9
+        phase("families-basket-qmc", family=label, model=snap.sim.model.value,
+              sampling=sampling, payoff=payoff.value, engine=engine, stream_version=version,
+              kernel=group, launches=launched, chunk=PAYOFF_BATCH,
+              qmc_normals_gb=round(normals_gb, 2) if sampling == "sobol_bb" else 0,
+              normalization=snap.sim.normalization.value, loss=float(losses[0]),
+              step_s=round(seconds[0], 4), puts=np.round(pred.put[:3], 5).tolist(),
+              calls="NaN" if np.all(np.isnan(pred.call)) else "parity")
+        del pricer
+        torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
 # 11. profile
 # --------------------------------------------------------------------------
 
@@ -1218,6 +1734,24 @@ def main() -> None:
     phase_families(device)
     for group in TIMED:
         launches.setdefault(group, gbm_cuda.LAUNCHES_BY_BRANCH[group])
+    kernel.update(phase_basket_kernel(device, per_step, max_sm_hz))
+    kernel.update(phase_qmc_kernel(device))
+    phase_oracle_basket_qmc(device)
+    gbm_cuda.reset_launches()  # the basket pricer's path starts here
+    basket = phase_train(device, PayoffKind.TERMINAL, "train-basket", "basket")
+    phase_resume(device, basket, "resume-basket")
+    phase_serve(basket, device, "serve-basket")
+    launches["basket_terminal"] = gbm_cuda.LAUNCHES_BY_BRANCH["basket_terminal"]
+    gbm_cuda.reset_launches()  # the SOBOL_BB geometric-Asian pricer's path starts here
+    qmc_asian = phase_train(device, PayoffKind.ASIAN_GEOMETRIC, "train-qmc-asian",
+                            sampling="sobol_bb", group="qmc_walk")
+    phase_resume(device, qmc_asian, "resume-qmc-asian")
+    phase_serve(qmc_asian, device, "serve-qmc-asian")
+    launches["qmc_walk"] = gbm_cuda.LAUNCHES_BY_BRANCH["qmc_walk"]
+    gbm_cuda.reset_launches()  # the basket branches' and the generator's path starts here
+    phase_basket_qmc_families(device)
+    for group in (*BASKET_TIMED, "qmc_bridge"):
+        launches.setdefault(group, gbm_cuda.LAUNCHES_BY_BRANCH[group])
     missing = [b for b, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"the main paths never launched the {missing} kernel branches")
@@ -1225,6 +1759,8 @@ def main() -> None:
         phase_profile(pricer, "")
         phase_profile(asian, "-asian")
         phase_profile(heston, "-heston")
+        phase_profile(basket, "-basket")
+        phase_profile(qmc_asian, "-qmc-asian")
     records = []
     for group, (family, _, _) in TIMED.items():
         flat = family == "gbm"
@@ -1240,6 +1776,18 @@ def main() -> None:
             "plain_ms": kernel[group]["plain_ms"],
             "bound_ms": kernel[group]["bound_ms"],
             "bound_by": kernel[group]["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes these functions
+        })
+    for group in (*BASKET_TIMED, "qmc_bridge", "qmc_walk"):
+        in_basket = group.startswith("basket_")
+        records.append({
+            "name": group,
+            "route": "cuda",
+            "source": BASKET_SOURCE if in_basket else QMC_SOURCE,
+            "replaces": BASKET_REPLACES if in_basket else QMC_REPLACES[group],
+            "launches": launches[group],
+            **{k: kernel[group][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                             "bound_by")},
             "library_ms": None,  # no single PyTorch call computes these functions
         })
     print(json.dumps({"kernels": records}))

@@ -4,9 +4,11 @@ Complex-valued neural networks trained online on the DFT (characteristic
 function) of Monte-Carlo payoff distributions, served as a pricer. This
 package carries the main path — Sobol contracts → Monte-Carlo → FFT → CVNN →
 Adam, with snapshot/resume and serving — on PyTorch for GBM (flat or under
-piecewise-constant term structures), Heston and Merton dynamics and every
-payoff but the American ones, with the MC hot loop in hand-written CUDA
-kernels for Hopper (``csrc/gbm_paths.cu``, ``csrc/dynamics_paths.cu``).
+piecewise-constant term structures), Heston, Merton and basket dynamics,
+pseudo-random or Sobol/Brownian-bridge paths and every payoff but the
+American ones, with the MC hot loop in hand-written CUDA kernels for Hopper
+(``csrc/gbm_paths.cu``, ``csrc/dynamics_paths.cu``, ``csrc/basket_paths.cu``,
+``csrc/qmc_paths.cu``).
 It imports neither JAX nor the JAX package; the tests hold it against both.
 """
 
@@ -32,7 +34,11 @@ _EXPORTS = {
     "heston_call_price": "spectralmc_tpu_torch.ops.heston",
     "MertonContract": "spectralmc_tpu_torch.ops.merton",
     "merton_call_price": "spectralmc_tpu_torch.ops.merton",
+    "BasketCombine": "spectralmc_tpu_torch.ops.basket",
+    "BasketSpec": "spectralmc_tpu_torch.ops.basket",
+    "build_basket_spec": "spectralmc_tpu_torch.ops.basket",
     "black_scholes_price": "spectralmc_tpu_torch.ops.analytic",
+    "geometric_basket_price": "spectralmc_tpu_torch.ops.analytic",
     "BoundSpec": "spectralmc_tpu_torch.ops.sobol",
     "SobolSampler": "spectralmc_tpu_torch.ops.sobol",
     "build_cvnn_config": "spectralmc_tpu_torch.models.factory",

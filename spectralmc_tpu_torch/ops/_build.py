@@ -9,7 +9,8 @@ in seconds with no PyTorch headers:
 The library lands in ``build/kernels/`` at the repository root, named by a
 hash of the sources and flags, so an unchanged source is built once per
 checkout. Nothing here runs at import time; the first launch builds. A build
-that fails raises with nvcc's own error output.
+that fails raises with nvcc's own error output. Libraries of different names
+may build at once from several threads (one nvcc each).
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_LOCK = threading.Lock()
+_LOCKS_GUARD = threading.Lock()
+_LOCKS: dict[str, threading.Lock] = {}  # one per library name
 _LOADED: dict[str, "BuiltLibrary"] = {}
 
 
@@ -63,7 +65,9 @@ def load_library(
     """Build (once per content hash) and load ``csrc/<sources>`` as ``name``;
     ``headers`` are the ``csrc/`` files the sources include (hashed with
     them, not handed to nvcc)."""
-    with _LOCK:
+    with _LOCKS_GUARD:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         cached = _LOADED.get(name)
         if cached is not None:
             return cached

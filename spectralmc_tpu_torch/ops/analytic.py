@@ -166,6 +166,32 @@ def lognormal_black_price(
     return _prices(put, call, mean_u, k, df)
 
 
+def geometric_basket_price(
+    spot: torch.Tensor | float,
+    strike: torch.Tensor | float,
+    maturity: torch.Tensor | float,
+    rate: torch.Tensor | float,
+    div_yield: torch.Tensor | float,
+    vol: torch.Tensor | float,
+    *,
+    spec: object,
+) -> AnalyticPrices:
+    """European put/call on the geometric basket Π Sᵢ^wᵢ, closed form.
+
+    ln B_T ~ N(ln G₀ + μ̄T, s̄²T) with (μ̄, s̄²) from
+    ``ops/basket.py::basket_log_moments``, exact under the log-Euler
+    discretization: the multi-asset analogue of the geometric-Asian oracle.
+    A 1-asset basket prices as ``black_scholes_price``.
+    """
+    from spectralmc_tpu_torch.ops.basket import basket_g0, basket_log_moments
+
+    s, k, t, r, q, v = _f64(spot, strike, maturity, rate, div_yield, vol)
+    contract = torch.stack(torch.broadcast_tensors(s, k, t, r, q, v), dim=-1)
+    mu_bar, s2_bar = basket_log_moments(contract, spec, dtype=torch.float64)
+    mu = torch.log(basket_g0(contract, spec, dtype=torch.float64)) + mu_bar * t
+    return lognormal_black_price(mu, s2_bar * t, k, r, t)
+
+
 def digital_price(
     spot: torch.Tensor | float,
     strike: torch.Tensor | float,

@@ -2,9 +2,10 @@
 
 The port of the JAX package's ``ops/dispatch.py``: the single mapping from
 ``SimulationParams`` to the contract model, the underlier simulator and the
-analytic-mean target of its dynamics (GBM, Heston, Merton; flat or curved
-market data; every payoff kind but the American ones; the threefry engine
-or the CUDA kernels). Every caller builds its simulator here. Simulators
+analytic-mean target of its dynamics (GBM, Heston, Merton, baskets; flat or
+curved market data; pseudo-random or Sobol/Brownian-bridge paths; every
+payoff kind but the American ones; the threefry engine or the CUDA
+kernels). Every caller builds its simulator here. Simulators
 take a BATCH of contracts — one kernel launch per batch on the ``"cuda"``
 engine — where the JAX package ``vmap``s a one-contract simulator.
 """
@@ -15,11 +16,16 @@ from typing import Callable
 
 import torch
 
+from spectralmc_tpu_torch.ops.basket import (
+    expected_basket_underlier_mean,
+    simulate_basket_underlier_rows,
+)
 from spectralmc_tpu_torch.ops.gbm import (
     CONTRACT_DIM,
     BlackScholesContract,
     ModelKind,
     PayoffKind,
+    SamplingKind,
     SimImplementation,
     SimulationParams,
     curved,
@@ -47,6 +53,7 @@ _CONTRACTS: dict[ModelKind, tuple[type, int]] = {
     ModelKind.GBM: (BlackScholesContract, CONTRACT_DIM),
     ModelKind.HESTON: (HestonContract, HESTON_CONTRACT_DIM),
     ModelKind.MERTON_JUMP: (MertonContract, MERTON_CONTRACT_DIM),
+    ModelKind.BASKET_GBM: (BlackScholesContract, CONTRACT_DIM),
 }
 
 
@@ -63,7 +70,7 @@ def contract_dim(sim: SimulationParams) -> int:
 
 def _cuda_simulator(sim: SimulationParams, *, rows: int, anti_half: int | None) -> Simulator:
     """The kernel wrapper ``resolve_implementation`` chose, with its knobs."""
-    from spectralmc_tpu_torch.ops import dynamics_cuda, gbm_cuda
+    from spectralmc_tpu_torch.ops import basket_cuda, dynamics_cuda, gbm_cuda
 
     shape = dict(timesteps=sim.timesteps, rows=rows, cols=sim.network_size,
                  antithetic_half=anti_half)
@@ -76,6 +83,9 @@ def _cuda_simulator(sim: SimulationParams, *, rows: int, anti_half: int | None) 
                      forward_start_step=sim.forward_start_step)
         if sim.model == ModelKind.HESTON:
             launch = dynamics_cuda.simulate_heston_rows_cuda
+        elif sim.model == ModelKind.BASKET_GBM:
+            launch = basket_cuda.simulate_basket_rows_cuda
+            knobs["spec"] = sim.basket
         elif sim.model == ModelKind.MERTON_JUMP:
             launch = dynamics_cuda.simulate_merton_rows_cuda
         elif curved(sim.term) is not None:
@@ -99,9 +109,10 @@ def make_underlier_simulator(sim: SimulationParams, *, rows: int) -> Simulator:
 
     The engine is the one ``resolve_implementation`` says will run, decided
     here once: on ``"cuda"`` the kernel of the sim's dynamics (the cliquet,
-    flat, term, Heston or Merton kernel), on ``"xla"`` the threefry simulator
-    of its dynamics, with the term knob. Every engine keys rows by GLOBAL
-    index, so ``row_offset`` shards are stable.
+    flat, term, Heston, Merton or basket kernel), on ``"xla"`` the threefry
+    simulator of its dynamics, with the term knob, the basket's spec and,
+    for ``SOBOL_BB``, the sampling and its seed. Every engine keys rows by
+    GLOBAL index, so ``row_offset`` shards are stable.
     """
     require_slice(sim)
     resolved = resolve_implementation(sim)
@@ -120,10 +131,15 @@ def make_underlier_simulator(sim: SimulationParams, *, rows: int) -> Simulator:
         cliquet_reset_every=sim.cliquet_reset_every, cliquet_floor=sim.cliquet_floor,
         cliquet_cap=sim.cliquet_cap, term=sim.term,
     )
+    if sim.sampling != SamplingKind.PSEUDO:
+        kwargs.update(sampling=sim.sampling, mc_seed=sim.mc_seed)
     if sim.model == ModelKind.HESTON:
         scan = simulate_heston_underlier_rows
     elif sim.model == ModelKind.MERTON_JUMP:
         scan = simulate_merton_underlier_rows
+    elif sim.model == ModelKind.BASKET_GBM:
+        scan = simulate_basket_underlier_rows
+        kwargs["spec"] = sim.basket
     else:
         scan = simulate_underlier_rows
         kwargs["scheme"] = sim.scheme
@@ -149,6 +165,9 @@ def make_mean_target(sim: SimulationParams) -> Callable[[torch.Tensor], torch.Te
         return lambda contracts: heston_expected_underlier_mean(contracts, **kwargs)
     if sim.model == ModelKind.MERTON_JUMP:
         return lambda contracts: merton_expected_underlier_mean(contracts, **kwargs, **cliquet)
+    if sim.model == ModelKind.BASKET_GBM:
+        return lambda contracts: expected_basket_underlier_mean(contracts, sim.basket, **kwargs,
+                                                                **cliquet)
     return lambda contracts: expected_underlier_mean(contracts, **kwargs, **cliquet)
 
 

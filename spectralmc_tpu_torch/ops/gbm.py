@@ -1,12 +1,13 @@
 """GBM Monte-Carlo engine on torch tensors: the pseudo-random payoff matrix.
 
-The port of the JAX package's ``ops/gbm.py`` for pseudo-random paths: the
-config model shared by every dynamics (GBM here, Heston in ``ops/heston.py``,
-Merton in ``ops/merton.py``), piecewise-constant ``TermStructure`` curves,
-and the GBM simulators for every payoff kind but the American ones
-(TERMINAL, Asian, barrier, lookback, digital, variance swap, forward start,
-cliquet), log-Euler or reflection-Euler, optional antithetic mirroring, and
-MEAN normalization where E[underlier] has a closed form.
+The port of the JAX package's ``ops/gbm.py``: the config model shared by
+every dynamics (GBM here, Heston in ``ops/heston.py``, Merton in
+``ops/merton.py``, baskets in ``ops/basket.py``), piecewise-constant
+``TermStructure`` curves, and the GBM simulators for every payoff kind but
+the American ones (TERMINAL, Asian, barrier, lookback, digital, variance
+swap, forward start, cliquet), log-Euler or reflection-Euler, pseudo-random
+or Sobol/Brownian-bridge paths (``ops/qmc.py``), optional antithetic
+mirroring, and MEAN normalization where E[underlier] has a closed form.
 
 Two engines, recorded in ``SimulationParams.implementation`` because they
 draw different bit streams:
@@ -44,15 +45,14 @@ from spectralmc_tpu_torch.core.errors.gbm import (
 from spectralmc_tpu_torch.core.precision import Precision
 from spectralmc_tpu_torch.core.result import Failure, Result, Success
 from spectralmc_tpu_torch.ops import rng
+from spectralmc_tpu_torch.ops.basket import BasketCombine, BasketSpec
 
 # Same config-time guardrails as the JAX package.
 MAX_TOTAL_PATHS_F32 = 1_000_000_000
 MAX_TOTAL_PATHS_F64 = 500_000_000
 
-# ROADMAP.md queue items that port what this module refuses
+# the ROADMAP.md queue item that ports what this module refuses
 AMERICAN_QUEUE = "queue 1 item 18 (American)"
-BASKET_QUEUE = "queue 1 item 16 (dynamics: baskets, ops/basket.py)"
-QMC_QUEUE = "queue 1 item 17 (QMC)"
 
 
 class PathScheme(enum.Enum):
@@ -132,6 +132,10 @@ class SimImplementation(enum.Enum):
 
 
 class SamplingKind(enum.Enum):
+    """The path-increment source: the pseudo-random stream of the engine, or
+    a scrambled Sobol net in Brownian-bridge order (``ops/qmc.py``), a bit
+    stream of its own that always runs the threefry engine's scans."""
+
     PSEUDO = "pseudo"
     SOBOL_BB = "sobol_bb"
 
@@ -276,9 +280,9 @@ class SimulationParams(BaseModel):
 
     ``total_paths = network_size * batches_per_mc_run``; the FFT length is
     ``network_size``; ``skip`` counts contract-simulations already drawn (the
-    resume offset). The fields of features outside the slice (``basket``,
-    the LSMC knobs) are kept so a JAX config maps 1:1;
-    ``build_simulation_params`` refuses them.
+    resume offset). ``basket`` is the static ``BasketSpec`` of
+    ``model="basket_gbm"``. The LSMC knobs of the American kinds, which the
+    port does not run yet, are kept so a JAX config maps 1:1.
     """
 
     model_config = ConfigDict(frozen=True, extra="forbid")
@@ -294,7 +298,7 @@ class SimulationParams(BaseModel):
     implementation: SimImplementation = SimImplementation.XLA
     payoff: PayoffKind = PayoffKind.TERMINAL
     model: ModelKind = ModelKind.GBM
-    basket: Any = None
+    basket: BasketSpec | None = None
     barrier_rel: float | None = None
     antithetic: bool = False
     lsmc_basis_degree: int = 5
@@ -314,15 +318,11 @@ class SimulationParams(BaseModel):
 
 
 def require_slice(params: SimulationParams) -> None:
-    """Raise for a config outside the ported slice: GBM, Heston or Merton
-    dynamics on pseudo-random paths, flat or curved market data, any payoff
-    but the American kinds."""
-    if params.model == ModelKind.BASKET_GBM or params.basket is not None:
-        raise not_ported(f"model={params.model.value!r} with a BasketSpec", BASKET_QUEUE)
+    """Raise for a config outside the ported slice: every dynamics (GBM,
+    Heston, Merton, baskets), flat or curved market data, pseudo-random or
+    Sobol/Brownian-bridge paths, any payoff but the American kinds."""
     if params.payoff in AMERICAN_PAYOFFS:
         raise not_ported(f"payoff={params.payoff.value!r}", AMERICAN_QUEUE)
-    if params.sampling != SamplingKind.PSEUDO:
-        raise not_ported(f"sampling={params.sampling.value!r}", QMC_QUEUE)
 
 
 def _invalid(field: str, value: object, reason: str) -> Failure:
@@ -400,10 +400,27 @@ def _normalization_refusal(params: SimulationParams) -> Failure | None:
                         "the cliquet sum of clipped returns is not scale-equivariant: "
                         "multiplicative mean rescaling would move returns through the clip "
                         "levels; use normalization='none'")
-    if not has_closed_form_mean(params.model, params.payoff):
+    if not has_closed_form_mean(params.model, params.payoff, combine=_combine(params)):
         return _invalid("normalization", params.normalization.value,
                         f"E[underlier] has no closed form for {params.model.value}/"
                         f"{params.payoff.value}; use normalization='none'")
+    return None
+
+
+def _combine(params: SimulationParams) -> BasketCombine | None:
+    return params.basket.combine if params.basket is not None else None
+
+
+def _basket_refusal(params: SimulationParams) -> Failure | None:
+    """A basket model needs a spec and log-Euler; other models take none."""
+    if params.model == ModelKind.BASKET_GBM:
+        if params.basket is None:
+            return _invalid("basket", None, "model='basket_gbm' requires a BasketSpec")
+        if params.scheme != PathScheme.LOG_EULER:
+            return _invalid("scheme", params.scheme.value, "basket dynamics are log-Euler only")
+    elif params.basket is not None:
+        return _invalid("basket", params.basket,
+                        f"model={params.model.value!r} takes no BasketSpec")
     return None
 
 
@@ -433,6 +450,9 @@ def build_simulation_params(**kwargs: Any) -> Result[SimulationParams, GBMError]
                 reason="config-time path guardrail",
             )
         )
+    refused = _basket_refusal(params)
+    if refused is not None:
+        return refused
     if params.model == ModelKind.MERTON_JUMP and params.scheme != PathScheme.LOG_EULER:
         return _invalid("scheme", params.scheme.value,
                         "Merton jump-diffusion samples the exact log-space transition; "
@@ -452,32 +472,40 @@ def build_simulation_params(**kwargs: Any) -> Result[SimulationParams, GBMError]
     if params.antithetic and params.batches_per_mc_run % 2:
         return _invalid("antithetic", params.batches_per_mc_run,
                         "antithetic pairing needs an even batches_per_mc_run")
+    if params.sampling == SamplingKind.SOBOL_BB and params.antithetic:
+        return _invalid("antithetic", True,
+                        "the scrambled Sobol net is already stratified; antithetic "
+                        "mirroring would break its digital-shift randomization (choose one "
+                        "variance-reduction scheme)")
     refused = _normalization_refusal(params)
     if refused is not None:
         return refused
     return Success(params)
 
 
-def has_closed_form_mean(model: ModelKind, payoff: PayoffKind) -> bool:
+def has_closed_form_mean(
+    model: ModelKind, payoff: PayoffKind, *, combine: BasketCombine | None = None
+) -> bool:
     """Whether analytic E[underlier] exists for this (dynamics, payoff) pair
     (gates MEAN normalization and call-via-parity).
 
     No dynamics has one for the barrier, lookback and American kinds. GBM
-    has one for every other payoff. Heston and Merton keep the discounted
-    spot a martingale (TERMINAL, arithmetic Asian, forward start) and lose
-    the geometric average; Merton's exact transitions also give the digital,
-    variance-swap and cliquet means as series, which Heston's Euler scheme
-    does not.
+    has one for every other payoff, and so has the geometric basket (an
+    effective GBM). Heston and Merton keep the discounted spot a martingale
+    (TERMINAL, arithmetic Asian, forward start) and lose the geometric
+    average; Merton's exact transitions also give the digital, variance-swap
+    and cliquet means as series, which Heston's Euler scheme does not. The
+    arithmetic basket (``combine``) keeps TERMINAL and the arithmetic Asian
+    only.
     """
-    if model == ModelKind.BASKET_GBM:
-        raise not_ported(f"model={model.value!r}", BASKET_QUEUE)
+    arithmetic_basket = model == ModelKind.BASKET_GBM and combine == BasketCombine.ARITHMETIC
     if payoff in BARRIER_PAYOFFS or payoff in AMERICAN_PAYOFFS or payoff in LOOKBACK_PAYOFFS:
         return False
     if payoff in (PayoffKind.DIGITAL, PayoffKind.VARIANCE_SWAP, PayoffKind.CLIQUET):
-        return model != ModelKind.HESTON
+        return model != ModelKind.HESTON and not arithmetic_basket
     if payoff == PayoffKind.FORWARD_START:
-        return True
-    if model in (ModelKind.HESTON, ModelKind.MERTON_JUMP):
+        return not arithmetic_basket
+    if model in (ModelKind.HESTON, ModelKind.MERTON_JUMP) or arithmetic_basket:
         return payoff != PayoffKind.ASIAN_GEOMETRIC
     return True
 
@@ -487,7 +515,9 @@ def resolve_implementation(params: SimulationParams) -> SimImplementation:
 
     ``"cuda"`` runs wherever ``gbm_cuda.cuda_supported`` says the kernels
     honor the request (the single source of truth), else the threefry
-    engine; the kernels take any row count. The decision is made here, once,
+    engine; the kernels take any row count. ``SOBOL_BB`` always records the
+    threefry engine: its normals come from the QMC generator, whose kernels
+    are an internal route, not an engine. The decision is made here, once,
     before a run: no wrapper falls back on its own. ``"pallas"`` resolves to
     itself: only the trainer's refusal stands between it and a run.
     """
@@ -502,6 +532,7 @@ def resolve_implementation(params: SimulationParams) -> SimImplementation:
         sampling=params.sampling,
         term=params.term,
         scheme=params.scheme,
+        n_assets=params.basket.n_assets if params.basket is not None else 1,
     ):
         return SimImplementation.CUDA
     return SimImplementation.XLA
@@ -580,6 +611,45 @@ def _step_coeffs(
     return (lambda t: ld_arr[..., t]), (lambda t: lin_arr[..., t]), (lambda t: vstep_arr[..., t])
 
 
+def _normals_source(
+    contract_keys: torch.Tensor,
+    *,
+    timesteps: int,
+    rows: int,
+    cols: int,
+    dtype: torch.dtype,
+    row_offset: int,
+    antithetic_half: int | None,
+    sampling: SamplingKind,
+    mc_seed: int,
+) -> Callable[[int], torch.Tensor]:
+    """``t -> [C, rows, cols]`` per-step normals: the sampling seam.
+
+    PSEUDO: the canonical (contract key, global row, timestep) threefry
+    stream. SOBOL_BB: a step of the Brownian-bridge-ordered scrambled Sobol
+    tensor generated once per call (``ops/qmc.py``), with the same shape, the
+    same marginals and the same shard stability in ``row_offset``.
+    """
+    if sampling == SamplingKind.SOBOL_BB:
+        from spectralmc_tpu_torch.ops.qmc import qmc_effective_normals
+
+        if antithetic_half is not None:
+            raise ValueError("SOBOL_BB sampling takes no antithetic mirroring")
+        zq = qmc_effective_normals(contract_keys, timesteps=timesteps, rows=rows, cols=cols,
+                                   dtype=dtype, mc_seed=mc_seed, row_offset=row_offset)
+        return lambda t: zq[:, t]
+    keys, sign = row_keys(
+        contract_keys, rows=rows, row_offset=row_offset, antithetic_half=antithetic_half,
+        dtype=dtype,
+    )
+
+    def normals(t: int) -> torch.Tensor:
+        z = rng.normal(rng.fold_in(keys, t), (cols,)).to(dtype)
+        return z if sign is None else sign * z
+
+    return normals
+
+
 def simulate_terminal_rows(
     contract_keys: torch.Tensor,
     contracts: torch.Tensor,
@@ -591,6 +661,8 @@ def simulate_terminal_rows(
     scheme: PathScheme,
     row_offset: int = 0,
     antithetic_half: int | None = None,
+    sampling: SamplingKind = SamplingKind.PSEUDO,
+    mc_seed: int = 0,
     term: TermStructure | None = None,
 ) -> torch.Tensor:
     """Terminal GBM values ``[C, rows, cols]`` on the threefry stream.
@@ -602,22 +674,33 @@ def simulate_terminal_rows(
     ulps. Only the ``[C, rows, cols]`` state is live; each step's normals
     are drawn and consumed inside the loop. A curved ``term`` gives each step
     its own coefficients; a flat one is no term.
+
+    ``sampling=SOBOL_BB`` (seed ``mc_seed``) takes the QMC normals; under
+    flat log-Euler only the bridge's level 0 is live (``Σ_t increments =
+    √T·z_0``), so the terminal value is one exact step on
+    ``qmc_terminal_normals``, equal to the scan up to summation order.
     """
     c = contracts.to(dtype)
     spot, _, maturity, rate, div_yield, vol = (c[:, i, None, None] for i in range(6))
     dt = maturity / timesteps
+    term = curved(term)
     log_drift, lin_drift, vol_step = _step_coeffs(
-        curved(term), timesteps=timesteps, rate=rate, div_yield=div_yield, vol=vol, dt=dt,
+        term, timesteps=timesteps, rate=rate, div_yield=div_yield, vol=vol, dt=dt,
         sqrt_dt=torch.sqrt(dt),
     )
-    keys, sign = row_keys(
-        contract_keys, rows=rows, row_offset=row_offset, antithetic_half=antithetic_half,
-        dtype=dtype,
-    )
+    if sampling == SamplingKind.SOBOL_BB and scheme == PathScheme.LOG_EULER and term is None:
+        from spectralmc_tpu_torch.ops.qmc import qmc_terminal_normals
 
-    def normals(t: int) -> torch.Tensor:
-        z = rng.normal(rng.fold_in(keys, t), (cols,)).to(dtype)
-        return z if sign is None else sign * z
+        z0 = qmc_terminal_normals(contract_keys, timesteps=timesteps, rows=rows, cols=cols,
+                                  dtype=dtype, mc_seed=mc_seed, row_offset=row_offset)[:, 0]
+        t_steps = torch.tensor(float(timesteps), dtype=dtype, device=c.device)
+        return torch.exp(torch.log(spot) + t_steps * log_drift(0)
+                         + vol_step(0) * torch.sqrt(t_steps) * z0)
+    normals = _normals_source(
+        contract_keys, timesteps=timesteps, rows=rows, cols=cols, dtype=dtype,
+        row_offset=row_offset, antithetic_half=antithetic_half, sampling=sampling,
+        mc_seed=mc_seed,
+    )
 
     if scheme == PathScheme.LOG_EULER:
         logx = torch.zeros((c.shape[0], rows, cols), dtype=dtype, device=c.device) + torch.log(spot)
@@ -647,6 +730,8 @@ def simulate_underlier_rows(
     cliquet_reset_every: int | None = None,
     cliquet_floor: float | None = None,
     cliquet_cap: float | None = None,
+    sampling: SamplingKind = SamplingKind.PSEUDO,
+    mc_seed: int = 0,
     term: TermStructure | None = None,
 ) -> torch.Tensor:
     """Payoff underliers ``[C, rows, cols]`` on the threefry stream, for a
@@ -662,14 +747,18 @@ def simulate_underlier_rows(
     two packages agree to the normals' ulps. Forward start walks the
     t-keyed tail ``t = m..N−1``; a cliquet period closes when ``(t+1) % k
     == 0``. A curved ``term`` gives each step its own coefficients in every
-    branch; a flat one is no term.
+    branch; a flat one is no term. ``sampling=SOBOL_BB`` takes the QMC
+    normals (``normals_source``); the flat log-Euler geometric Asian then
+    runs the fused walk (``qmc.qmc_asian_geo_underliers``), which equals the
+    scan over those normals bit for bit.
     """
     if payoff in AMERICAN_PAYOFFS:
         raise not_ported(f"payoff={payoff.value!r}", AMERICAN_QUEUE)
     if payoff in (PayoffKind.TERMINAL, PayoffKind.DIGITAL):
         terminal = simulate_terminal_rows(
             contract_keys, contracts, timesteps=timesteps, rows=rows, cols=cols, dtype=dtype,
-            scheme=scheme, row_offset=row_offset, antithetic_half=antithetic_half, term=term,
+            scheme=scheme, row_offset=row_offset, antithetic_half=antithetic_half,
+            sampling=sampling, mc_seed=mc_seed, term=term,
         )
         if payoff == PayoffKind.DIGITAL:
             strike = contracts.to(dtype)[:, 1, None, None]
@@ -678,19 +767,29 @@ def simulate_underlier_rows(
     c = contracts.to(dtype)
     spot, strike, maturity, rate, div_yield, vol = (c[:, i, None, None] for i in range(6))
     dt = maturity / timesteps
+    term = curved(term)
     log_drift, lin_drift, vol_step = _step_coeffs(
-        curved(term), timesteps=timesteps, rate=rate, div_yield=div_yield, vol=vol, dt=dt,
+        term, timesteps=timesteps, rate=rate, div_yield=div_yield, vol=vol, dt=dt,
         sqrt_dt=torch.sqrt(dt),
     )
-    keys, sign = row_keys(
-        contract_keys, rows=rows, row_offset=row_offset, antithetic_half=antithetic_half,
-        dtype=dtype,
-    )
     shape = (c.shape[0], rows, cols)
+    if (payoff == PayoffKind.ASIAN_GEOMETRIC and sampling == SamplingKind.SOBOL_BB
+            and scheme == PathScheme.LOG_EULER and term is None):
+        from spectralmc_tpu_torch.ops.qmc import qmc_asian_geo_underliers, qmc_walk_supported
 
-    def normals(t: int) -> torch.Tensor:
-        z = rng.normal(rng.fold_in(keys, t), (cols,)).to(dtype)
-        return z if sign is None else sign * z
+        if qmc_walk_supported(timesteps=timesteps, dtype=dtype):
+            if antithetic_half is not None:
+                raise ValueError("SOBOL_BB sampling takes no antithetic mirroring")
+            return qmc_asian_geo_underliers(
+                contract_keys, timesteps=timesteps, rows=rows, cols=cols, mc_seed=mc_seed,
+                row_offset=row_offset, log_spot=torch.log(spot), drift=log_drift(0),
+                vol_sdt=vol_step(0),
+            )
+    normals = _normals_source(
+        contract_keys, timesteps=timesteps, rows=rows, cols=cols, dtype=dtype,
+        row_offset=row_offset, antithetic_half=antithetic_half, sampling=sampling,
+        mc_seed=mc_seed,
+    )
 
     def log_inc(t: int) -> torch.Tensor:
         """The step's log-increment, state-free under both schemes."""

@@ -21,9 +21,11 @@ states what it keeps, what it drops and what bounds it. This module holds
   the flat kernel's branches and the routes through its TERMINAL branch
   (digital, and forward start at its tail length); the cliquet kernel is a
   different program with its own key, and so are the curved-term, Heston
-  and Merton kernels of ``ops/dynamics_cuda.py``.
+  and Merton kernels of ``ops/dynamics_cuda.py`` and the basket kernel of
+  ``ops/basket_cuda.py``.
 * ``LAUNCHES`` (every launch of any entry point) and ``LAUNCHES_BY_BRANCH``
-  (per kernel and branch group) — plain counts.
+  (per kernel and branch group, the QMC generator's two kernels of
+  ``ops/qmc_cuda.py`` included) — plain counts.
 
 The stream: Philox-4x32-10 keyed by the contract's two threefry key words
 (``fold_in(prng_key(mc_seed), draw)``), counter ``(path lo, path hi, call,
@@ -58,18 +60,22 @@ from spectralmc_tpu_torch.ops.gbm import (
 from spectralmc_tpu_torch.ops.rng import MASK32, philox4x32
 
 CUDA_STREAM_VERSIONS: dict[str, int] = {
-    "gbm": 1, "gbm_cliquet": 1, "gbm_term": 1, "heston": 1, "merton_jump": 1,
+    "gbm": 1, "gbm_cliquet": 1, "gbm_term": 1, "heston": 1, "merton_jump": 1, "basket_gbm": 1,
 }
 
 # branch groups, each a kernel instantiation of its own: the flat kernel's and
-# the cliquet, then ops/dynamics_cuda.py's three kernels
+# the cliquet, ops/dynamics_cuda.py's three kernels, the basket kernel, then
+# the QMC generator's two kernels
 FLAT_BRANCHES = ("terminal", "barrier", "lookback", "variance", "asian")
 BRANCHES = (
     *FLAT_BRANCHES, "cliquet",
     *(f"term_{b}" for b in FLAT_BRANCHES),
     *(f"heston_{b}" for b in (*FLAT_BRANCHES, "forward")),
     *(f"merton_{b}" for b in FLAT_BRANCHES),
+    *(f"basket_{b}" for b in (*FLAT_BRANCHES, "forward")),
+    "qmc_bridge", "qmc_walk",
 )
+MAX_BASKET_ASSETS = 8  # csrc/basket_paths.cu's kMaxAssets
 LAUNCHES = 0
 LAUNCHES_BY_BRANCH: dict[str, int] = dict.fromkeys(BRANCHES, 0)
 
@@ -119,24 +125,27 @@ def cuda_supported(
     sampling: SamplingKind,
     term: TermStructure | None = None,
     scheme: PathScheme = PathScheme.LOG_EULER,
+    n_assets: int = 1,
 ) -> bool:
     """Whether a kernel honors the request: float32 paths on the
-    pseudo-random stream, GBM, Heston or Merton dynamics, any payoff but the
-    American kinds, any row/column count, and
+    pseudo-random stream, any dynamics, any payoff but the American kinds,
+    any row/column count, and
 
     * cliquets only for flat GBM under log-Euler (the per-period kernel; the
       other dynamics carry period-start state or per-step jumps, curves
       break the period's Gaussian sum, and under Euler it is none);
     * a curved term only for GBM under log-Euler (the term kernel); curved
-      Heston and Merton run their threefry scans;
-    * Heston and Merton under log-Euler only (Merton is refused otherwise at
-      config time; Heston's step is its own scheme).
+      Heston, Merton and baskets run their threefry scans;
+    * Heston, Merton and baskets under log-Euler only (Merton and baskets are
+      refused otherwise at config time; Heston's step is its own scheme);
+    * baskets of 1 to ``MAX_BASKET_ASSETS`` (8) assets.
 
-    A flat term is no term.
+    A flat term is no term. ``SOBOL_BB`` runs the threefry engine's scans on
+    the QMC generator's normals.
     """
     if dtype != torch.float32 or sampling != SamplingKind.PSEUDO or payoff in AMERICAN_PAYOFFS:
         return False
-    if model not in (ModelKind.GBM, ModelKind.HESTON, ModelKind.MERTON_JUMP):
+    if model == ModelKind.BASKET_GBM and not 1 <= n_assets <= MAX_BASKET_ASSETS:
         return False
     is_curved = curved(term) is not None
     if payoff == PayoffKind.CLIQUET:
@@ -152,7 +161,7 @@ def cuda_stream_version(
     """The stream version a checkpoint records (``pallas_stream_version``'s
     rule): the cliquet kernel under its own key, a genuinely curved term on
     GBM (``term=True``) under the term kernel's, everything else under the
-    model family's."""
+    model family's (``basket_gbm`` for the basket kernel)."""
     if payoff == PayoffKind.CLIQUET and model == ModelKind.GBM and not term:
         return CUDA_STREAM_VERSIONS["gbm_cliquet"]
     if term and model == ModelKind.GBM:

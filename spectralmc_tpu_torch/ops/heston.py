@@ -18,6 +18,8 @@ live in ``ops/dynamics_cuda.py``.
 Determinism: normals are addressed by (contract key, global row, timestep,
 component) — component 0 drives the variance, 1 the orthogonal part of the
 spot — so resume is a counter and a row shard reproduces exactly its rows.
+With ``sampling=SOBOL_BB`` the two components are the two factors of the
+Brownian-bridge Sobol net (``ops/qmc.py``).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from spectralmc_tpu_torch.ops.gbm import (
     LOOKBACK_MAX_PAYOFFS,
     LOOKBACK_PAYOFFS,
     PayoffKind,
+    SamplingKind,
     TermStructure,
     curved,
     lookback_underlier,
@@ -135,10 +138,14 @@ def simulate_heston_underlier_rows(
     cliquet_reset_every: int | None = None,
     cliquet_floor: float | None = None,
     cliquet_cap: float | None = None,
+    sampling: SamplingKind = SamplingKind.PSEUDO,
+    mc_seed: int = 0,
     term: TermStructure | None = None,
 ) -> torch.Tensor:
     """Payoff underliers ``[C, rows, cols]`` under full-truncation Euler
-    Heston on the threefry stream, for a batch of contracts.
+    Heston on the threefry stream (or, with ``sampling=SOBOL_BB``, on two
+    factors of the QMC generator seeded by ``mc_seed``), for a batch of
+    contracts.
 
     ``contracts`` is ``[C, 10]`` in ``HestonContract`` field order and
     ``contract_keys`` ``[C, 2]`` threefry words. Barrier kinds knock on the
@@ -160,10 +167,23 @@ def simulate_heston_underlier_rows(
     dt = maturity / n
     sqrt_dt = torch.sqrt(dt)
     rho_bar = torch.sqrt(1.0 - rho * rho)
-    keys, sign = row_keys(
-        contract_keys, rows=rows, row_offset=row_offset, antithetic_half=antithetic_half,
-        dtype=dtype,
-    )
+    if sampling == SamplingKind.SOBOL_BB:
+        from spectralmc_tpu_torch.ops.qmc import qmc_effective_normals_multi
+
+        if antithetic_half is not None:
+            raise ValueError("SOBOL_BB sampling takes no antithetic mirroring")
+        zq = qmc_effective_normals_multi(
+            contract_keys, timesteps=timesteps, factors=2, rows=rows, cols=cols, dtype=dtype,
+            mc_seed=mc_seed, row_offset=row_offset,
+        )
+        component = lambda t, comp: zq[:, t, comp]  # noqa: E731
+    else:
+        keys, sign = row_keys(
+            contract_keys, rows=rows, row_offset=row_offset, antithetic_half=antithetic_half,
+            dtype=dtype,
+        )
+        component = lambda t, comp: heston_component_normals(  # noqa: E731
+            keys, sign, t, comp, cols, dtype)
     consts = dict(dt=dt, sqrt_dt=sqrt_dt, rho=rho, rho_bar=rho_bar, kappa=kappa, theta=theta,
                   xi=xi)
     if term is None:
@@ -176,9 +196,8 @@ def simulate_heston_underlier_rows(
         div_at = lambda t: div_arr[..., t]  # noqa: E731
 
     def step(t: int, logx: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        z_v = heston_component_normals(keys, sign, t, 0, cols, dtype)
-        z_orth = heston_component_normals(keys, sign, t, 1, cols, dtype)
-        return heston_euler_step(logx, v, z_v, z_orth, rate=rate_at(t), div_yield=div_at(t),
+        return heston_euler_step(logx, v, component(t, 0), component(t, 1), rate=rate_at(t),
+                                 div_yield=div_at(t),
                                  **consts)
 
     shape = (c.shape[0], rows, cols)

@@ -20,11 +20,13 @@ a batch of contracts, the analytic means and Merton's exact series oracle
 Determinism: draws are addressed by (contract key, global row, timestep,
 component): 0 the diffusion normal, 1 the jump-size normal, 2 the Poisson
 count. Antithetic pairs mirror BOTH normals and share the partner row's
-counts. The counts reproduce ``jax.random.poisson`` (Knuth's loop, the
-branch it takes for ``lam·dt < 10``) draw for draw; a count can differ from
-the JAX package's only where the running ``log`` sum lands within an ulp of
-``−lam·dt`` (torch's ``log`` and XLA's differ by ulps). The count's rate is
-detached from autograd: pathwise derivatives see fixed counts.
+counts. The counts reproduce ``jax.random.poisson`` draw for draw: Knuth's
+loop for ``lam·dt < 10`` and Hörmann's transformed rejection above it. A
+count can differ from the JAX package's only where a float32 ``log`` or
+``lgamma`` lands within ulps of an acceptance edge (torch's and XLA's differ
+by ulps). The count's rate is detached from autograd: pathwise derivatives
+see fixed counts. With ``sampling=SOBOL_BB`` the diffusion normals come from
+the QMC generator (``ops/qmc.py``); the jumps keep their threefry stream.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from spectralmc_tpu_torch.ops.gbm import (
     LOOKBACK_MAX_PAYOFFS,
     LOOKBACK_PAYOFFS,
     PayoffKind,
+    SamplingKind,
     TermStructure,
     _norm_cdf,
     curved,
@@ -56,7 +59,6 @@ from spectralmc_tpu_torch.ops.gbm import (
 )
 from spectralmc_tpu_torch.ops.heston import martingale_underlier_mean
 
-POISSON_QUEUE = "queue 3 (Poisson counts for lam·dt >= 10: transformed rejection)"
 # jax.random.poisson switches from Knuth's loop to transformed rejection here
 KNUTH_LIMIT = 10.0
 SERIES_TERMS = 64  # Poisson-mixture terms of the digital and cliquet means
@@ -109,22 +111,23 @@ def merton_component_normals(
     return z if sign is None else sign * z
 
 
+def _count_shape(keys: torch.Tensor, lam: torch.Tensor, cols: int) -> tuple[int, ...]:
+    return (*torch.broadcast_shapes(keys.shape[:-1], lam.shape[:-1]), cols)
+
+
 def poisson_knuth(keys: torch.Tensor, lam: torch.Tensor, cols: int) -> torch.Tensor:
-    """``jax.random.poisson(key, lam, (cols,))`` for ``lam < 10``, per key.
+    """``jax.random.poisson``'s Knuth branch (jax 0.9 ``_poisson_knuth``), per key.
 
     ``keys`` is ``[..., 2]`` and ``lam`` float32, broadcastable to ``[...,
-    1]``; the result is int64 ``[..., cols]``. Knuth's loop as jax 0.9 runs
-    it: each iteration splits the running key (word pair 0 carries on, pair
-    1 draws), counts the lanes whose running sum of ``log(uniform)`` is still
-    above ``−lam``, then adds the new ``log``. A lane's count does not depend
-    on how long the loop runs for the others, so one loop serves every key.
-    ``lam == 0`` gives 0; ``lam >= 10`` (where JAX takes transformed
-    rejection) raises.
+    1]``; the result is int64 ``[..., cols]``. Each iteration splits the
+    running key (word pair 0 carries on, pair 1 draws), counts the lanes
+    whose running sum of ``log(uniform)`` is still above ``−lam``, then adds
+    the new ``log``. A lane's count does not depend on how long the loop runs
+    for the others, so one loop serves every key. A lane with ``lam == 0``
+    gives −1 here (``poisson`` maps it to 0).
     """
     lam = torch.as_tensor(lam, dtype=torch.float32, device=keys.device)
-    if bool((lam >= KNUTH_LIMIT).any()):
-        raise not_ported("a Poisson rate lam·dt >= 10 per step", POISSON_QUEUE)
-    shape = (*torch.broadcast_shapes(keys.shape[:-1], lam.shape[:-1]), cols)
+    shape = _count_shape(keys, lam, cols)
     neg_lam = torch.broadcast_to(-lam, shape)
     k = torch.zeros(shape, dtype=torch.int64, device=keys.device)
     log_prod = torch.zeros(shape, dtype=torch.float32, device=keys.device)
@@ -137,7 +140,71 @@ def poisson_knuth(keys: torch.Tensor, lam: torch.Tensor, cols: int) -> torch.Ten
         running, subkey = pair[..., 0, :], pair[..., 1, :]
         k = k + alive
         log_prod = log_prod + torch.log(rng.uniform(subkey, (cols,)))
-    return torch.where(neg_lam == 0, torch.zeros_like(k), k - 1)
+    return k - 1
+
+
+def poisson_rejection(keys: torch.Tensor, lam: torch.Tensor, cols: int) -> torch.Tensor:
+    """``jax.random.poisson``'s branch for ``lam >= 10``: Hörmann's transformed
+    rejection (jax 0.9 ``_poisson_rejection``), per key; arguments and result
+    as ``poisson_knuth``.
+
+    Each iteration splits the running key three ways (0 carries on, 1 draws
+    ``u − 0.5``, 2 draws ``v``) and proposes ``k`` in every lane; a lane
+    takes ``k`` where ``accept1 | (~reject & accept2)``. JAX runs one loop
+    per key (``vmap`` batches its ``while_loop``) until all of that key's
+    lanes have accepted, and a lane that accepted earlier takes every later
+    accepted proposal of that loop: so a key's lanes update only while one of
+    them is still pending, and the last accepted proposal stands. The
+    products ``a·b + c`` are rounded once, as XLA's CPU backend contracts
+    them (``rng.fma32``).
+    """
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=keys.device)
+    shape = _count_shape(keys, lam, cols)
+    log_lam = torch.log(lam)
+    b = rng.fma32(torch.sqrt(lam), 2.53, 0.931)
+    a = rng.fma32(b, 0.02483, -0.059)
+    inv_alpha = 1.1239 + 1.1328 / (b - 3.4)
+    v_r = 0.9277 - 3.6224 / (b - 2.0)
+    k_out = torch.full(shape, -1.0, dtype=torch.float32, device=keys.device)
+    accepted = torch.zeros(shape, dtype=torch.bool, device=keys.device)
+    running = keys
+    while True:
+        pending = (~accepted).any(dim=-1, keepdim=True)
+        if not bool(pending.any()):
+            break
+        trio = rng.fold_in(running[..., None, :], torch.arange(3, device=keys.device))
+        running = trio[..., 0, :]
+        u = rng.uniform(trio[..., 1, :], (cols,)) - 0.5
+        v = rng.uniform(trio[..., 2, :], (cols,))
+        u_shifted = 0.5 - torch.abs(u)
+        k = torch.floor(rng.fma32(2.0 * a / u_shifted + b, u, lam) + 0.43)
+        s = torch.log(v * inv_alpha / (a / (u_shifted * u_shifted) + b))
+        t = rng.fma32(k, log_lam, -lam) - torch.lgamma(k + 1.0)
+        accept1 = (u_shifted >= 0.07) & (v <= v_r)
+        reject = (k < 0) | ((u_shifted < 0.013) & (v > u_shifted))
+        accept = (accept1 | (~reject & (s <= t))) & pending
+        k_out = torch.where(accept, k, k_out)
+        accepted = accepted | accept
+    return k_out.to(torch.int64)
+
+
+def poisson(keys: torch.Tensor, lam: torch.Tensor, cols: int) -> torch.Tensor:
+    """``jax.random.poisson(key, lam, (cols,))`` per key (jax 0.9 ``_poisson``):
+    Knuth's loop where ``lam < 10`` or NaN, transformed rejection elsewhere,
+    0 where ``lam == 0``. Both branches draw from the same key, so a Knuth
+    lane's count does not depend on whether any lane takes the other branch.
+    Arguments and result as ``poisson_knuth``."""
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=keys.device)
+    shape = _count_shape(keys, lam, cols)
+    knuth = torch.isnan(lam) | (lam < KNUTH_LIMIT)
+    use_knuth = torch.broadcast_to(knuth, shape)
+    result = torch.zeros(shape, dtype=torch.int64, device=keys.device)
+    if bool(use_knuth.any()):
+        result = poisson_knuth(keys, torch.where(knuth, lam, torch.zeros_like(lam)), cols)
+    if not bool(use_knuth.all()):
+        lam_rejection = torch.where(knuth, torch.full_like(lam, 1e5), lam)
+        result = torch.where(use_knuth, result, poisson_rejection(keys, lam_rejection, cols))
+    return torch.where(torch.broadcast_to(lam == 0, shape), torch.zeros_like(result), result)
 
 
 def merton_jump_counts(
@@ -153,7 +220,7 @@ def merton_jump_counts(
     pathwise differentiation. Antithetic partners share counts: partner rows
     reuse the first half's keys and no sign applies to a count."""
     lam_dt = rate_dt.detach().to(torch.float32)
-    return poisson_knuth(rng.fold_in(rng.fold_in(keys, t), 2), lam_dt, cols).to(dtype)
+    return poisson(rng.fold_in(rng.fold_in(keys, t), 2), lam_dt, cols).to(dtype)
 
 
 def simulate_merton_underlier_rows(
@@ -172,10 +239,14 @@ def simulate_merton_underlier_rows(
     cliquet_reset_every: int | None = None,
     cliquet_floor: float | None = None,
     cliquet_cap: float | None = None,
+    sampling: SamplingKind = SamplingKind.PSEUDO,
+    mc_seed: int = 0,
     term: TermStructure | None = None,
 ) -> torch.Tensor:
     """Payoff underliers ``[C, rows, cols]`` under exact-transition Merton on
-    the threefry stream, for a batch of contracts.
+    the threefry stream, for a batch of contracts (with
+    ``sampling=SOBOL_BB`` the diffusion normals come from the QMC generator
+    seeded by ``mc_seed``; the jumps keep their threefry stream).
 
     ``contracts`` is ``[C, 9]`` in ``MertonContract`` field order and
     ``contract_keys`` ``[C, 2]`` threefry words. Barrier kinds knock on the
@@ -216,9 +287,20 @@ def simulate_merton_underlier_rows(
         dtype=dtype,
     )
 
+    if sampling == SamplingKind.SOBOL_BB:
+        from spectralmc_tpu_torch.ops.qmc import qmc_effective_normals
+
+        if antithetic_half is not None:
+            raise ValueError("SOBOL_BB sampling takes no antithetic mirroring")
+        zq = qmc_effective_normals(contract_keys, timesteps=timesteps, rows=rows, cols=cols,
+                                   dtype=dtype, mc_seed=mc_seed, row_offset=row_offset)
+        diffusion = lambda t: zq[:, t]  # noqa: E731
+    else:
+        diffusion = lambda t: merton_component_normals(keys, sign, t, 0, cols, dtype)  # noqa: E731
+
     def draws(t: int) -> tuple[torch.Tensor, torch.Tensor]:
         """The step's diffusion normal and its jump sum."""
-        z_d = merton_component_normals(keys, sign, t, 0, cols, dtype)
+        z_d = diffusion(t)
         z_j = merton_component_normals(keys, sign, t, 1, cols, dtype)
         counts = merton_jump_counts(keys, t, lam_dt, cols, dtype)
         return z_d, counts * jump_mean + jump_std * torch.sqrt(counts) * z_j

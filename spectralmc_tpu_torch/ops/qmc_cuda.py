@@ -1,0 +1,235 @@
+"""The QMC generator's kernels: Sobol → normals → Brownian bridge, and the fused walk.
+
+``csrc/qmc_paths.cu`` replaces two kernels of the JAX package's
+``ops/qmc_pallas.py``: ``_bridge_block_kernel`` (#13: scrambled Sobol words
+→ ``√2·erf⁻¹(2u−1)`` with the top-bucket guard → the ``[T, T]`` bridge
+product per factor, written ``[C, T, F, count]``) and ``_walk_block_kernel``
+(#14: the same generation for one factor, then the flat log-Euler walk and
+``Σ_t log S_t``, one float per path). Its header states what each keeps,
+drops and is bound by. This module holds, for each,
+
+* the public wrapper (``bridge_normals``, ``walk_acc``): a CPU tensor goes to
+  the plain twin; a CUDA tensor launches the kernel, for any step count,
+  factor count and padding, or raises. There is no fallback.
+* the plain twin (``bridge_normals_plain``, ``walk_acc_plain``): the same
+  words (the defining XOR over ``gray(n)``), the same float32 inverse CDF
+  (``qmc._inv_cdf``) and the bridge product accumulated level by level with
+  one rounding per multiply-add, as the kernel does. The walk's twin is the
+  bridge twin plus the torch scan of ``ops/gbm.py``.
+
+Launch counts go to ``gbm_cuda.LAUNCHES`` and ``LAUNCHES_BY_BRANCH`` under
+``qmc_bridge`` and ``qmc_walk``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from spectralmc_tpu_torch.ops import rng
+from spectralmc_tpu_torch.ops._sobol_directions import MAX_DIMENSION
+from spectralmc_tpu_torch.ops.gbm_cuda import _count
+from spectralmc_tpu_torch.ops.qmc import _inv_cdf
+from spectralmc_tpu_torch.ops.sobol import sobol_uint32
+
+def _check(directions: torch.Tensor, shift: torch.Tensor, bridge: torch.Tensor,
+           timesteps: int, factors: int, count: int, pad: torch.Tensor | None) -> int:
+    """The Sobol dimension count, after checking the arguments' shapes."""
+    sdims = directions.shape[0]
+    if directions.ndim != 2 or directions.shape[1] != 32:
+        raise ValueError(f"directions must be [d, 32], got {tuple(directions.shape)}")
+    if shift.ndim != 2 or shift.shape[1] != sdims:
+        raise ValueError(f"shift must be [C, {sdims}], got {tuple(shift.shape)}")
+    if bridge.shape != (timesteps, timesteps) or bridge.dtype != torch.float32:
+        raise ValueError(f"bridge must be float32 [{timesteps}, {timesteps}]")
+    flat = timesteps * factors
+    if sdims > flat or count <= 0:
+        raise ValueError(f"{sdims} Sobol dimensions for {flat} flat ones, count {count}")
+    want_pad = (shift.shape[0], flat - sdims, count)
+    if (pad is None) != (sdims == flat) or (pad is not None and tuple(pad.shape) != want_pad):
+        raise ValueError(f"pad must be float32 {want_pad} exactly when dimensions are padded")
+    return sdims
+
+
+def sobol_words(
+    directions: torch.Tensor, shift: torch.Tensor, start: int, count: int
+) -> torch.Tensor:
+    """``[C, d, count]`` scrambled Sobol words (uint32 in int64) of points
+    ``start … start + count − 1``, each contract XOR-ing its own shift."""
+    base = sobol_uint32(directions, torch.zeros_like(shift[0]), start, count)  # [count, d]
+    return base.T[None] ^ shift[:, :, None]
+
+
+def bridge_normals_plain(
+    directions: torch.Tensor,
+    shift: torch.Tensor,
+    bridge: torch.Tensor,
+    start: int,
+    *,
+    timesteps: int,
+    factors: int,
+    count: int,
+    pad: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Kernel #13's plain twin: ``[C, T, F, count]`` float32 bridged normals.
+
+    ``directions`` is the scrambled table ``[d, 32]`` and ``shift`` the
+    per-contract shift ``[C, d]`` (uint32 words in int64), ``bridge`` the
+    float32 ``[T, T]`` map, ``start`` the first point index, ``pad`` the
+    ``[C, T·F − d, count]`` normals of the padded flat dimensions (None when
+    ``d = T·F``). Output ``[t, f]`` is ``Σ_l bridge[t, l]·z[l·F + f]``
+    accumulated over ``l`` in order, each multiply-add rounded once."""
+    _check(directions, shift, bridge, timesteps, factors, count, pad)
+    z = _inv_cdf(sobol_words(directions, shift, start, count))  # [C, d, count]
+    if pad is not None:
+        z = torch.cat([z, pad.to(torch.float32)], dim=1)
+    z = z.reshape(shift.shape[0], timesteps, factors, count)
+    acc = torch.zeros_like(z)
+    for level in range(timesteps):
+        acc = rng.fma32(bridge[None, :, level, None, None], z[:, level:level + 1].double(), acc)
+    return acc
+
+
+def walk_acc_plain(
+    directions: torch.Tensor,
+    shift: torch.Tensor,
+    bridge: torch.Tensor,
+    start: int,
+    log_spot: torch.Tensor,
+    drift: torch.Tensor,
+    vol_sdt: torch.Tensor,
+    *,
+    timesteps: int,
+    count: int,
+) -> torch.Tensor:
+    """Kernel #14's plain twin: ``[C, count]`` float32 sums ``Σ_t log S_t``
+    of the flat log-Euler walk ``logx ← (logx + drift) + vol_sdt·eff[t]``
+    over kernel #13's twin's single-factor normals; ``log_spot``, ``drift``
+    and ``vol_sdt`` are ``[C]`` float32."""
+    eff = bridge_normals_plain(directions, shift, bridge, start, timesteps=timesteps,
+                               factors=1, count=count)[:, :, 0]
+    logx = torch.zeros_like(eff[:, 0]) + log_spot[:, None]
+    acc = torch.zeros_like(logx)
+    for t in range(timesteps):
+        logx = (logx + drift[:, None]) + vol_sdt[:, None] * eff[:, t]
+        acc = acc + logx
+    return acc
+
+
+# ops/_build.py::load_library's arguments for this module's kernels
+LIBRARY = ("qmc_paths", ("qmc_paths.cu",), ())
+
+
+def _library() -> ctypes.CDLL:
+    from spectralmc_tpu_torch.ops._build import load_library
+
+    lib = load_library(*LIBRARY).lib
+    ll, i, vp, u = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint
+    lib.qmc_bridge_launch.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, ll, u, vp]
+    lib.qmc_walk_launch.argtypes = [vp, vp, vp, vp, vp, i, i, ll, u, vp]
+    lib.qmc_bridge_launch.restype = ctypes.c_int
+    lib.qmc_walk_launch.restype = ctypes.c_int
+    return lib
+
+
+def _words32(words: torch.Tensor) -> torch.Tensor:
+    """uint32 words (in int64) as the int32 bit patterns the kernel reads."""
+    w = words.to(torch.int64) & rng.MASK32
+    return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32).contiguous()
+
+
+def _on_card(shift: torch.Tensor) -> None:
+    if shift.device.type != "cuda":
+        raise ValueError(f"the QMC kernels run on cpu (plain twin) or cuda, not {shift.device}")
+    if shift.shape[0] > 65535:
+        raise ValueError(f"at most 65535 contracts per launch, got {shift.shape[0]}")
+
+
+def bridge_normals(
+    directions: torch.Tensor,
+    shift: torch.Tensor,
+    bridge: torch.Tensor,
+    start: int,
+    *,
+    timesteps: int,
+    factors: int,
+    count: int,
+    pad: torch.Tensor | None = None,
+    words_out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``[C, T, F, count]`` float32 bridged normals (arguments as
+    ``bridge_normals_plain``): CPU tensors run the plain twin, CUDA tensors
+    launch kernel #13 (one launch for the whole contract batch) or raise.
+    ``words_out`` (checks only, CUDA): an int32 ``[C, d, count]`` tensor that
+    receives the raw Sobol words."""
+    sdims = _check(directions, shift, bridge, timesteps, factors, count, pad)
+    if shift.device.type == "cpu":
+        return bridge_normals_plain(directions, shift, bridge, start, timesteps=timesteps,
+                                    factors=factors, count=count, pad=pad)
+    _on_card(shift)
+    n = shift.shape[0]
+    out = torch.empty((n, timesteps, factors, count), dtype=torch.float32, device=shift.device)
+    pad_c = None if pad is None else pad.to(torch.float32).contiguous()
+    if words_out is not None and (words_out.shape != (n, sdims, count)
+                                  or words_out.dtype != torch.int32):
+        raise ValueError(f"words_out must be int32 {(n, sdims, count)}")
+    # held in locals until the launch is enqueued: a freed temporary's memory
+    # could be handed to the next one before the kernel reads it
+    table, shifts, bb = _words32(directions), _words32(shift), bridge.contiguous()
+    status = _library().qmc_bridge_launch(
+        table.data_ptr(), shifts.data_ptr(), bb.data_ptr(),
+        0 if pad_c is None else pad_c.data_ptr(), out.data_ptr(),
+        0 if words_out is None else words_out.data_ptr(), n, timesteps, factors, sdims, count,
+        start & rng.MASK32, torch.cuda.current_stream(shift.device).cuda_stream,
+    )
+    if status != 0:
+        raise RuntimeError(f"qmc_bridge_launch failed: cudaError {status}")
+    _count("qmc_bridge")
+    return out
+
+
+def walk_acc(
+    directions: torch.Tensor,
+    shift: torch.Tensor,
+    bridge: torch.Tensor,
+    start: int,
+    log_spot: torch.Tensor,
+    drift: torch.Tensor,
+    vol_sdt: torch.Tensor,
+    *,
+    timesteps: int,
+    count: int,
+) -> torch.Tensor:
+    """``[C, count]`` float32 walk sums (arguments as ``walk_acc_plain``): CPU
+    tensors run the plain twin, CUDA tensors launch kernel #14 or raise. One
+    factor of at most 64 unpadded steps (``qmc.qmc_walk_supported``)."""
+    _check(directions, shift, bridge, timesteps, 1, count, None)
+    if timesteps > MAX_DIMENSION:
+        raise ValueError(f"the fused walk takes at most {MAX_DIMENSION} unpadded steps")
+    if shift.device.type == "cpu":
+        return walk_acc_plain(directions, shift, bridge, start, log_spot, drift, vol_sdt,
+                              timesteps=timesteps, count=count)
+    _on_card(shift)
+    n = shift.shape[0]
+    scalars = torch.stack([log_spot, drift, vol_sdt], dim=1).to(torch.float32).contiguous()
+    out = torch.empty((n, count), dtype=torch.float32, device=shift.device)
+    table, shifts, bb = _words32(directions), _words32(shift), bridge.contiguous()
+    status = _library().qmc_walk_launch(
+        table.data_ptr(), shifts.data_ptr(), bb.data_ptr(), scalars.data_ptr(), out.data_ptr(),
+        n, timesteps, count, start & rng.MASK32,
+        torch.cuda.current_stream(shift.device).cuda_stream,
+    )
+    if status != 0:
+        raise RuntimeError(f"qmc_walk_launch failed: cudaError {status}")
+    _count("qmc_walk")
+    return out
+
+
+__all__ = [
+    "bridge_normals",
+    "bridge_normals_plain",
+    "sobol_words",
+    "walk_acc",
+    "walk_acc_plain",
+]

@@ -17,10 +17,12 @@ and ``GbmCVNNPricer.create/train/snapshot/predict_price``.
   one packed ``[put | E[u] | residue]`` vector once; calls follow by parity
   on the payoff's own underlier where ``has_closed_form_mean`` holds, and
   are NaN (with a warning) where it does not.
-* The dynamics (GBM, Heston, Merton) change nothing in kind: the contract
-  class and its width (6, 10, 9 — the CVNN's input width follows), the
-  simulator and the mean target come from ``ops/dispatch.py``, and the
-  stream version is recorded per (model, payoff, curved term).
+* The dynamics (GBM, Heston, Merton, baskets) and the sampling (pseudo or
+  ``SOBOL_BB``) change nothing in kind: the contract class and its width
+  (6, 10, 9, 6 — the CVNN's input width follows), the simulator and the mean
+  target come from ``ops/dispatch.py``, the basket's spec and the sampling
+  ride in the checkpointed ``SimulationParams``, and the stream version is
+  recorded per (model, payoff, curved term).
 """
 
 from __future__ import annotations
@@ -491,6 +493,13 @@ class GbmCVNNPricer:
 
     # -- inference -----------------------------------------------------------
 
+    def _has_parity(self) -> bool:
+        """Whether the payoff's E[underlier] has a closed form (the basket's
+        combine decides for baskets): the call-via-parity gate."""
+        basket = self._sim.basket
+        return has_closed_form_mean(self._sim.model, self._sim.payoff,
+                                    combine=basket.combine if basket is not None else None)
+
     @torch.no_grad()
     def _predict_packed(self, arr: torch.Tensor) -> torch.Tensor:
         """CVNN forward → IFFT → ``[put(m) | E[u](m) | residue]`` on device;
@@ -505,7 +514,7 @@ class GbmCVNNPricer:
         recovered = torch.fft.ifft(torch.complex(out_re, out_im), dim=1)
         put = torch.mean(recovered.real, dim=1)
         residue = torch.max(torch.abs(torch.mean(recovered.imag, dim=1)))
-        if has_closed_form_mean(self._sim.model, self._sim.payoff):
+        if self._has_parity():
             expected = make_mean_target(self._sim)(arr).to(put.dtype)
         else:
             expected = torch.full_like(put, float("nan"))
@@ -520,8 +529,9 @@ class GbmCVNNPricer:
         """Learned put prices, and calls by put-call parity on the payoff's
         own underlier (``call − put = df·(E[u] − K)``), for a batch. Where
         ``has_closed_form_mean`` is false (barrier, lookback; under Heston
-        also the geometric Asian, digital, variance swap and cliquet) the
-        call has no parity route and is NaN, with a warning.
+        also the geometric Asian, digital, variance swap and cliquet; for an
+        arithmetic basket everything but TERMINAL and the arithmetic Asian)
+        the call has no parity route and is NaN, with a warning.
 
         One host→device copy of the ``[N, D]`` contract matrix and one
         device→host copy of the packed result per call. The forward always
@@ -543,7 +553,7 @@ class GbmCVNNPricer:
         residue = float(packed[2 * m])
         if residue > IFFT_RESIDUE_WARN:
             _LOG.warning("IFFT imaginary residue %.3g exceeds %.1g", residue, IFFT_RESIDUE_WARN)
-        if not has_closed_form_mean(self._sim.model, self._sim.payoff):
+        if not self._has_parity():
             _LOG.warning(
                 "no closed-form E[underlier] for %s/%s: call-via-parity unavailable",
                 self._sim.model.value,

@@ -19,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from spectralmc_tpu_torch.ops import dynamics_cuda, gbm_cuda, rng
+from spectralmc_tpu_torch.ops import basket_cuda, dynamics_cuda, gbm_cuda, qmc, qmc_cuda, rng
+from spectralmc_tpu_torch.ops import basket as tbasket
 from spectralmc_tpu_torch.ops import gbm as tgbm
 
 
@@ -190,3 +191,118 @@ def test_merton_kernel_counts_equal_the_twins_on_card() -> None:
               for fn in FAMILY_FNS["merton"]]
     assert torch.equal(counts[0], counts[1])
     assert float(counts[0].mean()) > 1.0 and torch.equal(counts[0][:, :64], counts[0][:, 64:])
+
+
+# --------------------------------------------------------------------------
+# The basket kernel (csrc/basket_paths.cu)
+# --------------------------------------------------------------------------
+
+
+def _basket_spec(assets: int, combine: str) -> tbasket.BasketSpec:
+    corr = tuple(tuple(1.0 if i == j else 0.3 / (1 + abs(i - j)) for j in range(assets))
+                 for i in range(assets))
+    weights = tuple(w / sum(range(1, assets + 1)) for w in range(assets, 0, -1))
+    return tbasket.build_basket_spec(
+        weights=weights, correlation=corr, combine=combine,
+        spot_multipliers=tuple(1.0 + 0.05 * a for a in range(assets)),
+        vol_multipliers=tuple(1.2 - 0.1 * a for a in range(assets)),
+    ).expect("spec")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("assets", [1, 3, 8])
+@pytest.mark.parametrize("combine", ["arithmetic", "geometric"])
+@pytest.mark.parametrize("payoff,barrier_rel", [("terminal", None), *BRANCH_PAYOFFS],
+                         ids=["terminal", *(p for p, _ in BRANCH_PAYOFFS)])
+def test_basket_kernel_matches_twin_on_card(payoff, barrier_rel, combine, assets) -> None:
+    """Tier 3 on the card: rtol 2e-5 (the lookbacks against the strike, the
+    variance swap against its scale 0.01), the barrier knock and the digital
+    sign flipped on at most 1e-5 of the paths; one launch under the basket
+    branch per call."""
+    device = _require_card()
+    payoff = tgbm.PayoffKind(payoff)
+    c = torch.from_numpy(_contracts(3, seed=10)).to(device)
+    keys = rng.fold_in(rng.prng_key(10), torch.arange(3)).to(device)
+    kw = dict(spec=_basket_spec(assets, combine), timesteps=STEPS, rows=64, cols=96,
+              payoff=payoff, barrier_rel=barrier_rel, antithetic_half=32,
+              forward_start_step=4 if payoff == tgbm.PayoffKind.FORWARD_START else None)
+    before = gbm_cuda.LAUNCHES
+    got = basket_cuda.simulate_basket_rows_cuda(c, keys, **kw)
+    assert gbm_cuda.LAUNCHES == before + 1
+    want = basket_cuda.simulate_basket_rows_cuda_plain(c, keys, **kw)
+    scale = want.abs()
+    if payoff in tgbm.LOOKBACK_PAYOFFS:
+        scale = torch.maximum(scale, c[:, 1, None, None])
+    if payoff == tgbm.PayoffKind.VARIANCE_SWAP:
+        scale = torch.clamp(scale, min=0.01)
+    far = int(((got - want).abs() > 2e-5 * scale).sum())
+    jumps = payoff in tgbm.BARRIER_PAYOFFS or payoff == tgbm.PayoffKind.DIGITAL
+    assert far <= (int(1e-5 * got.numel()) if jumps else 0)
+
+
+# --------------------------------------------------------------------------
+# The QMC generator's kernels (csrc/qmc_paths.cu)
+# --------------------------------------------------------------------------
+
+
+def _qmc_inputs(device: torch.device, steps: int, factors: int, contracts: int = 2):
+    keys = rng.fold_in(rng.prng_key(12), torch.arange(contracts)).to(device)
+    sdims, dirs, shift, pad_keys = qmc._draw_tables(keys, steps, factors, 5)
+    bridge = torch.as_tensor(qmc.brownian_bridge_matrix(steps), dtype=torch.float32,
+                             device=device)
+    return sdims, dirs, shift, pad_keys, bridge
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps,factors,start", [(16, 1, 0), (12, 2, 37), (5, 3, 4096),
+                                                  (32, 3, 1000), (70, 1, 3)],
+                         ids=["F1", "F2", "F3", "F3_padded", "T70_padded"])
+def test_qmc_bridge_kernel_matches_twin_on_card(steps, factors, start) -> None:
+    """Words equal; identity-bridge normals within 2 float32 ulps of the
+    twin's (the two sides' log1p); bridged normals within atol 1e-5."""
+    device = _require_card()
+    count = 3000
+    sdims, dirs, shift, pad_keys, bridge = _qmc_inputs(device, steps, factors)
+    pad = None
+    if sdims < steps * factors:
+        pad = qmc.qmc_pad_normals(pad_keys, range(sdims, steps * factors), rows=3, cols=1000,
+                                  row_offset=0)
+    words = torch.empty((2, sdims, count), dtype=torch.int32, device=device)
+    kw = dict(timesteps=steps, factors=factors, count=count, pad=pad)
+    before = gbm_cuda.LAUNCHES_BY_BRANCH["qmc_bridge"]
+    got = qmc_cuda.bridge_normals(dirs, shift, bridge, start, words_out=words, **kw)
+    assert gbm_cuda.LAUNCHES_BY_BRANCH["qmc_bridge"] == before + 1
+    want_words = qmc_cuda.sobol_words(dirs, shift, start, count)
+    assert torch.equal(words.to(torch.int64) & 0xFFFFFFFF, want_words)
+    eye = torch.eye(steps, dtype=torch.float32, device=device)
+    z_kernel = qmc_cuda.bridge_normals(dirs, shift, eye, start, **kw)
+    z_twin = qmc_cuda.bridge_normals_plain(dirs, shift, eye, start, **kw)
+    ulp = torch.abs(torch.nextafter(z_twin, torch.full_like(z_twin, math.inf)) - z_twin)
+    assert bool(((z_kernel - z_twin).abs() <= 2 * ulp).all())
+    want = qmc_cuda.bridge_normals_plain(dirs, shift, bridge, start, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps,start", [(16, 0), (7, 99), (64, 2048)])
+def test_qmc_walk_kernel_equals_bridge_kernel_plus_scan(steps, start) -> None:
+    """Exact: the fused walk's sums equal the bridge kernel's normals walked
+    by the torch scan, bit for bit."""
+    device = _require_card()
+    count = 5000
+    _, dirs, shift, _, bridge = _qmc_inputs(device, steps, 1)
+    log_spot = torch.log(torch.tensor([100.0, 90.0], device=device))
+    drift = torch.tensor([0.0011, -0.0004], device=device)
+    vol_sdt = torch.tensor([0.06, 0.09], device=device)
+    before = gbm_cuda.LAUNCHES_BY_BRANCH["qmc_walk"]
+    got = qmc_cuda.walk_acc(dirs, shift, bridge, start, log_spot, drift, vol_sdt,
+                            timesteps=steps, count=count)
+    assert gbm_cuda.LAUNCHES_BY_BRANCH["qmc_walk"] == before + 1
+    eff = qmc_cuda.bridge_normals(dirs, shift, bridge, start, timesteps=steps, factors=1,
+                                  count=count)[:, :, 0]
+    logx = torch.zeros((2, count), device=device) + log_spot[:, None]
+    acc = torch.zeros_like(logx)
+    for t in range(steps):
+        logx = logx + drift[:, None] + vol_sdt[:, None] * eff[:, t]
+        acc = acc + logx
+    assert torch.equal(got, acc)

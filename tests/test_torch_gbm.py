@@ -262,13 +262,17 @@ def test_engine_resolution_and_slice_refusals() -> None:
     for ported in (dict(payoff="asian_geometric"), dict(payoff="digital", normalization="none")):
         sim = tgbm.build_simulation_params(**base, implementation="cuda", **ported).expect("ok")
         assert tgbm.resolve_implementation(sim) == tgbm.SimImplementation.CUDA
-    with pytest.raises(NotImplementedError, match="queue 1 item 16"):
-        tgbm.has_closed_form_mean(tgbm.ModelKind.BASKET_GBM, tgbm.PayoffKind.TERMINAL)
-    for bad, item in ((dict(payoff="american_put"), "item 18"),
-                      (dict(model="basket_gbm"), "item 16"), (dict(basket=object()), "item 16"),
-                      (dict(sampling="sobol_bb"), "item 17")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
-            tgbm.build_simulation_params(**base, **bad)
+    assert tgbm.has_closed_form_mean(tgbm.ModelKind.BASKET_GBM, tgbm.PayoffKind.TERMINAL)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 18"):
+        tgbm.build_simulation_params(**base, payoff="american_put")
+    # baskets and QMC are ported: a basket needs its spec, SOBOL_BB runs the
+    # threefry engine's scans
+    no_spec = tgbm.build_simulation_params(**base, model="basket_gbm")
+    assert no_spec.is_failure() and no_spec.error.field == "basket"
+    assert tgbm.build_simulation_params(**base, basket=object()).is_failure()
+    qmc = tgbm.build_simulation_params(**base, sampling="sobol_bb",
+                                       implementation="cuda").expect("qmc")
+    assert tgbm.resolve_implementation(qmc) == tgbm.SimImplementation.XLA
     curve = tgbm.TermStructure(rate_shape=(0.5, 1.5))
     for admitted in (dict(model="heston"), dict(model="merton_jump"), dict(term=curve),
                      dict(model="heston", term=curve), dict(model="merton_jump", term=curve)):

@@ -1,11 +1,12 @@
 """The port's Merton jump-diffusion dynamics against the JAX package's.
 
-(a) ``merton_jump_counts`` against ``jax.random.poisson`` (Knuth's loop,
-    ``lam·dt < 10``): the same threefry key chain and bit-exact uniforms, so
-    the integer counts are equal wherever the running float32 ``log`` sum
-    does not land within an ulp of ``−lam·dt`` (torch's ``log`` and XLA's
-    differ by ulps): at most 1 draw in 2,000 may differ, and here none does.
-    ``lam·dt >= 10`` raises, naming the queue entry of the rejection branch.
+(a) ``merton_jump_counts`` against ``jax.random.poisson`` (Knuth's loop for
+    ``lam·dt < 10``, transformed rejection above): the same threefry key
+    chain and bit-exact uniforms, so the integer counts are equal wherever a
+    float32 ``log`` or ``lgamma`` does not land within ulps of an acceptance
+    edge (torch's and XLA's differ by ulps): at most 1 draw in 2,000 may
+    differ, and here none does; the sample mean and variance lie within 4
+    standard errors of ``lam``.
 (b) tier 2, rtol 2e-5: the threefry simulator against
     ``simulate_merton_underlier_rows`` for every payoff, with antithetic
     mirroring and curves on and off, on paths whose counts agree (all of
@@ -86,9 +87,49 @@ def test_jump_counts_match_jax_random_poisson(lam_dt: float) -> None:
 
 
 def test_a_step_rate_of_ten_or_more_is_refused() -> None:
+    """No longer refused: a rate of 10 or more takes the rejection branch
+    and gives ``jax.random.poisson``'s counts."""
+    base = jax.random.PRNGKey(1)
+    row_keys = jax.vmap(lambda r: jax.random.fold_in(base, r))(jnp.arange(2, dtype=jnp.uint32))
+    want = np.asarray(jm.merton_jump_counts(row_keys, jnp.int32(0), jnp.float32(10.0), 4,
+                                            jnp.float32))
     keys = rng.fold_in(rng.prng_key(1), torch.arange(2))
-    with pytest.raises(NotImplementedError, match="queue 3"):
-        tm.merton_jump_counts(keys, 0, torch.tensor([10.0]), 4, torch.float32)
+    got = tm.merton_jump_counts(keys, 0, torch.tensor([10.0]), 4, torch.float32).numpy()
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("lam", [10.0, 12.0, 30.0, 100.0, 1e3])
+def test_rejection_counts_match_jax_random_poisson(lam: float) -> None:
+    """Hörmann's transformed rejection, key for key: at most 1 count in 2,000
+    may differ, and the sample mean and variance lie within 4 standard
+    errors of ``lam`` (the variance's SE is ``lam·sqrt(2/n)`` to leading
+    order)."""
+    rows, cols = 8, 250
+    keys_j = jax.vmap(lambda r: jax.random.fold_in(jax.random.PRNGKey(5), r))(
+        jnp.arange(rows, dtype=jnp.uint32))
+    want = np.asarray(jax.vmap(lambda k: jax.random.poisson(k, jnp.float32(lam), (cols,)))(keys_j))
+    keys = rng.fold_in(rng.prng_key(5), torch.arange(rows))
+    got = tm.poisson(keys, torch.tensor([lam]), cols).numpy()
+    assert got.shape == want.shape == (rows, cols)
+    assert np.mean(got != want) <= 5e-4
+    n = got.size
+    assert abs(got.mean() - lam) < 4 * np.sqrt(lam / n)
+    assert abs(got.var() - lam) < 4 * lam * np.sqrt(2.0 / n)
+
+
+def test_poisson_mixes_branches_per_key_as_jax_does() -> None:
+    """Rates on both sides of 10 (and 0) in one call: each key takes its own
+    branch, and a Knuth key's counts are those of a call without the others."""
+    lams = np.array([0.0, 3.0, 10.0, 40.0], dtype=np.float32)
+    keys_j = jax.vmap(lambda r: jax.random.fold_in(jax.random.PRNGKey(9), r))(
+        jnp.arange(4, dtype=jnp.uint32))
+    want = np.asarray(jax.vmap(lambda k, lam: jax.random.poisson(k, lam, (64,)))(
+        keys_j, jnp.asarray(lams)))
+    keys = rng.fold_in(rng.prng_key(9), torch.arange(4))
+    got = tm.poisson(keys, torch.from_numpy(lams)[:, None], 64).numpy()
+    assert np.array_equal(got, want)
+    alone = tm.poisson(keys[1:2], torch.tensor([[3.0]]), 64).numpy()
+    assert np.array_equal(alone, got[1:2])
 
 
 @pytest.mark.parametrize("variant", ["anti_curved", "plain_flat"])

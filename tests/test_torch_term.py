@@ -169,10 +169,6 @@ def test_build_simulation_params_refuses_terms_and_families_as_jax_does(bad: dic
         jbad["term"], tbad["term"] = jgbm.TermStructure(**bad["term"]), tgbm.TermStructure(**bad["term"])
     want = jgbm.build_simulation_params(**BASE, **jbad)
     assert want.is_failure()
-    if "basket" in bad:  # the port has no BasketSpec yet: refused by name
-        with pytest.raises(NotImplementedError, match="item 16"):
-            tgbm.build_simulation_params(**BASE, **tbad)
-        return
     got = tgbm.build_simulation_params(**BASE, **tbad)
     assert got.is_failure()
     assert (got.error.field, got.error.reason) == (want.error.field, want.error.reason)
@@ -190,8 +186,12 @@ MODELS = ["gbm", "heston", "merton_jump"]
 def test_has_closed_form_mean_matches_jax_over_the_grid(model: str, payoff: str) -> None:
     assert tgbm.has_closed_form_mean(tgbm.ModelKind(model), tgbm.PayoffKind(payoff)) == \
         jgbm.has_closed_form_mean(jgbm.ModelKind(model), jgbm.PayoffKind(payoff))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tgbm.has_closed_form_mean(tgbm.ModelKind.BASKET_GBM, tgbm.PayoffKind(payoff))
+    for combine in ("arithmetic", "geometric"):  # the basket rows, per combine
+        assert tgbm.has_closed_form_mean(
+            tgbm.ModelKind.BASKET_GBM, tgbm.PayoffKind(payoff),
+            combine=tgbm.BasketCombine(combine),
+        ) == jgbm.has_closed_form_mean(jgbm.ModelKind.BASKET_GBM, jgbm.PayoffKind(payoff),
+                                       combine=jgbm.BasketCombine(combine))
 
 
 # Merton under Euler is refused at config time in both packages
@@ -226,10 +226,10 @@ def test_resolve_implementation_follows_the_jax_rules(
         assert tgbm.resolve_implementation(f64) == tgbm.SimImplementation.XLA
 
 
-@pytest.mark.parametrize("model", MODELS)
+@pytest.mark.parametrize("model", [*MODELS, "basket_gbm"])
 def test_cuda_stream_version_follows_pallas_stream_versions_keys(model: str) -> None:
     keys = gbm_cuda.CUDA_STREAM_VERSIONS
-    assert set(keys) == {"gbm", "gbm_cliquet", "gbm_term", "heston", "merton_jump"}
+    assert set(keys) == {"gbm", "gbm_cliquet", "gbm_term", "heston", "merton_jump", "basket_gbm"}
     assert set(keys) <= set(jpallas.PALLAS_STREAM_VERSIONS)
     # give every key its own value in both tables, so that equal versions
     # mean equal keys
