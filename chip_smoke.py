@@ -9,11 +9,12 @@ non-zero and no result line is printed):
 0. device       — require CUDA; print the card's name and power limit; apply
                   the deterministic numerics policy (runtime/torch_runtime.py).
 1. build        — build csrc/gbm_paths.cu, csrc/dynamics_paths.cu,
-                  csrc/basket_paths.cu and csrc/qmc_paths.cu with nvcc into
-                  build/kernels/, one nvcc each, all started together; print
-                  each kernel's registers and spills; count the SASS
-                  instructions of each branch's log-Euler loop (cuobjdump)
-                  for the instruction cap of phases 2 and 12.
+                  csrc/basket_paths.cu, csrc/qmc_paths.cu and
+                  csrc/american_paths.cu with nvcc into build/kernels/, one
+                  nvcc each, all started together; print each kernel's
+                  registers and spills; count the SASS instructions of each
+                  branch's log-Euler loop and of the American monitor loop
+                  (cuobjdump) for the instruction cap of phases 2, 12 and 17.
 2. kernel       — every kernel branch against its plain twin on the same
                   Philox words at C=4 x 2048 x 512 x 16: TERMINAL (and its
                   digital and forward-start routes), barrier up/down, the four
@@ -102,19 +103,54 @@ non-zero and no result line is printed):
                   lookback, forward start) and per SOBOL_BB family (GBM
                   arithmetic Asian, Heston, the 3-asset basket, Merton: the
                   bridge kernel at F = 1, 2, 3, 1).
-11. profile     — only with ``--profile``, after phase 16: for the TERMINAL,
-                  the Asian, the Heston, the basket and the SOBOL_BB
-                  geometric-Asian pricer, 10 warm train steps timed on the
-                  host clock to a synchronised end, then torch.profiler over 3
-                  train steps and over 20 predict_price calls at N=64 (device
-                  kernel time, busy share, launches, the heaviest kernels).
+17. kernel-american — the American monitor-row kernel against its twin on
+                  the same Philox words at 4 x 2048 x 512: T = 16 at every =
+                  1, 2, 4, T = 12 at every = 3, antithetic at every = 1; rtol
+                  2e-5 on the price rows; with every even its last row against
+                  the TERMINAL kernel's value. Then timed at the training
+                  chunk 256 x 2048 x 512 x 16 (every = 1, and every = 4) with
+                  the twin, the bound, the SASS per path-step and its cap.
+18. kernel-lsmc — the LSMC backward against its twin on the monitor kernel's
+                  rows, put and call, at the fused TPU kernel's shape (4 x
+                  2048 x 512 x 16) and the streamed one's (4 x 16384 x 256 x
+                  16): the mean cashflow within 1e-5 relative, u within rtol
+                  2e-5 but on paths whose exercise date flipped (at most 1e-5
+                  of the paths, counted and printed); against the torch
+                  estimator the mean within 2e-3 and at most 2% flipped. Then
+                  timed at 256 x 2048 x 512 x 16 and at the streamed shape,
+                  with the twin and the bound.
+19. oracle-american — lsmc_price on the card (the two kernels, 1,048,576
+                  paths, 16 dates): a put and a dividend call against the
+                  Bermudan tree, the r = 0 put and the q = 0 call against
+                  Black, each within max(4 SE, 0.5% of the price).
+20. train-american, resume-american, serve-american — phases 4-6 for the
+                  American put pricer (normalization "none", the CUDA
+                  backward, lsmc_backward_version 3 recorded) at the
+                  production batch and head, with the step's peak memory;
+                  calls NaN.
+21. families-american — one step at batch 64 each: the American call (the
+                  call column served, the put NaN), cross-fit (the monitor
+                  kernel and the torch estimator, backward 0), every = 4,
+                  antithetic, basis degree 3, a curved term (the threefry
+                  engine, recorded "xla", and a put against
+                  bermudan_grid_price within max(4 SE, 1%)), and a
+                  4,194,304-path contract at batch 4 (the streamed shape).
+11. profile     — only with ``--profile``, after phase 21: for the TERMINAL,
+                  the Asian, the Heston, the basket, the SOBOL_BB
+                  geometric-Asian and the American put pricer, 10 warm train
+                  steps timed on the host clock to a synchronised end, then
+                  torch.profiler over 3 train steps and over 20 predict_price
+                  calls at N=64 (device kernel time, busy share, launches, the
+                  heaviest kernels).
 
 Launch counts are set to 0 just before each main path (phases 4, 7, 8, 9,
-10, 15 and 16) and read just after it: the TERMINAL branch's count comes from
-phases 4-6, the Asian branch's from phase 7, the Heston TERMINAL branch's
-from phase 9, the basket TERMINAL branch's and the fused walk's from phase
-15 and every other branch's from phases 8, 10 and 16. The last lines are the
-kernel record as JSON, the nvidia-smi line, and the result JSON.
+10, 15, 16, 20 and 21) and read just after it: the TERMINAL branch's count
+comes from phases 4-6, the Asian branch's from phase 7, the Heston TERMINAL
+branch's from phase 9, the basket TERMINAL branch's and the fused walk's
+from phase 15, the American monitor kernel's and the backward's (up to 2^20
+paths a contract) from phase 20, the backward's past 2^20 paths from phase
+21, and every other branch's from phases 8, 10 and 16. The last lines are
+the kernel record as JSON, the nvidia-smi line, and the result JSON.
 """
 
 from __future__ import annotations
@@ -142,6 +178,8 @@ from spectralmc_tpu_torch.models.factory import (
     build_cvnn_config,
 )
 from spectralmc_tpu_torch.ops import (
+    american,
+    american_cuda,
     analytic,
     basket_cuda,
     dynamics_cuda,
@@ -154,6 +192,7 @@ from spectralmc_tpu_torch.ops._build import find_nvcc, load_library
 from spectralmc_tpu_torch.ops.basket import build_basket_spec
 from spectralmc_tpu_torch.ops.dispatch import make_mean_target, make_underlier_simulator
 from spectralmc_tpu_torch.ops.gbm import (
+    AMERICAN_PAYOFFS,
     BARRIER_PAYOFFS,
     LOOKBACK_PAYOFFS,
     BlackScholesContract,
@@ -161,6 +200,7 @@ from spectralmc_tpu_torch.ops.gbm import (
     PathScheme,
     PayoffKind,
     SamplingKind,
+    SimImplementation,
     SimulationParams,
     TermStructure,
     build_simulation_params,
@@ -287,6 +327,8 @@ def family_of(sim: SimulationParams) -> str:
 
 
 def branch_of(family: str, payoff: PayoffKind, spec: object = BASKET_SPEC) -> str:
+    if payoff in AMERICAN_PAYOFFS:
+        return "american_gbm"  # the monitor-row kernel (its backward counts apart)
     if family == "heston" and payoff == PayoffKind.FORWARD_START:
         return "forward"  # the Heston kernel captures ln S_m in a branch of its own
     if family == "basket":
@@ -467,13 +509,15 @@ def phase_device() -> tuple[torch.device, str, float]:
     return torch.device("cuda", 0), smi, max_sm_hz
 
 
-def phase_build() -> dict[str, float]:
-    """Build the four kernel libraries, one nvcc each, all started together,
-    and count their loops' SASS instructions per path-step, per branch group."""
+def phase_build() -> tuple[dict[str, float], tuple[float, str]]:
+    """Build the five kernel libraries, one nvcc each, all started together,
+    and count their loops' SASS instructions per path-step, per branch group
+    and for the American monitor kernel."""
     from concurrent.futures import ThreadPoolExecutor
 
     libraries = ((SOURCE, gbm_cuda.LIBRARY), (DYNAMICS_SOURCE, dynamics_cuda.LIBRARY),
-                 (BASKET_SOURCE, basket_cuda.LIBRARY), (QMC_SOURCE, qmc_cuda.LIBRARY))
+                 (BASKET_SOURCE, basket_cuda.LIBRARY), (QMC_SOURCE, qmc_cuda.LIBRARY),
+                 (AMERICAN_SOURCE, american_cuda.LIBRARY))
     start = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:
         built = list(pool.map(lambda lib: load_library(*lib[1]), libraries))
@@ -482,14 +526,16 @@ def phase_build() -> dict[str, float]:
         phase("build", source=source, library=lib.path.name,
               build_seconds=f"{lib.build_seconds:.2f}", all_builds_wall_s=f"{wall:.2f}",
               registers_and_spill_bytes=ptxas_summary(lib.log))
-    return sass_instruction_counts(built[0].path, built[1].path, built[2].path)
+    return (sass_instruction_counts(built[0].path, built[1].path, built[2].path),
+            american_sass_per_step(built[4].path))
 
 
 def ptxas_summary(log: str) -> dict[str, str]:
     """``{kernel<family>: "N registers, S spill bytes"}`` from the output of
     ``nvcc -Xptxas -v`` (empty when an existing build was reused)."""
     kernel = (r"(gbm_paths_kernel|gbm_cliquet_kernel|gbm_term_kernel|heston_paths_kernel|"
-              r"merton_paths_kernel|basket_paths_kernel|qmc_bridge_kernel|qmc_walk_kernel)"
+              r"merton_paths_kernel|basket_paths_kernel|qmc_bridge_kernel|qmc_walk_kernel|"
+              r"american_gbm_kernel|lsmc_sweep_kernel|lsmc_solve_kernel)"
               r"(?:ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?)?")
     found, name, spill = {}, None, 0
     for line in log.splitlines():
@@ -771,10 +817,11 @@ TIMED_PAYOFF = {
     "forward": (PayoffKind.FORWARD_START, dict(forward_start_step=FORWARD_STEP)),
 }
 # group -> (family, timed payoff, its knobs), in gbm_cuda.BRANCHES' order; the
-# basket and QMC kernels have phases of their own
+# basket, QMC and American kernels have phases of their own
 TIMED = {
     group: (group.rpartition("_")[0] or "gbm", *TIMED_PAYOFF[group.rpartition("_")[2]])
-    for group in gbm_cuda.BRANCHES if not group.startswith(("basket_", "qmc_"))
+    for group in gbm_cuda.BRANCHES
+    if not group.startswith(("basket_", "qmc_", "american_", "lsmc_"))
 }
 
 
@@ -1173,6 +1220,12 @@ def check_prices(pricer: GbmCVNNPricer, batch: np.ndarray, device: torch.device)
     evaluates it on the card and df at the curves' mean rate."""
     sim = pricer.snapshot().sim
     pred = pricer.predict_price(batch)
+    if sim.payoff in AMERICAN_PAYOFFS:  # the learned side finite, the other NaN
+        learned, other = ((pred.call, pred.put) if sim.payoff == PayoffKind.AMERICAN_CALL
+                          else (pred.put, pred.call))
+        if not (np.all(np.isfinite(learned)) and np.all(np.isnan(other))):
+            raise AssertionError(f"{sim.payoff.value}: put {pred.put}, call {pred.call}")
+        return pred
     if not np.all(np.isfinite(pred.put)):
         raise AssertionError(f"{sim.payoff.value}: non-finite puts {pred.put}")
     combine = sim.basket.combine if sim.basket is not None else None
@@ -1201,7 +1254,7 @@ def phase_serve(pricer: GbmCVNNPricer, device: torch.device, label: str) -> dict
         batch = rows[:n]
         pred = check_prices(pricer, batch, device)
         padded = pricer.predict_price(batch, pad_to_bucket=True)
-        if not (np.array_equal(pred.put, padded.put)
+        if not (np.array_equal(pred.put, padded.put, equal_nan=True)
                 and np.array_equal(pred.call, padded.call, equal_nan=True)):
             raise AssertionError(f"pad_to_bucket changed the prices at N={n}")
         times = []
@@ -1221,7 +1274,7 @@ def phase_serve(pricer: GbmCVNNPricer, device: torch.device, label: str) -> dict
                                       dtype=torch.float64)
         extra["mean_f32_vs_f64_max_rel"] = f"{float(((f32 - f64) / f64).abs().max()):.3e}"
     phase(label, model=sim.model.value, payoff=payoff.value, held_out_skip=1 << 20,
-          puts_n64=np.round(pred.put[:4], 4).tolist(),
+          puts_n64=np.round(pred.put[:4], 4).tolist(), calls_n64=np.round(pred.call[:4], 4).tolist(),
           p50_ms={k: round(v, 4) for k, v in p50.items()}, pad_bit_equal=True, parity_ok=True,
           **extra)
     return p50
@@ -1657,6 +1710,402 @@ def phase_basket_qmc_families(device: torch.device) -> None:
 
 
 # --------------------------------------------------------------------------
+# 17-21. American (LSMC) pricing on GBM
+# --------------------------------------------------------------------------
+
+AMERICAN_SOURCE = "spectralmc_tpu_torch/csrc/american_paths.cu"
+AMERICAN_REPLACES = {"american_gbm": "spectralmc_tpu/ops/gbm_pallas.py:1656",
+                     "lsmc_backward": "spectralmc_tpu/ops/lsmc_pallas.py:152",
+                     "lsmc_backward_streamed": "spectralmc_tpu/ops/lsmc_pallas.py:414"}
+AMERICAN_CONTRACTS = 4  # contracts per kernel-vs-twin case
+# (timesteps, exercise_every, antithetic half) of the monitor kernel's cases
+AMERICAN_CASES = [(STEPS, 1, None), (STEPS, 2, None), (STEPS, 4, None), (12, 3, None),
+                  (STEPS, 1, ROWS // 2)]
+# The backward's shapes: the fused TPU kernel's (up to 2^20 paths a contract)
+# and the streamed one's (the JAX bench's 4,194,304 paths)
+LSMC_SHAPES = {"lsmc_backward": (ROWS, COLS), "lsmc_backward_streamed": (16384, 256)}
+LSMC_FLIP_SHARE = 1e-5  # kernel vs twin: paths whose exercise date may differ
+LSMC_MEAN_RTOL = 1e-5  # kernel vs twin: the mean cashflow
+TORCH_FLIP_SHARE = 0.02  # kernel vs the torch estimator (tests/test_lsmc_pallas.py:83-110)
+TORCH_MEAN_RTOL = 2e-3
+LSMC_DEGREE = 5
+# The monitor kernel's op model per path: its draws (DRAW_OPS each), the
+# log-price update per step (UNIT_OPS["terminal"]) and one exp per monitor
+# date; bytes: the contract and key in, n_monitor floats out.
+# The backward's, from the JAX kernel's own cost model
+# (lsmc_pallas.py:298-306): (n + 1) slabs of 4 bytes a path, and
+# (5(2d + 1) + 2d + 8) operations a path and date.
+
+
+def american_bound_ms(contracts: int, rows: int, cols: int, steps: int,
+                      every: int) -> tuple[float, str]:
+    paths = contracts * rows * cols
+    monitors = steps // every
+    draws = monitors * (every // 2 + every % 2)
+    ops = paths * (draws * DRAW_OPS + steps * UNIT_OPS["terminal"] + monitors)
+    byte_count = contracts * 32 + paths * monitors * 4
+    t_ops, t_bytes = ops / FP32_OPS_PER_S * 1e3, byte_count / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def lsmc_bound_ms(contracts: int, rows: int, cols: int, monitors: int,
+                  degree: int = LSMC_DEGREE) -> tuple[float, str]:
+    paths = contracts * rows * cols
+    ops = (5 * (2 * degree + 1) + 2 * degree + 8) * paths * monitors
+    byte_count = (monitors + 1) * paths * 4
+    t_ops, t_bytes = ops / FP32_OPS_PER_S * 1e3, byte_count / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def american_sass_per_step(library: object) -> tuple[float, str]:
+    """SASS instructions one path-step of the monitor kernel executes at
+    ``every = 1``, counted from ``cuobjdump -sass``: the monitor loop (the
+    kernel's longest loop) less the pair-step loop inside it (idle at
+    ``every = 1``), less a slow path holding a CALL, less half the Philox
+    block (the innermost skipped region with >= 16 IMAD.WIDE.U32, run every
+    other draw; the single step that holds it runs every step)."""
+    return american_sass_count(cuobjdump_sass(library))
+
+
+def american_sass_count(text: str) -> tuple[float, str]:
+    """``american_sass_per_step``'s rule on the text of ``cuobjdump -sass``."""
+    block = next(b for b in text.split("Function : ")[1:]
+                 if b.split()[0].find("american_gbm_kernel") >= 0)
+    ins = [(int(a, 16), op.strip()) for a, op in re.findall(SASS_LINE, block)]
+    at = {a: i for i, (a, _) in enumerate(ins)}
+    loops = []
+    for i, (addr, op) in enumerate(ins):
+        back = re.search(SASS_BRANCH, op)
+        if back and int(back.group(1), 16) < addr and int(back.group(1), 16) in at:
+            loops.append(ins[at[int(back.group(1), 16)]:i + 1])
+    if not loops:
+        raise AssertionError("no loop found in the SASS of american_gbm_kernel")
+    outer = max(loops, key=len)
+    lo, hi = outer[0][0], outer[-1][0]
+    inner = [b for b in loops if b is not outer and lo <= b[0][0] and b[-1][0] <= hi]
+    skip = {a for b in inner for a, _ in b}
+    body = [(a, op) for a, op in outer if a not in skip]
+    regions = []  # (start, end) of each skipped region of the body
+    for addr, op in body:
+        jump = re.search(SASS_BRANCH, op)
+        if jump and op.startswith("@") and addr < int(jump.group(1), 16) <= hi:
+            regions.append((addr, int(jump.group(1), 16)))
+
+    def ops(start: int, end: int) -> list[str]:
+        return [o for a, o in body if start < a < end]
+
+    draws = [r for r in regions if sum("IMAD.WIDE.U32" in o for o in ops(*r)) >= 16]
+    philox = sum(len(ops(*r)) for r in draws
+                 if not any(q != r and r[0] <= q[0] and q[1] <= r[1] for q in draws))
+    calls = sum(len(ops(*r)) for r in regions
+                if r not in draws and any("CALL" in o for o in ops(*r)))
+    per_step = len(body) - calls - philox / 2
+    return per_step, f"{len(outer)}-{len(outer) - len(body)}-{calls}-{philox}/2={per_step:g}"
+
+
+def phase_kernel_american(device: torch.device, sass: tuple[float, str],
+                          max_sm_hz: float) -> dict[str, dict[str, object]]:
+    """The monitor-row kernel against its twin on the same Philox stream;
+    with ``every`` even its last row against the TERMINAL kernel; then its
+    time at the training chunk beside the twin's, the bound and the SASS."""
+    worst = {"max_abs_err": 0.0, "max_rel": 0.0}
+    for steps, every, half in AMERICAN_CASES:
+        params, keys = kernel_inputs(device, AMERICAN_CONTRACTS, steps + every)
+        kw = dict(timesteps=steps, rows=ROWS, cols=COLS, exercise_every=every,
+                  antithetic_half=half)
+        got = american_cuda.simulate_american_rows_cuda(params, keys, **kw)
+        want = american_cuda.simulate_american_rows_cuda_plain(params, keys, **kw)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"american_gbm: non-finite rows at {kw}")
+        err = (got - want).abs()
+        rel = float((err / want.abs()).max())
+        if rel > KERNEL_RTOL:
+            raise AssertionError(f"american_gbm: rows off the twin by {rel:.3e} at {kw}")
+        worst.update(max_abs_err=max(worst["max_abs_err"], float(err.max())),
+                     max_rel=max(worst["max_rel"], rel))
+        extra = {}
+        if every % 2 == 0:
+            terminal = gbm_cuda.simulate_underlier_rows_cuda(
+                params, keys, timesteps=steps, rows=ROWS, cols=COLS,
+                scheme=PathScheme.LOG_EULER, payoff=PayoffKind.TERMINAL, antithetic_half=half)
+            last = got[:, -1]
+            off = float(((last - terminal).abs() / terminal.abs()).max())
+            if off > KERNEL_RTOL:
+                raise AssertionError(f"american_gbm: last row off TERMINAL by {off:.3e}")
+            extra = dict(last_row_equals_terminal_kernel=bool(torch.equal(last, terminal)),
+                         last_row_max_rel_to_terminal=f"{off:.3e}")
+        phase("kernel-american", case=f"T{steps}_every{every}" + ("_anti" if half else ""),
+              shape=f"{AMERICAN_CONTRACTS}x{steps // every}x{ROWS}x{COLS}",
+              max_rel_diff=f"{rel:.3e}", max_abs_err=f"{float(err.max()):.3e}",
+              rtol=KERNEL_RTOL, **extra)
+        del got, want, err
+    params, keys = kernel_inputs(device, CHUNK, 1)
+    kw = dict(timesteps=STEPS, rows=ROWS, cols=COLS, exercise_every=1)
+    ms = cuda_ms(lambda: american_cuda.simulate_american_rows_cuda(params, keys, **kw))
+    torch.cuda.empty_cache()
+    plain_ms = cuda_ms(lambda: american_cuda.simulate_american_rows_cuda_plain(params, keys, **kw),
+                       iters=1, warmup=1)
+    torch.cuda.empty_cache()
+    bound, bound_by = american_bound_ms(CHUNK, ROWS, COLS, STEPS, 1)
+    per_step, found = sass
+    path_steps = CHUNK * ROWS * COLS * STEPS
+    cap = LANES_PER_CLOCK * max_sm_hz / per_step
+    bound4, by4 = american_bound_ms(CHUNK, ROWS, COLS, STEPS, 4)
+    ms4 = cuda_ms(lambda: american_cuda.simulate_american_rows_cuda(
+        params, keys, timesteps=STEPS, rows=ROWS, cols=COLS, exercise_every=4))
+    torch.cuda.empty_cache()
+    phase("kernel-american-time", kernel="american_gbm", shape=f"{CHUNK}x{ROWS}x{COLS}x{STEPS}",
+          every=1, kernel_ms=f"{ms:.3f}",
+          plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound:.3f}",
+          bound_by=bound_by, share_of_bound=f"{bound / ms:.4f}",
+          output_gb=round(CHUNK * ROWS * COLS * STEPS * 4 / 1e9, 3),
+          sass_per_path_step=round(per_step, 3), sass_loop=found,
+          share_of_instruction_cap=f"{path_steps / ms * 1e3 / cap:.4f}",
+          every4_kernel_ms=f"{ms4:.3f}", every4_bound_ms=f"{bound4:.3f}", every4_bound_by=by4)
+    return {"american_gbm": dict(worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                 bound_by=bound_by)}
+
+
+def lsmc_inputs(device: torch.device, contracts: int, rows: int, cols: int,
+                seed: int) -> tuple[torch.Tensor, ...]:
+    """``(price_rows, strike, disc, df)``: the monitor kernel's rows at
+    ``every = 1`` for seeded contracts."""
+    params, keys = kernel_inputs(device, contracts, seed)
+    price_rows = american_cuda.simulate_american_rows_cuda(
+        params, keys, timesteps=STEPS, rows=rows, cols=cols, exercise_every=1)
+    disc, df = american_cuda.monitor_discounts(params, timesteps=STEPS, exercise_every=1)
+    return price_rows, params[:, 1].contiguous(), disc, df
+
+
+def phase_kernel_lsmc(device: torch.device) -> dict[str, dict[str, object]]:
+    """The backward against its twin (same rows, same reduction order:
+    mean cashflow within 1e-5 relative, u within rtol 2e-5 but on paths
+    whose exercise date flipped, at most 1e-5 of the paths) and against the
+    torch estimator (mean within 2e-3, at most 2% flipped), put and call, at
+    the shapes of both TPU kernels; then timed at the training chunk and at
+    the streamed shape beside the twin, the bound and its share."""
+    record: dict[str, dict[str, object]] = {}
+    for name, (rows, cols) in LSMC_SHAPES.items():
+        price_rows, strike, disc, df = lsmc_inputs(device, AMERICAN_CONTRACTS, rows, cols, 21)
+        paths = AMERICAN_CONTRACTS * rows * cols
+        worst = 0.0
+        for put in (True, False):
+            kw = dict(strike=strike, disc=disc, df=df, put=put, basis_degree=LSMC_DEGREE)
+            got = american_cuda.lsmc_backward_cuda(price_rows, **kw)
+            want = american_cuda.lsmc_backward_cuda_plain(price_rows, **kw)
+            torch.cuda.synchronize()
+            cf_got = (strike[:, None, None] - got) * df[:, None, None]
+            cf_want = (strike[:, None, None] - want) * df[:, None, None]
+            mean_got, mean_want = float(cf_got.double().mean()), float(cf_want.double().mean())
+            flipped = ~torch.isclose(got, want, rtol=KERNEL_RTOL, atol=0.0)
+            flips = int(flipped.sum())
+            mean_rel = abs(mean_got - mean_want) / abs(mean_want)
+            if flips > LSMC_FLIP_SHARE * paths or mean_rel > LSMC_MEAN_RTOL:
+                raise AssertionError(f"{name} put={put}: {flips} flips, mean off {mean_rel:.2e}")
+            agree = torch.where(flipped, torch.zeros_like(got), (got - want).abs())
+            worst = max(worst, float(agree.max()))
+            cf_torch = american.lsmc_backward(price_rows, strike=strike, disc=disc,
+                                              dtype=torch.float32, put=put,
+                                              basis_degree=LSMC_DEGREE)
+            u_torch = strike[:, None, None] - cf_torch / df[:, None, None]
+            torch_flips = float((got != u_torch).float().mean())
+            mean_torch = float(cf_torch.double().mean())
+            torch_rel = abs(mean_got - mean_torch) / abs(mean_torch)
+            if torch_flips > TORCH_FLIP_SHARE or torch_rel > TORCH_MEAN_RTOL:
+                raise AssertionError(f"{name} put={put}: vs the torch estimator {torch_flips:.4f} "
+                                     f"flipped, mean off {torch_rel:.2e}")
+            phase("kernel-lsmc", kernel=name, side="put" if put else "call",
+                  shape=f"{AMERICAN_CONTRACTS}x{rows}x{cols}x{STEPS}", degree=LSMC_DEGREE,
+                  twin_flips=flips, twin_bit_equal=bool(torch.equal(got, want)),
+                  twin_mean_rel=f"{mean_rel:.3e}", mean_cashflow=round(mean_got, 6),
+                  torch_estimator_flip_share=f"{torch_flips:.5f}",
+                  torch_estimator_mean_rel=f"{torch_rel:.3e}")
+            del got, want, cf_got, cf_want, cf_torch, u_torch, agree, flipped
+        kw = dict(strike=strike, disc=disc, df=df, put=True, basis_degree=LSMC_DEGREE)
+        if name == "lsmc_backward":  # timed at the training chunk
+            del price_rows
+            torch.cuda.empty_cache()
+            price_rows, strike, disc, df = lsmc_inputs(device, CHUNK, rows, cols, 22)
+            kw = dict(strike=strike, disc=disc, df=df, put=True, basis_degree=LSMC_DEGREE)
+        contracts = price_rows.shape[0]
+        ms = cuda_ms(lambda: american_cuda.lsmc_backward_cuda(price_rows, **kw))
+        plain_ms = cuda_ms(lambda: american_cuda.lsmc_backward_cuda_plain(price_rows, **kw),
+                           iters=1, warmup=1)
+        bound, bound_by = lsmc_bound_ms(contracts, rows, cols, STEPS)
+        slabs = (4 * (STEPS - 1) + 3) * contracts * rows * cols * 4
+        phase("kernel-lsmc-time", kernel=name, shape=f"{contracts}x{rows}x{cols}x{STEPS}",
+              degree=LSMC_DEGREE, kernel_ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
+              bound_ms=f"{bound:.3f}", bound_by=bound_by, share_of_bound=f"{bound / ms:.4f}",
+              schedule_gb=round(slabs / 1e9, 3),
+              schedule_bytes_per_s=f"{slabs / ms * 1e3:.4e}",
+              launches_per_backward=2 * STEPS - 1)
+        record[name] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                            bound_by=bound_by)
+        del price_rows
+        torch.cuda.empty_cache()
+    return record
+
+
+AMERICAN_ORACLES = [  # (label, contract, option, oracle) at 16 monitor dates
+    ("put", dict(spot=100.0, strike=110.0, maturity=1.0, rate=0.05, div_yield=0.0, vol=0.25),
+     "put", "tree"),
+    ("dividend call", dict(spot=100.0, strike=95.0, maturity=2.0, rate=0.02, div_yield=0.08,
+                           vol=0.25), "call", "tree"),
+    ("r=0 put", dict(spot=100.0, strike=100.0, maturity=1.0, rate=0.0, div_yield=0.0,
+                     vol=0.25), "put", "black"),
+    ("q=0 call", dict(spot=100.0, strike=100.0, maturity=1.0, rate=0.05, div_yield=0.0,
+                      vol=0.25), "call", "black"),
+]
+
+
+def phase_oracle_american(device: torch.device) -> None:
+    """``lsmc_price`` on the card (the monitor kernel and the backward,
+    1,048,576 paths, 16 dates) within max(4 SE, 0.5% of the price) of the
+    Bermudan tree, or of Black where early exercise is worth nothing
+    (tests/test_american.py's gates)."""
+    for i, (label, c, option, oracle) in enumerate(AMERICAN_ORACLES):
+        before = gbm_cuda.LAUNCHES_BY_BRANCH["lsmc_backward"]
+        got = american.lsmc_price(rng.prng_key(40 + i, device), BlackScholesContract(**c),
+                                  timesteps=STEPS, paths=ROWS * COLS,
+                                  option=american.OptionSide(option),
+                                  implementation=SimImplementation.CUDA, device=device)
+        if gbm_cuda.LAUNCHES_BY_BRANCH["lsmc_backward"] != before + 1:
+            raise AssertionError(f"oracle-american {label}: the CUDA backward did not run")
+        if oracle == "tree":
+            want = american.bermudan_tree_price(**c, exercise_dates=STEPS, option=option)
+        else:
+            black = analytic.black_scholes_price(*c.values())
+            want = float(black.put if option == "put" else black.call)
+        tol = max(4.0 * got.std_error, 0.005 * want)
+        if not abs(got.price - want) <= tol:
+            raise AssertionError(f"oracle-american {label}: {got.price:.5f} ± "
+                                 f"{got.std_error:.1e} vs {oracle} {want:.5f}")
+        phase("oracle-american", contract=label, option=option, oracle=oracle,
+              paths=ROWS * COLS, dates=STEPS, price=round(got.price, 5),
+              se=f"{got.std_error:.2e}", want=round(want, 5), tol=f"{tol:.4f}",
+              european=round(got.european, 5), premium=round(got.price - got.european, 5),
+              cv_price=round(got.cv_price, 5), cv_se=f"{got.cv_std_error:.2e}")
+
+
+def american_config(payoff: PayoffKind = PayoffKind.AMERICAN_PUT, *, rows: int = ROWS,
+                    **knobs: object) -> GbmCVNNPricerConfig:
+    """The American pricer: the production head, spot and strike 80–120,
+    vol 15–45%, normalization none, the CUDA backward unless ``knobs`` say
+    otherwise."""
+    sim = build_simulation_params(
+        timesteps=STEPS, network_size=COLS, batches_per_mc_run=rows, mc_seed=7,
+        implementation="cuda", payoff=payoff.value, normalization="none",
+        **{"lsmc_fused_backward": True, **knobs},
+    ).expect("american sim")
+    return GbmCVNNPricerConfig(sim=sim, bounds=bounds_for(payoff), cvnn=production_cvnn(),
+                               normalize_inputs=True)
+
+
+def phase_train_american(device: torch.device) -> GbmCVNNPricer:
+    """3 steps of the American put pricer at the production batch: one
+    monitor-kernel launch and one CUDA backward per chunk, the backward's
+    version recorded; the step's peak device memory."""
+    pricer = GbmCVNNPricer.create(american_config(), device=device).expect("american")
+    before = {k: gbm_cuda.LAUNCHES_BY_BRANCH[k] for k in ("american_gbm", "lsmc_backward")}
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, seconds = train_steps(pricer, 3)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    launched = {k: gbm_cuda.LAUNCHES_BY_BRANCH[k] - v for k, v in before.items()}
+    snap = pricer.snapshot()
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"american: non-finite training losses {losses}")
+    if set(launched.values()) != {3 * BATCH // CHUNK}:
+        raise AssertionError(f"american: launches {launched} in 3 steps")
+    want = american_cuda.LSMC_BACKWARD_VERSIONS["cuda"]
+    if (snap.sim.implementation.value, snap.lsmc_backward_version,
+            snap.cuda_stream_version) != ("cuda", want, 1):
+        raise AssertionError(f"american: engine {snap.sim.implementation.value}, backward "
+                             f"v{snap.lsmc_backward_version}, stream v{snap.cuda_stream_version}")
+    phase("train-american", payoff=snap.sim.payoff.value, engine="cuda",
+          stream="american_gbm_v1", lsmc_backward_version=snap.lsmc_backward_version,
+          normalization=snap.sim.normalization.value, losses=losses.tolist(),
+          launches=launched, step_seconds=[round(s, 4) for s in seconds],
+          median_step_s=f"{statistics.median(seconds):.4f}", peak_memory_gb=round(peak_gb, 3),
+          monitor_rows_gb_per_chunk=round(CHUNK * STEPS * ROWS * COLS * 4 / 1e9, 3),
+          paths_per_contract=ROWS * COLS, batch=BATCH, chunk=CHUNK)
+    return pricer
+
+
+# Phase 21's pricers: (label, payoff, knobs, batch rows, engine, backward,
+# the kernel launch counts that must move)
+AMERICAN_FAMILIES = [
+    ("call", PayoffKind.AMERICAN_CALL, {}, ROWS, "cuda", 3, ("american_gbm", "lsmc_backward")),
+    ("cross-fit", PayoffKind.AMERICAN_PUT, dict(lsmc_fused_backward=False, lsmc_cross_fit=True),
+     ROWS, "cuda", 0, ("american_gbm",)),
+    ("every 4", PayoffKind.AMERICAN_PUT, dict(lsmc_exercise_every=4), ROWS, "cuda", 3,
+     ("american_gbm", "lsmc_backward")),
+    ("antithetic", PayoffKind.AMERICAN_PUT, dict(antithetic=True), ROWS, "cuda", 3,
+     ("american_gbm", "lsmc_backward")),
+    ("degree 3", PayoffKind.AMERICAN_PUT, dict(lsmc_basis_degree=3), ROWS, "cuda", 3,
+     ("american_gbm", "lsmc_backward")),
+    ("curved term", PayoffKind.AMERICAN_PUT, dict(lsmc_fused_backward=False, term=term_of(STEPS)),
+     ROWS, "xla", 0, ()),
+    ("4,194,304 paths", PayoffKind.AMERICAN_PUT, {}, 8192, "cuda", 3,
+     ("american_gbm", "lsmc_backward_streamed")),
+]
+AMERICAN_CURVE_CONTRACT = dict(spot=100.0, strike=110.0, maturity=1.0, rate=0.05, div_yield=0.01,
+                               vol=0.25)
+
+
+def american_curve_gate(device: torch.device) -> dict[str, object]:
+    """The threefry engine under ``term_of`` curves for one put over
+    1,048,576 paths against ``bermudan_grid_price`` on the same curves,
+    within max(4 SE, 1%)."""
+    c = AMERICAN_CURVE_CONTRACT
+    term = term_of(STEPS)
+    contracts = torch.tensor([list(c.values())], dtype=torch.float32, device=device)
+    keys = rng.fold_in(rng.prng_key(61, device), torch.arange(1, device=device))
+    u = american.simulate_american_underlier_rows(
+        keys, contracts, timesteps=STEPS, rows=ROWS, cols=COLS, dtype=torch.float32,
+        option=american.OptionSide.PUT, term=term)
+    df = math.exp(-c["rate"] * term.effective_factors(STEPS)[1] * c["maturity"])
+    cf = (c["strike"] - u.double().reshape(-1)) * df
+    mean, se = float(cf.mean()), float(cf.std() / math.sqrt(cf.numel()))
+    want = american.bermudan_grid_price(**c, timesteps=STEPS, option="put",
+                                        vol_shape=term.vol_shape, rate_shape=term.rate_shape)
+    tol = max(4.0 * se, 0.01 * want)
+    if not abs(mean - want) <= tol:
+        raise AssertionError(f"curved American put {mean:.5f} ± {se:.1e} vs grid {want:.5f}")
+    return dict(mc=round(mean, 5), se=f"{se:.2e}", grid=round(want, 5), tol=f"{tol:.4f}")
+
+
+def phase_families_american(device: torch.device) -> None:
+    """One step at batch 64 (batch 4 for the 4,194,304-path contract) per
+    pricer of ``AMERICAN_FAMILIES``: the engine and backward recorded, the
+    kernels launched once, a finite loss, the learned side finite and the
+    other NaN; the curved one gated against the grid oracle."""
+    for label, payoff, knobs, rows, engine, backward, groups in AMERICAN_FAMILIES:
+        pricer = GbmCVNNPricer.create(american_config(payoff, rows=rows, **knobs),
+                                      device=device).expect(label)
+        batch = 4 if rows > ROWS else PAYOFF_BATCH
+        before = {g: gbm_cuda.LAUNCHES_BY_BRANCH[g] for g in groups}
+        losses, seconds = train_steps(pricer, 1, batch=batch, chunk=batch)
+        launched = {g: gbm_cuda.LAUNCHES_BY_BRANCH[g] - v for g, v in before.items()}
+        snap = pricer.snapshot()
+        if (snap.sim.implementation.value, snap.lsmc_backward_version) != (engine, backward):
+            raise AssertionError(f"american {label}: engine {snap.sim.implementation.value}, "
+                                 f"backward v{snap.lsmc_backward_version}")
+        if any(n != 1 for n in launched.values()) or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"american {label}: launches {launched}, loss {losses}")
+        pred = check_prices(pricer, held_out(payoff, 8), device)
+        extra = american_curve_gate(device) if engine == "xla" else {}
+        phase("families-american", pricer=label, payoff=payoff.value, engine=engine,
+              stream_version=snap.cuda_stream_version, lsmc_backward_version=backward,
+              launches=launched, paths_per_contract=rows * COLS, batch=batch,
+              loss=float(losses[0]), step_s=round(seconds[0], 4),
+              prices=np.round(pred.call if payoff == PayoffKind.AMERICAN_CALL else pred.put,
+                              5)[:3].tolist(), **extra)
+        del pricer
+        torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
 # 11. profile
 # --------------------------------------------------------------------------
 
@@ -1706,7 +2155,7 @@ def main() -> None:
                         help="after the checks, time warm train steps and profile train and serve")
     args = parser.parse_args()
     device, smi, max_sm_hz = phase_device()
-    per_step = phase_build()
+    per_step, american_sass = phase_build()
     kernel = phase_kernel(device, per_step, max_sm_hz)
     phase_oracle(device)
     phase_oracle_families(device)
@@ -1752,6 +2201,18 @@ def main() -> None:
     phase_basket_qmc_families(device)
     for group in (*BASKET_TIMED, "qmc_bridge"):
         launches.setdefault(group, gbm_cuda.LAUNCHES_BY_BRANCH[group])
+    kernel.update(phase_kernel_american(device, american_sass, max_sm_hz))
+    kernel.update(phase_kernel_lsmc(device))
+    phase_oracle_american(device)
+    gbm_cuda.reset_launches()  # the American pricer's path starts here
+    american_pricer = phase_train_american(device)
+    phase_resume(device, american_pricer, "resume-american")
+    phase_serve(american_pricer, device, "serve-american")
+    for group in ("american_gbm", "lsmc_backward"):
+        launches[group] = gbm_cuda.LAUNCHES_BY_BRANCH[group]
+    gbm_cuda.reset_launches()  # the American families' path starts here
+    phase_families_american(device)
+    launches["lsmc_backward_streamed"] = gbm_cuda.LAUNCHES_BY_BRANCH["lsmc_backward_streamed"]
     missing = [b for b, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"the main paths never launched the {missing} kernel branches")
@@ -1761,6 +2222,7 @@ def main() -> None:
         phase_profile(heston, "-heston")
         phase_profile(basket, "-basket")
         phase_profile(qmc_asian, "-qmc-asian")
+        phase_profile(american_pricer, "-american")
     records = []
     for group, (family, _, _) in TIMED.items():
         flat = family == "gbm"
@@ -1785,6 +2247,17 @@ def main() -> None:
             "route": "cuda",
             "source": BASKET_SOURCE if in_basket else QMC_SOURCE,
             "replaces": BASKET_REPLACES if in_basket else QMC_REPLACES[group],
+            "launches": launches[group],
+            **{k: kernel[group][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                             "bound_by")},
+            "library_ms": None,  # no single PyTorch call computes these functions
+        })
+    for group in AMERICAN_REPLACES:
+        records.append({
+            "name": "american_gbm" if group == "american_gbm" else "lsmc_backward",
+            "route": "cuda",
+            "source": AMERICAN_SOURCE,
+            "replaces": AMERICAN_REPLACES[group],
             "launches": launches[group],
             **{k: kernel[group][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                              "bound_by")},

@@ -5,10 +5,11 @@ function) of Monte-Carlo payoff distributions, served as a pricer. This
 package carries the main path — Sobol contracts → Monte-Carlo → FFT → CVNN →
 Adam, with snapshot/resume and serving — on PyTorch for GBM (flat or under
 piecewise-constant term structures), Heston, Merton and basket dynamics,
-pseudo-random or Sobol/Brownian-bridge paths and every payoff but the
-American ones, with the MC hot loop in hand-written CUDA kernels for Hopper
-(``csrc/gbm_paths.cu``, ``csrc/dynamics_paths.cu``, ``csrc/basket_paths.cu``,
-``csrc/qmc_paths.cu``).
+pseudo-random or Sobol/Brownian-bridge paths and every payoff (the American
+ones, by Longstaff–Schwartz regression, under GBM), with the MC hot loop in
+hand-written CUDA kernels for Hopper (``csrc/gbm_paths.cu``,
+``csrc/dynamics_paths.cu``, ``csrc/basket_paths.cu``, ``csrc/qmc_paths.cu``,
+``csrc/american_paths.cu``).
 It imports neither JAX nor the JAX package; the tests hold it against both.
 """
 

@@ -4,7 +4,7 @@ The port of the JAX package's ``ops/dispatch.py``: the single mapping from
 ``SimulationParams`` to the contract model, the underlier simulator and the
 analytic-mean target of its dynamics (GBM, Heston, Merton, baskets; flat or
 curved market data; pseudo-random or Sobol/Brownian-bridge paths; every
-payoff kind but the American ones; the threefry engine or the CUDA
+payoff kind, the American ones under GBM; the threefry engine or the CUDA
 kernels). Every caller builds its simulator here. Simulators
 take a BATCH of contracts — one kernel launch per batch on the ``"cuda"``
 engine — where the JAX package ``vmap``s a one-contract simulator.
@@ -16,11 +16,13 @@ from typing import Callable
 
 import torch
 
+from spectralmc_tpu_torch.ops.american import OptionSide, simulate_american_underlier_rows
 from spectralmc_tpu_torch.ops.basket import (
     expected_basket_underlier_mean,
     simulate_basket_underlier_rows,
 )
 from spectralmc_tpu_torch.ops.gbm import (
+    AMERICAN_PAYOFFS,
     CONTRACT_DIM,
     BlackScholesContract,
     ModelKind,
@@ -70,11 +72,16 @@ def contract_dim(sim: SimulationParams) -> int:
 
 def _cuda_simulator(sim: SimulationParams, *, rows: int, anti_half: int | None) -> Simulator:
     """The kernel wrapper ``resolve_implementation`` chose, with its knobs."""
-    from spectralmc_tpu_torch.ops import basket_cuda, dynamics_cuda, gbm_cuda
+    from spectralmc_tpu_torch.ops import american_cuda, basket_cuda, dynamics_cuda, gbm_cuda
 
     shape = dict(timesteps=sim.timesteps, rows=rows, cols=sim.network_size,
                  antithetic_half=anti_half)
-    if sim.payoff == PayoffKind.CLIQUET:  # flat log-Euler GBM only
+    if sim.payoff in AMERICAN_PAYOFFS:  # flat log-Euler GBM only
+        launch = american_cuda.simulate_american_underlier_rows_cuda
+        knobs = dict(option=_option_side(sim), basis_degree=sim.lsmc_basis_degree,
+                     exercise_every=sim.lsmc_exercise_every, cross_fit=sim.lsmc_cross_fit,
+                     backward=american_cuda.resolve_lsmc_backward(sim, rows=rows))
+    elif sim.payoff == PayoffKind.CLIQUET:  # flat log-Euler GBM only
         launch = gbm_cuda.simulate_cliquet_rows_cuda
         knobs = dict(reset_every=sim.cliquet_reset_every, floor=sim.cliquet_floor,
                      cap=sim.cliquet_cap)
@@ -104,12 +111,18 @@ def _cuda_simulator(sim: SimulationParams, *, rows: int, anti_half: int | None) 
     return simulate_cuda
 
 
+def _option_side(sim: SimulationParams) -> OptionSide:
+    return OptionSide.PUT if sim.payoff == PayoffKind.AMERICAN_PUT else OptionSide.CALL
+
+
 def make_underlier_simulator(sim: SimulationParams, *, rows: int) -> Simulator:
     """``(key_words [C, 2], contracts [C, D], row_offset=0) -> [C, rows, network]``.
 
     The engine is the one ``resolve_implementation`` says will run, decided
     here once: on ``"cuda"`` the kernel of the sim's dynamics (the cliquet,
-    flat, term, Heston, Merton or basket kernel), on ``"xla"`` the threefry
+    flat, term, Heston, Merton or basket kernel; for an American kind the
+    monitor-row kernel and the backward ``resolve_lsmc_backward`` names), on
+    ``"xla"`` the threefry
     simulator of its dynamics, with the term knob, the basket's spec and,
     for ``SOBOL_BB``, the sampling and its seed. Every engine keys rows by
     GLOBAL index, so ``row_offset`` shards are stable.
@@ -133,6 +146,20 @@ def make_underlier_simulator(sim: SimulationParams, *, rows: int) -> Simulator:
     )
     if sim.sampling != SamplingKind.PSEUDO:
         kwargs.update(sampling=sim.sampling, mc_seed=sim.mc_seed)
+    if sim.payoff in AMERICAN_PAYOFFS:  # GBM only (require_slice)
+
+        def simulate_american(
+            key_words: torch.Tensor, contracts: torch.Tensor, row_offset: int = 0
+        ) -> torch.Tensor:
+            return simulate_american_underlier_rows(
+                key_words, contracts, timesteps=sim.timesteps, rows=rows,
+                cols=sim.network_size, dtype=sim.precision.to_torch(), option=_option_side(sim),
+                basis_degree=sim.lsmc_basis_degree, exercise_every=sim.lsmc_exercise_every,
+                row_offset=row_offset, antithetic_half=anti_half, term=sim.term,
+                cross_fit=sim.lsmc_cross_fit,
+            )
+
+        return simulate_american
     if sim.model == ModelKind.HESTON:
         scan = simulate_heston_underlier_rows
     elif sim.model == ModelKind.MERTON_JUMP:

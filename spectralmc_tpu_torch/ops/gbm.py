@@ -51,8 +51,9 @@ from spectralmc_tpu_torch.ops.basket import BasketCombine, BasketSpec
 MAX_TOTAL_PATHS_F32 = 1_000_000_000
 MAX_TOTAL_PATHS_F64 = 500_000_000
 
-# the ROADMAP.md queue item that ports what this module refuses
-AMERICAN_QUEUE = "queue 1 item 18 (American)"
+# the ROADMAP.md queue item that ports the American kinds under Heston,
+# Merton and basket dynamics (GBM American is ported)
+AMERICAN_QUEUE = "queue 1 item 18 (American: Heston, Merton, baskets)"
 
 
 class PathScheme(enum.Enum):
@@ -67,8 +68,10 @@ class ForwardNormalization(enum.Enum):
 
 class PayoffKind(enum.Enum):
     """All payoff kinds of the JAX package (its ``PayoffKind`` docstring
-    defines each underlier); the port simulates every kind but the American
-    ones (``AMERICAN_QUEUE``)."""
+    defines each underlier); the port simulates every kind, the American
+    ones under GBM only (``AMERICAN_QUEUE``). An American kind trains ONE
+    side's Bermudan cashflow through the put-payoff channel: its underlier
+    is ``u = K − cf/df`` (``ops/american.py``)."""
 
     TERMINAL = "terminal"
     ASIAN_ARITHMETIC = "asian_arithmetic"
@@ -281,8 +284,12 @@ class SimulationParams(BaseModel):
     ``total_paths = network_size * batches_per_mc_run``; the FFT length is
     ``network_size``; ``skip`` counts contract-simulations already drawn (the
     resume offset). ``basket`` is the static ``BasketSpec`` of
-    ``model="basket_gbm"``. The LSMC knobs of the American kinds, which the
-    port does not run yet, are kept so a JAX config maps 1:1.
+    ``model="basket_gbm"``. The LSMC knobs are the American kinds':
+    ``lsmc_basis_degree`` (1–8), ``lsmc_exercise_every`` (monitor dates every
+    k steps), ``lsmc_cross_fit`` (the bracket-midpoint estimator) and
+    ``lsmc_fused_backward`` (the JAX package's request for its TPU backward
+    kernels, held to its rules; the ``"cuda"`` engine runs its own backward
+    kernel wherever it applies, ``ops/american_cuda.py``).
     """
 
     model_config = ConfigDict(frozen=True, extra="forbid")
@@ -320,9 +327,11 @@ class SimulationParams(BaseModel):
 def require_slice(params: SimulationParams) -> None:
     """Raise for a config outside the ported slice: every dynamics (GBM,
     Heston, Merton, baskets), flat or curved market data, pseudo-random or
-    Sobol/Brownian-bridge paths, any payoff but the American kinds."""
-    if params.payoff in AMERICAN_PAYOFFS:
-        raise not_ported(f"payoff={params.payoff.value!r}", AMERICAN_QUEUE)
+    Sobol/Brownian-bridge paths, any payoff; the American kinds under GBM
+    only."""
+    if params.payoff in AMERICAN_PAYOFFS and params.model != ModelKind.GBM:
+        raise not_ported(f"payoff={params.payoff.value!r} under model={params.model.value!r}",
+                         AMERICAN_QUEUE)
 
 
 def _invalid(field: str, value: object, reason: str) -> Failure:
@@ -377,12 +386,51 @@ def _payoff_knob_refusal(params: SimulationParams) -> Failure | None:
     elif any(k is not None for k in knobs):
         return _invalid("cliquet_reset_every", params.cliquet_reset_every,
                         f"payoff={payoff.value!r} takes no cliquet reset grid or clip levels")
+    if payoff in AMERICAN_PAYOFFS:
+        return _american_refusal(params)
     if params.lsmc_cross_fit:
         return _invalid("lsmc_cross_fit", True,
                         f"payoff={payoff.value!r} has no LSMC regression to cross-fit")
     if params.lsmc_fused_backward:
         return _invalid("lsmc_fused_backward", True,
                         f"payoff={payoff.value!r} has no LSMC backward induction")
+    return None
+
+
+def _american_refusal(params: SimulationParams) -> Failure | None:
+    """The LSMC knobs' checks, in the JAX package's order, fields and
+    reasons. ``lsmc_fused_backward`` asks for the JAX package's backward
+    kernels, which run the classic single-recursion estimator on one state
+    variable with flat discounting."""
+    if params.scheme != PathScheme.LOG_EULER:
+        return _invalid("scheme", params.scheme.value, "LSMC early exercise is log-Euler only")
+    if not 1 <= params.lsmc_basis_degree <= 8:
+        return _invalid("lsmc_basis_degree", params.lsmc_basis_degree, "must be in [1, 8]")
+    every = params.lsmc_exercise_every
+    if every < 1 or params.timesteps % every:
+        return _invalid("lsmc_exercise_every", every,
+                        "must be >= 1 and divide timesteps (maturity is always a monitor date)")
+    if params.timesteps // every < 2:
+        return _invalid("timesteps", params.timesteps, "early exercise needs >= 2 monitor dates")
+    if params.lsmc_cross_fit and params.network_size < 2:
+        return _invalid("lsmc_cross_fit", True,
+                        "cross-fitting splits the path columns in half; network_size must be "
+                        ">= 2")
+    if params.lsmc_fused_backward:
+        if params.lsmc_cross_fit:
+            return _invalid("lsmc_fused_backward", True,
+                            "the fused backward implements the classic single-recursion "
+                            "estimator; the cross-fitted pair carries two cashflow vectors — "
+                            "choose one")
+        if params.model != ModelKind.GBM:
+            return _invalid("lsmc_fused_backward", params.model.value,
+                            "the fused backward is single-state moneyness-basis LSMC — GBM "
+                            "dynamics only (Heston/basket augment the basis; Merton is future "
+                            "scope)")
+        if curved(params.term) is not None:
+            return _invalid("lsmc_fused_backward", True,
+                            "curved term structures need per-segment discounts; the fused "
+                            "backward is flat-discount only")
     return None
 
 
@@ -472,6 +520,10 @@ def build_simulation_params(**kwargs: Any) -> Result[SimulationParams, GBMError]
     if params.antithetic and params.batches_per_mc_run % 2:
         return _invalid("antithetic", params.batches_per_mc_run,
                         "antithetic pairing needs an even batches_per_mc_run")
+    if params.sampling == SamplingKind.SOBOL_BB and params.payoff in AMERICAN_PAYOFFS:
+        return _invalid("sampling", params.sampling.value,
+                        "LSMC early exercise draws its own pseudo stream; QMC applies to the "
+                        "path-independent payoff kinds")
     if params.sampling == SamplingKind.SOBOL_BB and params.antithetic:
         return _invalid("antithetic", True,
                         "the scrambled Sobol net is already stratified; antithetic "
@@ -515,7 +567,9 @@ def resolve_implementation(params: SimulationParams) -> SimImplementation:
 
     ``"cuda"`` runs wherever ``gbm_cuda.cuda_supported`` says the kernels
     honor the request (the single source of truth), else the threefry
-    engine; the kernels take any row count. ``SOBOL_BB`` always records the
+    engine; the kernels take any row count. An American kind under flat GBM
+    runs the monitor-row kernel; under a curved term its threefry forward
+    (the kernel takes no coefficient tables). ``SOBOL_BB`` always records the
     threefry engine: its normals come from the QMC generator, whose kernels
     are an internal route, not an engine. The decision is made here, once,
     before a run: no wrapper falls back on its own. ``"pallas"`` resolves to
@@ -533,6 +587,8 @@ def resolve_implementation(params: SimulationParams) -> SimImplementation:
         term=params.term,
         scheme=params.scheme,
         n_assets=params.basket.n_assets if params.basket is not None else 1,
+        timesteps=params.timesteps,
+        exercise_every=params.lsmc_exercise_every,
     ):
         return SimImplementation.CUDA
     return SimImplementation.XLA
@@ -739,7 +795,8 @@ def simulate_underlier_rows(
     knockout-masked terminal (strike on knocked paths), the lookback
     encoding, the digital ``K ± 1``, the realized variance, the
     forward-start ratio ``spot·S_T/S_m`` or the cliquet sum of clipped
-    period returns (``PayoffKind``).
+    period returns (``PayoffKind``; the American kinds' simulator is
+    ``ops/american.py::simulate_american_underlier_rows``).
 
     The normals are ``simulate_terminal_rows``'s, keyed by (contract key,
     global row, timestep), and every branch follows the JAX package's scan
@@ -753,7 +810,8 @@ def simulate_underlier_rows(
     scan over those normals bit for bit.
     """
     if payoff in AMERICAN_PAYOFFS:
-        raise not_ported(f"payoff={payoff.value!r}", AMERICAN_QUEUE)
+        raise ValueError(f"payoff={payoff.value!r} runs "
+                         "ops/american.py::simulate_american_underlier_rows")
     if payoff in (PayoffKind.TERMINAL, PayoffKind.DIGITAL):
         terminal = simulate_terminal_rows(
             contract_keys, contracts, timesteps=timesteps, rows=rows, cols=cols, dtype=dtype,
@@ -868,6 +926,51 @@ def simulate_underlier_rows(
             acc = acc + (torch.log(x) if geometric else x)
     mean = acc / timesteps
     return torch.exp(mean) if geometric else mean
+
+
+def simulate_paths(
+    contract_keys: torch.Tensor,
+    contracts: torch.Tensor,
+    *,
+    timesteps: int,
+    paths: int,
+    dtype: torch.dtype,
+    scheme: PathScheme,
+    normalize: bool,
+    term: TermStructure | None = None,
+) -> torch.Tensor:
+    """The full path matrix ``[C, timesteps, paths]``: row ``t`` is the state
+    after step ``t + 1``. Step ``t``'s normals are ``normal(fold_in(key, t),
+    (paths,))`` of the contract's key itself (no row fold), as in the JAX
+    package. With ``normalize`` each row is rescaled so its mean is the
+    analytic forward at its date."""
+    c = contracts.to(dtype)
+    spot, _, maturity, rate, div_yield, vol = (c[:, i, None] for i in range(6))
+    dt = maturity / timesteps
+    term = curved(term)
+    log_drift, lin_drift, vol_step = _step_coeffs(
+        term, timesteps=timesteps, rate=rate, div_yield=div_yield, vol=vol, dt=dt,
+        sqrt_dt=torch.sqrt(dt),
+    )
+    x = torch.ones((c.shape[0], paths), dtype=dtype, device=c.device) * spot
+    out = []
+    for t in range(timesteps):
+        z = rng.normal(rng.fold_in(contract_keys, t), (paths,)).to(dtype)
+        if scheme == PathScheme.LOG_EULER:
+            x = x * torch.exp(log_drift(t) + vol_step(t) * z)
+        else:
+            x = torch.abs(x * (1.0 + lin_drift(t) + vol_step(t) * z))
+        out.append(x)
+    rows = torch.stack(out, dim=1)
+    if normalize:
+        if term is None:
+            times = torch.arange(1, timesteps + 1, dtype=dtype, device=c.device) * dt
+            forwards = spot * torch.exp((rate - div_yield) * times)
+        else:
+            _, rs, qs = term_tensors(term, timesteps, dtype, c.device)
+            forwards = spot * torch.exp(torch.cumsum((rate * rs - div_yield * qs) * dt, dim=1))
+        rows = rows * (forwards / torch.mean(rows, dim=2))[:, :, None]
+    return rows
 
 
 # --------------------------------------------------------------------------

@@ -21,11 +21,13 @@ states what it keeps, what it drops and what bounds it. This module holds
   the flat kernel's branches and the routes through its TERMINAL branch
   (digital, and forward start at its tail length); the cliquet kernel is a
   different program with its own key, and so are the curved-term, Heston
-  and Merton kernels of ``ops/dynamics_cuda.py`` and the basket kernel of
-  ``ops/basket_cuda.py``.
+  and Merton kernels of ``ops/dynamics_cuda.py``, the basket kernel of
+  ``ops/basket_cuda.py`` and the American monitor-row kernel of
+  ``ops/american_cuda.py`` (``american_gbm``).
 * ``LAUNCHES`` (every launch of any entry point) and ``LAUNCHES_BY_BRANCH``
   (per kernel and branch group, the QMC generator's two kernels of
-  ``ops/qmc_cuda.py`` included) — plain counts.
+  ``ops/qmc_cuda.py`` and the American kernels of ``ops/american_cuda.py``
+  included) — plain counts.
 
 The stream: Philox-4x32-10 keyed by the contract's two threefry key words
 (``fold_in(prng_key(mc_seed), draw)``), counter ``(path lo, path hi, call,
@@ -61,11 +63,14 @@ from spectralmc_tpu_torch.ops.rng import MASK32, philox4x32
 
 CUDA_STREAM_VERSIONS: dict[str, int] = {
     "gbm": 1, "gbm_cliquet": 1, "gbm_term": 1, "heston": 1, "merton_jump": 1, "basket_gbm": 1,
+    "american_gbm": 1,
 }
 
 # branch groups, each a kernel instantiation of its own: the flat kernel's and
-# the cliquet, ops/dynamics_cuda.py's three kernels, the basket kernel, then
-# the QMC generator's two kernels
+# the cliquet, ops/dynamics_cuda.py's three kernels, the basket kernel, the
+# QMC generator's two kernels, then ops/american_cuda.py's monitor-row forward
+# and its LSMC backward, counted apart at up to and past 2^20 paths a
+# contract (the two TPU kernels it replaces split there)
 FLAT_BRANCHES = ("terminal", "barrier", "lookback", "variance", "asian")
 BRANCHES = (
     *FLAT_BRANCHES, "cliquet",
@@ -74,8 +79,10 @@ BRANCHES = (
     *(f"merton_{b}" for b in FLAT_BRANCHES),
     *(f"basket_{b}" for b in (*FLAT_BRANCHES, "forward")),
     "qmc_bridge", "qmc_walk",
+    "american_gbm", "lsmc_backward", "lsmc_backward_streamed",
 )
 MAX_BASKET_ASSETS = 8  # csrc/basket_paths.cu's kMaxAssets
+MAX_MONITOR_DATES = 128  # csrc/american_paths.cu's monitor loop
 LAUNCHES = 0
 LAUNCHES_BY_BRANCH: dict[str, int] = dict.fromkeys(BRANCHES, 0)
 
@@ -126,10 +133,15 @@ def cuda_supported(
     term: TermStructure | None = None,
     scheme: PathScheme = PathScheme.LOG_EULER,
     n_assets: int = 1,
+    timesteps: int | None = None,
+    exercise_every: int = 1,
 ) -> bool:
     """Whether a kernel honors the request: float32 paths on the
-    pseudo-random stream, any dynamics, any payoff but the American kinds,
-    any row/column count, and
+    pseudo-random stream, any dynamics, any payoff, any row/column count, and
+
+    * the American kinds only for flat GBM under log-Euler (the monitor-row
+      kernel), with ``exercise_every`` dividing ``timesteps`` into 2 to
+      ``MAX_MONITOR_DATES`` (128) monitor dates;
 
     * cliquets only for flat GBM under log-Euler (the per-period kernel; the
       other dynamics carry period-start state or per-step jumps, curves
@@ -143,11 +155,17 @@ def cuda_supported(
     A flat term is no term. ``SOBOL_BB`` runs the threefry engine's scans on
     the QMC generator's normals.
     """
-    if dtype != torch.float32 or sampling != SamplingKind.PSEUDO or payoff in AMERICAN_PAYOFFS:
+    if dtype != torch.float32 or sampling != SamplingKind.PSEUDO:
         return False
     if model == ModelKind.BASKET_GBM and not 1 <= n_assets <= MAX_BASKET_ASSETS:
         return False
     is_curved = curved(term) is not None
+    if payoff in AMERICAN_PAYOFFS:
+        grid_ok = (timesteps is not None and exercise_every >= 1
+                   and timesteps % exercise_every == 0
+                   and 2 <= timesteps // exercise_every <= MAX_MONITOR_DATES)
+        return (grid_ok and model == ModelKind.GBM and scheme == PathScheme.LOG_EULER
+                and not is_curved)
     if payoff == PayoffKind.CLIQUET:
         return model == ModelKind.GBM and scheme == PathScheme.LOG_EULER and not is_curved
     if is_curved:
@@ -159,9 +177,13 @@ def cuda_stream_version(
     model: ModelKind, payoff: PayoffKind | None = None, *, term: bool = False
 ) -> int:
     """The stream version a checkpoint records (``pallas_stream_version``'s
-    rule): the cliquet kernel under its own key, a genuinely curved term on
-    GBM (``term=True``) under the term kernel's, everything else under the
-    model family's (``basket_gbm`` for the basket kernel)."""
+    rule): the American kinds under ``american_{family}`` (the monitor-row
+    kernel is its own program), the cliquet kernel under its own key, a
+    genuinely curved term on GBM (``term=True``) under the term kernel's,
+    everything else under the model family's (``basket_gbm`` for the basket
+    kernel)."""
+    if payoff in AMERICAN_PAYOFFS:
+        return CUDA_STREAM_VERSIONS[f"american_{model.value}"]
     if payoff == PayoffKind.CLIQUET and model == ModelKind.GBM and not term:
         return CUDA_STREAM_VERSIONS["gbm_cliquet"]
     if term and model == ModelKind.GBM:

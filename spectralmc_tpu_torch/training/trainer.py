@@ -9,14 +9,18 @@ and ``GbmCVNNPricer.create/train/snapshot/predict_price``.
 * The MC engine that will run is resolved and recorded: a fresh config
   whose engine cannot run is downgraded, a mid-stream one fails with
   ``EngineMismatch``, and a ``"pallas"`` config (the TPU hardware-PRNG
-  stream, which no GPU reproduces) is refused outright.
+  stream, which no GPU reproduces) is refused outright. So is the LSMC
+  backward of an American kind: a checkpoint recorded on another backward,
+  or on one of the JAX package's TPU backwards, fails with
+  ``EngineMismatch``.
 * A checkpoint carries weights, batch-norm statistics and Adam moments as
   numpy arrays under the JAX package's keys, so a JAX ``snapshot()`` resumes
   here and resume is bit-exact on one device.
 * ``predict_price`` uploads the ``[N, D]`` contract matrix once and fetches
   one packed ``[put | E[u] | residue]`` vector once; calls follow by parity
   on the payoff's own underlier where ``has_closed_form_mean`` holds, and
-  are NaN (with a warning) where it does not.
+  are NaN (with a warning) where it does not. An American kind serves its
+  own side from the learned channel and NaN on the other.
 * The dynamics (GBM, Heston, Merton, baskets) and the sampling (pseudo or
   ``SOBOL_BB``) change nothing in kind: the contract class and its width
   (6, 10, 9, 6 — the CVNN's input width follows), the simulator and the mean
@@ -52,7 +56,9 @@ from spectralmc_tpu_torch.models.factory import (
     get_state_dict,
     load_state_dict,
 )
+from spectralmc_tpu_torch.ops.american_cuda import LSMC_BACKWARD_VERSIONS, resolve_lsmc_backward
 from spectralmc_tpu_torch.ops.gbm import (
+    PayoffKind,
     SimImplementation,
     SimulationParams,
     curved,
@@ -201,7 +207,10 @@ class GbmCVNNPricerConfig:
     The JAX package's fields, plus ``cuda_stream_version``: the Philox
     stream a ``"cuda"`` checkpoint was trained on (``CUDA_STREAM_VERSIONS``;
     0 = not trained on it), so a kernel rebuild that changes the stream
-    cannot continue a checkpoint silently.
+    cannot continue a checkpoint silently. ``lsmc_backward_version`` records
+    the LSMC backward that ran (``american_cuda.resolve_lsmc_backward``: 0
+    the torch estimator, 3 the CUDA backward; the JAX package's 1 and 2 are
+    refused).
     """
 
     sim: SimulationParams
@@ -289,6 +298,7 @@ class GbmCVNNPricer:
         self._sobol_skip = config.sobol_skip
         self._normalize_inputs = config.normalize_inputs
         self._cuda_stream_version = config.cuda_stream_version
+        self._lsmc_backward_version = config.lsmc_backward_version
         self._table = self._sobol_table()
 
     # -- construction --------------------------------------------------------
@@ -347,6 +357,20 @@ class GbmCVNNPricer:
                         "was written; its bit stream cannot continue",
                     )
                 )
+        backward_version = resolve_lsmc_backward(sim, rows=sim.batches_per_mc_run)
+        recorded_backward = config.lsmc_backward_version
+        if recorded_backward not in (0, *LSMC_BACKWARD_VERSIONS.values()) or (
+            mid_stream and recorded_backward != backward_version
+        ):
+            return Failure(
+                EngineMismatch(
+                    requested=f"lsmc backward v{recorded_backward}",
+                    effective=f"lsmc backward v{backward_version}",
+                    reason="the LSMC backward this checkpoint was trained on cannot run "
+                    "here (1 and 2 are the JAX package's TPU kernels); its exercise-policy "
+                    "bit stream cannot continue",
+                )
+            )
         ccls = contract_class(sim)
         bounds_res = build_domain_bounds(ccls, config.bounds)
         if isinstance(bounds_res, Failure):
@@ -380,6 +404,7 @@ class GbmCVNNPricer:
             global_step=config.global_step,
             sobol_skip=config.sobol_skip,
             normalize_inputs=config.normalize_inputs,
+            lsmc_backward_version=backward_version,
             cuda_stream_version=stream_version,
         )
         return Success(cls(recorded_config, model, opt, sampler_res.value, device))
@@ -412,6 +437,7 @@ class GbmCVNNPricer:
             normalize_inputs=self._normalize_inputs,
             model_state=get_state_dict(self._model),
             optimizer_state=self._opt_snapshot,
+            lsmc_backward_version=self._lsmc_backward_version,
             cuda_stream_version=self._cuda_stream_version,
         )
 
@@ -553,13 +579,21 @@ class GbmCVNNPricer:
         residue = float(packed[2 * m])
         if residue > IFFT_RESIDUE_WARN:
             _LOG.warning("IFFT imaginary residue %.3g exceeds %.1g", residue, IFFT_RESIDUE_WARN)
+        # an American kind trains ONE side's Bermudan cashflow through the
+        # put-payoff channel: the learned value IS that side's price, and the
+        # other side is NaN (early exercise breaks parity)
+        nan = np.full_like(put, np.nan)
+        if self._sim.payoff == PayoffKind.AMERICAN_CALL:
+            return PricePrediction(put=nan, call=put, imag_residue=residue)
+        if self._sim.payoff == PayoffKind.AMERICAN_PUT:
+            return PricePrediction(put=put, call=nan, imag_residue=residue)
         if not self._has_parity():
             _LOG.warning(
                 "no closed-form E[underlier] for %s/%s: call-via-parity unavailable",
                 self._sim.model.value,
                 self._sim.payoff.value,
             )
-            return PricePrediction(put=put, call=np.full_like(put, np.nan), imag_residue=residue)
+            return PricePrediction(put=put, call=nan, imag_residue=residue)
         # put-call parity on the host copy: call − put = df·(E[u] − K), with
         # a term structure discounting at the curve-effective rate r·mean(rs)
         strike, maturity, rate = host[:, 1], host[:, 2], host[:, 3]

@@ -19,7 +19,15 @@ import numpy as np
 import pytest
 import torch
 
-from spectralmc_tpu_torch.ops import basket_cuda, dynamics_cuda, gbm_cuda, qmc, qmc_cuda, rng
+from spectralmc_tpu_torch.ops import (
+    american_cuda,
+    basket_cuda,
+    dynamics_cuda,
+    gbm_cuda,
+    qmc,
+    qmc_cuda,
+    rng,
+)
 from spectralmc_tpu_torch.ops import basket as tbasket
 from spectralmc_tpu_torch.ops import gbm as tgbm
 
@@ -306,3 +314,48 @@ def test_qmc_walk_kernel_equals_bridge_kernel_plus_scan(steps, start) -> None:
         logx = logx + drift[:, None] + vol_sdt[:, None] * eff[:, t]
         acc = acc + logx
     assert torch.equal(got, acc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps,every,half", [(16, 1, None), (16, 2, 32), (16, 4, None),
+                                              (12, 3, 32)])
+def test_american_rows_kernel_matches_twin_on_card(steps, every, half) -> None:
+    """Tier 3 on the card, rtol 2e-5 on the monitor-date prices; with
+    ``every`` even the last row is the TERMINAL kernel's value."""
+    device = _require_card()
+    c = torch.from_numpy(_contracts(3, seed=9)).to(device)
+    keys = rng.fold_in(rng.prng_key(9), torch.arange(3)).to(device)
+    kw = dict(timesteps=steps, rows=64, cols=96, exercise_every=every, antithetic_half=half)
+    before = gbm_cuda.LAUNCHES_BY_BRANCH["american_gbm"]
+    got = american_cuda.simulate_american_rows_cuda(c, keys, **kw)
+    assert gbm_cuda.LAUNCHES_BY_BRANCH["american_gbm"] == before + 1
+    want = american_cuda.simulate_american_rows_cuda_plain(c, keys, **kw)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=0.0)
+    if every % 2 == 0:
+        terminal = gbm_cuda.simulate_underlier_rows_cuda(
+            c, keys, timesteps=steps, rows=64, cols=96, scheme=tgbm.PathScheme.LOG_EULER,
+            payoff=tgbm.PayoffKind.TERMINAL, antithetic_half=half)
+        torch.testing.assert_close(got[:, -1], terminal, rtol=2e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("put", [True, False], ids=["put", "call"])
+@pytest.mark.parametrize("degree,rows,cols", [(1, 64, 96), (5, 33, 700), (8, 128, 512)])
+def test_lsmc_backward_kernel_matches_twin_on_card(degree, rows, cols, put) -> None:
+    """Exact on the same rows: no atomics and no FMA contraction, so β and
+    every exercise decision are the twin's, and so is u but for the ulps
+    of nothing (the same operations in the same order)."""
+    device = _require_card()
+    c = torch.from_numpy(_contracts(3, seed=10)).to(device)
+    keys = rng.fold_in(rng.prng_key(10), torch.arange(3)).to(device)
+    price_rows = american_cuda.simulate_american_rows_cuda(
+        c, keys, timesteps=8, rows=rows, cols=cols, exercise_every=1, antithetic_half=None)
+    disc, df = american_cuda.monitor_discounts(c, timesteps=8, exercise_every=1)
+    kw = dict(strike=c[:, 1].contiguous(), disc=disc, df=df, put=put, basis_degree=degree)
+    before = gbm_cuda.LAUNCHES_BY_BRANCH["lsmc_backward"]
+    got = american_cuda.lsmc_backward_cuda(price_rows, **kw)
+    assert gbm_cuda.LAUNCHES_BY_BRANCH["lsmc_backward"] == before + 1
+    want = american_cuda.lsmc_backward_cuda_plain(price_rows, **kw)
+    assert torch.equal(got, want)
+    again = american_cuda.lsmc_backward_cuda(price_rows, **kw)
+    assert torch.equal(got, again)

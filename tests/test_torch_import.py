@@ -28,7 +28,7 @@ def test_every_port_module_imports_without_jax() -> None:
     modules = _port_modules()
     assert "spectralmc_tpu_torch.training.trainer" in modules
     for name in ("gbm_cuda", "dynamics_cuda", "heston", "merton", "basket", "basket_cuda", "qmc",
-                 "qmc_cuda"):
+                 "qmc_cuda", "american", "american_cuda"):
         assert f"spectralmc_tpu_torch.ops.{name}" in modules
     script = (
         "import sys\n"
