@@ -9,12 +9,13 @@ non-zero and no result line is printed):
 0. device       — require CUDA; print the card's name and power limit; apply
                   the deterministic numerics policy (runtime/torch_runtime.py).
 1. build        — build csrc/gbm_paths.cu, csrc/dynamics_paths.cu,
-                  csrc/basket_paths.cu, csrc/qmc_paths.cu and
-                  csrc/american_paths.cu with nvcc into build/kernels/, one
-                  nvcc each, all started together; print each kernel's
-                  registers and spills; count the SASS instructions of each
-                  branch's log-Euler loop and of the American monitor loop
-                  (cuobjdump) for the instruction cap of phases 2, 12 and 17.
+                  csrc/basket_paths.cu, csrc/qmc_paths.cu,
+                  csrc/american_paths.cu and csrc/american_dynamics.cu with
+                  nvcc into build/kernels/, one nvcc each, all started
+                  together; print each kernel's registers and spills; count
+                  the SASS instructions of each branch's log-Euler loop and of
+                  the American monitor loops (cuobjdump) for the instruction
+                  cap of phases 2, 12, 17 and 22.
 2. kernel       — every kernel branch against its plain twin on the same
                   Philox words at C=4 x 2048 x 512 x 16: TERMINAL (and its
                   digital and forward-start routes), barrier up/down, the four
@@ -135,21 +136,64 @@ non-zero and no result line is printed):
                   engine, recorded "xla", and a put against
                   bermudan_grid_price within max(4 SE, 1%)), and a
                   4,194,304-path contract at batch 4 (the streamed shape).
-11. profile     — only with ``--profile``, after phase 21: for the TERMINAL,
+22. kernel-american-dynamics — the Heston, Merton and basket monitor-row
+                  kernels (csrc/american_dynamics.cu) against their twins on
+                  the same Philox words at 4 x 2048 x 512: T = 16 at every =
+                  1 (antithetic off and on) and 4, T = 15 at every = 5; the
+                  basket with 3 assets arithmetic and geometric and with 1.
+                  Price rows rtol 2e-5; Heston's variance rows atol 1e-6 +
+                  rtol 2e-5, at most 5e-6 of a case's paths missing either,
+                  none past rtol 1e-3 (the variance against θ); the log
+                  dispersion within 2e-5 of |ln B|; Merton counts equal; the
+                  last row against the European kernel's TERMINAL value
+                  (bit-equality printed). Then each timed at 256 x 2048 x 512
+                  x 16 (the basket at 32 contracts) with the twin, the bound
+                  and the SASS per path-step against the instruction cap.
+23. backward-american-dynamics — the CUDA backward against its twin on the
+                  Merton and the geometric basket rows (0 flips, u
+                  bit-equal); the torch estimator with Heston's variance rows
+                  on the card against its CPU run (2% flips, mean 2e-3), then
+                  timed at the training chunk with its peak memory.
+24. oracle-american-dynamics — 1,048,576 paths and 16 dates a contract: the
+                  Heston q = 0 call against heston_call_price (4 SE + 2%) and
+                  the same-path European (max(3 SE, 0.5%)), a Heston put
+                  premium at r = 7%; the Merton r = 0 put and q = 0 call
+                  against merton_call_price (4 SE) and the same-path
+                  European, a Merton put premium; the geometric basket put
+                  against the Bermudan tree at its effective GBM (max(4 SE,
+                  0.5%)); the arithmetic basket's r = 0 put and q = 0 call
+                  against the same-path European (max(3 SE, 0.5%)).
+25. train-heston-american, resume-heston-american, serve-heston-american —
+                  phases 4-6 for a Heston American put (10 inputs, the
+                  production batch and head, normalization none, the torch
+                  estimator: lsmc_backward_version 0, stream american_heston
+                  v1) with the step's peak memory; calls NaN.
+26. families-american-dynamics — one step at batch 64 each: a Merton put and
+                  a geometric basket put (the CUDA backward, version 3), an
+                  arithmetic 3-asset basket put, a Heston call (served in
+                  .call) and Heston cross-fit (the torch estimator, version
+                  0), an antithetic Merton put; a curved-rate Heston
+                  American config refused with the JAX package's field,
+                  value and reason.
+11. profile     — only with ``--profile``, after phase 26: for the TERMINAL,
                   the Asian, the Heston, the basket, the SOBOL_BB
                   geometric-Asian and the American put pricer, 10 warm train
                   steps timed on the host clock to a synchronised end, then
                   torch.profiler over 3 train steps and over 20 predict_price
                   calls at N=64 (device kernel time, busy share, launches, the
-                  heaviest kernels).
+                  heaviest kernels); for the Heston American put the same,
+                  its step split into the monitor kernel, the torch
+                  estimator (CUDA events around each call) and the rest.
 
 Launch counts are set to 0 just before each main path (phases 4, 7, 8, 9,
-10, 15, 16, 20 and 21) and read just after it: the TERMINAL branch's count
-comes from phases 4-6, the Asian branch's from phase 7, the Heston TERMINAL
-branch's from phase 9, the basket TERMINAL branch's and the fused walk's
-from phase 15, the American monitor kernel's and the backward's (up to 2^20
-paths a contract) from phase 20, the backward's past 2^20 paths from phase
-21, and every other branch's from phases 8, 10 and 16. The last lines are
+10, 15, 16, 20, 21, 25 and 26) and read just after it: the TERMINAL
+branch's count comes from phases 4-6, the Asian branch's from phase 7, the
+Heston TERMINAL branch's from phase 9, the basket TERMINAL branch's and the
+fused walk's from phase 15, the American monitor kernel's and the
+backward's (up to 2^20 paths a contract) from phase 20, the backward's past
+2^20 paths from phase 21, the Heston monitor kernel's from phase 25, the
+Merton and basket monitor kernels' from phase 26, and every other branch's
+from phases 8, 10 and 16. The last lines are
 the kernel record as JSON, the nvidia-smi line, and the result JSON.
 """
 
@@ -189,7 +233,7 @@ from spectralmc_tpu_torch.ops import (
     rng,
 )
 from spectralmc_tpu_torch.ops._build import find_nvcc, load_library
-from spectralmc_tpu_torch.ops.basket import build_basket_spec
+from spectralmc_tpu_torch.ops.basket import build_basket_spec, geometric_basket_effective_gbm
 from spectralmc_tpu_torch.ops.dispatch import make_mean_target, make_underlier_simulator
 from spectralmc_tpu_torch.ops.gbm import (
     AMERICAN_PAYOFFS,
@@ -509,15 +553,16 @@ def phase_device() -> tuple[torch.device, str, float]:
     return torch.device("cuda", 0), smi, max_sm_hz
 
 
-def phase_build() -> tuple[dict[str, float], tuple[float, str]]:
-    """Build the five kernel libraries, one nvcc each, all started together,
+def phase_build() -> tuple[dict[str, float], tuple[float, str], dict[str, tuple[float, str]]]:
+    """Build the six kernel libraries, one nvcc each, all started together,
     and count their loops' SASS instructions per path-step, per branch group
-    and for the American monitor kernel."""
+    and for the American monitor kernels."""
     from concurrent.futures import ThreadPoolExecutor
 
     libraries = ((SOURCE, gbm_cuda.LIBRARY), (DYNAMICS_SOURCE, dynamics_cuda.LIBRARY),
                  (BASKET_SOURCE, basket_cuda.LIBRARY), (QMC_SOURCE, qmc_cuda.LIBRARY),
-                 (AMERICAN_SOURCE, american_cuda.LIBRARY))
+                 (AMERICAN_SOURCE, american_cuda.LIBRARY),
+                 (DYNAMICS_AMERICAN_SOURCE, american_cuda.DYNAMICS_LIBRARY))
     start = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:
         built = list(pool.map(lambda lib: load_library(*lib[1]), libraries))
@@ -526,8 +571,11 @@ def phase_build() -> tuple[dict[str, float], tuple[float, str]]:
         phase("build", source=source, library=lib.path.name,
               build_seconds=f"{lib.build_seconds:.2f}", all_builds_wall_s=f"{wall:.2f}",
               registers_and_spill_bytes=ptxas_summary(lib.log))
+    dynamics = dynamics_sass_per_step(built[5].path)
+    phase("sass-american-dynamics", **{case: f"{n:g} ({found})" for case, (n, found)
+                                        in dynamics.items()})
     return (sass_instruction_counts(built[0].path, built[1].path, built[2].path),
-            american_sass_per_step(built[4].path))
+            american_sass_per_step(built[4].path), dynamics)
 
 
 def ptxas_summary(log: str) -> dict[str, str]:
@@ -535,7 +583,8 @@ def ptxas_summary(log: str) -> dict[str, str]:
     ``nvcc -Xptxas -v`` (empty when an existing build was reused)."""
     kernel = (r"(gbm_paths_kernel|gbm_cliquet_kernel|gbm_term_kernel|heston_paths_kernel|"
               r"merton_paths_kernel|basket_paths_kernel|qmc_bridge_kernel|qmc_walk_kernel|"
-              r"american_gbm_kernel|lsmc_sweep_kernel|lsmc_solve_kernel)"
+              r"american_gbm_kernel|lsmc_sweep_kernel|lsmc_solve_kernel|"
+              r"american_heston_kernel|american_merton_kernel|american_basket_kernel)"
               r"(?:ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?)?")
     found, name, spill = {}, None, 0
     for line in log.splitlines():
@@ -1767,10 +1816,15 @@ def american_sass_per_step(library: object) -> tuple[float, str]:
     return american_sass_count(cuobjdump_sass(library))
 
 
-def american_sass_count(text: str) -> tuple[float, str]:
-    """``american_sass_per_step``'s rule on the text of ``cuobjdump -sass``."""
-    block = next(b for b in text.split("Function : ")[1:]
-                 if b.split()[0].find("american_gbm_kernel") >= 0)
+def american_sass_count(text: str, piece: str = "american_gbm_kernel", *,
+                        skip_inner: bool = True, halve_philox: bool = True) -> tuple[float, str]:
+    """``american_sass_per_step``'s rule on the text of ``cuobjdump -sass``
+    for the kernel whose mangled name holds ``piece``; ``skip_inner=False``
+    keeps the loops inside the monitor loop (a one-step loop that runs once
+    a date at ``every = 1``); ``halve_philox=False`` for a kernel that calls
+    Philox every step (its skipped region is then the step loop's entry
+    guard, which runs)."""
+    block = next(b for b in text.split("Function : ")[1:] if piece in b.split()[0])
     ins = [(int(a, 16), op.strip()) for a, op in re.findall(SASS_LINE, block)]
     at = {a: i for i, (a, _) in enumerate(ins)}
     loops = []
@@ -1779,10 +1833,11 @@ def american_sass_count(text: str) -> tuple[float, str]:
         if back and int(back.group(1), 16) < addr and int(back.group(1), 16) in at:
             loops.append(ins[at[int(back.group(1), 16)]:i + 1])
     if not loops:
-        raise AssertionError("no loop found in the SASS of american_gbm_kernel")
+        raise AssertionError(f"no loop found in the SASS of {piece}")
     outer = max(loops, key=len)
     lo, hi = outer[0][0], outer[-1][0]
-    inner = [b for b in loops if b is not outer and lo <= b[0][0] and b[-1][0] <= hi]
+    inner = [b for b in loops if skip_inner and b is not outer and lo <= b[0][0]
+             and b[-1][0] <= hi]
     skip = {a for b in inner for a, _ in b}
     body = [(a, op) for a, op in outer if a not in skip]
     regions = []  # (start, end) of each skipped region of the body
@@ -1799,6 +1854,8 @@ def american_sass_count(text: str) -> tuple[float, str]:
                  if not any(q != r and r[0] <= q[0] and q[1] <= r[1] for q in draws))
     calls = sum(len(ops(*r)) for r in regions
                 if r not in draws and any("CALL" in o for o in ops(*r)))
+    if not halve_philox:
+        philox = 0
     per_step = len(body) - calls - philox / 2
     return per_step, f"{len(outer)}-{len(outer) - len(body)}-{calls}-{philox}/2={per_step:g}"
 
@@ -2106,6 +2163,518 @@ def phase_families_american(device: torch.device) -> None:
 
 
 # --------------------------------------------------------------------------
+# 22-27. American (LSMC) pricing under Heston, Merton and baskets
+# --------------------------------------------------------------------------
+
+DYNAMICS_AMERICAN_SOURCE = "spectralmc_tpu_torch/csrc/american_dynamics.cu"
+DYNAMICS_AMERICAN_REPLACES = {
+    "american_heston": "spectralmc_tpu/ops/gbm_pallas.py:2260",
+    "american_merton": "spectralmc_tpu/ops/gbm_pallas.py:3454",
+    "american_basket": "spectralmc_tpu/ops/gbm_pallas.py:2873",
+}
+# kernel case -> (family bounds, basket (assets, combine) or None); each
+# runs DYNAMICS_CASES: (timesteps, every, antithetic half)
+DYNAMICS_KERNELS = {
+    "heston": ("heston", None),
+    "merton": ("merton", None),
+    "basket3_arithmetic": ("basket", (3, "arithmetic")),
+    "basket3_geometric": ("basket", (3, "geometric")),
+    "basket1_arithmetic": ("basket", (1, "arithmetic")),
+}
+DYNAMICS_CASES = [(STEPS, 1, None), (STEPS, 1, ROWS // 2), (STEPS, 4, None),
+                  (15, 5, ROWS // 2)]
+VAR_ATOL = 1e-6  # Heston's max(v, 0) rows: the variance reaches 0
+# The monitor kernels' op model per path: per step the European kernel's
+# (Heston: a draw and HESTON_STEP_OPS; Merton: MERTON_STEP_OPS and the
+# log-price update; the basket: basket_step_ops), and per monitor date its
+# stores' own work (Heston: exp and max; Merton: exp; the basket: the value,
+# and for the arithmetic combine a log, the log-geometric chain (A
+# multiply-adds) and a subtraction). Bytes: the contract, the key (and the
+# Merton level table) in, the monitor rows out.
+
+
+def dynamics_bound_ms(case: str, contracts: int, steps: int,
+                      every: int = 1) -> tuple[float, str]:
+    family, basket = DYNAMICS_KERNELS[case]
+    paths = contracts * ROWS * COLS
+    monitors = steps // every
+    byte_count = contracts * (4 * len(FAMILY_CONTRACT[family].model_fields) + 8)
+    if family == "heston":
+        ops = paths * (steps * (DRAW_OPS + HESTON_STEP_OPS) + 2 * monitors)
+        byte_count += 2 * paths * monitors * 4
+    elif family == "merton":
+        ops = paths * (steps * (MERTON_STEP_OPS + UNIT_OPS["terminal"] + 1) + monitors)
+        byte_count += contracts * 64 + paths * monitors * 4
+    else:
+        assets, combine = basket
+        geometric = combine == "geometric"
+        value = assets + 1 if geometric else 2 * assets
+        per_date = value if geometric else value + assets + 2
+        ops = paths * (steps * basket_step_ops(assets, "terminal", geometric) + monitors * per_date)
+        byte_count += (1 if geometric else 2) * paths * monitors * 4
+    t_ops, t_bytes = ops / FP32_OPS_PER_S * 1e3, byte_count / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def dynamics_spec(case: str) -> object | None:
+    basket = DYNAMICS_KERNELS[case][1]
+    return None if basket is None else spec_of(*basket)
+
+
+def dynamics_rows(case: str, params: torch.Tensor, keys: torch.Tensor, *, plain: bool = False,
+                  **kw: object) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """``(price rows, second state or None)`` of a case's monitor kernel, or
+    of its plain twin."""
+    family = DYNAMICS_KERNELS[case][0]
+    if family == "basket":
+        fn = (american_cuda.simulate_basket_american_rows_cuda_plain if plain
+              else american_cuda.simulate_basket_american_rows_cuda)
+        return fn(params, keys, spec=dynamics_spec(case), **kw)
+    if family == "heston":
+        fn = (american_cuda.simulate_heston_american_rows_cuda_plain if plain
+              else american_cuda.simulate_heston_american_rows_cuda)
+        return fn(params, keys, **kw)
+    fn = (american_cuda.simulate_merton_american_rows_cuda_plain if plain
+          else american_cuda.simulate_merton_american_rows_cuda)
+    return fn(params, keys, **kw), None
+
+
+def dynamics_terminal(case: str, params: torch.Tensor, keys: torch.Tensor,
+                      **kw: object) -> torch.Tensor:
+    """The European kernel's TERMINAL value on the same stream."""
+    family = DYNAMICS_KERNELS[case][0]
+    kw = dict(kw, payoff=PayoffKind.TERMINAL)
+    if family == "basket":
+        return basket_cuda.simulate_basket_rows_cuda(params, keys, spec=dynamics_spec(case), **kw)
+    return FAMILY_FNS[family][0](params, keys, **kw)
+
+
+def compare_dynamics(case: str, got: tuple, want: tuple,
+                     params: torch.Tensor) -> dict[str, float]:
+    """A monitor kernel's rows against its twin's; raises past the gates.
+    Price rows rtol 2e-5; Heston's variance rows atol 1e-6 + rtol 2e-5; a
+    Heston path that misses either (at most HESTON_SHARE of the case's
+    paths) stays within HESTON_CAP_RTOL of the price and of the variance
+    measured against its long-run level θ; the arithmetic basket's log
+    dispersion within 2e-5 of |ln B|, the level it cancels from."""
+    (price, extra), (price_w, extra_w) = got, want
+    if not bool(torch.isfinite(price).all()):
+        raise AssertionError(f"{case}: non-finite monitor rows")
+    err = (price - price_w).abs()
+    missed = (err > KERNEL_RTOL * price_w.abs()).any(dim=1)  # per path, over its dates
+    found = {"max_rel": float((err / price_w.abs()).max()), "max_abs_err": float(err.max())}
+    if not bool((err <= HESTON_CAP_RTOL * price_w.abs()).all()):
+        raise AssertionError(f"{case}: price rows off the twin by {found['max_rel']:.3e}")
+    if case == "heston":
+        var_err = (extra - extra_w).abs()
+        missed |= (var_err > VAR_ATOL + KERNEL_RTOL * extra_w.abs()).any(dim=1)
+        theta = params[:, 7, None, None, None]
+        var_scaled = var_err / torch.maximum(extra_w, theta)
+        found.update(var_max_abs_err=float(var_err.max()), var_max_scaled=float(var_scaled.max()))
+        if not bool((var_scaled <= HESTON_CAP_RTOL).all()):
+            raise AssertionError(f"heston: variance rows off by {found['var_max_scaled']:.3e}·θ")
+    elif extra_w is not None:
+        disp_err = (extra - extra_w).abs()
+        scaled = float((disp_err / torch.log(price_w).abs()).max())
+        found.update(disp_max_abs_err=float(disp_err.max()), disp_max_scaled=scaled)
+        if scaled > KERNEL_RTOL:
+            raise AssertionError(f"{case}: dispersion rows off by {scaled:.3e}·|ln B|")
+    found["missed_paths"] = int(missed.sum())
+    allowed = HESTON_SHARE * missed.numel() if case == "heston" else 0
+    if found["missed_paths"] > allowed:
+        raise AssertionError(f"{case}: {found['missed_paths']} paths past the tolerances")
+    if case != "heston" and found["max_rel"] > KERNEL_RTOL:
+        raise AssertionError(f"{case}: price rows off the twin by {found['max_rel']:.3e}")
+    return found
+
+
+def check_american_merton_counts(device: torch.device) -> int:
+    """The Merton monitor kernel's jump counts against its twin's, exactly:
+    with the Gaussians off (vol = jump_std = 0) and unit jumps, ln S at each
+    monitor date less the compensated drift is the count so far. Returns
+    the jumps seen."""
+    c = torch.tensor([[1.0, 1.0, 1.0, 0.0, 0.0, 0.0, 2.5, 1.0, 0.0],
+                      [1.0, 1.0, 2.0, 0.0, 0.0, 0.0, 6.0, 1.0, 0.0]], device=device)
+    keys = rng.fold_in(rng.prng_key(4), torch.arange(2)).to(device)
+    kw = dict(timesteps=STEPS, rows=ROWS, cols=COLS, exercise_every=4, antithetic_half=ROWS // 2)
+    dates = torch.arange(1, STEPS // 4 + 1, device=device, dtype=torch.float32) / (STEPS // 4)
+    drift = -(c[:, 6] * (math.e - 1.0) * c[:, 2])[:, None] * dates  # [C, dates]
+    kernel, twin = (
+        torch.round(torch.log(fn(c, keys, **kw)) - drift[:, :, None, None])
+        for fn in (american_cuda.simulate_merton_american_rows_cuda,
+                   american_cuda.simulate_merton_american_rows_cuda_plain))
+    if not torch.equal(kernel, twin):
+        raise AssertionError(f"American Merton counts differ at {int((kernel != twin).sum())} "
+                             "path-dates")
+    return int(kernel[:, -1].sum())
+
+
+def dynamics_sass_per_step(library: object) -> dict[str, tuple[float, str]]:
+    """SASS instructions one path-step of each monitor kernel executes at
+    ``every = 1`` (``american_sass_count``'s rule on the whole monitor
+    loop, the one-step inner loop included; the Merton kernel calls Philox
+    every step, the others every other draw)."""
+    text = cuobjdump_sass(library)
+    pieces = {"heston": "american_heston_kernel", "merton": "american_merton_kernel",
+              "basket3_arithmetic": "american_basket_kernelILi3ELb0E",
+              "basket3_geometric": "american_basket_kernelILi3ELb1E"}
+    return {case: american_sass_count(text, piece, skip_inner=False,
+                                      halve_philox=case != "merton")
+            for case, piece in pieces.items()}
+
+
+DYNAMICS_TIMED = {  # case -> (contracts, record name)
+    "heston": (CHUNK, "american_heston"),
+    "merton": (CHUNK, "american_merton"),
+    "basket3_arithmetic": (BASKET_TIMED_CONTRACTS, "american_basket"),
+    "basket3_geometric": (BASKET_TIMED_CONTRACTS, None),
+}
+
+
+def phase_kernel_american_dynamics(
+    device: torch.device, sass: dict[str, tuple[float, str]], max_sm_hz: float
+) -> dict[str, dict[str, object]]:
+    """Each monitor kernel against its twin on the same Philox words at 4 x
+    2048 x 512 over DYNAMICS_CASES (compare_dynamics' gates), its last row
+    against the European kernel's TERMINAL value (bit-equality printed,
+    rtol 2e-5 gated); the Merton counts exactly; then each kernel timed at
+    256 x 2048 x 512 x 16 (the basket at 32 contracts) as the main path pays
+    for it, beside the twin, the bound and the SASS per path-step."""
+    worst: dict[str, dict[str, float]] = {}
+    for case, (family, _) in DYNAMICS_KERNELS.items():
+        w = worst.setdefault(case, {"max_abs_err": 0.0, "max_rel": 0.0, "missed_paths": 0})
+        for steps, every, half in DYNAMICS_CASES:
+            params, keys = kernel_inputs(device, AMERICAN_CONTRACTS, steps + every, family)
+            kw = dict(timesteps=steps, rows=ROWS, cols=COLS, exercise_every=every,
+                      antithetic_half=half)
+            got = dynamics_rows(case, params, keys, **kw)
+            want = dynamics_rows(case, params, keys, plain=True, **kw)
+            torch.cuda.synchronize()
+            found = compare_dynamics(case, got, want, params)
+            terminal = dynamics_terminal(case, params, keys, timesteps=steps, rows=ROWS,
+                                         cols=COLS, antithetic_half=half)
+            last = got[0][:, -1]
+            off = (last - terminal).abs() > KERNEL_RTOL * terminal.abs()
+            if int(off.sum()) > (HESTON_SHARE * off.numel() if case == "heston" else 0):
+                raise AssertionError(f"{case}: last row off TERMINAL on {int(off.sum())} paths")
+            w.update(max_abs_err=max(w["max_abs_err"], found["max_abs_err"]),
+                     max_rel=max(w["max_rel"], found["max_rel"]),
+                     missed_paths=w["missed_paths"] + found["missed_paths"])
+            phase("kernel-american-dynamics", kernel=case,
+                  case=f"T{steps}_every{every}" + ("_anti" if half else ""),
+                  shape=f"{AMERICAN_CONTRACTS}x{steps // every}x{ROWS}x{COLS}",
+                  **{k: (f"{v:.3e}" if isinstance(v, float) else v) for k, v in found.items()},
+                  last_row_equals_terminal_kernel=bool(torch.equal(last, terminal)),
+                  last_row_paths_past_rtol=int(off.sum()), rtol=KERNEL_RTOL)
+            del got, want, terminal, last, off
+    phase("kernel-american-dynamics-counts",
+          merton_jumps_equal_to_the_twins=check_american_merton_counts(device),
+          paths=2 * ROWS * COLS, dates=STEPS // 4)
+    record = {}
+    for case, (contracts, name) in DYNAMICS_TIMED.items():
+        family = DYNAMICS_KERNELS[case][0]
+        params, keys = kernel_inputs(device, contracts, 1, family)
+        kw = dict(timesteps=STEPS, rows=ROWS, cols=COLS, exercise_every=1)
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: dynamics_rows(case, params, keys, **kw))
+        torch.cuda.empty_cache()
+        plain_ms = cuda_ms(lambda: dynamics_rows(case, params, keys, plain=True, **kw),
+                           iters=1, warmup=1)
+        torch.cuda.empty_cache()
+        bound, bound_by = dynamics_bound_ms(case, contracts, STEPS)
+        per_step, found = sass[case]
+        path_steps = contracts * ROWS * COLS * STEPS
+        cap = LANES_PER_CLOCK * max_sm_hz / per_step
+        outputs = 2 if case in ("heston", "basket3_arithmetic") else 1
+        phase("kernel-american-dynamics-time", kernel=case,
+              shape=f"{contracts}x{ROWS}x{COLS}x{STEPS}", every=1, kernel_ms=f"{ms:.3f}",
+              plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound:.3f}", bound_by=bound_by,
+              share_of_bound=f"{bound / ms:.4f}",
+              output_gb=round(outputs * path_steps * 4 / 1e9, 3),
+              sass_per_path_step=round(per_step, 3), sass_loop=found,
+              kernel_path_steps_per_s=f"{path_steps / ms * 1e3:.4e}",
+              share_of_instruction_cap=f"{path_steps / ms * 1e3 / cap:.4f}")
+        if name is not None:
+            w = worst[case]
+            if case == "basket3_arithmetic":  # the record's error covers every basket case
+                for other in ("basket3_geometric", "basket1_arithmetic"):
+                    w = {k: max(w[k], worst[other][k]) for k in ("max_abs_err", "max_rel")}
+            record[name] = dict(max_abs_err=w["max_abs_err"], ms=ms, plain_ms=plain_ms,
+                                bound_ms=bound, bound_by=bound_by)
+    return record
+
+
+def phase_backward_american_dynamics(device: torch.device) -> dict[str, float]:
+    """The CUDA backward against its twin on the Merton and the geometric
+    basket monitor rows (0 flips, u bit-equal), put and call; the torch
+    estimator with Heston's variance rows on the card, timed at the
+    training chunk with its peak memory, and against its own run on the CPU
+    at 2 contracts x 64 x 512 (at most 2% of paths flipped, the mean
+    cashflow within 2e-3)."""
+    for case in ("merton", "basket3_geometric"):
+        params, keys = kernel_inputs(device, AMERICAN_CONTRACTS, 23,
+                                     DYNAMICS_KERNELS[case][0])
+        price_rows, extra = dynamics_rows(case, params, keys, timesteps=STEPS, rows=ROWS,
+                                          cols=COLS, exercise_every=1)
+        assert extra is None
+        disc, df = american_cuda.monitor_discounts(params, timesteps=STEPS, exercise_every=1)
+        for put in (True, False):
+            kw = dict(strike=params[:, 1].contiguous(), disc=disc, df=df, put=put,
+                      basis_degree=LSMC_DEGREE)
+            got = american_cuda.lsmc_backward_cuda(price_rows, **kw)
+            want = american_cuda.lsmc_backward_cuda_plain(price_rows, **kw)
+            torch.cuda.synchronize()
+            flips = int((~torch.isclose(got, want, rtol=KERNEL_RTOL, atol=0.0)).sum())
+            if flips or not torch.equal(got, want):
+                raise AssertionError(f"{case} put={put}: the CUDA backward is off its twin on "
+                                     f"{flips} paths")
+            phase("backward-american-dynamics", rows=case, backward="cuda",
+                  side="put" if put else "call", shape=f"{AMERICAN_CONTRACTS}x{ROWS}x{COLS}x{STEPS}",
+                  twin_flips=flips, twin_bit_equal=True,
+                  mean_cashflow=round(float(((kw["strike"][:, None, None] - got)
+                                             * df[:, None, None]).double().mean()), 6))
+        del price_rows
+    torch.cuda.empty_cache()
+    # the torch estimator on Heston's two state rows: the card against the CPU
+    params, keys = kernel_inputs(device, 2, 24, "heston")
+    price_rows, var_rows = american_cuda.simulate_heston_american_rows_cuda(
+        params, keys, timesteps=STEPS, rows=64, cols=COLS, exercise_every=1)
+    est = dict(timesteps=STEPS, exercise_every=1, option=american.OptionSide.PUT,
+               basis_degree=LSMC_DEGREE, backward=0)
+    u_card = american_cuda.monitor_underliers(price_rows, params, extra_rows=var_rows, **est)
+    u_cpu = american_cuda.monitor_underliers(price_rows.cpu(), params.cpu(),
+                                             extra_rows=var_rows.cpu(), **est)
+    strike, df = params[:, 1].cpu().double(), torch.exp(-params[:, 3] * params[:, 2]).cpu().double()
+    cf_card = (strike[:, None, None] - u_card.cpu().double()) * df[:, None, None]
+    cf_cpu = (strike[:, None, None] - u_cpu.double()) * df[:, None, None]
+    flip_share = float((cf_card - cf_cpu).abs().gt(1e-4 * strike[:, None, None]).double().mean())
+    mean_rel = abs(float(cf_card.mean()) - float(cf_cpu.mean())) / abs(float(cf_cpu.mean()))
+    if flip_share > TORCH_FLIP_SHARE or mean_rel > TORCH_MEAN_RTOL:
+        raise AssertionError(f"torch estimator card vs CPU: {flip_share:.4f} flipped, mean off "
+                             f"{mean_rel:.2e}")
+    del price_rows, var_rows, u_card
+    torch.cuda.empty_cache()
+    params, keys = kernel_inputs(device, CHUNK, 25, "heston")
+    price_rows, var_rows = american_cuda.simulate_heston_american_rows_cuda(
+        params, keys, timesteps=STEPS, rows=ROWS, cols=COLS, exercise_every=1)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    ms = cuda_ms(lambda: american_cuda.monitor_underliers(price_rows, params, extra_rows=var_rows,
+                                                          **est), iters=3, warmup=1)
+    peak_gb = (torch.cuda.max_memory_allocated(device) - base) / 1e9
+    paths = CHUNK * ROWS * COLS
+    phase("backward-american-dynamics", rows="heston", backward="torch estimator",
+          card_vs_cpu_shape=f"2x64x{COLS}x{STEPS}", card_vs_cpu_flip_share=f"{flip_share:.5f}",
+          card_vs_cpu_mean_rel=f"{mean_rel:.3e}", timed_shape=f"{CHUNK}x{ROWS}x{COLS}x{STEPS}",
+          degree=LSMC_DEGREE, basis_columns=LSMC_DEGREE + 4, estimator_ms=f"{ms:.3f}",
+          estimator_peak_gb_above_rows=round(peak_gb, 3),
+          monitor_rows_gb=round(2 * paths * STEPS * 4 / 1e9, 3))
+    del price_rows, var_rows
+    torch.cuda.empty_cache()
+    return {"estimator_ms": ms, "estimator_peak_gb": peak_gb}
+
+
+def family_lsmc(device: torch.device, model: ModelKind, contract: dict[str, float],
+                option: str, seed: int, spec: object | None = None) -> tuple[float, float, float]:
+    """``(price, SE, same-path European)`` of one contract on the "cuda"
+    engine: its monitor kernel over 1,048,576 paths and 16 dates, then the
+    backward the engine runs for the family; the European leg from the last
+    row (maturity)."""
+    params = torch.tensor([list(contract.values())], dtype=torch.float32, device=device)
+    keys = rng.fold_in(rng.prng_key(seed, device), torch.arange(1, device=device))
+    price_rows, extra = american_cuda.american_rows_cuda(
+        params, keys, model=model, spec=spec, timesteps=STEPS, rows=ROWS, cols=COLS,
+        exercise_every=1)
+    backward = american_cuda.cuda_backward_version(dtype=torch.float32, n_monitor=STEPS,
+                                                   two_state=extra is not None)
+    u = american_cuda.monitor_underliers(
+        price_rows, params, timesteps=STEPS, exercise_every=1,
+        option=american.OptionSide(option), basis_degree=LSMC_DEGREE, extra_rows=extra,
+        backward=backward)
+    k, df = contract["strike"], math.exp(-contract["rate"] * contract["maturity"])
+    cf = (k - u.double().reshape(-1)) * df
+    last = price_rows[0, -1].double().reshape(-1)
+    euro = df * torch.clamp(k - last if option == "put" else last - k, min=0.0)
+    return float(cf.mean()), float(cf.std() / math.sqrt(cf.numel())), float(euro.mean())
+
+
+HESTON_ORACLE = dict(spot=100.0, strike=100.0, maturity=1.0, rate=0.04, div_yield=0.0, v0=0.05,
+                     kappa=1.5, theta=0.05, xi=0.4, rho=-0.6)
+MERTON_ORACLE = dict(spot=100.0, strike=105.0, maturity=1.0, rate=0.05, div_yield=0.0, vol=0.2,
+                     lam=0.4, jump_mean=-0.1, jump_std=0.2)
+# the JAX tests' basket (tests/test_american.py:700-712)
+ORACLE_BASKET_KW = dict(weights=(0.5, 0.3, 0.2),
+                        correlation=((1.0, 0.5, 0.2), (0.5, 1.0, 0.3), (0.2, 0.3, 1.0)),
+                        spot_multipliers=(1.0, 0.9, 1.1), vol_multipliers=(1.0, 1.3, 0.7))
+
+
+def phase_oracle_american_dynamics(device: torch.device) -> None:
+    """The JAX tests' identities (tests/test_american.py:584-1012) on the
+    card at 1,048,576 paths and 16 dates a contract."""
+    lines = []
+    c = HESTON_ORACLE
+    price, se, euro = family_lsmc(device, ModelKind.HESTON, c, "call", 70)
+    call, _ = heston_call_price(**c)
+    lines.append(("heston q=0 call", price, se, euro, call,
+                  abs(price - call) < 4.0 * se + 0.02 * call
+                  and abs(price - euro) < max(3.0 * se, 0.005 * euro)))
+    c = dict(HESTON_ORACLE, strike=105.0, rate=0.07)
+    price, se, euro = family_lsmc(device, ModelKind.HESTON, c, "put", 71)
+    lines.append(("heston r=7% K=105 put premium", price, se, euro, None, price > euro + 0.1))
+    for label, over, option in (("merton q=0 call", dict(strike=95.0, rate=0.03), "call"),
+                                ("merton r=0 put", dict(rate=0.0, div_yield=0.02), "put")):
+        c = dict(MERTON_ORACLE, **over)
+        price, se, euro = family_lsmc(device, ModelKind.MERTON_JUMP, c, option, 72)
+        series = merton_call_price(**c)[0 if option == "call" else 1]
+        lines.append((label, price, se, euro, series, abs(price - series) < 4.0 * se
+                      and abs(price - euro) < max(3.0 * se, 0.005 * euro)))
+    c = dict(MERTON_ORACLE, rate=0.07)
+    price, se, euro = family_lsmc(device, ModelKind.MERTON_JUMP, c, "put", 73)
+    lines.append(("merton r=7% put premium", price, se, euro, None, price > euro + 0.1))
+    geo = build_basket_spec(**ORACLE_BASKET_KW, combine="geometric").expect("spec")
+    c = dict(spot=100.0, strike=100.0, maturity=1.0, rate=0.05, div_yield=0.0, vol=0.25)
+    price, se, euro = family_lsmc(device, ModelKind.BASKET_GBM, c, "put", 74, geo)
+    g0, vol_eff, div_eff = geometric_basket_effective_gbm(
+        torch.tensor(list(c.values()), dtype=torch.float64), geo)
+    tree = american.bermudan_tree_price(spot=g0, strike=c["strike"], maturity=c["maturity"],
+                                        rate=c["rate"], div_yield=div_eff, vol=vol_eff,
+                                        exercise_dates=STEPS, option="put")
+    lines.append(("geometric basket put vs tree", price, se, euro, tree,
+                  abs(price - tree) <= max(4.0 * se, 0.005 * tree)))
+    arith = build_basket_spec(**ORACLE_BASKET_KW).expect("spec")
+    for label, over, option in (("arithmetic basket r=0 put", dict(strike=105.0, rate=0.0), "put"),
+                                ("arithmetic basket q=0 call", dict(strike=95.0, rate=0.05),
+                                 "call")):
+        c = dict(spot=100.0, maturity=1.0, div_yield=0.0, vol=0.25, **over)
+        c = {k: c[k] for k in ("spot", "strike", "maturity", "rate", "div_yield", "vol")}
+        price, se, euro = family_lsmc(device, ModelKind.BASKET_GBM, c, option, 75, arith)
+        lines.append((label, price, se, euro, None, abs(price - euro) <= max(3.0 * se,
+                                                                             0.005 * euro)))
+    for label, price, se, euro, oracle, ok in lines:
+        phase("oracle-american-dynamics", contract=label, paths=ROWS * COLS, dates=STEPS,
+              price=round(price, 5), se=f"{se:.2e}", same_path_european=round(euro, 5),
+              premium=round(price - euro, 5),
+              oracle="none" if oracle is None else round(oracle, 5), ok=ok)
+        if not ok:
+            raise AssertionError(f"oracle-american-dynamics {label}: {price:.5f} ± {se:.1e}, "
+                                 f"European {euro:.5f}, oracle {oracle}")
+
+
+HESTON_AMERICAN_CHUNK = CHUNK  # the production chunk (PERF.md §5: its peak memory)
+
+
+def american_dynamics_config(payoff: PayoffKind = PayoffKind.AMERICAN_PUT, *, rows: int = ROWS,
+                           model: str = "heston", **knobs: object) -> GbmCVNNPricerConfig:
+    """An American pricer under the family's dynamics and bounds (bench.py's
+    Heston :535-552, Merton :597-603, basket :578), the production head,
+    normalization none, 16 dates, degree 5."""
+    family = {"heston": "heston", "merton_jump": "merton", "basket_gbm": "basket"}[model]
+    sim = build_simulation_params(
+        timesteps=STEPS, network_size=COLS, batches_per_mc_run=rows, mc_seed=7,
+        implementation="cuda", model=model, payoff=payoff.value, normalization="none",
+        **knobs).expect("american sim")
+    return GbmCVNNPricerConfig(sim=sim, bounds=bounds_for(payoff, family), cvnn=production_cvnn(),
+                               normalize_inputs=True)
+
+
+def phase_train_heston_american(device: torch.device) -> GbmCVNNPricer:
+    """3 steps of the Heston American put at the production batch: one
+    monitor-kernel launch per chunk, the torch estimator on its two state
+    rows (backward 0 recorded), stream american_heston v1; the step's peak
+    device memory."""
+    pricer = GbmCVNNPricer.create(american_dynamics_config(), device=device).expect("heston amer")
+    before = gbm_cuda.LAUNCHES_BY_BRANCH["american_heston"]
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, seconds = train_steps(pricer, 3, chunk=HESTON_AMERICAN_CHUNK)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    launched = gbm_cuda.LAUNCHES_BY_BRANCH["american_heston"] - before
+    snap = pricer.snapshot()
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"heston american: non-finite training losses {losses}")
+    if launched != 3 * BATCH // HESTON_AMERICAN_CHUNK:
+        raise AssertionError(f"heston american: {launched} monitor launches in 3 steps")
+    if (snap.sim.implementation.value, snap.lsmc_backward_version,
+            snap.cuda_stream_version) != ("cuda", 0, 1):
+        raise AssertionError(f"heston american: engine {snap.sim.implementation.value}, backward "
+                             f"v{snap.lsmc_backward_version}, stream v{snap.cuda_stream_version}")
+    phase("train-heston-american", model="heston", payoff=snap.sim.payoff.value, inputs=10,
+          engine="cuda", stream="american_heston_v1",
+          lsmc_backward_version=snap.lsmc_backward_version,
+          normalization=snap.sim.normalization.value, losses=losses.tolist(), launches=launched,
+          step_seconds=[round(s, 4) for s in seconds],
+          median_step_s=f"{statistics.median(seconds):.4f}", peak_memory_gb=round(peak_gb, 3),
+          monitor_rows_gb_per_chunk=round(2 * HESTON_AMERICAN_CHUNK * STEPS * ROWS * COLS * 4
+                                          / 1e9, 3),
+          paths_per_contract=ROWS * COLS, batch=BATCH, chunk=HESTON_AMERICAN_CHUNK)
+    return pricer
+
+
+CURVED_HESTON_REFUSAL = (
+    "term", "heston",
+    "LSMC early exercise under term structures is supported for GBM dynamics only (the "
+    "curved-coefficient lattice oracle and per-segment discount backward exist for the "
+    "single-factor lognormal family)")
+# one step at batch 64 each: (label, model, payoff, knobs, backward, kernel count)
+DYNAMICS_FAMILIES = [
+    ("merton put", "merton_jump", PayoffKind.AMERICAN_PUT, {}, 3, "american_merton"),
+    ("arithmetic basket put", "basket_gbm", PayoffKind.AMERICAN_PUT, dict(basket=BASKET_SPEC), 0,
+     "american_basket"),
+    ("geometric basket put", "basket_gbm", PayoffKind.AMERICAN_PUT, dict(basket=GEOMETRIC_SPEC),
+     3, "american_basket"),
+    ("heston call", "heston", PayoffKind.AMERICAN_CALL, {}, 0, "american_heston"),
+    ("heston cross-fit", "heston", PayoffKind.AMERICAN_PUT, dict(lsmc_cross_fit=True), 0,
+     "american_heston"),
+    ("merton antithetic", "merton_jump", PayoffKind.AMERICAN_PUT, dict(antithetic=True), 3,
+     "american_merton"),
+]
+
+
+def phase_families_american_dynamics(device: torch.device) -> None:
+    """One step at batch 64 per pricer of DYNAMICS_FAMILIES: the engine,
+    stream and backward recorded, the monitor kernel (and the CUDA backward
+    where it runs) launched once, a finite loss, the learned side finite and
+    the other NaN; then a curved-rate Heston American config, refused with
+    JAX's field, value and reason."""
+    for label, model, payoff, knobs, backward, kernel in DYNAMICS_FAMILIES:
+        pricer = GbmCVNNPricer.create(american_dynamics_config(payoff, model=model, **knobs),
+                                      device=device).expect(label)
+        groups = (kernel, "lsmc_backward") if backward else (kernel,)
+        before = {g: gbm_cuda.LAUNCHES_BY_BRANCH[g] for g in (*groups, "lsmc_backward")}
+        losses, seconds = train_steps(pricer, 1, batch=PAYOFF_BATCH, chunk=PAYOFF_BATCH)
+        launched = {g: gbm_cuda.LAUNCHES_BY_BRANCH[g] - v for g, v in before.items()}
+        snap = pricer.snapshot()
+        want = {g: (1 if g in groups else 0) for g in launched}
+        if (snap.sim.implementation.value, snap.lsmc_backward_version,
+                snap.cuda_stream_version) != ("cuda", backward, 1) or launched != want:
+            raise AssertionError(f"{label}: engine {snap.sim.implementation.value}, backward "
+                                 f"v{snap.lsmc_backward_version}, launches {launched}")
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"{label}: loss {losses}")
+        family = family_of(snap.sim)
+        pred = check_prices(pricer, held_out(payoff, 8, family), device)
+        phase("families-american-dynamics", pricer=label, model=model, payoff=payoff.value,
+              engine="cuda", stream=f"american_{model}_v{snap.cuda_stream_version}",
+              lsmc_backward_version=backward, launches=launched, batch=PAYOFF_BATCH,
+              loss=float(losses[0]), step_s=round(seconds[0], 4),
+              prices=np.round(pred.call if payoff == PayoffKind.AMERICAN_CALL else pred.put,
+                              5)[:3].tolist(),
+              other_side="NaN")
+        del pricer
+        torch.cuda.empty_cache()
+    refused = build_simulation_params(
+        timesteps=STEPS, network_size=COLS, batches_per_mc_run=ROWS, mc_seed=7,
+        implementation="cuda", model="heston", payoff="american_put", normalization="none",
+        term=TermStructure(rate_shape=term_of(STEPS).rate_shape))
+    got = (refused.error.field, refused.error.value, refused.error.reason) \
+        if refused.is_failure() else None
+    if got != CURVED_HESTON_REFUSAL:
+        raise AssertionError(f"curved Heston American: {got}")
+    phase("families-american-dynamics", pricer="curved-rate heston put", refused=True,
+          field=got[0], value=got[1])
+
+
+# --------------------------------------------------------------------------
 # 11. profile
 # --------------------------------------------------------------------------
 
@@ -2149,13 +2718,57 @@ def phase_profile(pricer: GbmCVNNPricer, label: str) -> None:
           busy=f"{busy / wall:.4f}", kernel_launches_per_call=launches / 20, top=repr(top))
 
 
+def phase_profile_heston_american(pricer: GbmCVNNPricer) -> None:
+    """The Heston American put's step split three ways: 10 warm steps on the
+    host clock, then 3 steps under torch.profiler (the monitor kernel's
+    device time, all kernels' device time) with the torch estimator's span
+    timed by CUDA events around each ``monitor_underliers`` call."""
+    original = american_cuda.monitor_underliers
+    spans: list[tuple[torch.cuda.Event, torch.cuda.Event]] = []
+
+    def timed(*args: object, **kw: object) -> torch.Tensor:
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = original(*args, **kw)
+        stop.record()
+        spans.append((start, stop))
+        return out
+
+    _, seconds = train_steps(pricer, 10)
+    cfg = build_training_config(
+        num_batches=1, batch_size=BATCH, learning_rate=1e-3, contract_chunk=HESTON_AMERICAN_CHUNK
+    ).expect("training config")
+    american_cuda.monitor_underliers = timed
+    try:
+        wall, busy, launches, top = profiled(lambda: [pricer.train(cfg) for _ in range(3)])
+    finally:
+        american_cuda.monitor_underliers = original
+    torch.cuda.synchronize()
+    estimator = sum(a.elapsed_time(b) for a, b in spans)
+    monitor = sum(ms for name, _, ms in top if "american_heston_kernel" in name)
+    phase("profile-train-heston-american", warm_steps=len(seconds),
+          median_step_s=f"{statistics.median(seconds):.4f}", min_step_s=f"{min(seconds):.4f}",
+          max_step_s=f"{max(seconds):.4f}", profiled_steps=3, wall_ms=f"{wall:.3f}",
+          kernel_ms=f"{busy:.3f}", busy=f"{busy / wall:.4f}", kernel_launches=launches,
+          monitor_kernel_ms=f"{monitor:.3f}", torch_estimator_span_ms=f"{estimator:.3f}",
+          estimator_calls=len(spans), rest_of_wall_ms=f"{wall - monitor - estimator:.3f}",
+          estimator_share_of_wall=f"{estimator / wall:.4f}", top=repr(top))
+    rows = held_out(PayoffKind.AMERICAN_PUT, 64, "heston")
+    for _ in range(5):
+        pricer.predict_price(rows)
+    wall, busy, launches, top = profiled(lambda: [pricer.predict_price(rows) for _ in range(20)])
+    phase("profile-serve-heston-american", n=64, calls=20, wall_ms=f"{wall:.3f}",
+          kernel_ms=f"{busy:.3f}", busy=f"{busy / wall:.4f}",
+          kernel_launches_per_call=launches / 20, top=repr(top))
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="after the checks, time warm train steps and profile train and serve")
     args = parser.parse_args()
     device, smi, max_sm_hz = phase_device()
-    per_step, american_sass = phase_build()
+    per_step, american_sass, dynamics_sass = phase_build()
     kernel = phase_kernel(device, per_step, max_sm_hz)
     phase_oracle(device)
     phase_oracle_families(device)
@@ -2213,6 +2826,18 @@ def main() -> None:
     gbm_cuda.reset_launches()  # the American families' path starts here
     phase_families_american(device)
     launches["lsmc_backward_streamed"] = gbm_cuda.LAUNCHES_BY_BRANCH["lsmc_backward_streamed"]
+    kernel.update(phase_kernel_american_dynamics(device, dynamics_sass, max_sm_hz))
+    phase_backward_american_dynamics(device)
+    phase_oracle_american_dynamics(device)
+    gbm_cuda.reset_launches()  # the Heston American pricer's path starts here
+    heston_american = phase_train_heston_american(device)
+    phase_resume(device, heston_american, "resume-heston-american")
+    phase_serve(heston_american, device, "serve-heston-american")
+    launches["american_heston"] = gbm_cuda.LAUNCHES_BY_BRANCH["american_heston"]
+    gbm_cuda.reset_launches()  # the other dynamics' American pricers' path starts here
+    phase_families_american_dynamics(device)
+    for group in ("american_merton", "american_basket"):
+        launches[group] = gbm_cuda.LAUNCHES_BY_BRANCH[group]
     missing = [b for b, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"the main paths never launched the {missing} kernel branches")
@@ -2223,6 +2848,7 @@ def main() -> None:
         phase_profile(basket, "-basket")
         phase_profile(qmc_asian, "-qmc-asian")
         phase_profile(american_pricer, "-american")
+        phase_profile_heston_american(heston_american)
     records = []
     for group, (family, _, _) in TIMED.items():
         flat = family == "gbm"
@@ -2258,6 +2884,17 @@ def main() -> None:
             "route": "cuda",
             "source": AMERICAN_SOURCE,
             "replaces": AMERICAN_REPLACES[group],
+            "launches": launches[group],
+            **{k: kernel[group][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                             "bound_by")},
+            "library_ms": None,  # no single PyTorch call computes these functions
+        })
+    for group, replaces in DYNAMICS_AMERICAN_REPLACES.items():
+        records.append({
+            "name": group,
+            "route": "cuda",
+            "source": DYNAMICS_AMERICAN_SOURCE,
+            "replaces": replaces,
             "launches": launches[group],
             **{k: kernel[group][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                              "bound_by")},

@@ -1,0 +1,296 @@
+// American (Bermudan) monitor rows under Heston, Merton and basket dynamics
+// for a batch of contracts: the forward of the "cuda" MC engine's LSMC
+// pricing beyond GBM.
+//
+// Replaces three kernels of the JAX package's ops/gbm_pallas.py:
+//   * _heston_monitor_block_kernel (american_heston_kernel): full-truncation
+//     Euler Heston writing exp(log S) AND max(v, 0) at every monitor date —
+//     both state variables, because the continuation value depends on the
+//     variance too (the regression basis adds [v, v·x, v²]);
+//   * _merton_monitor_block_kernel (american_merton_kernel): the exact
+//     compensated Merton step writing exp(log S) (the spot alone is Markov);
+//   * _basket_monitor_block_kernel (american_basket_kernel<A, geometric>):
+//     A correlated log-Euler assets writing the basket value and, for the
+//     arithmetic combine, the log dispersion ln(B_arith) − Σ wᵢ·log xᵢ (the
+//     second regression state). The TPU kernel writes zeros for a geometric
+//     combine and its launch drops them; here a geometric launch writes the
+//     one output.
+// The per-step code of each is the matching European kernel's TERMINAL
+// branch (heston_paths_kernel and merton_paths_kernel in dynamics_paths.cu,
+// basket_paths_kernel in basket_paths.cu), with its draws, its draw order and
+// its roundings: Heston one Box–Muller draw a step (z_v = r·cos θ drives the
+// variance, z_s = ρ·z_v + ρ̄·r·sin θ the spot), Merton one Philox call a step
+// (the pair, then the count's uniform against the per-contract cdf levels),
+// the basket ⌈A/2⌉ draws a step mixed by the static Cholesky rows. None of
+// the three has a pair-step shortcut, so the last monitor row is the path
+// the European TERMINAL branch walks, for any `every`. After every `every`
+// steps the kernel stores the monitor values; nothing else changes. These
+// are the american_heston, american_merton_jump and american_basket_gbm v1
+// streams. The date and step loops are kept rolled (#pragma unroll 1), so
+// the SASS of one date at every = 1 is one step and its stores.
+//
+// What they drop is what the TPU needed: the hardware PRNG, the VMEM block
+// budget (_monitor_block_rows), the 256x256 blocks and the polynomial sine.
+// One thread owns one path and keeps its state in registers; every thread of
+// a block belongs to one contract (blockIdx.y). The monitor count stays
+// capped at 128 (ops/gbm_cuda.py::MAX_MONITOR_DATES), the asset count is a
+// template parameter (1..8).
+//
+// Bound on Hopper, at every = 1: Heston by its instruction issue (the
+// European Heston step, ~133 SASS a path-step, plus two stores a date: its
+// 2 × 4 bytes a path-date of output need 10.3 ms at 256 × 2048 × 512 × 16,
+// under the issue time); Merton by its issue too (a whole Philox call and 16
+// compares a step); the basket by its issue (⌈A/2⌉ draws and A(A+1)/2 FMAs a
+// step, A expf a date for the arithmetic value and a logf for the
+// dispersion). Simple first: no TMA, no wgmma, no shared memory.
+//
+// Contract: launches on the given stream, allocates nothing, does not
+// synchronise; each C entry point returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+#include "basket_spec.cuh"
+#include "path_stream.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kPoissonTerms = 16;
+
+// Heston: params [C, 10] = spot strike T r q v0 kappa theta xi rho; price and
+// var [C, monitors, rows·cols].
+__global__ void american_heston_kernel(const float* __restrict__ params,
+                                       const uint32_t* __restrict__ keys,
+                                       float* __restrict__ price, float* __restrict__ var,
+                                       int64_t rows, int64_t cols, int timesteps, int every,
+                                       int64_t half, int64_t row_offset) {
+  int64_t local;
+  int c;
+  PathStream s;
+  if (!path_setup(keys, rows, cols, half, row_offset, local, c, s)) return;
+  const int64_t n = rows * cols;
+  const float sign = s.sign;
+  const float* p = params + 10 * c;
+  const float spot = p[0], maturity = p[2], rate = p[3], div = p[4], v0 = p[5], kappa = p[6],
+              theta = p[7], xi = p[8], rho = p[9];
+  // scalar set-up rounded op by op, as the plain version evaluates it
+  const float dt = __fdiv_rn(maturity, static_cast<float>(timesteps));
+  const float rho_bar = __fsqrt_rn(__fsub_rn(1.0f, __fmul_rn(rho, rho)));
+  const float rq_dt = __fmul_rn(__fsub_rn(rate, div), dt);
+  const float kdt = __fmul_rn(kappa, dt);
+  const float ktheta_dt = __fmul_rn(__fmul_rn(kappa, theta), dt);
+  const int monitors = timesteps / every;
+  const int64_t base = static_cast<int64_t>(c) * monitors * n + local;
+  float u1, u2;
+  float logx = logf(spot);
+  float v = v0;
+  int j = 0;
+#pragma unroll 1
+  for (int d = 0; d < monitors; ++d) {
+#pragma unroll 1
+    for (int q = 0; q < every; ++q, ++j) {
+      s.draw(j, u1, u2);
+      const float rad = sqrtf(-2.0f * logf(u1));
+      float sn, cs;
+      sincospif(2.0f * u2, &sn, &cs);
+      const float z_v = sign * (rad * cs);
+      const float z_s = rho * z_v + rho_bar * (sign * (rad * sn));
+      const float v_plus = fmaxf(v, 0.0f);
+      const float sv = sqrtf(v_plus * dt);
+      logx = ((logx + rq_dt) - (0.5f * v_plus) * dt) + sv * z_s;
+      v = ((v + ktheta_dt) - kdt * v_plus) + (xi * sv) * z_v;
+    }
+    price[base + static_cast<int64_t>(d) * n] = expf(logx);
+    var[base + static_cast<int64_t>(d) * n] = fmaxf(v, 0.0f);
+  }
+}
+
+// Merton: params [C, 9] = spot strike T r q vol lam jump_mean jump_std;
+// levels [C, 16] the running Poisson cdf of lam·dt; price [C, monitors, n].
+__global__ void american_merton_kernel(const float* __restrict__ params,
+                                       const uint32_t* __restrict__ keys,
+                                       const float* __restrict__ levels,
+                                       float* __restrict__ price, int64_t rows, int64_t cols,
+                                       int timesteps, int every, int64_t half,
+                                       int64_t row_offset) {
+  int64_t local;
+  int c;
+  PathStream s;
+  if (!path_setup(keys, rows, cols, half, row_offset, local, c, s)) return;
+  const int64_t n = rows * cols;
+  const float sign = s.sign;
+  const float* p = params + 9 * c;
+  const float spot = p[0], maturity = p[2], rate = p[3], div = p[4], vol = p[5], lam = p[6],
+              jump_mean = p[7], jump_std = p[8];
+  const float dt = __fdiv_rn(maturity, static_cast<float>(timesteps));
+  const float vol_sdt = __fmul_rn(vol, __fsqrt_rn(dt));
+  const float m = __fsub_rn(
+      expf(__fadd_rn(jump_mean, __fmul_rn(__fmul_rn(0.5f, jump_std), jump_std))), 1.0f);
+  const float drift = __fmul_rn(
+      __fsub_rn(__fsub_rn(__fsub_rn(rate, div), __fmul_rn(lam, m)),
+                __fmul_rn(__fmul_rn(0.5f, vol), vol)),
+      dt);
+  float lv[kPoissonTerms];
+#pragma unroll
+  for (int k = 0; k < kPoissonTerms; ++k) lv[k] = __ldg(levels + kPoissonTerms * c + k);
+  const int monitors = timesteps / every;
+  float* o = price + static_cast<int64_t>(c) * monitors * n + local;
+  float logx = logf(spot);
+  int t = 0;
+#pragma unroll 1
+  for (int d = 0; d < monitors; ++d) {
+#pragma unroll 1
+    for (int q = 0; q < every; ++q, ++t) {
+      const uint4 w = philox4x32_10(make_uint4(s.c0, s.c1, t, 0u), s.k0, s.k1);
+      const float rad = sqrtf(-2.0f * logf(uniform_open(w.x)));
+      float sn, cs;
+      sincospif(2.0f * uniform_closed(w.y), &sn, &cs);
+      const float z_d = sign * (rad * cs);
+      const float z_j = sign * (rad * sn);
+      const float u_c = uniform_closed(w.z);
+      float cnt = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kPoissonTerms; ++k) cnt += (u_c >= lv[k]) ? 1.0f : 0.0f;
+      const float jump = cnt * jump_mean + (jump_std * sqrtf(cnt)) * z_j;
+      logx = ((logx + drift) + vol_sdt * z_d) + jump;
+    }
+    o[static_cast<int64_t>(d) * n] = expf(logx);
+  }
+}
+
+// Baskets: params [C, 6]; price (and, arithmetic, disp) [C, monitors, n].
+template <int kA, bool kGeo>
+__global__ void american_basket_kernel(const float* __restrict__ params,
+                                       const uint32_t* __restrict__ keys, const BasketArgs spec,
+                                       float* __restrict__ price, float* __restrict__ disp,
+                                       int64_t rows, int64_t cols, int timesteps, int every,
+                                       int64_t half, int64_t row_offset) {
+  constexpr int kPairs = (kA + 1) / 2;
+  int64_t local;
+  int c;
+  PathStream s;
+  if (!path_setup(keys, rows, cols, half, row_offset, local, c, s)) return;
+  const int64_t n = rows * cols;
+  const float sign = s.sign;
+  const float* p = params + 6 * c;
+  const float spot = p[0], maturity = p[2], rate = p[3], div = p[4], vol = p[5];
+  const float dt = maturity / static_cast<float>(timesteps);
+  const float sqrt_dt = sqrtf(dt);
+  float drift[kA], sig_sdt[kA], logx[kA];
+#pragma unroll
+  for (int a = 0; a < kA; ++a) {
+    const float sig = vol * spec.vol_mult[a];
+    sig_sdt[a] = sig * sqrt_dt;
+    drift[a] = ((rate - div) - 0.5f * (sig * sig)) * dt;
+    logx[a] = logf(spot * spec.spot_mult[a]);
+  }
+  const int monitors = timesteps / every;
+  const int64_t base = static_cast<int64_t>(c) * monitors * n + local;
+  int j = 0;
+  float u1, u2;
+#pragma unroll 1
+  for (int d = 0; d < monitors; ++d) {
+#pragma unroll 1
+    for (int q = 0; q < every; ++q) {
+      float z[2 * kPairs];
+#pragma unroll
+      for (int r = 0; r < kPairs; ++r, ++j) {
+        s.draw(j, u1, u2);
+        const float rad = sqrtf(-2.0f * logf(u1));
+        float sn, cs;
+        sincospif(2.0f * u2, &sn, &cs);
+        z[2 * r] = sign * (rad * cs);
+        z[2 * r + 1] = sign * (rad * sn);
+      }
+#pragma unroll
+      for (int a = 0; a < kA; ++a) {
+        float zm = spec.chol[a * kMaxAssets] * z[0];
+#pragma unroll
+        for (int b = 1; b <= a; ++b) zm = zm + spec.chol[a * kMaxAssets + b] * z[b];
+        logx[a] = (logx[a] + drift[a]) + sig_sdt[a] * zm;
+      }
+    }
+    const int64_t at = base + static_cast<int64_t>(d) * n;
+    const float value = basket_value<kA, kGeo>(logx, spec);
+    price[at] = value;
+    if constexpr (!kGeo) disp[at] = logf(value) - log_geometric<kA>(logx, spec);
+  }
+}
+
+template <int kA>
+int launch_basket(const float* params, const uint32_t* keys, const BasketArgs& spec, float* price,
+                  float* disp, int contracts, long long rows, long long cols, int timesteps,
+                  int every, int geometric, long long half, long long row_offset,
+                  cudaStream_t stream) {
+  const dim3 grid = grid_of(contracts, rows, cols, kThreads);
+  if (geometric) {
+    american_basket_kernel<kA, true><<<grid, kThreads, 0, stream>>>(
+        params, keys, spec, price, disp, rows, cols, timesteps, every, half, row_offset);
+  } else {
+    american_basket_kernel<kA, false><<<grid, kThreads, 0, stream>>>(
+        params, keys, spec, price, disp, rows, cols, timesteps, every, half, row_offset);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int american_heston_launch(const void* params, const void* keys, void* price,
+                                      void* var, int contracts, long long rows, long long cols,
+                                      int timesteps, int every, long long half,
+                                      long long row_offset, void* stream) {
+  american_heston_kernel<<<grid_of(contracts, rows, cols, kThreads), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(params), static_cast<const uint32_t*>(keys),
+      static_cast<float*>(price), static_cast<float*>(var), rows, cols, timesteps, every, half,
+      row_offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int american_merton_launch(const void* params, const void* keys, const void* levels,
+                                      void* price, int contracts, long long rows, long long cols,
+                                      int timesteps, int every, long long half,
+                                      long long row_offset, void* stream) {
+  american_merton_kernel<<<grid_of(contracts, rows, cols, kThreads), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(params), static_cast<const uint32_t*>(keys),
+      static_cast<const float*>(levels), static_cast<float*>(price), rows, cols, timesteps,
+      every, half, row_offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// spec_host: host float32 [3·8 + 8·8] (ops/basket_cuda.py::spec_table), copied
+// into the by-value kernel argument; disp is unused (may be null) when
+// geometric.
+extern "C" int american_basket_launch(const void* params, const void* keys,
+                                      const void* spec_host, void* price, void* disp,
+                                      int contracts, long long rows, long long cols,
+                                      int timesteps, int every, int assets, int geometric,
+                                      long long half, long long row_offset, void* stream) {
+  BasketArgs spec;
+  memcpy(&spec, spec_host, sizeof(spec));
+  const float* pp = static_cast<const float*>(params);
+  const uint32_t* kp = static_cast<const uint32_t*>(keys);
+  float* po = static_cast<float*>(price);
+  float* dp = static_cast<float*>(disp);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define ASSETS_CASE(A)                                                                        \
+  case A:                                                                                     \
+    return launch_basket<A>(pp, kp, spec, po, dp, contracts, rows, cols, timesteps, every,     \
+                            geometric, half, row_offset, st);
+  switch (assets) {
+    ASSETS_CASE(1)
+    ASSETS_CASE(2)
+    ASSETS_CASE(3)
+    ASSETS_CASE(4)
+    ASSETS_CASE(5)
+    ASSETS_CASE(6)
+    ASSETS_CASE(7)
+    ASSETS_CASE(8)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef ASSETS_CASE
+}

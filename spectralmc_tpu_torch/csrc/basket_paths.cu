@@ -41,34 +41,12 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "basket_spec.cuh"
 #include "path_stream.cuh"
 
 namespace {
 
-constexpr int kMaxAssets = 8;
 constexpr int kForward = 5;  // the arithmetic forward start: B_m captured in the walk
-
-// The static spec, passed by value (ops/basket_cuda.py::spec_table's layout).
-struct BasketArgs {
-  float weights[kMaxAssets];
-  float spot_mult[kMaxAssets];
-  float vol_mult[kMaxAssets];
-  float chol[kMaxAssets * kMaxAssets];  // lower rows, zero above the diagonal
-};
-
-template <int kA, bool kGeo>
-__device__ __forceinline__ float basket_value(const float (&logx)[kA], const BasketArgs& spec) {
-  if constexpr (kGeo) {
-    float acc = spec.weights[0] * logx[0];
-#pragma unroll
-    for (int a = 1; a < kA; ++a) acc = acc + spec.weights[a] * logx[a];
-    return expf(acc);
-  }
-  float acc = spec.weights[0] * expf(logx[0]);
-#pragma unroll
-  for (int a = 1; a < kA; ++a) acc = acc + spec.weights[a] * expf(logx[a]);
-  return acc;
-}
 
 // The step's log-return of the basket value, ln B_t − ln B_{t−1}, without
 // subtracting two values near ln S: Σ wᵢ·(log-increment)ᵢ for the geometric

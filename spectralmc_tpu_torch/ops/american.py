@@ -1,9 +1,8 @@
 """American/Bermudan pricing by Longstaff–Schwartz regression Monte Carlo.
 
-The port of the JAX package's ``ops/american.py`` for GBM dynamics (the
-Heston, Merton and basket state-row simulators are ``AMERICAN_QUEUE``'s).
-Early exercise on the monitor grid, the classic regression estimator of
-Longstaff & Schwartz (2001):
+The port of the JAX package's ``ops/american.py``. Early exercise on the
+monitor grid, the classic regression estimator of Longstaff & Schwartz
+(2001):
 
 * ``lsmc_backward`` — the backward induction over ``[C, n_monitor, ...]``
   monitor-date price rows: per date the in-the-money regression's normal
@@ -16,9 +15,17 @@ Longstaff & Schwartz (2001):
 * ``encode_monitor_prices`` — the induction plus the synthetic-underlier
   encode ``u = K − cf/df``, so the put-payoff pipeline ``df·max(K − u, 0)``
   reproduces the Bermudan cashflow for both option sides.
-* ``simulate_american_underlier_rows`` — the threefry (``"xla"``) engine:
-  the canonical (contract key, global row, timestep) normals, flat or under
-  a curved ``TermStructure``, antithetic and cross-fit.
+* ``simulate_american_underlier_rows`` — the threefry (``"xla"``) engine
+  under GBM: the canonical (contract key, global row, timestep) normals,
+  flat or under a curved ``TermStructure``, antithetic and cross-fit.
+* ``simulate_{heston,merton,basket}_american_underlier_rows`` — the same
+  engine under the other dynamics, on flat market data. Their forwards,
+  ``{heston,merton,basket}_state_rows``, draw through each dynamics' own
+  stream and step helpers, so the last state row is the European
+  simulator's TERMINAL value bit for bit. Heston regresses on the variance
+  too and the arithmetic basket on its log dispersion ``ln(B_arith/B_geom)``
+  (``lsmc_backward``'s ``extra_rows``); Merton and the geometric basket are
+  single-state.
 * ``lsmc_cashflows``/``lsmc_price`` — host-facing pricing with a standard
   error, the same-path European leg and its control variate; on the
   ``"cuda"`` engine through the monitor-row and backward kernels
@@ -41,6 +48,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from spectralmc_tpu_torch.ops.basket import (
+    BasketCombine,
+    BasketSpec,
+    basket_cholesky,
+    basket_component_normals,
+    basket_euler_step,
+)
 from spectralmc_tpu_torch.ops.gbm import (
     BlackScholesContract,
     PathScheme,
@@ -50,8 +64,11 @@ from spectralmc_tpu_torch.ops.gbm import (
     _normals_source,
     _step_coeffs,
     curved,
+    row_keys,
     simulate_paths,
 )
+from spectralmc_tpu_torch.ops.heston import heston_component_normals, heston_euler_step
+from spectralmc_tpu_torch.ops.merton import merton_component_normals, merton_jump_counts
 
 
 class OptionSide(enum.Enum):
@@ -345,6 +362,7 @@ def _american_encode(
     dtype: torch.dtype,
     put: bool,
     basis_degree: int,
+    extra_rows: torch.Tensor | None = None,
     term: TermStructure | None = None,
     cross_fit: bool = False,
 ) -> torch.Tensor:
@@ -352,7 +370,8 @@ def _american_encode(
     rows (the JAX package's ``_american_encode`` after its monitor slice):
     flat one-monitor-step discounts, or under a curved ``term`` the
     per-segment discounts of the rate curve and the curve-effective encode
-    df ``exp(−r·mean(rs)·T)``."""
+    df ``exp(−r·mean(rs)·T)``. ``extra_rows``, the second state at the same
+    monitor dates, augments the regression basis."""
     disc_to_prev = None
     df_total = None
     if term is not None:
@@ -372,6 +391,7 @@ def _american_encode(
         dtype=dtype,
         put=put,
         basis_degree=basis_degree,
+        extra_rows=extra_rows,
         disc_to_prev=disc_to_prev,
         df_total=df_total,
         rows_in_log_space=True,
@@ -435,6 +455,244 @@ def simulate_american_underlier_rows(
         put=option == OptionSide.PUT,
         basis_degree=basis_degree,
         term=term,
+        cross_fit=cross_fit,
+    )
+
+
+def _monitor(rows: torch.Tensor, exercise_every: int) -> torch.Tensor:
+    """The monitor dates of ``[C, timesteps, ...]`` state rows."""
+    return rows[:, exercise_every - 1::exercise_every]
+
+
+def heston_state_rows(
+    keys: torch.Tensor,
+    sign: torch.Tensor | None,
+    *,
+    spot: torch.Tensor,
+    v0: torch.Tensor,
+    timesteps: int,
+    rows: int,
+    cols: int,
+    dtype: torch.dtype,
+    **step_consts: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(log_rows, v_rows)``, each ``[C, timesteps, rows, cols]``: the Heston
+    state after every step for row keys ``[C, rows, 2]``, drawn through the
+    European simulator's own helpers (``ops/heston.py::
+    heston_component_normals`` and ``heston_euler_step``), so the last log
+    row is its TERMINAL value bit for bit. ``spot`` and ``v0`` are ``[C, 1,
+    1]``; ``step_consts`` are ``heston_euler_step``'s coefficients."""
+    shape = (keys.shape[0], rows, cols)
+    logx = torch.zeros(shape, dtype=dtype, device=keys.device) + torch.log(spot)
+    v = torch.ones(shape, dtype=dtype, device=keys.device) * v0
+    log_rows, v_rows = [], []
+    for t in range(timesteps):
+        z_v = heston_component_normals(keys, sign, t, 0, cols, dtype)
+        z_orth = heston_component_normals(keys, sign, t, 1, cols, dtype)
+        logx, v = heston_euler_step(logx, v, z_v, z_orth, **step_consts)
+        log_rows.append(logx)
+        v_rows.append(v)
+    return torch.stack(log_rows, dim=1), torch.stack(v_rows, dim=1)
+
+
+def simulate_heston_american_underlier_rows(
+    contract_keys: torch.Tensor,
+    contracts: torch.Tensor,
+    *,
+    timesteps: int,
+    rows: int,
+    cols: int,
+    dtype: torch.dtype,
+    option: OptionSide,
+    basis_degree: int = 5,
+    exercise_every: int = 1,
+    row_offset: int = 0,
+    antithetic_half: int | None = None,
+    cross_fit: bool = False,
+) -> torch.Tensor:
+    """``[C, rows, cols]`` synthetic American underliers under Heston
+    dynamics on the threefry stream (the JAX package's function, batched).
+    ``contracts`` is ``[C, 10]`` in ``HestonContract`` order. The basis adds
+    ``[v, v·x, v²]`` of ``max(v, 0)``: under stochastic vol the continuation
+    value depends on the variance too."""
+    check_monitor_grid(timesteps, exercise_every)
+    c = contracts.to(dtype)
+    spot, strike, maturity, rate, div_yield, v0, kappa, theta, xi, rho = (
+        c[:, i, None, None] for i in range(10)
+    )
+    dt = maturity / torch.tensor(float(timesteps), dtype=dtype, device=c.device)
+    keys, sign = row_keys(contract_keys, rows=rows, row_offset=row_offset,
+                          antithetic_half=antithetic_half, dtype=dtype)
+    log_rows, v_rows = heston_state_rows(
+        keys, sign, spot=spot, v0=v0, timesteps=timesteps, rows=rows, cols=cols, dtype=dtype,
+        rate=rate, div_yield=div_yield, dt=dt, sqrt_dt=torch.sqrt(dt), rho=rho,
+        rho_bar=torch.sqrt(1.0 - rho * rho), kappa=kappa, theta=theta, xi=xi,
+    )
+    return _american_encode(
+        _monitor(log_rows, exercise_every), timesteps=timesteps, exercise_every=exercise_every,
+        strike=c[:, 1], maturity=c[:, 2], rate=c[:, 3], dt=dt[:, 0, 0], dtype=dtype,
+        put=option == OptionSide.PUT, basis_degree=basis_degree,
+        extra_rows=torch.clamp(_monitor(v_rows, exercise_every), min=0.0), cross_fit=cross_fit,
+    )
+
+
+def merton_state_rows(
+    keys: torch.Tensor,
+    sign: torch.Tensor | None,
+    *,
+    spot: torch.Tensor,
+    timesteps: int,
+    rows: int,
+    cols: int,
+    dtype: torch.dtype,
+    drift: torch.Tensor,
+    vol_sqdt: torch.Tensor,
+    lam_dt: torch.Tensor,
+    jump_mean: torch.Tensor,
+    jump_std: torch.Tensor,
+) -> torch.Tensor:
+    """``[C, timesteps, rows, cols]`` log-spot after every step under Merton
+    dynamics, drawn through the European simulator's helpers
+    (``ops/merton.py::merton_component_normals``, ``merton_jump_counts``):
+    the last row is its TERMINAL value bit for bit."""
+    logx = torch.zeros((keys.shape[0], rows, cols), dtype=dtype, device=keys.device)
+    logx = logx + torch.log(spot)
+    log_rows = []
+    for t in range(timesteps):
+        z_d = merton_component_normals(keys, sign, t, 0, cols, dtype)
+        z_j = merton_component_normals(keys, sign, t, 1, cols, dtype)
+        counts = merton_jump_counts(keys, t, lam_dt, cols, dtype)
+        jump = counts * jump_mean + jump_std * torch.sqrt(counts) * z_j
+        logx = logx + drift + vol_sqdt * z_d + jump
+        log_rows.append(logx)
+    return torch.stack(log_rows, dim=1)
+
+
+def simulate_merton_american_underlier_rows(
+    contract_keys: torch.Tensor,
+    contracts: torch.Tensor,
+    *,
+    timesteps: int,
+    rows: int,
+    cols: int,
+    dtype: torch.dtype,
+    option: OptionSide,
+    basis_degree: int = 5,
+    exercise_every: int = 1,
+    row_offset: int = 0,
+    antithetic_half: int | None = None,
+    cross_fit: bool = False,
+) -> torch.Tensor:
+    """``[C, rows, cols]`` synthetic American underliers under Merton
+    dynamics on the threefry stream (the JAX package's function, batched).
+    ``contracts`` is ``[C, 9]`` in ``MertonContract`` order. The spot alone
+    is Markov (jumps are memoryless): the plain moneyness basis."""
+    check_monitor_grid(timesteps, exercise_every)
+    c = contracts.to(dtype)
+    spot, _, maturity, rate, div_yield, vol, lam, jump_mean, jump_std = (
+        c[:, i, None, None] for i in range(9)
+    )
+    dt = maturity / torch.tensor(float(timesteps), dtype=dtype, device=c.device)
+    m = torch.exp(jump_mean + 0.5 * jump_std * jump_std) - 1.0
+    keys, sign = row_keys(contract_keys, rows=rows, row_offset=row_offset,
+                          antithetic_half=antithetic_half, dtype=dtype)
+    log_rows = merton_state_rows(
+        keys, sign, spot=spot, timesteps=timesteps, rows=rows, cols=cols, dtype=dtype,
+        drift=(rate - div_yield - lam * m - 0.5 * vol * vol) * dt,
+        vol_sqdt=vol * torch.sqrt(dt), lam_dt=lam * dt, jump_mean=jump_mean, jump_std=jump_std,
+    )
+    return _american_encode(
+        _monitor(log_rows, exercise_every), timesteps=timesteps, exercise_every=exercise_every,
+        strike=c[:, 1], maturity=c[:, 2], rate=c[:, 3], dt=dt[:, 0, 0], dtype=dtype,
+        put=option == OptionSide.PUT, basis_degree=basis_degree, cross_fit=cross_fit,
+    )
+
+
+def basket_state_rows(
+    keys: torch.Tensor,
+    sign: torch.Tensor | None,
+    *,
+    log_spots: torch.Tensor,
+    timesteps: int,
+    rows: int,
+    cols: int,
+    dtype: torch.dtype,
+    drift: torch.Tensor,
+    sig_sqdt: torch.Tensor,
+    chol: torch.Tensor,
+    weights: torch.Tensor,
+    geometric: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(lb_rows, disp_rows)``, each ``[C, timesteps, rows, cols]``: the log
+    basket value after every step and, for the arithmetic combine, the log
+    dispersion ``ln(B_arith/B_geom)`` (zeros for the geometric one, whose
+    ``ln B`` is Markov), drawn through the European simulator's helpers
+    (``ops/basket.py::basket_component_normals``, ``basket_euler_step``).
+    ``log_spots``, ``drift`` and ``sig_sqdt`` are ``[A, C, 1, 1]``,
+    ``weights`` ``[A, 1, 1, 1]``, ``chol`` ``[A, A]``."""
+    a_n = chol.shape[0]
+    logx = torch.zeros((a_n, keys.shape[0], rows, cols), dtype=dtype, device=keys.device)
+    logx = logx + log_spots
+    lb_rows, disp_rows = [], []
+    for t in range(timesteps):
+        z = basket_component_normals(keys, sign, t, a_n, cols, dtype)
+        logx = basket_euler_step(logx, z, drift=drift, sig_sqdt=sig_sqdt, chol=chol)
+        lg = torch.sum(weights * logx, dim=0)  # the log geometric basket
+        if geometric:
+            lb_rows.append(lg)
+            disp_rows.append(torch.zeros_like(lg))
+        else:
+            lb = torch.log(torch.sum(weights * torch.exp(logx), dim=0))
+            lb_rows.append(lb)
+            disp_rows.append(lb - lg)  # ln(B_arith/B_geom) >= 0 (Jensen)
+    return torch.stack(lb_rows, dim=1), torch.stack(disp_rows, dim=1)
+
+
+def simulate_basket_american_underlier_rows(
+    contract_keys: torch.Tensor,
+    contracts: torch.Tensor,
+    *,
+    spec: BasketSpec,
+    timesteps: int,
+    rows: int,
+    cols: int,
+    dtype: torch.dtype,
+    option: OptionSide,
+    basis_degree: int = 5,
+    exercise_every: int = 1,
+    row_offset: int = 0,
+    antithetic_half: int | None = None,
+    cross_fit: bool = False,
+) -> torch.Tensor:
+    """``[C, rows, cols]`` synthetic American underliers under basket
+    dynamics on the threefry stream (the JAX package's function, batched):
+    exercise compares the strike with the combined basket value. The
+    geometric combine's ``ln B`` is Markov (the plain basis is the exact
+    state); the arithmetic combine regresses on the log dispersion too."""
+    check_monitor_grid(timesteps, exercise_every)
+    c = contracts.to(dtype)
+    spot, _, maturity, rate, div_yield, vol = (c[:, i, None, None] for i in range(6))
+    dt = maturity / torch.tensor(float(timesteps), dtype=dtype, device=c.device)
+
+    def per_asset(values: tuple[float, ...]) -> torch.Tensor:
+        return torch.tensor(values, dtype=dtype, device=c.device)[:, None, None, None]
+
+    sigmas = vol * per_asset(spec.vol_multipliers)
+    geometric = spec.combine == BasketCombine.GEOMETRIC
+    keys, sign = row_keys(contract_keys, rows=rows, row_offset=row_offset,
+                          antithetic_half=antithetic_half, dtype=dtype)
+    lb_rows, disp_rows = basket_state_rows(
+        keys, sign, log_spots=torch.log(spot * per_asset(spec.spot_multipliers)),
+        timesteps=timesteps, rows=rows, cols=cols, dtype=dtype,
+        drift=(rate - div_yield - 0.5 * sigmas * sigmas) * dt, sig_sqdt=sigmas * torch.sqrt(dt),
+        chol=torch.as_tensor(basket_cholesky(spec), dtype=dtype, device=c.device),
+        weights=per_asset(spec.weights), geometric=geometric,
+    )
+    return _american_encode(
+        _monitor(lb_rows, exercise_every), timesteps=timesteps, exercise_every=exercise_every,
+        strike=c[:, 1], maturity=c[:, 2], rate=c[:, 3], dt=dt[:, 0, 0], dtype=dtype,
+        put=option == OptionSide.PUT, basis_degree=basis_degree,
+        extra_rows=None if geometric else _monitor(disp_rows, exercise_every),
         cross_fit=cross_fit,
     )
 
@@ -725,14 +983,20 @@ def bermudan_grid_price(
 __all__ = [
     "AmericanPrice",
     "OptionSide",
+    "basket_state_rows",
     "bermudan_grid_price",
     "bermudan_tree_price",
     "check_monitor_grid",
     "cross_fit_col_mask",
     "encode_monitor_prices",
+    "heston_state_rows",
     "lsmc_backward",
     "lsmc_cashflows",
     "lsmc_price",
+    "merton_state_rows",
     "simulate_american_underlier_rows",
+    "simulate_basket_american_underlier_rows",
+    "simulate_heston_american_underlier_rows",
+    "simulate_merton_american_underlier_rows",
     "split_fit_mask",
 ]

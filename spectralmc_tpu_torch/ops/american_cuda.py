@@ -1,17 +1,24 @@
-"""The ``"cuda"`` engine's American (LSMC) kernels: monitor-row GBM and the backward.
+"""The ``"cuda"`` engine's American (LSMC) kernels: the monitor-row forwards and the backward.
 
 ``csrc/american_paths.cu`` replaces three kernels of the JAX package:
-``ops/gbm_pallas.py::_gbm_monitor_block_kernel`` (the monitor-row forward)
-and ``ops/lsmc_pallas.py::_fused_backward_kernel`` and
-``_streamed_backward_kernel`` (one CUDA backward serves both); its header
-states what it keeps, what it drops and what bounds it. This module holds
+``ops/gbm_pallas.py::_gbm_monitor_block_kernel`` (the GBM monitor-row
+forward) and ``ops/lsmc_pallas.py::_fused_backward_kernel`` and
+``_streamed_backward_kernel`` (one CUDA backward serves both).
+``csrc/american_dynamics.cu`` replaces three more:
+``_heston_monitor_block_kernel``, ``_merton_monitor_block_kernel`` and
+``_basket_monitor_block_kernel``. Each header states what it keeps, what it
+drops and what bounds it. This module holds
 
 * the public wrappers ``simulate_american_rows_cuda`` (``[C, n_monitor,
-  rows, cols]`` price rows) and ``lsmc_backward_cuda`` (``[C, rows, cols]``
-  synthetic underliers ``u = K − cf/df``): a CPU tensor goes to the plain
-  twin, a CUDA tensor launches the kernel or raises. There is no fallback.
-* the plain twins ``simulate_american_rows_cuda_plain`` (the same Philox
-  words and float32 arithmetic in torch ops; ``words=0`` replays the TPU
+  rows, cols]`` GBM price rows), ``simulate_heston_american_rows_cuda``
+  (price and ``max(v, 0)`` rows), ``simulate_merton_american_rows_cuda``
+  (price rows), ``simulate_basket_american_rows_cuda`` (basket-value rows
+  and, for the arithmetic combine, log-dispersion rows) and
+  ``lsmc_backward_cuda`` (``[C, rows, cols]`` synthetic underliers ``u = K −
+  cf/df``): a CPU tensor goes to the plain twin, a CUDA tensor launches the
+  kernel or raises. There is no fallback.
+* the plain twins ``…_cuda_plain`` of the forwards (the same Philox words
+  and float32 arithmetic in torch ops; ``words=0`` replays the TPU
   interpreter's zero bits) and ``lsmc_backward_cuda_plain`` (the same lagged
   schedule and the same reduction order: per thread 16 paths in order, a
   halving tree over the 256 threads of a block, the blocks' partials summed
@@ -19,11 +26,14 @@ states what it keeps, what it drops and what bounds it. This module holds
   ``ops/american.py::_ridge_chol_solve``), so its β and every exercise
   decision equal the kernel's bit for bit.
 * ``simulate_american_underlier_rows_cuda`` — the engine's American
-  simulator: the forward kernel, then ``monitor_underliers``: the CUDA
-  backward or the torch estimator
+  simulator: the forward kernel of the sim's dynamics, then
+  ``monitor_underliers``: the CUDA backward or the torch estimator
   (``ops/american.py::encode_monitor_prices``), as ``cuda_backward_version``
   decides. The engine runs the CUDA backward wherever it computes the
-  estimator asked for; cross-fit and curved terms take the torch one.
+  estimator asked for: the classic single-state one (GBM, Merton, the
+  geometric basket, whose rows are prices). Cross-fit, curved terms and the
+  two-state estimator (Heston's variance, the arithmetic basket's
+  dispersion) take the torch one.
 * ``LSMC_BACKWARD_VERSIONS``, ``cuda_backward_version`` and
   ``resolve_lsmc_backward`` — which backward ran is checkpoint state: its
   reduction order decides near-boundary exercise bits. 0 is the torch
@@ -31,7 +41,8 @@ states what it keeps, what it drops and what bounds it. This module holds
   package's kernels (1 fused, 2 streamed), which the port cannot run.
 
 Launch counts go to ``gbm_cuda.LAUNCHES`` and ``LAUNCHES_BY_BRANCH``:
-``american_gbm`` per forward launch, and per backward (its ``n_monitor``
+``american_gbm``, ``american_heston``, ``american_merton`` and
+``american_basket`` per forward launch, and per backward (its ``n_monitor``
 sweeps and ``n_monitor − 1`` solves) ``lsmc_backward`` at up to 2^20 paths a
 contract, ``lsmc_backward_streamed`` past that: the shapes of the JAX
 package's two kernels.
@@ -45,6 +56,7 @@ import math
 import torch
 
 from spectralmc_tpu_torch.ops.american import OptionSide, _ridge_chol_solve, check_monitor_grid
+from spectralmc_tpu_torch.ops.basket import BasketCombine, BasketSpec, basket_cholesky
 from spectralmc_tpu_torch.ops.gbm import (
     AMERICAN_PAYOFFS,
     ModelKind,
@@ -54,6 +66,7 @@ from spectralmc_tpu_torch.ops.gbm import (
     resolve_implementation,
 )
 from spectralmc_tpu_torch.ops.gbm_cuda import (
+    MAX_BASKET_ASSETS,
     MAX_MONITOR_DATES,
     _check,
     _count,
@@ -62,6 +75,8 @@ from spectralmc_tpu_torch.ops.gbm_cuda import (
     _pair_draws,
     _sinpi,
     _stream,
+    uniform_closed,
+    uniform_open,
 )
 
 LSMC_BACKWARD_VERSIONS: dict[str, int] = {"cuda": 3}
@@ -74,17 +89,30 @@ _SQRT2 = math.sqrt(2.0)
 
 
 def cuda_backward_version(
-    *, dtype: torch.dtype, n_monitor: int, cross_fit: bool = False, term: bool = False
+    *, dtype: torch.dtype, n_monitor: int, cross_fit: bool = False, term: bool = False,
+    two_state: bool = False,
 ) -> int:
     """The backward the ``"cuda"`` engine runs on its monitor rows:
     ``LSMC_BACKWARD_VERSIONS["cuda"]`` where the CUDA backward computes the
     estimator asked for — the classic single recursion on one state
-    variable with flat discounting (no cross-fitted pair, no curved term),
-    float32, at least 2 monitor dates; any path count, basis degree 1–8, put
-    or call — else 0, the torch estimator."""
-    if dtype == torch.float32 and n_monitor >= 2 and not cross_fit and not term:
+    variable (no second state row set, ``two_state``) with flat discounting
+    (no cross-fitted pair, no curved term), float32, at least 2 monitor
+    dates; any path count, basis degree 1–8, put or call — else 0, the torch
+    estimator."""
+    if (dtype == torch.float32 and n_monitor >= 2 and not cross_fit and not term
+            and not two_state):
         return LSMC_BACKWARD_VERSIONS["cuda"]
     return 0
+
+
+def two_state(sim: SimulationParams) -> bool:
+    """Whether the sim's LSMC regression takes a second state row set:
+    Heston's variance and the arithmetic basket's log dispersion; GBM,
+    Merton and the geometric basket are Markov in the price alone."""
+    if sim.model == ModelKind.HESTON:
+        return True
+    return (sim.model == ModelKind.BASKET_GBM and sim.basket is not None
+            and sim.basket.combine == BasketCombine.ARITHMETIC)
 
 
 def resolve_lsmc_backward(sim: SimulationParams, *, rows: int) -> int:
@@ -92,11 +120,13 @@ def resolve_lsmc_backward(sim: SimulationParams, *, rows: int) -> int:
     the torch estimator, ``LSMC_BACKWARD_VERSIONS["cuda"]`` = the CUDA
     backward — for the engine's simulator (``ops/dispatch.py``) and the
     trainer's recorded ``lsmc_backward_version``: ``cuda_backward_version``
-    wherever the ``"cuda"`` engine runs a GBM American forward
-    (``resolve_implementation``). ``lsmc_fused_backward`` is the JAX
-    package's request for its TPU kernels; the config gates hold it to the
-    JAX package's rules, and it routes nothing here."""
-    if sim.payoff not in AMERICAN_PAYOFFS or sim.model != ModelKind.GBM or rows <= 0:
+    wherever the ``"cuda"`` engine runs an American forward
+    (``resolve_implementation``). So GBM, Merton and geometric baskets take
+    the CUDA backward, Heston and arithmetic baskets the torch estimator.
+    ``lsmc_fused_backward`` is the JAX package's request for its TPU
+    kernels; the config gates hold it to the JAX package's rules, and it
+    routes nothing here."""
+    if sim.payoff not in AMERICAN_PAYOFFS or rows <= 0:
         return 0
     if resolve_implementation(sim) != SimImplementation.CUDA:
         return 0
@@ -105,6 +135,7 @@ def resolve_lsmc_backward(sim: SimulationParams, *, rows: int) -> int:
         n_monitor=sim.timesteps // sim.lsmc_exercise_every,
         cross_fit=sim.lsmc_cross_fit,
         term=curved(sim.term) is not None,
+        two_state=two_state(sim),
     )
 
 
@@ -162,6 +193,188 @@ def simulate_american_rows_cuda_plain(
             logx = (logx + drift) + vol_sdt * z
         out[:, d] = torch.exp(logx)
     return out
+
+
+def _monitor_out(params: torch.Tensor, monitors: int, rows: int, cols: int) -> torch.Tensor:
+    return torch.empty((params.shape[0], monitors, rows, cols), dtype=torch.float32,
+                       device=params.device)
+
+
+def simulate_heston_american_rows_cuda_plain(
+    params: torch.Tensor,
+    key_words: torch.Tensor,
+    *,
+    timesteps: int,
+    rows: int,
+    cols: int,
+    exercise_every: int,
+    antithetic_half: int | None = None,
+    row_offset: int = 0,
+    words: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Heston monitor kernel's plain twin: ``(price, var)``, each ``[C,
+    timesteps // every, rows, cols]`` float32, ``exp(log S)`` and ``max(v,
+    0)`` at the monitor dates. ``params`` is ``[C, 10]``; the step is
+    ``dynamics_cuda.simulate_heston_rows_cuda_plain``'s, one draw a step.
+    ``words`` (tests only) replaces the generator: a tensor broadcastable to
+    ``[C, rows, cols, calls, 4]``."""
+    _check(params, key_words, 10)
+    check_monitor_grid(timesteps, exercise_every)
+    sign, call = _stream(
+        params, key_words, rows=rows, cols=cols, calls=-(-timesteps // 2),
+        antithetic_half=antithetic_half, row_offset=row_offset, words=words,
+    )
+    uniforms = _pair_draws(call)
+    spot, _, maturity, rate, div, v0, kappa, theta, xi, rho = (
+        params[:, i, None, None] for i in range(10)
+    )
+    dt = maturity / float(timesteps)
+    rho_bar = torch.sqrt(1.0 - rho * rho)
+    rq_dt = (rate - div) * dt
+    kdt = kappa * dt
+    ktheta_dt = kappa * theta * dt
+    shape = (params.shape[0], rows, cols)
+    logx = torch.log(spot).expand(shape)
+    v = v0.expand(shape)
+    monitors = timesteps // exercise_every
+    price = _monitor_out(params, monitors, rows, cols)
+    var = _monitor_out(params, monitors, rows, cols)
+    for j in range(timesteps):
+        u1, u2 = uniforms(j)
+        rad = torch.sqrt(-2.0 * torch.log(u1))
+        z_v = sign * (rad * _cospi(2.0 * u2))
+        z_s = rho * z_v + rho_bar * (sign * (rad * _sinpi(2.0 * u2)))
+        v_plus = torch.clamp(v, min=0.0)
+        sv = torch.sqrt(v_plus * dt)
+        logx = ((logx + rq_dt) - (0.5 * v_plus) * dt) + sv * z_s
+        v = ((v + ktheta_dt) - kdt * v_plus) + (xi * sv) * z_v
+        if (j + 1) % exercise_every == 0:
+            price[:, j // exercise_every] = torch.exp(logx)
+            var[:, j // exercise_every] = torch.clamp(v, min=0.0)
+    return price, var
+
+
+def simulate_merton_american_rows_cuda_plain(
+    params: torch.Tensor,
+    key_words: torch.Tensor,
+    *,
+    timesteps: int,
+    rows: int,
+    cols: int,
+    exercise_every: int,
+    antithetic_half: int | None = None,
+    row_offset: int = 0,
+    words: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The Merton monitor kernel's plain twin: ``[C, timesteps // every,
+    rows, cols]`` float32 prices at the monitor dates. ``params`` is ``[C,
+    9]``; the step is ``dynamics_cuda.simulate_merton_rows_cuda_plain``'s,
+    one Philox call a step (``words``, tests only, broadcastable to ``[C,
+    rows, cols, timesteps, 4]``)."""
+    from spectralmc_tpu_torch.ops.dynamics_cuda import merton_levels, poisson_counts
+
+    _check(params, key_words, 9)
+    check_monitor_grid(timesteps, exercise_every)
+    sign, call = _stream(
+        params, key_words, rows=rows, cols=cols, calls=timesteps,
+        antithetic_half=antithetic_half, row_offset=row_offset, words=words,
+    )
+    spot, _, maturity, rate, div, vol, lam, jump_mean, jump_std = (
+        params[:, i, None, None] for i in range(9)
+    )
+    dt = maturity / float(timesteps)
+    vol_sdt = vol * torch.sqrt(dt)
+    m = torch.exp(jump_mean + 0.5 * jump_std * jump_std) - 1.0
+    drift = (rate - div - lam * m - 0.5 * vol * vol) * dt
+    levels = merton_levels(params, timesteps)[:, None, None, :]
+    logx = torch.log(spot).expand(params.shape[0], rows, cols)
+    price = _monitor_out(params, timesteps // exercise_every, rows, cols)
+    for t in range(timesteps):
+        w = call(t)
+        rad = torch.sqrt(-2.0 * torch.log(uniform_open(w[0])))
+        u2 = uniform_closed(w[1])
+        z_d = sign * (rad * _cospi(2.0 * u2))
+        z_j = sign * (rad * _sinpi(2.0 * u2))
+        cnt = poisson_counts(uniform_closed(w[2]), levels)
+        jump = cnt * jump_mean + (jump_std * torch.sqrt(cnt)) * z_j
+        logx = ((logx + drift) + vol_sdt * z_d) + jump
+        if (t + 1) % exercise_every == 0:
+            price[:, t // exercise_every] = torch.exp(logx)
+    return price
+
+
+def simulate_basket_american_rows_cuda_plain(
+    params: torch.Tensor,
+    key_words: torch.Tensor,
+    *,
+    spec: BasketSpec,
+    timesteps: int,
+    rows: int,
+    cols: int,
+    exercise_every: int,
+    antithetic_half: int | None = None,
+    row_offset: int = 0,
+    words: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The basket monitor kernel's plain twin: ``(price, disp)``, each ``[C,
+    timesteps // every, rows, cols]`` float32: the basket value at the
+    monitor dates and, for the arithmetic combine, ``ln B − Σ wᵢ·log xᵢ``
+    (None for the geometric one). ``params`` is ``[C, 6]``; the step is
+    ``basket_cuda.simulate_basket_rows_cuda_plain``'s (``⌈A/2⌉`` draws a
+    step, the Cholesky mix as a chain over the lower row)."""
+    _check(params, key_words)
+    check_monitor_grid(timesteps, exercise_every)
+    if not 1 <= spec.n_assets <= MAX_BASKET_ASSETS:
+        raise ValueError(
+            f"the basket kernel takes 1..{MAX_BASKET_ASSETS} assets, got {spec.n_assets}")
+    a_n = spec.n_assets
+    per_step = (a_n + 1) // 2
+    sign, call = _stream(
+        params, key_words, rows=rows, cols=cols, calls=-(-timesteps * per_step // 2),
+        antithetic_half=antithetic_half, row_offset=row_offset, words=words,
+    )
+    uniforms = _pair_draws(call)
+    spot, _, maturity, rate, div, vol = (params[:, i, None, None] for i in range(6))
+    dt = maturity / float(timesteps)
+    sqrt_dt = torch.sqrt(dt)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
+    sig_sdt = [vol * f32(m) * sqrt_dt for m in spec.vol_multipliers]
+    drift = [(rate - div - 0.5 * (vol * f32(m)) ** 2) * dt for m in spec.vol_multipliers]
+    chol = basket_cholesky(spec)
+    weights = [f32(w) for w in spec.weights]
+    geometric = spec.combine == BasketCombine.GEOMETRIC
+    shape = (params.shape[0], rows, cols)
+    logx = [torch.log(spot * f32(m)).expand(shape) for m in spec.spot_multipliers]
+    monitors = timesteps // exercise_every
+    price = _monitor_out(params, monitors, rows, cols)
+    disp = None if geometric else _monitor_out(params, monitors, rows, cols)
+    j = 0
+    for t in range(timesteps):
+        z: list[torch.Tensor] = []
+        for _ in range(per_step):
+            u1, u2 = uniforms(j)
+            j += 1
+            rad = torch.sqrt(-2.0 * torch.log(u1))
+            z.append(sign * (rad * _cospi(2.0 * u2)))
+            z.append(sign * (rad * _sinpi(2.0 * u2)))
+        for a in range(a_n):
+            zm = f32(chol[a][0]) * z[0]
+            for b in range(1, a + 1):
+                zm = zm + f32(chol[a][b]) * z[b]
+            logx[a] = (logx[a] + drift[a]) + sig_sdt[a] * zm
+        if (t + 1) % exercise_every == 0:
+            lg = weights[0] * logx[0]
+            for a in range(1, a_n):
+                lg = lg + weights[a] * logx[a]
+            if geometric:
+                price[:, t // exercise_every] = torch.exp(lg)
+                continue
+            value = weights[0] * torch.exp(logx[0])
+            for a in range(1, a_n):
+                value = value + weights[a] * torch.exp(logx[a])
+            price[:, t // exercise_every] = value
+            disp[:, t // exercise_every] = torch.log(value) - lg
+    return price, disp
 
 
 def _blocked(t: torch.Tensor, blocks: int, fill: torch.Tensor) -> torch.Tensor:
@@ -296,6 +509,8 @@ def _check_backward(price_rows: torch.Tensor, strike: torch.Tensor, disc: torch.
 
 # ops/_build.py::load_library's arguments for this module's kernels
 LIBRARY = ("american_paths", ("american_paths.cu",), ("path_stream.cuh",))
+DYNAMICS_LIBRARY = ("american_dynamics", ("american_dynamics.cu",),
+                    ("basket_spec.cuh", "path_stream.cuh"))
 
 
 def _written_in_full(*shape: int, device: torch.device) -> torch.Tensor:
@@ -323,6 +538,43 @@ def _kernel() -> ctypes.CDLL:
     return lib
 
 
+def _dynamics_kernel() -> ctypes.CDLL:
+    from spectralmc_tpu_torch.ops._build import load_library
+
+    lib = load_library(*DYNAMICS_LIBRARY).lib
+    ll, i, vp = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
+    lib.american_heston_launch.argtypes = [vp, vp, vp, vp, i, ll, ll, i, i, ll, ll, vp]
+    lib.american_merton_launch.argtypes = [vp, vp, vp, vp, i, ll, ll, i, i, ll, ll, vp]
+    lib.american_basket_launch.argtypes = [vp, vp, vp, vp, vp, i, ll, ll, i, i, i, i, ll, ll,
+                                           vp]
+    for fn in (lib.american_heston_launch, lib.american_merton_launch,
+               lib.american_basket_launch):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _monitor_args(
+    params: torch.Tensor, key_words: torch.Tensor, *, timesteps: int, rows: int, cols: int,
+    exercise_every: int,
+) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Checked ``(params, int32 key words, monitor count)`` for a monitor
+    kernel's launch on the card."""
+    check_monitor_grid(timesteps, exercise_every)
+    monitors = timesteps // exercise_every
+    if monitors > MAX_MONITOR_DATES:
+        raise ValueError(f"at most {MAX_MONITOR_DATES} monitor dates, got {monitors}")
+    if rows <= 0 or cols <= 0:
+        raise ValueError(f"need positive rows/cols, got {rows}/{cols}")
+    p, words, _ = _device_args(params, key_words, timesteps, 1, 1)  # checked inputs
+    return p, words, monitors
+
+
+def _launched(name: str, status: int) -> None:
+    if status != 0:
+        raise RuntimeError(f"{name}_launch failed: cudaError {status}")
+    _count(name)
+
+
 def simulate_american_rows_cuda(
     params: torch.Tensor,
     key_words: torch.Tensor,
@@ -343,23 +595,149 @@ def simulate_american_rows_cuda(
                   antithetic_half=antithetic_half, row_offset=row_offset)
     if params.device.type == "cpu":
         return simulate_american_rows_cuda_plain(params, key_words, **kwargs)
-    check_monitor_grid(timesteps, exercise_every)
-    monitors = timesteps // exercise_every
-    if monitors > MAX_MONITOR_DATES:
-        raise ValueError(f"at most {MAX_MONITOR_DATES} monitor dates, got {monitors}")
-    if rows <= 0 or cols <= 0:
-        raise ValueError(f"need positive rows/cols, got {rows}/{cols}")
-    p, words, _ = _device_args(params, key_words, timesteps, 1, 1)  # checked inputs
+    p, words, monitors = _monitor_args(params, key_words, timesteps=timesteps, rows=rows,
+                                       cols=cols, exercise_every=exercise_every)
     out = _written_in_full(p.shape[0], monitors, rows, cols, device=p.device)
-    status = _kernel().american_gbm_launch(
+    _launched("american_gbm", _kernel().american_gbm_launch(
         p.data_ptr(), words.data_ptr(), out.data_ptr(), p.shape[0], rows, cols, timesteps,
         exercise_every, antithetic_half or 0, row_offset,
         torch.cuda.current_stream(p.device).cuda_stream,
-    )
-    if status != 0:
-        raise RuntimeError(f"american_gbm_launch failed: cudaError {status}")
-    _count("american_gbm")
+    ))
     return out
+
+
+def simulate_heston_american_rows_cuda(
+    params: torch.Tensor,
+    key_words: torch.Tensor,
+    *,
+    timesteps: int,
+    rows: int,
+    cols: int,
+    exercise_every: int,
+    antithetic_half: int | None = None,
+    row_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Heston monitor-date ``(price, max(v, 0))`` rows, each ``[C, timesteps
+    // every, rows, cols]`` float32, on the Philox stream
+    (``american_heston`` v1): CPU tensors run the plain twin, CUDA tensors
+    launch the Heston monitor kernel (one launch per contract batch) or
+    raise."""
+    _check(params, key_words, 10)
+    kwargs = dict(timesteps=timesteps, rows=rows, cols=cols, exercise_every=exercise_every,
+                  antithetic_half=antithetic_half, row_offset=row_offset)
+    if params.device.type == "cpu":
+        return simulate_heston_american_rows_cuda_plain(params, key_words, **kwargs)
+    p, words, monitors = _monitor_args(params, key_words, timesteps=timesteps, rows=rows,
+                                       cols=cols, exercise_every=exercise_every)
+    price = _written_in_full(p.shape[0], monitors, rows, cols, device=p.device)
+    var = _written_in_full(p.shape[0], monitors, rows, cols, device=p.device)
+    _launched("american_heston", _dynamics_kernel().american_heston_launch(
+        p.data_ptr(), words.data_ptr(), price.data_ptr(), var.data_ptr(), p.shape[0], rows,
+        cols, timesteps, exercise_every, antithetic_half or 0, row_offset,
+        torch.cuda.current_stream(p.device).cuda_stream,
+    ))
+    return price, var
+
+
+def simulate_merton_american_rows_cuda(
+    params: torch.Tensor,
+    key_words: torch.Tensor,
+    *,
+    timesteps: int,
+    rows: int,
+    cols: int,
+    exercise_every: int,
+    antithetic_half: int | None = None,
+    row_offset: int = 0,
+) -> torch.Tensor:
+    """Merton monitor-date prices ``[C, timesteps // every, rows, cols]``
+    float32 on the Philox stream (``american_merton_jump`` v1): CPU tensors
+    run the plain twin, CUDA tensors launch the Merton monitor kernel (one
+    launch per contract batch, after the ``[C, 16]`` level table) or
+    raise."""
+    from spectralmc_tpu_torch.ops.dynamics_cuda import merton_levels
+
+    _check(params, key_words, 9)
+    kwargs = dict(timesteps=timesteps, rows=rows, cols=cols, exercise_every=exercise_every,
+                  antithetic_half=antithetic_half, row_offset=row_offset)
+    if params.device.type == "cpu":
+        return simulate_merton_american_rows_cuda_plain(params, key_words, **kwargs)
+    p, words, monitors = _monitor_args(params, key_words, timesteps=timesteps, rows=rows,
+                                       cols=cols, exercise_every=exercise_every)
+    levels = merton_levels(p, timesteps)
+    price = _written_in_full(p.shape[0], monitors, rows, cols, device=p.device)
+    _launched("american_merton", _dynamics_kernel().american_merton_launch(
+        p.data_ptr(), words.data_ptr(), levels.data_ptr(), price.data_ptr(), p.shape[0], rows,
+        cols, timesteps, exercise_every, antithetic_half or 0, row_offset,
+        torch.cuda.current_stream(p.device).cuda_stream,
+    ))
+    return price
+
+
+def simulate_basket_american_rows_cuda(
+    params: torch.Tensor,
+    key_words: torch.Tensor,
+    *,
+    spec: BasketSpec,
+    timesteps: int,
+    rows: int,
+    cols: int,
+    exercise_every: int,
+    antithetic_half: int | None = None,
+    row_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Basket monitor-date ``(value, dispersion)`` rows, each ``[C, timesteps
+    // every, rows, cols]`` float32 (the dispersion None for the geometric
+    combine), on the Philox stream (``american_basket_gbm`` v1): CPU tensors
+    run the plain twin, CUDA tensors launch the basket monitor kernel (one
+    launch per contract batch) or raise."""
+    from spectralmc_tpu_torch.ops.basket_cuda import spec_table
+
+    _check(params, key_words)
+    kwargs = dict(spec=spec, timesteps=timesteps, rows=rows, cols=cols,
+                  exercise_every=exercise_every, antithetic_half=antithetic_half,
+                  row_offset=row_offset)
+    if params.device.type == "cpu":
+        return simulate_basket_american_rows_cuda_plain(params, key_words, **kwargs)
+    if not 1 <= spec.n_assets <= MAX_BASKET_ASSETS:
+        raise ValueError(
+            f"the basket kernel takes 1..{MAX_BASKET_ASSETS} assets, got {spec.n_assets}")
+    p, words, monitors = _monitor_args(params, key_words, timesteps=timesteps, rows=rows,
+                                       cols=cols, exercise_every=exercise_every)
+    geometric = spec.combine == BasketCombine.GEOMETRIC
+    price = _written_in_full(p.shape[0], monitors, rows, cols, device=p.device)
+    disp = None if geometric else _written_in_full(p.shape[0], monitors, rows, cols,
+                                                   device=p.device)
+    table = spec_table(spec)  # host memory: the kernel takes it by value
+    _launched("american_basket", _dynamics_kernel().american_basket_launch(
+        p.data_ptr(), words.data_ptr(), table.ctypes.data, price.data_ptr(),
+        None if disp is None else disp.data_ptr(), p.shape[0], rows, cols, timesteps,
+        exercise_every, spec.n_assets, int(geometric), antithetic_half or 0, row_offset,
+        torch.cuda.current_stream(p.device).cuda_stream,
+    ))
+    return price, disp
+
+
+def american_rows_cuda(
+    params: torch.Tensor,
+    key_words: torch.Tensor,
+    *,
+    model: ModelKind,
+    spec: BasketSpec | None = None,
+    **kwargs: object,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """``(price_rows, extra_rows)`` of the monitor kernel of ``model``:
+    ``extra_rows`` is the regression's second state (Heston's ``max(v, 0)``,
+    the arithmetic basket's log dispersion) or None."""
+    if model == ModelKind.GBM:
+        return simulate_american_rows_cuda(params, key_words, **kwargs), None
+    if model == ModelKind.HESTON:
+        return simulate_heston_american_rows_cuda(params, key_words, **kwargs)
+    if model == ModelKind.MERTON_JUMP:
+        return simulate_merton_american_rows_cuda(params, key_words, **kwargs), None
+    if model == ModelKind.BASKET_GBM:
+        return simulate_basket_american_rows_cuda(params, key_words, spec=spec, **kwargs)
+    raise ValueError(f"no monitor kernel for model={model.value!r}")
 
 
 def lsmc_backward_cuda(
@@ -423,22 +801,26 @@ def monitor_underliers(
     exercise_every: int,
     option: OptionSide,
     basis_degree: int,
+    extra_rows: torch.Tensor | None = None,
     cross_fit: bool = False,
     backward: int = 0,
 ) -> torch.Tensor:
     """``[C, rows, cols]`` synthetic American underliers ``u = K − cf/df``
-    from the monitor-row kernel's ``[C, n_monitor, rows, cols]`` rows by
-    ``backward``: ``LSMC_BACKWARD_VERSIONS["cuda"]`` runs the CUDA backward,
-    0 the torch estimator (which also takes ``cross_fit``). Callers pass
-    ``cuda_backward_version``'s value; nothing here re-routes."""
+    from a monitor kernel's ``[C, n_monitor, rows, cols]`` price rows (and
+    its second state ``extra_rows``, if any) by ``backward``:
+    ``LSMC_BACKWARD_VERSIONS["cuda"]`` runs the CUDA backward, 0 the torch
+    estimator (which also takes ``extra_rows`` and ``cross_fit``). Callers
+    pass ``cuda_backward_version``'s value; nothing here re-routes. Every
+    contract layout has strike, maturity and rate at slots 1–3."""
     from spectralmc_tpu_torch.ops.american import encode_monitor_prices
 
     disc, df = monitor_discounts(params, timesteps=timesteps, exercise_every=exercise_every)
     put = option == OptionSide.PUT
     if backward == LSMC_BACKWARD_VERSIONS["cuda"]:
-        if cross_fit:
-            raise ValueError("the CUDA backward runs the classic estimator; cross-fit runs "
-                             "the torch estimator (backward 0)")
+        if cross_fit or extra_rows is not None:
+            raise ValueError("the CUDA backward runs the classic single-state estimator; "
+                             "cross-fit and a second state run the torch estimator "
+                             "(backward 0)")
         return lsmc_backward_cuda(price_rows, strike=params[:, 1].contiguous(), disc=disc,
                                   df=df, put=put, basis_degree=basis_degree)
     if backward != 0:
@@ -446,7 +828,7 @@ def monitor_underliers(
     return encode_monitor_prices(
         price_rows, strike=params[:, 1], maturity=params[:, 2], rate=params[:, 3],
         disc_monitor=disc, dtype=torch.float32, put=put, basis_degree=basis_degree,
-        cross_fit=cross_fit,
+        extra_rows=extra_rows, cross_fit=cross_fit,
     )
 
 
@@ -458,6 +840,8 @@ def simulate_american_underlier_rows_cuda(
     rows: int,
     cols: int,
     option: OptionSide,
+    model: ModelKind = ModelKind.GBM,
+    spec: BasketSpec | None = None,
     basis_degree: int = 5,
     exercise_every: int = 1,
     antithetic_half: int | None = None,
@@ -466,19 +850,22 @@ def simulate_american_underlier_rows_cuda(
     backward: int = 0,
 ) -> torch.Tensor:
     """``[C, rows, cols]`` synthetic American underliers on the ``"cuda"``
-    engine: the monitor-row kernel's rows, then ``monitor_underliers``."""
-    price_rows = simulate_american_rows_cuda(
-        params, key_words, timesteps=timesteps, rows=rows, cols=cols,
+    engine: the monitor kernel of ``model`` (``spec``: a basket's), then
+    ``monitor_underliers`` on its rows."""
+    price_rows, extra_rows = american_rows_cuda(
+        params, key_words, model=model, spec=spec, timesteps=timesteps, rows=rows, cols=cols,
         exercise_every=exercise_every, antithetic_half=antithetic_half, row_offset=row_offset,
     )
     return monitor_underliers(
         price_rows, params, timesteps=timesteps, exercise_every=exercise_every, option=option,
-        basis_degree=basis_degree, cross_fit=cross_fit, backward=backward,
+        basis_degree=basis_degree, extra_rows=extra_rows, cross_fit=cross_fit,
+        backward=backward,
     )
 
 
 __all__ = [
     "LSMC_BACKWARD_VERSIONS",
+    "american_rows_cuda",
     "cuda_backward_version",
     "lsmc_backward_cuda",
     "lsmc_backward_cuda_plain",
@@ -488,4 +875,11 @@ __all__ = [
     "simulate_american_rows_cuda",
     "simulate_american_rows_cuda_plain",
     "simulate_american_underlier_rows_cuda",
+    "simulate_basket_american_rows_cuda",
+    "simulate_basket_american_rows_cuda_plain",
+    "simulate_heston_american_rows_cuda",
+    "simulate_heston_american_rows_cuda_plain",
+    "simulate_merton_american_rows_cuda",
+    "simulate_merton_american_rows_cuda_plain",
+    "two_state",
 ]

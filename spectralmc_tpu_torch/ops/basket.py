@@ -186,8 +186,6 @@ def simulate_basket_underlier_rows(
     term. Follows the JAX package's scan op for op.
     """
     from spectralmc_tpu_torch.ops.gbm import (
-        AMERICAN_PAYOFFS,
-        AMERICAN_QUEUE,
         BARRIER_PAYOFFS,
         LOOKBACK_MAX_PAYOFFS,
         LOOKBACK_PAYOFFS,
@@ -199,10 +197,6 @@ def simulate_basket_underlier_rows(
         term_tensors,
     )
 
-    if payoff in AMERICAN_PAYOFFS:
-        from spectralmc_tpu_torch.core.errors import not_ported
-
-        raise not_ported(f"payoff={payoff.value!r}", AMERICAN_QUEUE)
     a_n = spec.n_assets
     device = contracts.device
     c = contracts.to(dtype)

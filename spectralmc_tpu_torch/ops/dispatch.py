@@ -4,7 +4,7 @@ The port of the JAX package's ``ops/dispatch.py``: the single mapping from
 ``SimulationParams`` to the contract model, the underlier simulator and the
 analytic-mean target of its dynamics (GBM, Heston, Merton, baskets; flat or
 curved market data; pseudo-random or Sobol/Brownian-bridge paths; every
-payoff kind, the American ones under GBM; the threefry engine or the CUDA
+payoff kind under every dynamics; the threefry engine or the CUDA
 kernels). Every caller builds its simulator here. Simulators
 take a BATCH of contracts — one kernel launch per batch on the ``"cuda"``
 engine — where the JAX package ``vmap``s a one-contract simulator.
@@ -16,7 +16,13 @@ from typing import Callable
 
 import torch
 
-from spectralmc_tpu_torch.ops.american import OptionSide, simulate_american_underlier_rows
+from spectralmc_tpu_torch.ops.american import (
+    OptionSide,
+    simulate_american_underlier_rows,
+    simulate_basket_american_underlier_rows,
+    simulate_heston_american_underlier_rows,
+    simulate_merton_american_underlier_rows,
+)
 from spectralmc_tpu_torch.ops.basket import (
     expected_basket_underlier_mean,
     simulate_basket_underlier_rows,
@@ -32,7 +38,6 @@ from spectralmc_tpu_torch.ops.gbm import (
     SimulationParams,
     curved,
     expected_underlier_mean,
-    require_slice,
     resolve_implementation,
     simulate_underlier_rows,
 )
@@ -61,12 +66,10 @@ _CONTRACTS: dict[ModelKind, tuple[type, int]] = {
 
 def contract_class(sim: SimulationParams) -> type:
     """The contract model for the sim's dynamics (the model-family seam)."""
-    require_slice(sim)
     return _CONTRACTS[sim.model][0]
 
 
 def contract_dim(sim: SimulationParams) -> int:
-    require_slice(sim)
     return _CONTRACTS[sim.model][1]
 
 
@@ -76,10 +79,11 @@ def _cuda_simulator(sim: SimulationParams, *, rows: int, anti_half: int | None) 
 
     shape = dict(timesteps=sim.timesteps, rows=rows, cols=sim.network_size,
                  antithetic_half=anti_half)
-    if sim.payoff in AMERICAN_PAYOFFS:  # flat log-Euler GBM only
+    if sim.payoff in AMERICAN_PAYOFFS:  # flat log-Euler, every dynamics
         launch = american_cuda.simulate_american_underlier_rows_cuda
-        knobs = dict(option=_option_side(sim), basis_degree=sim.lsmc_basis_degree,
-                     exercise_every=sim.lsmc_exercise_every, cross_fit=sim.lsmc_cross_fit,
+        knobs = dict(option=_option_side(sim), model=sim.model, spec=sim.basket,
+                     basis_degree=sim.lsmc_basis_degree, exercise_every=sim.lsmc_exercise_every,
+                     cross_fit=sim.lsmc_cross_fit,
                      backward=american_cuda.resolve_lsmc_backward(sim, rows=rows))
     elif sim.payoff == PayoffKind.CLIQUET:  # flat log-Euler GBM only
         launch = gbm_cuda.simulate_cliquet_rows_cuda
@@ -120,14 +124,13 @@ def make_underlier_simulator(sim: SimulationParams, *, rows: int) -> Simulator:
 
     The engine is the one ``resolve_implementation`` says will run, decided
     here once: on ``"cuda"`` the kernel of the sim's dynamics (the cliquet,
-    flat, term, Heston, Merton or basket kernel; for an American kind the
-    monitor-row kernel and the backward ``resolve_lsmc_backward`` names), on
-    ``"xla"`` the threefry
-    simulator of its dynamics, with the term knob, the basket's spec and,
-    for ``SOBOL_BB``, the sampling and its seed. Every engine keys rows by
-    GLOBAL index, so ``row_offset`` shards are stable.
+    flat, term, Heston, Merton or basket kernel; for an American kind its
+    dynamics' monitor-row kernel and the backward ``resolve_lsmc_backward``
+    names), on ``"xla"`` the threefry simulator of its dynamics (for an
+    American kind its state-row simulator), with the term knob, the
+    basket's spec and, for ``SOBOL_BB``, the sampling and its seed. Every
+    engine keys rows by GLOBAL index, so ``row_offset`` shards are stable.
     """
-    require_slice(sim)
     resolved = resolve_implementation(sim)
     anti_half = sim.batches_per_mc_run // 2 if sim.antithetic else None
     if resolved == SimImplementation.PALLAS:
@@ -146,18 +149,28 @@ def make_underlier_simulator(sim: SimulationParams, *, rows: int) -> Simulator:
     )
     if sim.sampling != SamplingKind.PSEUDO:
         kwargs.update(sampling=sim.sampling, mc_seed=sim.mc_seed)
-    if sim.payoff in AMERICAN_PAYOFFS:  # GBM only (require_slice)
+    if sim.payoff in AMERICAN_PAYOFFS:
+        american = dict(
+            timesteps=sim.timesteps, rows=rows, cols=sim.network_size,
+            dtype=sim.precision.to_torch(), option=_option_side(sim),
+            basis_degree=sim.lsmc_basis_degree, exercise_every=sim.lsmc_exercise_every,
+            antithetic_half=anti_half, cross_fit=sim.lsmc_cross_fit,
+        )
+        if sim.model == ModelKind.HESTON:
+            forward = simulate_heston_american_underlier_rows
+        elif sim.model == ModelKind.MERTON_JUMP:
+            forward = simulate_merton_american_underlier_rows
+        elif sim.model == ModelKind.BASKET_GBM:
+            forward = simulate_basket_american_underlier_rows
+            american["spec"] = sim.basket
+        else:  # GBM, flat or curved (the config refuses curves for the others)
+            forward = simulate_american_underlier_rows
+            american["term"] = sim.term
 
         def simulate_american(
             key_words: torch.Tensor, contracts: torch.Tensor, row_offset: int = 0
         ) -> torch.Tensor:
-            return simulate_american_underlier_rows(
-                key_words, contracts, timesteps=sim.timesteps, rows=rows,
-                cols=sim.network_size, dtype=sim.precision.to_torch(), option=_option_side(sim),
-                basis_degree=sim.lsmc_basis_degree, exercise_every=sim.lsmc_exercise_every,
-                row_offset=row_offset, antithetic_half=anti_half, term=sim.term,
-                cross_fit=sim.lsmc_cross_fit,
-            )
+            return forward(key_words, contracts, row_offset=row_offset, **american)
 
         return simulate_american
     if sim.model == ModelKind.HESTON:
@@ -183,7 +196,6 @@ def make_mean_target(sim: SimulationParams) -> Callable[[torch.Tensor], torch.Te
     """``contracts [..., D] -> E[underlier] [...]``, the payoff's own analytic
     mean under the sim's dynamics and curves (None where no closed form
     exists)."""
-    require_slice(sim)
     kwargs = dict(timesteps=sim.timesteps, payoff=sim.payoff, dtype=sim.precision.to_torch(),
                   forward_start_step=sim.forward_start_step, term=sim.term)
     cliquet = dict(cliquet_reset_every=sim.cliquet_reset_every, cliquet_floor=sim.cliquet_floor,

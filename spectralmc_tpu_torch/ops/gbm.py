@@ -36,7 +36,6 @@ from typing import Any, Callable
 import torch
 from pydantic import BaseModel, ConfigDict
 
-from spectralmc_tpu_torch.core.errors import not_ported
 from spectralmc_tpu_torch.core.errors.gbm import (
     GBMError,
     InvalidSimulationParams,
@@ -51,10 +50,6 @@ from spectralmc_tpu_torch.ops.basket import BasketCombine, BasketSpec
 MAX_TOTAL_PATHS_F32 = 1_000_000_000
 MAX_TOTAL_PATHS_F64 = 500_000_000
 
-# the ROADMAP.md queue item that ports the American kinds under Heston,
-# Merton and basket dynamics (GBM American is ported)
-AMERICAN_QUEUE = "queue 1 item 18 (American: Heston, Merton, baskets)"
-
 
 class PathScheme(enum.Enum):
     LOG_EULER = "log_euler"
@@ -68,8 +63,9 @@ class ForwardNormalization(enum.Enum):
 
 class PayoffKind(enum.Enum):
     """All payoff kinds of the JAX package (its ``PayoffKind`` docstring
-    defines each underlier); the port simulates every kind, the American
-    ones under GBM only (``AMERICAN_QUEUE``). An American kind trains ONE
+    defines each underlier); the port simulates every kind under every
+    dynamics (the American ones under curves for GBM only, as the JAX
+    package refuses the rest). An American kind trains ONE
     side's Bermudan cashflow through the put-payoff channel: its underlier
     is ``u = K − cf/df`` (``ops/american.py``)."""
 
@@ -324,16 +320,6 @@ class SimulationParams(BaseModel):
         return self.network_size * self.batches_per_mc_run
 
 
-def require_slice(params: SimulationParams) -> None:
-    """Raise for a config outside the ported slice: every dynamics (GBM,
-    Heston, Merton, baskets), flat or curved market data, pseudo-random or
-    Sobol/Brownian-bridge paths, any payoff; the American kinds under GBM
-    only."""
-    if params.payoff in AMERICAN_PAYOFFS and params.model != ModelKind.GBM:
-        raise not_ported(f"payoff={params.payoff.value!r} under model={params.model.value!r}",
-                         AMERICAN_QUEUE)
-
-
 def _invalid(field: str, value: object, reason: str) -> Failure:
     return Failure(InvalidSimulationParams(field=field, value=value, reason=reason))
 
@@ -473,12 +459,12 @@ def _basket_refusal(params: SimulationParams) -> Failure | None:
 
 
 def build_simulation_params(**kwargs: Any) -> Result[SimulationParams, GBMError]:
-    """Validated constructor; raises ``NotImplementedError`` outside the slice."""
+    """Validated constructor: the JAX package's checks, in its order, with
+    its fields and reasons."""
     try:
         params = SimulationParams(**kwargs)
     except Exception as exc:  # pydantic ValidationError
         return Failure(InvalidSimulationParams(field="<model>", value=kwargs, reason=str(exc)))
-    require_slice(params)
     for field in ("timesteps", "network_size", "batches_per_mc_run"):
         if getattr(params, field) <= 0:
             return _invalid(field, getattr(params, field), "must be positive")
@@ -514,6 +500,13 @@ def build_simulation_params(**kwargs: Any) -> Result[SimulationParams, GBMError]
                             "Heston has no deterministic vol curve — its instantaneous vol "
                             "IS the variance process (v0/kappa/theta/xi contract fields); "
                             "rate_shape/div_shape curves are supported")
+        if (params.model != ModelKind.GBM and params.payoff in AMERICAN_PAYOFFS
+                and curved(params.term) is not None):
+            return _invalid("term", params.model.value,
+                            "LSMC early exercise under term structures is supported for GBM "
+                            "dynamics only (the curved-coefficient lattice oracle and "
+                            "per-segment discount backward exist for the single-factor "
+                            "lognormal family)")
         checked_term = validate_term_structure(params.term, timesteps=params.timesteps)
         if isinstance(checked_term, Failure):
             return checked_term
@@ -567,9 +560,10 @@ def resolve_implementation(params: SimulationParams) -> SimImplementation:
 
     ``"cuda"`` runs wherever ``gbm_cuda.cuda_supported`` says the kernels
     honor the request (the single source of truth), else the threefry
-    engine; the kernels take any row count. An American kind under flat GBM
-    runs the monitor-row kernel; under a curved term its threefry forward
-    (the kernel takes no coefficient tables). ``SOBOL_BB`` always records the
+    engine; the kernels take any row count. An American kind on flat market
+    data runs its dynamics' monitor-row kernel (GBM, Heston, Merton, baskets
+    of 1–8 assets); a GBM one under a curved term its threefry forward (the
+    kernels take no coefficient tables). ``SOBOL_BB`` always records the
     threefry engine: its normals come from the QMC generator, whose kernels
     are an internal route, not an engine. The decision is made here, once,
     before a run: no wrapper falls back on its own. ``"pallas"`` resolves to

@@ -22,8 +22,9 @@ states what it keeps, what it drops and what bounds it. This module holds
   (digital, and forward start at its tail length); the cliquet kernel is a
   different program with its own key, and so are the curved-term, Heston
   and Merton kernels of ``ops/dynamics_cuda.py``, the basket kernel of
-  ``ops/basket_cuda.py`` and the American monitor-row kernel of
-  ``ops/american_cuda.py`` (``american_gbm``).
+  ``ops/basket_cuda.py`` and the American monitor-row kernels of
+  ``ops/american_cuda.py`` (``american_gbm``, ``american_heston``,
+  ``american_merton_jump``, ``american_basket_gbm``).
 * ``LAUNCHES`` (every launch of any entry point) and ``LAUNCHES_BY_BRANCH``
   (per kernel and branch group, the QMC generator's two kernels of
   ``ops/qmc_cuda.py`` and the American kernels of ``ops/american_cuda.py``
@@ -63,14 +64,15 @@ from spectralmc_tpu_torch.ops.rng import MASK32, philox4x32
 
 CUDA_STREAM_VERSIONS: dict[str, int] = {
     "gbm": 1, "gbm_cliquet": 1, "gbm_term": 1, "heston": 1, "merton_jump": 1, "basket_gbm": 1,
-    "american_gbm": 1,
+    "american_gbm": 1, "american_heston": 1, "american_merton_jump": 1,
+    "american_basket_gbm": 1,
 }
 
 # branch groups, each a kernel instantiation of its own: the flat kernel's and
 # the cliquet, ops/dynamics_cuda.py's three kernels, the basket kernel, the
-# QMC generator's two kernels, then ops/american_cuda.py's monitor-row forward
-# and its LSMC backward, counted apart at up to and past 2^20 paths a
-# contract (the two TPU kernels it replaces split there)
+# QMC generator's two kernels, then ops/american_cuda.py's monitor-row
+# forwards (one per dynamics) and its LSMC backward, counted apart at up to
+# and past 2^20 paths a contract (the two TPU kernels it replaces split there)
 FLAT_BRANCHES = ("terminal", "barrier", "lookback", "variance", "asian")
 BRANCHES = (
     *FLAT_BRANCHES, "cliquet",
@@ -79,10 +81,11 @@ BRANCHES = (
     *(f"merton_{b}" for b in FLAT_BRANCHES),
     *(f"basket_{b}" for b in (*FLAT_BRANCHES, "forward")),
     "qmc_bridge", "qmc_walk",
-    "american_gbm", "lsmc_backward", "lsmc_backward_streamed",
+    "american_gbm", "american_heston", "american_merton", "american_basket",
+    "lsmc_backward", "lsmc_backward_streamed",
 )
 MAX_BASKET_ASSETS = 8  # csrc/basket_paths.cu's kMaxAssets
-MAX_MONITOR_DATES = 128  # csrc/american_paths.cu's monitor loop
+MAX_MONITOR_DATES = 128  # the monitor kernels' cap (the JAX kernels' _MONITOR_MAX_DATES)
 LAUNCHES = 0
 LAUNCHES_BY_BRANCH: dict[str, int] = dict.fromkeys(BRANCHES, 0)
 
@@ -139,8 +142,9 @@ def cuda_supported(
     """Whether a kernel honors the request: float32 paths on the
     pseudo-random stream, any dynamics, any payoff, any row/column count, and
 
-    * the American kinds only for flat GBM under log-Euler (the monitor-row
-      kernel), with ``exercise_every`` dividing ``timesteps`` into 2 to
+    * the American kinds only on flat market data under log-Euler (the
+      monitor-row kernels of GBM, Heston, Merton and baskets), with
+      ``exercise_every`` dividing ``timesteps`` into 2 to
       ``MAX_MONITOR_DATES`` (128) monitor dates;
 
     * cliquets only for flat GBM under log-Euler (the per-period kernel; the
@@ -164,8 +168,7 @@ def cuda_supported(
         grid_ok = (timesteps is not None and exercise_every >= 1
                    and timesteps % exercise_every == 0
                    and 2 <= timesteps // exercise_every <= MAX_MONITOR_DATES)
-        return (grid_ok and model == ModelKind.GBM and scheme == PathScheme.LOG_EULER
-                and not is_curved)
+        return grid_ok and scheme == PathScheme.LOG_EULER and not is_curved
     if payoff == PayoffKind.CLIQUET:
         return model == ModelKind.GBM and scheme == PathScheme.LOG_EULER and not is_curved
     if is_curved:

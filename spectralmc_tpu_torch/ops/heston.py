@@ -28,13 +28,10 @@ import numpy as np
 import torch
 from pydantic import BaseModel, ConfigDict
 
-from spectralmc_tpu_torch.core.errors import not_ported
 from spectralmc_tpu_torch.core.errors.gbm import GBMError, InvalidContract
 from spectralmc_tpu_torch.core.result import Failure, Result, Success
 from spectralmc_tpu_torch.ops import rng
 from spectralmc_tpu_torch.ops.gbm import (
-    AMERICAN_PAYOFFS,
-    AMERICAN_QUEUE,
     BARRIER_PAYOFFS,
     LOOKBACK_MAX_PAYOFFS,
     LOOKBACK_PAYOFFS,
@@ -156,8 +153,6 @@ def simulate_heston_underlier_rows(
     refused at config time: the instantaneous vol IS the variance process);
     a flat term is no term. Follows the JAX package's scan op for op.
     """
-    if payoff in AMERICAN_PAYOFFS:
-        raise not_ported(f"payoff={payoff.value!r}", AMERICAN_QUEUE)
     c = contracts.to(dtype)
     spot, strike, maturity, rate, div_yield, v0, kappa, theta, xi, rho = (
         c[:, i, None, None] for i in range(10)

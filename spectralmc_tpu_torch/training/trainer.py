@@ -63,7 +63,6 @@ from spectralmc_tpu_torch.ops.gbm import (
     SimulationParams,
     curved,
     has_closed_form_mean,
-    require_slice,
     resolve_implementation,
 )
 from spectralmc_tpu_torch.ops.gbm_cuda import cuda_stream_version
@@ -315,7 +314,6 @@ class GbmCVNNPricer:
         if mesh_spec is not None:
             raise not_ported("sharded training (mesh_spec)", "queue 1 item 19 (parallel)")
         sim = config.sim
-        require_slice(sim)
         if sim.implementation == SimImplementation.PALLAS:
             return Failure(
                 EngineMismatch(

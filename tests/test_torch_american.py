@@ -316,8 +316,19 @@ def _port_scope(reason: str) -> str:
 
 
 def test_gbm_american_builds_and_other_dynamics_wait() -> None:
+    """GBM American builds, and so does American under the other dynamics
+    now that it is ported: the same parameters as JAX's build, and a
+    simulator that runs (the Merton put's threefry forward and its torch
+    estimator, finite underliers of the batch's shape)."""
+    from spectralmc_tpu_torch.ops.dispatch import make_underlier_simulator
+
     sim = tgbm.build_simulation_params(**BASE, payoff="american_call", lsmc_exercise_every=2,
                                        lsmc_fused_backward=True).expect("sim")
     assert sim.payoff == tgbm.PayoffKind.AMERICAN_CALL
-    with pytest.raises(NotImplementedError, match="queue 1 item 18"):
-        tgbm.build_simulation_params(**BASE, payoff="american_put", model="merton_jump")
+    kw = dict(**BASE, payoff="american_put", model="merton_jump")
+    got = tgbm.build_simulation_params(**kw).expect("merton american")
+    want = jgbm.build_simulation_params(**kw).expect("jax merton american")
+    assert got.model_dump(mode="json") == want.model_dump(mode="json")
+    contracts = torch.tensor([[100.0, 100.0, 1.0, 0.03, 0.01, 0.2, 0.5, -0.1, 0.15]])
+    u = make_underlier_simulator(got, rows=8)(KEY_WORDS[None], contracts)
+    assert u.shape == (1, 8, 16) and bool(torch.isfinite(u).all())

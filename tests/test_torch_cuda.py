@@ -359,3 +359,84 @@ def test_lsmc_backward_kernel_matches_twin_on_card(degree, rows, cols, put) -> N
     assert torch.equal(got, want)
     again = american_cuda.lsmc_backward_cuda(price_rows, **kw)
     assert torch.equal(got, again)
+
+
+# --------------------------------------------------------------------------
+# The Heston, Merton and basket monitor-row kernels (csrc/american_dynamics.cu)
+# --------------------------------------------------------------------------
+
+AMERICAN_DYNAMICS = {  # case -> (family bounds, basket spec or None)
+    "heston": ("heston", None),
+    "merton": ("merton", None),
+    "basket3_arithmetic": ("term", (3, "arithmetic")),
+    "basket3_geometric": ("term", (3, "geometric")),
+    "basket1_arithmetic": ("term", (1, "arithmetic")),
+    "basket8_geometric": ("term", (8, "geometric")),
+}
+
+
+def _american_dynamics_rows(case: str, c: torch.Tensor, keys: torch.Tensor, plain: bool,
+                            **kw: object) -> tuple[torch.Tensor, torch.Tensor | None]:
+    _, basket = AMERICAN_DYNAMICS[case]
+    if basket is not None:
+        fn = (american_cuda.simulate_basket_american_rows_cuda_plain if plain
+              else american_cuda.simulate_basket_american_rows_cuda)
+        return fn(c, keys, spec=_basket_spec(*basket), **kw)
+    if case == "heston":
+        fn = (american_cuda.simulate_heston_american_rows_cuda_plain if plain
+              else american_cuda.simulate_heston_american_rows_cuda)
+        return fn(c, keys, **kw)
+    fn = (american_cuda.simulate_merton_american_rows_cuda_plain if plain
+          else american_cuda.simulate_merton_american_rows_cuda)
+    return fn(c, keys, **kw), None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps,every,half", [(16, 1, None), (16, 4, 32), (15, 5, 32)])
+@pytest.mark.parametrize("case", list(AMERICAN_DYNAMICS))
+def test_american_dynamics_kernel_matches_twin_on_card(case, steps, every, half) -> None:
+    """Tier 3 on the card: the price rows within rtol 2e-5 and the variance
+    rows within atol 1e-6 + rtol 2e-5, but for Heston paths that miss (at
+    most ``HESTON_SHARE`` of them, rounded up: one in this case's 18,432),
+    which stay within ``HESTON_CAP_RTOL`` of the price and of the variance
+    measured against its long-run level θ; the log dispersion within rtol
+    2e-5 of the log basket value it cancels from; the last row is the
+    European kernel's TERMINAL value (rtol 2e-5); one launch."""
+    device = _require_card()
+    bounds, basket = AMERICAN_DYNAMICS[case]
+    gen = np.random.default_rng(11)
+    lo, hi = np.array(FAMILY_LO[bounds]), np.array(FAMILY_HI[bounds])
+    c = torch.from_numpy((lo + (hi - lo) * gen.random((3, len(lo)))).astype(np.float32)).to(device)
+    keys = rng.fold_in(rng.prng_key(11), torch.arange(3)).to(device)
+    kw = dict(timesteps=steps, rows=64, cols=96, exercise_every=every, antithetic_half=half)
+    branch = "american_" + case.split("_")[0].rstrip("0123456789")
+    before = dict(gbm_cuda.LAUNCHES_BY_BRANCH)
+    got, got_extra = _american_dynamics_rows(case, c, keys, False, **kw)
+    launched = {b: n - before[b] for b, n in gbm_cuda.LAUNCHES_BY_BRANCH.items() if n != before[b]}
+    assert launched == {branch: 1}
+    want, want_extra = _american_dynamics_rows(case, c, keys, True, **kw)
+    assert got.shape == (3, steps // every, 64, 96) and bool(torch.isfinite(got).all())
+    err = (got - want).abs()
+    missed = (err > 2e-5 * want.abs()).any(dim=1)  # per path, over its dates
+    allowed = math.ceil(HESTON_SHARE * missed.numel()) if case == "heston" else 0
+    assert bool((err <= HESTON_CAP_RTOL * want.abs()).all())
+    if case == "heston":
+        var_err = (got_extra - want_extra).abs()
+        missed |= (var_err > 1e-6 + 2e-5 * want_extra.abs()).any(dim=1)
+        theta = c[:, 7, None, None, None]
+        assert bool((var_err <= HESTON_CAP_RTOL * torch.maximum(want_extra, theta)).all())
+    assert int(missed.sum()) <= allowed
+    if want_extra is None:
+        assert got_extra is None
+    elif case != "heston":  # the dispersion, against the log level it cancels from
+        scale = torch.log(want).abs()
+        assert bool(((got_extra - want_extra).abs() <= 2e-5 * scale).all())
+    terminal_kw = dict(timesteps=steps, rows=64, cols=96, payoff=tgbm.PayoffKind.TERMINAL,
+                       antithetic_half=half)
+    if basket is not None:
+        terminal = basket_cuda.simulate_basket_rows_cuda(c, keys, spec=_basket_spec(*basket),
+                                                         **terminal_kw)
+    else:
+        terminal = FAMILY_FNS[case][0](c, keys, **terminal_kw)
+    off = ((got[:, -1] - terminal).abs() > 2e-5 * terminal.abs()).sum()
+    assert int(off) <= allowed

@@ -263,13 +263,20 @@ def test_engine_resolution_and_slice_refusals() -> None:
         sim = tgbm.build_simulation_params(**base, implementation="cuda", **ported).expect("ok")
         assert tgbm.resolve_implementation(sim) == tgbm.SimImplementation.CUDA
     assert tgbm.has_closed_form_mean(tgbm.ModelKind.BASKET_GBM, tgbm.PayoffKind.TERMINAL)
-    # American is ported under GBM (the monitor-row kernel on "cuda"); the
-    # other dynamics' American kinds are not yet
+    # American is ported under every dynamics (the monitor-row kernels on
+    # "cuda"); under MEAN normalization it is refused as JAX refuses it
     american = tgbm.build_simulation_params(**base, implementation="cuda", payoff="american_put",
                                             normalization="none").expect("american")
     assert tgbm.resolve_implementation(american) == tgbm.SimImplementation.CUDA
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 18"):
-        tgbm.build_simulation_params(**base, model="merton_jump", payoff="american_put")
+    merton = tgbm.build_simulation_params(**base, implementation="cuda", model="merton_jump",
+                                          payoff="american_put", normalization="none")
+    assert tgbm.resolve_implementation(merton.expect("merton")) == tgbm.SimImplementation.CUDA
+    got = tgbm.build_simulation_params(**base, model="merton_jump", payoff="american_put",
+                                       normalization="mean")
+    want = jgbm.build_simulation_params(**base, model="merton_jump", payoff="american_put",
+                                        normalization="mean")
+    assert got.is_failure() and want.is_failure()
+    assert (got.error.field, got.error.reason) == (want.error.field, want.error.reason)
     # baskets and QMC are ported: a basket needs its spec, SOBOL_BB runs the
     # threefry engine's scans
     no_spec = tgbm.build_simulation_params(**base, model="basket_gbm")

@@ -102,8 +102,15 @@ def test_flat_term_is_the_same_program_bit_for_bit() -> None:
     flat = tgbm.TermStructure(rate_shape=(1.0,) * 4)
     assert torch.equal(th.simulate_heston_underlier_rows(keys, c, term=flat, **kw),
                        th.simulate_heston_underlier_rows(keys, c, **kw))
-    with pytest.raises(NotImplementedError, match="item 18"):
-        th.simulate_heston_underlier_rows(keys, c, **{**kw, "payoff": tgbm.PayoffKind.AMERICAN_PUT})
+    # an American kind runs here as in the JAX simulator (its own forward is
+    # ops/american.py's): rtol 2e-5, as for every payoff above
+    got = th.simulate_heston_underlier_rows(
+        keys, c, **{**kw, "payoff": tgbm.PayoffKind.AMERICAN_PUT}).numpy()
+    want = np.stack([np.asarray(jh.simulate_heston_underlier_rows(
+        jax.random.fold_in(jax.random.PRNGKey(1), d), jnp.asarray(c[d].numpy()), timesteps=4,
+        rows=4, cols=8, dtype=jnp.float32, payoff=jgbm.PayoffKind.AMERICAN_PUT))
+        for d in range(2)])
+    np.testing.assert_allclose(got, want, rtol=2e-5)
 
 
 @pytest.mark.parametrize("curved", [False, True], ids=["flat", "curved"])

@@ -176,8 +176,15 @@ def test_flat_term_is_the_same_program_and_antithetic_pairs_share_counts() -> No
     quiet[:, 5], quiet[:, 8] = 0.0, 0.0  # no Gaussian left: only the shared counts move S
     out = tm.simulate_merton_underlier_rows(keys, quiet, antithetic_half=2, **kw)
     assert torch.equal(out[:, :2], out[:, 2:]) and len(torch.unique(out)) > 2
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tm.simulate_merton_underlier_rows(keys, c, **{**kw, "payoff": tgbm.PayoffKind.AMERICAN_CALL})
+    # an American kind runs here as in the JAX simulator (its own forward is
+    # ops/american.py's): rtol 2e-5, as for every payoff above
+    got = tm.simulate_merton_underlier_rows(
+        keys, c, **{**kw, "payoff": tgbm.PayoffKind.AMERICAN_CALL}).numpy()
+    want = np.stack([np.asarray(jm.simulate_merton_underlier_rows(
+        jax.random.fold_in(jax.random.PRNGKey(1), d), jnp.asarray(c[d].numpy()), timesteps=4,
+        rows=4, cols=8, dtype=jnp.float32, payoff=jgbm.PayoffKind.AMERICAN_CALL))
+        for d in range(2)])
+    np.testing.assert_allclose(got, want, rtol=2e-5)
 
 
 @pytest.mark.parametrize("curved", [False, True], ids=["flat", "curved"])

@@ -305,16 +305,15 @@ BASE = dict(timesteps=4, network_size=16, batches_per_mc_run=8, mc_seed=0)
 
 def test_sobol_bb_refusals_match_jax() -> None:
     """Antithetic and the American kinds: field and reason equal (the port
-    refuses the sampling for GBM American as the JAX package does, and
-    American under other dynamics as not yet ported)."""
-    for knobs in (dict(antithetic=True), dict(payoff="american_put", normalization="none")):
+    refuses the sampling for American under GBM and under Heston as the JAX
+    package does)."""
+    for knobs in (dict(antithetic=True), dict(payoff="american_put", normalization="none"),
+                  dict(model="heston", payoff="american_put", normalization="none")):
         want = jgbm.build_simulation_params(**BASE, sampling="sobol_bb", **knobs)
         got = tgbm.build_simulation_params(**BASE, sampling="sobol_bb", **knobs)
         assert want.is_failure() and got.is_failure()
-        assert (got.error.field, got.error.reason) == (want.error.field, want.error.reason)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tgbm.build_simulation_params(**BASE, model="heston", sampling="sobol_bb",
-                                     payoff="american_put", normalization="none")
+        assert (got.error.field, got.error.value, got.error.reason) == (
+            want.error.field, want.error.value, want.error.reason)
     for model in ("gbm", "heston", "merton_jump"):
         sim = tgbm.build_simulation_params(**BASE, model=model, sampling="sobol_bb",
                                            implementation="cuda").expect(model)

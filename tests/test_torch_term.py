@@ -230,14 +230,14 @@ def test_resolve_implementation_follows_the_jax_rules(
 def test_cuda_stream_version_follows_pallas_stream_versions_keys(model: str) -> None:
     keys = gbm_cuda.CUDA_STREAM_VERSIONS
     assert set(keys) == {"gbm", "gbm_cliquet", "gbm_term", "heston", "merton_jump", "basket_gbm",
-                         "american_gbm"}
+                         "american_gbm", "american_heston", "american_merton_jump",
+                         "american_basket_gbm"}
     assert set(keys) <= set(jpallas.PALLAS_STREAM_VERSIONS)
     # give every key its own value in both tables, so that equal versions
     # mean equal keys
     marks = {k: i + 1 for i, k in enumerate(sorted(jpallas.PALLAS_STREAM_VERSIONS))}
-    # the American kinds are ported under GBM only (their own key there)
-    american = ["american_put", "american_call"] if model == "gbm" else []
-    for payoff in PAYOFFS + american:
+    # the American kinds are ported under every dynamics (their own keys)
+    for payoff in PAYOFFS + ["american_put", "american_call"]:
         for term in (False, True):
             with pytest.MonkeyPatch.context() as mp:
                 mp.setattr(jpallas, "PALLAS_STREAM_VERSIONS", marks)
