@@ -10,12 +10,14 @@ non-zero and no result line is printed):
                   the deterministic numerics policy (runtime/torch_runtime.py).
 1. build        — build csrc/gbm_paths.cu, csrc/dynamics_paths.cu,
                   csrc/basket_paths.cu, csrc/qmc_paths.cu,
-                  csrc/american_paths.cu and csrc/american_dynamics.cu with
-                  nvcc into build/kernels/, one nvcc each, all started
-                  together; print each kernel's registers and spills; count
-                  the SASS instructions of each branch's log-Euler loop and of
-                  the American monitor loops (cuobjdump) for the instruction
-                  cap of phases 2, 12, 17 and 22.
+                  csrc/american_paths.cu, csrc/american_dynamics.cu,
+                  csrc/lsmc_backward.cu and csrc/lsmc_two_state.cu with nvcc
+                  into build/kernels/, one nvcc each, all started together;
+                  print each kernel's registers and spills; count the SASS
+                  instructions of each branch's log-Euler loop, of the
+                  American monitor loops and of the LSMC backward's 16-path
+                  block (cuobjdump) for the instruction cap of phases 2, 12,
+                  17, 18, 22 and 23.
 2. kernel       — every kernel branch against its plain twin on the same
                   Philox words at C=4 x 2048 x 512 x 16: TERMINAL (and its
                   digital and forward-start routes), barrier up/down, the four
@@ -111,15 +113,19 @@ non-zero and no result line is printed):
                   the TERMINAL kernel's value. Then timed at the training
                   chunk 256 x 2048 x 512 x 16 (every = 1, and every = 4) with
                   the twin, the bound, the SASS per path-step and its cap.
-18. kernel-lsmc — the LSMC backward against its twin on the monitor kernel's
-                  rows, put and call, at the fused TPU kernel's shape (4 x
-                  2048 x 512 x 16) and the streamed one's (4 x 16384 x 256 x
-                  16): the mean cashflow within 1e-5 relative, u within rtol
-                  2e-5 but on paths whose exercise date flipped (at most 1e-5
-                  of the paths, counted and printed); against the torch
-                  estimator the mean within 2e-3 and at most 2% flipped. Then
-                  timed at 256 x 2048 x 512 x 16 and at the streamed shape,
-                  with the twin and the bound.
+18. kernel-lsmc — the single-state LSMC backward against its twin on the
+                  monitor kernel's rows, put and call, at the fused TPU
+                  kernel's shape (4 x 2048 x 512 x 16: the resident route)
+                  and the streamed one's (4 x 16384 x 256 x 16: past the
+                  resident grid, the streamed route): u bit-equal (0 flips),
+                  and so is the other route where the contract fits on chip;
+                  against the torch estimator the mean within 2e-3 and at
+                  most 2% flipped. Then timed at 256 x 2048 x 512 x 16 and at
+                  the streamed shape, with the twin, the times of the
+                  sweep/solve pair it replaced (44.604 and 3.292 ms), both
+                  bounds and the 16-path block's SASS per path against the
+                  instruction cap; at 256 x 2048 x 512 x 16 the resident
+                  kernel, launched twice, is again bit-equal to the twin.
 19. oracle-american — lsmc_price on the card (the two kernels, 1,048,576
                   paths, 16 dates): a put and a dividend call against the
                   Bermudan tree, the r = 0 put and the q = 0 call against
@@ -149,11 +155,18 @@ non-zero and no result line is printed):
                   (bit-equality printed). Then each timed at 256 x 2048 x 512
                   x 16 (the basket at 32 contracts) with the twin, the bound
                   and the SASS per path-step against the instruction cap.
-23. backward-american-dynamics — the CUDA backward against its twin on the
-                  Merton and the geometric basket rows (0 flips, u
-                  bit-equal); the torch estimator with Heston's variance rows
-                  on the card against its CPU run (2% flips, mean 2e-3), then
-                  timed at the training chunk with its peak memory.
+23. backward-american-dynamics — the single-state backward against its
+                  twin on the Merton and the geometric basket rows and the
+                  two-state backward on Heston's and the arithmetic basket's
+                  two row sets (u bit-equal, 0 flips, on both routes), put
+                  and call; the two-state one against the torch estimator on
+                  the card (at most 2% flipped, mean 2e-3), and the torch
+                  estimator on the card against its CPU run at 2 x 64 x 512
+                  (the same gates); then the two-state backward timed at the
+                  training chunk of Heston rows with its peak memory beside
+                  the torch estimator it replaced, and at the streamed
+                  shape, at each shape launched twice and bit-equal to the
+                  twin.
 24. oracle-american-dynamics — 1,048,576 paths and 16 dates a contract: the
                   Heston q = 0 call against heston_call_price (4 SE + 2%) and
                   the same-path European (max(3 SE, 0.5%)), a Heston put
@@ -165,16 +178,20 @@ non-zero and no result line is printed):
                   against the same-path European (max(3 SE, 0.5%)).
 25. train-heston-american, resume-heston-american, serve-heston-american —
                   phases 4-6 for a Heston American put (10 inputs, the
-                  production batch and head, normalization none, the torch
-                  estimator: lsmc_backward_version 0, stream american_heston
-                  v1) with the step's peak memory; calls NaN.
+                  production batch and head, normalization none, the
+                  two-state backward: lsmc_backward_version 4 and no torch
+                  estimator call, stream american_heston v1) with the step's
+                  peak memory; calls NaN.
 26. families-american-dynamics — one step at batch 64 each: a Merton put and
-                  a geometric basket put (the CUDA backward, version 3), an
-                  arithmetic 3-asset basket put, a Heston call (served in
-                  .call) and Heston cross-fit (the torch estimator, version
-                  0), an antithetic Merton put; a curved-rate Heston
-                  American config refused with the JAX package's field,
-                  value and reason.
+                  a geometric basket put (the single-state backward, version
+                  3), an arithmetic 3-asset basket put and a Heston call
+                  (served in .call; the two-state backward, version 4),
+                  Heston cross-fit (the torch estimator, version 0, its one
+                  call counted), an antithetic Merton put, and a Heston put
+                  at 4,194,304 paths a contract, batch 4 (the two-state
+                  backward's streamed route); a curved-rate Heston American
+                  config refused with the JAX package's field, value and
+                  reason.
 11. profile     — only with ``--profile``, after phase 26: for the TERMINAL,
                   the Asian, the Heston, the basket, the SOBOL_BB
                   geometric-Asian and the American put pricer, 10 warm train
@@ -182,18 +199,20 @@ non-zero and no result line is printed):
                   torch.profiler over 3 train steps and over 20 predict_price
                   calls at N=64 (device kernel time, busy share, launches, the
                   heaviest kernels); for the Heston American put the same,
-                  its step split into the monitor kernel, the torch
-                  estimator (CUDA events around each call) and the rest.
+                  its step split into the monitor kernel, the two-state
+                  backward (CUDA events around each call, and its kernel's
+                  device time) and the rest.
 
 Launch counts are set to 0 just before each main path (phases 4, 7, 8, 9,
 10, 15, 16, 20, 21, 25 and 26) and read just after it: the TERMINAL
 branch's count comes from phases 4-6, the Asian branch's from phase 7, the
 Heston TERMINAL branch's from phase 9, the basket TERMINAL branch's and the
-fused walk's from phase 15, the American monitor kernel's and the
-backward's (up to 2^20 paths a contract) from phase 20, the backward's past
-2^20 paths from phase 21, the Heston monitor kernel's from phase 25, the
-Merton and basket monitor kernels' from phase 26, and every other branch's
-from phases 8, 10 and 16. The last lines are
+fused walk's from phase 15, the American monitor kernel's and the resident
+single-state backward's from phase 20, the streamed single-state
+backward's from phase 21, the Heston monitor kernel's and the resident
+two-state backward's from phase 25, the Merton and basket monitor
+kernels' and the streamed two-state backward's from phase 26, and every
+other branch's from phases 8, 10 and 16. The last lines are
 the kernel record as JSON, the nvidia-smi line, and the result JSON.
 """
 
@@ -553,16 +572,20 @@ def phase_device() -> tuple[torch.device, str, float]:
     return torch.device("cuda", 0), smi, max_sm_hz
 
 
-def phase_build() -> tuple[dict[str, float], tuple[float, str], dict[str, tuple[float, str]]]:
-    """Build the six kernel libraries, one nvcc each, all started together,
+def phase_build() -> tuple[dict[str, float], tuple[float, str], dict[str, tuple[float, str]],
+                           dict[str, tuple[float, str]]]:
+    """Build the eight kernel libraries, one nvcc each, all started together,
     and count their loops' SASS instructions per path-step, per branch group
-    and for the American monitor kernels."""
+    and for the American monitor kernels, and the LSMC backward's 16-path
+    block per path."""
     from concurrent.futures import ThreadPoolExecutor
 
     libraries = ((SOURCE, gbm_cuda.LIBRARY), (DYNAMICS_SOURCE, dynamics_cuda.LIBRARY),
                  (BASKET_SOURCE, basket_cuda.LIBRARY), (QMC_SOURCE, qmc_cuda.LIBRARY),
                  (AMERICAN_SOURCE, american_cuda.LIBRARY),
-                 (DYNAMICS_AMERICAN_SOURCE, american_cuda.DYNAMICS_LIBRARY))
+                 (DYNAMICS_AMERICAN_SOURCE, american_cuda.DYNAMICS_LIBRARY),
+                 ("spectralmc_tpu_torch/csrc/lsmc_backward.cu", american_cuda.BACKWARD_LIBRARY),
+                 ("spectralmc_tpu_torch/csrc/lsmc_two_state.cu", american_cuda.TWO_STATE_LIBRARY))
     start = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:
         built = list(pool.map(lambda lib: load_library(*lib[1]), libraries))
@@ -574,8 +597,13 @@ def phase_build() -> tuple[dict[str, float], tuple[float, str], dict[str, tuple[
     dynamics = dynamics_sass_per_step(built[5].path)
     phase("sass-american-dynamics", **{case: f"{n:g} ({found})" for case, (n, found)
                                         in dynamics.items()})
+    lsmc = {name: lsmc_sass_per_path_date(built[7 if two else 6].path, two,
+                                          not name.endswith("_streamed"))
+            for name in LSMC_REPLACES for two in [name.startswith("lsmc_two_state")]}
+    phase("sass-lsmc", degree=LSMC_DEGREE,
+          **{name: f"{n:g} ({found})" for name, (n, found) in lsmc.items()})
     return (sass_instruction_counts(built[0].path, built[1].path, built[2].path),
-            american_sass_per_step(built[4].path), dynamics)
+            american_sass_per_step(built[4].path), dynamics, lsmc)
 
 
 def ptxas_summary(log: str) -> dict[str, str]:
@@ -583,9 +611,9 @@ def ptxas_summary(log: str) -> dict[str, str]:
     ``nvcc -Xptxas -v`` (empty when an existing build was reused)."""
     kernel = (r"(gbm_paths_kernel|gbm_cliquet_kernel|gbm_term_kernel|heston_paths_kernel|"
               r"merton_paths_kernel|basket_paths_kernel|qmc_bridge_kernel|qmc_walk_kernel|"
-              r"american_gbm_kernel|lsmc_sweep_kernel|lsmc_solve_kernel|"
+              r"american_gbm_kernel|backward_kernel|"
               r"american_heston_kernel|american_merton_kernel|american_basket_kernel)"
-              r"(?:ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?)?")
+              r"(?:ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?(?:Lb(\d)E)?)?")
     found, name, spill = {}, None, 0
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '\S*?" + kernel, line)
@@ -870,7 +898,7 @@ TIMED_PAYOFF = {
 TIMED = {
     group: (group.rpartition("_")[0] or "gbm", *TIMED_PAYOFF[group.rpartition("_")[2]])
     for group in gbm_cuda.BRANCHES
-    if not group.startswith(("basket_", "qmc_", "american_", "lsmc_"))
+    if not group.startswith(("basket_", "qmc_", "american_", "lsmc_", "torch_"))
 }
 
 
@@ -1763,15 +1791,29 @@ def phase_basket_qmc_families(device: torch.device) -> None:
 # --------------------------------------------------------------------------
 
 AMERICAN_SOURCE = "spectralmc_tpu_torch/csrc/american_paths.cu"
-AMERICAN_REPLACES = {"american_gbm": "spectralmc_tpu/ops/gbm_pallas.py:1656",
-                     "lsmc_backward": "spectralmc_tpu/ops/lsmc_pallas.py:152",
-                     "lsmc_backward_streamed": "spectralmc_tpu/ops/lsmc_pallas.py:414"}
+AMERICAN_REPLACES = {"american_gbm": "spectralmc_tpu/ops/gbm_pallas.py:1656"}
+# The LSMC backward (csrc/lsmc_backward.cuh, built as lsmc_backward.cu and
+# lsmc_two_state.cu): per route and mode, the function it computes. The
+# two-state mode computes the JAX package's XLA backward with extra_rows
+# (its Pallas kernels refuse a second state).
+LSMC_SOURCE = "spectralmc_tpu_torch/csrc/lsmc_backward.cuh"
+LSMC_REPLACES = {"lsmc_backward": "spectralmc_tpu/ops/lsmc_pallas.py:152",
+                 "lsmc_backward_streamed": "spectralmc_tpu/ops/lsmc_pallas.py:414",
+                 "lsmc_two_state": "spectralmc_tpu/ops/american.py:104",
+                 "lsmc_two_state_streamed": "spectralmc_tpu/ops/american.py:104"}
+# The sweep/solve pair this backward replaced (backward version 3's first
+# kernels), as PERF.md times them on an H100 80GB HBM3 at 700 W: the
+# training chunk and the streamed shape; and the torch estimator the
+# two-state mode replaced, per training chunk.
+SWEEP_SOLVE_MS = {"lsmc_backward": 44.604, "lsmc_backward_streamed": 3.292}
+TORCH_ESTIMATOR_BEFORE_MS = 2299.7
 AMERICAN_CONTRACTS = 4  # contracts per kernel-vs-twin case
 # (timesteps, exercise_every, antithetic half) of the monitor kernel's cases
 AMERICAN_CASES = [(STEPS, 1, None), (STEPS, 2, None), (STEPS, 4, None), (12, 3, None),
                   (STEPS, 1, ROWS // 2)]
-# The backward's shapes: the fused TPU kernel's (up to 2^20 paths a contract)
-# and the streamed one's (the JAX bench's 4,194,304 paths)
+# The backward's shapes: the fused TPU kernel's (up to 2^20 paths a contract,
+# the resident route here) and the streamed one's (the JAX bench's 4,194,304
+# paths, past the resident grid's capacity)
 LSMC_SHAPES = {"lsmc_backward": (ROWS, COLS), "lsmc_backward_streamed": (16384, 256)}
 LSMC_FLIP_SHARE = 1e-5  # kernel vs twin: paths whose exercise date may differ
 LSMC_MEAN_RTOL = 1e-5  # kernel vs twin: the mean cashflow
@@ -1797,13 +1839,47 @@ def american_bound_ms(contracts: int, rows: int, cols: int, steps: int,
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+# With a second state: the n − 1 state rows the regression reads besides (2n
+# slabs in all), and per path and date the 3·(kP − (2d + 1)) extra moment
+# operations (x^a·v^b, its product with the weight, the add), 3 per extra
+# right-hand side, 6 for the policy's three state terms and 4 for v's powers.
 def lsmc_bound_ms(contracts: int, rows: int, cols: int, monitors: int,
-                  degree: int = LSMC_DEGREE) -> tuple[float, str]:
+                  degree: int = LSMC_DEGREE, two_state: bool = False) -> tuple[float, str]:
     paths = contracts * rows * cols
-    ops = (5 * (2 * degree + 1) + 2 * degree + 8) * paths * monitors
-    byte_count = (monitors + 1) * paths * 4
+    per_date = 5 * (2 * degree + 1) + 2 * degree + 8
+    slabs = monitors + 1
+    if two_state:
+        extra_moments = len(american_cuda.moment_layout(degree, True)) - (2 * degree + 1)
+        per_date += 3 * extra_moments + 3 * 3 + 6 + 4
+        slabs += monitors - 1
+    ops = per_date * paths * monitors
+    byte_count = slabs * paths * 4
     t_ops, t_bytes = ops / FP32_OPS_PER_S * 1e3, byte_count / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def lsmc_sass_per_path_date(library: object, two_state: bool, resident: bool,
+                            degree: int = LSMC_DEGREE) -> tuple[float, str]:
+    """SASS instructions of a backward kernel's 16-path block per path,
+    counted from ``cuobjdump -sass``: a thread's 16 paths of a tile are one
+    unrolled block between two barriers (the wait for β and the tile fold's
+    first), so the longest BAR-free stretch of the kernel over 16. The
+    block alone: the tile fold's stages between barriers, the ticket and the
+    solve lie outside it, so a path-date issues more than this count, and
+    the share of the cap it gives is a floor on the issue share. The
+    stretch may hold the seed's and the policy dates' variants both."""
+    piece = f"backward_kernelILi{degree}ELb{int(two_state)}ELb{int(resident)}E"
+    text = cuobjdump_sass(library)
+    block = next(b for b in text.split("Function : ")[1:] if piece in b.split()[0])
+    ops = [op.strip() for _, op in re.findall(SASS_LINE, block)]
+    longest, run = 0, 0
+    for op in ops:
+        if "BAR.SYNC" in op or op.startswith("BAR"):
+            longest, run = max(longest, run), 0
+        else:
+            run += 1
+    longest = max(longest, run)
+    return longest / american_cuda.PER_THREAD, f"{len(ops)} in all, {longest} between barriers"
 
 
 def american_sass_per_step(library: object) -> tuple[float, str]:
@@ -1935,33 +2011,101 @@ def lsmc_inputs(device: torch.device, contracts: int, rows: int, cols: int,
     return price_rows, params[:, 1].contiguous(), disc, df
 
 
-def phase_kernel_lsmc(device: torch.device) -> dict[str, dict[str, object]]:
-    """The backward against its twin (same rows, same reduction order:
-    mean cashflow within 1e-5 relative, u within rtol 2e-5 but on paths
-    whose exercise date flipped, at most 1e-5 of the paths) and against the
-    torch estimator (mean within 2e-3, at most 2% flipped), put and call, at
-    the shapes of both TPU kernels; then timed at the training chunk and at
-    the streamed shape beside the twin, the bound and its share."""
+def launched_by(fn) -> tuple[object, dict[str, int]]:
+    """``fn()`` and the launch counts it moved."""
+    before = dict(gbm_cuda.LAUNCHES_BY_BRANCH)
+    out = fn()
+    return out, {b: n - before[b] for b, n in gbm_cuda.LAUNCHES_BY_BRANCH.items()
+                 if n != before[b]}
+
+
+def backward_against_twin(name: str, price_rows: torch.Tensor, kw: dict[str, object]) -> int:
+    """The backward on its own route and on the other, each bit-equal to the
+    twin (u and so every exercise date); returns the twin's flips (0)."""
+    want = american_cuda.lsmc_backward_cuda_plain(price_rows, **kw)
+    got, launched = launched_by(lambda: american_cuda.lsmc_backward_cuda(price_rows, **kw))
+    resident = name.endswith("_streamed")  # the other route's
+    flips = int((got != want).sum())
+    if launched != {name: 1} or flips:
+        raise AssertionError(f"{name}: launches {launched}, {flips} paths off the twin")
+    grid, slots = american_cuda.lsmc_plan(kw["basis_degree"], kw.get("extra_rows") is not None,
+                                          True, price_rows.device.index or 0)
+    if american_cuda.lsmc_route(price_rows.shape[2] * price_rows.shape[3],
+                                grid * slots) != "resident":
+        return flips  # past the resident grid's capacity: one route only
+    forced = american_cuda._lsmc_launch(price_rows, resident=resident, **kw)
+    if not torch.equal(forced, want):
+        raise AssertionError(f"{name}: the {'resident' if resident else 'streamed'} route is "
+                             f"off the twin")
+    return flips
+
+
+def time_backward(name: str, price_rows: torch.Tensor, kw: dict[str, object],
+                  sass: dict[str, tuple[float, str]], max_sm_hz: float,
+                  **extra: object) -> dict:
+    """``name``'s time at ``price_rows``' shape beside the twin's, both
+    bounds and their shares, and the schedule's bytes; at that shape (the
+    main path's, for the resident route) the kernel's output and a repeated
+    launch's are bit-equal to the twin's, and ``max_abs_err`` is theirs."""
+    contracts, monitors, rows, cols = price_rows.shape
+    two = kw.get("extra_rows") is not None
+    ms = cuda_ms(lambda: american_cuda.lsmc_backward_cuda(price_rows, **kw))
+    got = american_cuda.lsmc_backward_cuda(price_rows, **kw)
+    again = american_cuda.lsmc_backward_cuda(price_rows, **kw)
+    twin: list[torch.Tensor] = []
+    plain_ms = cuda_ms(lambda: twin.append(american_cuda.lsmc_backward_cuda_plain(price_rows,
+                                                                                 **kw)),
+                       iters=1, warmup=1)
+    want = twin[-1]
+    err = max(float((got - want).abs().max()), float((again - want).abs().max()))
+    flips = int((got != want).sum()) + int((again != want).sum())
+    if flips or not (torch.equal(got, want) and torch.equal(again, want)):
+        raise AssertionError(f"{name}: at {contracts}x{rows}x{cols}x{monitors} {flips} paths of "
+                             f"two launches off the twin (max abs err {err:.3e})")
+    del got, again, twin, want
+    torch.cuda.empty_cache()
+    bound, bound_by = lsmc_bound_ms(contracts, rows, cols, monitors, two_state=two)
+    paths = contracts * rows * cols
+    resident = not name.endswith("_streamed")
+    slabs = ((2 * monitors if two else monitors + 1) if resident
+             else (4 * (monitors - 1) + 3) * (2 if two else 1))
+    per_date, found = sass[name]
+    cap = LANES_PER_CLOCK * max_sm_hz / per_date
+    grid, slots = american_cuda.lsmc_plan(LSMC_DEGREE, two, True, price_rows.device.index or 0)
+    phase("kernel-lsmc-time", kernel=name, shape=f"{contracts}x{rows}x{cols}x{monitors}",
+          degree=LSMC_DEGREE, kernel_ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
+          bound_ms=f"{bound:.3f}", bound_by=bound_by, share_of_bound=f"{bound / ms:.4f}",
+          byte_bound_ms=f"{slabs * paths * 4 / HBM_BYTES_PER_S * 1e3:.3f}",
+          schedule_gb=round(slabs * paths * 4 / 1e9, 3),
+          schedule_bytes_per_s=f"{slabs * paths * 4 / ms * 1e3:.4e}",
+          twin_bit_equal_at_shape=True, repeat_bit_equal=True, max_abs_err=err,
+          block_sass_per_path_date=round(per_date, 3), sass_block=found,
+          share_of_block_instruction_cap=f"{paths * monitors / ms * 1e3 / cap:.4f}",
+          resident_grid=f"{grid}x{slots} tiles", launches_per_backward=1, **extra)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, max_abs_err=err)
+
+
+def phase_kernel_lsmc(device: torch.device, sass: dict[str, tuple[float, str]],
+                      max_sm_hz: float) -> dict[str, dict[str, object]]:
+    """The single-state backward against its twin on the GBM monitor rows,
+    put and call, at the shapes of both TPU kernels: ``lsmc_route`` picks
+    the resident kernel at 2^20 paths a contract and the streamed one at
+    2^22, each bit-equal to the twin (0 flips) and so is the other route
+    where it fits; against the torch estimator the mean within 2e-3 and at
+    most 2% flipped. Then each timed at its shape (the resident at the
+    training chunk) beside the twin, the sweep/solve pair it replaced, both
+    bounds and the 16-path block's SASS against the instruction cap; at
+    each timed shape two launches bit-equal to the twin."""
     record: dict[str, dict[str, object]] = {}
     for name, (rows, cols) in LSMC_SHAPES.items():
         price_rows, strike, disc, df = lsmc_inputs(device, AMERICAN_CONTRACTS, rows, cols, 21)
         paths = AMERICAN_CONTRACTS * rows * cols
-        worst = 0.0
         for put in (True, False):
             kw = dict(strike=strike, disc=disc, df=df, put=put, basis_degree=LSMC_DEGREE)
+            flips = backward_against_twin(name, price_rows, kw)
             got = american_cuda.lsmc_backward_cuda(price_rows, **kw)
-            want = american_cuda.lsmc_backward_cuda_plain(price_rows, **kw)
-            torch.cuda.synchronize()
             cf_got = (strike[:, None, None] - got) * df[:, None, None]
-            cf_want = (strike[:, None, None] - want) * df[:, None, None]
-            mean_got, mean_want = float(cf_got.double().mean()), float(cf_want.double().mean())
-            flipped = ~torch.isclose(got, want, rtol=KERNEL_RTOL, atol=0.0)
-            flips = int(flipped.sum())
-            mean_rel = abs(mean_got - mean_want) / abs(mean_want)
-            if flips > LSMC_FLIP_SHARE * paths or mean_rel > LSMC_MEAN_RTOL:
-                raise AssertionError(f"{name} put={put}: {flips} flips, mean off {mean_rel:.2e}")
-            agree = torch.where(flipped, torch.zeros_like(got), (got - want).abs())
-            worst = max(worst, float(agree.max()))
+            mean_got = float(cf_got.double().mean())
             cf_torch = american.lsmc_backward(price_rows, strike=strike, disc=disc,
                                               dtype=torch.float32, put=put,
                                               basis_degree=LSMC_DEGREE)
@@ -1974,31 +2118,21 @@ def phase_kernel_lsmc(device: torch.device) -> dict[str, dict[str, object]]:
                                      f"flipped, mean off {torch_rel:.2e}")
             phase("kernel-lsmc", kernel=name, side="put" if put else "call",
                   shape=f"{AMERICAN_CONTRACTS}x{rows}x{cols}x{STEPS}", degree=LSMC_DEGREE,
-                  twin_flips=flips, twin_bit_equal=bool(torch.equal(got, want)),
-                  twin_mean_rel=f"{mean_rel:.3e}", mean_cashflow=round(mean_got, 6),
+                  route="streamed" if name.endswith("_streamed") else "resident",
+                  twin_flips=flips, twin_bit_equal=True,
+                  both_routes_bit_equal=rows * cols <= 1 << 20,
+                  mean_cashflow=round(mean_got, 6),
                   torch_estimator_flip_share=f"{torch_flips:.5f}",
-                  torch_estimator_mean_rel=f"{torch_rel:.3e}")
-            del got, want, cf_got, cf_want, cf_torch, u_torch, agree, flipped
+                  torch_estimator_mean_rel=f"{torch_rel:.3e}", paths=paths)
+            del got, cf_got, cf_torch, u_torch
         kw = dict(strike=strike, disc=disc, df=df, put=True, basis_degree=LSMC_DEGREE)
         if name == "lsmc_backward":  # timed at the training chunk
             del price_rows
             torch.cuda.empty_cache()
             price_rows, strike, disc, df = lsmc_inputs(device, CHUNK, rows, cols, 22)
             kw = dict(strike=strike, disc=disc, df=df, put=True, basis_degree=LSMC_DEGREE)
-        contracts = price_rows.shape[0]
-        ms = cuda_ms(lambda: american_cuda.lsmc_backward_cuda(price_rows, **kw))
-        plain_ms = cuda_ms(lambda: american_cuda.lsmc_backward_cuda_plain(price_rows, **kw),
-                           iters=1, warmup=1)
-        bound, bound_by = lsmc_bound_ms(contracts, rows, cols, STEPS)
-        slabs = (4 * (STEPS - 1) + 3) * contracts * rows * cols * 4
-        phase("kernel-lsmc-time", kernel=name, shape=f"{contracts}x{rows}x{cols}x{STEPS}",
-              degree=LSMC_DEGREE, kernel_ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
-              bound_ms=f"{bound:.3f}", bound_by=bound_by, share_of_bound=f"{bound / ms:.4f}",
-              schedule_gb=round(slabs / 1e9, 3),
-              schedule_bytes_per_s=f"{slabs / ms * 1e3:.4e}",
-              launches_per_backward=2 * STEPS - 1)
-        record[name] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                            bound_by=bound_by)
+        record[name] = time_backward(name, price_rows, kw, sass, max_sm_hz,
+                                     sweep_solve_pair_ms=SWEEP_SOLVE_MS[name])
         del price_rows
         torch.cuda.empty_cache()
     return record
@@ -2404,38 +2538,11 @@ def phase_kernel_american_dynamics(
     return record
 
 
-def phase_backward_american_dynamics(device: torch.device) -> dict[str, float]:
-    """The CUDA backward against its twin on the Merton and the geometric
-    basket monitor rows (0 flips, u bit-equal), put and call; the torch
-    estimator with Heston's variance rows on the card, timed at the
-    training chunk with its peak memory, and against its own run on the CPU
-    at 2 contracts x 64 x 512 (at most 2% of paths flipped, the mean
-    cashflow within 2e-3)."""
-    for case in ("merton", "basket3_geometric"):
-        params, keys = kernel_inputs(device, AMERICAN_CONTRACTS, 23,
-                                     DYNAMICS_KERNELS[case][0])
-        price_rows, extra = dynamics_rows(case, params, keys, timesteps=STEPS, rows=ROWS,
-                                          cols=COLS, exercise_every=1)
-        assert extra is None
-        disc, df = american_cuda.monitor_discounts(params, timesteps=STEPS, exercise_every=1)
-        for put in (True, False):
-            kw = dict(strike=params[:, 1].contiguous(), disc=disc, df=df, put=put,
-                      basis_degree=LSMC_DEGREE)
-            got = american_cuda.lsmc_backward_cuda(price_rows, **kw)
-            want = american_cuda.lsmc_backward_cuda_plain(price_rows, **kw)
-            torch.cuda.synchronize()
-            flips = int((~torch.isclose(got, want, rtol=KERNEL_RTOL, atol=0.0)).sum())
-            if flips or not torch.equal(got, want):
-                raise AssertionError(f"{case} put={put}: the CUDA backward is off its twin on "
-                                     f"{flips} paths")
-            phase("backward-american-dynamics", rows=case, backward="cuda",
-                  side="put" if put else "call", shape=f"{AMERICAN_CONTRACTS}x{ROWS}x{COLS}x{STEPS}",
-                  twin_flips=flips, twin_bit_equal=True,
-                  mean_cashflow=round(float(((kw["strike"][:, None, None] - got)
-                                             * df[:, None, None]).double().mean()), 6))
-        del price_rows
-    torch.cuda.empty_cache()
-    # the torch estimator on Heston's two state rows: the card against the CPU
+def estimator_card_vs_cpu(device: torch.device) -> None:
+    """The torch estimator (backward 0, which cross-fit still runs on the
+    card) on Heston's two state rows at 2 contracts x 64 x 512: the card
+    against its own run on the CPU, at most 2% of paths flipped and the mean
+    cashflow within 2e-3."""
     params, keys = kernel_inputs(device, 2, 24, "heston")
     price_rows, var_rows = american_cuda.simulate_heston_american_rows_cuda(
         params, keys, timesteps=STEPS, rows=64, cols=COLS, exercise_every=1)
@@ -2452,27 +2559,97 @@ def phase_backward_american_dynamics(device: torch.device) -> dict[str, float]:
     if flip_share > TORCH_FLIP_SHARE or mean_rel > TORCH_MEAN_RTOL:
         raise AssertionError(f"torch estimator card vs CPU: {flip_share:.4f} flipped, mean off "
                              f"{mean_rel:.2e}")
-    del price_rows, var_rows, u_card
-    torch.cuda.empty_cache()
+    phase("backward-american-dynamics", rows="heston", backward="torch estimator",
+          card_vs_cpu_shape=f"2x64x{COLS}x{STEPS}", card_vs_cpu_flip_share=f"{flip_share:.5f}",
+          card_vs_cpu_mean_rel=f"{mean_rel:.3e}")
+
+
+def phase_backward_american_dynamics(device: torch.device, sass: dict[str, tuple[float, str]],
+                                     max_sm_hz: float) -> dict[str, dict[str, object]]:
+    """The single-state backward on the Merton and the geometric basket rows
+    and the two-state backward on Heston's and the arithmetic basket's two
+    row sets, put and call: bit-equal to the twin (0 flips) on both routes;
+    the two-state one against the torch estimator on the card (at most 2% of
+    paths flipped, the mean cashflow within 2e-3); the torch estimator on the
+    card against its CPU run (``estimator_card_vs_cpu``); then the two-state
+    backward timed at the training chunk on Heston rows with its peak memory,
+    beside the torch estimator it replaced, and at the streamed shape."""
+    record: dict[str, dict[str, object]] = {}
+    for case in ("merton", "basket3_geometric", "heston", "basket3_arithmetic"):
+        params, keys = kernel_inputs(device, AMERICAN_CONTRACTS, 23,
+                                     DYNAMICS_KERNELS[case][0])
+        price_rows, extra = dynamics_rows(case, params, keys, timesteps=STEPS, rows=ROWS,
+                                          cols=COLS, exercise_every=1)
+        name = "lsmc_backward" if extra is None else "lsmc_two_state"
+        disc, df = american_cuda.monitor_discounts(params, timesteps=STEPS, exercise_every=1)
+        strike = params[:, 1].contiguous()
+        for put in (True, False):
+            kw = dict(strike=strike, disc=disc, df=df, put=put, basis_degree=LSMC_DEGREE,
+                      extra_rows=extra)
+            flips = backward_against_twin(name, price_rows, kw)
+            got = american_cuda.lsmc_backward_cuda(price_rows, **kw)
+            cf_got = (strike[:, None, None] - got) * df[:, None, None]
+            found = dict(mean_cashflow=round(float(cf_got.double().mean()), 6))
+            if extra is not None:
+                cf_torch = american.lsmc_backward(price_rows, strike=strike, disc=disc,
+                                                  dtype=torch.float32, put=put,
+                                                  basis_degree=LSMC_DEGREE, extra_rows=extra)
+                u_torch = strike[:, None, None] - cf_torch / df[:, None, None]
+                flip_share = float((got != u_torch).float().mean())
+                mean_torch = float(cf_torch.double().mean())
+                mean_rel = abs(found["mean_cashflow"] - mean_torch) / abs(mean_torch)
+                if flip_share > TORCH_FLIP_SHARE or mean_rel > TORCH_MEAN_RTOL:
+                    raise AssertionError(f"{case} put={put}: vs the torch estimator "
+                                         f"{flip_share:.4f} flipped, mean off {mean_rel:.2e}")
+                found.update(torch_estimator_flip_share=f"{flip_share:.5f}",
+                             torch_estimator_mean_rel=f"{mean_rel:.3e}")
+                del cf_torch, u_torch
+            phase("backward-american-dynamics", rows=case, kernel=name,
+                  side="put" if put else "call",
+                  shape=f"{AMERICAN_CONTRACTS}x{ROWS}x{COLS}x{STEPS}", twin_flips=flips,
+                  twin_bit_equal=True, both_routes_bit_equal=True, **found)
+            del got, cf_got
+        del price_rows, extra
+        torch.cuda.empty_cache()
+    estimator_card_vs_cpu(device)
+    # timed: the training chunk of Heston rows (resident), the streamed shape
     params, keys = kernel_inputs(device, CHUNK, 25, "heston")
     price_rows, var_rows = american_cuda.simulate_heston_american_rows_cuda(
         params, keys, timesteps=STEPS, rows=ROWS, cols=COLS, exercise_every=1)
+    est = dict(timesteps=STEPS, exercise_every=1, option=american.OptionSide.PUT,
+               basis_degree=LSMC_DEGREE, extra_rows=var_rows)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
-    ms = cuda_ms(lambda: american_cuda.monitor_underliers(price_rows, params, extra_rows=var_rows,
-                                                          **est), iters=3, warmup=1)
+    american_cuda.monitor_underliers(price_rows, params, backward=4, **est)
+    torch.cuda.synchronize()
     peak_gb = (torch.cuda.max_memory_allocated(device) - base) / 1e9
-    paths = CHUNK * ROWS * COLS
-    phase("backward-american-dynamics", rows="heston", backward="torch estimator",
-          card_vs_cpu_shape=f"2x64x{COLS}x{STEPS}", card_vs_cpu_flip_share=f"{flip_share:.5f}",
-          card_vs_cpu_mean_rel=f"{mean_rel:.3e}", timed_shape=f"{CHUNK}x{ROWS}x{COLS}x{STEPS}",
-          degree=LSMC_DEGREE, basis_columns=LSMC_DEGREE + 4, estimator_ms=f"{ms:.3f}",
-          estimator_peak_gb_above_rows=round(peak_gb, 3),
-          monitor_rows_gb=round(2 * paths * STEPS * 4 / 1e9, 3))
+    torch_ms = cuda_ms(lambda: american_cuda.monitor_underliers(price_rows, params, backward=0,
+                                                                **est), iters=1, warmup=1)
+    torch.cuda.empty_cache()
+    disc, df = american_cuda.monitor_discounts(params, timesteps=STEPS, exercise_every=1)
+    kw = dict(strike=params[:, 1].contiguous(), disc=disc, df=df, put=True,
+              basis_degree=LSMC_DEGREE, extra_rows=var_rows)
+    record["lsmc_two_state"] = time_backward(
+        "lsmc_two_state", price_rows, kw, sass, max_sm_hz, peak_gb_above_rows=round(peak_gb, 3),
+        monitor_rows_gb=round(2 * CHUNK * ROWS * COLS * STEPS * 4 / 1e9, 3),
+        torch_estimator_ms=f"{torch_ms:.3f}",
+        torch_estimator_before_ms=TORCH_ESTIMATOR_BEFORE_MS)
     del price_rows, var_rows
     torch.cuda.empty_cache()
-    return {"estimator_ms": ms, "estimator_peak_gb": peak_gb}
+    rows, cols = LSMC_SHAPES["lsmc_backward_streamed"]
+    params, keys = kernel_inputs(device, AMERICAN_CONTRACTS, 26, "heston")
+    price_rows, var_rows = american_cuda.simulate_heston_american_rows_cuda(
+        params, keys, timesteps=STEPS, rows=rows, cols=cols, exercise_every=1)
+    disc, df = american_cuda.monitor_discounts(params, timesteps=STEPS, exercise_every=1)
+    kw = dict(strike=params[:, 1].contiguous(), disc=disc, df=df, put=True,
+              basis_degree=LSMC_DEGREE, extra_rows=var_rows)
+    flips = backward_against_twin("lsmc_two_state_streamed", price_rows, kw)
+    record["lsmc_two_state_streamed"] = time_backward(
+        "lsmc_two_state_streamed", price_rows, kw, sass, max_sm_hz, twin_flips=flips)
+    del price_rows, var_rows
+    torch.cuda.empty_cache()
+    return record
 
 
 def family_lsmc(device: torch.device, model: ModelKind, contract: dict[str, float],
@@ -2580,29 +2757,32 @@ def american_dynamics_config(payoff: PayoffKind = PayoffKind.AMERICAN_PUT, *, ro
 
 def phase_train_heston_american(device: torch.device) -> GbmCVNNPricer:
     """3 steps of the Heston American put at the production batch: one
-    monitor-kernel launch per chunk, the torch estimator on its two state
-    rows (backward 0 recorded), stream american_heston v1; the step's peak
-    device memory."""
+    monitor-kernel launch and one two-state backward per chunk (backward 4
+    recorded, the torch estimator never run), stream american_heston v1; the
+    step's peak device memory."""
     pricer = GbmCVNNPricer.create(american_dynamics_config(), device=device).expect("heston amer")
-    before = gbm_cuda.LAUNCHES_BY_BRANCH["american_heston"]
     torch.cuda.reset_peak_memory_stats(device)
-    losses, seconds = train_steps(pricer, 3, chunk=HESTON_AMERICAN_CHUNK)
+    (losses, seconds), moved = launched_by(
+        lambda: train_steps(pricer, 3, chunk=HESTON_AMERICAN_CHUNK))
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
-    launched = gbm_cuda.LAUNCHES_BY_BRANCH["american_heston"] - before
+    launched = {g: moved.get(g, 0) for g in ("american_heston", "lsmc_two_state")}
+    estimator_calls = moved.get("torch_estimator", 0)
     snap = pricer.snapshot()
     if not np.all(np.isfinite(losses)):
         raise AssertionError(f"heston american: non-finite training losses {losses}")
-    if launched != 3 * BATCH // HESTON_AMERICAN_CHUNK:
-        raise AssertionError(f"heston american: {launched} monitor launches in 3 steps")
+    if set(launched.values()) != {3 * BATCH // HESTON_AMERICAN_CHUNK} or estimator_calls:
+        raise AssertionError(f"heston american: launches {launched} and {estimator_calls} torch "
+                             f"estimator calls in 3 steps")
+    want = american_cuda.LSMC_BACKWARD_VERSIONS["cuda_two_state"]
     if (snap.sim.implementation.value, snap.lsmc_backward_version,
-            snap.cuda_stream_version) != ("cuda", 0, 1):
+            snap.cuda_stream_version) != ("cuda", want, 1):
         raise AssertionError(f"heston american: engine {snap.sim.implementation.value}, backward "
                              f"v{snap.lsmc_backward_version}, stream v{snap.cuda_stream_version}")
     phase("train-heston-american", model="heston", payoff=snap.sim.payoff.value, inputs=10,
           engine="cuda", stream="american_heston_v1",
           lsmc_backward_version=snap.lsmc_backward_version,
           normalization=snap.sim.normalization.value, losses=losses.tolist(), launches=launched,
-          step_seconds=[round(s, 4) for s in seconds],
+          torch_estimator_calls=estimator_calls, step_seconds=[round(s, 4) for s in seconds],
           median_step_s=f"{statistics.median(seconds):.4f}", peak_memory_gb=round(peak_gb, 3),
           monitor_rows_gb_per_chunk=round(2 * HESTON_AMERICAN_CHUNK * STEPS * ROWS * COLS * 4
                                           / 1e9, 3),
@@ -2615,48 +2795,61 @@ CURVED_HESTON_REFUSAL = (
     "LSMC early exercise under term structures is supported for GBM dynamics only (the "
     "curved-coefficient lattice oracle and per-segment discount backward exist for the "
     "single-factor lognormal family)")
-# one step at batch 64 each: (label, model, payoff, knobs, backward, kernel count)
+# one step at batch 64 each (batch 4 at 4,194,304 paths a contract): (label,
+# model, payoff, knobs, batch rows, backward, the counts that must move: the
+# kernels' launches and, for cross-fit alone, the torch estimator's runs)
 DYNAMICS_FAMILIES = [
-    ("merton put", "merton_jump", PayoffKind.AMERICAN_PUT, {}, 3, "american_merton"),
-    ("arithmetic basket put", "basket_gbm", PayoffKind.AMERICAN_PUT, dict(basket=BASKET_SPEC), 0,
-     "american_basket"),
+    ("merton put", "merton_jump", PayoffKind.AMERICAN_PUT, {}, ROWS, 3,
+     ("american_merton", "lsmc_backward")),
+    ("arithmetic basket put", "basket_gbm", PayoffKind.AMERICAN_PUT, dict(basket=BASKET_SPEC),
+     ROWS, 4, ("american_basket", "lsmc_two_state")),
     ("geometric basket put", "basket_gbm", PayoffKind.AMERICAN_PUT, dict(basket=GEOMETRIC_SPEC),
-     3, "american_basket"),
-    ("heston call", "heston", PayoffKind.AMERICAN_CALL, {}, 0, "american_heston"),
-    ("heston cross-fit", "heston", PayoffKind.AMERICAN_PUT, dict(lsmc_cross_fit=True), 0,
-     "american_heston"),
-    ("merton antithetic", "merton_jump", PayoffKind.AMERICAN_PUT, dict(antithetic=True), 3,
-     "american_merton"),
+     ROWS, 3, ("american_basket", "lsmc_backward")),
+    ("heston call", "heston", PayoffKind.AMERICAN_CALL, {}, ROWS, 4,
+     ("american_heston", "lsmc_two_state")),
+    ("heston cross-fit", "heston", PayoffKind.AMERICAN_PUT, dict(lsmc_cross_fit=True), ROWS, 0,
+     ("american_heston", "torch_estimator")),
+    ("merton antithetic", "merton_jump", PayoffKind.AMERICAN_PUT, dict(antithetic=True), ROWS, 3,
+     ("american_merton", "lsmc_backward")),
+    ("heston 4,194,304 paths", "heston", PayoffKind.AMERICAN_PUT, {}, 8192, 4,
+     ("american_heston", "lsmc_two_state_streamed")),
 ]
+BACKWARD_GROUPS = ("lsmc_backward", "lsmc_backward_streamed", "lsmc_two_state",
+                   "lsmc_two_state_streamed", "torch_estimator")
 
 
 def phase_families_american_dynamics(device: torch.device) -> None:
-    """One step at batch 64 per pricer of DYNAMICS_FAMILIES: the engine,
-    stream and backward recorded, the monitor kernel (and the CUDA backward
-    where it runs) launched once, a finite loss, the learned side finite and
-    the other NaN; then a curved-rate Heston American config, refused with
-    JAX's field, value and reason."""
-    for label, model, payoff, knobs, backward, kernel in DYNAMICS_FAMILIES:
-        pricer = GbmCVNNPricer.create(american_dynamics_config(payoff, model=model, **knobs),
-                                      device=device).expect(label)
-        groups = (kernel, "lsmc_backward") if backward else (kernel,)
-        before = {g: gbm_cuda.LAUNCHES_BY_BRANCH[g] for g in (*groups, "lsmc_backward")}
-        losses, seconds = train_steps(pricer, 1, batch=PAYOFF_BATCH, chunk=PAYOFF_BATCH)
-        launched = {g: gbm_cuda.LAUNCHES_BY_BRANCH[g] - v for g, v in before.items()}
+    """One step per pricer of DYNAMICS_FAMILIES: the engine, stream and
+    backward recorded, the monitor kernel and the backward of the recorded
+    version launched once (no other backward), the torch estimator run only
+    for cross-fit, a finite loss, the learned side finite and the other NaN;
+    then a curved-rate Heston American config, refused with JAX's field,
+    value and reason."""
+    for label, model, payoff, knobs, rows, backward, groups in DYNAMICS_FAMILIES:
+        pricer = GbmCVNNPricer.create(
+            american_dynamics_config(payoff, rows=rows, model=model, **knobs),
+            device=device).expect(label)
+        batch = 4 if rows > ROWS else PAYOFF_BATCH
+        (losses, seconds), moved = launched_by(
+            lambda: train_steps(pricer, 1, batch=batch, chunk=batch))
+        launched = {g: moved.get(g, 0) for g in (groups[0], *BACKWARD_GROUPS)}
         snap = pricer.snapshot()
         want = {g: (1 if g in groups else 0) for g in launched}
         if (snap.sim.implementation.value, snap.lsmc_backward_version,
                 snap.cuda_stream_version) != ("cuda", backward, 1) or launched != want:
             raise AssertionError(f"{label}: engine {snap.sim.implementation.value}, backward "
-                                 f"v{snap.lsmc_backward_version}, launches {launched}")
+                                 f"v{snap.lsmc_backward_version}, launches and torch "
+                                 f"estimator calls {launched}")
         if not np.all(np.isfinite(losses)):
             raise AssertionError(f"{label}: loss {losses}")
         family = family_of(snap.sim)
         pred = check_prices(pricer, held_out(payoff, 8, family), device)
         phase("families-american-dynamics", pricer=label, model=model, payoff=payoff.value,
               engine="cuda", stream=f"american_{model}_v{snap.cuda_stream_version}",
-              lsmc_backward_version=backward, launches=launched, batch=PAYOFF_BATCH,
-              loss=float(losses[0]), step_s=round(seconds[0], 4),
+              lsmc_backward_version=backward,
+              launches={g: n for g, n in launched.items() if n and g != "torch_estimator"},
+              torch_estimator_calls=launched["torch_estimator"], paths_per_contract=rows * COLS,
+              batch=batch, loss=float(losses[0]), step_s=round(seconds[0], 4),
               prices=np.round(pred.call if payoff == PayoffKind.AMERICAN_CALL else pred.put,
                               5)[:3].tolist(),
               other_side="NaN")
@@ -2720,9 +2913,10 @@ def phase_profile(pricer: GbmCVNNPricer, label: str) -> None:
 
 def phase_profile_heston_american(pricer: GbmCVNNPricer) -> None:
     """The Heston American put's step split three ways: 10 warm steps on the
-    host clock, then 3 steps under torch.profiler (the monitor kernel's
-    device time, all kernels' device time) with the torch estimator's span
-    timed by CUDA events around each ``monitor_underliers`` call."""
+    host clock, then 3 steps under torch.profiler (the monitor kernel's and
+    the two-state backward kernel's device time, all kernels' device time)
+    with the backward's span timed by CUDA events around each
+    ``monitor_underliers`` call."""
     original = american_cuda.monitor_underliers
     spans: list[tuple[torch.cuda.Event, torch.cuda.Event]] = []
 
@@ -2740,19 +2934,23 @@ def phase_profile_heston_american(pricer: GbmCVNNPricer) -> None:
     ).expect("training config")
     american_cuda.monitor_underliers = timed
     try:
-        wall, busy, launches, top = profiled(lambda: [pricer.train(cfg) for _ in range(3)])
+        (wall, busy, launches, top), moved = launched_by(
+            lambda: profiled(lambda: [pricer.train(cfg) for _ in range(3)]))
     finally:
         american_cuda.monitor_underliers = original
     torch.cuda.synchronize()
-    estimator = sum(a.elapsed_time(b) for a, b in spans)
+    backward = sum(a.elapsed_time(b) for a, b in spans)
     monitor = sum(ms for name, _, ms in top if "american_heston_kernel" in name)
+    kernel = sum(ms for name, _, ms in top if "backward_kernel" in name)
     phase("profile-train-heston-american", warm_steps=len(seconds),
           median_step_s=f"{statistics.median(seconds):.4f}", min_step_s=f"{min(seconds):.4f}",
           max_step_s=f"{max(seconds):.4f}", profiled_steps=3, wall_ms=f"{wall:.3f}",
           kernel_ms=f"{busy:.3f}", busy=f"{busy / wall:.4f}", kernel_launches=launches,
-          monitor_kernel_ms=f"{monitor:.3f}", torch_estimator_span_ms=f"{estimator:.3f}",
-          estimator_calls=len(spans), rest_of_wall_ms=f"{wall - monitor - estimator:.3f}",
-          estimator_share_of_wall=f"{estimator / wall:.4f}", top=repr(top))
+          monitor_kernel_ms=f"{monitor:.3f}", backward_kernel_ms=f"{kernel:.3f}",
+          backward_span_ms=f"{backward:.3f}", backward_calls=len(spans),
+          torch_estimator_calls=moved.get("torch_estimator", 0),
+          rest_of_wall_ms=f"{wall - monitor - backward:.3f}",
+          backward_share_of_wall=f"{backward / wall:.4f}", top=repr(top))
     rows = held_out(PayoffKind.AMERICAN_PUT, 64, "heston")
     for _ in range(5):
         pricer.predict_price(rows)
@@ -2768,7 +2966,7 @@ def main() -> None:
                         help="after the checks, time warm train steps and profile train and serve")
     args = parser.parse_args()
     device, smi, max_sm_hz = phase_device()
-    per_step, american_sass, dynamics_sass = phase_build()
+    per_step, american_sass, dynamics_sass, lsmc_sass = phase_build()
     kernel = phase_kernel(device, per_step, max_sm_hz)
     phase_oracle(device)
     phase_oracle_families(device)
@@ -2815,7 +3013,7 @@ def main() -> None:
     for group in (*BASKET_TIMED, "qmc_bridge"):
         launches.setdefault(group, gbm_cuda.LAUNCHES_BY_BRANCH[group])
     kernel.update(phase_kernel_american(device, american_sass, max_sm_hz))
-    kernel.update(phase_kernel_lsmc(device))
+    kernel.update(phase_kernel_lsmc(device, lsmc_sass, max_sm_hz))
     phase_oracle_american(device)
     gbm_cuda.reset_launches()  # the American pricer's path starts here
     american_pricer = phase_train_american(device)
@@ -2827,16 +3025,17 @@ def main() -> None:
     phase_families_american(device)
     launches["lsmc_backward_streamed"] = gbm_cuda.LAUNCHES_BY_BRANCH["lsmc_backward_streamed"]
     kernel.update(phase_kernel_american_dynamics(device, dynamics_sass, max_sm_hz))
-    phase_backward_american_dynamics(device)
+    kernel.update(phase_backward_american_dynamics(device, lsmc_sass, max_sm_hz))
     phase_oracle_american_dynamics(device)
     gbm_cuda.reset_launches()  # the Heston American pricer's path starts here
     heston_american = phase_train_heston_american(device)
     phase_resume(device, heston_american, "resume-heston-american")
     phase_serve(heston_american, device, "serve-heston-american")
-    launches["american_heston"] = gbm_cuda.LAUNCHES_BY_BRANCH["american_heston"]
+    for group in ("american_heston", "lsmc_two_state"):
+        launches[group] = gbm_cuda.LAUNCHES_BY_BRANCH[group]
     gbm_cuda.reset_launches()  # the other dynamics' American pricers' path starts here
     phase_families_american_dynamics(device)
-    for group in ("american_merton", "american_basket"):
+    for group in ("american_merton", "american_basket", "lsmc_two_state_streamed"):
         launches[group] = gbm_cuda.LAUNCHES_BY_BRANCH[group]
     missing = [b for b, n in launches.items() if n == 0]
     if missing:
@@ -2878,16 +3077,31 @@ def main() -> None:
                                              "bound_by")},
             "library_ms": None,  # no single PyTorch call computes these functions
         })
-    for group in AMERICAN_REPLACES:
+    records.append({
+        "name": "american_gbm",
+        "route": "cuda",
+        "source": AMERICAN_SOURCE,
+        "replaces": AMERICAN_REPLACES["american_gbm"],
+        "launches": launches["american_gbm"],
+        **{k: kernel["american_gbm"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                  "bound_by")},
+        "library_ms": None,  # no single PyTorch call computes this function
+    })
+    for group, replaces in LSMC_REPLACES.items():
+        two = group.startswith("lsmc_two_state")
+        grid, slots = american_cuda.lsmc_plan(LSMC_DEGREE, two, True, device.index or 0)
         records.append({
-            "name": "american_gbm" if group == "american_gbm" else "lsmc_backward",
+            "name": group,
             "route": "cuda",
-            "source": AMERICAN_SOURCE,
-            "replaces": AMERICAN_REPLACES[group],
+            "source": LSMC_SOURCE,
+            "replaces": replaces,
             "launches": launches[group],
             **{k: kernel[group][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                              "bound_by")},
             "library_ms": None,  # no single PyTorch call computes these functions
+            "split": (f"ops/american_cuda.py::lsmc_route: resident while ceil(paths / 4096) <= "
+                      f"{grid * slots} ({grid} CTAs x {slots} on-chip tiles, degree "
+                      f"{LSMC_DEGREE}), else streamed"),
         })
     for group, replaces in DYNAMICS_AMERICAN_REPLACES.items():
         records.append({

@@ -1,13 +1,15 @@
 """The ``"cuda"`` engine's American (LSMC) kernels: the monitor-row forwards and the backward.
 
-``csrc/american_paths.cu`` replaces three kernels of the JAX package:
-``ops/gbm_pallas.py::_gbm_monitor_block_kernel`` (the GBM monitor-row
-forward) and ``ops/lsmc_pallas.py::_fused_backward_kernel`` and
-``_streamed_backward_kernel`` (one CUDA backward serves both).
-``csrc/american_dynamics.cu`` replaces three more:
-``_heston_monitor_block_kernel``, ``_merton_monitor_block_kernel`` and
-``_basket_monitor_block_kernel``. Each header states what it keeps, what it
-drops and what bounds it. This module holds
+``csrc/american_paths.cu`` replaces ``ops/gbm_pallas.py::
+_gbm_monitor_block_kernel`` (the GBM monitor-row forward);
+``csrc/american_dynamics.cu`` replaces ``_heston_monitor_block_kernel``,
+``_merton_monitor_block_kernel`` and ``_basket_monitor_block_kernel``;
+``csrc/lsmc_backward.cuh`` (built as ``csrc/lsmc_backward.cu``, single
+state, and ``csrc/lsmc_two_state.cu``) replaces ``ops/lsmc_pallas.py::
+_fused_backward_kernel`` and ``_streamed_backward_kernel`` by one persistent
+kernel with two routes: the carrier resident on chip, or in HBM
+(``lsmc_route``). Each header states what it keeps, what it drops and what
+bounds it. This module holds
 
 * the public wrappers ``simulate_american_rows_cuda`` (``[C, n_monitor,
   rows, cols]`` GBM price rows), ``simulate_heston_american_rows_cuda``
@@ -15,37 +17,43 @@ drops and what bounds it. This module holds
   (price rows), ``simulate_basket_american_rows_cuda`` (basket-value rows
   and, for the arithmetic combine, log-dispersion rows) and
   ``lsmc_backward_cuda`` (``[C, rows, cols]`` synthetic underliers ``u = K −
-  cf/df``): a CPU tensor goes to the plain twin, a CUDA tensor launches the
-  kernel or raises. There is no fallback.
+  cf/df``, from price rows and optionally a second state's rows): a CPU
+  tensor goes to the plain twin, a CUDA tensor launches the kernel or raises.
+  There is no fallback.
 * the plain twins ``…_cuda_plain`` of the forwards (the same Philox words
   and float32 arithmetic in torch ops; ``words=0`` replays the TPU
-  interpreter's zero bits) and ``lsmc_backward_cuda_plain`` (the same lagged
-  schedule and the same reduction order: per thread 16 paths in order, a
-  halving tree over the 256 threads of a block, the blocks' partials summed
-  per thread in order and folded by the same tree, and the solve of
-  ``ops/american.py::_ridge_chol_solve``), so its β and every exercise
-  decision equal the kernel's bit for bit.
+  interpreter's zero bits) and ``lsmc_backward_cuda_plain`` (the same
+  lagged order of dates and the same reduction order: per thread 16 paths
+  in order, a tile's 256 threads folded — one state: a halving tree over
+  all 256; two states: over each warp's 32 lanes, then the 8 warps in
+  order — the tiles' partials summed per thread in order and folded the
+  same way, and the solve of ``ops/american.py::_ridge_chol_solve``), so
+  its β and every exercise decision equal the kernel's bit for bit, on
+  either route.
 * ``simulate_american_underlier_rows_cuda`` — the engine's American
   simulator: the forward kernel of the sim's dynamics, then
   ``monitor_underliers``: the CUDA backward or the torch estimator
   (``ops/american.py::encode_monitor_prices``), as ``cuda_backward_version``
   decides. The engine runs the CUDA backward wherever it computes the
-  estimator asked for: the classic single-state one (GBM, Merton, the
-  geometric basket, whose rows are prices). Cross-fit, curved terms and the
-  two-state estimator (Heston's variance, the arithmetic basket's
-  dispersion) take the torch one.
+  estimator asked for: the classic one on the price alone (GBM, Merton, the
+  geometric basket) and the two-state one (Heston's variance, the
+  arithmetic basket's dispersion). Cross-fit and curved terms take the
+  torch one.
 * ``LSMC_BACKWARD_VERSIONS``, ``cuda_backward_version`` and
   ``resolve_lsmc_backward`` — which backward ran is checkpoint state: its
   reduction order decides near-boundary exercise bits. 0 is the torch
-  estimator; the CUDA backward's value collides with neither of the JAX
-  package's kernels (1 fused, 2 streamed), which the port cannot run.
+  estimator; the CUDA backward's values (3 single-state, 4 two-state)
+  collide with neither of the JAX package's kernels (1 fused, 2 streamed),
+  which the port cannot run.
 
 Launch counts go to ``gbm_cuda.LAUNCHES`` and ``LAUNCHES_BY_BRANCH``:
 ``american_gbm``, ``american_heston``, ``american_merton`` and
-``american_basket`` per forward launch, and per backward (its ``n_monitor``
-sweeps and ``n_monitor − 1`` solves) ``lsmc_backward`` at up to 2^20 paths a
-contract, ``lsmc_backward_streamed`` past that: the shapes of the JAX
-package's two kernels.
+``american_basket`` per forward launch, and one per backward, by route and
+mode: ``lsmc_backward`` (resident) and ``lsmc_backward_streamed``,
+``lsmc_two_state`` and ``lsmc_two_state_streamed``. ``LAUNCHES_BY_BRANCH``
+also counts ``monitor_underliers``' runs of the torch estimator under
+``torch_estimator`` (no kernel, so not in ``LAUNCHES``), which shows that a
+path never left the CUDA backward.
 """
 
 from __future__ import annotations
@@ -66,6 +74,7 @@ from spectralmc_tpu_torch.ops.gbm import (
     resolve_implementation,
 )
 from spectralmc_tpu_torch.ops.gbm_cuda import (
+    LAUNCHES_BY_BRANCH,
     MAX_BASKET_ASSETS,
     MAX_MONITOR_DATES,
     _check,
@@ -79,9 +88,8 @@ from spectralmc_tpu_torch.ops.gbm_cuda import (
     uniform_open,
 )
 
-LSMC_BACKWARD_VERSIONS: dict[str, int] = {"cuda": 3}
-FUSED_MAX_PATHS = 1 << 20  # the JAX fused kernel's VMEM cap: the launch-count split
-THREADS = 256  # csrc/american_paths.cu's kThreads
+LSMC_BACKWARD_VERSIONS: dict[str, int] = {"cuda": 3, "cuda_two_state": 4}
+THREADS = 256  # csrc/lsmc_backward.cuh's kThreads
 PER_THREAD = 16  # its kPerThread
 BLOCK_PATHS = THREADS * PER_THREAD
 
@@ -92,16 +100,15 @@ def cuda_backward_version(
     *, dtype: torch.dtype, n_monitor: int, cross_fit: bool = False, term: bool = False,
     two_state: bool = False,
 ) -> int:
-    """The backward the ``"cuda"`` engine runs on its monitor rows:
-    ``LSMC_BACKWARD_VERSIONS["cuda"]`` where the CUDA backward computes the
-    estimator asked for — the classic single recursion on one state
-    variable (no second state row set, ``two_state``) with flat discounting
-    (no cross-fitted pair, no curved term), float32, at least 2 monitor
-    dates; any path count, basis degree 1–8, put or call — else 0, the torch
-    estimator."""
-    if (dtype == torch.float32 and n_monitor >= 2 and not cross_fit and not term
-            and not two_state):
-        return LSMC_BACKWARD_VERSIONS["cuda"]
+    """The backward the ``"cuda"`` engine runs on its monitor rows: the CUDA
+    backward where it computes the estimator asked for — the classic
+    recursion with flat discounting (no cross-fitted pair, no curved term),
+    float32, at least 2 monitor dates; any path count, basis degree 1–8, put
+    or call — ``LSMC_BACKWARD_VERSIONS["cuda"]`` on the price alone,
+    ``["cuda_two_state"]`` with a second state row set (``two_state``);
+    else 0, the torch estimator."""
+    if dtype == torch.float32 and n_monitor >= 2 and not cross_fit and not term:
+        return LSMC_BACKWARD_VERSIONS["cuda_two_state" if two_state else "cuda"]
     return 0
 
 
@@ -117,12 +124,12 @@ def two_state(sim: SimulationParams) -> bool:
 
 def resolve_lsmc_backward(sim: SimulationParams, *, rows: int) -> int:
     """The LSMC backward version that will ACTUALLY run for this sim — 0 =
-    the torch estimator, ``LSMC_BACKWARD_VERSIONS["cuda"]`` = the CUDA
-    backward — for the engine's simulator (``ops/dispatch.py``) and the
-    trainer's recorded ``lsmc_backward_version``: ``cuda_backward_version``
-    wherever the ``"cuda"`` engine runs an American forward
+    the torch estimator, 3 and 4 the CUDA backward on one and two states —
+    for the engine's simulator (``ops/dispatch.py``) and the trainer's
+    recorded ``lsmc_backward_version``: ``cuda_backward_version`` wherever
+    the ``"cuda"`` engine runs an American forward
     (``resolve_implementation``). So GBM, Merton and geometric baskets take
-    the CUDA backward, Heston and arithmetic baskets the torch estimator.
+    version 3, Heston and arithmetic baskets 4, cross-fit 0.
     ``lsmc_fused_backward`` is the JAX package's request for its TPU
     kernels; the config gates hold it to the JAX package's rules, and it
     routes nothing here."""
@@ -377,14 +384,15 @@ def simulate_basket_american_rows_cuda_plain(
     return price, disp
 
 
-def _blocked(t: torch.Tensor, blocks: int, fill: torch.Tensor) -> torch.Tensor:
+def _blocked(t: torch.Tensor, blocks: int, fill: torch.Tensor | float) -> torch.Tensor:
     """``[C, N]`` → ``[C, blocks, PER_THREAD, THREADS]`` in the kernel's path
-    order (block b, step k, thread t holds path b·4096 + k·256 + t), the
-    ragged tail filled with ``fill`` (``[C, 1]``), whose moments are zero."""
+    order (tile b, step k, thread t holds path b·4096 + k·256 + t), the
+    ragged tail filled with ``fill`` (``[C, 1]`` or a number)."""
     c, n = t.shape
     pad = blocks * BLOCK_PATHS - n
     if pad:
-        t = torch.cat([t, fill.expand(c, pad)], dim=1)
+        tail = torch.as_tensor(fill, dtype=t.dtype, device=t.device).expand(c, pad)
+        t = torch.cat([t, tail], dim=1)
     return t.reshape(c, blocks, PER_THREAD, THREADS)
 
 
@@ -397,6 +405,37 @@ def _tree_fold(v: torch.Tensor) -> torch.Tensor:
     return v[..., 0]
 
 
+def _warp_fold(v: torch.Tensor) -> torch.Tensor:
+    """Version 4's fold over the last dim (256 threads → 1): a halving tree
+    over each warp's 32 lanes, then the 8 warps' sums in warp order."""
+    w = _tree_fold(v.reshape(*v.shape[:-1], 8, 32))
+    total = w[..., 0]
+    for i in range(1, 8):
+        total = total + w[..., i]
+    return total
+
+
+def basis_columns(basis_degree: int, two_state: bool) -> list[tuple[int, int]]:
+    """The regression's columns as exponents ``(a, b)`` of ``x^a·v^b``:
+    ``(j, 0)`` for j ≤ d, then with a second state ``(0, 1), (1, 1), (0,
+    2)`` (``ops/american.py::lsmc_backward``'s ``col_exp``)."""
+    cols = [(j, 0) for j in range(basis_degree + 1)]
+    return cols + [(0, 1), (1, 1), (0, 2)] if two_state else cols
+
+
+def moment_layout(basis_degree: int, two_state: bool) -> list[tuple[int, int]]:
+    """The CUDA backward's Gram moments ``(a, b)`` in its partials' order,
+    grouped by b: ``(a, 0)`` a ≤ 2d, and with a second state ``(a, 1)`` a ≤
+    d + 1, ``(a, 2)`` a ≤ max(d, 2), ``(a, 3)`` a ≤ 1, ``(0, 4)`` — every
+    product of two columns once (``csrc/lsmc_backward.cuh::Basis``)."""
+    d = basis_degree
+    out = [(a, 0) for a in range(2 * d + 1)]
+    if two_state:
+        out += [(a, 1) for a in range(d + 2)] + [(a, 2) for a in range(max(d, 2) + 1)]
+        out += [(0, 3), (1, 3), (0, 4)]
+    return out
+
+
 def lsmc_backward_cuda_plain(
     price_rows: torch.Tensor,
     *,
@@ -405,26 +444,41 @@ def lsmc_backward_cuda_plain(
     df: torch.Tensor,
     put: bool,
     basis_degree: int,
+    extra_rows: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The CUDA backward's plain twin: ``[C, rows, cols]`` underliers
     ``u = K − disc·cf/df`` from ``[C, n_monitor, rows, cols]`` float32 price
-    rows, with ``strike``, ``disc`` (one monitor step) and ``df`` (to t = 0)
-    ``[C]`` float32. Same lagged schedule and reduction order as the kernel
-    (module docstring)."""
-    _check_backward(price_rows, strike, disc, df, basis_degree)
+    rows (and, for the two-state estimator, ``extra_rows`` of the same shape:
+    the columns ``[v, v·x, v²]`` of ``v = 20·extra``), with ``strike``,
+    ``disc`` (one monitor step) and ``df`` (to t = 0) ``[C]`` float32. Same
+    order of dates and reductions as the kernel (module docstring; the
+    two-state mode folds a tile's and the solve's 256 thread sums warp by
+    warp, ``_warp_fold``); each product ``itm·(x^a·v^b)``, the continuation
+    ``Horner_x(β) + β_v·v + β_vx·(x·v) + β_vv·(v·v)``, one float32 rounding
+    an operation."""
+    _check_backward(price_rows, strike, disc, df, basis_degree, extra_rows)
     n_contracts, monitors, rows, cols = price_rows.shape
     n = rows * cols
     blocks = -(-n // BLOCK_PATHS)
-    k = basis_degree + 1
-    n_prod = 2 * basis_degree + 1
+    two = extra_rows is not None
+    fold = _warp_fold if two else _tree_fold
+    columns = basis_columns(basis_degree, two)
+    layout = moment_layout(basis_degree, two)
+    where = {ab: i for i, ab in enumerate(layout)}
+    k = len(columns)
+    n_x = 2 * basis_degree + 1
     inv_n = torch.tensor(1.0 / n, dtype=torch.float32, device=price_rows.device)
     strike_c = strike[:, None]
     kb = strike[:, None, None, None]
     disc_b = disc[:, None, None, None]
     flat = price_rows.reshape(n_contracts, monitors, n)
+    flat_extra = None if extra_rows is None else extra_rows.reshape(n_contracts, monitors, n)
 
     def row(m: int) -> torch.Tensor:
         return _blocked(flat[:, m], blocks, strike_c)  # a strike-valued path is out of the money
+
+    def state(m: int) -> torch.Tensor | None:
+        return None if flat_extra is None else _blocked(flat_extra[:, m], blocks, 0.0)
 
     def immediate(s: torch.Tensor) -> torch.Tensor:
         return torch.clamp(kb - s, min=0.0) if put else torch.clamp(s - kb, min=0.0)
@@ -432,28 +486,33 @@ def lsmc_backward_cuda_plain(
     def moneyness(s: torch.Tensor) -> torch.Tensor:
         return (s / kb - 1.0) * 5.0
 
-    def moments(s1: torch.Tensor, cf: torch.Tensor) -> list[torch.Tensor]:
-        """Per-contract moments of a date from its row and the carrier: each
-        thread's 16 paths in order, the block tree, then the solve's sums."""
+    def moments(s1: torch.Tensor, e1: torch.Tensor | None,
+                cf: torch.Tensor) -> list[torch.Tensor]:
+        """Per-contract moments of a date from its rows and the carrier: each
+        thread's 16 paths in order, the tile tree, then the solve's sums."""
         itm = (immediate(s1) > 0.0).to(torch.float32)
         wy = itm * (disc_b * cf)
         x1 = moneyness(s1)
+        xp = [torch.ones_like(x1)]  # the kernel's running product 1, x, x·x, …
+        for _ in range(n_x - 1):
+            xp.append(xp[-1] * x1)
+        vp = [None]
+        if e1 is not None:
+            vp.append(e1 * 20.0)
+            for _ in range(3):
+                vp.append(vp[-1] * vp[1])
+
+        def term(a: int, b: int) -> torch.Tensor:
+            return xp[a] if b == 0 else xp[a] * vp[b]
 
         def block_sum(v: torch.Tensor) -> torch.Tensor:  # [C, blocks]
             acc = torch.zeros_like(v[:, :, 0])
             for step in range(PER_THREAD):
                 acc = acc + v[:, :, step]
-            return _tree_fold(acc)
+            return fold(acc)
 
-        gram, rhs = [], []
-        pw = torch.ones_like(x1)  # the kernel's running product 1, x, x·x, …
-        for a in range(n_prod):
-            gram.append(block_sum(itm * pw))
-            if a < k:
-                rhs.append(block_sum(wy * pw))
-            if a + 1 < n_prod:
-                pw = pw * x1
-        part = torch.stack(gram + rhs, dim=-1)  # [C, blocks, M]
+        part = torch.stack([block_sum(itm * term(a, b)) for a, b in layout]
+                           + [block_sum(wy * term(a, b)) for a, b in columns], dim=-1)
         spare = -blocks % THREADS
         if spare:
             part = torch.cat([part, part.new_zeros(n_contracts, spare, part.shape[-1])], dim=1)
@@ -461,15 +520,15 @@ def lsmc_backward_cuda_plain(
         acc = torch.zeros_like(part[:, 0])
         for i in range(part.shape[1]):
             acc = acc + part[:, i]
-        total = _tree_fold(acc.transpose(1, 2))  # [C, M]
-        return [total[:, a] * inv_n for a in range(n_prod + k)]
+        total = fold(acc.transpose(1, 2))  # [C, M]
+        return [total[:, m] * inv_n for m in range(total.shape[1])]
 
     def solve(m: list[torch.Tensor]) -> list[torch.Tensor]:
-        gram = [[m[i + j] for j in range(k)] for i in range(k)]
-        return _ridge_chol_solve(gram, m[n_prod:], dtype=torch.float32)
+        gram = [[m[where[(ci[0] + cj[0], ci[1] + cj[1])]] for cj in columns] for ci in columns]
+        return _ridge_chol_solve(gram, m[len(layout):], dtype=torch.float32)
 
     cf = immediate(row(monitors - 1))
-    mom = moments(row(monitors - 2), cf)
+    mom = moments(row(monitors - 2), state(monitors - 2), cf)
     for policy in range(monitors - 2, -1, -1):
         beta = [b[:, None, None, None] for b in solve(mom)]
         s = row(policy)
@@ -479,15 +538,22 @@ def lsmc_backward_cuda_plain(
         cont = beta[basis_degree]
         for j in range(basis_degree - 1, -1, -1):
             cont = cont * x + beta[j]
+        if two:
+            v = state(policy) * 20.0
+            base = basis_degree + 1
+            cont = cont + beta[base] * v
+            cont = cont + beta[base + 1] * (x * v)
+            cont = cont + beta[base + 2] * (v * v)
         cf = torch.where((ex > 0.0) & (ex > cont), ex, y)
         if policy:
-            mom = moments(row(policy - 1), cf)
+            mom = moments(row(policy - 1), state(policy - 1), cf)
     u = kb - (disc_b * cf) / df[:, None, None, None]
     return u.reshape(n_contracts, -1)[:, :n].reshape(n_contracts, rows, cols)
 
 
 def _check_backward(price_rows: torch.Tensor, strike: torch.Tensor, disc: torch.Tensor,
-                    df: torch.Tensor, basis_degree: int) -> None:
+                    df: torch.Tensor, basis_degree: int,
+                    extra_rows: torch.Tensor | None = None) -> None:
     if price_rows.dtype != torch.float32 or price_rows.ndim != 4:
         raise ValueError(f"price_rows must be float32 [C, n_monitor, rows, cols], got "
                          f"{price_rows.dtype} {tuple(price_rows.shape)}")
@@ -500,6 +566,12 @@ def _check_backward(price_rows: torch.Tensor, strike: torch.Tensor, disc: torch.
             raise ValueError(f"{name} must be float32 [C], got {v.dtype} {tuple(v.shape)}")
         if v.device != price_rows.device:
             raise ValueError(f"{name} on {v.device}, price_rows on {price_rows.device}")
+    if extra_rows is not None and (extra_rows.dtype != torch.float32
+                                   or extra_rows.shape != price_rows.shape
+                                   or extra_rows.device != price_rows.device):
+        raise ValueError(f"extra_rows must be float32 {tuple(price_rows.shape)} on "
+                         f"{price_rows.device}, got {extra_rows.dtype} "
+                         f"{tuple(extra_rows.shape)} on {extra_rows.device}")
 
 
 # --------------------------------------------------------------------------
@@ -511,6 +583,8 @@ def _check_backward(price_rows: torch.Tensor, strike: torch.Tensor, disc: torch.
 LIBRARY = ("american_paths", ("american_paths.cu",), ("path_stream.cuh",))
 DYNAMICS_LIBRARY = ("american_dynamics", ("american_dynamics.cu",),
                     ("basket_spec.cuh", "path_stream.cuh"))
+BACKWARD_LIBRARY = ("lsmc_backward", ("lsmc_backward.cu",), ("lsmc_backward.cuh",))
+TWO_STATE_LIBRARY = ("lsmc_two_state", ("lsmc_two_state.cu",), ("lsmc_backward.cuh",))
 
 
 def _written_in_full(*shape: int, device: torch.device) -> torch.Tensor:
@@ -530,11 +604,9 @@ def _kernel() -> ctypes.CDLL:
     from spectralmc_tpu_torch.ops._build import load_library
 
     lib = load_library(*LIBRARY).lib
-    ll, i, vp, f = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+    ll, i, vp = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
     lib.american_gbm_launch.argtypes = [vp, vp, vp, i, ll, ll, i, i, ll, ll, vp]
-    lib.lsmc_backward_launch.argtypes = [vp, vp, vp, vp, vp, i, ll, i, i, i, f, vp]
     lib.american_gbm_launch.restype = ctypes.c_int
-    lib.lsmc_backward_launch.restype = ctypes.c_int
     return lib
 
 
@@ -740,6 +812,44 @@ def american_rows_cuda(
     raise ValueError(f"no monitor kernel for model={model.value!r}")
 
 
+def _backward_kernel(two_state: bool) -> ctypes.CDLL:
+    from spectralmc_tpu_torch.ops._build import load_library
+
+    lib = load_library(*(TWO_STATE_LIBRARY if two_state else BACKWARD_LIBRARY)).lib
+    ll, i, vp, f = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.lsmc_plan.argtypes = [i, i, ip, ip]
+    lib.lsmc_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, ll, i, i, i, i, i, f, vp]
+    lib.lsmc_plan.restype = ctypes.c_int
+    lib.lsmc_launch.restype = ctypes.c_int
+    return lib
+
+
+def lsmc_plan(basis_degree: int, two_state: bool, resident: bool,
+              device: int) -> tuple[int, int]:
+    """``(grid, slots)`` of the backward kernel on ``device``: its co-resident
+    CTA count from the occupancy calculator and, for the resident route, the
+    4096-path tiles a CTA keeps on chip (the slot count that holds the
+    most; 0 for the streamed route). The library computes it once a device
+    and kernel."""
+    grid, slots = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        status = _backward_kernel(two_state).lsmc_plan(basis_degree, int(resident),
+                                                       ctypes.byref(grid), ctypes.byref(slots))
+    if status != 0:
+        raise RuntimeError(f"lsmc_plan failed: cudaError {status}")
+    return grid.value, slots.value
+
+
+def lsmc_route(n_paths: int, resident_tiles: int) -> str:
+    """The backward's route for contracts of ``n_paths`` paths, when the
+    resident grid holds ``resident_tiles`` 4096-path tiles on chip (``grid ·
+    slots`` of ``lsmc_plan``): ``"resident"`` where one contract's tiles fit,
+    so its carrier and rows stay on chip across the dates, else
+    ``"streamed"`` (the carrier in HBM)."""
+    return "resident" if -(-n_paths // BLOCK_PATHS) <= resident_tiles else "streamed"
+
+
 def lsmc_backward_cuda(
     price_rows: torch.Tensor,
     *,
@@ -748,37 +858,73 @@ def lsmc_backward_cuda(
     df: torch.Tensor,
     put: bool,
     basis_degree: int,
+    extra_rows: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Synthetic American underliers ``[C, rows, cols]`` (``u = K −
-    disc·cf/df``) from ``[C, n_monitor, rows, cols]`` float32 price rows by
-    the classic Longstaff–Schwartz estimator: CPU tensors run the plain
-    twin, CUDA tensors the CUDA backward (one sweep launch per monitor date
-    and one solve launch between two) or raise."""
-    _check_backward(price_rows, strike, disc, df, basis_degree)
-    kwargs = dict(strike=strike, disc=disc, df=df, put=put, basis_degree=basis_degree)
+    disc·cf/df``) from ``[C, n_monitor, rows, cols]`` float32 price rows (and
+    a second state's ``extra_rows``) by the Longstaff–Schwartz estimator:
+    CPU tensors run the plain twin, CUDA tensors one launch of the backward
+    kernel on the route ``lsmc_route`` picks, or raise."""
+    _check_backward(price_rows, strike, disc, df, basis_degree, extra_rows)
     if price_rows.device.type == "cpu":
-        return lsmc_backward_cuda_plain(price_rows, **kwargs)
+        return lsmc_backward_cuda_plain(price_rows, strike=strike, disc=disc, df=df, put=put,
+                                        basis_degree=basis_degree, extra_rows=extra_rows)
     if price_rows.device.type != "cuda":
         raise ValueError(f"the cuda engine runs on cpu (plain twin) or cuda, not "
                          f"{price_rows.device}")
+    grid, slots = lsmc_plan(basis_degree, extra_rows is not None, True,
+                            _device_index(price_rows))
+    resident = lsmc_route(price_rows.shape[2] * price_rows.shape[3], grid * slots) == "resident"
+    return _lsmc_launch(price_rows, strike=strike, disc=disc, df=df, put=put,
+                        basis_degree=basis_degree, extra_rows=extra_rows, resident=resident)
+
+
+def _device_index(t: torch.Tensor) -> int:
+    return t.device.index if t.device.index is not None else torch.cuda.current_device()
+
+
+def _lsmc_launch(
+    price_rows: torch.Tensor,
+    *,
+    strike: torch.Tensor,
+    disc: torch.Tensor,
+    df: torch.Tensor,
+    put: bool,
+    basis_degree: int,
+    extra_rows: torch.Tensor | None = None,
+    resident: bool,
+) -> torch.Tensor:
+    """One launch of the backward kernel on CUDA tensors, on the resident
+    route or the streamed one as ``resident`` says (the checks that hold
+    both routes at one shape call this directly)."""
+    two = extra_rows is not None
     n_contracts, monitors, rows, cols = price_rows.shape
-    if n_contracts > 65535:
-        raise ValueError(f"at most 65535 contracts per launch, got {n_contracts}")
     n = rows * cols
-    blocks = -(-n // BLOCK_PATHS)
+    grid, slots = lsmc_plan(basis_degree, two, True, _device_index(price_rows))
+    tiles = -(-n // BLOCK_PATHS)
+    if resident and tiles > grid * slots:
+        raise ValueError(f"{tiles} tiles a contract do not fit the resident grid's "
+                         f"{grid * slots}")
+    # a wave's contracts split the grid, each group's slots holding its tiles
+    wave = min(n_contracts, grid // -(-tiles // slots)) if resident else n_contracts
+    k = len(basis_columns(basis_degree, two))
+    n_moments = len(moment_layout(basis_degree, two)) + k
     rows_c = price_rows.contiguous()
+    extra_c = None if extra_rows is None else extra_rows.contiguous()
     scal = torch.stack([strike, disc, df], dim=1).contiguous()
     out = _written_in_full(n_contracts, rows, cols, device=rows_c.device)
-    beta = _written_in_full(n_contracts, basis_degree + 1, device=rows_c.device)
-    partials = _written_in_full(n_contracts, blocks, 3 * basis_degree + 2, device=rows_c.device)
-    status = _kernel().lsmc_backward_launch(
-        rows_c.data_ptr(), out.data_ptr(), beta.data_ptr(), scal.data_ptr(), partials.data_ptr(),
-        n_contracts, n, monitors, basis_degree, int(put), float(1.0 / n),
+    beta = _written_in_full(n_contracts, k, device=rows_c.device)
+    partials = _written_in_full(n_contracts, tiles, n_moments, device=rows_c.device)
+    sync = torch.zeros(2 * n_contracts, dtype=torch.int32, device=rows_c.device)
+    status = _backward_kernel(two).lsmc_launch(
+        rows_c.data_ptr(), None if extra_c is None else extra_c.data_ptr(), out.data_ptr(),
+        scal.data_ptr(), partials.data_ptr(), beta.data_ptr(), sync.data_ptr(), n_contracts, n,
+        monitors, basis_degree, int(put), int(resident), wave, float(1.0 / n),
         torch.cuda.current_stream(rows_c.device).cuda_stream,
     )
     if status != 0:
-        raise RuntimeError(f"lsmc_backward_launch failed: cudaError {status}")
-    _count("lsmc_backward" if n <= FUSED_MAX_PATHS else "lsmc_backward_streamed")
+        raise RuntimeError(f"lsmc_launch failed: cudaError {status}")
+    _count(("lsmc_two_state" if two else "lsmc_backward") + ("" if resident else "_streamed"))
     return out
 
 
@@ -808,23 +954,29 @@ def monitor_underliers(
     """``[C, rows, cols]`` synthetic American underliers ``u = K − cf/df``
     from a monitor kernel's ``[C, n_monitor, rows, cols]`` price rows (and
     its second state ``extra_rows``, if any) by ``backward``:
-    ``LSMC_BACKWARD_VERSIONS["cuda"]`` runs the CUDA backward, 0 the torch
-    estimator (which also takes ``extra_rows`` and ``cross_fit``). Callers
+    ``LSMC_BACKWARD_VERSIONS["cuda"]`` (price rows alone) and
+    ``["cuda_two_state"]`` (with ``extra_rows``) run the CUDA backward, 0 the
+    torch estimator (which also takes ``cross_fit``). Callers
     pass ``cuda_backward_version``'s value; nothing here re-routes. Every
     contract layout has strike, maturity and rate at slots 1–3."""
     from spectralmc_tpu_torch.ops.american import encode_monitor_prices
 
     disc, df = monitor_discounts(params, timesteps=timesteps, exercise_every=exercise_every)
     put = option == OptionSide.PUT
-    if backward == LSMC_BACKWARD_VERSIONS["cuda"]:
-        if cross_fit or extra_rows is not None:
-            raise ValueError("the CUDA backward runs the classic single-state estimator; "
-                             "cross-fit and a second state run the torch estimator "
-                             "(backward 0)")
+    if backward in LSMC_BACKWARD_VERSIONS.values():
+        two = backward == LSMC_BACKWARD_VERSIONS["cuda_two_state"]
+        if cross_fit or (extra_rows is not None) != two:
+            raise ValueError(
+                f"the CUDA backward v{backward} is the {'two' if two else 'single'}-state "
+                f"estimator and was handed {'a' if extra_rows is not None else 'no'} second "
+                f"state row set{' and cross-fit' if cross_fit else ''}; cross-fit runs the "
+                f"torch estimator (backward 0)")
         return lsmc_backward_cuda(price_rows, strike=params[:, 1].contiguous(), disc=disc,
-                                  df=df, put=put, basis_degree=basis_degree)
+                                  df=df, put=put, basis_degree=basis_degree,
+                                  extra_rows=extra_rows)
     if backward != 0:
         raise ValueError(f"unknown LSMC backward version {backward}")
+    LAUNCHES_BY_BRANCH["torch_estimator"] += 1
     return encode_monitor_prices(
         price_rows, strike=params[:, 1], maturity=params[:, 2], rate=params[:, 3],
         disc_monitor=disc, dtype=torch.float32, put=put, basis_degree=basis_degree,
@@ -866,9 +1018,13 @@ def simulate_american_underlier_rows_cuda(
 __all__ = [
     "LSMC_BACKWARD_VERSIONS",
     "american_rows_cuda",
+    "basis_columns",
     "cuda_backward_version",
     "lsmc_backward_cuda",
     "lsmc_backward_cuda_plain",
+    "lsmc_plan",
+    "lsmc_route",
+    "moment_layout",
     "monitor_discounts",
     "monitor_underliers",
     "resolve_lsmc_backward",

@@ -127,7 +127,7 @@ def basket_component_normals(
     key, timestep, asset): THE basket stream definition. Antithetic flips the
     whole A-dimensional Gaussian (a valid pair, the correlation intact)."""
     kt = rng.fold_in(keys, t)
-    z = torch.stack([rng.normal(rng.fold_in(kt, a), (cols,)) for a in range(a_n)]).to(dtype)
+    z = torch.stack([rng.normal(rng.fold_in(kt, a), (cols,), dtype) for a in range(a_n)])
     return z if sign is None else sign * z
 
 

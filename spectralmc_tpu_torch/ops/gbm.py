@@ -694,7 +694,7 @@ def _normals_source(
     )
 
     def normals(t: int) -> torch.Tensor:
-        z = rng.normal(rng.fold_in(keys, t), (cols,)).to(dtype)
+        z = rng.normal(rng.fold_in(keys, t), (cols,), dtype)
         return z if sign is None else sign * z
 
     return normals
@@ -949,7 +949,7 @@ def simulate_paths(
     x = torch.ones((c.shape[0], paths), dtype=dtype, device=c.device) * spot
     out = []
     for t in range(timesteps):
-        z = rng.normal(rng.fold_in(contract_keys, t), (paths,)).to(dtype)
+        z = rng.normal(rng.fold_in(contract_keys, t), (paths,), dtype)
         if scheme == PathScheme.LOG_EULER:
             x = x * torch.exp(log_drift(t) + vol_step(t) * z)
         else:

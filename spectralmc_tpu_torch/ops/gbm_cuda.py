@@ -28,7 +28,8 @@ states what it keeps, what it drops and what bounds it. This module holds
 * ``LAUNCHES`` (every launch of any entry point) and ``LAUNCHES_BY_BRANCH``
   (per kernel and branch group, the QMC generator's two kernels of
   ``ops/qmc_cuda.py`` and the American kernels of ``ops/american_cuda.py``
-  included) — plain counts.
+  included, and ``torch_estimator``, the torch LSMC estimator's runs) —
+  plain counts.
 
 The stream: Philox-4x32-10 keyed by the contract's two threefry key words
 (``fold_in(prng_key(mc_seed), draw)``), counter ``(path lo, path hi, call,
@@ -71,8 +72,9 @@ CUDA_STREAM_VERSIONS: dict[str, int] = {
 # branch groups, each a kernel instantiation of its own: the flat kernel's and
 # the cliquet, ops/dynamics_cuda.py's three kernels, the basket kernel, the
 # QMC generator's two kernels, then ops/american_cuda.py's monitor-row
-# forwards (one per dynamics) and its LSMC backward, counted apart at up to
-# and past 2^20 paths a contract (the two TPU kernels it replaces split there)
+# forwards (one per dynamics) and its LSMC backward, counted by route
+# (resident on chip or streamed through HBM) and by mode (one or two states);
+# last, the torch LSMC estimator's runs, which launch no kernel of these
 FLAT_BRANCHES = ("terminal", "barrier", "lookback", "variance", "asian")
 BRANCHES = (
     *FLAT_BRANCHES, "cliquet",
@@ -82,7 +84,8 @@ BRANCHES = (
     *(f"basket_{b}" for b in (*FLAT_BRANCHES, "forward")),
     "qmc_bridge", "qmc_walk",
     "american_gbm", "american_heston", "american_merton", "american_basket",
-    "lsmc_backward", "lsmc_backward_streamed",
+    "lsmc_backward", "lsmc_backward_streamed", "lsmc_two_state", "lsmc_two_state_streamed",
+    "torch_estimator",
 )
 MAX_BASKET_ASSETS = 8  # csrc/basket_paths.cu's kMaxAssets
 MAX_MONITOR_DATES = 128  # the monitor kernels' cap (the JAX kernels' _MONITOR_MAX_DATES)

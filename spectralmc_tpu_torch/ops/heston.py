@@ -90,7 +90,7 @@ def heston_component_normals(
     keyed (row key, timestep, component): THE Heston stream definition.
     Antithetic flips BOTH components (negating a 2D Gaussian is a valid pair
     and preserves the spot-variance correlation)."""
-    z = rng.normal(rng.fold_in(rng.fold_in(keys, t), comp), (cols,)).to(dtype)
+    z = rng.normal(rng.fold_in(rng.fold_in(keys, t), comp), (cols,), dtype)
     return z if sign is None else sign * z
 
 

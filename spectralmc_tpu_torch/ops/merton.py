@@ -104,7 +104,7 @@ def merton_component_normals(
     """One Gaussian component's draws ``[..., cols]`` for row keys
     ``[..., 2]``, keyed (row key, timestep, component): 0 = diffusion, 1 =
     jump size. Antithetic flips both components."""
-    z = rng.normal(rng.fold_in(rng.fold_in(keys, t), comp), (cols,)).to(dtype)
+    z = rng.normal(rng.fold_in(rng.fold_in(keys, t), comp), (cols,), dtype)
     return z if sign is None else sign * z
 
 

@@ -128,12 +128,14 @@ def qmc_pad_normals(
     rows: int,
     cols: int,
     row_offset: int,
+    dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """``[C, len(dims), rows·cols]`` float32 threefry normals of the padded
-    flat dimensions, keyed (pad key, GLOBAL row, flat dimension)."""
+    """``[C, len(dims), rows·cols]`` threefry normals of the padded flat
+    dimensions in ``dtype`` (float32 or float64, each as ``jax.random.normal``
+    draws it), keyed (pad key, GLOBAL row, flat dimension)."""
     row_idx = row_offset + torch.arange(rows, dtype=torch.int64, device=pad_keys.device)
     row_keys = rng.fold_in(pad_keys[:, None, :], row_idx[None, :])  # [C, rows, 2]
-    pads = [rng.normal(rng.fold_in(row_keys, j), (cols,)) for j in dims]
+    pads = [rng.normal(rng.fold_in(row_keys, j), (cols,), dtype) for j in dims]
     return torch.stack(pads, dim=1).reshape(pad_keys.shape[0], len(dims), rows * cols)
 
 
@@ -163,7 +165,7 @@ def qmc_effective_normals_multi(
     pad = None
     if sdims < flat_total:
         pad = qmc_pad_normals(pad_keys, range(sdims, flat_total), rows=rows, cols=cols,
-                              row_offset=row_offset)
+                              row_offset=row_offset, dtype=dtype)
     bridge = torch.as_tensor(brownian_bridge_matrix(timesteps), dtype=torch.float32,
                              device=contract_keys.device)
     out = bridge_normals(directions, shift, bridge, _start(row_offset, cols),

@@ -76,6 +76,18 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return fold_in(key, torch.arange(num, dtype=torch.int64, device=key.device))
 
 
+def _words(key: torch.Tensor, shape: tuple[int, ...]) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both uint32 outputs (as int64) of threefry over the 64-bit counters
+    ``0 .. prod(shape) − 1`` (row-major), each split as ``(n >> 32, n &
+    MASK)``; ``key`` may carry leading batch dims ``[*B, 2]``."""
+    count = math.prod(shape)
+    n = torch.arange(count, dtype=torch.int64, device=key.device).reshape(shape)
+    lead = key.shape[:-1]
+    k1 = key[..., 0].reshape(*lead, *([1] * len(shape)))
+    k2 = key[..., 1].reshape(*lead, *([1] * len(shape)))
+    return threefry2x32(k1, k2, n >> 32, n & MASK32)
+
+
 def bits(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     """``jax.random.bits(key, shape)`` uint32 words (as int64).
 
@@ -83,12 +95,7 @@ def bits(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     ``[*B, *shape]``. Word ``n`` (row-major flat index) is ``hi ^ lo`` of
     threefry over the 64-bit counter ``n`` split as ``(n >> 32, n & MASK)``.
     """
-    count = math.prod(shape)
-    n = torch.arange(count, dtype=torch.int64, device=key.device).reshape(shape)
-    lead = key.shape[:-1]
-    k1 = key[..., 0].reshape(*lead, *([1] * len(shape)))
-    k2 = key[..., 1].reshape(*lead, *([1] * len(shape)))
-    a, b = threefry2x32(k1, k2, n >> 32, n & MASK32)
+    a, b = _words(key, shape)
     return a ^ b
 
 
@@ -108,17 +115,65 @@ def fma32(a: torch.Tensor, b: torch.Tensor | float, c: torch.Tensor | float) -> 
     return (a.double() * b + c).float()
 
 
+def _two_product(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """float64 ``a·b = p + e`` exactly (Dekker's split, no FMA needed)."""
+    def split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        t = x * 134217729.0  # 2^27 + 1
+        hi = t - (t - x)
+        return hi, x - hi
+
+    p = a * b
+    ah, al = split(a)
+    bh, bl = split(b)
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def fma64(a: torch.Tensor, b: torch.Tensor | float, c: torch.Tensor | float) -> torch.Tensor:
+    """float64 ``a·b + c`` rounded (almost always) once, as XLA's CPU
+    backend contracts it: the exact product ``p + e``, then ``p + c`` with
+    its rounding error by Knuth's two-sum, and the two tails added last.
+    Double rounding can leave the last bit off in rare ties; the tests hold
+    the normals to 1e-15 relative."""
+    b = torch.as_tensor(b, dtype=torch.float64, device=a.device)
+    c = torch.as_tensor(c, dtype=torch.float64, device=a.device)
+    p, e = _two_product(a, b)
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)
+    return s + (e + err)
+
+
+def _float64_from_words(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """``[1, 2)`` float64 from the top 52 bits of the 64-bit words ``hi << 32
+    | lo`` (uint32 halves in int64), minus one. The logical shift ``>> 12``
+    of the 64-bit word is ``hi << 20 | lo >> 12``: torch's ``>>`` on int64
+    is arithmetic, so the halves are shifted apart."""
+    mant = (hi << 20) | (lo >> 12) | 0x3FF0000000000000
+    return mant.view(torch.float64) - 1.0
+
+
 def uniform(
     key: torch.Tensor,
     shape: tuple[int, ...],
     minval: float = 0.0,
     maxval: float = 1.0,
+    dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32, minval, maxval)``, bit-exact."""
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
-    floats = _float32_from_words(bits(key, shape))
-    return torch.maximum(lo, fma32(floats, float(hi - lo), float(lo)))
+    """``jax.random.uniform(key, shape, dtype, minval, maxval)``, bit-exact,
+    for float32 (one 32-bit word a number, ``hi ^ lo``) and float64 (the
+    64-bit word ``hi << 32 | lo`` of the same threefry call, as
+    ``jax._src.prng._threefry_random_bits_partitionable`` builds it)."""
+    if dtype == torch.float32:
+        lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+        hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+        floats = _float32_from_words(bits(key, shape))
+        return torch.maximum(lo, fma32(floats, float(hi - lo), float(lo)))
+    if dtype != torch.float64:
+        raise ValueError(f"uniform draws float32 or float64, not {dtype}")
+    floats = _float64_from_words(*_words(key, shape))
+    lo64 = torch.tensor(minval, dtype=torch.float64, device=key.device)
+    span = float(torch.tensor(maxval, dtype=torch.float64) - float(minval))
+    return torch.maximum(lo64, fma64(floats, span, lo64))
 
 
 # float32 nextafter(-1, 0): the lower end of jax.random.normal's uniform
@@ -148,11 +203,106 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
-def normal(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
-    """``jax.random.normal(key, shape, float32)``: ``sqrt(2)·erf_inv(u)``."""
+# XLA's float64 erf_inv (Giles 2010, double precision): the coefficients of
+# its three branches, w < 6.25, w < 16 and w >= 16, highest degree first
+_ERFINV64_CENTRAL = (
+    -3.64441206401782e-21, -1.6850591381820166e-19, 1.28584807152564e-18,
+    1.1157877678025181e-17, -1.333171662854621e-16, 2.0972767875968562e-17,
+    6.637638134358324e-15, -4.054566272975207e-14, -8.151934197605472e-14,
+    2.6335093153082323e-12, -1.2975133253453532e-11, -5.415412054294628e-11,
+    1.0512122733215323e-09, -4.112633980346984e-09, -2.9070369957882005e-08,
+    4.2347877827932404e-07, -1.3654692000834679e-06, -1.3882523362786469e-05,
+    0.00018673420803405714, -0.000740702534166267, -0.006033670871430149,
+    0.24015818242558962, 1.6536545626831027,
+)
+_ERFINV64_MIDDLE = (
+    2.2137376921775787e-09, 9.075656193888539e-08, -2.7517406297064545e-07,
+    1.8239629214389228e-08, 1.5027403968909828e-06, -4.013867526981546e-06,
+    2.9234449089955446e-06, 1.2475304481671779e-05, -4.7318229009055734e-05,
+    6.828485145957318e-05, 2.4031110387097894e-05, -0.0003550375203628475,
+    0.0009532893797373805, -0.0016882755560235047, 0.002491442096107851,
+    -0.003751208507569241, 0.005370914553590064, 1.0052589676941592,
+    3.0838856104922208,
+)
+_ERFINV64_TAIL = (
+    -2.7109920616438573e-11, -2.555641816996525e-10, 1.5076572693500548e-09,
+    -3.789465440126737e-09, 7.61570120807834e-09, -1.496002662714924e-08,
+    2.914795345090108e-08, -6.771199775845234e-08, 2.2900482228026655e-07,
+    -9.9298272942317e-07, 4.526062597223154e-06, -1.968177810553167e-05,
+    7.599527703001776e-05, -0.00021503011930044477, -0.00013871931833623122,
+    1.0103004648645344, 4.849906401408584,
+)
+
+
+# XLA's CPU log1p (its elemental emitter, after Cephes): below |x| < √2 − 1
+# the rational approximation x − x²/2 + x³·P(x)/Q(x), highest degree first
+_LOG1P_P = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+            6.5787325942061044846969e0, 2.9911919328553073277375e1,
+            6.0949667980987787057556e1, 5.7112963590585538103336e1,
+            2.0039553499201281259648e1)
+_LOG1P_Q = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+            2.2176239823732856465394e2, 3.0909872225312059774938e2,
+            2.1642788614495947685003e2, 6.0118660497603843919306e1)
+
+
+def log1p64(x: torch.Tensor) -> torch.Tensor:
+    """float64 ``log1p`` as XLA's CPU backend lowers it (the rational
+    branch's error reaches ~100 ulps near its threshold, so ``torch.log1p``
+    would move the float64 normals there by up to 4e-15)."""
+    def poly(coeffs: tuple[float, ...]) -> torch.Tensor:
+        p = torch.zeros_like(x)
+        for c in coeffs:
+            p = fma64(p, x, c)
+        return p
+
+    x2 = x * x
+    small = x + fma64(torch.full_like(x, -0.5), x2, (x * x2) * (poly(_LOG1P_P) / poly(_LOG1P_Q)))
+    return torch.where(x.abs() < 0.41421356237309504880, small, torch.log(x + 1.0))
+
+
+def erf_inv64(x: torch.Tensor) -> torch.Tensor:
+    """float64 inverse error function in XLA's lowering of ``erf_inv``:
+    ``w = −log1p(−x²)`` (``log1p64``), three Horner branches that start together and stop
+    after 17 (w >= 16), 19 (w < 16) or 23 (w < 6.25) coefficients, each step
+    a fused multiply-add."""
+    w = -log1p64(-x * x)
+    central = w < 6.25
+    middle = w < 16.0
+    t = torch.where(central, w - 3.125, torch.sqrt(w) - torch.where(middle, 3.25, 5.0))
+
+    def coeff(i: int) -> torch.Tensor:
+        c = torch.full_like(x, _ERFINV64_CENTRAL[i])
+        if i < len(_ERFINV64_MIDDLE):
+            c = torch.where(central, c, _ERFINV64_MIDDLE[i])
+        if i < len(_ERFINV64_TAIL):
+            c = torch.where(middle, c, _ERFINV64_TAIL[i])
+        return c
+
+    p = coeff(0)
+    for i in range(1, len(_ERFINV64_CENTRAL)):
+        step = fma64(p, t, coeff(i))
+        if i >= len(_ERFINV64_MIDDLE):
+            p = torch.where(central, step, p)
+        elif i >= len(_ERFINV64_TAIL):
+            p = torch.where(middle, step, p)
+        else:
+            p = step
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
+def normal(key: torch.Tensor, shape: tuple[int, ...],
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.normal(key, shape, dtype)``: ``sqrt(2)·erf_inv(u)``, u
+    uniform on ``[nextafter(−1, 0), 1)`` — float32 with the 32-bit words and
+    XLA's float32 ``erf_inv``, float64 with the 64-bit words and its float64
+    one."""
+    if dtype == torch.float64:
+        u = uniform(key, shape, math.nextafter(-1.0, 0.0), 1.0, dtype=torch.float64)
+        return math.sqrt(2.0) * erf_inv64(u)
+    if dtype != torch.float32:
+        raise ValueError(f"normal draws float32 or float64, not {dtype}")
     u = uniform(key, shape, _NORMAL_LO, 1.0)
     return torch.tensor(math.sqrt(2.0), dtype=torch.float32, device=key.device) * erf_inv(u)
-
 
 # --------------------------------------------------------------------------
 # Philox-4x32-10: the counter-based stream of the "cuda" MC engine

@@ -208,8 +208,8 @@ class GbmCVNNPricerConfig:
     0 = not trained on it), so a kernel rebuild that changes the stream
     cannot continue a checkpoint silently. ``lsmc_backward_version`` records
     the LSMC backward that ran (``american_cuda.resolve_lsmc_backward``: 0
-    the torch estimator, 3 the CUDA backward; the JAX package's 1 and 2 are
-    refused).
+    the torch estimator, 3 the CUDA backward on the price alone, 4 on two
+    states; the JAX package's 1 and 2 are refused).
     """
 
     sim: SimulationParams

@@ -428,7 +428,7 @@ def test_cuda_engine_american_pricer_records_its_kernel_and_resumes(model: str) 
     snap = a.snapshot()
     assert (snap.sim.implementation, snap.cuda_stream_version) == (
         tgbm.SimImplementation.CUDA, 1)
-    assert snap.lsmc_backward_version == (0 if model == "heston" else 3)
+    assert snap.lsmc_backward_version == (4 if model == "heston" else 3)
     pred = a.predict_price(np.asarray(
         [[float(np.mean(v)) for v in bounds.values()]], dtype=np.float32))
     assert np.all(np.isfinite(pred.call)) and np.all(np.isnan(pred.put))

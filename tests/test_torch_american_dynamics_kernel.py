@@ -136,13 +136,15 @@ DP_CONTRACTS = {
 @pytest.mark.parametrize("family", FAMILIES)
 def test_identical_paths_give_the_bellman_dp(family: str, option: tam.OptionSide) -> None:
     """Zero words: every path is the same, so the engine's backward for the
-    family prices the host Bellman DP on the twin's own path."""
+    family (the two-state twin for Heston and the arithmetic basket, the
+    single-state one for the others) prices the host Bellman DP on the
+    twin's own path."""
     params = DP_CONTRACTS[family]
     rows, extra = _twin_rows(family, 8, 2, None, params)
     c = torch.from_numpy(params[None])
     backward = american_cuda.cuda_backward_version(dtype=torch.float32, n_monitor=4,
                                                    two_state=extra is not None)
-    assert backward == (0 if family in ("heston", "basket_arithmetic") else 3)
+    assert backward == (4 if family in ("heston", "basket_arithmetic") else 3)
     u = american_cuda.monitor_underliers(rows, c, timesteps=8, exercise_every=2, option=option,
                                          basis_degree=5, extra_rows=extra,
                                          backward=backward)[0].numpy()
@@ -217,15 +219,18 @@ def _sim(model: str, **kw: object) -> tgbm.SimulationParams:
 
 # (model, knobs, engine, backward, stream key)
 RESOLVE_CASES = [
-    ("heston", "heston", {}, "cuda", 0, "american_heston"),
+    ("heston", "heston", {}, "cuda", 4, "american_heston"),
     ("heston_call_every4", "heston", dict(payoff="american_call", lsmc_exercise_every=4),
-     "cuda", 0, "american_heston"),
+     "cuda", 4, "american_heston"),
+    ("heston_cross_fit", "heston", dict(lsmc_cross_fit=True), "cuda", 0, "american_heston"),
     ("merton", "merton_jump", {}, "cuda", 3, "american_merton_jump"),
     ("merton_antithetic", "merton_jump", dict(antithetic=True), "cuda", 3,
      "american_merton_jump"),
     ("merton_cross_fit", "merton_jump", dict(lsmc_cross_fit=True), "cuda", 0,
      "american_merton_jump"),
-    ("basket_arithmetic", "basket_gbm", {}, "cuda", 0, "american_basket_gbm"),
+    ("basket_arithmetic", "basket_gbm", {}, "cuda", 4, "american_basket_gbm"),
+    ("basket_arithmetic_cross_fit", "basket_gbm", dict(lsmc_cross_fit=True), "cuda", 0,
+     "american_basket_gbm"),
     ("basket_geometric", "basket_gbm", dict(combine="geometric"), "cuda", 3,
      "american_basket_gbm"),
     ("basket_geometric_degree3", "basket_gbm", dict(combine="geometric", lsmc_basis_degree=3),
@@ -244,9 +249,10 @@ def test_engine_backward_and_stream_per_family(model: str, kw: dict, engine: str
                                                backward: int, stream: str | None) -> None:
     """The ``"cuda"`` engine runs every family's monitor kernel on flat
     float32 pseudo-random configs with 2–128 dates; the CUDA backward where
-    it computes the estimator asked for (single-state: Merton, the geometric
-    basket), the torch estimator for the two-state families and cross-fit;
-    the stream key is JAX's ``american_{model}``."""
+    it computes the estimator asked for (single-state, 3: Merton, the
+    geometric basket; two-state, 4: Heston, the arithmetic basket), the
+    torch estimator for cross-fit; the stream key is JAX's
+    ``american_{model}``."""
     sim = _sim(model, **dict(kw))
     assert tgbm.resolve_implementation(sim).value == engine
     assert american_cuda.resolve_lsmc_backward(sim, rows=sim.batches_per_mc_run) == backward
@@ -271,10 +277,14 @@ def test_cuda_supported_admits_baskets_of_one_to_eight_assets() -> None:
 
 
 def test_the_cuda_backward_refuses_a_second_state() -> None:
-    """The CUDA backward is the single-state estimator: handed a second
-    state row set it raises rather than drop it."""
+    """The single-state CUDA backward (3), handed a second state row set,
+    raises rather than drop it; the two-state one (4) raises without one."""
     rows, extra = _random_rows("heston", timesteps=4, rows=4, cols=8, exercise_every=1)
     with pytest.raises(ValueError, match="single-state"):
         american_cuda.monitor_underliers(rows, RANDOM["heston"], timesteps=4, exercise_every=1,
                                          option=tam.OptionSide.PUT, basis_degree=3,
                                          extra_rows=extra, backward=3)
+    with pytest.raises(ValueError, match="two-state"):
+        american_cuda.monitor_underliers(rows, RANDOM["heston"], timesteps=4, exercise_every=1,
+                                         option=tam.OptionSide.PUT, basis_degree=3,
+                                         backward=4)

@@ -338,27 +338,91 @@ def test_american_rows_kernel_matches_twin_on_card(steps, every, half) -> None:
         torch.testing.assert_close(got[:, -1], terminal, rtol=2e-5, atol=0.0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("put", [True, False], ids=["put", "call"])
-@pytest.mark.parametrize("degree,rows,cols", [(1, 64, 96), (5, 33, 700), (8, 128, 512)])
-def test_lsmc_backward_kernel_matches_twin_on_card(degree, rows, cols, put) -> None:
-    """Exact on the same rows: no atomics and no FMA contraction, so β and
-    every exercise decision are the twin's, and so is u but for the ulps
-    of nothing (the same operations in the same order)."""
+def _backward_inputs(state: str, contracts: int, steps: int, rows: int, cols: int,
+                     seed: int) -> tuple[torch.Tensor, torch.Tensor | None, dict]:
+    """``(price_rows, extra_rows, strike/disc/df)`` on the card: the GBM
+    monitor kernel's rows (``state="single"``) or the Heston or arithmetic
+    basket kernel's two row sets, at ``every = 1``."""
     device = _require_card()
-    c = torch.from_numpy(_contracts(3, seed=10)).to(device)
-    keys = rng.fold_in(rng.prng_key(10), torch.arange(3)).to(device)
-    price_rows = american_cuda.simulate_american_rows_cuda(
-        c, keys, timesteps=8, rows=rows, cols=cols, exercise_every=1, antithetic_half=None)
-    disc, df = american_cuda.monitor_discounts(c, timesteps=8, exercise_every=1)
-    kw = dict(strike=c[:, 1].contiguous(), disc=disc, df=df, put=put, basis_degree=degree)
-    before = gbm_cuda.LAUNCHES_BY_BRANCH["lsmc_backward"]
-    got = american_cuda.lsmc_backward_cuda(price_rows, **kw)
-    assert gbm_cuda.LAUNCHES_BY_BRANCH["lsmc_backward"] == before + 1
+    bounds = "heston" if state == "heston" else "term"
+    gen = np.random.default_rng(seed)
+    lo, hi = np.array(FAMILY_LO[bounds]), np.array(FAMILY_HI[bounds])
+    c = torch.from_numpy((lo + (hi - lo) * gen.random((contracts, len(lo)))).astype(np.float32))
+    c = c.to(device)
+    keys = rng.fold_in(rng.prng_key(seed), torch.arange(contracts)).to(device)
+    kw = dict(timesteps=steps, rows=rows, cols=cols, exercise_every=1)
+    extra = None
+    if state == "single":
+        price_rows = american_cuda.simulate_american_rows_cuda(c, keys, **kw)
+    elif state == "heston":
+        price_rows, extra = american_cuda.simulate_heston_american_rows_cuda(c, keys, **kw)
+    else:
+        price_rows, extra = american_cuda.simulate_basket_american_rows_cuda(
+            c, keys, spec=_basket_spec(3, "arithmetic"), **kw)
+    disc, df = american_cuda.monitor_discounts(c, timesteps=steps, exercise_every=1)
+    return price_rows, extra, dict(strike=c[:, 1].contiguous(), disc=disc, df=df)
+
+
+def _launches_of(fn) -> tuple[torch.Tensor, dict[str, int]]:
+    before = dict(gbm_cuda.LAUNCHES_BY_BRANCH)
+    out = fn()
+    return out, {b: n - before[b] for b, n in gbm_cuda.LAUNCHES_BY_BRANCH.items() if n != before[b]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["resident", "streamed"])
+@pytest.mark.parametrize("steps", [2, 16])
+@pytest.mark.parametrize("state", ["single", "heston", "basket_arithmetic"])
+@pytest.mark.parametrize("put", [True, False], ids=["put", "call"])
+@pytest.mark.parametrize("degree", range(1, 9))
+def test_lsmc_backward_kernel_matches_twin_on_card(degree, put, state, steps, route) -> None:
+    """Exact on the same rows, on both routes and in both modes: no atomics
+    in a sum and no FMA contraction, so β, every exercise decision and u are
+    the twin's bit for bit (23,100 paths a contract: a ragged last tile); a
+    second run is bit-equal; one launch, counted under its route and mode."""
+    price_rows, extra, kw = _backward_inputs(state, 3, steps, 33, 700, seed=10 + degree)
+    kw = dict(kw, put=put, basis_degree=degree, extra_rows=extra)
+    resident = route == "resident"
+    got, launched = _launches_of(lambda: american_cuda._lsmc_launch(price_rows, resident=resident,
+                                                                    **kw))
+    name = "lsmc_backward" if extra is None else "lsmc_two_state"
+    assert launched == {name + ("" if route == "resident" else "_streamed"): 1}
     want = american_cuda.lsmc_backward_cuda_plain(price_rows, **kw)
     assert torch.equal(got, want)
-    again = american_cuda.lsmc_backward_cuda(price_rows, **kw)
-    assert torch.equal(got, again)
+    assert torch.equal(got, american_cuda._lsmc_launch(price_rows, resident=resident, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", ["single", "heston"])
+def test_lsmc_backward_waves_and_split_on_card(state) -> None:
+    """1,048,576 paths a contract and one contract more than a resident wave
+    holds: ``lsmc_route`` picks the resident kernel, which runs two waves,
+    and both routes equal the twin bit for bit, run after run; at 4,194,304
+    paths a contract past the resident grid's capacity it picks the
+    streamed one."""
+    _require_card()
+    two = state != "single"
+    grid, slots = american_cuda.lsmc_plan(5, two, True, 0)
+    wave = grid // -(-256 // slots)  # a contract group holds its 256 tiles
+    assert american_cuda.lsmc_route(1 << 20, grid * slots) == "resident" and wave >= 1
+    price_rows, extra, kw = _backward_inputs(state, wave + 1, 16, 2048, 512, seed=31)
+    kw = dict(kw, put=True, basis_degree=5, extra_rows=extra)
+    name = "lsmc_backward" if not two else "lsmc_two_state"
+    got, launched = _launches_of(lambda: american_cuda.lsmc_backward_cuda(price_rows, **kw))
+    assert launched == {name: 1}
+    want = american_cuda.lsmc_backward_cuda_plain(price_rows, **kw)
+    assert torch.equal(got, want)
+    for _ in range(3):  # deterministic however the CTAs interleave
+        assert torch.equal(american_cuda.lsmc_backward_cuda(price_rows, **kw), want)
+    assert torch.equal(american_cuda._lsmc_launch(price_rows, resident=False, **kw), want)
+    del price_rows, extra, got, want
+    torch.cuda.empty_cache()
+    assert american_cuda.lsmc_route(1 << 22, grid * slots) == "streamed"
+    price_rows, extra, kw = _backward_inputs(state, 2, 4, 16384, 256, seed=32)
+    kw = dict(kw, put=False, basis_degree=3, extra_rows=extra)
+    got, launched = _launches_of(lambda: american_cuda.lsmc_backward_cuda(price_rows, **kw))
+    assert launched == {name + "_streamed": 1}
+    assert torch.equal(got, american_cuda.lsmc_backward_cuda_plain(price_rows, **kw))
 
 
 # --------------------------------------------------------------------------
