@@ -13,11 +13,15 @@ non-zero and no result line is printed):
                   csrc/american_paths.cu, csrc/american_dynamics.cu,
                   csrc/lsmc_backward.cu and csrc/lsmc_two_state.cu with nvcc
                   into build/kernels/, one nvcc each, all started together;
-                  print each kernel's registers and spills; count the SASS
+                  print each kernel's registers and spills and the path
+                  kernels' register-limited occupancy; count the SASS
                   instructions of each branch's log-Euler loop, of the
                   American monitor loops and of the LSMC backward's 16-path
                   block (cuobjdump) for the instruction cap of phases 2, 12,
-                  17, 18, 22 and 23.
+                  17, 18, 22 and 23, and split the Heston and 3-asset
+                  basket TERMINAL loops' SASS per path-step into Philox,
+                  Box–Muller, update and branch (nvdisasm line info; the
+                  ``sass-split`` lines).
 2. kernel       — every kernel branch against its plain twin on the same
                   Philox words at C=4 x 2048 x 512 x 16: TERMINAL (and its
                   digital and forward-start routes), barrier up/down, the four
@@ -84,7 +88,8 @@ non-zero and no result line is printed):
                   TERMINAL), rtol 2e-5, knocks and signs flipped on at most
                   1e-5 of the paths; each branch group timed at 32 contracts
                   (CUDA events; the twin's second call) beside its bound and
-                  its SASS cap share.
+                  its SASS cap share, and TERMINAL again at the main path's
+                  256 contracts (checked there too; its kernel record).
 13. qmc-kernel  — the QMC bridge kernel against its twin for F = 1, 2, 3 and
                   a padded case (T·F > 64) at 4 x 2048 x 512 points: the Sobol
                   words equal, the normals within 2 ulps, the bridged normals
@@ -97,7 +102,7 @@ non-zero and no result line is printed):
                   QMC at an equal budget (bench.py:879-904).
 15. train-basket, train-qmc-asian — phases 4-6 for the 3-asset arithmetic
                   basket (bench.py:684-688; TERMINAL, MEAN normalization,
-                  stream basket_gbm v1) and for the SOBOL_BB geometric-Asian
+                  stream basket_gbm v2) and for the SOBOL_BB geometric-Asian
                   GBM pricer (MEAN normalization, recorded engine "xla", the
                   fused walk launched once per chunk), each at the
                   production batch and head.
@@ -417,19 +422,21 @@ KNOBS = {
 # function must move (24 + 8 bytes of contract and key per contract, 4 bytes
 # written per path) over 3.35 TB/s, and its operations over 67 TFLOP/s (the
 # H100's float32 rate outside the tensor cores; integer and transcendental
-# operations counted one each at that rate). Per draw: half a Philox call
-# (10 rounds of 2 mul-hi, 2 mul-lo, 4 xor, 2 key adds = 100 operations per
-# call), the two uniforms (shift, convert, fma each), log, mul, sqrt and the
-# sine or cosine with its argument: 60. Per unit of the branch's loop (a
-# path-step, or a period for the cliquet): the state update and the
-# branch's own work.
+# operations counted one each at that rate). Per path: the Philox round keys
+# (9 rounds' two key additions: 18), a function of the contract's key only.
+# Per draw: half a Philox call (10 rounds of 2 mul-hi, 2 mul-lo, 4 xor = 80
+# operations per call), the two uniforms (shift, convert, fma each), log,
+# mul, sqrt and the sine or cosine with its argument: 50. Per unit of the
+# branch's loop (a path-step, or a period for the cliquet): the state update
+# and the branch's own work.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # The instruction cap (share_of_instruction_cap): one warp instruction per scheduler per
 # clock, 132 SMs x 4 schedulers x 32 lanes, at the card's maximum SM clock,
 # over the SASS instructions one path-step of the log-Euler loop executes.
 LANES_PER_CLOCK = 132 * 4 * 32
-DRAW_OPS = 60
+PHILOX_KEY_OPS = 18
+DRAW_OPS = 50
 UNIT_OPS = {"terminal": 3, "barrier": 4, "lookback": 4, "variance": 4, "asian": 5, "cliquet": 8,
             "forward": 4}
 # The term kernel draws as the flat kernel does and loads one table entry per
@@ -438,14 +445,14 @@ UNIT_OPS = {"terminal": 3, "barrier": 4, "lookback": 4, "variance": 4, "asian": 
 # draw with a second trigonometric output (1) plus z_s (3), v+ (1), the fused
 # root (2), the log-price update (6) and the variance update (6): 19 on top of
 # the draw, in place of the flat update's 3. A Merton step needs three of a
-# Philox call's four words (75), three uniforms (9), log, mul, sqrt, the
+# Philox call's four words (60), three uniforms (9), log, mul, sqrt, the
 # sincos pair and its argument (6), a count over 16 sorted levels (log2(16) =
-# 4 compares), the jump (5) and the pair's products (4): 103, then the
+# 4 compares), the jump (5) and the pair's products (4): 88, then the
 # log-price update (4) in place of the flat 3; its level table adds 64 bytes
 # per contract. The kernel itself spends a whole call and 16 compares per
 # step: that is its own cost, not the function's.
 HESTON_STEP_OPS = 19
-MERTON_STEP_OPS = 103
+MERTON_STEP_OPS = 88
 
 
 def phase(label: str, **findings: object) -> None:
@@ -479,13 +486,13 @@ def bound_ms(group: str, contracts: int, steps: int) -> tuple[float, str]:
     draws = -(-units // 2) if paired else units
     byte_count = contracts * (4 * len(FAMILY_CONTRACT[family].model_fields) + 8) + paths * 4
     if family == "merton":
-        ops = paths * units * (MERTON_STEP_OPS + UNIT_OPS[branch] + 1)
+        ops = paths * (PHILOX_KEY_OPS + units * (MERTON_STEP_OPS + UNIT_OPS[branch] + 1))
         byte_count += contracts * 64
     elif family == "heston":
-        ops = paths * units * (DRAW_OPS + HESTON_STEP_OPS + UNIT_OPS[branch])
+        ops = paths * (PHILOX_KEY_OPS + units * (DRAW_OPS + HESTON_STEP_OPS + UNIT_OPS[branch]))
     else:
         per_unit = UNIT_OPS[branch] + (1 if family == "term" else 0)
-        ops = paths * (draws * DRAW_OPS + units * per_unit)
+        ops = paths * (PHILOX_KEY_OPS + draws * DRAW_OPS + units * per_unit)
         if family == "term":
             byte_count += contracts * 8 * (steps + max(steps // 2, 1))
     t_ops, t_bytes = ops / FP32_OPS_PER_S * 1e3, byte_count / HBM_BYTES_PER_S * 1e3
@@ -493,8 +500,8 @@ def bound_ms(group: str, contracts: int, steps: int) -> tuple[float, str]:
 
 
 # The basket kernel's op model per path-step of A assets: ⌈A/2⌉ draws
-# (DRAW_OPS each, plus 2 for the second trigonometric output and its
-# product), the Cholesky mix (A(A+1)/2 multiply-adds), the A state updates (2
+# (DRAW_OPS each, plus 2 for the second trigonometric output and its product
+# where a second asset reads it: ⌊A/2⌋ of them), the Cholesky mix (A(A+1)/2 multiply-adds), the A state updates (2
 # each) and what the branch reads each step: the basket value (arithmetic:
 # A exp and A multiply-adds; geometric: A multiply-adds and one exp) and one
 # more operation (max, min or add; the geometric Asian a log besides); the
@@ -503,8 +510,8 @@ def bound_ms(group: str, contracts: int, steps: int) -> tuple[float, str]:
 # forward start read the value once per path. A path moves 32 bytes in and 4
 # out; the spec travels as a kernel argument.
 def basket_step_ops(assets: int, branch: str, geometric: bool, variant: int = 0) -> int:
-    pairs = (assets + 1) // 2
-    ops = pairs * (DRAW_OPS + 2) + assets * (assets + 1) // 2 + 2 * assets
+    ops = ((assets + 1) // 2 * DRAW_OPS + assets // 2 * 2
+           + assets * (assets + 1) // 2 + 2 * assets)
     value = assets + 1 if geometric else 2 * assets
     if branch in ("barrier", "lookback"):
         ops += value + 1
@@ -518,7 +525,7 @@ def basket_step_ops(assets: int, branch: str, geometric: bool, variant: int = 0)
 def basket_bound_ms(contracts: int, steps: int, assets: int, branch: str,
                     geometric: bool, variant: int = 0) -> tuple[float, str]:
     paths = contracts * ROWS * COLS
-    ops = paths * steps * basket_step_ops(assets, branch, geometric, variant)
+    ops = paths * (PHILOX_KEY_OPS + steps * basket_step_ops(assets, branch, geometric, variant))
     t_ops = ops / FP32_OPS_PER_S * 1e3
     t_bytes = (contracts * 32 + paths * 4) / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -594,6 +601,10 @@ def phase_build() -> tuple[dict[str, float], tuple[float, str], dict[str, tuple[
         phase("build", source=source, library=lib.path.name,
               build_seconds=f"{lib.build_seconds:.2f}", all_builds_wall_s=f"{wall:.2f}",
               registers_and_spill_bytes=ptxas_summary(lib.log))
+    logs = {name: text for lib in built for name, text in ptxas_summary(lib.log).items()}
+    phase("occupancy", threads_per_block=PATH_THREADS, limit="registers (no shared memory)",
+          **{name: f"{register_occupancy(logs[name]):.4f}" for name in OCCUPANCY_KERNELS
+             if name in logs})
     dynamics = dynamics_sass_per_step(built[5].path)
     phase("sass-american-dynamics", **{case: f"{n:g} ({found})" for case, (n, found)
                                         in dynamics.items()})
@@ -604,6 +615,22 @@ def phase_build() -> tuple[dict[str, float], tuple[float, str], dict[str, tuple[
           **{name: f"{n:g} ({found})" for name, (n, found) in lsmc.items()})
     return (sass_instruction_counts(built[0].path, built[1].path, built[2].path),
             american_sass_per_step(built[4].path), dynamics, lsmc)
+
+
+# The path kernels' theoretical occupancy from their registers: a block of
+# PATH_THREADS threads (csrc's kThreads), registers allocated per warp in
+# units of 256, at most 64 warps, 32 blocks and 65,536 registers an SM.
+PATH_THREADS = 256
+OCCUPANCY_KERNELS = ("heston_paths_kernel<0>", "basket_paths_kernel<3,0,0>",
+                     "american_heston_kernel", "american_basket_kernel<3,0>")
+
+
+def register_occupancy(summary: str) -> float:
+    """Resident warps over 64 for a ``ptxas_summary`` entry."""
+    regs = int(summary.split()[0])
+    per_warp = -(-regs * 32 // 256) * 256
+    blocks = min(32, 2048 // PATH_THREADS, 65536 // (per_warp * PATH_THREADS // 32))
+    return blocks * PATH_THREADS / 32 / 64
 
 
 def ptxas_summary(log: str) -> dict[str, str]:
@@ -644,17 +671,19 @@ def sass_instruction_counts(flat: object, dynamics: object, basket: object) -> d
     loop whose body takes no absolute value (the Euler loop's reflection);
     the term, Heston and Merton kernels have one loop each (the longest). Of
     a loop's N instructions, the Philox block (a skipped region with >= 16
-    IMAD.WIDE.U32) runs every other iteration where it is skipped at all (the
-    Merton kernel calls it every step, unskipped), and a slow path holding a
+    high-half products, PHILOX_MULTIPLY) runs every other iteration where it
+    is skipped at all (the Merton kernel calls it every step, unskipped), and
+    a slow path holding a
     CALL (sqrtf's fix-up) never on these inputs. In the flat kernel any other
     skipped region is the branch's once-per-path single step (TERMINAL,
     variance, cliquet: subtracted) or the arithmetic Asian's ``expf`` (kept).
     Per iteration: N − calls − single − Philox/2; per path-step: that over
     the steps an iteration covers (2 for the pair-steps, 2·reset_every for
-    the cliquet's period pairs, else 1). The basket kernel's 3-asset
-    arithmetic instantiations (one loop each, the longest) hold two Philox
-    blocks per step, of which one runs: the rule's Philox/2 counts exactly
-    that; the forward start's capture of B_m runs once per path (subtracted).
+    the cliquet's period pairs, else 1). The Heston kernel and the basket
+    kernel's 3-asset arithmetic instantiations (one loop each, the longest)
+    walk whole Philox calls, unskipped: an iteration covers as many steps as
+    its calls' draws feed (``loop_weights``); the basket forward start's
+    capture of B_m runs once per path (subtracted).
     """
     flat_kernels = {f"gbm_paths_kernelILi{code}E": b for b, code in gbm_cuda._FAMILY_CODE.items()}
     flat_kernels["gbm_cliquet_kernel"] = "cliquet"
@@ -670,24 +699,40 @@ def sass_instruction_counts(flat: object, dynamics: object, basket: object) -> d
     counts, found = parse_instruction_counts(
         cuobjdump_sass(flat), flat_kernels, steps, pick_loop=last_loop_without_abs,
         single_step=lambda group: group != "asian")
+    dynamics_sass = cuobjdump_sass(dynamics)
     more, found_more = parse_instruction_counts(
-        cuobjdump_sass(dynamics), dynamics_kernels, steps,
-        pick_loop=lambda loops: max(loops, key=len), single_step=lambda group: False)
+        dynamics_sass, dynamics_kernels, steps, pick_loop=lambda loops: max(loops, key=len),
+        single_step=lambda group: False,
+        draws_per_step={g: 1 for g in dynamics_kernels.values() if g.startswith("heston_")})
     counts.update(more)
     found.update(found_more)
     basket_kernels = {f"basket_paths_kernelILi3ELi{code}ELb0E": f"basket_{branch}"
                       for branch, code in codes.items()}  # the 3-asset arithmetic basket
+    basket_sass = cuobjdump_sass(basket)
     more, found_more = parse_instruction_counts(
-        cuobjdump_sass(basket), basket_kernels, {}, pick_loop=lambda loops: max(loops, key=len),
-        single_step=lambda group: group == "basket_forward")
+        basket_sass, basket_kernels, {}, pick_loop=lambda loops: max(loops, key=len),
+        single_step=lambda group: group == "basket_forward",
+        draws_per_step=dict.fromkeys(basket_kernels.values(), 2))
     counts.update(more)
     found.update(found_more)
     phase("sass", log_euler_loop=repr(found),
           instructions_per_path_step={b: round(c, 3) for b, c in counts.items()})
+    for kernel, sass, library, piece, draws in (
+            ("heston_terminal", dynamics_sass, dynamics, "heston_paths_kernelILi0E", 1),
+            ("basket3_arithmetic_terminal", basket_sass, basket,
+             "basket_paths_kernelILi3ELi0ELb0E", 2)):
+        try:  # a measurement only: a toolkit without nvdisasm or line info prints why
+            split = sass_split(sass, nvdisasm_text(library), piece, draws_per_step=draws)
+        except (AssertionError, OSError, StopIteration, subprocess.CalledProcessError) as err:
+            split = {"error": repr(err)[:300]}
+        phase("sass-split", kernel=kernel, parts="per path-step", **split)
     return counts
 
 
 SASS_LINE = r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;"
+# a Philox round's high-half products: IMAD.WIDE.U32, or IMAD.HI.U32 beside
+# a plain IMAD where ptxas splits one
+PHILOX_MULTIPLY = r"\bIMAD\.(WIDE\.U32|HI\.U32)\b"
 SASS_BRANCH = r"\bBRA (?:!?P\d, )?0x([0-9a-f]+)"
 
 
@@ -697,48 +742,212 @@ def last_loop_without_abs(loops: list[list[tuple[int, str]]]) -> list[tuple[int,
                        for _, op in body)][-1]
 
 
+def loop_weights(
+    block: str, group: str, *, pick_loop: object, single_step: object,
+    steps_per_iteration: int = 1, draws_per_step: int | None = None,
+) -> tuple[list[tuple[int, str, float]], int, str]:
+    """``(weights, steps, found)`` of one kernel's step loop in the text of
+    ``cuobjdump -sass`` (``block``: one function's): each instruction of the
+    loop body with the share of iterations it runs in (a skipped Philox
+    block ½, a slow path holding a CALL and, where ``single_step(group)``,
+    another skipped region 0, the rest 1), the path-steps an iteration
+    covers and the count's derivation. Where ``draws_per_step`` is given (a
+    kernel that walks its draws in whole calls) and the body calls Philox
+    unskipped, an iteration covers ``2 · calls / draws_per_step`` steps,
+    calls being its high-half multiplies (PHILOX_MULTIPLY) over the 20 of a
+    call, else ``steps_per_iteration``; there a region that ends by jumping
+    over an else arm is one side of a two-way branch (the Box–Muller's
+    ``u1 < ½``, divergent: both sides issue), never a once-per-path one."""
+    ins = [(int(a, 16), op.strip()) for a, op in re.findall(SASS_LINE, block)]
+    at = {a: i for i, (a, _) in enumerate(ins)}
+    loops = []
+    for i, (addr, op) in enumerate(ins):
+        back = re.search(SASS_BRANCH, op)
+        if back and int(back.group(1), 16) < addr and int(back.group(1), 16) in at:
+            loops.append(ins[at[int(back.group(1), 16)]:i + 1])
+    if not loops:
+        raise AssertionError(f"no loop found in the SASS of {group}")
+    body = pick_loop(loops)
+    share = {a: 1.0 for a, _ in body}
+    philox = calls = single = 0
+    for addr, op in body:
+        skip = re.search(SASS_BRANCH, op)
+        if not (skip and op.startswith("@") and addr < int(skip.group(1), 16) <= body[-1][0]):
+            continue
+        inside = [a for a, o in body if addr < a < int(skip.group(1), 16)]
+        region = [o for a, o in body if a in inside]
+        if sum(bool(re.search(PHILOX_MULTIPLY, o)) for o in region) >= 16:
+            philox += len(region)
+            share.update(dict.fromkeys(inside, 0.5))
+        elif any("CALL" in o for o in region):
+            calls += len(region)
+            share.update(dict.fromkeys(inside, 0.0))
+        elif single_step(group) and not (draws_per_step and region and
+                                         region[-1].startswith("BRA")):
+            single += len(region)
+            share.update(dict.fromkeys(inside, 0.0))
+    steps = steps_per_iteration
+    unskipped = sum(bool(re.search(PHILOX_MULTIPLY, op)) for a, op in body if share[a] == 1.0)
+    if draws_per_step and not philox and unskipped >= 16:
+        steps = round(unskipped / 20) * 2 // draws_per_step
+    per_iteration = len(body) - calls - single - philox / 2
+    found = f"{len(body)}-{calls}-{single}-{philox}/2={per_iteration:g}/{steps}"
+    return [(a, op, share[a]) for a, op in body], steps, found
+
+
 def parse_instruction_counts(
     text: str, kernels: dict[str, str], steps_per_iteration: dict[str, int], *,
-    pick_loop: object, single_step: object,
+    pick_loop: object, single_step: object, draws_per_step: dict[str, int] | None = None,
 ) -> tuple[dict[str, float], dict[str, str]]:
     """``sass_instruction_counts``'s rule on the text of ``cuobjdump -sass``:
     ``kernels`` maps a piece of a mangled kernel name to its branch group,
-    ``pick_loop`` chooses the log-Euler loop among a kernel's loops, and
+    ``pick_loop`` chooses the log-Euler loop among a kernel's loops,
     ``single_step(group)`` says whether a skipped region that is neither the
-    Philox block nor a slow path runs once per path."""
+    Philox block nor a slow path runs once per path, and ``draws_per_step``
+    (per group) lets a loop that calls Philox unskipped say how many steps
+    it covers (``loop_weights``)."""
     counts, found = {}, {}
     for block in text.split("Function : ")[1:]:
         name = block.split()[0]
         group = next((g for key, g in kernels.items() if key in name), None)
         if group is None:
             continue
-        ins = [(int(a, 16), op.strip()) for a, op in re.findall(SASS_LINE, block)]
-        at = {a: i for i, (a, _) in enumerate(ins)}
-        loops = []
-        for i, (addr, op) in enumerate(ins):
-            back = re.search(SASS_BRANCH, op)
-            if back and int(back.group(1), 16) < addr and int(back.group(1), 16) in at:
-                loops.append(ins[at[int(back.group(1), 16)]:i + 1])
-        if not loops:
-            raise AssertionError(f"no loop found in the SASS of {group}")
-        body = pick_loop(loops)
-        philox = calls = single = 0
-        for addr, op in body:
-            skip = re.search(SASS_BRANCH, op)
-            if not (skip and op.startswith("@") and addr < int(skip.group(1), 16) <= body[-1][0]):
-                continue
-            region = [o for a, o in body if addr < a < int(skip.group(1), 16)]
-            if sum("IMAD.WIDE.U32" in o for o in region) >= 16:
-                philox += len(region)
-            elif any("CALL" in o for o in region):
-                calls += len(region)
-            elif single_step(group):
-                single += len(region)
-        per_iteration = len(body) - calls - single - philox / 2
-        steps = steps_per_iteration.get(group, 1)
-        counts[group] = per_iteration / steps
-        found[group] = f"{len(body)}-{calls}-{single}-{philox}/2={per_iteration:g}/{steps}"
+        weights, steps, found[group] = loop_weights(
+            block, group, pick_loop=pick_loop, single_step=single_step,
+            steps_per_iteration=steps_per_iteration.get(group, 1),
+            draws_per_step=(draws_per_step or {}).get(group))
+        counts[group] = sum(w for _, _, w in weights) / steps
     return counts, found
+
+
+# The per-part split of a step loop's SASS: each instruction of the loop body
+# (``loop_weights``, with its share of iterations) goes to the source lines it
+# came from. The libraries are built with -lineinfo, and ``nvdisasm -gi`` names
+# each instruction's line and the lines it was inlined at; of these, the ones
+# in csrc/ files decide. Where one lies in a named stream helper the helper
+# decides (SASS_HELPER_PARTS, in order: the Philox call and its key schedule;
+# the uniforms and the Box–Muller transform; the word select); otherwise the
+# lines' text, by the first pattern any of them matches (SASS_PART_TEXT), else
+# "branch" (loop control and the branch's own work).
+SASS_HELPER_PARTS = (
+    ({"philox4x32_10", "call"}, "philox"),
+    ({"uniform_open", "uniform_closed", "box_muller_libm", "box_muller_sfu", "box_muller_sfu_cos",
+      "box_muller_radius", "box_muller_angle", "minus_two_log", "lg2_sfu", "rsqrt_sfu", "sin_sfu",
+      "cos_sfu"}, "box_muller"),
+    ({"draw"}, "philox"),
+)
+SASS_PART_TEXT = (
+    ("update", r"\blogx(\[\w+\])? = |\bz_s\b|\bzm\b|v_plus|\bsv\b|\bv = |\binc\[\w+\] = "
+               r"|step_inc\[\w+\] = "),
+    ("philox", r"philox|umulhi|kPhilox|\.call\("),
+    ("box_muller", r"uniform_open|uniform_closed|logf\(u1\)|sincospif|\brad\b|box_muller"),
+)
+SASS_PARTS = ("philox", "box_muller", "update", "branch")
+# The same loop by the unit its instructions issue to (the ``mix`` of
+# ``sass_split``): float32 (F*), integer (I*, LOP3, SHF, SEL, LEA, PRMT),
+# the transcendental and conversion unit (MUFU, I2F, F2I, FRND) and the rest
+# (moves, branches, the uniform datapath). An SM sub-partition issues one warp
+# instruction a clock; its 32 float32 lanes take one a clock, its 16 integer
+# lanes one every two and its 4 transcendental lanes one every eight.
+SASS_UNITS = (("xu", r"^(MUFU|I2F|F2I|FRND|F2F|I2I)"),
+              ("fp32", r"^(FFMA|FADD|FMUL|FMNMX|FSETP|FSEL|FCHK|FSWZADD)"),
+              ("int", r"^(IMAD|IADD3|LOP3|SHF|SEL|ISETP|LEA|PRMT|IMNMX|IABS|IMUL|POPC|FLO|BMSK)"))
+
+
+def parse_nvdisasm_lines(text: str) -> dict[str, dict[int, list[tuple[str, int]]]]:
+    """``{mangled function: {address: [(file, line), ...]}}`` from the text
+    of ``nvdisasm -gi``: the ``//## File`` lines before an instruction (an
+    inlined line, then the line it was inlined at, one comment each), every
+    frame they name."""
+    out: dict[str, dict[int, list[tuple[str, int]]]] = {}
+    fn, where, fresh = None, [], True
+    for line in text.splitlines():
+        head = re.match(r"\s*\.section\s+\.text\.([^,\s]+)", line) or re.match(
+            r"\s*\.text\.(\S+?):\s*$", line)
+        if head:
+            fn, where, fresh = head.group(1), [], True
+            out.setdefault(fn, {})
+            continue
+        loc = re.search(r'//## File "([^"]+)", line (\d+)(.*)', line)
+        if loc:
+            if fresh:
+                where, fresh = [], False
+            where = where + [(loc.group(1), int(loc.group(2)))] + [
+                (f, int(n)) for f, n in re.findall(r'inlined at "([^"]+)", line (\d+)',
+                                                   loc.group(3))]
+            continue
+        addr = re.search(r"/\*([0-9a-f]{4,})\*/", line)
+        if addr and fn is not None:
+            out[fn][int(addr.group(1), 16)] = where
+            fresh = True
+    return out
+
+
+def enclosing_function(lines: list[str], index: int) -> str:
+    """The name of the device function or kernel whose body holds line
+    ``index`` (0-based) of a csrc/ file."""
+    for text in reversed(lines[:index + 1]):
+        sig = re.search(r"(?:__global__|__device__)[^(]*?\b(\w+)\s*\(", text)
+        if sig:
+            return sig.group(1)
+    return ""
+
+
+def part_of(frames: list[tuple[str, int]], read: object) -> str:
+    """The part (SASS_PARTS) an instruction with these source frames
+    belongs to."""
+    names, texts = set(), []
+    for file, line in frames:
+        if "/csrc/" not in file:
+            continue
+        lines = read(file)
+        names.add(enclosing_function(lines, line - 1))
+        texts.append(lines[line - 1] if line <= len(lines) else "")
+    for helpers, part in SASS_HELPER_PARTS:
+        if names & helpers:
+            return part
+    return next((part for part, pattern in SASS_PART_TEXT
+                 if any(re.search(pattern, text) for text in texts)), "branch")
+
+
+def nvdisasm_text(library: object) -> str:
+    """``nvdisasm -gi`` of every cubin in a built library."""
+    import tempfile
+
+    bindir = Path(find_nvcc()).parent
+    with tempfile.TemporaryDirectory() as tmp:
+        subprocess.run([str(bindir / "cuobjdump"), "-xelf", "all", str(Path(library).resolve())],
+                       cwd=tmp, capture_output=True, check=True)
+        return "".join(
+            subprocess.run([str(bindir / "nvdisasm"), "-gi", str(cubin)], capture_output=True,
+                           text=True, check=True).stdout
+            for cubin in sorted(Path(tmp).glob("*.cubin")))
+
+
+def sass_split(sass: str, disasm: str, piece: str, *, draws_per_step: int,
+               single_step: bool = False) -> dict[str, object]:
+    """The per-path-step SASS of the step loop of the kernel whose mangled
+    name holds ``piece``, split into SASS_PARTS (the rule above), with the
+    loop's derivation and its total."""
+    block = next(b for b in sass.split("Function : ")[1:] if piece in b.split()[0])
+    name = block.split()[0]
+    weights, steps, found = loop_weights(
+        block, piece, pick_loop=lambda loops: max(loops, key=len),
+        single_step=lambda group: single_step, draws_per_step=draws_per_step)
+    frames = parse_nvdisasm_lines(disasm).get(name)
+    if not frames:
+        raise AssertionError(f"nvdisasm gave no line information for {name}")
+    read = functools.lru_cache(None)(lambda f: Path(f).read_text().splitlines())
+    split = dict.fromkeys(SASS_PARTS, 0.0)
+    mix = dict.fromkeys([unit for unit, _ in SASS_UNITS] + ["other"], 0.0)
+    for addr, op, w in weights:
+        split[part_of(frames.get(addr, []), read)] += w / steps
+        mnemonic = re.sub(r"^@!?U?P\w+\s+", "", op)
+        mix[next((u for u, pattern in SASS_UNITS if re.match(pattern, mnemonic)), "other")] += \
+            w / steps
+    return {**{k: round(v, 3) for k, v in split.items()},
+            "total": round(sum(split.values()), 3), "loop": found,
+            "mix": {k: round(v, 3) for k, v in mix.items()}}
 
 
 # --------------------------------------------------------------------------
@@ -1481,7 +1690,9 @@ def phase_basket_kernel(
     """The basket kernel against its twin on every case at 8 contracts of
     2048 x 512 x 16 (rtol 2e-5; knocks and signs flipped on at most 1e-5 of
     the paths), then each branch group timed at 32 contracts (CUDA events;
-    the twin's second call) beside its bound and its SASS cap share."""
+    the twin's second call) beside its bound and its SASS cap share, and
+    TERMINAL again at the main path's 256 contracts (checked there too; the
+    kernel record keeps that shape)."""
     record = {g: {"max_abs_err": 0.0, "max_rel": 0.0, "flips": 0, "cases": 0}
               for g in BASKET_TIMED}
     for group, payoff, kw in basket_cases():
@@ -1490,27 +1701,34 @@ def phase_basket_kernel(
         r.update(max_abs_err=max(r["max_abs_err"], found["max_abs_err"]),
                  max_rel=max(r["max_rel"], found["max_rel"]),
                  flips=r["flips"] + found["flips"], cases=r["cases"] + 1)
-    for group, (payoff, extra) in BASKET_TIMED.items():
+    timed = [(group, BASKET_TIMED_CONTRACTS) for group in BASKET_TIMED]
+    timed.append(("basket_terminal", CHUNK))  # the main path's shape: the training chunk
+    for group, contracts in timed:
+        payoff, extra = BASKET_TIMED[group]
         kw = dict(timesteps=STEPS, rows=ROWS, cols=COLS, spec=BASKET_SPEC, **extra)
-        found = compare(device, payoff, BASKET_TIMED_CONTRACTS, "basket", warm_twin=True, **kw)
-        params, keys = kernel_inputs(device, BASKET_TIMED_CONTRACTS, 1, "basket")
+        found = compare(device, payoff, contracts, "basket", warm_twin=True, **kw)
+        params, keys = kernel_inputs(device, contracts, 1, "basket")
         kernel, _ = kernel_and_twin("basket", payoff, kw)
         ms = cuda_ms(lambda: kernel(params, keys))
         branch = group.removeprefix("basket_")
-        bound, bound_by = basket_bound_ms(BASKET_TIMED_CONTRACTS, STEPS, 3, branch, False)
-        path_steps = BASKET_TIMED_CONTRACTS * ROWS * COLS * STEPS
+        bound, bound_by = basket_bound_ms(contracts, STEPS, 3, branch, False)
+        path_steps = contracts * ROWS * COLS * STEPS
         cap = LANES_PER_CLOCK * max_sm_hz / per_step[group]
         r = record[group]
-        r.update(ms=ms, plain_ms=found["plain_ms"], bound_ms=bound, bound_by=bound_by)
+        r.update(max_abs_err=max(r["max_abs_err"], found["max_abs_err"]),
+                 max_rel=max(r["max_rel"], found["max_rel"]), flips=r["flips"] + found["flips"],
+                 ms=ms, plain_ms=found["plain_ms"], bound_ms=bound, bound_by=bound_by)
         phase("kernel-basket", branch=group, cases=r["cases"],
               max_rel_diff=f"{r['max_rel']:.3e}", max_abs_err=f"{r['max_abs_err']:.3e}",
               flips=r["flips"], rtol=KERNEL_RTOL, assets=3, combine="arithmetic",
-              shape=f"{BASKET_TIMED_CONTRACTS}x{ROWS}x{COLS}x{STEPS}", timed=payoff.value,
+              shape=f"{contracts}x{ROWS}x{COLS}x{STEPS}", timed=payoff.value,
               kernel_ms=f"{ms:.3f}", plain_ms=f"{found['plain_ms']:.3f}",
               bound_ms=f"{bound:.3f}", bound_by=bound_by, share_of_bound=f"{bound / ms:.4f}",
               sass_per_path_step=round(per_step[group], 3),
               kernel_path_steps_per_s=f"{path_steps / ms * 1e3:.4e}",
               share_of_instruction_cap=f"{path_steps / ms * 1e3 / cap:.4f}")
+        del params, keys
+        torch.cuda.empty_cache()
     return record
 
 
@@ -1820,9 +2038,10 @@ LSMC_MEAN_RTOL = 1e-5  # kernel vs twin: the mean cashflow
 TORCH_FLIP_SHARE = 0.02  # kernel vs the torch estimator (tests/test_lsmc_pallas.py:83-110)
 TORCH_MEAN_RTOL = 2e-3
 LSMC_DEGREE = 5
-# The monitor kernel's op model per path: its draws (DRAW_OPS each), the
-# log-price update per step (UNIT_OPS["terminal"]) and one exp per monitor
-# date; bytes: the contract and key in, n_monitor floats out.
+# The monitor kernel's op model per path: the round keys (PHILOX_KEY_OPS),
+# its draws (DRAW_OPS each), the log-price update per step
+# (UNIT_OPS["terminal"]) and one exp per monitor date; bytes: the contract
+# and key in, n_monitor floats out.
 # The backward's, from the JAX kernel's own cost model
 # (lsmc_pallas.py:298-306): (n + 1) slabs of 4 bytes a path, and
 # (5(2d + 1) + 2d + 8) operations a path and date.
@@ -1833,7 +2052,7 @@ def american_bound_ms(contracts: int, rows: int, cols: int, steps: int,
     paths = contracts * rows * cols
     monitors = steps // every
     draws = monitors * (every // 2 + every % 2)
-    ops = paths * (draws * DRAW_OPS + steps * UNIT_OPS["terminal"] + monitors)
+    ops = paths * (PHILOX_KEY_OPS + draws * DRAW_OPS + steps * UNIT_OPS["terminal"] + monitors)
     byte_count = contracts * 32 + paths * monitors * 4
     t_ops, t_bytes = ops / FP32_OPS_PER_S * 1e3, byte_count / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -2334,17 +2553,19 @@ def dynamics_bound_ms(case: str, contracts: int, steps: int,
     monitors = steps // every
     byte_count = contracts * (4 * len(FAMILY_CONTRACT[family].model_fields) + 8)
     if family == "heston":
-        ops = paths * (steps * (DRAW_OPS + HESTON_STEP_OPS) + 2 * monitors)
+        ops = paths * (PHILOX_KEY_OPS + steps * (DRAW_OPS + HESTON_STEP_OPS) + 2 * monitors)
         byte_count += 2 * paths * monitors * 4
     elif family == "merton":
-        ops = paths * (steps * (MERTON_STEP_OPS + UNIT_OPS["terminal"] + 1) + monitors)
+        ops = paths * (PHILOX_KEY_OPS + steps * (MERTON_STEP_OPS + UNIT_OPS["terminal"] + 1)
+                       + monitors)
         byte_count += contracts * 64 + paths * monitors * 4
     else:
         assets, combine = basket
         geometric = combine == "geometric"
         value = assets + 1 if geometric else 2 * assets
         per_date = value if geometric else value + assets + 2
-        ops = paths * (steps * basket_step_ops(assets, "terminal", geometric) + monitors * per_date)
+        ops = paths * (PHILOX_KEY_OPS + steps * basket_step_ops(assets, "terminal", geometric)
+                       + monitors * per_date)
         byte_count += (1 if geometric else 2) * paths * monitors * 4
     t_ops, t_bytes = ops / FP32_OPS_PER_S * 1e3, byte_count / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -2835,8 +3056,9 @@ def phase_families_american_dynamics(device: torch.device) -> None:
         launched = {g: moved.get(g, 0) for g in (groups[0], *BACKWARD_GROUPS)}
         snap = pricer.snapshot()
         want = {g: (1 if g in groups else 0) for g in launched}
+        stream = gbm_cuda.CUDA_STREAM_VERSIONS[f"american_{model}"]
         if (snap.sim.implementation.value, snap.lsmc_backward_version,
-                snap.cuda_stream_version) != ("cuda", backward, 1) or launched != want:
+                snap.cuda_stream_version) != ("cuda", backward, stream) or launched != want:
             raise AssertionError(f"{label}: engine {snap.sim.implementation.value}, backward "
                                  f"v{snap.lsmc_backward_version}, launches and torch "
                                  f"estimator calls {launched}")

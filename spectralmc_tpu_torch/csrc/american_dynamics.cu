@@ -16,18 +16,21 @@
 //     combine and its launch drops them; here a geometric launch writes the
 //     one output.
 // The per-step code of each is the matching European kernel's TERMINAL
-// branch (heston_paths_kernel and merton_paths_kernel in dynamics_paths.cu,
-// basket_paths_kernel in basket_paths.cu), with its draws, its draw order and
-// its roundings: Heston one Box–Muller draw a step (z_v = r·cos θ drives the
-// variance, z_s = ρ·z_v + ρ̄·r·sin θ the spot), Merton one Philox call a step
-// (the pair, then the count's uniform against the per-contract cdf levels),
-// the basket ⌈A/2⌉ draws a step mixed by the static Cholesky rows. None of
-// the three has a pair-step shortcut, so the last monitor row is the path
-// the European TERMINAL branch walks, for any `every`. After every `every`
-// steps the kernel stores the monitor values; nothing else changes. These
-// are the american_heston, american_merton_jump and american_basket_gbm v1
-// streams. The date and step loops are kept rolled (#pragma unroll 1), so
-// the SASS of one date at every = 1 is one step and its stores.
+// branch, with its draws, its draw order and its roundings: Heston and the
+// basket call the very step function their European kernels call
+// (heston_step.cuh, basket_step.cuh: one Box–Muller draw a step, z_v = r·cos θ
+// driving the variance and z_s = ρ·z_v + ρ̄·r·sin θ the spot; ⌈A/2⌉ draws a
+// step mixed by the static Cholesky rows), on the same Philox stream
+// (path_stream.cuh); Merton repeats merton_paths_kernel's step (one Philox
+// call a step: the pair, then the count's uniform against the per-contract
+// cdf levels). None of the three has a pair-step shortcut, so the last
+// monitor row is the path the European TERMINAL branch walks, for any
+// `every`. After every `every` steps the kernel stores the monitor values;
+// nothing else changes. These are the american_heston and
+// american_merton_jump v1 streams and american_basket_gbm v2 (its
+// Box–Muller on the SFU). The date and step loops are kept rolled (#pragma
+// unroll 1), so the SASS of one date at every = 1 is one step and its
+// stores; a date of odd length takes its draws one by one (PathStream::draw).
 //
 // What they drop is what the TPU needed: the hardware PRNG, the VMEM block
 // budget (_monitor_block_rows), the 256x256 blocks and the polynomial sine.
@@ -37,7 +40,7 @@
 // template parameter (1..8).
 //
 // Bound on Hopper, at every = 1: Heston by its instruction issue (the
-// European Heston step, ~133 SASS a path-step, plus two stores a date: its
+// European Heston step, its SASS in PERF.md §6, plus two stores a date: its
 // 2 × 4 bytes a path-date of output need 10.3 ms at 256 × 2048 × 512 × 16,
 // under the issue time); Merton by its issue too (a whole Philox call and 16
 // compares a step); the basket by its issue (⌈A/2⌉ draws and A(A+1)/2 FMAs a
@@ -52,6 +55,8 @@
 #include <string.h>
 
 #include "basket_spec.cuh"
+#include "basket_step.cuh"
+#include "heston_step.cuh"
 #include "path_stream.cuh"
 
 namespace {
@@ -60,7 +65,7 @@ constexpr int kThreads = 256;
 constexpr int kPoissonTerms = 16;
 
 // Heston: params [C, 10] = spot strike T r q v0 kappa theta xi rho; price and
-// var [C, monitors, rows·cols].
+// var [C, monitors, rows·cols]. The step is heston_step.cuh's.
 __global__ void american_heston_kernel(const float* __restrict__ params,
                                        const uint32_t* __restrict__ keys,
                                        float* __restrict__ price, float* __restrict__ var,
@@ -73,17 +78,10 @@ __global__ void american_heston_kernel(const float* __restrict__ params,
   const int64_t n = rows * cols;
   const float sign = s.sign;
   const float* p = params + 10 * c;
-  const float spot = p[0], maturity = p[2], rate = p[3], div = p[4], v0 = p[5], kappa = p[6],
-              theta = p[7], xi = p[8], rho = p[9];
-  // scalar set-up rounded op by op, as the plain version evaluates it
-  const float dt = __fdiv_rn(maturity, static_cast<float>(timesteps));
-  const float rho_bar = __fsqrt_rn(__fsub_rn(1.0f, __fmul_rn(rho, rho)));
-  const float rq_dt = __fmul_rn(__fsub_rn(rate, div), dt);
-  const float kdt = __fmul_rn(kappa, dt);
-  const float ktheta_dt = __fmul_rn(__fmul_rn(kappa, theta), dt);
+  const float spot = p[0], v0 = p[5];
+  const HestonCoeffs h = heston_coeffs(p, timesteps);
   const int monitors = timesteps / every;
   const int64_t base = static_cast<int64_t>(c) * monitors * n + local;
-  float u1, u2;
   float logx = logf(spot);
   float v = v0;
   int j = 0;
@@ -91,16 +89,9 @@ __global__ void american_heston_kernel(const float* __restrict__ params,
   for (int d = 0; d < monitors; ++d) {
 #pragma unroll 1
     for (int q = 0; q < every; ++q, ++j) {
-      s.draw(j, u1, u2);
-      const float rad = sqrtf(-2.0f * logf(u1));
-      float sn, cs;
-      sincospif(2.0f * u2, &sn, &cs);
-      const float z_v = sign * (rad * cs);
-      const float z_s = rho * z_v + rho_bar * (sign * (rad * sn));
-      const float v_plus = fmaxf(v, 0.0f);
-      const float sv = sqrtf(v_plus * dt);
-      logx = ((logx + rq_dt) - (0.5f * v_plus) * dt) + sv * z_s;
-      v = ((v + ktheta_dt) - kdt * v_plus) + (xi * sv) * z_v;
+      uint2 w;
+      s.draw(j, w);
+      heston_step<false>(h, sign, w, logx, v);
     }
     price[base + static_cast<int64_t>(d) * n] = expf(logx);
     var[base + static_cast<int64_t>(d) * n] = fmaxf(v, 0.0f);
@@ -144,9 +135,8 @@ __global__ void american_merton_kernel(const float* __restrict__ params,
 #pragma unroll 1
     for (int q = 0; q < every; ++q, ++t) {
       const uint4 w = philox4x32_10(make_uint4(s.c0, s.c1, t, 0u), s.k0, s.k1);
-      const float rad = sqrtf(-2.0f * logf(uniform_open(w.x)));
-      float sn, cs;
-      sincospif(2.0f * uniform_closed(w.y), &sn, &cs);
+      float rad, cs, sn;
+      box_muller_libm(make_uint2(w.x, w.y), rad, cs, sn);
       const float z_d = sign * (rad * cs);
       const float z_j = sign * (rad * sn);
       const float u_c = uniform_closed(w.z);
@@ -160,7 +150,8 @@ __global__ void american_merton_kernel(const float* __restrict__ params,
   }
 }
 
-// Baskets: params [C, 6]; price (and, arithmetic, disp) [C, monitors, n].
+// Baskets: params [C, 6]; price (and, arithmetic, disp) [C, monitors, n]. The
+// step is basket_step.cuh's.
 template <int kA, bool kGeo>
 __global__ void american_basket_kernel(const float* __restrict__ params,
                                        const uint32_t* __restrict__ keys, const BasketArgs spec,
@@ -174,43 +165,20 @@ __global__ void american_basket_kernel(const float* __restrict__ params,
   if (!path_setup(keys, rows, cols, half, row_offset, local, c, s)) return;
   const int64_t n = rows * cols;
   const float sign = s.sign;
-  const float* p = params + 6 * c;
-  const float spot = p[0], maturity = p[2], rate = p[3], div = p[4], vol = p[5];
-  const float dt = maturity / static_cast<float>(timesteps);
-  const float sqrt_dt = sqrtf(dt);
-  float drift[kA], sig_sdt[kA], logx[kA];
-#pragma unroll
-  for (int a = 0; a < kA; ++a) {
-    const float sig = vol * spec.vol_mult[a];
-    sig_sdt[a] = sig * sqrt_dt;
-    drift[a] = ((rate - div) - 0.5f * (sig * sig)) * dt;
-    logx[a] = logf(spot * spec.spot_mult[a]);
-  }
+  float logx[kA];
+  const BasketCoeffs<kA> k = basket_coeffs<kA>(params + 6 * c, timesteps, spec, logx);
   const int monitors = timesteps / every;
   const int64_t base = static_cast<int64_t>(c) * monitors * n + local;
   int j = 0;
-  float u1, u2;
 #pragma unroll 1
   for (int d = 0; d < monitors; ++d) {
 #pragma unroll 1
     for (int q = 0; q < every; ++q) {
-      float z[2 * kPairs];
+      uint2 w[kPairs];
 #pragma unroll
-      for (int r = 0; r < kPairs; ++r, ++j) {
-        s.draw(j, u1, u2);
-        const float rad = sqrtf(-2.0f * logf(u1));
-        float sn, cs;
-        sincospif(2.0f * u2, &sn, &cs);
-        z[2 * r] = sign * (rad * cs);
-        z[2 * r + 1] = sign * (rad * sn);
-      }
-#pragma unroll
-      for (int a = 0; a < kA; ++a) {
-        float zm = spec.chol[a * kMaxAssets] * z[0];
-#pragma unroll
-        for (int b = 1; b <= a; ++b) zm = zm + spec.chol[a * kMaxAssets + b] * z[b];
-        logx[a] = (logx[a] + drift[a]) + sig_sdt[a] * zm;
-      }
+      for (int r = 0; r < kPairs; ++r, ++j) s.draw(j, w[r]);
+      float inc[kA];
+      basket_step<kA>(spec, k, sign, w, logx, inc);
     }
     const int64_t at = base + static_cast<int64_t>(d) * n;
     const float value = basket_value<kA, kGeo>(logx, spec);

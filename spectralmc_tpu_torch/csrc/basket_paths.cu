@@ -3,13 +3,11 @@
 //
 // Replaces the JAX package's ops/gbm_pallas.py::_basket_block_kernel. What it
 // keeps of the TPU kernel is the math and the draw order:
-//   * ⌈A/2⌉ Box–Muller draws per step; assets 2p and 2p + 1 take r·cos θ and
-//     r·sin θ of draw p (independent normals), so a 3-asset step is one
-//     Philox call; antithetic rows flip every asset's normal;
-//   * the static spec (weights, spot and vol multipliers, the lower Cholesky
-//     rows of the correlation) mixes the normals as an FMA chain over the
-//     lower triangle (a zero entry adds an exact zero), then each asset takes
-//     log x ← (log x + drift) + vol√dt·z_mixed;
+//   * the step (basket_step.cuh, shared with the monitor kernel): ⌈A/2⌉
+//     Box–Muller draws; assets 2p and 2p + 1 take r·cos θ and r·sin θ of draw
+//     p, the static spec's lower Cholesky rows mix them, each asset takes
+//     log x ← (log x + drift) + vol√dt·z_mixed; antithetic rows flip every
+//     normal;
 //   * the payoff reads the basket value: Σ wᵢ·e^{log xᵢ} (arithmetic) or
 //     e^{Σ wᵢ·log xᵢ} (geometric). TERMINAL, barrier and lookback (running
 //     extreme of the basket value), variance swap (squared increments of
@@ -20,28 +18,37 @@
 //     geometric forward start are routes through TERMINAL (the wrapper's);
 //     the barrier level is spot times a float32 factor the host computes in
 //     double exactly as the TPU kernel does.
-// What it drops is what the TPU needed: the hardware PRNG (here the Philox
-// stream of path_stream.cuh, draw j = t·⌈A/2⌉ + p), the polynomial sine and
-// the 256x256 blocks. The spec arrives by value as a kernel argument, and the
-// asset count and the combine are template parameters, so the per-asset
-// scalars, the state and the mix live in registers and unroll, and a step
-// holds only its own combine's code. One thread owns one path; every
-// thread of a block belongs to one contract (blockIdx.y).
+// What it drops is what the TPU needed: the hardware PRNG (here the
+// Philox stream of path_stream.cuh, draw j = t·⌈A/2⌉ + p), the polynomial
+// sine and the 256x256 blocks. The spec arrives by value as a kernel
+// argument, and the asset count and the combine are template parameters, so
+// the per-asset scalars, the state and the mix live in registers and unroll,
+// and a step holds only its own combine's code. One thread owns one path;
+// every thread of a block belongs to one contract (blockIdx.y).
 //
-// Bound on Hopper: the rate of transcendental and integer instructions, as
-// for the other path kernels. Per path-step: ⌈A/2⌉/2 Philox calls, ⌈A/2⌉
-// logf, sqrtf and sincospif, A(A+1)/2 FMAs of the mix, A state updates, and
-// the basket value's A expf (arithmetic) where the branch reads it each step.
-// A path reads 32 bytes of contract and key and writes 4 bytes.
+// Bound on Hopper: instruction issue (a path reads 32 bytes of contract and
+// key and writes 4). The design spends it as follows (stream basket_gbm v2):
+//   * walk_draws hands each step its draws' words with their places fixed
+//     when compiling: a 3-asset step is one whole Philox call (its round keys
+//     are loop-invariant, and nvcc adds them outside the loop), with no
+//     parity test or word select;
+//   * the Box–Muller runs on the SFU (box_muller_sfu): MUFU.LG2 or a short
+//     polynomial in the exact u1 − 1 for the log, MUFU.RSQ for the root,
+//     MUFU.SIN and MUFU.COS for the angle, in place of libm's logf, sqrtf and
+//     sincospif (PERF.md §6 counts both); an odd asset count's last draw
+//     takes its cosine alone;
+//   * A(A+1)/2 FMAs of the mix and A state updates a step, and the basket
+//     value's A expf where the branch reads it each step.
 //
 // Contract: launches on the given stream, allocates nothing, does not
-// synchronise; the C entry point returns cudaGetLastError().
+// synchronise; each C entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
 #include "basket_spec.cuh"
+#include "basket_step.cuh"
 #include "path_stream.cuh"
 
 namespace {
@@ -80,44 +87,16 @@ __global__ void basket_paths_kernel(const float* __restrict__ params,
   if (!path_setup(keys, rows, cols, half, row_offset, local, c, s)) return;
   const float sign = s.sign;
   const float* p = params + 6 * c;
-  const float spot = p[0], strike = p[1], maturity = p[2], rate = p[3], div = p[4],
-              vol = p[5];
-  const float dt = maturity / static_cast<float>(timesteps);
-  const float sqrt_dt = sqrtf(dt);
-  float drift[kA], sig_sdt[kA], logx[kA];
-#pragma unroll
-  for (int a = 0; a < kA; ++a) {
-    const float sig = vol * spec.vol_mult[a];
-    sig_sdt[a] = sig * sqrt_dt;
-    drift[a] = ((rate - div) - 0.5f * (sig * sig)) * dt;
-    logx[a] = logf(spot * spec.spot_mult[a]);
-  }
+  const float spot = p[0], strike = p[1], maturity = p[2];
+  float logx[kA];
+  const BasketCoeffs<kA> k = basket_coeffs<kA>(p, timesteps, spec, logx);
   const bool up = kFamily == kBarrier ? variant == 1 : (variant == 0 || variant == 3);
   const float b0 = basket_value<kA, kGeo>(logx, spec);
   float acc = (kFamily == kBarrier || kFamily == kLookback || kFamily == kForward) ? b0 : 0.0f;
   float prev = b0;  // the variance swap's last basket value
-  int j = 0;
-  float u1, u2;
-  for (int t = 0; t < timesteps; ++t) {
-    float z[2 * kPairs];
-#pragma unroll
-    for (int q = 0; q < kPairs; ++q, ++j) {
-      s.draw(j, u1, u2);
-      const float rad = sqrtf(-2.0f * logf(u1));
-      float sn, cs;
-      sincospif(2.0f * u2, &sn, &cs);
-      z[2 * q] = sign * (rad * cs);
-      z[2 * q + 1] = sign * (rad * sn);
-    }
+  walk_draws<kPairs>(s, timesteps, [&](int t, const uint2 (&d)[kPairs]) {
     float step_inc[kA];  // each asset's log-increment drift + vol√dt·z_mixed
-#pragma unroll
-    for (int a = 0; a < kA; ++a) {
-      float zm = spec.chol[a * kMaxAssets] * z[0];
-#pragma unroll
-      for (int b = 1; b <= a; ++b) zm = zm + spec.chol[a * kMaxAssets + b] * z[b];
-      step_inc[a] = drift[a] + sig_sdt[a] * zm;
-      logx[a] = (logx[a] + drift[a]) + sig_sdt[a] * zm;
-    }
+    basket_step<kA>(spec, k, sign, d, logx, step_inc);
     if constexpr (kFamily == kBarrier || kFamily == kLookback) {
       const float v = basket_value<kA, kGeo>(logx, spec);
       acc = up ? fmaxf(acc, v) : fminf(acc, v);
@@ -130,7 +109,7 @@ __global__ void basket_paths_kernel(const float* __restrict__ params,
     } else if constexpr (kFamily == kForward) {
       if (t == forward_step - 1) acc = basket_value<kA, kGeo>(logx, spec);
     }
-  }
+  });
   float result;
   if constexpr (kFamily == kTerminal) {
     result = basket_value<kA, kGeo>(logx, spec);
@@ -156,6 +135,17 @@ __global__ void basket_paths_kernel(const float* __restrict__ params,
 }
 
 constexpr int kThreads = 256;
+
+// The kernels' Box–Muller on its own, for the card tests: draw i's words
+// (a, b) to (r·cos 2πu2, r·sin 2πu2).
+__global__ void box_muller_sfu_kernel(const uint2* __restrict__ words, float2* __restrict__ out,
+                                      int64_t n) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float rad, cs, sn;
+  box_muller_sfu(words[i], rad, cs, sn);
+  out[i] = make_float2(rad * cs, rad * sn);
+}
 
 template <int kA, bool kGeo>
 int launch_assets(const float* params, const uint32_t* keys, const BasketArgs& spec, float* out,
@@ -184,6 +174,14 @@ int launch_assets(const float* params, const uint32_t* keys, const BasketArgs& s
 }
 
 }  // namespace
+
+// words: int32 [n, 2]; out: float32 [n, 2].
+extern "C" int box_muller_sfu_launch(const void* words, void* out, long long n, void* stream) {
+  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  box_muller_sfu_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint2*>(words), static_cast<float2*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // spec_host: host float32 [3·8 + 8·8] (ops/basket_cuda.py::spec_table), copied
 // into the by-value kernel argument.

@@ -12,13 +12,18 @@
 //     the variance swap takes both Box–Muller outputs of a draw as the two
 //     steps' normals (r·cos θ, r·sin θ); barrier, lookback and Asian take one
 //     draw per step with z = r·cos θ. An odd tail is one single step.
-//   * _heston_block_kernel: full-truncation Euler Heston. One draw per step:
+//   * _heston_block_kernel: full-truncation Euler Heston, the step of
+//     heston_step.cuh (shared with the monitor kernel): one draw per step,
 //     z_v = r·cos θ drives the variance, z_s = ρ·z_v + ρ̄·r·sin θ the spot, and
 //     √(v⁺·dt) is one square root. The RAW v stays the base of the recursion;
 //     only drift and diffusion see v⁺ = max(v, 0). The variance-swap branch
 //     sums its increment first, the others add term by term, as the TPU
 //     kernel does. Forward start walks the whole path and captures ln S_m
-//     after step m − 1.
+//     after step m − 1. The draws are walked in pairs (walk_draws): one
+//     Philox call feeds steps j and j + 1 from words (x, y) and (z, w), with
+//     no parity test or word select; an odd step count ends in one tail
+//     step. The Box–Muller stays libm's (stream heston v1; heston_step.cuh
+//     says why).
 //   * _merton_block_kernel: the exact compensated Merton step. ONE Philox call
 //     per step: words 0, 1 give the Box–Muller pair (z_d = r·cos θ for the
 //     diffusion, z_j = r·sin θ for the jump size), word 2 the uniform of the
@@ -37,7 +42,7 @@
 // Bound on Hopper: the rate of transcendental and integer instructions, as
 // for the flat kernel. Per step the Heston and Merton kernels add a second
 // trigonometric output and a square root; Merton runs a whole Philox call per
-// step and 16 compares.
+// step and 16 compares; Heston half a call, without the select.
 //
 // Contract: launches on the given stream, allocates nothing, does not
 // synchronise; each C entry point returns cudaGetLastError().
@@ -45,6 +50,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "heston_step.cuh"
 #include "path_stream.cuh"
 
 namespace {
@@ -134,10 +140,10 @@ __global__ void gbm_term_kernel(const float* __restrict__ params,
     }
   } else if constexpr (kFamily == kVariance) {
     for (int j = 0; j < pairs; ++j) {
-      s.draw(j, u1, u2);
-      const float rad = sqrtf(-2.0f * logf(u1));
-      float sn, cs;
-      sincospif(2.0f * u2, &sn, &cs);
+      uint2 d;
+      s.draw(j, d);
+      float rad, cs, sn;
+      box_muller_libm(d, rad, cs, sn);
       const float2 a = __ldg(st + 2 * j), b = __ldg(st + 2 * j + 1);
       const float inc_a = a.x + a.y * (sign * (rad * cs));
       const float inc_b = b.x + b.y * (sign * (rad * sn));
@@ -165,7 +171,8 @@ __global__ void gbm_term_kernel(const float* __restrict__ params,
 }
 
 // Full-truncation Euler Heston: params [C, 10] = spot strike T r q v0 kappa
-// theta xi rho.
+// theta xi rho. The step is heston_step.cuh's; the draws are walked in pairs,
+// one Philox call feeding steps j and j + 1 (walk_draws).
 template <int kFamily>
 __global__ void heston_paths_kernel(const float* __restrict__ params,
                                     const uint32_t* __restrict__ keys, float* __restrict__ out,
@@ -178,42 +185,22 @@ __global__ void heston_paths_kernel(const float* __restrict__ params,
   if (!path_setup(keys, rows, cols, half, row_offset, local, c, s)) return;
   const float sign = s.sign;
   const float* p = params + 10 * c;
-  const float spot = p[0], strike = p[1], maturity = p[2], rate = p[3], div = p[4],
-              v0 = p[5], kappa = p[6], theta = p[7], xi = p[8], rho = p[9];
-  // scalar set-up rounded op by op, as the plain version evaluates it
-  const float dt = __fdiv_rn(maturity, static_cast<float>(timesteps));
-  const float rho_bar = __fsqrt_rn(__fsub_rn(1.0f, __fmul_rn(rho, rho)));
-  const float rq_dt = __fmul_rn(__fsub_rn(rate, div), dt);
-  const float kdt = __fmul_rn(kappa, dt);
-  const float ktheta_dt = __fmul_rn(__fmul_rn(kappa, theta), dt);
+  const float spot = p[0], strike = p[1], maturity = p[2], v0 = p[5];
+  const HestonCoeffs h = heston_coeffs(p, timesteps);
   const bool up = tracks_max(kFamily, variant);
-  float u1, u2;
   float logx = logf(spot);
   float v = v0;
   float acc = (kFamily == kBarrier || kFamily == kLookback || kFamily == kForward) ? logx : 0.0f;
-  for (int j = 0; j < timesteps; ++j) {
-    s.draw(j, u1, u2);
-    const float rad = sqrtf(-2.0f * logf(u1));
-    float sn, cs;
-    sincospif(2.0f * u2, &sn, &cs);
-    const float z_v = sign * (rad * cs);
-    const float z_s = rho * z_v + rho_bar * (sign * (rad * sn));
-    const float v_plus = fmaxf(v, 0.0f);
-    const float sv = sqrtf(v_plus * dt);
+  walk_draws<1>(s, timesteps, [&](int j, const uint2 (&d)[1]) {
+    const float inc = heston_step<kFamily == kVariance>(h, sign, d[0], logx, v);
     if constexpr (kFamily == kVariance) {
-      const float inc = (rq_dt - (0.5f * v_plus) * dt) + sv * z_s;
-      logx = logx + inc;
       acc = acc + inc * inc;
-    } else {
-      logx = ((logx + rq_dt) - (0.5f * v_plus) * dt) + sv * z_s;
-    }
-    v = ((v + ktheta_dt) - kdt * v_plus) + (xi * sv) * z_v;
-    if constexpr (kFamily == kForward) {
+    } else if constexpr (kFamily == kForward) {
       if (j == forward_step - 1) acc = logx;
     } else {
       acc = observe<kFamily>(acc, logx, up, variant);
     }
-  }
+  });
   out[static_cast<int64_t>(c) * rows * cols + local] =
       finish<kFamily>(logx, acc, spot, strike, maturity, timesteps, variant, barrier_rel);
 }
@@ -250,9 +237,8 @@ __global__ void merton_paths_kernel(const float* __restrict__ params,
   float acc = (kFamily == kBarrier || kFamily == kLookback) ? logx : 0.0f;
   for (int t = 0; t < timesteps; ++t) {
     const uint4 w = philox4x32_10(make_uint4(s.c0, s.c1, t, 0u), s.k0, s.k1);
-    const float rad = sqrtf(-2.0f * logf(uniform_open(w.x)));
-    float sn, cs;
-    sincospif(2.0f * uniform_closed(w.y), &sn, &cs);
+    float rad, cs, sn;
+    box_muller_libm(make_uint2(w.x, w.y), rad, cs, sn);
     const float z_d = sign * (rad * cs);
     const float z_j = sign * (rad * sn);
     const float u_c = uniform_closed(w.z);

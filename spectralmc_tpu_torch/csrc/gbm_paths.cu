@@ -226,16 +226,16 @@ __global__ void gbm_cliquet_kernel(const float* __restrict__ params,
     return fminf(fmaxf(expf(period_drift + period_vol * z) - 1.0f, floor), cap);
   };
   float acc = 0.0f;
-  float u1, u2;
   for (int j = 0; j < draws; ++j) {
-    s.draw(j, u1, u2);
-    const float rad = sqrtf(-2.0f * logf(u1));
+    uint2 d;
+    s.draw(j, d);
     if (j < pairs) {
-      float sn, cs;
-      sincospif(2.0f * u2, &sn, &cs);
+      float rad, cs, sn;
+      box_muller_libm(d, rad, cs, sn);
       acc = (acc + clipped(sign * (rad * cs))) + clipped(sign * (rad * sn));
     } else {
-      acc = acc + clipped(sign * (rad * cospif(2.0f * u2)));
+      const float rad = sqrtf(-2.0f * logf(uniform_open(d.x)));
+      acc = acc + clipped(sign * (rad * cospif(2.0f * uniform_closed(d.y))));
     }
   }
   out[static_cast<int64_t>(c) * n + local] = acc;

@@ -57,11 +57,24 @@ struct PathStream {
   float sign;
   uint4 w;
 
-  // Uniforms (u1, u2) of draw j; a new Philox call every other draw.
+  // Philox call i's four words.
+  __device__ __forceinline__ uint4 call(int i) const {
+    return philox4x32_10(make_uint4(c0, c1, static_cast<uint32_t>(i), 0u), k0, k1);
+  }
+
+  // The words (a, b) of draw j, a new call every other draw: the rolled
+  // loops of the monitor kernels, where a date may hold an odd step count.
+  __device__ __forceinline__ void draw(int j, uint2& d) {
+    if ((j & 1) == 0) w = call(j >> 1);
+    d = (j & 1) ? make_uint2(w.z, w.w) : make_uint2(w.x, w.y);
+  }
+
+  // Uniforms (u1, u2) of draw j.
   __device__ __forceinline__ void draw(int j, float& u1, float& u2) {
-    if ((j & 1) == 0) w = philox4x32_10(make_uint4(c0, c1, j >> 1, 0u), k0, k1);
-    u1 = uniform_open((j & 1) ? w.z : w.x);
-    u2 = uniform_closed((j & 1) ? w.w : w.y);
+    uint2 d;
+    draw(j, d);
+    u1 = uniform_open(d.x);
+    u2 = uniform_closed(d.y);
   }
 };
 
@@ -89,6 +102,138 @@ __device__ __forceinline__ bool path_setup(const uint32_t* __restrict__ keys, in
   s.k1 = keys[2 * c + 1];
   s.w = make_uint4(0u, 0u, 0u, 0u);
   return true;
+}
+
+// ---------------------------------------------------------------------------
+// A walk over whole Philox calls (heston_paths_kernel, basket_paths_kernel)
+// and the two Box–Muller transforms: libm's, of every v1 stream, and the
+// SFU's, of the basket_gbm and american_basket_gbm v2 streams.
+// ---------------------------------------------------------------------------
+
+// Walks `steps` steps of kP draws each in the stream's draw order (draw
+// j = t·kP + p is words 2(j%2), 2(j%2)+1 of call j/2) with every word's place
+// known when compiling: an iteration covers kL steps, kL = 2 for odd kP and 1
+// for even, so it takes kL·kP/2 whole calls and needs no parity test or
+// select; for odd kP and odd `steps` one tail step follows, its last draw the
+// first half of its call. step(t, d) advances step t on its draws' words d[p].
+template <int kP, class Step>
+__device__ __forceinline__ void walk_draws(const PathStream& s, int steps, Step&& step) {
+  constexpr int kL = kP % 2 ? 2 : 1;
+  constexpr int kCalls = kL * kP / 2;
+  int t = 0;
+  for (; t + kL <= steps; t += kL) {
+    const int first = t / kL * kCalls;
+    uint4 w[kCalls];
+#pragma unroll
+    for (int i = 0; i < kCalls; ++i) w[i] = s.call(first + i);
+#pragma unroll
+    for (int l = 0; l < kL; ++l) {
+      uint2 d[kP];
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        const uint4& c = w[(l * kP + p) / 2];
+        d[p] = (l * kP + p) % 2 ? make_uint2(c.z, c.w) : make_uint2(c.x, c.y);
+      }
+      step(t + l, d);
+    }
+  }
+  if (kL == 2 && t < steps) {
+    const int first = t / kL * kCalls;
+    uint2 d[kP];
+    uint4 c = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+      if (p % 2 == 0) c = s.call(first + p / 2);
+      d[p] = p % 2 ? make_uint2(c.z, c.w) : make_uint2(c.x, c.y);
+    }
+    step(t, d);
+  }
+}
+
+// The Box–Muller transform of the v1 streams: libm's logf, sqrtf and
+// sincospif, the pair (cos 2πu2, sin 2πu2) of draw (a, b) and its radius.
+__device__ __forceinline__ void box_muller_libm(uint2 d, float& rad, float& cs, float& sn) {
+  rad = sqrtf(-2.0f * logf(uniform_open(d.x)));
+  sincospif(2.0f * uniform_closed(d.y), &sn, &cs);
+}
+
+// The Box–Muller transform on the SFU. u1 = uniform_open(a) lies in
+// [2^-25, 1] (1 itself once in 2^24 words: the FMA rounds 1 − 2^-25 up), so
+// −2·ln u1 is taken two ways, both relative-accurate:
+//   * u1 < ½: MUFU.LG2 (lg2.approx, 2 ulp there) times −2·ln 2;
+//   * u1 >= ½: d = u1 − 1 is exact (Sterbenz) and −2·ln(1 + d) =
+//     −2d + d²·Q(d), Q a degree-7 fit of (−2·ln(1 + d) + 2d)/d² on [−½, 0],
+//     the exact −2d added last (1.6 ulp over every u1 ≥ ½ of the stream:
+//     tests/test_torch_sfu_streams.py), so the radius keeps its relative
+//     accuracy as u1 nears 1, where MUFU's absolute error (2^-22) would
+//     swamp it.
+// The root is x·rsqrt(x) on MUFU.RSQ, x floored at FLT_MIN inside the root
+// so that u1 = 1 gives a zero radius. The angle 2π·u2 is reduced to
+// θ = 2π·(u2 − ½) in [−π, π) (u2 − ½ is exact), where MUFU.SIN and MUFU.COS
+// hold an absolute error of 2^-21.4; cos 2πu2 = −cos θ and sin 2πu2 = −sin θ.
+constexpr float kMinusTwoLn2 = -1.38629436f;
+constexpr float kTwoPi = 6.28318548f;
+__device__ __forceinline__ float lg2_sfu(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float rsqrt_sfu(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float sin_sfu(float x) {
+  float y;
+  asm("sin.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float cos_sfu(float x) {
+  float y;
+  asm("cos.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// −2·ln u1, > 0 but for u1 = 1.
+__device__ __forceinline__ float minus_two_log(float u1) {
+  const float d = u1 - 1.0f;
+  float q = -2.9005215f;
+  q = fmaf(q, d, -3.4206872f);
+  q = fmaf(q, d, -2.5309794f);
+  q = fmaf(q, d, -0.4091283f);
+  q = fmaf(q, d, -0.5381754f);
+  q = fmaf(q, d, 0.48604572f);
+  q = fmaf(q, d, -0.66734076f);
+  q = fmaf(q, d, 0.9999889f);
+  return u1 < 0.5f ? kMinusTwoLn2 * lg2_sfu(u1) : fmaf(d * d, q, -2.0f * d);
+}
+
+// The radius √(−2·ln u1) of draw (a, ·).
+__device__ __forceinline__ float box_muller_radius(uint32_t a) {
+  const float x = minus_two_log(uniform_open(a));
+  return x * rsqrt_sfu(fmaxf(x, 1.17549435e-38f));
+}
+
+// θ of draw (·, b): 2π·u2 less π.
+__device__ __forceinline__ float box_muller_angle(uint32_t b) {
+  return kTwoPi * (uniform_closed(b) - 0.5f);
+}
+
+// The pair (cos 2πu2, sin 2πu2) of draw (a, b) and its radius.
+__device__ __forceinline__ void box_muller_sfu(uint2 d, float& rad, float& cs, float& sn) {
+  rad = box_muller_radius(d.x);
+  const float theta = box_muller_angle(d.y);
+  cs = -cos_sfu(theta);
+  sn = -sin_sfu(theta);
+}
+
+// The cosine alone: a draw whose sine no one reads.
+__device__ __forceinline__ void box_muller_sfu_cos(uint2 d, float& rad, float& cs) {
+  rad = box_muller_radius(d.x);
+  cs = -cos_sfu(box_muller_angle(d.y));
 }
 
 inline dim3 grid_of(int contracts, long long rows, long long cols, int threads) {

@@ -3,8 +3,11 @@
 Each kernel file under ``csrc/`` exposes a plain C entry point, so it builds
 in seconds with no PyTorch headers:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -lineinfo -shared \\
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so <sources>
+
+``-lineinfo`` leaves the code as it is and lets ``nvdisasm -gi`` name each
+SASS instruction's source line (``chip_smoke.py``'s per-part split).
 
 The library lands in ``build/kernels/`` at the repository root, named by a
 hash of the sources and flags, so an unchanged source is built once per
@@ -30,7 +33,7 @@ CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LOCKS_GUARD = threading.Lock()

@@ -582,7 +582,7 @@ def _check_backward(price_rows: torch.Tensor, strike: torch.Tensor, disc: torch.
 # ops/_build.py::load_library's arguments for this module's kernels
 LIBRARY = ("american_paths", ("american_paths.cu",), ("path_stream.cuh",))
 DYNAMICS_LIBRARY = ("american_dynamics", ("american_dynamics.cu",),
-                    ("basket_spec.cuh", "path_stream.cuh"))
+                    ("basket_spec.cuh", "basket_step.cuh", "heston_step.cuh", "path_stream.cuh"))
 BACKWARD_LIBRARY = ("lsmc_backward", ("lsmc_backward.cu",), ("lsmc_backward.cuh",))
 TWO_STATE_LIBRARY = ("lsmc_two_state", ("lsmc_two_state.cu",), ("lsmc_backward.cuh",))
 
@@ -760,7 +760,7 @@ def simulate_basket_american_rows_cuda(
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Basket monitor-date ``(value, dispersion)`` rows, each ``[C, timesteps
     // every, rows, cols]`` float32 (the dispersion None for the geometric
-    combine), on the Philox stream (``american_basket_gbm`` v1): CPU tensors
+    combine), on the Philox stream (``american_basket_gbm`` v2): CPU tensors
     run the plain twin, CUDA tensors launch the basket monitor kernel (one
     launch per contract batch) or raise."""
     from spectralmc_tpu_torch.ops.basket_cuda import spec_table

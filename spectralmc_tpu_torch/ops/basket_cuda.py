@@ -14,7 +14,9 @@ and drops. This module holds
 * ``barrier_factor``: the knock level's host factor, computed in float64
   exactly as the TPU kernel does and rounded once to float32.
 
-The stream ``basket_gbm`` v1 (``gbm_cuda.CUDA_STREAM_VERSIONS``): Philox-4x32-10
+The stream ``basket_gbm`` v2 (``gbm_cuda.CUDA_STREAM_VERSIONS``; v1 took the
+same words through libm's Box–Muller, v2 through the SFU's: its normals
+differ by a few ulps, within the twin's rtol 2e-5): Philox-4x32-10
 keyed by the contract's two threefry words, counter ``(path lo, path hi,
 call, 0)``. Each step takes ``P = ⌈A/2⌉`` draws, draw ``j = t·P + p`` being
 words ``2(j%2), 2(j%2)+1`` of call ``j // 2``: assets ``2p`` and ``2p + 1``
@@ -59,7 +61,10 @@ from spectralmc_tpu_torch.ops.gbm_cuda import (
     _stream,
     _tail_params,
     branch_of,
+    uniform_closed,
+    uniform_open,
 )
+from spectralmc_tpu_torch.ops.rng import MASK32
 
 _FORWARD = 5  # csrc/basket_paths.cu's kForward: the arithmetic forward start's capture
 
@@ -240,7 +245,8 @@ def simulate_basket_rows_cuda_plain(
 
 
 # ops/_build.py::load_library's arguments for this module's kernel
-LIBRARY = ("basket_paths", ("basket_paths.cu",), ("basket_spec.cuh", "path_stream.cuh"))
+LIBRARY = ("basket_paths", ("basket_paths.cu",),
+           ("basket_spec.cuh", "basket_step.cuh", "path_stream.cuh"))
 
 
 def _library() -> ctypes.CDLL:
@@ -251,7 +257,32 @@ def _library() -> ctypes.CDLL:
     lib.basket_paths_launch.argtypes = [vp, vp, vp, vp, i, ll, ll, i, i, i, i, i, f, i, ll, ll,
                                         vp]
     lib.basket_paths_launch.restype = ctypes.c_int
+    lib.box_muller_sfu_launch.argtypes = [vp, vp, ll, vp]
+    lib.box_muller_sfu_launch.restype = ctypes.c_int
     return lib
+
+
+def box_muller_normals(words: torch.Tensor) -> torch.Tensor:
+    """The basket kernels' Box–Muller on its own (the card tests hold it to
+    the twins' arithmetic): words ``[n, 2]`` (u1's, u2's; int32 or int64)
+    to float32 normals ``[n, 2]``, ``(r·cos 2πu2, r·sin 2πu2)``. A CPU tensor
+    takes the twins' torch math, a CUDA tensor the SFU transform of
+    ``csrc/path_stream.cuh`` (not a path kernel: no launch count)."""
+    if words.dim() != 2 or words.shape[1] != 2:
+        raise ValueError(f"words must be [n, 2], got {tuple(words.shape)}")
+    if words.device.type == "cpu":
+        w = words.to(torch.int64) & MASK32
+        u1, u2 = uniform_open(w[:, 0]), uniform_closed(w[:, 1])
+        rad = torch.sqrt(-2.0 * torch.log(u1))
+        return torch.stack([rad * _cospi(2.0 * u2), rad * _sinpi(2.0 * u2)], dim=1)
+    w = words.to(torch.int64) & MASK32
+    w = torch.where(w >= 2**31, w - 2**32, w).to(torch.int32).contiguous()
+    out = torch.empty((w.shape[0], 2), dtype=torch.float32, device=w.device)
+    status = _library().box_muller_sfu_launch(
+        w.data_ptr(), out.data_ptr(), w.shape[0], torch.cuda.current_stream(w.device).cuda_stream)
+    if status != 0:
+        raise RuntimeError(f"box_muller_sfu_launch failed: cudaError {status}")
+    return out
 
 
 def spec_table(spec: BasketSpec) -> np.ndarray:
@@ -316,6 +347,7 @@ def simulate_basket_rows_cuda(
 __all__ = [
     "barrier_factor",
     "basket_branch",
+    "box_muller_normals",
     "simulate_basket_rows_cuda",
     "simulate_basket_rows_cuda_plain",
     "spec_table",

@@ -135,7 +135,7 @@ def _observe(branch: str, payoff: PayoffKind, acc: torch.Tensor, logx: torch.Ten
 
 
 # ops/_build.py::load_library's arguments for this module's kernels
-LIBRARY = ("dynamics_paths", ("dynamics_paths.cu",), ("path_stream.cuh",))
+LIBRARY = ("dynamics_paths", ("dynamics_paths.cu",), ("heston_step.cuh", "path_stream.cuh"))
 
 
 def _library() -> ctypes.CDLL:

@@ -24,7 +24,9 @@ states what it keeps, what it drops and what bounds it. This module holds
   and Merton kernels of ``ops/dynamics_cuda.py``, the basket kernel of
   ``ops/basket_cuda.py`` and the American monitor-row kernels of
   ``ops/american_cuda.py`` (``american_gbm``, ``american_heston``,
-  ``american_merton_jump``, ``american_basket_gbm``).
+  ``american_merton_jump``, ``american_basket_gbm``). ``basket_gbm`` and
+  ``american_basket_gbm`` are at 2: their Box–Muller runs on the SFU
+  (``csrc/path_stream.cuh``), the others' on libm.
 * ``LAUNCHES`` (every launch of any entry point) and ``LAUNCHES_BY_BRANCH``
   (per kernel and branch group, the QMC generator's two kernels of
   ``ops/qmc_cuda.py`` and the American kernels of ``ops/american_cuda.py``
@@ -64,9 +66,9 @@ from spectralmc_tpu_torch.ops.gbm import (
 from spectralmc_tpu_torch.ops.rng import MASK32, philox4x32
 
 CUDA_STREAM_VERSIONS: dict[str, int] = {
-    "gbm": 1, "gbm_cliquet": 1, "gbm_term": 1, "heston": 1, "merton_jump": 1, "basket_gbm": 1,
+    "gbm": 1, "gbm_cliquet": 1, "gbm_term": 1, "heston": 1, "merton_jump": 1, "basket_gbm": 2,
     "american_gbm": 1, "american_heston": 1, "american_merton_jump": 1,
-    "american_basket_gbm": 1,
+    "american_basket_gbm": 2,
 }
 
 # branch groups, each a kernel instantiation of its own: the flat kernel's and

@@ -331,7 +331,7 @@ def test_cuda_engine_basket_resume_is_bit_exact_on_its_twin(payoff: str) -> None
     assert gbm_cuda.LAUNCHES == before  # CPU tensors run the twin
     snap = a.snapshot()
     assert snap.sim.implementation == tgbm.SimImplementation.CUDA
-    assert snap.cuda_stream_version == gbm_cuda.CUDA_STREAM_VERSIONS["basket_gbm"] == 1
+    assert snap.cuda_stream_version == gbm_cuda.CUDA_STREAM_VERSIONS["basket_gbm"] == 2
     b = ttr.GbmCVNNPricer.create(snap, device="cpu").expect("b")
     np.testing.assert_array_equal(_train(a, ttr, 2), _train(b, ttr, 2))
     assert np.all(np.isfinite(first))

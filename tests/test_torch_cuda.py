@@ -201,9 +201,91 @@ def test_merton_kernel_counts_equal_the_twins_on_card() -> None:
     assert float(counts[0].mean()) > 1.0 and torch.equal(counts[0][:, :64], counts[0][:, 64:])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("payoff,steps", [("terminal", 1), ("terminal", 2), ("terminal", 3),
+                                          ("terminal", 15), ("forward_start", 15),
+                                          ("asian_arithmetic", 15), ("variance_swap", 1),
+                                          ("variance_swap", 15)])
+def test_heston_pair_walk_odd_steps_and_relaunch_on_card(payoff, steps) -> None:
+    """The Heston kernel walks its draws in pairs, one Philox call for two
+    steps, and an odd step count ends in one tail step on the first half of
+    its call: at 1, 2, 3 and 15 steps it meets the Heston gates against the
+    twin, and a second launch is bit-equal to the first. The variance swap
+    runs at phase 2's 4 x 2048 x 512 paths, where ``HESTON_SHARE`` allows 20
+    misses. Its one-step value is the square of one increment, which may
+    cancel to near 0, where an ulp of the normal is no longer small against
+    it; there it takes the variance rows' gate (atol 1e-6 + rtol 2e-5, none
+    past ``HESTON_CAP_RTOL`` of max(value, θ)). The paths past rtol 2e-5
+    alone are printed."""
+    device = _require_card()
+    payoff = tgbm.PayoffKind(payoff)
+    variance = payoff == tgbm.PayoffKind.VARIANCE_SWAP
+    contracts, rows, cols, half = (4, 2048, 512, 1024) if variance else (3, 64, 96, 32)
+    gen = np.random.default_rng(13)
+    lo, hi = np.array(FAMILY_LO["heston"]), np.array(FAMILY_HI["heston"])
+    c = torch.from_numpy(
+        (lo + (hi - lo) * gen.random((contracts, len(lo)))).astype(np.float32)).to(device)
+    keys = rng.fold_in(rng.prng_key(13), torch.arange(contracts)).to(device)
+    kw = dict(timesteps=steps, rows=rows, cols=cols, payoff=payoff, antithetic_half=half,
+              forward_start_step=steps // 2 if payoff == tgbm.PayoffKind.FORWARD_START else None)
+    kernel, twin = FAMILY_FNS["heston"]
+    got = kernel(c, keys, **kw)
+    assert torch.equal(kernel(c, keys, **kw), got)
+    want = twin(c, keys, **kw)
+    err = (got - want).abs()
+    past_rtol = int((err > 2e-5 * want.abs()).sum())
+    if variance:
+        print(f"variance_swap steps={steps} paths={got.numel()} past_rtol_2e-5={past_rtol} "
+              f"past_atol_1e-6_rtol_2e-5={int((err > 1e-6 + 2e-5 * want.abs()).sum())} "
+              f"max_rel={float((err / want.abs()).max()):.3e}")
+    if variance and steps == 1:
+        theta = c[:, 7, None, None]
+        assert int((err > 1e-6 + 2e-5 * want.abs()).sum()) <= int(HESTON_SHARE * got.numel())
+        assert bool((err <= HESTON_CAP_RTOL * torch.maximum(want.abs(), theta)).all())
+    else:
+        assert past_rtol <= int(HESTON_SHARE * got.numel())
+        assert bool((err <= HESTON_CAP_RTOL * want.abs()).all())
+
+
 # --------------------------------------------------------------------------
 # The basket kernel (csrc/basket_paths.cu)
 # --------------------------------------------------------------------------
+
+
+def _box_muller_words() -> torch.Tensor:
+    """A grid of (u1, u2) words: the 24-bit u1 codes at both ends (u1 from
+    2^-25 up, and down to 1 − 2^-25, which the FMA rounds to 1) and spread
+    between, against 256 u2 codes over [0, 1) with both ends."""
+    top = 2**24
+    u1 = np.unique(np.concatenate([np.arange(4096), top - 1 - np.arange(4096),
+                                   np.linspace(0, top - 1, 8192).astype(np.int64)]))
+    u2 = np.unique(np.concatenate([np.linspace(0, top - 1, 252).astype(np.int64),
+                                   [1, top // 2 - 1, top // 2, top // 2 + 1]]))
+    a, b = np.meshgrid(u1 << 8, u2 << 8, indexing="ij")
+    return torch.from_numpy(np.stack([a.ravel(), b.ravel()], axis=1))
+
+
+@pytest.mark.cuda
+def test_basket_box_muller_matches_twin_on_card() -> None:
+    """The basket kernels' SFU Box–Muller against the twins' torch math on
+    a grid of (u1, u2) with u1 → 1 and u1 → 2^-25: |z − z_twin| within
+    1.2e-6·max(r, 1), r = √(−2 ln u1) ≤ 5.9. MUFU.SIN and MUFU.COS hold
+    2^-21.4 of absolute error on [−π, π), the angle 2π·(u2 − ½) at most
+    3·2^-24 of it relative more (its rounding and the SFU's argument
+    scaling), and the radius is relative-accurate to a few ulps (the log's
+    polynomial near 1, MUFU.LG2 below ½, MUFU.RSQ); u1 = 1 gives 0."""
+    device = _require_card()
+    words = _box_muller_words()
+    got = basket_cuda.box_muller_normals(words.to(device)).cpu()
+    want = basket_cuda.box_muller_normals(words)
+    rad = want.norm(dim=1, keepdim=True)
+    err = (got - want).abs()
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= 1.2e-6 * torch.clamp(rad, min=1.0)).all()), float(err.max())
+    ones = (words[:, 0] >> 8) == 2**24 - 1
+    assert bool((got[ones] == 0).all())
+    print(f"box_muller max_abs_err={float(err.max()):.3e} max_rel_to_radius="
+          f"{float((err / torch.clamp(rad, min=1.0)).max()):.3e} draws={words.shape[0]}")
 
 
 def _basket_spec(assets: int, combine: str) -> tbasket.BasketSpec:

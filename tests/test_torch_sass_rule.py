@@ -1,0 +1,132 @@
+"""``chip_smoke.py``'s SASS rule and per-part split, on synthetic disassembly.
+
+The card runs the rule on ``cuobjdump -sass`` and ``nvdisasm -gi`` of the
+built libraries; here the same functions read small texts in those formats,
+and the attribution reads the repository's own csrc/ files: a loop's Philox
+block skipped every other iteration (the rolled draw) counts half, a loop
+that calls Philox unskipped covers the steps its calls' draws feed, and each
+instruction goes to the part its source lines name.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import pytest
+
+import chip_smoke as cs
+
+CSRC = Path(cs.__file__).resolve().parent / "spectralmc_tpu_torch" / "csrc"
+
+
+def _sass(ops: list[str]) -> str:
+    """One function's ``cuobjdump -sass`` text, an instruction every 16 bytes."""
+    return "Function : _Zkernel\n" + "\n".join(
+        f"        /*{16 * i:04x}*/                   {op} ;" for i, op in enumerate(ops))
+
+
+def _line(name: str, text: str) -> int:
+    """The 1-based line of ``text`` in csrc/``name``."""
+    return next(i for i, line in enumerate((CSRC / name).read_text().splitlines(), 1)
+                if text in line)
+
+
+def test_skipped_philox_block_counts_half() -> None:
+    # MOV, a skip over 20 IMAD.WIDE.U32 and 2 LOP3 (the block), 3 more, the back branch
+    ops = ["MOV R1, R2", f"@P0 BRA 0x{16 * 24:x}", *["IMAD.WIDE.U32 R2, R3, R4, RZ"] * 20,
+           "LOP3.LUT R5", "LOP3.LUT R6", "FADD R1, R2, R3", "FFMA R1, R2, R3, R4", "@P1 BRA 0x0"]
+    weights, steps, found = cs.loop_weights(
+        _sass(ops).split("Function : ")[1], "g", pick_loop=lambda loops: max(loops, key=len),
+        single_step=lambda group: False, draws_per_step=1)
+    assert steps == 1 and found == "27-0-0-22/2=16/1"
+    assert sum(w for *_, w in weights) == 16
+
+
+@pytest.mark.parametrize("calls,draws_per_step,steps", [(1, 1, 2), (2, 1, 4), (1, 2, 1),
+                                                        (2, 2, 2)])
+def test_unskipped_philox_calls_set_the_steps(calls: int, draws_per_step: int,
+                                              steps: int) -> None:
+    """20 IMAD.WIDE.U32 a call (19 where the first round's product is
+    hoisted); a call feeds two draws."""
+    ops = ["MOV R1, R2", *["IMAD.WIDE.U32 R2, R3, R4, RZ"] * (20 * calls - 1),
+           *["FFMA R1, R2, R3, R4"] * 10, "@P1 BRA 0x0"]
+    weights, got, _ = cs.loop_weights(
+        _sass(ops).split("Function : ")[1], "g", pick_loop=lambda loops: max(loops, key=len),
+        single_step=lambda group: False, draws_per_step=draws_per_step)
+    assert got == steps and sum(w for *_, w in weights) == len(ops)
+
+
+def test_split_high_products_count_as_philox_multiplies() -> None:
+    """ptxas may split a round's IMAD.WIDE.U32 into IMAD.HI.U32 and IMAD:
+    13 wide and 5 high products still make one call, two Heston steps."""
+    ops = ["MOV R1, R2", *["IMAD.WIDE.U32 R2, R3, R4, RZ"] * 13,
+           *["IMAD.HI.U32 R5, R3, R4, RZ", "IMAD R6, R3, R4, RZ"] * 5,
+           *["FFMA R1, R2, R3, R4"] * 10, "@P1 BRA 0x0"]
+    _, steps, _ = cs.loop_weights(
+        _sass(ops).split("Function : ")[1], "g", pick_loop=lambda loops: max(loops, key=len),
+        single_step=lambda group: False, draws_per_step=1)
+    assert steps == 2
+
+
+def test_an_if_else_arm_is_not_a_once_per_path_region() -> None:
+    """In a loop that walks whole calls, a region that ends by jumping over
+    its else arm (the Box–Muller's u1 < ½, divergent) issues every
+    iteration; a plain skipped region (the forward start's capture) is the
+    once-per-path one."""
+    ops = ["MOV R1, R2", *["IMAD.WIDE.U32 R2, R3, R4, RZ"] * 20,
+           f"@!P0 BRA 0x{16 * 25:x}", "FADD R1, R2, R3", "FFMA R1, R2, R3, R4",
+           f"BRA 0x{16 * 27:x}", "MUFU.LG2 R1, R2", "FMUL R1, R1, R2",
+           f"@P2 BRA 0x{16 * 30:x}", "MUFU.EX2 R3, R3", "FFMA R4, R3, R5, R4",
+           "@P1 BRA 0x0"]
+    weights, steps, found = cs.loop_weights(
+        _sass(ops).split("Function : ")[1], "g", pick_loop=lambda loops: max(loops, key=len),
+        single_step=lambda group: True, draws_per_step=2)
+    assert steps == 1 and found == "31-0-2-0/2=29/1"
+    assert sum(w for *_, w in weights) == 29
+
+
+def test_nvdisasm_frames_join_an_inlined_line_and_its_call_site() -> None:
+    text = (
+        '\t.section\t.text._Zk,"ax",@progbits\n'
+        '\t//## File "/x/csrc/path_stream.cuh", line 37 inlined at "/x/csrc/k.cu", line 5\n'
+        '\t//## File "/x/csrc/k.cu", line 5\n'
+        "        /*0000*/                   IMAD.WIDE.U32 R2, R3, R4, RZ ;\n"
+        "        /*0010*/                   LOP3.LUT R5, R6, R7, R8, 0x96, !PT ;\n"
+        '\t//## File "/x/csrc/k.cu", line 9\n'
+        "        /*0020*/                   FADD R1, R2, R3 ;\n")
+    frames = cs.parse_nvdisasm_lines(text)["_Zk"]
+    assert frames[0] == frames[16] == [("/x/csrc/path_stream.cuh", 37), ("/x/csrc/k.cu", 5),
+                                       ("/x/csrc/k.cu", 5)]
+    assert frames[32] == [("/x/csrc/k.cu", 9)]
+
+
+def test_parts_follow_the_stream_helpers_and_the_step_text() -> None:
+    read = lambda f: Path(f).read_text().splitlines()  # noqa: E731
+    stream, heston = str(CSRC / "path_stream.cuh"), str(CSRC / "heston_step.cuh")
+    kernel = str(CSRC / "dynamics_paths.cu")
+    call_site = (kernel, _line("dynamics_paths.cu", "heston_step<kFamily == kVariance>"))
+    philox = (stream, _line("path_stream.cuh", "c = make_uint4(hi1 ^ c.y ^ k0"))
+    assert cs.part_of([philox, call_site], read) == "philox"
+    radius = (stream, _line("path_stream.cuh", "return x * rsqrt_sfu"))
+    assert cs.part_of([radius, call_site], read) == "box_muller"
+    assert cs.part_of([(heston, _line("heston_step.cuh", "const float z_s =")), call_site],
+                      read) == "update"
+    assert cs.part_of([(heston, _line("heston_step.cuh", "const float z_v =")), call_site],
+                      read) == "box_muller"
+    assert cs.part_of([(stream, _line("path_stream.cuh", "for (; t + kL <= steps; t += kL)")),
+                       call_site], read) == "branch"
+    assert cs.part_of([("/usr/local/cuda/include/crt/math.h", 9), call_site], read) == "branch"
+
+
+def test_split_sums_to_the_count_and_sorts_units(tmp_path: Path) -> None:
+    src = tmp_path / "csrc" / "k.cu"
+    src.parent.mkdir()
+    src.write_text("__global__ void k() {\n  logx = logx + inc;\n  loop();\n}\n")
+    ops = ["FADD R1, R2, R3", "MUFU.LG2 R4, R5", "LOP3.LUT R5, R6, R7, R8, 0x96, !PT",
+           "@P1 BRA 0x0"]
+    disasm = '\t.section\t.text._Zkernel,"ax",@progbits\n' + "".join(
+        f'\t//## File "{src}", line {2 if i < 2 else 3}\n'
+        f"        /*{16 * i:04x}*/                   {op} ;\n" for i, op in enumerate(ops))
+    split = cs.sass_split(_sass(ops), disasm, "_Zkernel", draws_per_step=1)
+    assert (split["update"], split["branch"], split["total"]) == (2.0, 2.0, 4.0)
+    assert split["mix"] == {"xu": 1.0, "fp32": 1.0, "int": 1.0, "other": 1.0}
