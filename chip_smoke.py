@@ -19,9 +19,10 @@ non-zero and no result line is printed):
                   American monitor loops and of the LSMC backward's 16-path
                   block (cuobjdump) for the instruction cap of phases 2, 12,
                   17, 18, 22 and 23, and split the Heston and 3-asset
-                  basket TERMINAL loops' SASS per path-step into Philox,
-                  Box–Muller, update and branch (nvdisasm line info; the
-                  ``sass-split`` lines).
+                  basket TERMINAL loops' SASS per path-step, and the GBM
+                  and Heston monitor kernels' loops at every = 1, into
+                  Philox, Box–Muller, update and branch (nvdisasm line info;
+                  the ``sass-split`` lines, with the update's FFMAs).
 2. kernel       — every kernel branch against its plain twin on the same
                   Philox words at C=4 x 2048 x 512 x 16: TERMINAL (and its
                   digital and forward-start routes), barrier up/down, the four
@@ -36,7 +37,9 @@ non-zero and no result line is printed):
                   digital sign may flip on at most 1e-5 of the paths, and at
                   most 5e-6 of a Heston case's paths may miss, by no more
                   than rtol 1e-3 (the root of a low variance amplifies an
-                  ulp; counted, with how low their variance went, and printed);
+                  ulp; counted, with how low their variance went, and printed;
+                  the Heston groups also print the paths that are not the
+                  twin's bit for bit);
                   the Merton kernel's jump counts equal its twin's exactly.
                   Each branch group is timed at the training chunk 256 x 2048
                   x 512 x 16 (log-Euler) with CUDA events, and its twin's
@@ -157,7 +160,8 @@ non-zero and no result line is printed):
                   none past rtol 1e-3 (the variance against θ); the log
                   dispersion within 2e-5 of |ln B|; Merton counts equal; the
                   last row against the European kernel's TERMINAL value
-                  (bit-equality printed). Then each timed at 256 x 2048 x 512
+                  (bit-equality printed, and Heston's price and variance
+                  rows' against the twin). Then each timed at 256 x 2048 x 512
                   x 16 (the basket at 32 contracts) with the twin, the bound
                   and the SASS per path-step against the instruction cap.
 23. backward-american-dynamics — the single-state backward against its
@@ -185,7 +189,7 @@ non-zero and no result line is printed):
                   phases 4-6 for a Heston American put (10 inputs, the
                   production batch and head, normalization none, the
                   two-state backward: lsmc_backward_version 4 and no torch
-                  estimator call, stream american_heston v1) with the step's
+                  estimator call, stream american_heston v2) with the step's
                   peak memory; calls NaN.
 26. families-american-dynamics — one step at batch 64 each: a Merton put and
                   a geometric basket put (the single-state backward, version
@@ -608,6 +612,7 @@ def phase_build() -> tuple[dict[str, float], tuple[float, str], dict[str, tuple[
     dynamics = dynamics_sass_per_step(built[5].path)
     phase("sass-american-dynamics", **{case: f"{n:g} ({found})" for case, (n, found)
                                         in dynamics.items()})
+    american_sass_split(built[4].path, built[5].path)
     lsmc = {name: lsmc_sass_per_path_date(built[7 if two else 6].path, two,
                                           not name.endswith("_streamed"))
             for name in LSMC_REPLACES for two in [name.startswith("lsmc_two_state")]}
@@ -749,7 +754,9 @@ def loop_weights(
     """``(weights, steps, found)`` of one kernel's step loop in the text of
     ``cuobjdump -sass`` (``block``: one function's): each instruction of the
     loop body with the share of iterations it runs in (a skipped Philox
-    block ½, a slow path holding a CALL and, where ``single_step(group)``,
+    block ½, a slow path holding a CALL — shorter than half the body: a
+    longer region is the step itself behind the loop's guard — and, where
+    ``single_step(group)``,
     another skipped region 0, the rest 1), the path-steps an iteration
     covers and the count's derivation. Where ``draws_per_step`` is given (a
     kernel that walks its draws in whole calls) and the body calls Philox
@@ -779,7 +786,7 @@ def loop_weights(
         if sum(bool(re.search(PHILOX_MULTIPLY, o)) for o in region) >= 16:
             philox += len(region)
             share.update(dict.fromkeys(inside, 0.5))
-        elif any("CALL" in o for o in region):
+        elif any("CALL" in o for o in region) and len(region) < len(body) // 2:
             calls += len(region)
             share.update(dict.fromkeys(inside, 0.0))
         elif single_step(group) and not (draws_per_step and region and
@@ -925,14 +932,15 @@ def nvdisasm_text(library: object) -> str:
 
 
 def sass_split(sass: str, disasm: str, piece: str, *, draws_per_step: int,
-               single_step: bool = False) -> dict[str, object]:
+               single_step: bool = False, pick_loop: object = None) -> dict[str, object]:
     """The per-path-step SASS of the step loop of the kernel whose mangled
-    name holds ``piece``, split into SASS_PARTS (the rule above), with the
-    loop's derivation and its total."""
+    name holds ``piece`` (its longest loop, or ``pick_loop``'s), split into
+    SASS_PARTS (the rule above), with the loop's derivation, its total and
+    the FFMAs of the update part."""
     block = next(b for b in sass.split("Function : ")[1:] if piece in b.split()[0])
     name = block.split()[0]
     weights, steps, found = loop_weights(
-        block, piece, pick_loop=lambda loops: max(loops, key=len),
+        block, piece, pick_loop=pick_loop or (lambda loops: max(loops, key=len)),
         single_step=lambda group: single_step, draws_per_step=draws_per_step)
     frames = parse_nvdisasm_lines(disasm).get(name)
     if not frames:
@@ -940,14 +948,18 @@ def sass_split(sass: str, disasm: str, piece: str, *, draws_per_step: int,
     read = functools.lru_cache(None)(lambda f: Path(f).read_text().splitlines())
     split = dict.fromkeys(SASS_PARTS, 0.0)
     mix = dict.fromkeys([unit for unit, _ in SASS_UNITS] + ["other"], 0.0)
+    update_ffma = 0.0
     for addr, op, w in weights:
-        split[part_of(frames.get(addr, []), read)] += w / steps
+        part = part_of(frames.get(addr, []), read)
+        split[part] += w / steps
         mnemonic = re.sub(r"^@!?U?P\w+\s+", "", op)
         mix[next((u for u, pattern in SASS_UNITS if re.match(pattern, mnemonic)), "other")] += \
             w / steps
+        if part == "update" and mnemonic.startswith("FFMA"):
+            update_ffma += w / steps
     return {**{k: round(v, 3) for k, v in split.items()},
             "total": round(sum(split.values()), 3), "loop": found,
-            "mix": {k: round(v, 3) for k, v in mix.items()}}
+            "mix": {k: round(v, 3) for k, v in mix.items()}, "update_ffma": round(update_ffma, 3)}
 
 
 # --------------------------------------------------------------------------
@@ -1034,6 +1046,8 @@ def compare(
     agree = torch.where(ok, err, torch.zeros_like(err))
     found = dict(max_abs_err=float(agree.max()), max_rel=float((agree / scale).max()),
                  flips=flips, plain_ms=start.elapsed_time(stop))
+    if family == "heston":
+        found["unequal"] = int((got != want).sum())
     if family == "heston" and not jumps and flips:
         found["past_rel"] = float((err / scale)[~ok].max())
         if found["past_rel"] > HESTON_CAP_RTOL:
@@ -1141,6 +1155,8 @@ def phase_kernel(
         r.update(max_abs_err=max(r["max_abs_err"], found["max_abs_err"]),
                  max_rel=max(r["max_rel"], found["max_rel"]),
                  flips=r["flips"] + found["flips"], cases=r["cases"] + 1)
+        if "unequal" in found:  # Heston: paths whose value is not the twin's bit for bit
+            r["not_bit_equal"] = r.get("not_bit_equal", 0) + found["unequal"]
         if "past_rel" in found:
             past.update(paths=past["paths"] + found["flips"],
                         max_rel=max(past["max_rel"], found["past_rel"]),
@@ -1169,6 +1185,7 @@ def phase_kernel(
         r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
         phase("kernel", branch=group, cases=r["cases"], max_rel_diff=f"{r['max_rel']:.3e}",
               max_abs_err=f"{r['max_abs_err']:.3e}", flips=r["flips"], rtol=KERNEL_RTOL,
+              **({"paths_not_bit_equal": r["not_bit_equal"]} if "not_bit_equal" in r else {}),
               shape=f"{CHUNK}x{ROWS}x{COLS}x{STEPS}", timed=payoff.value,
               kernel_ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound:.3f}",
               bound_by=bound_by, share_of_bound=f"{bound / ms:.4f}",
@@ -2101,25 +2118,47 @@ def lsmc_sass_per_path_date(library: object, two_state: bool, resident: bool,
     return longest / american_cuda.PER_THREAD, f"{len(ops)} in all, {longest} between barriers"
 
 
-def american_sass_per_step(library: object) -> tuple[float, str]:
-    """SASS instructions one path-step of the monitor kernel executes at
-    ``every = 1``, counted from ``cuobjdump -sass``: the monitor loop (the
-    kernel's longest loop) less the pair-step loop inside it (idle at
-    ``every = 1``), less a slow path holding a CALL, less half the Philox
-    block (the innermost skipped region with >= 16 IMAD.WIDE.U32, run every
-    other draw; the single step that holds it runs every step)."""
-    return american_sass_count(cuobjdump_sass(library))
+def philox_products(body: list[tuple[int, str]]) -> tuple[int, int]:
+    """``(unskipped, skipped)``: the high-half products (PHILOX_MULTIPLY) of a
+    loop body outside and inside its skipped regions. A loop that walks
+    whole Philox calls has 20 a call unskipped and none skipped; a rolled
+    loop draws behind a parity test, which skips its call."""
+    skipped = set()
+    for addr, op in body:
+        jump = re.search(SASS_BRANCH, op)
+        if jump and op.startswith("@") and addr < int(jump.group(1), 16) <= body[-1][0]:
+            skipped.update(a for a, _ in body if addr < a < int(jump.group(1), 16))
+    hits = [a for a, op in body if re.search(PHILOX_MULTIPLY, op)]
+    return sum(a not in skipped for a in hits), sum(a in skipped for a in hits)
 
 
-def american_sass_count(text: str, piece: str = "american_gbm_kernel", *,
-                        skip_inner: bool = True, halve_philox: bool = True) -> tuple[float, str]:
-    """``american_sass_per_step``'s rule on the text of ``cuobjdump -sass``
-    for the kernel whose mangled name holds ``piece``; ``skip_inner=False``
-    keeps the loops inside the monitor loop (a one-step loop that runs once
-    a date at ``every = 1``); ``halve_philox=False`` for a kernel that calls
-    Philox every step (its skipped region is then the step loop's entry
-    guard, which runs)."""
+def walks(body: list[tuple[int, str]]) -> bool:
+    unskipped, skipped = philox_products(body)
+    return unskipped >= 16 and not skipped
+
+
+def walk_loop(loops: list[list[tuple[int, str]]]) -> list[tuple[int, str]]:
+    """The loop that walks whole Philox calls (``walks``; the longest)."""
+    return max((b for b in loops if walks(b)), key=len)
+
+
+def monitor_sass_count(text: str, piece: str, **rolled: bool) -> tuple[float, str]:
+    """SASS instructions one path-step of a monitor kernel executes at
+    ``every = 1``. A kernel with a loop that walks whole Philox calls for
+    that grid (``walk_loop``; one draw a step) counts it by
+    ``loop_weights``' rule; one whose date and step loops are rolled by
+    ``american_sass_count``'s (``rolled`` its options)."""
     block = next(b for b in text.split("Function : ")[1:] if piece in b.split()[0])
+    if not any(walks(b) for b in loop_bodies(block)):
+        return american_sass_count(text, piece, **rolled)
+    weights, steps, found = loop_weights(block, piece, pick_loop=walk_loop,
+                                         single_step=lambda group: False, draws_per_step=1)
+    return sum(w for _, _, w in weights) / steps, found
+
+
+def loop_bodies(block: str) -> list[list[tuple[int, str]]]:
+    """Every loop of one function's ``cuobjdump -sass`` text: the
+    instructions from a backward branch's target to the branch."""
     ins = [(int(a, 16), op.strip()) for a, op in re.findall(SASS_LINE, block)]
     at = {a: i for i, (a, _) in enumerate(ins)}
     loops = []
@@ -2127,6 +2166,31 @@ def american_sass_count(text: str, piece: str = "american_gbm_kernel", *,
         back = re.search(SASS_BRANCH, op)
         if back and int(back.group(1), 16) < addr and int(back.group(1), 16) in at:
             loops.append(ins[at[int(back.group(1), 16)]:i + 1])
+    return loops
+
+
+def american_sass_per_step(library: object) -> tuple[float, str]:
+    """SASS instructions one path-step of the GBM monitor kernel executes at
+    ``every = 1`` (``monitor_sass_count``): its walk over whole Philox calls,
+    two dates a call; in a build without one, the rolled rule: the monitor
+    loop less the pair-step loop inside it (idle at ``every = 1``)."""
+    return monitor_sass_count(cuobjdump_sass(library), "american_gbm_kernel", skip_inner=True)
+
+
+def american_sass_count(text: str, piece: str, *, skip_inner: bool = True,
+                        halve_philox: bool = True) -> tuple[float, str]:
+    """The rolled rule on the text of ``cuobjdump -sass`` for the kernel
+    whose mangled name holds ``piece``: the monitor loop (the kernel's
+    longest loop) less the loops inside it where ``skip_inner``, less a slow
+    path holding a CALL, less half the Philox block (the innermost skipped
+    region with >= 16 IMAD.WIDE.U32, run every other draw; the single step
+    that holds it runs every step); ``skip_inner=False`` keeps the loops
+    inside the monitor loop (a one-step loop that runs once a date at
+    ``every = 1``); ``halve_philox=False`` for a kernel that calls Philox
+    every step (its skipped region is then the step loop's entry guard,
+    which runs)."""
+    block = next(b for b in text.split("Function : ")[1:] if piece in b.split()[0])
+    loops = loop_bodies(block)
     if not loops:
         raise AssertionError(f"no loop found in the SASS of {piece}")
     outer = max(loops, key=len)
@@ -2153,6 +2217,23 @@ def american_sass_count(text: str, piece: str = "american_gbm_kernel", *,
         philox = 0
     per_step = len(body) - calls - philox / 2
     return per_step, f"{len(outer)}-{len(outer) - len(body)}-{calls}-{philox}/2={per_step:g}"
+
+
+def american_sass_split(gbm: object, dynamics: object) -> None:
+    """The ``sass-split`` lines of the GBM and Heston monitor kernels' walk
+    loops at ``every = 1`` (one draw a step)."""
+    for kernel, library, piece in (("american_gbm", gbm, "american_gbm_kernel"),
+                                   ("american_heston", dynamics, "american_heston_kernel")):
+        try:  # a measurement only: a toolkit without nvdisasm or line info prints why
+            sass = cuobjdump_sass(library)
+            block = next(b for b in sass.split("Function : ")[1:] if piece in b.split()[0])
+            if not any(walks(b) for b in loop_bodies(block)):
+                raise AssertionError(f"{piece} has no loop over whole Philox calls")
+            split = sass_split(sass, nvdisasm_text(library), piece, draws_per_step=1,
+                               pick_loop=walk_loop)
+        except (AssertionError, OSError, StopIteration, subprocess.CalledProcessError) as err:
+            split = {"error": repr(err)[:300]}
+        phase("sass-split", kernel=kernel, parts="per path-step", **split)
 
 
 def phase_kernel_american(device: torch.device, sass: tuple[float, str],
@@ -2428,12 +2509,13 @@ def phase_train_american(device: torch.device) -> GbmCVNNPricer:
     if set(launched.values()) != {3 * BATCH // CHUNK}:
         raise AssertionError(f"american: launches {launched} in 3 steps")
     want = american_cuda.LSMC_BACKWARD_VERSIONS["cuda"]
+    stream = gbm_cuda.CUDA_STREAM_VERSIONS["american_gbm"]
     if (snap.sim.implementation.value, snap.lsmc_backward_version,
-            snap.cuda_stream_version) != ("cuda", want, 1):
+            snap.cuda_stream_version) != ("cuda", want, stream):
         raise AssertionError(f"american: engine {snap.sim.implementation.value}, backward "
                              f"v{snap.lsmc_backward_version}, stream v{snap.cuda_stream_version}")
     phase("train-american", payoff=snap.sim.payoff.value, engine="cuda",
-          stream="american_gbm_v1", lsmc_backward_version=snap.lsmc_backward_version,
+          stream=f"american_gbm_v{stream}", lsmc_backward_version=snap.lsmc_backward_version,
           normalization=snap.sim.normalization.value, losses=losses.tolist(),
           launches=launched, step_seconds=[round(s, 4) for s in seconds],
           median_step_s=f"{statistics.median(seconds):.4f}", peak_memory_gb=round(peak_gb, 3),
@@ -2625,7 +2707,9 @@ def compare_dynamics(case: str, got: tuple, want: tuple,
         missed |= (var_err > VAR_ATOL + KERNEL_RTOL * extra_w.abs()).any(dim=1)
         theta = params[:, 7, None, None, None]
         var_scaled = var_err / torch.maximum(extra_w, theta)
-        found.update(var_max_abs_err=float(var_err.max()), var_max_scaled=float(var_scaled.max()))
+        found.update(var_max_abs_err=float(var_err.max()), var_max_scaled=float(var_scaled.max()),
+                     var_rows_bit_equal=bool(torch.equal(extra, extra_w)),
+                     price_rows_bit_equal=bool(torch.equal(price, price_w)))
         if not bool((var_scaled <= HESTON_CAP_RTOL).all()):
             raise AssertionError(f"heston: variance rows off by {found['var_max_scaled']:.3e}·θ")
     elif extra_w is not None:
@@ -2666,16 +2750,18 @@ def check_american_merton_counts(device: torch.device) -> int:
 
 def dynamics_sass_per_step(library: object) -> dict[str, tuple[float, str]]:
     """SASS instructions one path-step of each monitor kernel executes at
-    ``every = 1`` (``american_sass_count``'s rule on the whole monitor
-    loop, the one-step inner loop included; the Merton kernel calls Philox
-    every step, the others every other draw)."""
+    ``every = 1``: Heston's walk over whole Philox calls
+    (``monitor_sass_count``), the others by ``american_sass_count``'s rule
+    on the whole monitor loop, the one-step inner loop included (the Merton
+    kernel calls Philox every step, the basket every other draw)."""
     text = cuobjdump_sass(library)
-    pieces = {"heston": "american_heston_kernel", "merton": "american_merton_kernel",
+    pieces = {"merton": "american_merton_kernel",
               "basket3_arithmetic": "american_basket_kernelILi3ELb0E",
               "basket3_geometric": "american_basket_kernelILi3ELb1E"}
-    return {case: american_sass_count(text, piece, skip_inner=False,
-                                      halve_philox=case != "merton")
-            for case, piece in pieces.items()}
+    return {"heston": monitor_sass_count(text, "american_heston_kernel", skip_inner=False),
+            **{case: american_sass_count(text, piece, skip_inner=False,
+                                         halve_philox=case != "merton")
+               for case, piece in pieces.items()}}
 
 
 DYNAMICS_TIMED = {  # case -> (contracts, record name)
@@ -2979,7 +3065,7 @@ def american_dynamics_config(payoff: PayoffKind = PayoffKind.AMERICAN_PUT, *, ro
 def phase_train_heston_american(device: torch.device) -> GbmCVNNPricer:
     """3 steps of the Heston American put at the production batch: one
     monitor-kernel launch and one two-state backward per chunk (backward 4
-    recorded, the torch estimator never run), stream american_heston v1; the
+    recorded, the torch estimator never run), stream american_heston v2; the
     step's peak device memory."""
     pricer = GbmCVNNPricer.create(american_dynamics_config(), device=device).expect("heston amer")
     torch.cuda.reset_peak_memory_stats(device)
@@ -2995,12 +3081,13 @@ def phase_train_heston_american(device: torch.device) -> GbmCVNNPricer:
         raise AssertionError(f"heston american: launches {launched} and {estimator_calls} torch "
                              f"estimator calls in 3 steps")
     want = american_cuda.LSMC_BACKWARD_VERSIONS["cuda_two_state"]
+    stream = gbm_cuda.CUDA_STREAM_VERSIONS["american_heston"]
     if (snap.sim.implementation.value, snap.lsmc_backward_version,
-            snap.cuda_stream_version) != ("cuda", want, 1):
+            snap.cuda_stream_version) != ("cuda", want, stream):
         raise AssertionError(f"heston american: engine {snap.sim.implementation.value}, backward "
                              f"v{snap.lsmc_backward_version}, stream v{snap.cuda_stream_version}")
     phase("train-heston-american", model="heston", payoff=snap.sim.payoff.value, inputs=10,
-          engine="cuda", stream="american_heston_v1",
+          engine="cuda", stream=f"american_heston_v{stream}",
           lsmc_backward_version=snap.lsmc_backward_version,
           normalization=snap.sim.normalization.value, losses=losses.tolist(), launches=launched,
           torch_estimator_calls=estimator_calls, step_seconds=[round(s, 4) for s in seconds],

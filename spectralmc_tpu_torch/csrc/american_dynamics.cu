@@ -26,11 +26,16 @@
 // cdf levels). None of the three has a pair-step shortcut, so the last
 // monitor row is the path the European TERMINAL branch walks, for any
 // `every`. After every `every` steps the kernel stores the monitor values;
-// nothing else changes. These are the american_heston and
-// american_merton_jump v1 streams and american_basket_gbm v2 (its
-// Box–Muller on the SFU). The date and step loops are kept rolled (#pragma
-// unroll 1), so the SASS of one date at every = 1 is one step and its
-// stores; a date of odd length takes its draws one by one (PathStream::draw).
+// nothing else changes. These are the american_merton_jump v1 stream and
+// american_heston and american_basket_gbm v2 (Heston's Box–Muller on fixed
+// roundings, heston_step.cuh; the basket's on the SFU). At every = 1, the
+// main path's grid, the Heston kernel walks whole Philox calls, two dates a
+// call with every word's place fixed when compiling (walk_draws, as
+// heston_paths_kernel walks its steps), and stores through pointers that
+// move one row of paths a date. Its other grids and the Merton and basket
+// kernels keep their date and step loops rolled (#pragma unroll 1), so the
+// SASS of one date at every = 1 is one step and its stores; a date of odd
+// length takes its draws one by one (PathStream::draw).
 //
 // What they drop is what the TPU needed: the hardware PRNG, the VMEM block
 // budget (_monitor_block_rows), the 256x256 blocks and the polynomial sine.
@@ -82,8 +87,20 @@ __global__ void american_heston_kernel(const float* __restrict__ params,
   const HestonCoeffs h = heston_coeffs(p, timesteps);
   const int monitors = timesteps / every;
   const int64_t base = static_cast<int64_t>(c) * monitors * n + local;
+  float* po = price + base;
+  float* vo = var + base;
   float logx = logf(spot);
   float v = v0;
+  if (every == 1) {  // the main path's grid: a date a step, two a Philox call
+    walk_draws<1>(s, timesteps, [&](int, const uint2 (&d)[1]) {
+      heston_step<false>(h, sign, d[0], logx, v);
+      *po = expf(logx);
+      *vo = fmaxf(v, 0.0f);
+      po += n;
+      vo += n;
+    });
+    return;
+  }
   int j = 0;
 #pragma unroll 1
   for (int d = 0; d < monitors; ++d) {
@@ -93,8 +110,10 @@ __global__ void american_heston_kernel(const float* __restrict__ params,
       s.draw(j, w);
       heston_step<false>(h, sign, w, logx, v);
     }
-    price[base + static_cast<int64_t>(d) * n] = expf(logx);
-    var[base + static_cast<int64_t>(d) * n] = fmaxf(v, 0.0f);
+    *po = expf(logx);
+    *vo = fmaxf(v, 0.0f);
+    po += n;
+    vo += n;
   }
 }
 

@@ -6,14 +6,22 @@
 // log-Euler GBM writing exp(log S) at every monitor date. Per monitor
 // segment of `every` steps: every/2 pair steps (one Box–Muller draw advances
 // two steps, z1 + z2 = r·√2·sin(θ + π/4), as the flat kernel's TERMINAL
-// branch does), then one single step z = r·cos θ when `every` is odd. That
-// draw order per segment is the american_gbm v1 stream; with `every` even
-// the last monitor row is the TERMINAL branch's value. The TPU's VMEM block
-// budget is dropped; the monitor count stays capped at 128
+// branch does, on libm), then one single step z = r·cos θ when `every` is
+// odd, its transform on the SFU (path_stream.cuh's box_muller_sfu_cos, the
+// basket kernels' odd-asset draw). That draw order per segment is the
+// american_gbm v2 stream; with `every` even the last monitor row is the
+// TERMINAL branch's value bit for bit. The TPU's VMEM block budget is
+// dropped; the monitor count stays capped at 128
 // (ops/gbm_cuda.py::MAX_MONITOR_DATES).
 //
 // Bound on Hopper: by its output (n_monitor floats a path) at every = 1 and
-// by its draws' transcendentals at every ≥ 4.
+// by its draws' transcendentals at every ≥ 4. At every = 1 its issue holds
+// it far from the byte bound (PERF.md §6), so the main path's case has a
+// loop of its own: whole Philox calls walked two dates a call, each word's
+// place fixed when compiling (walk_draws, no parity select), the single
+// step's transform on the SFU, and a store pointer that moves one row of
+// paths a date (no 64-bit index product). Other grids keep the rolled loop,
+// which draws one by one (PathStream::draw).
 //
 // Contract: launches on the given stream, allocates nothing, does not
 // synchronise; the C entry point returns cudaGetLastError().
@@ -48,9 +56,19 @@ __global__ void american_gbm_kernel(const float* __restrict__ params,
       __fmul_rn(__fsub_rn(__fsub_rn(rate, div), __fmul_rn(__fmul_rn(0.5f, vol), vol)), dt);
   const float two_drift = __fmul_rn(2.0f, drift);
   const int monitors = timesteps / every;
-  const int pairs = every / 2;
   float* o = out + static_cast<int64_t>(c) * monitors * n + local;
   float logx = logf(spot);
+  if (every == 1) {
+    walk_draws<1>(s, monitors, [&](int, const uint2 (&d)[1]) {
+      float rad, cs;
+      box_muller_sfu_cos(d[0], rad, cs);
+      logx = (logx + drift) + vol_sdt * (sign * (rad * cs));
+      *o = expf(logx);
+      o += n;
+    });
+    return;
+  }
+  const int pairs = every / 2;
   float u1, u2;
   int j = 0;
   for (int d = 0; d < monitors; ++d) {
@@ -61,12 +79,14 @@ __global__ void american_gbm_kernel(const float* __restrict__ params,
       logx = (logx + two_drift) + vol_sdt * z;
     }
     if (every & 1) {
-      s.draw(j, u1, u2);
-      ++j;
-      const float z = sign * (sqrtf(-2.0f * logf(u1)) * cospif(2.0f * u2));
-      logx = (logx + drift) + vol_sdt * z;
+      uint2 w;
+      s.draw(j++, w);
+      float rad, cs;
+      box_muller_sfu_cos(w, rad, cs);
+      logx = (logx + drift) + vol_sdt * (sign * (rad * cs));
     }
-    o[static_cast<int64_t>(d) * n] = expf(logx);
+    *o = expf(logx);
+    o += n;
   }
 }
 

@@ -22,8 +22,8 @@
 //     after step m − 1. The draws are walked in pairs (walk_draws): one
 //     Philox call feeds steps j and j + 1 from words (x, y) and (z, w), with
 //     no parity test or word select; an odd step count ends in one tail
-//     step. The Box–Muller stays libm's (stream heston v1; heston_step.cuh
-//     says why).
+//     step. The draw and the step run on fixed roundings that the twin
+//     repeats bit for bit (stream heston v2; heston_step.cuh says why).
 //   * _merton_block_kernel: the exact compensated Merton step. ONE Philox call
 //     per step: words 0, 1 give the Box–Muller pair (z_d = r·cos θ for the
 //     diffusion, z_j = r·sin θ for the jump size), word 2 the uniform of the
@@ -194,7 +194,7 @@ __global__ void heston_paths_kernel(const float* __restrict__ params,
   walk_draws<1>(s, timesteps, [&](int j, const uint2 (&d)[1]) {
     const float inc = heston_step<kFamily == kVariance>(h, sign, d[0], logx, v);
     if constexpr (kFamily == kVariance) {
-      acc = acc + inc * inc;
+      acc = __fmaf_rn(inc, inc, acc);  // nvcc's contraction, pinned
     } else if constexpr (kFamily == kForward) {
       if (j == forward_step - 1) acc = logx;
     } else {

@@ -105,9 +105,12 @@ __device__ __forceinline__ bool path_setup(const uint32_t* __restrict__ keys, in
 }
 
 // ---------------------------------------------------------------------------
-// A walk over whole Philox calls (heston_paths_kernel, basket_paths_kernel)
-// and the two Box–Muller transforms: libm's, of every v1 stream, and the
-// SFU's, of the basket_gbm and american_basket_gbm v2 streams.
+// A walk over whole Philox calls (heston_paths_kernel, basket_paths_kernel,
+// and at one date a step american_gbm_kernel and american_heston_kernel) and
+// two Box–Muller transforms: libm's, of the v1 streams and american_gbm's
+// pair steps, and the SFU's, of the basket_gbm and american_basket_gbm v2
+// streams and american_gbm's single step (heston_step.cuh has the Heston
+// streams' own).
 // ---------------------------------------------------------------------------
 
 // Walks `steps` steps of kP draws each in the stream's draw order (draw

@@ -65,6 +65,12 @@ import torch
 
 from spectralmc_tpu_torch.ops.american import OptionSide, _ridge_chol_solve, check_monitor_grid
 from spectralmc_tpu_torch.ops.basket import BasketCombine, BasketSpec, basket_cholesky
+from spectralmc_tpu_torch.ops.dynamics_cuda import (
+    heston_coeffs_plain,
+    heston_step_plain,
+    merton_levels,
+    poisson_counts,
+)
 from spectralmc_tpu_torch.ops.gbm import (
     AMERICAN_PAYOFFS,
     ModelKind,
@@ -166,8 +172,11 @@ def simulate_american_rows_cuda_plain(
     """The monitor-row kernel's plain twin: ``[C, timesteps // every, rows,
     cols]`` float32 prices at the monitor dates. Per segment ``every // 2``
     pair steps, then one single step when ``every`` is odd, the draws
-    numbered on across segments. ``words`` (tests only) replaces the
-    generator: a tensor broadcastable to ``[C, rows, cols, calls, 4]``."""
+    numbered on across segments. The Box–Muller is torch's float64 sine and
+    cosine and float32 ``log`` and ``sqrt``: the kernel's pair steps (libm)
+    and its single step (the SFU, stream ``american_gbm`` v2) agree with it
+    to rtol 2e-5. ``words`` (tests only) replaces the generator: a tensor
+    broadcastable to ``[C, rows, cols, calls, 4]``."""
     _check(params, key_words)
     check_monitor_grid(timesteps, exercise_every)
     monitors = timesteps // exercise_every
@@ -222,9 +231,10 @@ def simulate_heston_american_rows_cuda_plain(
     """The Heston monitor kernel's plain twin: ``(price, var)``, each ``[C,
     timesteps // every, rows, cols]`` float32, ``exp(log S)`` and ``max(v,
     0)`` at the monitor dates. ``params`` is ``[C, 10]``; the step is
-    ``dynamics_cuda.simulate_heston_rows_cuda_plain``'s, one draw a step.
-    ``words`` (tests only) replaces the generator: a tensor broadcastable to
-    ``[C, rows, cols, calls, 4]``."""
+    ``dynamics_cuda.heston_step_plain``, one draw a step, on the kernel's
+    roundings: the variance rows are the kernel's bit for bit, the price
+    rows ``exp`` of its log-price. ``words`` (tests only) replaces the
+    generator: a tensor broadcastable to ``[C, rows, cols, calls, 4]``."""
     _check(params, key_words, 10)
     check_monitor_grid(timesteps, exercise_every)
     sign, call = _stream(
@@ -232,14 +242,8 @@ def simulate_heston_american_rows_cuda_plain(
         antithetic_half=antithetic_half, row_offset=row_offset, words=words,
     )
     uniforms = _pair_draws(call)
-    spot, _, maturity, rate, div, v0, kappa, theta, xi, rho = (
-        params[:, i, None, None] for i in range(10)
-    )
-    dt = maturity / float(timesteps)
-    rho_bar = torch.sqrt(1.0 - rho * rho)
-    rq_dt = (rate - div) * dt
-    kdt = kappa * dt
-    ktheta_dt = kappa * theta * dt
+    spot, v0 = params[:, 0, None, None], params[:, 5, None, None]
+    coeffs = heston_coeffs_plain(params, timesteps)
     shape = (params.shape[0], rows, cols)
     logx = torch.log(spot).expand(shape)
     v = v0.expand(shape)
@@ -247,14 +251,7 @@ def simulate_heston_american_rows_cuda_plain(
     price = _monitor_out(params, monitors, rows, cols)
     var = _monitor_out(params, monitors, rows, cols)
     for j in range(timesteps):
-        u1, u2 = uniforms(j)
-        rad = torch.sqrt(-2.0 * torch.log(u1))
-        z_v = sign * (rad * _cospi(2.0 * u2))
-        z_s = rho * z_v + rho_bar * (sign * (rad * _sinpi(2.0 * u2)))
-        v_plus = torch.clamp(v, min=0.0)
-        sv = torch.sqrt(v_plus * dt)
-        logx = ((logx + rq_dt) - (0.5 * v_plus) * dt) + sv * z_s
-        v = ((v + ktheta_dt) - kdt * v_plus) + (xi * sv) * z_v
+        logx, v, _ = heston_step_plain(coeffs, sign, *uniforms(j), logx, v, sum_first=False)
         if (j + 1) % exercise_every == 0:
             price[:, j // exercise_every] = torch.exp(logx)
             var[:, j // exercise_every] = torch.clamp(v, min=0.0)
@@ -278,8 +275,6 @@ def simulate_merton_american_rows_cuda_plain(
     9]``; the step is ``dynamics_cuda.simulate_merton_rows_cuda_plain``'s,
     one Philox call a step (``words``, tests only, broadcastable to ``[C,
     rows, cols, timesteps, 4]``)."""
-    from spectralmc_tpu_torch.ops.dynamics_cuda import merton_levels, poisson_counts
-
     _check(params, key_words, 9)
     check_monitor_grid(timesteps, exercise_every)
     sign, call = _stream(
@@ -659,7 +654,7 @@ def simulate_american_rows_cuda(
     row_offset: int = 0,
 ) -> torch.Tensor:
     """Monitor-date prices ``[C, timesteps // every, rows, cols]`` float32 on
-    the Philox stream (``american_gbm`` v1): CPU tensors run the plain twin,
+    the Philox stream (``american_gbm`` v2): CPU tensors run the plain twin,
     CUDA tensors launch the monitor-row kernel (one launch per contract
     batch) or raise."""
     _check(params, key_words)
@@ -727,8 +722,6 @@ def simulate_merton_american_rows_cuda(
     run the plain twin, CUDA tensors launch the Merton monitor kernel (one
     launch per contract batch, after the ``[C, 16]`` level table) or
     raise."""
-    from spectralmc_tpu_torch.ops.dynamics_cuda import merton_levels
-
     _check(params, key_words, 9)
     kwargs = dict(timesteps=timesteps, rows=rows, cols=cols, exercise_every=exercise_every,
                   antithetic_half=antithetic_half, row_offset=row_offset)

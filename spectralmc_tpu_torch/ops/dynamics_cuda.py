@@ -28,9 +28,11 @@ contract's two threefry words, counter ``(path lo, path hi, call, 0)``.
   is odd, every other branch one draw per step; draw ``j`` is words
   ``2(j%2), 2(j%2)+1`` of call ``j // 2``. Digital transforms the TERMINAL
   draw; forward start runs TERMINAL on the tables sliced to the tail.
-* ``heston`` v1 — one draw per step, same word layout: ``z_v = r·cos θ``,
-  ``z_s = ρ z_v + ρ̄ r·sin θ``. Digital transforms TERMINAL; forward start is
-  a branch of its own (it captures ``ln S_m``).
+* ``heston`` v2 — one draw per step, same word layout: ``z_v = r·cos θ``,
+  ``z_s = ρ z_v + ρ̄ r·sin θ``, the draw and the step on fixed roundings
+  that the twin repeats bit for bit (``box_muller_pinned``,
+  ``heston_step_plain``). Digital transforms TERMINAL; forward start is a
+  branch of its own (it captures ``ln S_m``).
 * ``merton_jump`` v1 — ONE call per step ``t``: words 0, 1 the Box–Muller
   pair (``z_d = r·cos θ``, ``z_j = r·sin θ``), word 2 the count's uniform,
   word 3 unused. Antithetic rows flip the pair and share the counts. Digital
@@ -70,6 +72,7 @@ from spectralmc_tpu_torch.ops.gbm_cuda import (
     uniform_closed,
     uniform_open,
 )
+from spectralmc_tpu_torch.ops.rng import fma32_exact
 
 POISSON_TERMS = 16  # csrc/dynamics_paths.cu's kPoissonTerms
 _HESTON_FORWARD = 5  # csrc/dynamics_paths.cu's kForward
@@ -328,6 +331,103 @@ def _heston_branch(payoff: PayoffKind, barrier_rel: float | None, timesteps: int
     return _branch(payoff, barrier_rel)
 
 
+# csrc/heston_step.cuh's constants: Q's coefficients (ln), S's and C's
+# (the quarter turn's sine and cosine), highest first, and ln 2 and π/2 in
+# two parts each
+LN_Q = (0.0880836695, -0.143519357, 0.149101794, -0.165631115, 0.199621201, -0.250021279,
+        0.333339572, -0.499999851)
+SIN_S = (-0.00462198071, 0.0796870366, -0.645964026)
+COS_C = (0.000906741712, -0.0208615288, 0.253669411, -1.23370051)
+LN2_HI, LN2_LO = 0.693145752, 1.42860677e-06
+HALF_PI_HI, HALF_PI_LO = 1.57079637, -4.37113883e-08
+
+
+def _f32(x: float) -> float:
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
+def _horner(x: torch.Tensor, coefficients: tuple[float, ...]) -> torch.Tensor:
+    acc = torch.full_like(x, _f32(coefficients[0]))
+    for c in coefficients[1:]:
+        acc = fma32_exact(acc, x, _f32(c))
+    return acc
+
+
+def ln_pinned(u1: torch.Tensor) -> torch.Tensor:
+    """``csrc/heston_step.cuh::ln_pinned`` op for op: float32 ``ln u1`` for
+    ``u1`` in ``[2^-25, 1]``, from the bits ``u1 = 2^k·z`` (``z`` in ``[√½,
+    √2)``), ``f = z − 1``, ``f + f²·Q(f)`` and ``k·ln 2`` in two parts."""
+    ix = u1.contiguous().view(torch.int32).to(torch.int64)
+    k = (ix - 0x3F3504F3) >> 23
+    f = (ix - (k << 23)).to(torch.int32).view(torch.float32) - 1.0
+    kf = k.to(torch.float32)
+    y = fma32_exact(f * f, _horner(f, LN_Q), f)
+    return fma32_exact(kf, _f32(LN2_HI), fma32_exact(kf, _f32(LN2_LO), y))
+
+
+def sincos_2pi_pinned(u2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``csrc/heston_step.cuh::sincos_2pi_pinned`` op for op: ``(cos 2πu2,
+    sin 2πu2)`` float32 for ``u2 = m·2^-24``, from the nearest quarter turn
+    ``q`` and the exact remainder ``r = 4u2 − q``."""
+    m = (u2 * 2.0**24).to(torch.int64)
+    q = (m + (1 << 21)) >> 22
+    r = (m - (q << 22)).to(torch.float32) * 2.0**-22
+    s = r * r
+    sin_r = fma32_exact(r, _f32(HALF_PI_HI),
+                        r * fma32_exact(s, _horner(s, SIN_S), _f32(HALF_PI_LO)))
+    cos_r = fma32_exact(s, _horner(s, COS_C), 1.0)
+    odd = (q & 1) == 1
+    c, si = torch.where(odd, sin_r, cos_r), torch.where(odd, cos_r, sin_r)
+    return (torch.where(((q + 1) & 2) != 0, -c, c), torch.where((q & 2) != 0, -si, si))
+
+
+def box_muller_pinned(u1: torch.Tensor, u2: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """``csrc/heston_step.cuh::box_muller_pinned``: ``(r, cos 2πu2, sin
+    2πu2)`` of the draw's uniforms, bit for bit the kernel's."""
+    return (torch.sqrt(-2.0 * ln_pinned(u1)), *sincos_2pi_pinned(u2))
+
+
+def heston_coeffs_plain(params: torch.Tensor, timesteps: int) -> tuple[torch.Tensor, ...]:
+    """``csrc/heston_step.cuh::heston_coeffs``: ``(dt, ρ, ρ̄, (r − q)·dt, κ·dt,
+    κθ·dt, ξ)``, each ``[C, 1, 1]`` float32, rounded op by op. ``dt`` is
+    divided by a tensor: on the card torch divides by a Python number as a
+    product with its reciprocal, an ulp off the kernel's quotient for a
+    step count that is not a power of two."""
+    maturity, rate, div, kappa, theta, xi, rho = (
+        params[:, i, None, None] for i in (2, 3, 4, 6, 7, 8, 9))
+    dt = maturity / torch.full_like(maturity, float(timesteps))
+    return (dt, rho, torch.sqrt(1.0 - rho * rho), (rate - div) * dt, kappa * dt,
+            kappa * theta * dt, xi)
+
+
+def heston_step_plain(
+    coeffs: tuple[torch.Tensor, ...], sign: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor,
+    logx: torch.Tensor, v: torch.Tensor, *, sum_first: bool,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """``csrc/heston_step.cuh::heston_step`` op for op: ``(logx, v, inc)``
+    after one full-truncation Euler step from the draw ``(u1, u2)`` (``inc``
+    the summed log-price increment where ``sum_first``, the variance swap's
+    order, else None). Each FMA of the kernel is rounded once and exactly
+    (``rng.fma32_exact``), every other operation alone, and the draw is
+    ``box_muller_pinned``, so from the same state the twin's ``v`` and
+    ``logx`` are the kernel's bit for bit."""
+    dt, rho, rho_bar, rq_dt, kdt, ktheta_dt, xi = coeffs
+    rad, cs, sn = box_muller_pinned(u1, u2)
+    z_v = sign * (rad * cs)
+    z_s = fma32_exact(rho_bar, sign * (rad * sn), rho * z_v)
+    v_plus = torch.clamp(v, min=0.0)
+    sv = torch.sqrt(v_plus * dt)
+    drift_v = -0.5 * v_plus
+    inc = None
+    if sum_first:
+        inc = fma32_exact(sv, z_s, fma32_exact(drift_v, dt, rq_dt))
+        logx = logx + inc
+    else:
+        logx = fma32_exact(sv, z_s, fma32_exact(drift_v, dt, logx + rq_dt))
+    v = fma32_exact(xi * sv, z_v, fma32_exact(-kdt, v_plus, v + ktheta_dt))
+    return logx, v, inc
+
+
 def simulate_heston_rows_cuda_plain(
     params: torch.Tensor,
     key_words: torch.Tensor,
@@ -348,6 +448,13 @@ def simulate_heston_rows_cuda_plain(
     ``params`` is ``[C, 10]`` float32 in ``HestonContract`` order; ``words``
     (tests only) replaces the generator. The variance-swap branch sums its
     increment first and the others add term by term, as the kernel does.
+    The draw, the step (``heston_step_plain``) and the variance swap's sum
+    of squares take the kernel's roundings, each FMA rounded once exactly,
+    so the variance and the variance swap are the kernel's bit for bit (the
+    root of a low variance would amplify any ulp between them,
+    ``csrc/heston_step.cuh``), and so is the log-price where torch's ``log``
+    of the spot is the kernel's ``logf`` (on the card). The epilogues'
+    ``exp`` and means are torch's, within rtol 2e-5 of the kernel's.
     ``trace``, when given, receives ``"min_variance"``: each path's least raw
     variance over the steps it took a root of (the start included)."""
     _check(params, key_words, 10)
@@ -357,36 +464,21 @@ def simulate_heston_rows_cuda_plain(
         antithetic_half=antithetic_half, row_offset=row_offset, words=words,
     )
     uniforms = _pair_draws(call)
-    spot, strike, maturity, rate, div, v0, kappa, theta, xi, rho = (
-        params[:, i, None, None] for i in range(10)
-    )
-    dt = maturity / float(timesteps)
-    rho_bar = torch.sqrt(1.0 - rho * rho)
-    rq_dt = (rate - div) * dt
-    kdt = kappa * dt
-    ktheta_dt = kappa * theta * dt
+    spot, strike, maturity, v0 = (params[:, i, None, None] for i in (0, 1, 2, 5))
+    coeffs = heston_coeffs_plain(params, timesteps)
     shape = (params.shape[0], rows, cols)
     logx = torch.log(spot).expand(shape)
     v = v0.expand(shape)
     acc = logx if branch in ("barrier", "lookback", "forward") else torch.zeros(
         shape, device=params.device)
     for j in range(timesteps):
-        u1, u2 = uniforms(j)
-        rad = torch.sqrt(-2.0 * torch.log(u1))
-        z_v = sign * (rad * _cospi(2.0 * u2))
-        z_s = rho * z_v + rho_bar * (sign * (rad * _sinpi(2.0 * u2)))
-        v_plus = torch.clamp(v, min=0.0)
         if trace is not None:
             trace["min_variance"] = torch.minimum(trace.get("min_variance", v), v)
-        sv = torch.sqrt(v_plus * dt)
+        logx, v, inc = heston_step_plain(coeffs, sign, *uniforms(j), logx, v,
+                                         sum_first=branch == "variance")
         if branch == "variance":
-            inc = (rq_dt - (0.5 * v_plus) * dt) + sv * z_s
-            logx = logx + inc
-            acc = acc + inc * inc
-        else:
-            logx = ((logx + rq_dt) - (0.5 * v_plus) * dt) + sv * z_s
-        v = ((v + ktheta_dt) - kdt * v_plus) + (xi * sv) * z_v
-        if branch == "forward":
+            acc = fma32_exact(inc, inc, acc)
+        elif branch == "forward":
             if j == forward_start_step - 1:
                 acc = logx
         else:

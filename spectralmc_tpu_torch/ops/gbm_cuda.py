@@ -24,9 +24,12 @@ states what it keeps, what it drops and what bounds it. This module holds
   and Merton kernels of ``ops/dynamics_cuda.py``, the basket kernel of
   ``ops/basket_cuda.py`` and the American monitor-row kernels of
   ``ops/american_cuda.py`` (``american_gbm``, ``american_heston``,
-  ``american_merton_jump``, ``american_basket_gbm``). ``basket_gbm`` and
-  ``american_basket_gbm`` are at 2: their Box–Muller runs on the SFU
-  (``csrc/path_stream.cuh``), the others' on libm.
+  ``american_merton_jump``, ``american_basket_gbm``). At 2: ``basket_gbm``
+  and ``american_basket_gbm`` (their Box–Muller on the SFU,
+  ``csrc/path_stream.cuh``), ``american_gbm`` (the odd single step's
+  Box–Muller on the SFU), ``heston`` and ``american_heston`` (the draw and
+  the step on fixed roundings that the twins repeat bit for bit,
+  ``csrc/heston_step.cuh``); the others' Box–Muller is libm's.
 * ``LAUNCHES`` (every launch of any entry point) and ``LAUNCHES_BY_BRANCH``
   (per kernel and branch group, the QMC generator's two kernels of
   ``ops/qmc_cuda.py`` and the American kernels of ``ops/american_cuda.py``
@@ -66,8 +69,8 @@ from spectralmc_tpu_torch.ops.gbm import (
 from spectralmc_tpu_torch.ops.rng import MASK32, philox4x32
 
 CUDA_STREAM_VERSIONS: dict[str, int] = {
-    "gbm": 1, "gbm_cliquet": 1, "gbm_term": 1, "heston": 1, "merton_jump": 1, "basket_gbm": 2,
-    "american_gbm": 1, "american_heston": 1, "american_merton_jump": 1,
+    "gbm": 1, "gbm_cliquet": 1, "gbm_term": 1, "heston": 2, "merton_jump": 1, "basket_gbm": 2,
+    "american_gbm": 2, "american_heston": 2, "american_merton_jump": 1,
     "american_basket_gbm": 2,
 }
 

@@ -115,6 +115,34 @@ def fma32(a: torch.Tensor, b: torch.Tensor | float, c: torch.Tensor | float) -> 
     return (a.double() * b + c).float()
 
 
+def fma32_exact(a: torch.Tensor, b: torch.Tensor | float, c: torch.Tensor | float) -> torch.Tensor:
+    """float32 ``a·b + c`` rounded exactly once, as ``__fmaf_rn`` rounds it.
+
+    The product of two float32 values is exact in float64, so the float64
+    sum ``s`` has one rounding, and its cast to float32 a second one. The two
+    can differ from one rounding only where ``s`` lands exactly on a float32
+    tie (the float64 rounding moved the sum onto the midpoint), where ``fma32``
+    may miss by one ulp. There — and below float32's normal range, where
+    the midpoints lie elsewhere in the bits — the sum is rounded to odd
+    instead (Knuth's two-sum gives its error; an inexact sum with an even
+    last bit moves one ulp toward the error), which the cast then rounds
+    correctly. ``b`` and ``c`` must be float32 values."""
+    p = a.double() * b
+    s = p + c
+    out = s.float()
+    suspect = ((s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000) | (s.abs() < 2.0**-125)
+    if bool(suspect.any()):
+        s_t = s[suspect]
+        p_t = p.expand(s.shape)[suspect]
+        c_t = torch.as_tensor(c, dtype=torch.float64, device=s.device).expand(s.shape)[suspect]
+        bp = s_t - p_t
+        err = (p_t - (s_t - bp)) + (c_t - bp)
+        toward = torch.where(err > 0, math.inf, -math.inf).to(torch.float64)
+        inexact_even = (err != 0) & ((s_t.view(torch.int64) & 1) == 0)
+        out[suspect] = torch.where(inexact_even, torch.nextafter(s_t, toward), s_t).float()
+    return out
+
+
 def _two_product(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """float64 ``a·b = p + e`` exactly (Dekker's split, no FMA needed)."""
     def split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -38,6 +38,18 @@ from spectralmc_tpu_torch.ops import american_cuda, basket_cuda, dynamics_cuda, 
 from spectralmc_tpu_torch.ops import basket as tbasket
 from spectralmc_tpu_torch.ops import gbm as tgbm
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Each test on one torch thread: the twins are thousands of small ops,
+    which torch's thread pool slows tenfold and more while the suite's other
+    workers hold the cores (past the suite's 120 s limit a test fails)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 ROWS, COLS = 8, 128
 ZERO = torch.zeros((), dtype=torch.int64)
 HESTON = np.array([100.0, 100.0, 1.0, 0.03, 0.01, 0.04, 1.5, 0.05, 0.4, -0.6], dtype=np.float32)
@@ -260,7 +272,7 @@ def test_engine_backward_and_stream_per_family(model: str, kw: dict, engine: str
         model == "basket_gbm" and sim.basket.combine == tbasket.BasketCombine.ARITHMETIC))
     if stream is not None:
         assert gbm_cuda.cuda_stream_version(sim.model, sim.payoff) == \
-            gbm_cuda.CUDA_STREAM_VERSIONS[stream] == (2 if stream == "american_basket_gbm" else 1)
+            gbm_cuda.CUDA_STREAM_VERSIONS[stream] == (1 if stream == "american_merton_jump" else 2)
     assert set(gbm_cuda.CUDA_STREAM_VERSIONS) >= {
         "american_heston", "american_merton_jump", "american_basket_gbm"}
 

@@ -201,6 +201,39 @@ def test_merton_kernel_counts_equal_the_twins_on_card() -> None:
     assert float(counts[0].mean()) > 1.0 and torch.equal(counts[0][:, :64], counts[0][:, 64:])
 
 
+def _heston_variance_f64(c: torch.Tensor, keys: torch.Tensor, *, steps: int, rows: int,
+                         cols: int, half: int | None, mask: torch.Tensor) -> torch.Tensor:
+    """The Heston variance swap's value in float64 on the paths of ``mask``
+    ``[C, rows, cols]``: the same Philox words, uniforms and float32
+    coefficients as kernel and twin, the Box–Muller and the step in float64
+    (the value both should round toward)."""
+    sign, call = gbm_cuda._stream(c, keys, rows=rows, cols=cols, calls=-(-steps // 2),
+                                  antithetic_half=half, row_offset=0, words=None)
+    at = mask.nonzero(as_tuple=True)
+    s = sign.expand(rows, cols)[at[1], at[2]].double()
+    maturity, rate, div, kappa, theta, xi, rho = (c[:, i] for i in (2, 3, 4, 6, 7, 8, 9))
+    dt = maturity / float(steps)
+    dt, rho, rho_bar, rq_dt, kdt, ktheta_dt, xi = (
+        x[at[0]].double() for x in (dt, rho, torch.sqrt(1.0 - rho * rho), (rate - div) * dt,
+                                    kappa * dt, kappa * theta * dt, xi))
+    v = c[at[0], 5].double()
+    acc = torch.zeros_like(v)
+    for j in range(steps):
+        w = call(j // 2)
+        a, b = (w[0], w[1]) if j % 2 == 0 else (w[2], w[3])
+        u1 = gbm_cuda.uniform_open(a[at]).double()
+        u2 = gbm_cuda.uniform_closed(b[at]).double()
+        rad = torch.sqrt(-2.0 * torch.log(u1))
+        z_v = s * rad * torch.cos(2.0 * math.pi * u2)
+        z_s = rho * z_v + rho_bar * s * rad * torch.sin(2.0 * math.pi * u2)
+        v_plus = torch.clamp(v, min=0.0)
+        sv = torch.sqrt(v_plus * dt)
+        inc = (rq_dt - 0.5 * v_plus * dt) + sv * z_s
+        acc = acc + inc * inc
+        v = (v + ktheta_dt - kdt * v_plus) + xi * sv * z_v
+    return acc / c[at[0], 2].double()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("payoff,steps", [("terminal", 1), ("terminal", 2), ("terminal", 3),
                                           ("terminal", 15), ("forward_start", 15),
@@ -235,9 +268,18 @@ def test_heston_pair_walk_odd_steps_and_relaunch_on_card(payoff, steps) -> None:
     err = (got - want).abs()
     past_rtol = int((err > 2e-5 * want.abs()).sum())
     if variance:
+        missed = err > 2e-5 * want.abs()
+        exact = _heston_variance_f64(c, keys, steps=steps, rows=rows, cols=cols, half=half,
+                                     mask=missed)
+        kernel_off = ((got[missed].double() - exact).abs() / exact).tolist()
+        twin_off = ((want[missed].double() - exact).abs() / exact).tolist()
         print(f"variance_swap steps={steps} paths={got.numel()} past_rtol_2e-5={past_rtol} "
               f"past_atol_1e-6_rtol_2e-5={int((err > 1e-6 + 2e-5 * want.abs()).sum())} "
-              f"max_rel={float((err / want.abs()).max()):.3e}")
+              f"max_rel={float((err / want.abs()).max()):.3e} "
+              f"bit_equal={int((got == want).sum())} "
+              f"missed_rel_to_float64_kernel={[f'{x:.2e}' for x in kernel_off[:12]]} "
+              f"twin={[f'{x:.2e}' for x in twin_off[:12]]} "
+              f"kernel_closer={sum(k < t for k, t in zip(kernel_off, twin_off))}")
     if variance and steps == 1:
         theta = c[:, 7, None, None]
         assert int((err > 1e-6 + 2e-5 * want.abs()).sum()) <= int(HESTON_SHARE * got.numel())
@@ -245,6 +287,32 @@ def test_heston_pair_walk_odd_steps_and_relaunch_on_card(payoff, steps) -> None:
     else:
         assert past_rtol <= int(HESTON_SHARE * got.numel())
         assert bool((err <= HESTON_CAP_RTOL * want.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("half", [None, 1024], ids=["plain", "anti"])
+def test_heston_variance_rows_equal_the_twins_on_card(half) -> None:
+    """Exact: the Heston draw and step run on fixed roundings that the twin
+    repeats, so at phase 2's 4 x 2048 x 512 paths and 16 dates the monitor
+    kernel's variance rows are the twin's bit for bit, and so is the
+    European kernel's variance swap (the same step, its increment summed
+    first); the price rows, exp of the same log-price, within rtol 2e-5."""
+    device = _require_card()
+    gen = np.random.default_rng(17)
+    lo, hi = np.array(FAMILY_LO["heston"]), np.array(FAMILY_HI["heston"])
+    c = torch.from_numpy((lo + (hi - lo) * gen.random((4, len(lo)))).astype(np.float32)).to(device)
+    keys = rng.fold_in(rng.prng_key(17), torch.arange(4)).to(device)
+    kw = dict(timesteps=16, rows=2048, cols=512, exercise_every=1, antithetic_half=half)
+    price, var = american_cuda.simulate_heston_american_rows_cuda(c, keys, **kw)
+    price_w, var_w = american_cuda.simulate_heston_american_rows_cuda_plain(c, keys, **kw)
+    print(f"heston rows half={half} var_not_bit_equal={int((var != var_w).sum())} "
+          f"price_not_bit_equal={int((price != price_w).sum())} of {var.numel()}")
+    assert torch.equal(var, var_w)
+    torch.testing.assert_close(price, price_w, rtol=2e-5, atol=0.0)
+    vkw = dict(timesteps=16, rows=2048, cols=512, payoff=tgbm.PayoffKind.VARIANCE_SWAP,
+               antithetic_half=half)
+    kernel, twin = FAMILY_FNS["heston"]
+    assert torch.equal(kernel(c, keys, **vkw), twin(c, keys, **vkw))
 
 
 # --------------------------------------------------------------------------
@@ -399,11 +467,14 @@ def test_qmc_walk_kernel_equals_bridge_kernel_plus_scan(steps, start) -> None:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("steps,every,half", [(16, 1, None), (16, 2, 32), (16, 4, None),
-                                              (12, 3, 32)])
+@pytest.mark.parametrize("steps,every,half", [(16, 1, None), (15, 1, 32), (16, 2, 32),
+                                              (16, 4, None), (12, 3, 32), (15, 5, None)])
 def test_american_rows_kernel_matches_twin_on_card(steps, every, half) -> None:
-    """Tier 3 on the card, rtol 2e-5 on the monitor-date prices; with
-    ``every`` even the last row is the TERMINAL kernel's value."""
+    """Tier 3 on the card, rtol 2e-5 on the monitor-date prices (the odd
+    single step's Box–Muller on the SFU against the twin's torch math; at
+    ``every = 1`` the walk over whole Philox calls, an odd date count ending
+    on half a call); with ``every`` even the last row is the TERMINAL
+    kernel's value bit for bit (the same libm pair steps)."""
     device = _require_card()
     c = torch.from_numpy(_contracts(3, seed=9)).to(device)
     keys = rng.fold_in(rng.prng_key(9), torch.arange(3)).to(device)
@@ -417,7 +488,7 @@ def test_american_rows_kernel_matches_twin_on_card(steps, every, half) -> None:
         terminal = gbm_cuda.simulate_underlier_rows_cuda(
             c, keys, timesteps=steps, rows=64, cols=96, scheme=tgbm.PathScheme.LOG_EULER,
             payoff=tgbm.PayoffKind.TERMINAL, antithetic_half=half)
-        torch.testing.assert_close(got[:, -1], terminal, rtol=2e-5, atol=0.0)
+        assert torch.equal(got[:, -1], terminal)
 
 
 def _backward_inputs(state: str, contracts: int, steps: int, rows: int, cols: int,

@@ -29,6 +29,18 @@ from spectralmc_tpu.ops import gbm_pallas as jpallas
 from spectralmc_tpu_torch.ops import dynamics_cuda, gbm_cuda, rng
 from spectralmc_tpu_torch.ops import gbm as tgbm
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Each test on one torch thread: the twins are thousands of small ops,
+    which torch's thread pool slows tenfold and more while the suite's other
+    workers hold the cores (past the suite's 120 s limit a test fails)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 ROWS, COLS = 8, 128
 GBM = np.array([100.0, 100.0, 1.0, 0.03, 0.01, 0.25], dtype=np.float32)
 HESTON = np.array([100.0, 100.0, 1.0, 0.03, 0.01, 0.04, 1.5, 0.05, 0.4, -0.6], dtype=np.float32)

@@ -39,6 +39,18 @@ from spectralmc_tpu_torch.training import trainer as ttr
 from test_torch_american_dynamics import BASKET_KW, HESTON_BOUNDS, HESTON_SIM
 from test_torch_slice import _cvnn, _train
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Each test on one torch thread: the twins are thousands of small ops,
+    which torch's thread pool slows tenfold and more while the suite's other
+    workers hold the cores (past the suite's 120 s limit a test fails)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 HESTON = torch.tensor([[100.0, 104.0, 1.0, 0.04, 0.01, 0.05, 1.5, 0.05, 0.3, -0.6],
                        [97.0, 96.0, 0.7, 0.02, 0.015, 0.07, 2.0, 0.04, 0.4, -0.4],
                        [90.0, 95.0, 1.5, 0.06, 0.0, 0.04, 1.0, 0.06, 0.5, -0.7]])

@@ -4,10 +4,12 @@
   header and evaluated in float32 with every FMA rounded once, against
   float64 over every u1 >= ½ the stream can draw: relative-accurate to
   2 ulp, and the subtraction u1 − 1 it rests on exact.
-* The basket streams, whose arithmetic it changed, are at version 2 and
-  the Heston streams, which keep libm's transform, at 1
-  (``gbm_cuda.cuda_stream_version``); a checkpoint that recorded the
-  version before is refused mid-stream with ``EngineMismatch`` (the
+* The streams whose arithmetic changed are at version 2: the basket
+  streams (this transform), ``american_gbm`` (its odd single step's draw on
+  the SFU) and the Heston streams (draw and step on fixed roundings,
+  ``csrc/heston_step.cuh``) (``gbm_cuda.cuda_stream_version``); a
+  checkpoint that recorded the version before is refused mid-stream with
+  ``EngineMismatch`` (the
   pattern of
   ``test_torch_slice.py::test_midstream_cuda_checkpoint_needs_its_stream_version``),
   and the checkpoint at the current version resumes.
@@ -80,17 +82,19 @@ MARKET = {"spot": (95.0, 105.0), "strike": (95.0, 105.0), "maturity": (0.5, 1.5)
 HESTON = {**MARKET, "v0": (0.03, 0.08), "kappa": (1.0, 2.5), "theta": (0.03, 0.08),
           "xi": (0.2, 0.5), "rho": (-0.8, -0.3)}
 BASKET = {**MARKET, "vol": (0.2, 0.3)}
+GBM = BASKET
 BASKET_SPEC = tbasket.build_basket_spec(
     weights=(0.5, 0.3, 0.2),
     correlation=((1.0, 0.4, 0.2), (0.4, 1.0, 0.3), (0.2, 0.3, 1.0))).expect("spec")
-# stream key -> (model, payoff, bounds): the basket streams, whose Box–Muller
-# moved to the SFU; the Heston streams keep libm's and stay at v1, checked
-# beside them
+# stream key -> (model, payoff, bounds, version): the basket streams and the
+# American GBM stream, whose Box–Muller moved to the SFU, and the Heston
+# streams, whose draw and step moved to fixed roundings
 STREAMS = {
     "basket_gbm": ("basket_gbm", "terminal", BASKET, 2),
     "american_basket_gbm": ("basket_gbm", "american_put", BASKET, 2),
-    "heston": ("heston", "terminal", HESTON, 1),
-    "american_heston": ("heston", "american_put", HESTON, 1),
+    "american_gbm": ("gbm", "american_put", GBM, 2),
+    "heston": ("heston", "terminal", HESTON, 2),
+    "american_heston": ("heston", "american_put", HESTON, 2),
 }
 
 
