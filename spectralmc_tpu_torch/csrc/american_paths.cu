@@ -5,12 +5,13 @@
 // Replaces ops/gbm_pallas.py::_gbm_monitor_block_kernel (american_gbm_kernel):
 // log-Euler GBM writing exp(log S) at every monitor date. Per monitor
 // segment of `every` steps: every/2 pair steps (one Box–Muller draw advances
-// two steps, z1 + z2 = r·√2·sin(θ + π/4), as the flat kernel's TERMINAL
-// branch does, on libm), then one single step z = r·cos θ when `every` is
-// odd, its transform on the SFU (path_stream.cuh's box_muller_sfu_cos, the
-// basket kernels' odd-asset draw). That draw order per segment is the
-// american_gbm v2 stream; with `every` even the last monitor row is the
-// TERMINAL branch's value bit for bit. The TPU's VMEM block budget is
+// two steps, z1 + z2 = r·(cos θ + sin θ): the flat kernel's TERMINAL pair
+// step itself, gbm_step.cuh's gbm_pair_step and its transform), then one
+// single step z = r·cos θ when `every` is odd, its transform on the SFU
+// (path_stream.cuh's box_muller_sfu_cos, the basket kernels' odd-asset
+// draw). That draw order per segment is the american_gbm v3 stream; with
+// `every` even the last monitor row is the TERMINAL branch's value bit for
+// bit (the same pair step on the same words). The TPU's VMEM block budget is
 // dropped; the monitor count stays capped at 128
 // (ops/gbm_cuda.py::MAX_MONITOR_DATES).
 //
@@ -29,11 +30,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gbm_step.cuh"
 #include "path_stream.cuh"
 
 namespace {
-
-constexpr float kSqrt2 = 1.41421356f;
 
 // The monitor-row GBM forward: out[c][d][path] = S at monitor date d + 1.
 __global__ void american_gbm_kernel(const float* __restrict__ params,
@@ -69,14 +69,13 @@ __global__ void american_gbm_kernel(const float* __restrict__ params,
     return;
   }
   const int pairs = every / 2;
-  float u1, u2;
+  const float vs = sign * vol_sdt;  // the antithetic sign folded in (exact)
   int j = 0;
   for (int d = 0; d < monitors; ++d) {
     for (int q = 0; q < pairs; ++q, ++j) {
-      s.draw(j, u1, u2);
-      const float rad = sqrtf(-2.0f * logf(u1));
-      const float z = sign * (rad * kSqrt2 * sinpif(2.0f * u2 + 0.25f));
-      logx = (logx + two_drift) + vol_sdt * z;
+      uint2 w;
+      s.draw(j, w);
+      logx = gbm_pair_step(logx, w, two_drift, vs);
     }
     if (every & 1) {
       uint2 w;

@@ -16,7 +16,7 @@
 //   * barrier, lookback and Asian: one draw per step, z = r·cos θ -- every
 //     intermediate state is observed, so the pair-step does not apply;
 //   * variance swap under log-Euler: the pair-step survives the square,
-//     (a + b·z1)² + (a + b·z2)² = 2a² + b²·x + 2√2·a·b·√x·sin(θ + π/4) with
+//     (a + b·z1)² + (a + b·z2)² = 2a² + b²·x + 2·a·b·r·(cos θ + sin θ) with
 //     x = r² = -2 ln u1; antithetic mirroring flips only the cross term; an
 //     odd tail takes one single step inc²; under Euler one draw per step
 //     with inc = log|1 + (r−q)dt + vol√dt·z|; the output is Σ inc² / T;
@@ -31,19 +31,29 @@
 // counter (path index lo, path index hi, call index, 0); draw j takes words
 // 2(j%2), 2(j%2)+1 of call j/2, so the stream is a pure function of (key,
 // global row, col, draw) and stays put under contract chunking or row
-// sharding), the polynomial sine, the rsqrt radius and the 256x256 VMEM
-// blocks. One thread owns one path and loops over time steps; the payoff
-// family is a template parameter, so each instantiation keeps only its own
-// state in registers (TERMINAL: log x; barrier/lookback: log x and the
-// running extreme; variance: the accumulator; Asian: log x and the sum;
-// cliquet: the accumulator).
+// sharding) and the 256x256 VMEM blocks. One thread owns one path and loops
+// over time steps.
 //
 // Bound on Hopper: the rate of transcendental and integer instructions. A
 // path reads 24 bytes of contract and 8 of key once and stores 4 bytes at the
 // end, so memory traffic is negligible; per draw it costs half a Philox call
-// (10 rounds of two 32-bit mul-hi/lo), one logf, one sqrtf and one
-// sinpif/cospif, plus the branch's own expf or logf per step. The design keeps the whole path in
-// registers and never materializes a normals matrix in device memory.
+// (10 rounds of two 32-bit mul-hi/lo) and a Box–Muller transform, plus the
+// branch's own work per step. So the flat kernel (the gbm v2 stream) walks
+// whole Philox calls, two draws a call with each word's place fixed when
+// compiling (walk_draws, and gbm_step.cuh's walk_pairs for the pair-step
+// branches: no parity select), and takes gbm_step.cuh's transform (ln u1
+// and the sine and cosine on fixed roundings, the root on the SFU) in place
+// of libm's logf, sqrtf and sinpif; the arithmetic Asian's per-step price is
+// ex2.approx of log x·log2 e. The TERMINAL pair step is gbm_step.cuh's,
+// which the GBM monitor kernel's pair steps share. The family, the scheme
+// and what a branch does each step (the Asian's mean, the barrier's and
+// lookback's extreme) are template parameters, so each instantiation has one
+// loop and keeps only its own state in registers (TERMINAL: log x;
+// barrier/lookback: log x and the running extreme; variance: the
+// accumulator; Asian: log x and the sum). The cliquet kernel (the
+// gbm_cliquet v1 stream) keeps the rolled loop and libm. The design keeps
+// the whole path in registers and never materializes a normals matrix in
+// device memory.
 //
 // Antithetic: global row r >= half reuses row r - half's words with z negated
 // (the threefry engine's global-half convention, not the TPU's in-block mirror).
@@ -54,26 +64,28 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gbm_step.cuh"
 #include "path_stream.cuh"
 
 namespace {
 
-constexpr float kSqrt2 = 1.41421356f;
-constexpr float kTwoSqrt2 = 2.82842712f;
+constexpr int kLogEuler = 0;  // the Python side's _SCHEME_CODE
+constexpr int kEuler = 1;
 
-// The flat-GBM kernel, one instantiation per payoff family.
-template <int kFamily>
+// The flat-GBM kernel, one instantiation per payoff family, scheme and
+// step rule: kFlag is the geometric mean for the Asian and the maximum for
+// the barrier and lookback (up-and-out; fixed call, floating put), else
+// false; `variant` still picks the lookback's encoding at the end.
+template <int kFamily, int kScheme, bool kFlag>
 __global__ void gbm_paths_kernel(const float* __restrict__ params,
                                  const uint32_t* __restrict__ keys, float* __restrict__ out,
-                                 int64_t rows, int64_t cols, int timesteps, int scheme,
-                                 int variant, float barrier_rel, int64_t half,
-                                 int64_t row_offset) {
+                                 int64_t rows, int64_t cols, int timesteps, int variant,
+                                 float barrier_rel, int64_t half, int64_t row_offset) {
   int64_t local;
   int c;
   PathStream s;
   if (!path_setup(keys, rows, cols, half, row_offset, local, c, s)) return;
   const int64_t n = rows * cols;
-  const float sign = s.sign;
 
   const float* p = params + 6 * c;
   const float spot = p[0], strike = p[1], maturity = p[2], rate = p[3], div = p[4],
@@ -82,70 +94,55 @@ __global__ void gbm_paths_kernel(const float* __restrict__ params,
   const float dt = __fdiv_rn(maturity, static_cast<float>(timesteps));
   const float vol_sdt = __fmul_rn(vol, __fsqrt_rn(dt));
   const float carry = __fsub_rn(rate, div);
-  float u1, u2;
+  const float vs = s.sign * vol_sdt;  // the antithetic sign folded in (exact)
   float result;
 
-  if (scheme == 0) {  // log-Euler
+  if constexpr (kScheme == kLogEuler) {
     const float drift =
         __fmul_rn(__fsub_rn(carry, __fmul_rn(__fmul_rn(0.5f, vol), vol)), dt);
     if constexpr (kFamily == kTerminal) {
       const float two_drift = __fmul_rn(2.0f, drift);
-      const int pairs = timesteps / 2;
-      const int draws = pairs + (timesteps & 1);
       float logx = logf(spot);
-      for (int j = 0; j < draws; ++j) {
-        s.draw(j, u1, u2);
-        const float rad = sqrtf(-2.0f * logf(u1));
-        if (j < pairs) {
-          const float z = sign * (rad * kSqrt2 * sinpif(2.0f * u2 + 0.25f));
-          logx = (logx + two_drift) + vol_sdt * z;
-        } else {
-          const float z = sign * (rad * cospif(2.0f * u2));
-          logx = (logx + drift) + vol_sdt * z;
-        }
-      }
+      walk_pairs(
+          s, timesteps / 2, timesteps & 1,
+          [&](uint2 d) { logx = gbm_pair_step(logx, d, two_drift, vs); },
+          [&](uint2 d) { logx = gbm_single_step(logx, d, drift, vs); });
       result = expf(logx);
     } else if constexpr (kFamily == kVariance) {
       const float base_c = __fmul_rn(__fmul_rn(2.0f, drift), drift);
       const float b_sq = __fmul_rn(vol_sdt, vol_sdt);
-      const float cross_c = __fmul_rn(__fmul_rn(kTwoSqrt2, drift), vol_sdt);
-      const int pairs = timesteps / 2;
-      const int draws = pairs + (timesteps & 1);
+      const float cross_c = s.sign * __fmul_rn(__fmul_rn(2.0f, drift), vol_sdt);
       float acc = 0.0f;
-      for (int j = 0; j < draws; ++j) {
-        s.draw(j, u1, u2);
-        const float x = -2.0f * logf(u1);
-        if (j < pairs) {
-          const float sn = sqrtf(x) * sinpif(2.0f * u2 + 0.25f);
-          acc = acc + ((base_c + b_sq * x) + sign * (cross_c * sn));
-        } else {
-          const float z = sign * (sqrtf(x) * cospif(2.0f * u2));
-          const float inc = drift + vol_sdt * z;
-          acc = acc + inc * inc;
-        }
-      }
+      walk_pairs(
+          s, timesteps / 2, timesteps & 1,
+          [&](uint2 d) {
+            float rad, cs, sn;
+            const float x = box_muller_gbm(d, rad, cs, sn);
+            acc = acc + ((base_c + b_sq * x) + cross_c * (rad * (cs + sn)));
+          },
+          [&](uint2 d) {
+            const float inc = drift + vs * gbm_normal(d);
+            acc = acc + inc * inc;
+          });
       result = __fdiv_rn(acc, maturity);
     } else {  // barrier, lookback, Asian: one draw per step
       const float log0 = logf(spot);
       float logx = log0;
       float acc = (kFamily == kAsian) ? 0.0f : log0;  // the sum, or the running extreme
-      const bool up = (kFamily == kBarrier) ? (variant == 1) : (variant == 0 || variant == 3);
-      for (int j = 0; j < timesteps; ++j) {
-        s.draw(j, u1, u2);
-        const float z = sign * (sqrtf(-2.0f * logf(u1)) * cospif(2.0f * u2));
-        logx = (logx + drift) + vol_sdt * z;
+      walk_draws<1>(s, timesteps, [&](int, const uint2 (&d)[1]) {
+        logx = gbm_single_step(logx, d[0], drift, vs);
         if constexpr (kFamily == kAsian) {
-          acc = acc + (variant ? logx : expf(logx));
+          acc = acc + (kFlag ? logx : exp_sfu(logx));
         } else {
-          acc = up ? fmaxf(acc, logx) : fminf(acc, logx);
+          acc = kFlag ? fmaxf(acc, logx) : fminf(acc, logx);
         }
-      }
+      });
       if constexpr (kFamily == kAsian) {
         const float inv_n = static_cast<float>(1.0 / timesteps);
-        result = variant ? expf(acc * inv_n) : acc * inv_n;
+        result = kFlag ? expf(acc * inv_n) : acc * inv_n;
       } else if constexpr (kFamily == kBarrier) {
         const float level = logf(__fmul_rn(spot, barrier_rel));
-        const bool knocked = up ? acc >= level : acc <= level;
+        const bool knocked = kFlag ? acc >= level : acc <= level;
         result = knocked ? strike : expf(logx);
       } else {
         const float ext = expf(acc), terminal = expf(logx);
@@ -159,35 +156,30 @@ __global__ void gbm_paths_kernel(const float* __restrict__ params,
     const float growth = __fadd_rn(1.0f, __fmul_rn(carry, dt));
     if constexpr (kFamily == kVariance) {
       float acc = 0.0f;
-      for (int j = 0; j < timesteps; ++j) {
-        s.draw(j, u1, u2);
-        const float z = sign * (sqrtf(-2.0f * logf(u1)) * cospif(2.0f * u2));
-        const float inc = logf(fabsf(growth + vol_sdt * z));
+      walk_draws<1>(s, timesteps, [&](int, const uint2 (&d)[1]) {
+        const float inc = logf(fabsf(growth + vs * gbm_normal(d[0])));
         acc = acc + inc * inc;
-      }
+      });
       result = __fdiv_rn(acc, maturity);
     } else {
       float x = spot;
       float acc = (kFamily == kAsian) ? 0.0f : spot;
-      const bool up = (kFamily == kBarrier) ? (variant == 1) : (variant == 0 || variant == 3);
-      for (int j = 0; j < timesteps; ++j) {
-        s.draw(j, u1, u2);
-        const float z = sign * (sqrtf(-2.0f * logf(u1)) * cospif(2.0f * u2));
-        x = fabsf(x * (growth + vol_sdt * z));
+      walk_draws<1>(s, timesteps, [&](int, const uint2 (&d)[1]) {
+        x = fabsf(x * (growth + vs * gbm_normal(d[0])));
         if constexpr (kFamily == kAsian) {
-          acc = acc + (variant ? logf(x) : x);
+          acc = acc + (kFlag ? logf(x) : x);
         } else if constexpr (kFamily != kTerminal) {
-          acc = up ? fmaxf(acc, x) : fminf(acc, x);
+          acc = kFlag ? fmaxf(acc, x) : fminf(acc, x);
         }
-      }
+      });
       if constexpr (kFamily == kTerminal) {
         result = x;
       } else if constexpr (kFamily == kAsian) {
         const float inv_n = static_cast<float>(1.0 / timesteps);
-        result = variant ? expf(acc * inv_n) : acc * inv_n;
+        result = kFlag ? expf(acc * inv_n) : acc * inv_n;
       } else if constexpr (kFamily == kBarrier) {
         const float level = __fmul_rn(spot, barrier_rel);
-        const bool knocked = up ? acc >= level : acc <= level;
+        const bool knocked = kFlag ? acc >= level : acc <= level;
         result = knocked ? strike : x;
       } else {
         result = variant == 0 ? 2.0f * strike - acc
@@ -241,42 +233,79 @@ __global__ void gbm_cliquet_kernel(const float* __restrict__ params,
   out[static_cast<int64_t>(c) * n + local] = acc;
 }
 
+// One family's launch under either scheme and, where the family has one,
+// either step rule.
+template <int kFamily, int kScheme>
+void launch_scheme(dim3 grid, int threads, cudaStream_t st, bool flag, const float* pp,
+                   const uint32_t* kp, float* op, long long rows, long long cols, int timesteps,
+                   int variant, float barrier_rel, long long half, long long row_offset) {
+  if constexpr (kFamily == kAsian || kFamily == kBarrier || kFamily == kLookback) {
+    if (flag) {
+      gbm_paths_kernel<kFamily, kScheme, true><<<grid, threads, 0, st>>>(
+          pp, kp, op, rows, cols, timesteps, variant, barrier_rel, half, row_offset);
+      return;
+    }
+  }
+  gbm_paths_kernel<kFamily, kScheme, false><<<grid, threads, 0, st>>>(
+      pp, kp, op, rows, cols, timesteps, variant, barrier_rel, half, row_offset);
+}
+
+template <int kFamily>
+void launch_family(dim3 grid, int threads, cudaStream_t st, int scheme, bool flag,
+                   const float* pp, const uint32_t* kp, float* op, long long rows, long long cols,
+                   int timesteps, int variant, float barrier_rel, long long half,
+                   long long row_offset) {
+  if (scheme == kLogEuler) {
+    launch_scheme<kFamily, kLogEuler>(grid, threads, st, flag, pp, kp, op, rows, cols,
+                                      timesteps, variant, barrier_rel, half, row_offset);
+  } else {
+    launch_scheme<kFamily, kEuler>(grid, threads, st, flag, pp, kp, op, rows, cols, timesteps,
+                                   variant, barrier_rel, half, row_offset);
+  }
+}
+
 }  // namespace
 
 extern "C" int gbm_paths_launch(const void* params, const void* keys, void* out, int contracts,
                                 long long rows, long long cols, int timesteps, int scheme,
                                 int family, int variant, float barrier_rel, long long half,
                                 long long row_offset, void* stream) {
+  if (scheme != kLogEuler && scheme != kEuler) return static_cast<int>(cudaErrorInvalidValue);
   const int threads = 256;
   const dim3 grid = grid_of(contracts, rows, cols, threads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* pp = static_cast<const float*>(params);
   const uint32_t* kp = static_cast<const uint32_t*>(keys);
   float* op = static_cast<float*>(out);
+  // the step rule: the geometric Asian's mean, the barrier's up-and-out, the
+  // lookback's running maximum (fixed call, floating put)
+  const bool flag = family == kAsian ? variant == 1
+                  : family == kBarrier ? variant == 1
+                  : family == kLookback ? (variant == 0 || variant == 3)
+                                        : false;
+#define FAMILY(F)                                                                            \
+  launch_family<F>(grid, threads, st, scheme, flag, pp, kp, op, rows, cols, timesteps,      \
+                   variant, barrier_rel, half, row_offset)
   switch (family) {
     case kTerminal:
-      gbm_paths_kernel<kTerminal><<<grid, threads, 0, st>>>(
-          pp, kp, op, rows, cols, timesteps, scheme, variant, barrier_rel, half, row_offset);
+      FAMILY(kTerminal);
       break;
     case kBarrier:
-      gbm_paths_kernel<kBarrier><<<grid, threads, 0, st>>>(
-          pp, kp, op, rows, cols, timesteps, scheme, variant, barrier_rel, half, row_offset);
+      FAMILY(kBarrier);
       break;
     case kLookback:
-      gbm_paths_kernel<kLookback><<<grid, threads, 0, st>>>(
-          pp, kp, op, rows, cols, timesteps, scheme, variant, barrier_rel, half, row_offset);
+      FAMILY(kLookback);
       break;
     case kVariance:
-      gbm_paths_kernel<kVariance><<<grid, threads, 0, st>>>(
-          pp, kp, op, rows, cols, timesteps, scheme, variant, barrier_rel, half, row_offset);
+      FAMILY(kVariance);
       break;
     case kAsian:
-      gbm_paths_kernel<kAsian><<<grid, threads, 0, st>>>(
-          pp, kp, op, rows, cols, timesteps, scheme, variant, barrier_rel, half, row_offset);
+      FAMILY(kAsian);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef FAMILY
   return static_cast<int>(cudaGetLastError());
 }
 

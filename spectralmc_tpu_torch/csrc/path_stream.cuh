@@ -106,11 +106,12 @@ __device__ __forceinline__ bool path_setup(const uint32_t* __restrict__ keys, in
 
 // ---------------------------------------------------------------------------
 // A walk over whole Philox calls (heston_paths_kernel, basket_paths_kernel,
-// and at one date a step american_gbm_kernel and american_heston_kernel) and
-// two Box–Muller transforms: libm's, of the v1 streams and american_gbm's
-// pair steps, and the SFU's, of the basket_gbm and american_basket_gbm v2
-// streams and american_gbm's single step (heston_step.cuh has the Heston
-// streams' own).
+// every branch of gbm_paths_kernel, and at one date a step
+// american_gbm_kernel and american_heston_kernel) and two Box–Muller
+// transforms: libm's, of the v1 streams, and the SFU's, of the basket_gbm
+// and american_basket_gbm v2 streams and american_gbm's single steps
+// (heston_step.cuh has the Heston streams' own, and gbm_step.cuh the flat
+// GBM streams' own, which takes its root from here: box_muller_root).
 // ---------------------------------------------------------------------------
 
 // Walks `steps` steps of kP draws each in the stream's draw order (draw
@@ -214,10 +215,14 @@ __device__ __forceinline__ float minus_two_log(float u1) {
   return u1 < 0.5f ? kMinusTwoLn2 * lg2_sfu(u1) : fmaf(d * d, q, -2.0f * d);
 }
 
+// The radius √x of its square x = −2·ln u1 (x·rsqrt(x) on the SFU).
+__device__ __forceinline__ float box_muller_root(float x) {
+  return x * rsqrt_sfu(fmaxf(x, 1.17549435e-38f));
+}
+
 // The radius √(−2·ln u1) of draw (a, ·).
 __device__ __forceinline__ float box_muller_radius(uint32_t a) {
-  const float x = minus_two_log(uniform_open(a));
-  return x * rsqrt_sfu(fmaxf(x, 1.17549435e-38f));
+  return box_muller_root(minus_two_log(uniform_open(a)));
 }
 
 // θ of draw (·, b): 2π·u2 less π.

@@ -20,20 +20,45 @@
 // What they keep: the words, the inverse CDF (XLA's float32 erf⁻¹
 // polynomial, as ops/rng.py::erf_inv writes it) and the bridge product of the
 // TPU kernels. What they drop: the split-table blocking into 1024-point rows
-// that fed the TPU's vector unit and the MXU dot. Here a block takes 256
-// consecutive point indices aligned to 256, so the bits of gray(n) from bit 8
-// up are the block's: its threads XOR those directions once into c_hi[k] in
-// shared memory, and each thread adds its own 8 low bits. For T <= 64 the
-// bridge matrix sits transposed in shared memory (a level's column read as
-// float4s) and a factor's T accumulators in registers; longer bridges
-// accumulate in the output itself (same order, same roundings) with the
-// matrix read through the read-only cache.
+// that fed the TPU's vector unit and the MXU dot. Here a bridge block takes
+// 256 consecutive point indices aligned to 256, so the bits of gray(n) from
+// bit 8 up are the block's: its threads XOR those directions once into
+// c_hi[k] in shared memory, and each thread adds its own 8 low bits. For
+// T <= 64 the bridge matrix sits transposed in shared memory (a level's
+// column read as float4s) and a factor's T accumulators in registers; longer
+// bridges accumulate in the output itself (same order, same roundings) with
+// the matrix read through the read-only cache.
 //
 // Bound on Hopper: the bridge kernel writes T·F floats per path and its
 // operations per path are about T·F·(8 word ops + ~30 for erf⁻¹ + T
 // multiply-adds); at T = 16, F = 1 that is ~740 operations for 64 bytes, so
 // on the card's 67 TFLOP/s and 3.35 TB/s it is bound by operations. The walk
-// kernel writes 4 bytes per path and is bound by operations outright.
+// kernel writes 4 bytes per path and is bound by operations outright, so at
+// the step counts whose bridge is a bisection of 2^m steps (T = 8, 16, 32,
+// 64; the main path's is 16) it has an instantiation of its own,
+// qmc_walk_sparse_kernel, that issues only the work its result needs:
+//   * the bridge's exact zeros are skipped. B = brownian_bridge_matrix(T)
+//     has m + 1 non-zeros a row (T = 16: 80 of 256): column 0, and at level
+//     d = 1..m the column 2^(d-1) + (t >> (m - d + 1)) (bridge_col). That
+//     pattern is fixed when compiling, so each row's multiply-adds, in
+//     ascending column as the dense loop takes them, are unrolled onto
+//     registers; fma(0, z, a) = a for finite z, so the sums are the dense
+//     loop's bit for bit. The host launches this instantiation only where
+//     the float32 matrix's zeros are exactly that pattern
+//     (ops/qmc_cuda.py::sparse_walk); any other matrix or step count takes
+//     the dense walk, qmc_walk_kernel.
+//   * a thread takes kQuad = 2 consecutive points (a block 512, aligned to
+//     512): the first point's word is c_hi[k] (gray bits from 9 up) XOR its
+//     own bits 0..8, and the second follows from one XOR, gray(2q+1) =
+//     gray(2q)^1 (with 4 points, gray(4q+2) = gray(4q+1)^2 and gray(4q+3) =
+//     gray(4q+2)^1 add two more); a row's bridge values are read once for a
+//     thread's points.
+//   * each normal is made when its column first enters a row and dies when
+//     the column's rows end, so m + 1 normals a point are live at a time;
+//     with 2 points and a 32-register cap (kQuadMinBlocks = 8: every warp
+//     slot of an SM filled) it ran 12.25 ms at 256 x 2048 x 512 points
+//     against 14.04 for 4 points at 64 registers and half the slots, though
+//     it issues 9% more a point (chip_variants.py; PERF.md §6).
 //
 // Contract: launches on the given stream, allocates nothing, does not
 // synchronise; each C entry point returns cudaGetLastError().
@@ -267,9 +292,157 @@ __global__ void qmc_walk_kernel(const uint32_t* __restrict__ dirs,
   out[static_cast<int64_t>(c) * count + p] = acc;
 }
 
-inline dim3 grid_of(int contracts, int64_t count, uint32_t start) {
-  const int64_t span = static_cast<int64_t>(start & (kThreads - 1)) + count;
-  return dim3(static_cast<unsigned>((span + kThreads - 1) / kThreads),
+// ---------------------------------------------------------------------------
+// The sparse walk: T = 2^kLog steps, 4 points a thread.
+// ---------------------------------------------------------------------------
+
+constexpr int kQuad = 2;                      // consecutive points a thread: 2 or 4
+constexpr int kQuadBlock = kThreads * kQuad;  // points a block, aligned to it
+constexpr int kQuadLowBits = kQuad == 2 ? 9 : 10;  // the gray bits a thread sets itself
+constexpr int kQuadMinBlocks = 8;             // resident blocks an SM: the register cap
+
+// Row t's non-zero at level d of brownian_bridge_matrix(2^log_t): column 0 at
+// d = 0, else the d-th bisection's interval holding t (breadth first, left to
+// right: column 2^(d-1) + j for the j-th interval of T >> (d - 1) steps).
+__host__ __device__ constexpr int bridge_col(int log_t, int t, int d) {
+  return d == 0 ? 0 : (1 << (d - 1)) + (t >> (log_t - d + 1));
+}
+
+// What a sparse-walk block shares: V[k][0..9] (padded to 12, three uint4
+// reads), c_hi[k] and each row's m + 1 non-zeros (padded to 8, two float4
+// reads).
+template <int kT>
+struct QuadTables {
+  uint32_t dir[kT][12];
+  uint32_t c_hi[kT];
+  float row[kT][8];
+};
+
+// The thread's points' words of dimension k: c_hi[k] XOR the first point's
+// own gray bits (mask[b] all ones where bit b is set; bit 0 of gray(4q) is
+// 0), then one direction a point: gray(n) ^ gray(n - 1) is bit ctz(n), so
+// V[k][0] (and for 4 points then V[k][1] and V[k][0] again).
+template <int kT>
+__device__ __forceinline__ void quad_words(const QuadTables<kT>& tab,
+                                           const uint32_t (&mask)[kQuadLowBits], int k,
+                                           uint32_t (&w)[kQuad]) {
+  const uint4* v = reinterpret_cast<const uint4*>(tab.dir[k]);
+  const uint4 a = v[0], b = v[1], c = v[2];
+  const uint32_t dir[12] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z, c.w};
+  uint32_t x = tab.c_hi[k];
+#pragma unroll
+  for (int bit = kQuad == 4 ? 1 : 0; bit < kQuadLowBits; ++bit) x ^= mask[bit] & dir[bit];
+  w[0] = x;
+#pragma unroll
+  for (int i = 1; i < kQuad; ++i) w[i] = w[i - 1] ^ dir[(i & 1) ? 0 : 1];
+}
+
+// Row t's bridged normals of the thread's points: Σ_d B[t][col(t, d)]·z[col]
+// over ascending d (ascending column), one rounding per multiply-add.
+template <int kT, int kLevels>
+__device__ __forceinline__ void bridge_row(const float (&b)[8], const float (&z)[kT][kQuad],
+                                           int t, int log_t, float (&e)[kQuad]) {
+#pragma unroll
+  for (int i = 0; i < kQuad; ++i) e[i] = 0.0f;
+#pragma unroll
+  for (int d = 0; d < kLevels; ++d) {
+    const int l = bridge_col(log_t, t, d);
+#pragma unroll
+    for (int i = 0; i < kQuad; ++i) e[i] = __fmaf_rn(b[d], z[l][i], e[i]);
+  }
+}
+
+template <int kT>
+__global__ void __launch_bounds__(kThreads, kQuadMinBlocks) qmc_walk_sparse_kernel(
+    const uint32_t* __restrict__ dirs, const uint32_t* __restrict__ shift,
+    const float* __restrict__ bridge, const float* __restrict__ scalars,
+    float* __restrict__ out, int64_t count, uint32_t start) {
+  constexpr int kLog = kT == 8 ? 3 : kT == 16 ? 4 : kT == 32 ? 5 : 6;
+  constexpr int kLevels = kLog + 1;
+  static_assert((1 << kLog) == kT && kLevels <= 8, "T = 8, 16, 32 or 64");
+  __shared__ __align__(16) QuadTables<kT> tab;
+  const int c = blockIdx.y;
+  const uint32_t lead = start & (kQuadBlock - 1);
+  const uint32_t base = (start - lead) + static_cast<uint32_t>(blockIdx.x) * kQuadBlock;
+  const uint32_t* shift_c = shift + static_cast<int64_t>(c) * kT;
+  const uint32_t gray_hi = (base ^ (base >> 1)) & ~(kQuadBlock - 1u);
+  for (int k = threadIdx.x; k < kT; k += blockDim.x) {
+    uint32_t acc = shift_c[k];
+    for (int b = kQuadLowBits; b < kBits; ++b) {
+      if ((gray_hi >> b) & 1u) acc ^= dirs[k * kBits + b];
+    }
+    tab.c_hi[k] = acc;
+#pragma unroll
+    for (int b = 0; b < 12; ++b) tab.dir[k][b] = b < kQuadLowBits ? dirs[k * kBits + b] : 0u;
+  }
+  for (int i = threadIdx.x; i < kT * 8; i += blockDim.x) {
+    const int t = i / 8, d = i % 8;
+    tab.row[t][d] = d < kLevels ? bridge[t * kT + bridge_col(kLog, t, d < kLevels ? d : 0)]
+                                : 0.0f;
+  }
+  __syncthreads();
+  // this thread's points: p0 .. p0 + kQuad - 1 of [0, count)
+  const int64_t p0 = static_cast<int64_t>(blockIdx.x) * kQuadBlock + kQuad * threadIdx.x - lead;
+  if (p0 + kQuad <= 0 || p0 >= count) return;
+  const uint32_t n0 = base + kQuad * threadIdx.x;
+  const uint32_t g = n0 ^ (n0 >> 1);
+  uint32_t mask[kQuadLowBits];
+#pragma unroll
+  for (int b = 0; b < kQuadLowBits; ++b) mask[b] = 0u - ((g >> b) & 1u);
+  const float log_spot = scalars[3 * c], drift = scalars[3 * c + 1],
+              vol_sdt = scalars[3 * c + 2];
+  float z[kT][kQuad];
+  float logx[kQuad], acc[kQuad];
+#pragma unroll
+  for (int i = 0; i < kQuad; ++i) {
+    logx[i] = log_spot;
+    acc[i] = 0.0f;
+  }
+#pragma unroll
+  for (int t = 0; t < kT; ++t) {
+#pragma unroll
+    for (int d = 0; d < kLevels; ++d) {  // a column's normals when it enters
+      const int span = d == 0 ? kT : kT >> (d - 1);
+      if (t % span == 0) {
+        const int l = bridge_col(kLog, t, d);
+        uint32_t w[kQuad];
+        quad_words<kT>(tab, mask, l, w);
+#pragma unroll
+        for (int i = 0; i < kQuad; ++i) z[l][i] = word_normal(w[i]);
+      }
+    }
+    float b[8];
+    const float4* r = reinterpret_cast<const float4*>(tab.row[t]);
+    const float4 lo = r[0], hi = r[1];
+    b[0] = lo.x, b[1] = lo.y, b[2] = lo.z, b[3] = lo.w;
+    b[4] = hi.x, b[5] = hi.y, b[6] = hi.z, b[7] = hi.w;
+    float e[kQuad];
+    bridge_row<kT, kLevels>(b, z, t, kLog, e);
+#pragma unroll
+    for (int i = 0; i < kQuad; ++i) {
+      logx[i] = __fadd_rn(__fadd_rn(logx[i], drift), __fmul_rn(vol_sdt, e[i]));
+      acc[i] = __fadd_rn(acc[i], logx[i]);
+    }
+  }
+  float* out_c = out + static_cast<int64_t>(c) * count;
+  const int64_t at = static_cast<int64_t>(c) * count + p0;
+  if (p0 >= 0 && p0 + kQuad <= count && at % kQuad == 0) {  // one vector store
+    if constexpr (kQuad == 4) {
+      *reinterpret_cast<float4*>(out_c + p0) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    } else {
+      *reinterpret_cast<float2*>(out_c + p0) = make_float2(acc[0], acc[1]);
+    }
+  } else {  // points on an edge of [start, start + count), or off the vector's alignment
+#pragma unroll
+    for (int i = 0; i < kQuad; ++i) {
+      if (p0 + i >= 0 && p0 + i < count) out_c[p0 + i] = acc[i];
+    }
+  }
+}
+
+inline dim3 grid_of(int contracts, int64_t count, uint32_t start, int block_points = kThreads) {
+  const int64_t span = static_cast<int64_t>(start & (block_points - 1)) + count;
+  return dim3(static_cast<unsigned>((span + block_points - 1) / block_points),
               static_cast<unsigned>(contracts));
 }
 
@@ -313,17 +486,33 @@ extern "C" int qmc_bridge_launch(const void* dirs, const void* shift, const void
 
 // dirs [T, 32], shift [contracts, T] uint32; bridge [T, T] f32; scalars
 // [contracts, 3] = (log spot, drift, vol√dt) f32; out [contracts, count].
+// sparse = 1 (T = 8, 16, 32 or 64, the caller having checked the matrix's
+// zeros) launches qmc_walk_sparse_kernel, sparse = 0 the dense walk.
 extern "C" int qmc_walk_launch(const void* dirs, const void* shift, const void* bridge,
                                const void* scalars, void* out, int contracts, int timesteps,
-                               long long count, unsigned start, void* stream) {
+                               long long count, unsigned start, int sparse, void* stream) {
   if (timesteps > kMaxDims) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid = grid_of(contracts, count, start);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* dp = static_cast<const uint32_t*>(dirs);
   const uint32_t* sp = static_cast<const uint32_t*>(shift);
   const float* bp = static_cast<const float*>(bridge);
   const float* cp = static_cast<const float*>(scalars);
   float* op = static_cast<float*>(out);
+  if (sparse) {
+    const dim3 quads = grid_of(contracts, count, start, kQuadBlock);
+#define SPARSE(KT)                                                                         \
+  qmc_walk_sparse_kernel<KT><<<quads, kThreads, 0, st>>>(dp, sp, bp, cp, op, count, start)
+    switch (timesteps) {
+      case 8: SPARSE(8); break;
+      case 16: SPARSE(16); break;
+      case 32: SPARSE(32); break;
+      case 64: SPARSE(64); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef SPARSE
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid = grid_of(contracts, count, start);
 #define WALK(KMAXT) \
   qmc_walk_kernel<KMAXT><<<grid, kThreads, 0, st>>>(dp, sp, bp, cp, op, timesteps, count, start)
   if (timesteps <= 8) {

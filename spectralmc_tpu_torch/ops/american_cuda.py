@@ -173,10 +173,11 @@ def simulate_american_rows_cuda_plain(
     cols]`` float32 prices at the monitor dates. Per segment ``every // 2``
     pair steps, then one single step when ``every`` is odd, the draws
     numbered on across segments. The Box–Muller is torch's float64 sine and
-    cosine and float32 ``log`` and ``sqrt``: the kernel's pair steps (libm)
-    and its single step (the SFU, stream ``american_gbm`` v2) agree with it
-    to rtol 2e-5. ``words`` (tests only) replaces the generator: a tensor
-    broadcastable to ``[C, rows, cols, calls, 4]``."""
+    cosine and float32 ``log`` and ``sqrt``: the kernel's pair steps (the
+    flat kernel's, ``csrc/gbm_step.cuh``) and its single step (on the SFU;
+    stream ``american_gbm`` v3) agree with it to rtol 2e-5. ``words`` (tests
+    only) replaces the generator: a tensor broadcastable to ``[C, rows,
+    cols, calls, 4]``."""
     _check(params, key_words)
     check_monitor_grid(timesteps, exercise_every)
     monitors = timesteps // exercise_every
@@ -575,7 +576,7 @@ def _check_backward(price_rows: torch.Tensor, strike: torch.Tensor, disc: torch.
 
 
 # ops/_build.py::load_library's arguments for this module's kernels
-LIBRARY = ("american_paths", ("american_paths.cu",), ("path_stream.cuh",))
+LIBRARY = ("american_paths", ("american_paths.cu",), ("gbm_step.cuh", "path_stream.cuh"))
 DYNAMICS_LIBRARY = ("american_dynamics", ("american_dynamics.cu",),
                     ("basket_spec.cuh", "basket_step.cuh", "heston_step.cuh", "path_stream.cuh"))
 BACKWARD_LIBRARY = ("lsmc_backward", ("lsmc_backward.cu",), ("lsmc_backward.cuh",))
@@ -654,7 +655,7 @@ def simulate_american_rows_cuda(
     row_offset: int = 0,
 ) -> torch.Tensor:
     """Monitor-date prices ``[C, timesteps // every, rows, cols]`` float32 on
-    the Philox stream (``american_gbm`` v2): CPU tensors run the plain twin,
+    the Philox stream (``american_gbm`` v3): CPU tensors run the plain twin,
     CUDA tensors launch the monitor-row kernel (one launch per contract
     batch) or raise."""
     _check(params, key_words)

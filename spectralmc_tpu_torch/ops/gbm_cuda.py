@@ -24,12 +24,19 @@ states what it keeps, what it drops and what bounds it. This module holds
   and Merton kernels of ``ops/dynamics_cuda.py``, the basket kernel of
   ``ops/basket_cuda.py`` and the American monitor-row kernels of
   ``ops/american_cuda.py`` (``american_gbm``, ``american_heston``,
-  ``american_merton_jump``, ``american_basket_gbm``). At 2: ``basket_gbm``
-  and ``american_basket_gbm`` (their Box–Muller on the SFU,
-  ``csrc/path_stream.cuh``), ``american_gbm`` (the odd single step's
-  Box–Muller on the SFU), ``heston`` and ``american_heston`` (the draw and
-  the step on fixed roundings that the twins repeat bit for bit,
-  ``csrc/heston_step.cuh``); the others' Box–Muller is libm's.
+  ``american_merton_jump``, ``american_basket_gbm``). At 2: ``gbm`` (every
+  branch walks whole Philox calls; its Box–Muller takes ln u1 and the sine
+  and cosine on fixed roundings and the root on the SFU,
+  ``csrc/gbm_step.cuh``), ``basket_gbm`` and ``american_basket_gbm`` (their
+  Box–Muller on the SFU, ``csrc/path_stream.cuh``), ``heston`` and
+  ``american_heston`` (the draw and the step on fixed roundings that the
+  twins repeat bit for bit, ``csrc/heston_step.cuh``); at 3
+  ``american_gbm`` (v2: the odd single step's Box–Muller on the SFU; v3:
+  its pair steps are ``gbm``'s v2 pair step, so an even grid's last row is
+  the TERMINAL branch's value bit for bit); the others' Box–Muller is
+  libm's. The flat kernel's plain twins keep the v1 arithmetic (libm's
+  transform, evaluated in torch): the kernel is held to them within the
+  gates, not bit for bit.
 * ``LAUNCHES`` (every launch of any entry point) and ``LAUNCHES_BY_BRANCH``
   (per kernel and branch group, the QMC generator's two kernels of
   ``ops/qmc_cuda.py`` and the American kernels of ``ops/american_cuda.py``
@@ -69,8 +76,8 @@ from spectralmc_tpu_torch.ops.gbm import (
 from spectralmc_tpu_torch.ops.rng import MASK32, philox4x32
 
 CUDA_STREAM_VERSIONS: dict[str, int] = {
-    "gbm": 1, "gbm_cliquet": 1, "gbm_term": 1, "heston": 2, "merton_jump": 1, "basket_gbm": 2,
-    "american_gbm": 2, "american_heston": 2, "american_merton_jump": 1,
+    "gbm": 2, "gbm_cliquet": 1, "gbm_term": 1, "heston": 2, "merton_jump": 1, "basket_gbm": 2,
+    "american_gbm": 3, "american_heston": 2, "american_merton_jump": 1,
     "american_basket_gbm": 2,
 }
 
@@ -549,7 +556,7 @@ def simulate_cliquet_rows_cuda_plain(
 
 
 # ops/_build.py::load_library's arguments for this module's kernels
-LIBRARY = ("gbm_paths", ("gbm_paths.cu",), ("path_stream.cuh",))
+LIBRARY = ("gbm_paths", ("gbm_paths.cu",), ("gbm_step.cuh", "path_stream.cuh"))
 
 
 def _kernel() -> ctypes.CDLL:

@@ -245,8 +245,8 @@ def qmc_asian_geo_underliers(
     from spectralmc_tpu_torch.ops.qmc_cuda import walk_acc
 
     _, directions, shift, _ = _draw_tables(contract_keys, timesteps, 1, mc_seed)
-    bridge = torch.as_tensor(brownian_bridge_matrix(timesteps), dtype=torch.float32,
-                             device=contract_keys.device)
+    # on the host: walk_acc reads its zeros there and copies it to the card itself
+    bridge = torch.as_tensor(brownian_bridge_matrix(timesteps), dtype=torch.float32)
     n = contract_keys.shape[0]
     acc = walk_acc(directions, shift, bridge, _start(row_offset, cols),
                    log_spot.reshape(n), drift.reshape(n), vol_sdt.reshape(n),

@@ -10,12 +10,16 @@ drops and is bound by. This module holds, for each,
 
 * the public wrapper (``bridge_normals``, ``walk_acc``): a CPU tensor goes to
   the plain twin; a CUDA tensor launches the kernel, for any step count,
-  factor count and padding, or raises. There is no fallback.
+  factor count and padding, or raises. There is no fallback. ``walk_acc``
+  launches #14's sparse instantiation where ``sparse_walk`` holds (T = 8,
+  16, 32 or 64 and the float32 bridge's zeros exactly the pattern the
+  kernel compiles, ``bridge_pattern``), its dense one elsewhere; both are
+  the twin's sums bit for bit.
 * the plain twin (``bridge_normals_plain``, ``walk_acc_plain``): the same
   words (the defining XOR over ``gray(n)``), the same float32 inverse CDF
   (``qmc._inv_cdf``) and the bridge product accumulated level by level with
-  one rounding per multiply-add, as the kernel does. The walk's twin is the
-  bridge twin plus the torch scan of ``ops/gbm.py``.
+  one rounding per multiply-add (``rng.fma32_exact``), as the kernel does.
+  The walk's twin is the bridge twin plus the torch scan of ``ops/gbm.py``.
 
 Launch counts go to ``gbm_cuda.LAUNCHES`` and ``LAUNCHES_BY_BRANCH`` under
 ``qmc_bridge`` and ``qmc_walk``.
@@ -24,6 +28,7 @@ Launch counts go to ``gbm_cuda.LAUNCHES`` and ``LAUNCHES_BY_BRANCH`` under
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -32,6 +37,10 @@ from spectralmc_tpu_torch.ops._sobol_directions import MAX_DIMENSION
 from spectralmc_tpu_torch.ops.gbm_cuda import _count
 from spectralmc_tpu_torch.ops.qmc import _inv_cdf
 from spectralmc_tpu_torch.ops.sobol import sobol_uint32
+
+# the step counts of csrc/qmc_paths.cu's qmc_walk_sparse_kernel instantiations
+SPARSE_WALK_STEPS = (8, 16, 32, 64)
+
 
 def _check(directions: torch.Tensor, shift: torch.Tensor, bridge: torch.Tensor,
            timesteps: int, factors: int, count: int, pad: torch.Tensor | None) -> int:
@@ -87,7 +96,8 @@ def bridge_normals_plain(
     z = z.reshape(shift.shape[0], timesteps, factors, count)
     acc = torch.zeros_like(z)
     for level in range(timesteps):
-        acc = rng.fma32(bridge[None, :, level, None, None], z[:, level:level + 1].double(), acc)
+        acc = rng.fma32_exact(bridge[None, :, level, None, None], z[:, level:level + 1].double(),
+                              acc)
     return acc
 
 
@@ -117,6 +127,39 @@ def walk_acc_plain(
     return acc
 
 
+@functools.lru_cache(maxsize=8)
+def _pattern(timesteps: int) -> torch.Tensor:
+    """``bridge_pattern``'s mask, made once per ``T`` (read, never written)."""
+    log = timesteps.bit_length() - 1
+    if timesteps < 2 or timesteps != 1 << log:
+        raise ValueError(f"the sparse pattern is for T = 2^m, got {timesteps}")
+    t = torch.arange(timesteps)[:, None]
+    d = torch.arange(log + 1)[None, :]
+    cols = torch.where(d == 0, 0, (1 << (d - 1).clamp(min=0)) + (t >> (log - d + 1)))
+    mask = torch.zeros((timesteps, timesteps), dtype=torch.bool)
+    mask[t, cols] = True
+    return mask
+
+
+def bridge_pattern(timesteps: int) -> torch.Tensor:
+    """``[T, T]`` bool: the non-zeros of ``brownian_bridge_matrix(T)`` that
+    ``qmc_walk_sparse_kernel`` compiles for ``T = 2^m`` (its ``bridge_col``):
+    column 0 of every row, and at level ``d = 1..m`` the column ``2^(d-1) +
+    (t >> (m − d + 1))`` of row ``t``, the ``d``-th bisection's interval
+    holding ``t``."""
+    return _pattern(timesteps).clone()
+
+
+def sparse_walk(bridge: torch.Tensor, timesteps: int) -> bool:
+    """Whether #14's sparse instantiation serves ``bridge``: ``T`` is one of
+    ``SPARSE_WALK_STEPS`` and the float32 matrix's non-zeros are exactly
+    ``bridge_pattern(T)``. Read on the host: a bridge on the card is copied
+    back (a synchronisation), so the main path hands ``walk_acc`` its bridge
+    on the CPU."""
+    return timesteps in SPARSE_WALK_STEPS and torch.equal(
+        bridge.detach().to("cpu") != 0, _pattern(timesteps))
+
+
 # ops/_build.py::load_library's arguments for this module's kernels
 LIBRARY = ("qmc_paths", ("qmc_paths.cu",), ())
 
@@ -127,7 +170,7 @@ def _library() -> ctypes.CDLL:
     lib = load_library(*LIBRARY).lib
     ll, i, vp, u = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint
     lib.qmc_bridge_launch.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, ll, u, vp]
-    lib.qmc_walk_launch.argtypes = [vp, vp, vp, vp, vp, i, i, ll, u, vp]
+    lib.qmc_walk_launch.argtypes = [vp, vp, vp, vp, vp, i, i, ll, u, i, vp]
     lib.qmc_bridge_launch.restype = ctypes.c_int
     lib.qmc_walk_launch.restype = ctypes.c_int
     return lib
@@ -203,7 +246,10 @@ def walk_acc(
 ) -> torch.Tensor:
     """``[C, count]`` float32 walk sums (arguments as ``walk_acc_plain``): CPU
     tensors run the plain twin, CUDA tensors launch kernel #14 or raise. One
-    factor of at most 64 unpadded steps (``qmc.qmc_walk_supported``)."""
+    factor of at most 64 unpadded steps (``qmc.qmc_walk_supported``).
+    ``bridge`` may lie on the CPU while the rest lies on the card (the main
+    path's way): its zeros are read there (``sparse_walk``) and it is copied
+    over from pinned memory without waiting for the stream."""
     _check(directions, shift, bridge, timesteps, 1, count, None)
     if timesteps > MAX_DIMENSION:
         raise ValueError(f"the fused walk takes at most {MAX_DIMENSION} unpadded steps")
@@ -214,10 +260,15 @@ def walk_acc(
     n = shift.shape[0]
     scalars = torch.stack([log_spot, drift, vol_sdt], dim=1).to(torch.float32).contiguous()
     out = torch.empty((n, count), dtype=torch.float32, device=shift.device)
-    table, shifts, bb = _words32(directions), _words32(shift), bridge.contiguous()
+    sparse = sparse_walk(bridge, timesteps)
+    table, shifts = _words32(directions), _words32(shift)
+    if bridge.device.type == "cpu":  # pinned, so the copy does not wait for the stream
+        bb = bridge.contiguous().pin_memory().to(shift.device, non_blocking=True)
+    else:
+        bb = bridge.to(shift.device).contiguous()
     status = _library().qmc_walk_launch(
         table.data_ptr(), shifts.data_ptr(), bb.data_ptr(), scalars.data_ptr(), out.data_ptr(),
-        n, timesteps, count, start & rng.MASK32,
+        n, timesteps, count, start & rng.MASK32, int(sparse),
         torch.cuda.current_stream(shift.device).cuda_stream,
     )
     if status != 0:
@@ -227,9 +278,12 @@ def walk_acc(
 
 
 __all__ = [
+    "SPARSE_WALK_STEPS",
     "bridge_normals",
     "bridge_normals_plain",
+    "bridge_pattern",
     "sobol_words",
+    "sparse_walk",
     "walk_acc",
     "walk_acc_plain",
 ]

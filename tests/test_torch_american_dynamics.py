@@ -343,10 +343,11 @@ def test_american_config_parity(model: str, payoff: str, market: str, sampling: 
     classic = estimator == "fused" and flat and not two_state
     assert american_cuda.resolve_lsmc_backward(sim, rows=sim.batches_per_mc_run) == (
         american_cuda.LSMC_BACKWARD_VERSIONS["cuda"] if classic else 0)
-    # the Merton monitor stream is v1; the others are v2 (the basket and GBM
-    # draws on the SFU, Heston's draw and step on fixed roundings)
+    # the Merton monitor stream is v1; GBM's is v3 (its pair steps the flat
+    # kernel's); the others are v2 (the basket's draws on the SFU, Heston's
+    # draw and step on fixed roundings)
     assert gbm_cuda.cuda_stream_version(sim.model, sim.payoff) == (
-        1 if model.startswith("merton") else 2)
+        1 if model.startswith("merton") else 3 if model == "gbm" else 2)
 
 
 # --------------------------------------------------------------------------

@@ -142,7 +142,7 @@ def test_cuda_backward_is_recorded_and_resumes_bit_exactly() -> None:
     snap = a.snapshot()
     assert snap.sim.implementation == tgbm.SimImplementation.CUDA
     assert snap.lsmc_backward_version == american_cuda.LSMC_BACKWARD_VERSIONS["cuda"]
-    assert snap.cuda_stream_version == 2  # american_gbm v2
+    assert snap.cuda_stream_version == 3  # american_gbm v3
     b = ttr.GbmCVNNPricer.create(snap, device="cpu").expect("b")
     np.testing.assert_array_equal(_train(a, ttr, tstep, 2), _train(b, ttr, tstep, 2))
     # the same checkpoint on another backward cannot continue

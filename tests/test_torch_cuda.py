@@ -97,6 +97,52 @@ def test_branch_kernel_matches_twin_on_card(payoff, barrier_rel, scheme) -> None
     assert int((~close).sum()) <= (int(1e-5 * got.numel()) if jumps else 0)
 
 
+WALK_PAYOFFS = [("terminal", None), *BRANCH_PAYOFFS]
+WALK_CASES = [(payoff, barrier_rel, steps) for payoff, barrier_rel in WALK_PAYOFFS
+              for steps in (1, 15, 16) if not (payoff == "forward_start" and steps == 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("half", [None, 512], ids=["plain", "anti"])
+@pytest.mark.parametrize("scheme", [tgbm.PathScheme.LOG_EULER, tgbm.PathScheme.EULER])
+@pytest.mark.parametrize("payoff,barrier_rel,steps", WALK_CASES,
+                         ids=[f"{p}-{t}" for p, _, t in WALK_CASES])
+def test_walk_kernel_matches_twin_at_step_counts_on_card(payoff, barrier_rel, steps, scheme,
+                                                         half) -> None:
+    """Tier 3 on the card at 1, 15 and 16 steps: the walks over whole Philox
+    calls at one draw, at a pair count that ends on half a call with the
+    odd step in the call's other half, and at the main path's count. The
+    gates of ``test_branch_kernel_matches_twin_on_card`` (rtol 2e-5; knocks
+    and signs flipped on at most 1e-5 of the paths, here 1,048,576 paths so
+    that the share allows whole paths), and at one step, where a value is
+    one difference of two terms (the reflection-Euler price |S·(1 + (r−q)dt
+    + vol√dt·z)|, the one squared increment of a variance swap), the error
+    is measured against the terms' size: the spot, or vol²."""
+    device = _require_card()
+    payoff = tgbm.PayoffKind(payoff)
+    c = torch.from_numpy(_contracts(2, seed=10)).to(device)
+    keys = rng.fold_in(rng.prng_key(10), torch.arange(2)).to(device)
+    kw = dict(timesteps=steps, rows=1024, cols=512, scheme=scheme, payoff=payoff,
+              barrier_rel=barrier_rel, antithetic_half=half,
+              forward_start_step=steps // 2 if payoff == tgbm.PayoffKind.FORWARD_START else None)
+    branch = gbm_cuda.branch_of(payoff)
+    before = gbm_cuda.LAUNCHES_BY_BRANCH[branch]
+    got = gbm_cuda.simulate_underlier_rows_cuda(c, keys, **kw)
+    assert gbm_cuda.LAUNCHES_BY_BRANCH[branch] == before + 1
+    want = gbm_cuda.simulate_underlier_rows_cuda_plain(c, keys, **kw)
+    assert bool(torch.isfinite(got).all())
+    scale = want.abs()
+    if payoff in tgbm.LOOKBACK_PAYOFFS:
+        scale = torch.maximum(scale, c[:, 1, None, None])
+    if steps == 1 and payoff == tgbm.PayoffKind.VARIANCE_SWAP:
+        scale = torch.maximum(scale, (c[:, 5] * c[:, 5])[:, None, None])
+    elif steps == 1 and scheme == tgbm.PathScheme.EULER:
+        scale = torch.maximum(scale, c[:, 0, None, None])
+    close = (got - want).abs() <= 2e-5 * scale
+    jumps = payoff in tgbm.BARRIER_PAYOFFS or payoff == tgbm.PayoffKind.DIGITAL
+    assert int((~close).sum()) <= (int(1e-5 * got.numel()) if jumps else 0)
+
+
 @pytest.mark.cuda
 def test_cliquet_kernel_matches_twin_on_card() -> None:
     """Tier 3 on the card, rtol 2e-5 measured against the cap where the sum
@@ -466,15 +512,76 @@ def test_qmc_walk_kernel_equals_bridge_kernel_plus_scan(steps, start) -> None:
     assert torch.equal(got, acc)
 
 
+WALK_EDGES = [(start, count) for start in (0, 1, 3, 99, 1021, 2048) for count in (5000, 4097)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start,count", WALK_EDGES, ids=[f"{s}-{n}" for s, n in WALK_EDGES])
+def test_qmc_sparse_walk_equals_bridge_plus_scan_and_twin(start, count) -> None:
+    """Exact, at T = 16 (the sparse, Gray-stepped instantiation) across a
+    quad's, a 1,024-point block's and the range's edges: the fused walk's
+    sums equal the bridge kernel's normals walked by the torch scan and the
+    plain twin's, bit for bit; the bridge handed over on the CPU (the main
+    path's way) or on the card gives the same sums."""
+    device = _require_card()
+    _, dirs, shift, _, bridge = _qmc_inputs(device, 16, 1)
+    assert qmc_cuda.sparse_walk(bridge, 16)
+    scalars = (torch.log(torch.tensor([100.0, 90.0], device=device)),
+               torch.tensor([0.0011, -0.0004], device=device),
+               torch.tensor([0.06, 0.09], device=device))
+    before = gbm_cuda.LAUNCHES_BY_BRANCH["qmc_walk"]
+    got = qmc_cuda.walk_acc(dirs, shift, bridge.cpu(), start, *scalars, timesteps=16, count=count)
+    assert gbm_cuda.LAUNCHES_BY_BRANCH["qmc_walk"] == before + 1
+    again = qmc_cuda.walk_acc(dirs, shift, bridge, start, *scalars, timesteps=16, count=count)
+    eff = qmc_cuda.bridge_normals(dirs, shift, bridge, start, timesteps=16, factors=1,
+                                  count=count)[:, :, 0]
+    logx = torch.zeros((2, count), device=device) + scalars[0][:, None]
+    acc = torch.zeros_like(logx)
+    for t in range(16):
+        logx = logx + scalars[1][:, None] + scalars[2][:, None] * eff[:, t]
+        acc = acc + logx
+    twin = qmc_cuda.walk_acc_plain(dirs, shift, bridge, start, *scalars, timesteps=16,
+                                   count=count)
+    assert torch.equal(got, again) and torch.equal(got, acc) and torch.equal(got, twin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [8, 32, 64, 12])
+def test_qmc_walk_instantiations_equal_the_twin_on_card(steps) -> None:
+    """Exact: the sparse instantiations at T = 8, 32 and 64 and the dense
+    walk at T = 12 equal the plain twin and the bridge kernel plus the scan,
+    from a start off the quad and block grid."""
+    device = _require_card()
+    count, start = 3001, 1021
+    _, dirs, shift, _, bridge = _qmc_inputs(device, steps, 1)
+    assert qmc_cuda.sparse_walk(bridge, steps) == (steps != 12)
+    scalars = (torch.log(torch.tensor([100.0, 90.0], device=device)),
+               torch.tensor([0.0011, -0.0004], device=device),
+               torch.tensor([0.06, 0.09], device=device))
+    got = qmc_cuda.walk_acc(dirs, shift, bridge, start, *scalars, timesteps=steps, count=count)
+    eff = qmc_cuda.bridge_normals(dirs, shift, bridge, start, timesteps=steps, factors=1,
+                                  count=count)[:, :, 0]
+    logx = torch.zeros((2, count), device=device) + scalars[0][:, None]
+    acc = torch.zeros_like(logx)
+    for t in range(steps):
+        logx = logx + scalars[1][:, None] + scalars[2][:, None] * eff[:, t]
+        acc = acc + logx
+    twin = qmc_cuda.walk_acc_plain(dirs, shift, bridge, start, *scalars, timesteps=steps,
+                                   count=count)
+    assert torch.equal(got, acc) and torch.equal(got, twin)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("steps,every,half", [(16, 1, None), (15, 1, 32), (16, 2, 32),
-                                              (16, 4, None), (12, 3, 32), (15, 5, None)])
+                                              (16, 4, None), (12, 3, 32), (15, 5, None),
+                                              (16, 8, None), (12, 6, 32)])
 def test_american_rows_kernel_matches_twin_on_card(steps, every, half) -> None:
-    """Tier 3 on the card, rtol 2e-5 on the monitor-date prices (the odd
-    single step's Box–Muller on the SFU against the twin's torch math; at
-    ``every = 1`` the walk over whole Philox calls, an odd date count ending
-    on half a call); with ``every`` even the last row is the TERMINAL
-    kernel's value bit for bit (the same libm pair steps)."""
+    """Tier 3 on the card, rtol 2e-5 on the monitor-date prices (the
+    Box–Muller on the SFU against the twin's torch math; at ``every = 1``
+    the walk over whole Philox calls, an odd date count ending on half a
+    call); with ``every`` even the last row is the TERMINAL kernel's value
+    bit for bit (``csrc/gbm_step.cuh``'s pair step on the same words, also
+    where a date's pair count is odd and its draws cross a call)."""
     device = _require_card()
     c = torch.from_numpy(_contracts(3, seed=9)).to(device)
     keys = rng.fold_in(rng.prng_key(9), torch.arange(3)).to(device)

@@ -10,6 +10,7 @@ instruction goes to the part its source lines name.
 
 from __future__ import annotations
 
+import re
 from pathlib import Path
 
 import pytest
@@ -43,11 +44,11 @@ def test_skipped_philox_block_counts_half() -> None:
 
 
 @pytest.mark.parametrize("calls,draws_per_step,steps", [(1, 1, 2), (2, 1, 4), (1, 2, 1),
-                                                        (2, 2, 2)])
+                                                        (2, 2, 2), (1, 0.5, 4), (2, 0.5, 8)])
 def test_unskipped_philox_calls_set_the_steps(calls: int, draws_per_step: int,
                                               steps: int) -> None:
     """20 IMAD.WIDE.U32 a call (19 where the first round's product is
-    hoisted); a call feeds two draws."""
+    hoisted); a call feeds two draws, and a pair-step draw two steps."""
     ops = ["MOV R1, R2", *["IMAD.WIDE.U32 R2, R3, R4, RZ"] * (20 * calls - 1),
            *["FFMA R1, R2, R3, R4"] * 10, "@P1 BRA 0x0"]
     weights, got, _ = cs.loop_weights(
@@ -130,3 +131,52 @@ def test_split_sums_to_the_count_and_sorts_units(tmp_path: Path) -> None:
     split = cs.sass_split(_sass(ops), disasm, "_Zkernel", draws_per_step=1)
     assert (split["update"], split["branch"], split["total"]) == (2.0, 2.0, 4.0)
     assert split["mix"] == {"xu": 1.0, "fp32": 1.0, "int": 1.0, "other": 1.0}
+
+
+def test_qmc_parts_follow_the_walk_functions() -> None:
+    """The fused walk's split: the inverse CDF before the word (its lines
+    inline into the word's), the word's XORs, the bridge rows, the rest the
+    walk; erf⁻¹'s tail arm is marked."""
+    read = lambda f: Path(f).read_text().splitlines()  # noqa: E731
+    qmc = str(CSRC / "qmc_paths.cu")
+    call_site = (qmc, _line("qmc_paths.cu", "z[l][i] = word_normal(w[i])"))
+    normal = (qmc, _line("qmc_paths.cu", "const float u = __fmul_rn(__fadd_rn("))
+    assert cs.qmc_part([normal, call_site], read) == ("normal", False)
+    tail = (qmc, _line("qmc_paths.cu", "const float wl = sqrtf(w) - 3.0f;"))
+    assert cs.qmc_part([tail, call_site], read) == ("normal", True)
+    word = (qmc, _line("qmc_paths.cu", "x ^= mask[bit] & dir[bit];"))
+    assert cs.qmc_part([word, call_site], read) == ("words", False)
+    bridge = (qmc, _line("qmc_paths.cu", "e[i] = __fmaf_rn(b[d], z[l][i], e[i]);"))
+    assert cs.qmc_part([bridge], read) == ("bridge", False)
+    walk = (qmc, _line("qmc_paths.cu", "acc[i] = __fadd_rn(acc[i], logx[i]);"))
+    assert cs.qmc_part([walk], read) == ("walk", False)
+
+
+def test_qmc_split_weighs_the_edge_stores_but_not_the_early_return(monkeypatch) -> None:
+    """The fused walk's split counts what follows the tables' barrier over
+    a thread's points (kQuad, read from the source): a branch past more
+    than half of it (the early return) skips nothing, a skipped region that
+    stores without computing (the points on an edge of the range) counts
+    0, the parking branch after EXIT is no instruction."""
+    qmc = CSRC / "qmc_paths.cu"
+    points = int(re.search(r"constexpr int kQuad = (\d+);", qmc.read_text()).group(1))
+    ops = ["S2R R0, SR_TID.X", "BAR.SYNC.DEFER_BLOCKING 0x0", "@P0 BRA 0xc0",
+           "FFMA R1, R2, R3, R4", "FFMA R1, R2, R3, R4", "@P1 BRA 0x80", "STG.E [R2.64], R1",
+           "STG.E [R2.64+0x4], R1", "STG.E.64 [R2.64], R4", "MUFU.LG2 R5, R6", "FADD R7, R7, R8",
+           "FADD R7, R7, R8", "EXIT", "BRA 0xd0"]
+    sass = "Function : _Zqmc_walk_sparse_kernelILi16E\n" + "\n".join(
+        f"        /*{16 * i:04x}*/                   {op} ;" for i, op in enumerate(ops))
+    bridge = "e[i] = __fmaf_rn(b[d], z[l][i], e[i]);"
+    lines = {3: bridge, 4: bridge, 9: "const float u = __fmul_rn(__fadd_rn("}
+    walk = "acc[i] = __fadd_rn(acc[i], logx[i]);"  # every other instruction's line
+    disasm = '\t.section\t.text._Zqmc_walk_sparse_kernelILi16E,"ax",@progbits\n' + "".join(
+        f'\t//## File "{qmc}", line {_line("qmc_paths.cu", lines.get(i, walk))}\n'
+        f"        /*{16 * i:04x}*/                   {op} ;\n" for i, op in enumerate(ops))
+    monkeypatch.setattr(cs, "cuobjdump_sass", lambda library: sass)
+    monkeypatch.setattr(cs, "nvdisasm_text", lambda library: disasm)
+    split = cs.qmc_walk_sass("library", source=qmc)
+    assert split["points_per_thread"] == points
+    assert split["bridge"] == split["bridge_ffma"] == round(2 / points, 3)
+    assert split["normal"] == round(1 / points, 3)
+    # 12 after the barrier, less the 2 edge stores and the parking branch
+    assert split["total"] == round(9 / points, 3)

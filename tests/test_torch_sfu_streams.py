@@ -4,11 +4,14 @@
   header and evaluated in float32 with every FMA rounded once, against
   float64 over every u1 >= ½ the stream can draw: relative-accurate to
   2 ulp, and the subtraction u1 − 1 it rests on exact.
-* The streams whose arithmetic changed are at version 2: the basket
-  streams (this transform), ``american_gbm`` (its odd single step's draw on
-  the SFU) and the Heston streams (draw and step on fixed roundings,
-  ``csrc/heston_step.cuh``) (``gbm_cuda.cuda_stream_version``); a
-  checkpoint that recorded the version before is refused mid-stream with
+* The streams whose arithmetic changed are at version 2 or 3: the basket
+  streams (this transform), ``gbm`` (every branch of the flat kernel walks
+  whole Philox calls; its transform takes ln u1 and the sine and cosine on
+  fixed roundings and the root on the SFU, ``csrc/gbm_step.cuh``),
+  ``american_gbm`` (v2: its odd single step's draw on the SFU; v3: its
+  pair steps are ``gbm``'s) and the Heston streams (draw and step on fixed
+  roundings, ``csrc/heston_step.cuh``) (``gbm_cuda.cuda_stream_version``);
+  a checkpoint that recorded any version before is refused mid-stream with
   ``EngineMismatch`` (the
   pattern of
   ``test_torch_slice.py::test_midstream_cuda_checkpoint_needs_its_stream_version``),
@@ -86,13 +89,16 @@ GBM = BASKET
 BASKET_SPEC = tbasket.build_basket_spec(
     weights=(0.5, 0.3, 0.2),
     correlation=((1.0, 0.4, 0.2), (0.4, 1.0, 0.3), (0.2, 0.3, 1.0))).expect("spec")
-# stream key -> (model, payoff, bounds, version): the basket streams and the
-# American GBM stream, whose Box–Muller moved to the SFU, and the Heston
-# streams, whose draw and step moved to fixed roundings
+# stream key -> (model, payoff, bounds, version): the basket streams and
+# american_gbm's single step, whose Box–Muller moved to the SFU, the flat
+# GBM stream, whose draws moved to whole-call walks and a new transform (and
+# american_gbm's pair steps with it), and the Heston streams, whose draw and
+# step moved to fixed roundings
 STREAMS = {
     "basket_gbm": ("basket_gbm", "terminal", BASKET, 2),
     "american_basket_gbm": ("basket_gbm", "american_put", BASKET, 2),
-    "american_gbm": ("gbm", "american_put", GBM, 2),
+    "gbm": ("gbm", "terminal", GBM, 2),
+    "american_gbm": ("gbm", "american_put", GBM, 3),
     "heston": ("heston", "terminal", HESTON, 2),
     "american_heston": ("heston", "american_put", HESTON, 2),
 }
@@ -116,9 +122,10 @@ def test_stream_version_is_recorded_and_an_older_one_refused_mid_stream(stream: 
     pricer.train(train).expect("train")
     snap = pricer.snapshot()
     assert snap.global_step == 1 and snap.cuda_stream_version == version
-    stale = ttr.GbmCVNNPricerConfig(**{**snap.__dict__, "cuda_stream_version": version - 1})
-    refused = ttr.GbmCVNNPricer.create(stale, device="cpu")
-    assert refused.is_failure() and isinstance(refused.error, EngineMismatch)
-    assert refused.error.requested == f"cuda stream v{version - 1}"
-    assert refused.error.effective == f"cuda stream v{version}"
+    for older in range(1, version):
+        stale = ttr.GbmCVNNPricerConfig(**{**snap.__dict__, "cuda_stream_version": older})
+        refused = ttr.GbmCVNNPricer.create(stale, device="cpu")
+        assert refused.is_failure() and isinstance(refused.error, EngineMismatch)
+        assert refused.error.requested == f"cuda stream v{older}"
+        assert refused.error.effective == f"cuda stream v{version}"
     assert ttr.GbmCVNNPricer.create(snap, device="cpu").is_success()

@@ -229,7 +229,7 @@ def test_cuda_engine_trains_deterministically_on_its_twin() -> None:
         runs.append(_train(pricer, ttr, tstep, 3))
         snap = pricer.snapshot()
         assert snap.sim.implementation == tgbm.SimImplementation.CUDA
-        assert snap.cuda_stream_version == 1
+        assert snap.cuda_stream_version == 2  # gbm v2
     assert np.all(np.isfinite(runs[0]))
     np.testing.assert_array_equal(runs[0], runs[1])
 
