@@ -21,11 +21,13 @@ non-zero and no result line is printed):
                   17, 18, 22 and 23, and split the flat GBM TERMINAL and
                   arithmetic-Asian, the Heston and the 3-asset basket
                   TERMINAL loops' SASS per path-step, and the GBM and
-                  Heston monitor kernels' loops at every = 1, into Philox,
-                  Box–Muller, update and branch, and the fused QMC walk's
-                  per point into words, normal, bridge and walk (nvdisasm
-                  line info; the ``sass-split`` lines, with the update's and
-                  the bridge's FFMAs).
+                  Heston and 3-asset basket monitor kernels' loops at every
+                  = 1, into Philox, Box–Muller, update and branch, the fused
+                  QMC walk's per point into words, normal, bridge and walk,
+                  and the QMC bridge kernel's per point and factor into
+                  words, normal, bridge and stores (nvdisasm line info; the
+                  ``sass-split`` lines, with the update's and the bridge's
+                  FFMAs).
 2. kernel       — every kernel branch against its plain twin on the same
                   Philox words at C=4 x 2048 x 512 x 16: TERMINAL (and its
                   digital and forward-start routes), barrier up/down, the four
@@ -47,7 +49,9 @@ non-zero and no result line is printed):
                   Each branch group is timed at the training chunk 256 x 2048
                   x 512 x 16 (log-Euler) with CUDA events, and its twin's
                   second call at the same shape, beside its bound_ms and its
-                  share of the SASS instruction cap.
+                  share of the SASS instruction cap; the term, Merton and
+                  cliquet groups also at the 64 contracts their main path
+                  launches.
 3. oracle       — the "cuda" engine over 1,048,576 paths per contract, three
                   contracts, normalization "none": each payoff's discounted
                   MC price within 4 standard errors of the port's oracle
@@ -96,15 +100,18 @@ non-zero and no result line is printed):
                   (CUDA events; the twin's second call) beside its bound and
                   its SASS cap share, and TERMINAL again at the main path's
                   256 contracts (checked there too; its kernel record).
-13. qmc-kernel  — the QMC bridge kernel against its twin for F = 1, 2, 3 and
-                  a padded case (T·F > 64) at 4 x 2048 x 512 points: the Sobol
-                  words equal, the normals within 2 ulps, the bridged normals
-                  within atol 1e-5; the fused walk (its sparse instantiation
-                  at T = 8, 16, 32, 64, off the quad and block grid; the
-                  dense one at T = 7) bit-equal to the bridge kernel walked
-                  by the torch scan and to its twin; both timed beside
-                  bounds, the walk at the training chunk beside its SASS a
-                  point and the instruction cap.
+13. qmc-kernel  — the QMC bridge kernel against its twin for F = 1, 2, 3, a
+                  padded case (T·F > 64) and T = 8 and 64 at 4 x 2048 x 512
+                  points: the Sobol words equal, the normals within 2 ulps,
+                  the bridged normals within atol 1e-5, and its sparse
+                  instantiation bit-equal to the twin and to its dense one;
+                  the fused walk (its sparse instantiation at T = 8, 16, 32,
+                  64, off the quad and block grid; the dense one at T = 7)
+                  bit-equal to the bridge kernel walked by the torch scan and
+                  to its twin; both timed beside bounds, the bridge also at
+                  the 64 contracts of phase 16 at F = 1, 2, 3 beside its
+                  dense instantiation, the walk at the training chunk, each
+                  beside its SASS a point and the instruction cap.
 14. oracle-qmc  — the geometric basket against geometric_basket_price, a
                   1-asset arithmetic basket against Black–Scholes, SOBOL_BB
                   GBM TERMINAL and geometric Asian and SOBOL_BB Heston
@@ -170,8 +177,10 @@ non-zero and no result line is printed):
                   last row against the European kernel's TERMINAL value
                   (bit-equality printed, and Heston's price and variance
                   rows' against the twin). Then each timed at 256 x 2048 x 512
-                  x 16 (the basket at 32 contracts) with the twin, the bound
-                  and the SASS per path-step against the instruction cap.
+                  x 16 (the basket at 32 contracts, and without the twin at
+                  64 and 256; Merton without it at 64 too) with the twin,
+                  the bound and the SASS per path-step against the
+                  instruction cap.
 23. backward-american-dynamics — the single-state backward against its
                   twin on the Merton and the geometric basket rows and the
                   two-state backward on Heston's and the arithmetic basket's
@@ -237,6 +246,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import inspect
 import json
 import math
 import re
@@ -632,6 +642,14 @@ def phase_build() -> tuple[dict[str, float], tuple[float, str], dict[str, tuple[
             subprocess.CalledProcessError) as err:
         qmc_sass = {"error": repr(err)[:300]}
     phase("sass-split", kernel="qmc_walk", parts="per point", timesteps=STEPS, **qmc_sass)
+    try:
+        bridge_sass = qmc_bridge_sass(built[3].path)
+    except (AssertionError, OSError, StopIteration, ValueError,
+            subprocess.CalledProcessError) as err:
+        bridge_sass = {"error": repr(err)[:300]}
+    phase("sass-split", kernel="qmc_bridge", parts="per point and factor", timesteps=STEPS,
+          factors=1, **bridge_sass)
+    qmc_sass = dict(qmc_sass, bridge=bridge_sass)
     return (sass_instruction_counts(built[0].path, built[1].path, built[2].path),
             american_sass_per_step(built[4].path), dynamics, lsmc, qmc_sass)
 
@@ -658,7 +676,7 @@ def ptxas_summary(log: str) -> dict[str, str]:
     ``nvcc -Xptxas -v`` (empty when an existing build was reused)."""
     kernel = (r"(gbm_paths_kernel|gbm_cliquet_kernel|gbm_term_kernel|heston_paths_kernel|"
               r"merton_paths_kernel|basket_paths_kernel|qmc_bridge_kernel|qmc_walk_kernel|"
-              r"qmc_walk_sparse_kernel|"
+              r"qmc_walk_sparse_kernel|qmc_bridge_sparse_kernel|"
               r"american_gbm_kernel|backward_kernel|"
               r"american_heston_kernel|american_merton_kernel|american_basket_kernel)"
               r"(?:ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?(?:Lb(\d)E)?)?")
@@ -1107,6 +1125,109 @@ def qmc_walk_sass(library: object, steps: int = STEPS,
             "tail_warp_share": round(ERFINV_TAIL_WARP, 4)}
 
 
+# Kernel #13's SASS a point and factor at T = 16, F = 1 with no padded
+# dimension (``qmc_bridge_sass``), split into words, normal, bridge, stores
+# and other (addressing, the factor loop): the instructions after the
+# block's table barrier, each going to a part by its source lines — the
+# checks' word copy (``copy_words``; the dense kernel's ``words_out`` block)
+# and the padded reads (``pad_normals``; the dense kernel's ``pad[``) never
+# run on the main path, and neither do the one-float stores of a pair on the
+# range's edges (``store_row``'s lines but its vector store), nor the
+# sparse kernel's copy of a factor's rows for padded dimensions (the
+# shortest forward-branch region holding every padded read) — then by the
+# functions they name (QMC_BRIDGE_PART_FUNCTIONS, in order), else "other".
+# The dense kernel's level loop (the shortest loop holding the bridge's
+# FFMAs) runs T times; erf⁻¹'s tail arm counts as in the walk; over the
+# points a thread takes (the sparse kernel's kQuad, the dense kernel's 1).
+QMC_BRIDGE_PIECES = ("qmc_bridge_sparse_kernelILi16E", "qmc_bridge_kernelILi16E")
+QMC_BRIDGE_IDLE_TEXT = r"words_out|tab\.c_hi\[k\]|w \^= pt\.mask|if \(in\[i\]\) o\["
+QMC_BRIDGE_PART_FUNCTIONS = (({"pad_normals"}, "pad"), ({"copy_words"}, "idle"),
+                             ({"word_normal", "erfinv_xla"}, "normal"),
+                             ({"quad_words", "quad_mask", "normal", "point_of"}, "words"),
+                             ({"bridge_row", "bridge_factor"}, "bridge"),
+                             ({"store_row"}, "stores"))
+QMC_BRIDGE_PARTS = ("words", "normal", "bridge", "stores", "other")
+
+
+def qmc_bridge_part(frames: list[tuple[str, int]], read: object) -> tuple[str, bool]:
+    """``(part, tail)`` of an instruction of kernel #13 (the rule above;
+    "idle" for what the main path never runs)."""
+    names, texts, tail = set(), [], False
+    for file, line in frames:
+        if "/csrc/" not in file:
+            continue
+        lines = read(file)
+        names.add(enclosing_function(lines, line - 1))
+        texts.append(lines[line - 1] if line <= len(lines) else "")
+        tail = tail or bool(re.search(r"\bwl\b", texts[-1]))
+    if any(re.search(r"\bpad\[", text) for text in texts):
+        return "pad", tail
+    if any(re.search(QMC_BRIDGE_IDLE_TEXT, text) for text in texts):
+        return "idle", tail
+    if any(re.search(r"\bout_c\[", text) for text in texts):
+        return "stores", tail
+    return next((part for fns, part in QMC_BRIDGE_PART_FUNCTIONS if names & fns), "other"), tail
+
+
+def qmc_bridge_sass(library: object, steps: int = STEPS,
+                    source: Path = Path(__file__).resolve().parent / QMC_SOURCE,
+                    ) -> dict[str, object]:
+    """Kernel #13's SASS a point and factor at T = ``steps`` by part (the
+    rule above), with the bridge part's FFMAs, in the library's sparse
+    bridge where it has one, else its dense bridge."""
+    sass = cuobjdump_sass(library)
+    blocks = {b.split()[0]: b for b in sass.split("Function : ")[1:]}
+    piece = next(piece for piece in QMC_BRIDGE_PIECES if any(piece in name for name in blocks))
+    name = next(name for name in blocks if piece in name)
+    sparse = piece == QMC_BRIDGE_PIECES[0]
+    quad = re.search(r"constexpr int kQuad = (\d+);", source.read_text())
+    points = int(quad.group(1)) if sparse else 1
+    ins = [(int(a, 16), op.strip()) for a, op in re.findall(SASS_LINE, blocks[name])]
+    bar = max(i for i, (_, op) in enumerate(ins) if op.startswith("BAR"))
+    body = [(a, op) for a, op in ins[bar + 1:] if not op.startswith("NOP")]
+    frames = parse_nvdisasm_lines(nvdisasm_text(library)).get(name)
+    if not frames:
+        raise AssertionError(f"nvdisasm gave no line information for {name}")
+    read = functools.lru_cache(None)(lambda f: Path(f).read_text().splitlines())
+    parts = {a: qmc_bridge_part(frames.get(a, []), read) for a, _ in body}
+    loops, skipped, forward = [], set(), []
+    for addr, op in body:
+        jump = re.search(SASS_BRANCH, op)
+        if not jump:
+            continue
+        target = int(jump.group(1), 16)
+        if body[0][0] <= target < addr:
+            loops.append({a for a, _ in body if target <= a <= addr})
+        elif target > addr:
+            region = {a for a, _ in body if addr < a < target}
+            forward.append(region)
+            if op.startswith("@") and len(region) < len(body) // 2:  # not the early return
+                skipped |= region
+    padded = {a for a, (part, _) in parts.items() if part == "pad"}
+    if padded and sparse:  # the sparse kernel's rows around its padded reads
+        for a in min((r for r in forward if padded <= r), key=len, default=padded):
+            parts[a] = ("idle", parts[a][1])
+    ffma = {a for a, op in body
+            if parts[a][0] == "bridge" and re.sub(r"^@!?U?P\w+\s+", "", op).startswith("FFMA")}
+    level = set() if sparse else min((lp for lp in loops if lp & ffma), key=len, default=set())
+    split, bridge_ffma = dict.fromkeys(QMC_BRIDGE_PARTS, 0.0), 0.0
+    for addr, op in body:
+        jump = re.search(SASS_BRANCH, op)
+        part, tail = parts[addr]
+        if part in ("idle", "pad") or (jump and int(jump.group(1), 16) == addr):
+            continue  # never on the main path, or the parking branch after EXIT
+        w = (steps if addr in level else 1) / points
+        if tail and addr in skipped:
+            w *= ERFINV_TAIL_WARP
+        split[part] += w
+        if addr in ffma:
+            bridge_ffma += w
+    return {"instantiation": piece, "points_per_thread": points,
+            **{k: round(v, 3) for k, v in split.items()},
+            "total": round(sum(split.values()), 3), "bridge_ffma": round(bridge_ffma, 3),
+            "tail_warp_share": round(ERFINV_TAIL_WARP, 4)}
+
+
 # --------------------------------------------------------------------------
 # 2. kernel vs twin
 # --------------------------------------------------------------------------
@@ -1270,6 +1391,11 @@ TIMED = {
 }
 
 
+# The kernels whose main path is the batch-64 correctness steps of phases 8,
+# 10, 16 and 26 only (PERF.md §6): each is timed at that batch besides.
+LAUNCHED_AT_STEP_BATCH = ("term_", "merton_", "cliquet")
+
+
 def check_merton_counts(device: torch.device) -> int:
     """The Merton kernel's jump counts against its twin's, exactly: with the
     Gaussians switched off (vol = jump_std = 0) and unit jumps,
@@ -1315,6 +1441,7 @@ def phase_kernel(
           paths=2 * ROWS * COLS, steps=STEPS)
     for group, (family, payoff, extra) in TIMED.items():
         kw = dict(timesteps=STEPS, rows=ROWS, cols=COLS, **extra)
+        launched = {}
         if family == "gbm" and payoff != PayoffKind.CLIQUET:
             kw["scheme"] = PathScheme.LOG_EULER
         # the timed shape, checked; the twin's second call there is its time
@@ -1324,6 +1451,11 @@ def phase_kernel(
         params, keys = kernel_inputs(device, CHUNK, 1, family)
         kernel, _ = kernel_and_twin(family, payoff, kw)
         ms = cuda_ms(lambda: kernel(params, keys))
+        if group.startswith(LAUNCHED_AT_STEP_BATCH):  # its main path's shape too
+            small, small_keys = kernel_inputs(device, PAYOFF_BATCH, 1, family)
+            launched = dict(launched_shape=f"{PAYOFF_BATCH}x{ROWS}x{COLS}x{STEPS}",
+                            launched_ms=f"{cuda_ms(lambda: kernel(small, small_keys)):.3f}",
+                            launched_bound_ms=f"{bound_ms(group, PAYOFF_BATCH, STEPS)[0]:.3f}")
         bound, bound_by = bound_ms(group, CHUNK, STEPS)
         path_steps = CHUNK * ROWS * COLS * STEPS
         cap = LANES_PER_CLOCK * max_sm_hz / per_step[group]
@@ -1337,7 +1469,7 @@ def phase_kernel(
               kernel_path_steps_per_s=f"{path_steps / ms * 1e3:.4e}",
               plain_path_steps_per_s=f"{path_steps / plain_ms * 1e3:.4e}",
               instruction_cap_path_steps_per_s=f"{cap:.4e}",
-              share_of_instruction_cap=f"{path_steps / ms * 1e3 / cap:.4f}")
+              share_of_instruction_cap=f"{path_steps / ms * 1e3 / cap:.4f}", **launched)
     # the continuous Heston payoffs' paths past KERNEL_RTOL, and their cause
     phase("kernel-heston-past-rtol", **past, max_rel_cap=HESTON_CAP_RTOL,
           share_allowed=HESTON_SHARE, low_variance_below=HESTON_LOW_VARIANCE)
@@ -1896,7 +2028,11 @@ def phase_basket_kernel(
 
 
 QMC_CONTRACTS = 4  # contracts per generator case at the production 2048 x 512 points
-QMC_CASES = [(STEPS, 1, 0), (STEPS, 2, 37 * COLS), (STEPS, 3, 0), (32, 3, 5 * COLS)]
+QMC_CASES = [(STEPS, 1, 0), (STEPS, 2, 37 * COLS), (STEPS, 3, 0), (32, 3, 5 * COLS),
+             (8, 1, 1021), (64, 1, 99)]
+# #13 at the shape the main path launches it: the SOBOL_BB family steps of
+# phase 16 (PAYOFF_BATCH contracts) at one, two and three factors
+QMC_LAUNCHED_FACTORS = (1, 2, 3)
 WORD_ULPS = 2  # identity-bridge normals: kernel vs twin, in float32 ulps (log1pf)
 BRIDGE_ATOL = 1e-5  # bridged normals: the ulps above through T multiply-adds, |B| <= 1
 
@@ -1939,16 +2075,36 @@ def walk_bridge(bridge: torch.Tensor) -> torch.Tensor:
     return bridge.cpu() if hasattr(qmc_cuda, "sparse_walk") else bridge
 
 
+def bridge_choice() -> bool:
+    """Whether this tree's #13 has a sparse and a dense instantiation
+    (``bridge_normals(..., dense=)``; an older tree has the dense one only)."""
+    return "dense" in inspect.signature(qmc_cuda.bridge_normals).parameters
+
+
+def bridge_instantiation(bridge: torch.Tensor, steps: int) -> str:
+    """The instantiation of #13 that ``bridge_normals`` launches."""
+    return "sparse" if qmc_cuda.sparse_walk(bridge, steps) else "dense"
+
+
+def main_bridge_args(kw: dict[str, object]) -> dict[str, object]:
+    """``bridge_normals``' arguments as the main path passes them: the bridge
+    on the CPU where the wrapper reads its zeros there, else on the card."""
+    return dict(kw, bridge=kw["bridge"].cpu()) if bridge_choice() else kw
+
+
 def phase_qmc_kernel(device: torch.device, qmc_sass: dict[str, object],
                      max_sm_hz: float) -> dict[str, dict[str, object]]:
-    """Kernel #13 against its twin for F = 1, 2, 3 and a padded case (T·F >
-    64): the Sobol words equal, the normals (identity bridge) within
-    ``WORD_ULPS`` ulps, the bridged normals within ``BRIDGE_ATOL``; kernel
+    """Kernel #13 against its twin for F = 1, 2, 3, a padded case (T·F >
+    64) and T = 8 and 64: the Sobol words equal, the normals (identity
+    bridge) within ``WORD_ULPS`` ulps, the bridged normals within
+    ``BRIDGE_ATOL``, and in a tree with a sparse instantiation the output
+    equal bit for bit to the twin's and to the dense instantiation's; kernel
     #14 equal bit for bit to #13 walked by the torch scan and to its twin
     (``WALK_CASES``); each timed at 4 contracts of 2048 x 512 points (CUDA
-    events; the twin's second call) beside its bound, #14 also at the
-    training chunk with its SASS a point (``qmc_sass``) against the
-    instruction cap."""
+    events; the twin's second call) beside its bound, #13 also at the shape
+    the main path launches it (``PAYOFF_BATCH``, F = 1, 2, 3; its
+    dense instantiation beside it), #14 at the training chunk, each with its
+    SASS a point (``qmc_sass``) against the instruction cap."""
     record = {"qmc_bridge": {"max_abs_err": 0.0, "cases": 0},
               "qmc_walk": {"max_abs_err": 0.0, "cases": 0}}
     for steps, factors, start in QMC_CASES:
@@ -1956,7 +2112,7 @@ def phase_qmc_kernel(device: torch.device, qmc_sass: dict[str, object],
         sdims = kw["directions"].shape[0]
         words = torch.empty((QMC_CONTRACTS, sdims, ROWS * COLS), dtype=torch.int32,
                             device=device)
-        got = qmc_cuda.bridge_normals(**kw, words_out=words)
+        got = qmc_cuda.bridge_normals(**main_bridge_args(kw), words_out=words)
         want_words = qmc_cuda.sobol_words(kw["directions"], kw["shift"], start, ROWS * COLS)
         if not torch.equal(words.to(torch.int64) & rng.MASK32, want_words):
             raise AssertionError(f"qmc words differ at T={steps} F={factors}")
@@ -1970,12 +2126,22 @@ def phase_qmc_kernel(device: torch.device, qmc_sass: dict[str, object],
         err = float((got - want).abs().max())
         if ulps > WORD_ULPS or err > BRIDGE_ATOL or not bool(torch.isfinite(got).all()):
             raise AssertionError(f"qmc bridge T={steps} F={factors}: {ulps} ulps, err {err}")
+        twin_equal, exact = bool(torch.equal(got, want)), {}
+        if bridge_choice():
+            dense = qmc_cuda.bridge_normals(**kw, dense=True)
+            exact = dict(instantiation=bridge_instantiation(kw["bridge"], steps),
+                         bit_equal_to_dense=bool(torch.equal(got, dense)))
+            del dense
+            if not (twin_equal and exact["bit_equal_to_dense"]):
+                raise AssertionError(f"qmc bridge T={steps} F={factors} start {start}: "
+                                     f"{exact['instantiation']} output not the twin's and the "
+                                     "dense instantiation's bit for bit")
         r = record["qmc_bridge"]
         r.update(max_abs_err=max(r["max_abs_err"], err), cases=r["cases"] + 1)
         phase("kernel-qmc", kernel="qmc_bridge", timesteps=steps, factors=factors,
               padded_dims=steps * factors - sdims, start=start, words_equal=True,
               normal_max_ulps=ulps, ulps_allowed=WORD_ULPS, bridged_max_abs_err=f"{err:.3e}",
-              atol=BRIDGE_ATOL)
+              atol=BRIDGE_ATOL, bit_equal_to_twin=twin_equal, **exact)
         del got, want
     for steps, start, count in WALK_CASES:
         kw = dict(qmc_inputs(device, QMC_CONTRACTS, steps, 1, start), count=count)
@@ -2008,7 +2174,7 @@ def phase_qmc_kernel(device: torch.device, qmc_sass: dict[str, object],
     main_args = dict(bridge_args, bridge=walk_bridge(kw["bridge"]))
     scalars = walk_scalars(device, QMC_CONTRACTS)
     timed = {
-        "qmc_bridge": (lambda: qmc_cuda.bridge_normals(**kw),
+        "qmc_bridge": (lambda: qmc_cuda.bridge_normals(**main_bridge_args(kw)),
                        lambda: qmc_cuda.bridge_normals_plain(**kw),
                        qmc_bound_ms(QMC_CONTRACTS, STEPS, 1, ROWS * COLS)),
         "qmc_walk": (lambda: qmc_cuda.walk_acc(**main_args, log_spot=scalars[0],
@@ -2032,6 +2198,29 @@ def phase_qmc_kernel(device: torch.device, qmc_sass: dict[str, object],
               kernel_ms=f"{ms:.3f}", plain_ms=f"{record[name]['plain_ms']:.3f}",
               bound_ms=f"{bound:.4f}", bound_by=bound_by, share_of_bound=f"{bound / ms:.4f}",
               points_per_s=f"{QMC_CONTRACTS * ROWS * COLS / ms * 1e3:.4e}")
+    bridge_split = qmc_sass.get("bridge", {})
+    shapes = [(QMC_CONTRACTS, 1)] + [(PAYOFF_BATCH, f) for f in QMC_LAUNCHED_FACTORS]
+    for contracts, factors in shapes:
+        big = qmc_inputs(device, contracts, STEPS, factors, 0)
+        ms = cuda_ms(lambda: qmc_cuda.bridge_normals(**main_bridge_args(big)), iters=5)
+        dense = {}
+        if bridge_choice():
+            dense = dict(instantiation=bridge_instantiation(big["bridge"], STEPS), dense_ms=(
+                f"{cuda_ms(lambda: qmc_cuda.bridge_normals(**big, dense=True), iters=5):.3f}"))
+        bound, bound_by = qmc_bound_ms(contracts, STEPS, factors, ROWS * COLS)
+        points = contracts * ROWS * COLS
+        cap = {}
+        if factors == 1 and "total" in bridge_split:
+            per_point = LANES_PER_CLOCK * max_sm_hz / bridge_split["total"]
+            cap = dict(sass_per_point=bridge_split["total"],
+                       share_of_instruction_cap=f"{points / ms * 1e3 / per_point:.4f}")
+        phase("kernel-qmc-time", kernel="qmc_bridge",
+              shape=f"{contracts}x{ROWS}x{COLS}x{STEPS}", factors=factors, kernel_ms=f"{ms:.3f}",
+              **dense, bound_ms=f"{bound:.4f}", bound_by=bound_by,
+              share_of_bound=f"{bound / ms:.4f}", points_per_s=f"{points / ms * 1e3:.4e}",
+              launched_shape=contracts == PAYOFF_BATCH, **cap)
+        del big
+        torch.cuda.empty_cache()
     chunk = dict(main_args, shift=kw["shift"].repeat(CHUNK // QMC_CONTRACTS, 1))
     big = tuple(x.repeat(CHUNK // QMC_CONTRACTS) for x in scalars)
     ms = cuda_ms(lambda: qmc_cuda.walk_acc(**chunk, log_spot=big[0], drift=big[1],
@@ -2323,17 +2512,19 @@ def walk_or_longest(loops: list[list[tuple[int, str]]]) -> list[tuple[int, str]]
     return walk_loop(loops) if any(walks(b) for b in loops) else max(loops, key=len)
 
 
-def monitor_sass_count(text: str, piece: str, **rolled: bool) -> tuple[float, str]:
+def monitor_sass_count(text: str, piece: str, draws_per_step: int = 1,
+                       **rolled: bool) -> tuple[float, str]:
     """SASS instructions one path-step of a monitor kernel executes at
     ``every = 1``. A kernel with a loop that walks whole Philox calls for
-    that grid (``walk_loop``; one draw a step) counts it by
+    that grid (``walk_loop``; ``draws_per_step`` draws a step) counts it by
     ``loop_weights``' rule; one whose date and step loops are rolled by
     ``american_sass_count``'s (``rolled`` its options)."""
     block = next(b for b in text.split("Function : ")[1:] if piece in b.split()[0])
     if not any(walks(b) for b in loop_bodies(block)):
         return american_sass_count(text, piece, **rolled)
     weights, steps, found = loop_weights(block, piece, pick_loop=walk_loop,
-                                         single_step=lambda group: False, draws_per_step=1)
+                                         single_step=lambda group: False,
+                                         draws_per_step=draws_per_step)
     return sum(w for _, _, w in weights) / steps, found
 
 
@@ -2401,16 +2592,20 @@ def american_sass_count(text: str, piece: str, *, skip_inner: bool = True,
 
 
 def american_sass_split(gbm: object, dynamics: object) -> None:
-    """The ``sass-split`` lines of the GBM and Heston monitor kernels' walk
-    loops at ``every = 1`` (one draw a step)."""
-    for kernel, library, piece in (("american_gbm", gbm, "american_gbm_kernel"),
-                                   ("american_heston", dynamics, "american_heston_kernel")):
+    """The ``sass-split`` lines of the GBM, Heston and 3-asset basket
+    monitor kernels' walk loops at ``every = 1`` (one draw a step; the
+    basket two)."""
+    for kernel, library, piece, draws in (
+            ("american_gbm", gbm, "american_gbm_kernel", 1),
+            ("american_heston", dynamics, "american_heston_kernel", 1),
+            ("american_basket3_arithmetic", dynamics, "american_basket_kernelILi3ELb0E", 2),
+            ("american_basket3_geometric", dynamics, "american_basket_kernelILi3ELb1E", 2)):
         try:  # a measurement only: a toolkit without nvdisasm or line info prints why
             sass = cuobjdump_sass(library)
             block = next(b for b in sass.split("Function : ")[1:] if piece in b.split()[0])
             if not any(walks(b) for b in loop_bodies(block)):
                 raise AssertionError(f"{piece} has no loop over whole Philox calls")
-            split = sass_split(sass, nvdisasm_text(library), piece, draws_per_step=1,
+            split = sass_split(sass, nvdisasm_text(library), piece, draws_per_step=draws,
                                pick_loop=walk_loop)
         except (AssertionError, OSError, StopIteration, subprocess.CalledProcessError) as err:
             split = {"error": repr(err)[:300]}
@@ -2931,26 +3126,33 @@ def check_american_merton_counts(device: torch.device) -> int:
 
 def dynamics_sass_per_step(library: object) -> dict[str, tuple[float, str]]:
     """SASS instructions one path-step of each monitor kernel executes at
-    ``every = 1``: Heston's walk over whole Philox calls
-    (``monitor_sass_count``), the others by ``american_sass_count``'s rule
-    on the whole monitor loop, the one-step inner loop included (the Merton
-    kernel calls Philox every step, the basket every other draw)."""
+    ``every = 1``: the Heston and basket walks over whole Philox calls
+    (``monitor_sass_count``; a 3-asset basket step takes two draws), the
+    Merton kernel by ``american_sass_count``'s rule on the whole monitor
+    loop, the one-step inner loop included (it calls Philox every step); a
+    build whose basket kernel draws pair by pair the same way (Philox every
+    other draw)."""
     text = cuobjdump_sass(library)
-    pieces = {"merton": "american_merton_kernel",
-              "basket3_arithmetic": "american_basket_kernelILi3ELb0E",
-              "basket3_geometric": "american_basket_kernelILi3ELb1E"}
+    baskets = {"basket3_arithmetic": "american_basket_kernelILi3ELb0E",
+               "basket3_geometric": "american_basket_kernelILi3ELb1E"}
     return {"heston": monitor_sass_count(text, "american_heston_kernel", skip_inner=False),
-            **{case: american_sass_count(text, piece, skip_inner=False,
-                                         halve_philox=case != "merton")
-               for case, piece in pieces.items()}}
+            "merton": american_sass_count(text, "american_merton_kernel", skip_inner=False,
+                                          halve_philox=False),
+            **{case: monitor_sass_count(text, piece, draws_per_step=2, skip_inner=False)
+               for case, piece in baskets.items()}}
 
 
-DYNAMICS_TIMED = {  # case -> (contracts, record name)
-    "heston": (CHUNK, "american_heston"),
-    "merton": (CHUNK, "american_merton"),
-    "basket3_arithmetic": (BASKET_TIMED_CONTRACTS, "american_basket"),
-    "basket3_geometric": (BASKET_TIMED_CONTRACTS, None),
-}
+DYNAMICS_TIMED = [  # (case, contracts, record name): the twin timed with a record, and at 32
+    ("heston", CHUNK, "american_heston"),
+    ("merton", CHUNK, "american_merton"),
+    ("basket3_arithmetic", BASKET_TIMED_CONTRACTS, "american_basket"),
+    ("basket3_geometric", BASKET_TIMED_CONTRACTS, None),
+    # the Merton and basket kernels at the batch-64 steps that launch them
+    # (phase 26), the basket at the chunk besides
+    ("merton", PAYOFF_BATCH, None),
+    *((case, contracts, None) for contracts in (PAYOFF_BATCH, CHUNK)
+      for case in ("basket3_arithmetic", "basket3_geometric")),
+]
 
 
 def phase_kernel_american_dynamics(
@@ -2993,16 +3195,19 @@ def phase_kernel_american_dynamics(
           merton_jumps_equal_to_the_twins=check_american_merton_counts(device),
           paths=2 * ROWS * COLS, dates=STEPS // 4)
     record = {}
-    for case, (contracts, name) in DYNAMICS_TIMED.items():
+    for case, contracts, name in DYNAMICS_TIMED:
         family = DYNAMICS_KERNELS[case][0]
         params, keys = kernel_inputs(device, contracts, 1, family)
         kw = dict(timesteps=STEPS, rows=ROWS, cols=COLS, exercise_every=1)
         torch.cuda.empty_cache()
         ms = cuda_ms(lambda: dynamics_rows(case, params, keys, **kw))
         torch.cuda.empty_cache()
-        plain_ms = cuda_ms(lambda: dynamics_rows(case, params, keys, plain=True, **kw),
-                           iters=1, warmup=1)
-        torch.cuda.empty_cache()
+        plain = {}
+        if name is not None or contracts == BASKET_TIMED_CONTRACTS:
+            plain_ms = cuda_ms(lambda: dynamics_rows(case, params, keys, plain=True, **kw),
+                               iters=1, warmup=1)
+            plain = dict(plain_ms=f"{plain_ms:.3f}")
+            torch.cuda.empty_cache()
         bound, bound_by = dynamics_bound_ms(case, contracts, STEPS)
         per_step, found = sass[case]
         path_steps = contracts * ROWS * COLS * STEPS
@@ -3010,7 +3215,7 @@ def phase_kernel_american_dynamics(
         outputs = 2 if case in ("heston", "basket3_arithmetic") else 1
         phase("kernel-american-dynamics-time", kernel=case,
               shape=f"{contracts}x{ROWS}x{COLS}x{STEPS}", every=1, kernel_ms=f"{ms:.3f}",
-              plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound:.3f}", bound_by=bound_by,
+              **plain, bound_ms=f"{bound:.3f}", bound_by=bound_by,
               share_of_bound=f"{bound / ms:.4f}",
               output_gb=round(outputs * path_steps * 4 / 1e9, 3),
               sass_per_path_step=round(per_step, 3), sass_loop=found,

@@ -6,10 +6,12 @@ package carries the main path — Sobol contracts → Monte-Carlo → FFT → CV
 Adam, with snapshot/resume and serving — on PyTorch for GBM (flat or under
 piecewise-constant term structures), Heston, Merton and basket dynamics,
 pseudo-random or Sobol/Brownian-bridge paths and every payoff (the American
-ones, by Longstaff–Schwartz regression, under GBM), with the MC hot loop in
-hand-written CUDA kernels for Hopper (``csrc/gbm_paths.cu``,
-``csrc/dynamics_paths.cu``, ``csrc/basket_paths.cu``, ``csrc/qmc_paths.cu``,
-``csrc/american_paths.cu``).
+ones, by Longstaff–Schwartz regression, under GBM, Heston, Merton and
+baskets), with the MC hot loop in hand-written CUDA kernels for Hopper
+(``csrc/gbm_paths.cu``, ``csrc/dynamics_paths.cu``, ``csrc/basket_paths.cu``,
+``csrc/qmc_paths.cu``, ``csrc/american_paths.cu``,
+``csrc/american_dynamics.cu``, and the LSMC backwards
+``csrc/lsmc_backward.cu`` and ``csrc/lsmc_two_state.cu``).
 It imports neither JAX nor the JAX package; the tests hold it against both.
 """
 
@@ -31,6 +33,7 @@ _EXPORTS = {
     "SamplingKind": "spectralmc_tpu_torch.ops.gbm",
     "TermStructure": "spectralmc_tpu_torch.ops.gbm",
     "bootstrap_vol_shape": "spectralmc_tpu_torch.ops.gbm",
+    "term_effective_black": "spectralmc_tpu_torch.ops.analytic",
     "HestonContract": "spectralmc_tpu_torch.ops.heston",
     "heston_call_price": "spectralmc_tpu_torch.ops.heston",
     "MertonContract": "spectralmc_tpu_torch.ops.merton",
@@ -38,6 +41,9 @@ _EXPORTS = {
     "BasketCombine": "spectralmc_tpu_torch.ops.basket",
     "BasketSpec": "spectralmc_tpu_torch.ops.basket",
     "build_basket_spec": "spectralmc_tpu_torch.ops.basket",
+    "lsmc_price": "spectralmc_tpu_torch.ops.american",
+    "bermudan_tree_price": "spectralmc_tpu_torch.ops.american",
+    "OptionSide": "spectralmc_tpu_torch.ops.american",
     "black_scholes_price": "spectralmc_tpu_torch.ops.analytic",
     "geometric_basket_price": "spectralmc_tpu_torch.ops.analytic",
     "BoundSpec": "spectralmc_tpu_torch.ops.sobol",

@@ -29,13 +29,16 @@
 // nothing else changes. These are the american_merton_jump v1 stream and
 // american_heston and american_basket_gbm v2 (Heston's Box–Muller on fixed
 // roundings, heston_step.cuh; the basket's on the SFU). At every = 1, the
-// main path's grid, the Heston kernel walks whole Philox calls, two dates a
-// call with every word's place fixed when compiling (walk_draws, as
-// heston_paths_kernel walks its steps), and stores through pointers that
-// move one row of paths a date. Its other grids and the Merton and basket
-// kernels keep their date and step loops rolled (#pragma unroll 1), so the
-// SASS of one date at every = 1 is one step and its stores; a date of odd
-// length takes its draws one by one (PathStream::draw).
+// main path's grid, the Heston and basket kernels walk whole Philox calls
+// with every word's place fixed when compiling (walk_draws, as
+// heston_paths_kernel and basket_paths_kernel walk their steps: Heston two
+// dates a call, the basket ⌈A/2⌉ draws a date, an odd pair count two dates
+// an iteration and an odd tail date), and store through pointers that move
+// one row of paths a date. walk_draws reads the words PathStream::draw
+// reads, so the rows are the rolled loop's bit for bit. Their other grids
+// and the Merton kernel keep their date and step loops rolled (#pragma
+// unroll 1), so the SASS of one Merton date at every = 1 is one step and its
+// stores; a date of odd length takes its draws one by one (PathStream::draw).
 //
 // What they drop is what the TPU needed: the hardware PRNG, the VMEM block
 // budget (_monitor_block_rows), the 256x256 blocks and the polynomial sine.
@@ -188,6 +191,22 @@ __global__ void american_basket_kernel(const float* __restrict__ params,
   const BasketCoeffs<kA> k = basket_coeffs<kA>(params + 6 * c, timesteps, spec, logx);
   const int monitors = timesteps / every;
   const int64_t base = static_cast<int64_t>(c) * monitors * n + local;
+  if (every == 1) {  // the main path's grid: a date a step, whole Philox calls
+    float* po = price + base;
+    float* dp = kGeo ? nullptr : disp + base;
+    walk_draws<kPairs>(s, timesteps, [&](int, const uint2 (&d)[kPairs]) {
+      float inc[kA];
+      basket_step<kA>(spec, k, sign, d, logx, inc);
+      const float value = basket_value<kA, kGeo>(logx, spec);
+      *po = value;
+      po += n;
+      if constexpr (!kGeo) {
+        *dp = logf(value) - log_geometric<kA>(logx, spec);
+        dp += n;
+      }
+    });
+    return;
+  }
   int j = 0;
 #pragma unroll 1
   for (int d = 0; d < monitors; ++d) {

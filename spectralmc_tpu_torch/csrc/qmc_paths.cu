@@ -59,6 +59,25 @@
 //     slot of an SM filled) it ran 12.25 ms at 256 x 2048 x 512 points
 //     against 14.04 for 4 points at 64 registers and half the slots, though
 //     it issues 9% more a point (chip_variants.py; PERF.md §6).
+// The bridge kernel has the same sparse instantiation at those step counts,
+// qmc_bridge_sparse_kernel, launched under the same host check (sparse = 1,
+// ops/qmc_cuda.py::sparse_walk); every other T or matrix keeps the dense
+// qmc_bridge_kernel. A thread takes kQuad consecutive points with the
+// Gray-stepped words of the flat dimensions the Sobol table covers (at most
+// 64, the tables' kMaxDims rows); the dimensions from sdims up are read
+// from the pad input per point. For each factor f in turn, row t's sum runs
+// over its m + 1 non-zeros in ascending column, each normal (flat dimension
+// l·F + f) made when its column enters and dropped after its last row, so
+// the output is the dense kernel's and the twin's bit for bit. A factor none
+// of whose dimensions is padded (the main path's every factor) runs a copy
+// of its rows without the pad test, so its normals schedule as the walk's
+// do. A thread stores its points' value of each (t, f) row as one float2
+// where count and start keep the pair aligned (plain stores at the range's
+// edges), so a warp's stores stay on consecutive addresses. It shares the
+// walk's 32-register cap (kQuadMinBlocks): though it spills there, it ran
+// within 1% of 40 registers or ahead, and ahead of 48 to 80 registers and of
+// the dense kernel, at T = 16 and 64 (chip_variants.py on an NVIDIA H100;
+// PERF.md §6).
 //
 // Contract: launches on the given stream, allocates nothing, does not
 // synchronise; each C entry point returns cudaGetLastError().
@@ -293,7 +312,7 @@ __global__ void qmc_walk_kernel(const uint32_t* __restrict__ dirs,
 }
 
 // ---------------------------------------------------------------------------
-// The sparse walk: T = 2^kLog steps, 4 points a thread.
+// The sparse walk and bridge: T = 2^kLog steps, kQuad points a thread.
 // ---------------------------------------------------------------------------
 
 constexpr int kQuad = 2;                      // consecutive points a thread: 2 or 4
@@ -308,22 +327,62 @@ __host__ __device__ constexpr int bridge_col(int log_t, int t, int d) {
   return d == 0 ? 0 : (1 << (d - 1)) + (t >> (log_t - d + 1));
 }
 
-// What a sparse-walk block shares: V[k][0..9] (padded to 12, three uint4
-// reads), c_hi[k] and each row's m + 1 non-zeros (padded to 8, two float4
-// reads).
-template <int kT>
+// log2 of a sparse instantiation's step count.
+__host__ __device__ constexpr int log2_steps(int t) {
+  return t == 8 ? 3 : t == 16 ? 4 : t == 32 ? 5 : 6;
+}
+
+// What a sparse block shares: V[k][0..9] (padded to 12, three uint4 reads)
+// and c_hi[k] for the kDims Sobol dimensions, and each of the kT rows' m + 1
+// non-zeros (padded to 8, two float4 reads).
+template <int kT, int kDims>
 struct QuadTables {
-  uint32_t dir[kT][12];
-  uint32_t c_hi[kT];
+  uint32_t dir[kDims][12];
+  uint32_t c_hi[kDims];
   float row[kT][8];
 };
+
+// Fills a sparse block's tables: c_hi[k] is the contract's shift and the
+// directions of the block's gray bits from kQuadLowBits up; base is the
+// block's first point index.
+template <int kT, int kDims>
+__device__ __forceinline__ void fill_quad_tables(QuadTables<kT, kDims>& tab,
+                                                 const uint32_t* __restrict__ dirs,
+                                                 const uint32_t* __restrict__ shift_c, int sdims,
+                                                 const float* __restrict__ bridge, uint32_t base) {
+  constexpr int kLog = log2_steps(kT);
+  constexpr int kLevels = kLog + 1;
+  static_assert((1 << kLog) == kT && kLevels <= 8, "T = 8, 16, 32 or 64");
+  const uint32_t gray_hi = (base ^ (base >> 1)) & ~(kQuadBlock - 1u);
+  for (int k = threadIdx.x; k < sdims; k += blockDim.x) {
+    uint32_t acc = shift_c[k];
+    for (int b = kQuadLowBits; b < kBits; ++b) {
+      if ((gray_hi >> b) & 1u) acc ^= dirs[k * kBits + b];
+    }
+    tab.c_hi[k] = acc;
+#pragma unroll
+    for (int b = 0; b < 12; ++b) tab.dir[k][b] = b < kQuadLowBits ? dirs[k * kBits + b] : 0u;
+  }
+  for (int i = threadIdx.x; i < kT * 8; i += blockDim.x) {
+    const int t = i / 8, d = i % 8;
+    tab.row[t][d] = d < kLevels ? bridge[t * kT + bridge_col(kLog, t, d < kLevels ? d : 0)]
+                                : 0.0f;
+  }
+}
+
+// The first point's low gray bits as masks (all ones where bit b is set).
+__device__ __forceinline__ void quad_mask(uint32_t n0, uint32_t (&mask)[kQuadLowBits]) {
+  const uint32_t g = n0 ^ (n0 >> 1);
+#pragma unroll
+  for (int b = 0; b < kQuadLowBits; ++b) mask[b] = 0u - ((g >> b) & 1u);
+}
 
 // The thread's points' words of dimension k: c_hi[k] XOR the first point's
 // own gray bits (mask[b] all ones where bit b is set; bit 0 of gray(4q) is
 // 0), then one direction a point: gray(n) ^ gray(n - 1) is bit ctz(n), so
 // V[k][0] (and for 4 points then V[k][1] and V[k][0] again).
-template <int kT>
-__device__ __forceinline__ void quad_words(const QuadTables<kT>& tab,
+template <int kT, int kDims>
+__device__ __forceinline__ void quad_words(const QuadTables<kT, kDims>& tab,
                                            const uint32_t (&mask)[kQuadLowBits], int k,
                                            uint32_t (&w)[kQuad]) {
   const uint4* v = reinterpret_cast<const uint4*>(tab.dir[k]);
@@ -335,6 +394,15 @@ __device__ __forceinline__ void quad_words(const QuadTables<kT>& tab,
   w[0] = x;
 #pragma unroll
   for (int i = 1; i < kQuad; ++i) w[i] = w[i - 1] ^ dir[(i & 1) ? 0 : 1];
+}
+
+// Row t's kLevels non-zeros, from the tables.
+template <int kT, int kDims>
+__device__ __forceinline__ void row_of(const QuadTables<kT, kDims>& tab, int t, float (&b)[8]) {
+  const float4* r = reinterpret_cast<const float4*>(tab.row[t]);
+  const float4 lo = r[0], hi = r[1];
+  b[0] = lo.x, b[1] = lo.y, b[2] = lo.z, b[3] = lo.w;
+  b[4] = hi.x, b[5] = hi.y, b[6] = hi.z, b[7] = hi.w;
 }
 
 // Row t's bridged normals of the thread's points: Σ_d B[t][col(t, d)]·z[col]
@@ -357,38 +425,19 @@ __global__ void __launch_bounds__(kThreads, kQuadMinBlocks) qmc_walk_sparse_kern
     const uint32_t* __restrict__ dirs, const uint32_t* __restrict__ shift,
     const float* __restrict__ bridge, const float* __restrict__ scalars,
     float* __restrict__ out, int64_t count, uint32_t start) {
-  constexpr int kLog = kT == 8 ? 3 : kT == 16 ? 4 : kT == 32 ? 5 : 6;
+  constexpr int kLog = log2_steps(kT);
   constexpr int kLevels = kLog + 1;
-  static_assert((1 << kLog) == kT && kLevels <= 8, "T = 8, 16, 32 or 64");
-  __shared__ __align__(16) QuadTables<kT> tab;
+  __shared__ __align__(16) QuadTables<kT, kT> tab;
   const int c = blockIdx.y;
   const uint32_t lead = start & (kQuadBlock - 1);
   const uint32_t base = (start - lead) + static_cast<uint32_t>(blockIdx.x) * kQuadBlock;
-  const uint32_t* shift_c = shift + static_cast<int64_t>(c) * kT;
-  const uint32_t gray_hi = (base ^ (base >> 1)) & ~(kQuadBlock - 1u);
-  for (int k = threadIdx.x; k < kT; k += blockDim.x) {
-    uint32_t acc = shift_c[k];
-    for (int b = kQuadLowBits; b < kBits; ++b) {
-      if ((gray_hi >> b) & 1u) acc ^= dirs[k * kBits + b];
-    }
-    tab.c_hi[k] = acc;
-#pragma unroll
-    for (int b = 0; b < 12; ++b) tab.dir[k][b] = b < kQuadLowBits ? dirs[k * kBits + b] : 0u;
-  }
-  for (int i = threadIdx.x; i < kT * 8; i += blockDim.x) {
-    const int t = i / 8, d = i % 8;
-    tab.row[t][d] = d < kLevels ? bridge[t * kT + bridge_col(kLog, t, d < kLevels ? d : 0)]
-                                : 0.0f;
-  }
+  fill_quad_tables(tab, dirs, shift + static_cast<int64_t>(c) * kT, kT, bridge, base);
   __syncthreads();
   // this thread's points: p0 .. p0 + kQuad - 1 of [0, count)
   const int64_t p0 = static_cast<int64_t>(blockIdx.x) * kQuadBlock + kQuad * threadIdx.x - lead;
   if (p0 + kQuad <= 0 || p0 >= count) return;
-  const uint32_t n0 = base + kQuad * threadIdx.x;
-  const uint32_t g = n0 ^ (n0 >> 1);
   uint32_t mask[kQuadLowBits];
-#pragma unroll
-  for (int b = 0; b < kQuadLowBits; ++b) mask[b] = 0u - ((g >> b) & 1u);
+  quad_mask(base + kQuad * threadIdx.x, mask);
   const float log_spot = scalars[3 * c], drift = scalars[3 * c + 1],
               vol_sdt = scalars[3 * c + 2];
   float z[kT][kQuad];
@@ -406,16 +455,13 @@ __global__ void __launch_bounds__(kThreads, kQuadMinBlocks) qmc_walk_sparse_kern
       if (t % span == 0) {
         const int l = bridge_col(kLog, t, d);
         uint32_t w[kQuad];
-        quad_words<kT>(tab, mask, l, w);
+        quad_words(tab, mask, l, w);
 #pragma unroll
         for (int i = 0; i < kQuad; ++i) z[l][i] = word_normal(w[i]);
       }
     }
     float b[8];
-    const float4* r = reinterpret_cast<const float4*>(tab.row[t]);
-    const float4 lo = r[0], hi = r[1];
-    b[0] = lo.x, b[1] = lo.y, b[2] = lo.z, b[3] = lo.w;
-    b[4] = hi.x, b[5] = hi.y, b[6] = hi.z, b[7] = hi.w;
+    row_of(tab, t, b);
     float e[kQuad];
     bridge_row<kT, kLevels>(b, z, t, kLog, e);
 #pragma unroll
@@ -440,6 +486,131 @@ __global__ void __launch_bounds__(kThreads, kQuadMinBlocks) qmc_walk_sparse_kern
   }
 }
 
+// The thread's points' words of every Sobol dimension into words_out
+// [sdims, count] (checks only).
+template <int kT, int kDims>
+__device__ __forceinline__ void copy_words(const QuadTables<kT, kDims>& tab,
+                                           const uint32_t (&mask)[kQuadLowBits], int sdims,
+                                           const bool (&in)[kQuad], int64_t count,
+                                           uint32_t* __restrict__ words_c) {
+  for (int k = 0; k < sdims; ++k) {
+    uint32_t w[kQuad];
+    quad_words(tab, mask, k, w);
+#pragma unroll
+    for (int i = 0; i < kQuad; ++i) {
+      if (in[i]) words_c[static_cast<int64_t>(k) * count + i] = w[i];
+    }
+  }
+}
+
+// The thread's points' padded normals of one flat dimension (col: that
+// dimension's row of the pad input at the first point); 0 off the range.
+__device__ __forceinline__ void pad_normals(const float* __restrict__ col,
+                                            const bool (&in)[kQuad], float (&z)[kQuad]) {
+#pragma unroll
+  for (int i = 0; i < kQuad; ++i) z[i] = in[i] ? col[i] : 0.0f;
+}
+
+// The thread's points' values of one output row: one vector store where
+// the pair is aligned and whole, else one store a point on the range.
+__device__ __forceinline__ void store_row(float* __restrict__ o, const float (&e)[kQuad],
+                                          const bool (&in)[kQuad], bool vec) {
+  if (vec) {
+    if constexpr (kQuad == 4) {
+      *reinterpret_cast<float4*>(o) = make_float4(e[0], e[1], e[2], e[3]);
+    } else {
+      *reinterpret_cast<float2*>(o) = make_float2(e[0], e[1]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kQuad; ++i) {
+      if (in[i]) o[i] = e[i];
+    }
+  }
+}
+
+// One factor's T rows of the thread's points, stored from o on (one row of
+// paths every row_stride floats). Each normal is made when its column enters
+// a row: flat dimension l·F + f, a Sobol word below sdims, else (kPadded:
+// some of this factor's dimensions lie past the table) read from pad_c.
+template <int kT, bool kPadded>
+__device__ __forceinline__ void bridge_factor_rows(const QuadTables<kT, kMaxDims>& tab,
+                                                   const uint32_t (&mask)[kQuadLowBits], int f,
+                                                   int factors, int sdims,
+                                                   const float* __restrict__ pad_c, int64_t count,
+                                                   const bool (&in)[kQuad], bool vec,
+                                                   float* __restrict__ o, int64_t row_stride) {
+  constexpr int kLog = log2_steps(kT);
+  constexpr int kLevels = kLog + 1;
+  float z[kT][kQuad];
+#pragma unroll
+  for (int t = 0; t < kT; ++t) {
+#pragma unroll
+    for (int d = 0; d < kLevels; ++d) {  // a column's normals when it enters
+      const int span = d == 0 ? kT : kT >> (d - 1);
+      if (t % span == 0) {
+        const int l = bridge_col(kLog, t, d);
+        const int k = l * factors + f;
+        if (!kPadded || k < sdims) {
+          uint32_t w[kQuad];
+          quad_words(tab, mask, k, w);
+#pragma unroll
+          for (int i = 0; i < kQuad; ++i) z[l][i] = word_normal(w[i]);
+        } else {
+          pad_normals(pad_c + static_cast<int64_t>(k - sdims) * count, in, z[l]);
+        }
+      }
+    }
+    float b[8];
+    row_of(tab, t, b);
+    float e[kQuad];
+    bridge_row<kT, kLevels>(b, z, t, kLog, e);
+    store_row(o, e, in, vec);
+    o += row_stride;
+  }
+}
+
+template <int kT>
+__global__ void __launch_bounds__(kThreads, kQuadMinBlocks) qmc_bridge_sparse_kernel(
+    const uint32_t* __restrict__ dirs, const uint32_t* __restrict__ shift,
+    const float* __restrict__ bridge, const float* __restrict__ pad, float* __restrict__ out,
+    uint32_t* __restrict__ words_out, int factors, int sdims, int64_t count, uint32_t start) {
+  __shared__ __align__(16) QuadTables<kT, kMaxDims> tab;
+  const int c = blockIdx.y;
+  const uint32_t lead = start & (kQuadBlock - 1);
+  const uint32_t base = (start - lead) + static_cast<uint32_t>(blockIdx.x) * kQuadBlock;
+  fill_quad_tables(tab, dirs, shift + static_cast<int64_t>(c) * sdims, sdims, bridge, base);
+  __syncthreads();
+  // this thread's points: p0 .. p0 + kQuad - 1 of [0, count)
+  const int64_t p0 = static_cast<int64_t>(blockIdx.x) * kQuadBlock + kQuad * threadIdx.x - lead;
+  if (p0 + kQuad <= 0 || p0 >= count) return;
+  uint32_t mask[kQuadLowBits];
+  quad_mask(base + kQuad * threadIdx.x, mask);
+  bool in[kQuad];
+#pragma unroll
+  for (int i = 0; i < kQuad; ++i) in[i] = p0 + i >= 0 && p0 + i < count;
+  if (words_out != nullptr) {
+    copy_words(tab, mask, sdims, in, count,
+               words_out + static_cast<int64_t>(c) * sdims * count + p0);
+  }
+  const int flat = kT * factors;
+  const float* pad_c =
+      pad == nullptr ? nullptr : pad + static_cast<int64_t>(c) * (flat - sdims) * count + p0;
+  float* out_c = out + static_cast<int64_t>(c) * flat * count + p0;
+  // every row starts at a multiple of count, and out at a 256-byte boundary
+  const bool vec = p0 >= 0 && p0 + kQuad <= count && count % kQuad == 0 && p0 % kQuad == 0;
+  const int64_t row_stride = static_cast<int64_t>(factors) * count;
+  for (int f = 0; f < factors; ++f) {
+    if ((kT - 1) * factors + f < sdims) {  // every column of this factor a Sobol word
+      bridge_factor_rows<kT, false>(tab, mask, f, factors, sdims, pad_c, count, in, vec,
+                                    out_c + f * count, row_stride);
+    } else {
+      bridge_factor_rows<kT, true>(tab, mask, f, factors, sdims, pad_c, count, in, vec,
+                                   out_c + f * count, row_stride);
+    }
+  }
+}
+
 inline dim3 grid_of(int contracts, int64_t count, uint32_t start, int block_points = kThreads) {
   const int64_t span = static_cast<int64_t>(start & (block_points - 1)) + count;
   return dim3(static_cast<unsigned>((span + block_points - 1) / block_points),
@@ -450,15 +621,16 @@ inline dim3 grid_of(int contracts, int64_t count, uint32_t start, int block_poin
 
 // dirs [sdims, 32] and shift [contracts, sdims] uint32; bridge [T, T] f32; pad
 // [contracts, T·F − sdims, count] f32 or null; out [contracts, T, F, count];
-// words_out [contracts, sdims, count] uint32 or null (checks only).
+// words_out [contracts, sdims, count] uint32 or null (checks only). sparse =
+// 1 (T = 8, 16, 32 or 64, the caller having checked the matrix's zeros)
+// launches qmc_bridge_sparse_kernel, sparse = 0 the dense bridge.
 extern "C" int qmc_bridge_launch(const void* dirs, const void* shift, const void* bridge,
                                  const void* pad, void* out, void* words_out, int contracts,
                                  int timesteps, int factors, int sdims, long long count,
-                                 unsigned start, void* stream) {
+                                 unsigned start, int sparse, void* stream) {
   if (sdims > kMaxDims || sdims > timesteps * factors) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid = grid_of(contracts, count, start);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* dp = static_cast<const uint32_t*>(dirs);
   const uint32_t* sp = static_cast<const uint32_t*>(shift);
@@ -466,6 +638,22 @@ extern "C" int qmc_bridge_launch(const void* dirs, const void* shift, const void
   const float* pp = static_cast<const float*>(pad);
   float* op = static_cast<float*>(out);
   uint32_t* wp = static_cast<uint32_t*>(words_out);
+  if (sparse) {
+    const dim3 quads = grid_of(contracts, count, start, kQuadBlock);
+#define SPARSE(KT)                                                                        \
+  qmc_bridge_sparse_kernel<KT><<<quads, kThreads, 0, st>>>(dp, sp, bp, pp, op, wp, factors, \
+                                                           sdims, count, start)
+    switch (timesteps) {
+      case 8: SPARSE(8); break;
+      case 16: SPARSE(16); break;
+      case 32: SPARSE(32); break;
+      case 64: SPARSE(64); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef SPARSE
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid = grid_of(contracts, count, start);
 #define BRIDGE(KMAXT) \
   qmc_bridge_kernel<KMAXT><<<grid, kThreads, 0, st>>>(dp, sp, bp, pp, op, wp, timesteps, factors, \
                                                        sdims, count, start)

@@ -166,8 +166,8 @@ def qmc_effective_normals_multi(
     if sdims < flat_total:
         pad = qmc_pad_normals(pad_keys, range(sdims, flat_total), rows=rows, cols=cols,
                               row_offset=row_offset, dtype=dtype)
-    bridge = torch.as_tensor(brownian_bridge_matrix(timesteps), dtype=torch.float32,
-                             device=contract_keys.device)
+    # on the host: bridge_normals reads its zeros there and copies it to the card itself
+    bridge = torch.as_tensor(brownian_bridge_matrix(timesteps), dtype=torch.float32)
     out = bridge_normals(directions, shift, bridge, _start(row_offset, cols),
                          timesteps=timesteps, factors=factors, count=rows * cols, pad=pad)
     return out.reshape(contract_keys.shape[0], timesteps, factors, rows, cols).to(dtype)

@@ -10,11 +10,11 @@ drops and is bound by. This module holds, for each,
 
 * the public wrapper (``bridge_normals``, ``walk_acc``): a CPU tensor goes to
   the plain twin; a CUDA tensor launches the kernel, for any step count,
-  factor count and padding, or raises. There is no fallback. ``walk_acc``
-  launches #14's sparse instantiation where ``sparse_walk`` holds (T = 8,
-  16, 32 or 64 and the float32 bridge's zeros exactly the pattern the
-  kernel compiles, ``bridge_pattern``), its dense one elsewhere; both are
-  the twin's sums bit for bit.
+  factor count and padding, or raises. There is no fallback. Each launches
+  its kernel's sparse instantiation where ``sparse_walk`` holds (T = 8, 16,
+  32 or 64 and the float32 bridge's zeros exactly the pattern the kernel
+  compiles, ``bridge_pattern``), its dense one elsewhere; both are the
+  twin's values bit for bit.
 * the plain twin (``bridge_normals_plain``, ``walk_acc_plain``): the same
   words (the defining XOR over ``gray(n)``), the same float32 inverse CDF
   (``qmc._inv_cdf``) and the bridge product accumulated level by level with
@@ -151,11 +151,11 @@ def bridge_pattern(timesteps: int) -> torch.Tensor:
 
 
 def sparse_walk(bridge: torch.Tensor, timesteps: int) -> bool:
-    """Whether #14's sparse instantiation serves ``bridge``: ``T`` is one of
-    ``SPARSE_WALK_STEPS`` and the float32 matrix's non-zeros are exactly
-    ``bridge_pattern(T)``. Read on the host: a bridge on the card is copied
-    back (a synchronisation), so the main path hands ``walk_acc`` its bridge
-    on the CPU."""
+    """Whether the sparse instantiations of #13 and #14 serve ``bridge``:
+    ``T`` is one of ``SPARSE_WALK_STEPS`` and the float32 matrix's non-zeros
+    are exactly ``bridge_pattern(T)``. Read on the host: a bridge on the card
+    is copied back (a synchronisation), so the main path hands ``walk_acc``
+    and ``bridge_normals`` its bridge on the CPU."""
     return timesteps in SPARSE_WALK_STEPS and torch.equal(
         bridge.detach().to("cpu") != 0, _pattern(timesteps))
 
@@ -169,7 +169,7 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library(*LIBRARY).lib
     ll, i, vp, u = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint
-    lib.qmc_bridge_launch.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, ll, u, vp]
+    lib.qmc_bridge_launch.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, ll, u, i, vp]
     lib.qmc_walk_launch.argtypes = [vp, vp, vp, vp, vp, i, i, ll, u, i, vp]
     lib.qmc_bridge_launch.restype = ctypes.c_int
     lib.qmc_walk_launch.restype = ctypes.c_int
@@ -189,6 +189,26 @@ def _on_card(shift: torch.Tensor) -> None:
         raise ValueError(f"at most 65535 contracts per launch, got {shift.shape[0]}")
 
 
+@functools.lru_cache(maxsize=16)
+def _host_bridge(data: bytes, timesteps: int, device: str) -> tuple[torch.Tensor, bool]:
+    """``_bridge_on`` for a bridge on the CPU, once per matrix and card (the
+    copy is read, never written)."""
+    bridge = torch.frombuffer(bytearray(data), dtype=torch.float32).reshape(timesteps, timesteps)
+    return bridge.to(device), sparse_walk(bridge, timesteps)
+
+
+def _bridge_on(bridge: torch.Tensor, timesteps: int,
+               device: torch.device) -> tuple[torch.Tensor, bool]:
+    """``(the bridge on the card, sparse_walk(bridge, T))``. A bridge on the
+    CPU (the main path's) is read and copied once per matrix and card, so a
+    launch adds no copy and no synchronisation; one on the card is read back
+    (a synchronisation)."""
+    if bridge.device.type == "cpu":
+        data = bridge.detach().contiguous().numpy().tobytes()
+        return _host_bridge(data, timesteps, str(device))
+    return bridge.to(device).contiguous(), sparse_walk(bridge, timesteps)
+
+
 def bridge_normals(
     directions: torch.Tensor,
     shift: torch.Tensor,
@@ -200,12 +220,16 @@ def bridge_normals(
     count: int,
     pad: torch.Tensor | None = None,
     words_out: torch.Tensor | None = None,
+    dense: bool = False,
 ) -> torch.Tensor:
     """``[C, T, F, count]`` float32 bridged normals (arguments as
     ``bridge_normals_plain``): CPU tensors run the plain twin, CUDA tensors
-    launch kernel #13 (one launch for the whole contract batch) or raise.
-    ``words_out`` (checks only, CUDA): an int32 ``[C, d, count]`` tensor that
-    receives the raw Sobol words."""
+    launch kernel #13 (one launch for the whole contract batch; its sparse
+    instantiation where ``sparse_walk`` holds) or raise. ``bridge`` may lie on
+    the CPU while the rest lies on the card (the main path's way), as for
+    ``walk_acc``. Checks only, CUDA: ``words_out``, an int32 ``[C, d,
+    count]`` tensor that receives the raw Sobol words; ``dense``, launch the
+    dense instantiation whatever the matrix."""
     sdims = _check(directions, shift, bridge, timesteps, factors, count, pad)
     if shift.device.type == "cpu":
         return bridge_normals_plain(directions, shift, bridge, start, timesteps=timesteps,
@@ -217,14 +241,16 @@ def bridge_normals(
     if words_out is not None and (words_out.shape != (n, sdims, count)
                                   or words_out.dtype != torch.int32):
         raise ValueError(f"words_out must be int32 {(n, sdims, count)}")
+    bb, sparse = _bridge_on(bridge, timesteps, shift.device)
     # held in locals until the launch is enqueued: a freed temporary's memory
     # could be handed to the next one before the kernel reads it
-    table, shifts, bb = _words32(directions), _words32(shift), bridge.contiguous()
+    table, shifts = _words32(directions), _words32(shift)
     status = _library().qmc_bridge_launch(
         table.data_ptr(), shifts.data_ptr(), bb.data_ptr(),
         0 if pad_c is None else pad_c.data_ptr(), out.data_ptr(),
         0 if words_out is None else words_out.data_ptr(), n, timesteps, factors, sdims, count,
-        start & rng.MASK32, torch.cuda.current_stream(shift.device).cuda_stream,
+        start & rng.MASK32, int(sparse and not dense),
+        torch.cuda.current_stream(shift.device).cuda_stream,
     )
     if status != 0:
         raise RuntimeError(f"qmc_bridge_launch failed: cudaError {status}")
@@ -248,8 +274,8 @@ def walk_acc(
     tensors run the plain twin, CUDA tensors launch kernel #14 or raise. One
     factor of at most 64 unpadded steps (``qmc.qmc_walk_supported``).
     ``bridge`` may lie on the CPU while the rest lies on the card (the main
-    path's way): its zeros are read there (``sparse_walk``) and it is copied
-    over from pinned memory without waiting for the stream."""
+    path's way): its zeros are read there (``sparse_walk``) and its copy on
+    the card is made once per matrix (``_bridge_on``)."""
     _check(directions, shift, bridge, timesteps, 1, count, None)
     if timesteps > MAX_DIMENSION:
         raise ValueError(f"the fused walk takes at most {MAX_DIMENSION} unpadded steps")
@@ -260,12 +286,8 @@ def walk_acc(
     n = shift.shape[0]
     scalars = torch.stack([log_spot, drift, vol_sdt], dim=1).to(torch.float32).contiguous()
     out = torch.empty((n, count), dtype=torch.float32, device=shift.device)
-    sparse = sparse_walk(bridge, timesteps)
+    bb, sparse = _bridge_on(bridge, timesteps, shift.device)
     table, shifts = _words32(directions), _words32(shift)
-    if bridge.device.type == "cpu":  # pinned, so the copy does not wait for the stream
-        bb = bridge.contiguous().pin_memory().to(shift.device, non_blocking=True)
-    else:
-        bb = bridge.to(shift.device).contiguous()
     status = _library().qmc_walk_launch(
         table.data_ptr(), shifts.data_ptr(), bb.data_ptr(), scalars.data_ptr(), out.data_ptr(),
         n, timesteps, count, start & rng.MASK32, int(sparse),

@@ -73,6 +73,18 @@ BASKET_KW = dict(weights=(0.5, 0.3, 0.2),
 STEPS, ROWS, COLS = 6, 8, 64
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Each test on one torch thread: the twins and trainer steps are many
+    small ops, which torch's thread pool slows tenfold and more while the
+    suite's other workers hold the cores (past the suite's 120 s limit a
+    test fails)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _kind(family: str) -> str:
     return family.split("_")[0]
 

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
+import torch
 
 from spectralmc_tpu.models import factory as jf
 from spectralmc_tpu.ops import gbm as jgbm
@@ -40,6 +41,18 @@ from spectralmc_tpu_torch.ops import sobol as tsobol
 from spectralmc_tpu_torch.training import step as tstep
 from spectralmc_tpu_torch.training import trainer as ttr
 from test_torch_slice import BOUNDS, _cvnn, _port_from_jax_snapshot, _train
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Each test on one torch thread: its trainer steps are many small ops,
+    which torch's thread pool slows tenfold and more while the suite's other
+    workers hold the cores (past the suite's 120 s limit a test fails)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 SIM = dict(timesteps=6, network_size=16, batches_per_mc_run=2048, mc_seed=5,
            payoff="american_put", normalization="none", lsmc_exercise_every=2)

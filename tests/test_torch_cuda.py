@@ -487,6 +487,41 @@ def test_qmc_bridge_kernel_matches_twin_on_card(steps, factors, start) -> None:
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
+SPARSE_BRIDGE_CASES = [(8, 1, 0), (16, 1, 0), (16, 2, 37), (16, 3, 1021), (32, 3, 1000),
+                       (64, 1, 3), (64, 2, 99)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps,factors,start", SPARSE_BRIDGE_CASES,
+                         ids=[f"T{t}_F{f}_{s}" for t, f, s in SPARSE_BRIDGE_CASES])
+def test_qmc_sparse_bridge_equals_twin_and_dense_on_card(steps, factors, start) -> None:
+    """Exact: the sparse instantiation of #13 (the matrix's zeros are the
+    compiled pattern) equals the dense instantiation on the same inputs and
+    the plain twin, bit for bit, across a thread's pair, a 512-point block
+    and the range's edges, with its bridge handed over on the CPU (the main
+    path's way) or on the card; padded at T = 32, F = 3 and T = 64, F = 2;
+    its words equal the Sobol words."""
+    device = _require_card()
+    count = 3001
+    sdims, dirs, shift, pad_keys, bridge = _qmc_inputs(device, steps, factors)
+    assert qmc_cuda.sparse_walk(bridge, steps)
+    pad = None
+    if sdims < steps * factors:
+        pad = qmc.qmc_pad_normals(pad_keys, range(sdims, steps * factors), rows=1, cols=count,
+                                  row_offset=0)
+    kw = dict(timesteps=steps, factors=factors, count=count, pad=pad)
+    words = torch.empty((2, sdims, count), dtype=torch.int32, device=device)
+    before = gbm_cuda.LAUNCHES_BY_BRANCH["qmc_bridge"]
+    got = qmc_cuda.bridge_normals(dirs, shift, bridge.cpu(), start, words_out=words, **kw)
+    assert gbm_cuda.LAUNCHES_BY_BRANCH["qmc_bridge"] == before + 1
+    assert torch.equal(words.to(torch.int64) & 0xFFFFFFFF,
+                       qmc_cuda.sobol_words(dirs, shift, start, count))
+    again = qmc_cuda.bridge_normals(dirs, shift, bridge, start, **kw)
+    dense = qmc_cuda.bridge_normals(dirs, shift, bridge, start, dense=True, **kw)
+    twin = qmc_cuda.bridge_normals_plain(dirs, shift, bridge, start, **kw)
+    assert torch.equal(got, again) and torch.equal(got, dense) and torch.equal(got, twin)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("steps,start", [(16, 0), (7, 99), (64, 2048)])
 def test_qmc_walk_kernel_equals_bridge_kernel_plus_scan(steps, start) -> None:
@@ -764,3 +799,44 @@ def test_american_dynamics_kernel_matches_twin_on_card(case, steps, every, half)
         terminal = FAMILY_FNS[case][0](c, keys, **terminal_kw)
     off = ((got[:, -1] - terminal).abs() > 2e-5 * terminal.abs()).sum()
     assert int(off) <= allowed
+
+
+BASKET_WALK_CASES = [(assets, combine, steps, rolled)
+                     for assets in range(1, 9) for combine in ("arithmetic", "geometric")
+                     for steps, rolled in ((16, (2, 4)), (15, (3, 5)))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("assets,combine,steps,rolled", BASKET_WALK_CASES,
+                         ids=[f"A{a}_{c[:5]}_T{t}" for a, c, t, _ in BASKET_WALK_CASES])
+def test_american_basket_walk_equals_rolled_rows_on_card(assets, combine, steps, rolled) -> None:
+    """Exact: the basket monitor kernel at ``every = 1`` (its walk over whole
+    Philox calls) equals, bit for bit, its own rolled rows at the coarser
+    grids ``rolled`` on the dates they share (price and, arithmetic, the log
+    dispersion), and its last row the European basket kernel's TERMINAL
+    value; tier 3 against its twin (price rows rtol 2e-5), antithetic, an
+    odd step count included."""
+    device = _require_card()
+    gen = np.random.default_rng(23)
+    lo, hi = np.array(FAMILY_LO["term"]), np.array(FAMILY_HI["term"])
+    c = torch.from_numpy((lo + (hi - lo) * gen.random((3, len(lo)))).astype(np.float32)).to(device)
+    keys = rng.fold_in(rng.prng_key(23), torch.arange(3)).to(device)
+    spec = _basket_spec(assets, combine)
+    kw = dict(timesteps=steps, rows=64, cols=96, antithetic_half=32, spec=spec)
+    before = gbm_cuda.LAUNCHES_BY_BRANCH["american_basket"]
+    price, disp = american_cuda.simulate_basket_american_rows_cuda(c, keys, exercise_every=1, **kw)
+    assert gbm_cuda.LAUNCHES_BY_BRANCH["american_basket"] == before + 1
+    assert (disp is None) == (combine == "geometric")
+    for every in rolled:
+        p_rolled, d_rolled = american_cuda.simulate_basket_american_rows_cuda(
+            c, keys, exercise_every=every, **kw)
+        assert torch.equal(price[:, every - 1::every], p_rolled)
+        if disp is not None:
+            assert torch.equal(disp[:, every - 1::every], d_rolled)
+    want, _ = american_cuda.simulate_basket_american_rows_cuda_plain(c, keys, exercise_every=1,
+                                                                      **kw)
+    torch.testing.assert_close(price, want, rtol=2e-5, atol=0.0)
+    terminal = basket_cuda.simulate_basket_rows_cuda(
+        c, keys, spec=spec, timesteps=steps, rows=64, cols=96, payoff=tgbm.PayoffKind.TERMINAL,
+        antithetic_half=32)
+    assert torch.equal(price[:, -1], terminal)

@@ -53,3 +53,15 @@ def test_lazy_top_level_exports_resolve() -> None:
     for name in port.__all__:
         if name != "__version__":
             assert getattr(port, name) is not None
+
+
+def test_top_level_exports_are_the_modules_own_objects() -> None:
+    import importlib
+
+    import spectralmc_tpu_torch as port
+
+    for name, module in (("term_effective_black", "ops.analytic"), ("lsmc_price", "ops.american"),
+                         ("bermudan_tree_price", "ops.american"), ("OptionSide", "ops.american")):
+        assert name in port.__all__
+        assert getattr(port, name) is getattr(
+            importlib.import_module(f"spectralmc_tpu_torch.{module}"), name)

@@ -14,8 +14,18 @@
   column, zeros included) at starts 0, 1, 3, 99 and 1021: the edges of a
   thread's points, of a block and of the range.
 
-The kernel itself is held to the twin and to #13 plus the scan on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+* Kernel #13's sparse instantiation (``qmc_bridge_sparse_kernel``) replayed
+  the same way: a thread's points' Gray-stepped words for the flat
+  dimensions the Sobol table covers, the padded ones from ``pad``, and for
+  each factor in turn each row's sum over its non-zeros in ascending column,
+  one rounding per multiply-add — ``torch.equal`` to the plain twin
+  ``bridge_normals_plain`` at T = 8, 16, 32 and 64 with F = 1, 2 and 3 (T =
+  32 with F = 3, and T = 64 with F = 2 or 3, padded) from the same starts;
+  ``sparse_walk``, which the host reads before either kernel, sends every
+  other T and any other matrix to the dense kernels.
+
+The kernels themselves are held to the twins and to #13 plus the scan on
+the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -133,4 +143,68 @@ def test_sparse_quad_walk_equals_the_twin(steps: int, start: int) -> None:
                                count=COUNT)
     want = qmc_cuda.walk_acc_plain(directions, shift, bridge, start, *scalars,
                                    timesteps=steps, count=COUNT)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("steps", STEPS)
+def test_bridge_instantiation_follows_the_matrix(steps: int) -> None:
+    """#13 and #14 take their sparse instantiations exactly where the
+    matrix's zeros are the compiled pattern: the bridge of T steps, not a
+    matrix with one more or one fewer non-zero, nor another T's bridge cut
+    to size."""
+    bridge = torch.from_numpy(qmc.brownian_bridge_matrix(steps).astype(np.float32))
+    assert qmc_cuda.sparse_walk(bridge, steps)
+    filled = bridge.clone()
+    filled[0, steps - 1] = 1e-30  # a zero of the pattern made non-zero
+    emptied = bridge.clone()
+    emptied[steps - 1, 1] = 0.0  # a non-zero of the pattern made zero
+    wider = torch.from_numpy(qmc.brownian_bridge_matrix(2 * steps).astype(np.float32))
+    for other in (filled, emptied, wider[:steps, :steps], torch.eye(steps)):
+        assert not qmc_cuda.sparse_walk(other, steps)
+
+
+def _sparse_bridge_replica(directions, shift, bridge, start, *, timesteps: int, factors: int,
+                           count: int, pad: torch.Tensor | None) -> torch.Tensor:
+    """``[C, T, F, count]`` as ``qmc_bridge_sparse_kernel`` computes it."""
+    sdims = directions.shape[0]
+    z_sobol = qmc._inv_cdf(_quad_words(directions, shift, start, count))  # [C, sdims, count]
+    pattern = qmc_cuda.bridge_pattern(timesteps)
+    last_row = {col: max(t for t in range(timesteps) if pattern[t, col])
+                for col in range(timesteps)}
+    out = torch.empty((shift.shape[0], timesteps, factors, count), dtype=torch.float32)
+    for f in range(factors):
+        live: dict[int, torch.Tensor] = {}  # a column's normals, from entry to last row
+        for t in range(timesteps):
+            cols = torch.nonzero(pattern[t]).flatten().tolist()  # ascending
+            for col in cols:
+                k = col * factors + f
+                if col not in live:
+                    live[col] = z_sobol[:, k] if k < sdims else pad[:, k - sdims]
+            e = torch.zeros((shift.shape[0], count), dtype=torch.float32)
+            for col in cols:
+                e = rng.fma32_exact(bridge[t, col].double(), live[col].double(), e)
+            out[:, t, f] = e
+            for col in cols:
+                if last_row[col] == t:
+                    del live[col]
+        assert not live
+    return out
+
+
+@pytest.mark.parametrize("start", [0, 1, 3, 99, 1021])
+@pytest.mark.parametrize("factors", [1, 2, 3])
+@pytest.mark.parametrize("steps", STEPS)
+def test_sparse_bridge_equals_the_twin(steps: int, factors: int, start: int) -> None:
+    keys = rng.fold_in(rng.prng_key(14), torch.arange(2))
+    sdims, directions, shift, _ = qmc._draw_tables(keys, steps, factors, 5)
+    flat = steps * factors
+    pad = None
+    if sdims < flat:
+        pad = torch.from_numpy(np.random.default_rng(steps * factors + start).standard_normal(
+            (2, flat - sdims, COUNT)).astype(np.float32))
+    bridge = torch.as_tensor(qmc.brownian_bridge_matrix(steps), dtype=torch.float32)
+    assert qmc_cuda.sparse_walk(bridge, steps)
+    kw = dict(timesteps=steps, factors=factors, count=COUNT, pad=pad)
+    got = _sparse_bridge_replica(directions, shift, bridge, start, **kw)
+    want = qmc_cuda.bridge_normals_plain(directions, shift, bridge, start, **kw)
     assert torch.equal(got, want)

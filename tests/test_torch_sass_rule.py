@@ -180,3 +180,64 @@ def test_qmc_split_weighs_the_edge_stores_but_not_the_early_return(monkeypatch) 
     assert split["normal"] == round(1 / points, 3)
     # 12 after the barrier, less the 2 edge stores and the parking branch
     assert split["total"] == round(9 / points, 3)
+
+
+def test_qmc_bridge_parts_follow_the_bridge_functions() -> None:
+    """#13's split: the normal, the word's XORs, the bridge rows and the
+    vector store by their functions; the one-float edge stores, the checks'
+    word copy and the padded reads are work the main path never runs, in
+    the sparse kernel and the dense one alike."""
+    read = lambda f: Path(f).read_text().splitlines()  # noqa: E731
+    qmc = str(CSRC / "qmc_paths.cu")
+
+    def at(text: str) -> tuple[str, int]:
+        return qmc, _line("qmc_paths.cu", text)
+
+    call_site = at("z[l][i] = word_normal(w[i])")
+    assert cs.qmc_bridge_part([at("const float u = __fmul_rn(__fadd_rn("), call_site],
+                              read) == ("normal", False)
+    assert cs.qmc_bridge_part([at("const float wl = sqrtf(w) - 3.0f;"), call_site],
+                              read) == ("normal", True)
+    assert cs.qmc_bridge_part([at("x ^= mask[bit] & dir[bit];")], read) == ("words", False)
+    assert cs.qmc_bridge_part([at("e[i] = __fmaf_rn(b[d], z[l][i], e[i]);")],
+                              read) == ("bridge", False)
+    assert cs.qmc_bridge_part([at("*reinterpret_cast<float2*>(o) = make_float2(e[0], e[1]);")],
+                              read) == ("stores", False)
+    assert cs.qmc_bridge_part([at("if (in[i]) o[i] = e[i];")], read) == ("idle", False)
+    assert cs.qmc_bridge_part([at("if (in[i]) words_c[")], read) == ("idle", False)
+    assert cs.qmc_bridge_part([at("z[i] = in[i] ? col[i] : 0.0f;")], read) == ("pad", False)
+    assert cs.qmc_bridge_part([at("return pad[static_cast<int64_t>(k - sdims) * count];")],
+                              read) == ("pad", False)
+    assert cs.qmc_bridge_part([at("words_out[(static_cast<int64_t>(c) * sdims + k)")],
+                              read) == ("idle", False)
+    assert cs.qmc_bridge_part([at("if (t < timesteps) out_c[")], read) == ("stores", False)
+    assert cs.qmc_bridge_part([at("const bool vec = p0 >= 0")], read) == ("other", False)
+
+
+def test_qmc_bridge_split_drops_the_padded_copy(monkeypatch) -> None:
+    """The sparse bridge's split: the shortest forward-branch region that
+    holds every padded read (its copy of a factor's rows for padded
+    dimensions) counts 0, the rest over a thread's points."""
+    qmc = CSRC / "qmc_paths.cu"
+    points = int(re.search(r"constexpr int kQuad = (\d+);", qmc.read_text()).group(1))
+    ops = ["S2R R0, SR_TID.X", "BAR.SYNC.DEFER_BLOCKING 0x0", "@P0 BRA 0x70",
+           "FFMA R1, R2, R3, R4", "LDG.E R1, [R2.64]", "FFMA R1, R2, R3, R4", "BRA 0x90",
+           "FFMA R1, R2, R3, R4", "STG.E.64 [R2.64], R4", "EXIT", "BRA 0xa0"]
+    name = "_Zqmc_bridge_sparse_kernelILi16E"
+    sass = f"Function : {name}\n" + "\n".join(
+        f"        /*{16 * i:04x}*/                   {op} ;" for i, op in enumerate(ops))
+    bridge = "e[i] = __fmaf_rn(b[d], z[l][i], e[i]);"
+    lines = {3: bridge, 4: "z[i] = in[i] ? col[i] : 0.0f;", 5: bridge, 7: bridge,
+             8: "*reinterpret_cast<float2*>(o) = make_float2(e[0], e[1]);"}
+    other = "const bool vec = p0 >= 0"
+    disasm = f'\t.section\t.text.{name},"ax",@progbits\n' + "".join(
+        f'\t//## File "{qmc}", line {_line("qmc_paths.cu", lines.get(i, other))}\n'
+        f"        /*{16 * i:04x}*/                   {op} ;\n" for i, op in enumerate(ops))
+    monkeypatch.setattr(cs, "cuobjdump_sass", lambda library: sass)
+    monkeypatch.setattr(cs, "nvdisasm_text", lambda library: disasm)
+    split = cs.qmc_bridge_sass("library", source=qmc)
+    assert split["points_per_thread"] == points
+    assert split["bridge"] == split["bridge_ffma"] == round(1 / points, 3)
+    assert split["stores"] == round(1 / points, 3)
+    # the branch, the kept FFMA, the store and EXIT; the padded copy and the parking branch not
+    assert split["total"] == round(4 / points, 3)
