@@ -19,10 +19,12 @@ non-zero and no result line is printed):
                   American monitor loops and of the LSMC backward's 16-path
                   block (cuobjdump) for the instruction cap of phases 2, 12,
                   17, 18, 22 and 23, and split the flat GBM TERMINAL and
-                  arithmetic-Asian, the Heston and the 3-asset basket
-                  TERMINAL loops' SASS per path-step, and the GBM and
-                  Heston and 3-asset basket monitor kernels' loops at every
-                  = 1, into Philox, Box–Muller, update and branch, the fused
+                  arithmetic-Asian, the Heston, the Merton and the 3-asset
+                  basket TERMINAL loops' SASS per path-step, and the GBM,
+                  Heston, Merton and 3-asset basket monitor kernels' loops
+                  at every = 1, into Philox, Box–Muller, update and branch
+                  (Merton also its count and jump, the monitor kernels their
+                  stores), the fused
                   QMC walk's per point into words, normal, bridge and walk,
                   and the QMC bridge kernel's per point and factor into
                   words, normal, bridge and stores (nvdisasm line info; the
@@ -45,7 +47,10 @@ non-zero and no result line is printed):
                   ulp; counted, with how low their variance went, and printed;
                   the Heston groups also print the paths that are not the
                   twin's bit for bit);
-                  the Merton kernel's jump counts equal its twin's exactly.
+                  the Merton kernel's jump counts equal its twin's exactly,
+                  and its final log-price (written beside the value) its
+                  twin's bit for bit in every case, TERMINAL also at 15 and
+                  13 steps (the walk's tails).
                   Each branch group is timed at the training chunk 256 x 2048
                   x 512 x 16 (log-Euler) with CUDA events, and its twin's
                   second call at the same shape, beside its bound_ms and its
@@ -168,15 +173,16 @@ non-zero and no result line is printed):
 22. kernel-american-dynamics — the Heston, Merton and basket monitor-row
                   kernels (csrc/american_dynamics.cu) against their twins on
                   the same Philox words at 4 x 2048 x 512: T = 16 at every =
-                  1 (antithetic off and on) and 4, T = 15 at every = 5; the
-                  basket with 3 assets arithmetic and geometric and with 1.
+                  1 (antithetic off and on) and 4, T = 15 at every = 5 and
+                  1; the basket with 3 assets arithmetic and geometric and
+                  with 1.
                   Price rows rtol 2e-5; Heston's variance rows atol 1e-6 +
                   rtol 2e-5, at most 5e-6 of a case's paths missing either,
                   none past rtol 1e-3 (the variance against θ); the log
                   dispersion within 2e-5 of |ln B|; Merton counts equal; the
-                  last row against the European kernel's TERMINAL value
-                  (bit-equality printed, and Heston's price and variance
-                  rows' against the twin). Then each timed at 256 x 2048 x 512
+                  last row equal to the European kernel's TERMINAL value bit
+                  for bit (and Heston's price and variance rows' bit-equality
+                  against the twin printed). Then each timed at 256 x 2048 x 512
                   x 16 (the basket at 32 contracts, and without the twin at
                   64 and 256; Merton without it at 64 too) with the twin,
                   the bound and the SASS per path-step against the
@@ -471,8 +477,9 @@ UNIT_OPS = {"terminal": 3, "barrier": 4, "lookback": 4, "variance": 4, "asian": 
 # sincos pair and its argument (6), a count over 16 sorted levels (log2(16) =
 # 4 compares), the jump (5) and the pair's products (4): 88, then the
 # log-price update (4) in place of the flat 3; its level table adds 64 bytes
-# per contract. The kernel itself spends a whole call and 16 compares per
-# step: that is its own cost, not the function's.
+# per contract. The kernel reads exactly those three words a step (four steps
+# on three calls) and compares kCountFirst levels, the rest behind a branch
+# its inputs here almost never take.
 HESTON_STEP_OPS = 19
 MERTON_STEP_OPS = 88
 
@@ -720,11 +727,16 @@ def sass_instruction_counts(flat: object, dynamics: object, basket: object) -> d
     variance, cliquet: subtracted) or the arithmetic Asian's ``expf`` (kept);
     per path-step: that over the steps an iteration covers (2 for the
     pair-steps, 2·reset_every for the cliquet's period pairs, else 1). The
-    term, Heston and Merton kernels have one loop each (the longest); the
-    Merton kernel calls Philox every step, unskipped. The Heston kernel and
-    the basket kernel's 3-asset arithmetic instantiations (one loop each, the
-    longest) walk whole Philox calls; the basket forward start's capture of
-    B_m runs once per path (subtracted).
+    term and Heston kernels have one loop each (the longest). The Heston
+    kernel and the basket kernel's 3-asset arithmetic instantiations (one
+    loop each, the longest) walk whole Philox calls; the basket forward
+    start's capture of B_m runs once per path (subtracted). The Merton kernel
+    walks three words a step (MERTON_DRAWS_PER_STEP draws: four steps on
+    three calls an iteration, the loop that walks whole calls); its count's
+    rare branch (the levels past the first, taken about once in 10^6 steps
+    at the bench's rates) is a skipped region that never runs on these
+    inputs (subtracted, as sqrtf's fix-up is), and so is any other that does
+    not end by jumping over an else arm.
     """
     flat_sass = cuobjdump_sass(flat)
     if FLAT_WALKS["terminal"] in flat_sass:  # the walks, one loop an instantiation
@@ -746,8 +758,7 @@ def sass_instruction_counts(flat: object, dynamics: object, basket: object) -> d
     codes = {**gbm_cuda._FAMILY_CODE, "forward": 5}
     dynamics_kernels = {
         f"{kernel}ILi{code}E": f"{family}_{branch}"
-        for kernel, family in (("gbm_term_kernel", "term"), ("heston_paths_kernel", "heston"),
-                               ("merton_paths_kernel", "merton"))
+        for kernel, family in (("gbm_term_kernel", "term"), ("heston_paths_kernel", "heston"))
         for branch, code in codes.items()
     }
     steps = {"term_terminal": 2, "term_variance": 2}
@@ -756,6 +767,14 @@ def sass_instruction_counts(flat: object, dynamics: object, basket: object) -> d
         dynamics_sass, dynamics_kernels, steps, pick_loop=lambda loops: max(loops, key=len),
         single_step=lambda group: False,
         draws_per_step={g: 1 for g in dynamics_kernels.values() if g.startswith("heston_")})
+    counts.update(more)
+    found.update(found_more)
+    merton_kernels = {f"merton_paths_kernelILi{code}E": f"merton_{branch}"
+                      for branch, code in gbm_cuda._FAMILY_CODE.items()}
+    more, found_more = parse_instruction_counts(
+        dynamics_sass, merton_kernels, {}, pick_loop=walk_or_longest,
+        single_step=lambda group: True,
+        draws_per_step=dict.fromkeys(merton_kernels.values(), MERTON_DRAWS_PER_STEP))
     counts.update(more)
     found.update(found_more)
     basket_kernels = {f"basket_paths_kernelILi3ELi{code}ELb0E": f"basket_{branch}"
@@ -774,13 +793,16 @@ def sass_instruction_counts(flat: object, dynamics: object, basket: object) -> d
             ("gbm_terminal", flat_sass, flat, FLAT_WALKS["terminal"], 0.5, walk_loop),
             ("gbm_asian", flat_sass, flat, FLAT_WALKS["asian"], 1, walk_loop),
             ("heston_terminal", dynamics_sass, dynamics, "heston_paths_kernelILi0E", 1, None),
+            ("merton_terminal", dynamics_sass, dynamics, "merton_paths_kernelILi0E",
+             MERTON_DRAWS_PER_STEP, walk_or_longest),
             ("basket3_arithmetic_terminal", basket_sass, basket,
              "basket_paths_kernelILi3ELi0ELb0E", 2, None)):
         try:  # a measurement only: a toolkit without nvdisasm or line info prints why
             if library is flat and flat_disasm is None:
                 flat_disasm = nvdisasm_text(flat)
             disasm = flat_disasm if library is flat else nvdisasm_text(library)
-            split = sass_split(sass, disasm, piece, draws_per_step=draws, pick_loop=pick)
+            split = sass_split(sass, disasm, piece, draws_per_step=draws, pick_loop=pick,
+                               single_step=kernel.startswith("merton_"))
         except (AssertionError, OSError, StopIteration, ValueError,
                 subprocess.CalledProcessError) as err:
             split = {"error": repr(err)[:300]}
@@ -791,6 +813,8 @@ def sass_instruction_counts(flat: object, dynamics: object, basket: object) -> d
 # draws a path-step of each flat log-Euler branch takes: a pair-step draw
 # (TERMINAL, the variance swap) advances two steps
 FLAT_DRAWS_PER_STEP = {"terminal": 0.5, "variance": 0.5, "barrier": 1, "lookback": 1, "asian": 1}
+# a Merton step reads three words, one and a half draws of two
+MERTON_DRAWS_PER_STEP = 1.5
 # each branch group's log-Euler instantiation (gbm_paths_kernel<family, 0,
 # step rule>) at its timed payoff (TIMED_PAYOFF): the up-and-out barrier and
 # the fixed lookback call track a maximum, the arithmetic Asian sums prices
@@ -901,24 +925,29 @@ def parse_instruction_counts(
 # each instruction's line and the lines it was inlined at; of these, the ones
 # in csrc/ files decide. Where one lies in a named stream helper the helper
 # decides (SASS_HELPER_PARTS, in order: the Philox call and its key schedule;
-# the uniforms and the Box–Muller transform; the word select); otherwise the
-# lines' text, by the first pattern any of them matches (SASS_PART_TEXT), else
-# "branch" (loop control and the branch's own work).
+# the Merton count with its uniform, and the jump; the uniforms and the
+# Box–Muller transform; the word select); otherwise the lines' text, by the
+# first pattern any of them matches (SASS_PART_TEXT: a monitor kernel's
+# stores with their exp; the update; ...), else "branch" (loop control and
+# the branch's own work).
 SASS_HELPER_PARTS = (
     ({"philox4x32_10", "call"}, "philox"),
+    ({"merton_count"}, "count"),
+    ({"merton_jump"}, "jump"),
     ({"uniform_open", "uniform_closed", "box_muller_libm", "box_muller_sfu", "box_muller_sfu_cos",
       "box_muller_root", "box_muller_radius", "box_muller_angle", "minus_two_log", "lg2_sfu",
       "rsqrt_sfu", "sin_sfu", "cos_sfu", "box_muller_gbm", "gbm_normal", "ln_pinned",
       "sincos_2pi_pinned", "box_muller_pinned"}, "box_muller"),
-    ({"draw"}, "philox"),
+    ({"draw", "triple"}, "philox"),
 )
 SASS_PART_TEXT = (
+    ("stores", r"^\s*\*\w+ = "),
     ("update", r"\blogx(\[\w+\])? = |\bz_s\b|\bzm\b|v_plus|\bsv\b|\bv = |\binc\[\w+\] = "
                r"|step_inc\[\w+\] = "),
     ("philox", r"philox|umulhi|kPhilox|\.call\("),
     ("box_muller", r"uniform_open|uniform_closed|logf\(u1\)|sincospif|\brad\b|box_muller"),
 )
-SASS_PARTS = ("philox", "box_muller", "update", "branch")
+SASS_PARTS = ("philox", "box_muller", "count", "jump", "update", "stores", "branch")
 # The same loop by the unit its instructions issue to (the ``mix`` of
 # ``sass_split``): float32 (F*), integer (I*, LOP3, SHF, SEL, LEA, PRMT),
 # the transcendental and conversion unit (MUFU, I2F, F2I, FRND) and the rest
@@ -1282,19 +1311,29 @@ def compare(
     twin's one call by CUDA events, after one more when ``warm_twin``) and,
     for a continuous Heston payoff, ``past_rel`` (the largest scaled error
     among the paths past the tolerance) with ``past_low`` and ``all_low`` (how
-    many of those paths, and what share of all paths, had a low variance)."""
+    many of those paths, and what share of all paths, had a low variance).
+    A Merton kernel's final log-price must equal its twin's bit for bit on
+    every path (``log_unequal``, 0)."""
     params, keys = kernel_inputs(device, contracts, contracts + int(kw["timesteps"]), family)
     kernel, twin = kernel_and_twin(family, payoff, kw)
-    got = kernel(params, keys)
+    traces = ({}, {}) if family == "merton" else None
+    got = kernel(params, keys) if traces is None else kernel(params, keys, trace=traces[0])
     if warm_twin:
         twin(params, keys)
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    want = twin(params, keys)
+    want = twin(params, keys) if traces is None else twin(params, keys, trace=traces[1])
     stop.record()
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{family}/{payoff.value}: kernel produced non-finite values at {kw}")
+    log_unequal = None
+    if traces is not None:
+        log_unequal = int((traces[0]["log_price"] != traces[1]["log_price"]).sum())
+        if log_unequal:
+            raise AssertionError(f"merton/{payoff.value}: the kernel's log-price is not the "
+                                 f"twin's on {log_unequal} paths at {kw}")
+        del traces
     scale = want.abs()
     if payoff in LOOKBACK_PAYOFFS:
         scale = torch.maximum(scale, params[:, 1, None, None])
@@ -1312,6 +1351,8 @@ def compare(
     agree = torch.where(ok, err, torch.zeros_like(err))
     found = dict(max_abs_err=float(agree.max()), max_rel=float((agree / scale).max()),
                  flips=flips, plain_ms=start.elapsed_time(stop))
+    if log_unequal is not None:
+        found["log_unequal"] = log_unequal
     if family == "heston":
         found["unequal"] = int((got != want).sum())
     if family == "heston" and not jumps and flips:
@@ -1362,7 +1403,10 @@ def kernel_cases() -> list[tuple[str, str, PayoffKind, dict[str, object]]]:
             for payoff in payoffs:
                 pair_step = family == "term" and payoff in (PayoffKind.TERMINAL,
                                                             PayoffKind.VARIANCE_SWAP)
-                for steps in ((STEPS, 15) if pair_step and half is None else (STEPS,)):
+                # the Merton walk's tails of 3 and 1 steps (four steps a pass)
+                tails = family == "merton" and payoff == PayoffKind.TERMINAL
+                odd = (STEPS, 15) if pair_step else (STEPS, 15, 13) if tails else (STEPS,)
+                for steps in (odd if half is None else (STEPS,)):
                     kw = dict(base, timesteps=steps, antithetic_half=half)
                     if payoff in BARRIER_PAYOFFS:
                         kw["barrier_rel"] = KNOBS[payoff]["barrier_rel"]
@@ -1428,6 +1472,8 @@ def phase_kernel(
                  flips=r["flips"] + found["flips"], cases=r["cases"] + 1)
         if "unequal" in found:  # Heston: paths whose value is not the twin's bit for bit
             r["not_bit_equal"] = r.get("not_bit_equal", 0) + found["unequal"]
+        if "log_unequal" in found:  # Merton: paths whose log-price is not the twin's (0)
+            r["log_not_bit_equal"] = r.get("log_not_bit_equal", 0) + found["log_unequal"]
         if "past_rel" in found:
             past.update(paths=past["paths"] + found["flips"],
                         max_rel=max(past["max_rel"], found["past_rel"]),
@@ -1463,6 +1509,8 @@ def phase_kernel(
         phase("kernel", branch=group, cases=r["cases"], max_rel_diff=f"{r['max_rel']:.3e}",
               max_abs_err=f"{r['max_abs_err']:.3e}", flips=r["flips"], rtol=KERNEL_RTOL,
               **({"paths_not_bit_equal": r["not_bit_equal"]} if "not_bit_equal" in r else {}),
+              **({"log_price_paths_not_bit_equal": r["log_not_bit_equal"]}
+                 if "log_not_bit_equal" in r else {}),
               shape=f"{CHUNK}x{ROWS}x{COLS}x{STEPS}", timed=payoff.value,
               kernel_ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound:.3f}",
               bound_by=bound_by, share_of_bound=f"{bound / ms:.4f}",
@@ -2512,18 +2560,20 @@ def walk_or_longest(loops: list[list[tuple[int, str]]]) -> list[tuple[int, str]]
     return walk_loop(loops) if any(walks(b) for b in loops) else max(loops, key=len)
 
 
-def monitor_sass_count(text: str, piece: str, draws_per_step: int = 1,
+def monitor_sass_count(text: str, piece: str, draws_per_step: float = 1, rare: bool = False,
                        **rolled: bool) -> tuple[float, str]:
     """SASS instructions one path-step of a monitor kernel executes at
     ``every = 1``. A kernel with a loop that walks whole Philox calls for
     that grid (``walk_loop``; ``draws_per_step`` draws a step) counts it by
-    ``loop_weights``' rule; one whose date and step loops are rolled by
+    ``loop_weights``' rule (``rare``: a skipped region that neither draws nor
+    ends by jumping over an else arm never runs on these inputs, the Merton
+    count's rare branch); one whose date and step loops are rolled by
     ``american_sass_count``'s (``rolled`` its options)."""
     block = next(b for b in text.split("Function : ")[1:] if piece in b.split()[0])
     if not any(walks(b) for b in loop_bodies(block)):
         return american_sass_count(text, piece, **rolled)
     weights, steps, found = loop_weights(block, piece, pick_loop=walk_loop,
-                                         single_step=lambda group: False,
+                                         single_step=lambda group: rare,
                                          draws_per_step=draws_per_step)
     return sum(w for _, _, w in weights) / steps, found
 
@@ -2592,12 +2642,13 @@ def american_sass_count(text: str, piece: str, *, skip_inner: bool = True,
 
 
 def american_sass_split(gbm: object, dynamics: object) -> None:
-    """The ``sass-split`` lines of the GBM, Heston and 3-asset basket
-    monitor kernels' walk loops at ``every = 1`` (one draw a step; the
-    basket two)."""
+    """The ``sass-split`` lines of the GBM, Heston, Merton and 3-asset basket
+    monitor kernels' walk loops at ``every = 1`` (one draw a step; Merton
+    three words, its count's rare branch subtracted; the basket two)."""
     for kernel, library, piece, draws in (
             ("american_gbm", gbm, "american_gbm_kernel", 1),
             ("american_heston", dynamics, "american_heston_kernel", 1),
+            ("american_merton", dynamics, "american_merton_kernel", MERTON_DRAWS_PER_STEP),
             ("american_basket3_arithmetic", dynamics, "american_basket_kernelILi3ELb0E", 2),
             ("american_basket3_geometric", dynamics, "american_basket_kernelILi3ELb1E", 2)):
         try:  # a measurement only: a toolkit without nvdisasm or line info prints why
@@ -2606,7 +2657,7 @@ def american_sass_split(gbm: object, dynamics: object) -> None:
             if not any(walks(b) for b in loop_bodies(block)):
                 raise AssertionError(f"{piece} has no loop over whole Philox calls")
             split = sass_split(sass, nvdisasm_text(library), piece, draws_per_step=draws,
-                               pick_loop=walk_loop)
+                               pick_loop=walk_loop, single_step=kernel == "american_merton")
         except (AssertionError, OSError, StopIteration, subprocess.CalledProcessError) as err:
             split = {"error": repr(err)[:300]}
         phase("sass-split", kernel=kernel, parts="per path-step", **split)
@@ -2993,7 +3044,7 @@ DYNAMICS_KERNELS = {
     "basket1_arithmetic": ("basket", (1, "arithmetic")),
 }
 DYNAMICS_CASES = [(STEPS, 1, None), (STEPS, 1, ROWS // 2), (STEPS, 4, None),
-                  (15, 5, ROWS // 2)]
+                  (15, 5, ROWS // 2), (15, 1, None)]
 VAR_ATOL = 1e-6  # Heston's max(v, 0) rows: the variance reaches 0
 # The monitor kernels' op model per path: per step the European kernel's
 # (Heston: a draw and HESTON_STEP_OPS; Merton: MERTON_STEP_OPS and the
@@ -3126,18 +3177,18 @@ def check_american_merton_counts(device: torch.device) -> int:
 
 def dynamics_sass_per_step(library: object) -> dict[str, tuple[float, str]]:
     """SASS instructions one path-step of each monitor kernel executes at
-    ``every = 1``: the Heston and basket walks over whole Philox calls
-    (``monitor_sass_count``; a 3-asset basket step takes two draws), the
-    Merton kernel by ``american_sass_count``'s rule on the whole monitor
-    loop, the one-step inner loop included (it calls Philox every step); a
-    build whose basket kernel draws pair by pair the same way (Philox every
-    other draw)."""
+    ``every = 1``: the Heston, Merton and basket walks over whole Philox
+    calls (``monitor_sass_count``; a Merton step takes three words, its
+    count's rare branch subtracted; a 3-asset basket step two draws); a
+    build without a walk by the rolled rule (``american_sass_count``: a
+    Merton kernel that calls Philox every step keeps its Philox block)."""
     text = cuobjdump_sass(library)
     baskets = {"basket3_arithmetic": "american_basket_kernelILi3ELb0E",
                "basket3_geometric": "american_basket_kernelILi3ELb1E"}
     return {"heston": monitor_sass_count(text, "american_heston_kernel", skip_inner=False),
-            "merton": american_sass_count(text, "american_merton_kernel", skip_inner=False,
-                                          halve_philox=False),
+            "merton": monitor_sass_count(text, "american_merton_kernel",
+                                         draws_per_step=MERTON_DRAWS_PER_STEP, rare=True,
+                                         skip_inner=False, halve_philox=False),
             **{case: monitor_sass_count(text, piece, draws_per_step=2, skip_inner=False)
                for case, piece in baskets.items()}}
 
@@ -3160,10 +3211,10 @@ def phase_kernel_american_dynamics(
 ) -> dict[str, dict[str, object]]:
     """Each monitor kernel against its twin on the same Philox words at 4 x
     2048 x 512 over DYNAMICS_CASES (compare_dynamics' gates), its last row
-    against the European kernel's TERMINAL value (bit-equality printed,
-    rtol 2e-5 gated); the Merton counts exactly; then each kernel timed at
-    256 x 2048 x 512 x 16 (the basket at 32 contracts) as the main path pays
-    for it, beside the twin, the bound and the SASS per path-step."""
+    equal to the European kernel's TERMINAL value bit for bit (each shares
+    its European kernel's step); the Merton counts exactly; then each kernel
+    timed at 256 x 2048 x 512 x 16 (the basket at 32 contracts) as the main
+    path pays for it, beside the twin, the bound and the SASS per path-step."""
     worst: dict[str, dict[str, float]] = {}
     for case, (family, _) in DYNAMICS_KERNELS.items():
         w = worst.setdefault(case, {"max_abs_err": 0.0, "max_rel": 0.0, "missed_paths": 0})
@@ -3179,8 +3230,9 @@ def phase_kernel_american_dynamics(
                                          cols=COLS, antithetic_half=half)
             last = got[0][:, -1]
             off = (last - terminal).abs() > KERNEL_RTOL * terminal.abs()
-            if int(off.sum()) > (HESTON_SHARE * off.numel() if case == "heston" else 0):
-                raise AssertionError(f"{case}: last row off TERMINAL on {int(off.sum())} paths")
+            if not torch.equal(last, terminal):  # the same step on the same words
+                raise AssertionError(f"{case}: last row is not TERMINAL's on "
+                                     f"{int((last != terminal).sum())} paths")
             w.update(max_abs_err=max(w["max_abs_err"], found["max_abs_err"]),
                      max_rel=max(w["max_rel"], found["max_rel"]),
                      missed_paths=w["missed_paths"] + found["missed_paths"])

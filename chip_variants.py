@@ -1,6 +1,6 @@
-"""Design variants of two of the port's kernels, measured on one NVIDIA GPU.
+"""Design variants of the port's kernels, measured on one NVIDIA GPU.
 
-    python3 chip_variants.py
+    python3 chip_variants.py [--only gbm|walk|bridge|merton ...] [--parent DIR]
 
 Each variant is this checkout's CUDA source with one change, built with nvcc
 beside the package's own build (``build/variants/``) and launched through the
@@ -35,11 +35,36 @@ same C entry point as the kernel it varies:
   beforehand; the package's wrapper is timed beside them (its own output
   allocated, which the deterministic policy fills with NaN).
 
+* the Merton kernels' design (``csrc/merton_step.cuh``, built into
+  ``csrc/dynamics_paths.cu`` for #9 and ``csrc/american_dynamics.cu`` for
+  #10), one choice varied at a time: ``v2`` (the kernels' own: the walk of
+  four steps on three whole Philox calls, each made just before the first
+  step that reads it, the IEEE root of the Box–Muller radius, the first
+  kCountFirst = 3 levels compared and the rest behind a branch),
+  ``one_call`` (one Philox call a step, words 0–2), ``sfu_root`` (the
+  radius's root on the SFU, ``path_stream.cuh::box_muller_root``), ``k2``,
+  ``k4`` and ``k16`` (kCountFirst) and ``eager`` (the walk's three calls
+  made before its four steps). With ``--parent DIR`` (a
+  checkout of the parent commit, e.g. ``git archive`` unpacked under
+  ``build/``) its two Merton kernels join as ``parent``, launched through
+  their own C entry points (the ``[C, 16]`` level table). Each is held to
+  the plain twin: #9 TERMINAL at 8 x 2048 x 512 x 16 and #10 at every = 1
+  at 4 x 2048 x 512 x 16, antithetic, the paths past rtol 2e-5 counted
+  (``one_call`` against the twin fed the words it reads), and the
+  up-and-out barrier's and the digital's flips over 32 x 2048 x 512
+  antithetic paths; then #9 TERMINAL and #10 at every = 1 timed at 64 and
+  256 contracts x 2048 x 512 x 16 (launches only, into outputs and tables
+  made beforehand; CUDA events, the variants in turn and then in reverse),
+  beside their SASS a path-step (``chip_smoke.py``'s rule; the parent's
+  by the rule its own smoke applied) and their share of the instruction
+  cap.
+
 Prints one line per measurement and, last, the card's name and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import re
 import shutil
@@ -51,7 +76,7 @@ import numpy as np
 import torch
 
 import chip_smoke as cs
-from spectralmc_tpu_torch.ops import gbm_cuda, qmc_cuda, rng
+from spectralmc_tpu_torch.ops import american_cuda, dynamics_cuda, gbm_cuda, qmc_cuda, rng
 from spectralmc_tpu_torch.ops._build import CSRC, NVCC_FLAGS, find_nvcc
 from spectralmc_tpu_torch.ops.gbm import BARRIER_PAYOFFS, LOOKBACK_PAYOFFS, PathScheme, PayoffKind
 
@@ -89,14 +114,14 @@ SMALL_PAYOFFS = [("terminal", None), ("barrier_up_out", 1.25), ("barrier_down_ou
                  ("digital", None), ("forward_start", None)]
 
 
-def build(name: str, source: str, edited: str, edit) -> tuple[Path, str]:
-    """nvcc one variant: ``source`` from a copy of csrc/ whose file
-    ``edited`` has ``edit(text)`` applied, built with the package's flags;
-    ``(library, nvcc's log)``."""
+def build(name: str, source: str, edited: str, edit, csrc: Path = CSRC) -> tuple[Path, str]:
+    """nvcc one variant: ``source`` from a copy of ``csrc`` (this checkout's
+    csrc/ by default) whose file ``edited`` has ``edit(text)`` applied,
+    built with the package's flags; ``(library, nvcc's log)``."""
     d = OUT / name / "csrc"
     if d.exists():
         shutil.rmtree(d)
-    shutil.copytree(CSRC, d)
+    shutil.copytree(csrc, d)
     (d / edited).write_text(edit((d / edited).read_text()))
     lib = d.parent / f"lib{name}.so"
     done = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(lib), str(d / source)],
@@ -106,15 +131,28 @@ def build(name: str, source: str, edited: str, edit) -> tuple[Path, str]:
     return lib, done.stdout + done.stderr
 
 
-def build_all() -> dict[str, tuple[Path, str]]:
-    """Every variant, one nvcc each, all started together."""
-    jobs = {f"gbm_{name}": ("gbm_paths.cu", "gbm_step.cuh", transform_edit(body))
-            for name, body in TRANSFORM.items()}
-    jobs.update({f"walk_{name}": ("qmc_paths.cu", "qmc_paths.cu", walk_edit(*knobs))
-                 for name, knobs in WALK.items()})
-    jobs.update({f"bridge_t{steps}_b{blocks}": ("qmc_paths.cu", "qmc_paths.cu",
-                                                  walk_edit(2, blocks))
-                 for steps, blocks in BRIDGE})
+def build_all(only: set[str], parent: Path | None) -> dict[str, tuple[Path, str]]:
+    """Every variant of the groups in ``only``, one nvcc each, all started
+    together."""
+    jobs = {}
+    if "gbm" in only:
+        jobs.update({f"gbm_{name}": ("gbm_paths.cu", "gbm_step.cuh", transform_edit(body))
+                     for name, body in TRANSFORM.items()})
+    if "walk" in only:
+        jobs.update({f"walk_{name}": ("qmc_paths.cu", "qmc_paths.cu", walk_edit(*knobs))
+                     for name, knobs in WALK.items()})
+    if "bridge" in only:
+        jobs.update({f"bridge_t{steps}_b{blocks}": ("qmc_paths.cu", "qmc_paths.cu",
+                                                      walk_edit(2, blocks))
+                     for steps, blocks in BRIDGE})
+    if "merton" in only:
+        for name, (edited, edit) in MERTON.items():
+            for kernel, source in MERTON_SOURCES.items():
+                jobs[f"merton_{name}_{kernel}"] = (source, edited, edit)
+        if parent is not None:
+            for kernel, source in MERTON_SOURCES.items():
+                jobs[f"merton_parent_{kernel}"] = (source, source, lambda text: text,
+                                                   parent / "spectralmc_tpu_torch" / "csrc")
     with ThreadPoolExecutor(len(jobs)) as pool:
         futures = {name: pool.submit(build, name, *job) for name, job in jobs.items()}
         return {name: future.result() for name, future in futures.items()}
@@ -136,6 +174,43 @@ def walk_edit(points: int, blocks: int):
         return re.sub(r"constexpr int kQuadMinBlocks = \d+;",
                       f"constexpr int kQuadMinBlocks = {blocks};", text)
     return edit
+
+
+def body_edit(head: str, body: str):
+    """Replace the body of the function whose first line is ``head``."""
+    def edit(text: str) -> str:
+        start = text.index(head) + len(head)
+        return text[:start] + body + text[text.index("\n}", start):]
+    return edit
+
+
+MERTON_SOURCES = {"paths": "dynamics_paths.cu", "american": "american_dynamics.cu"}
+MERTON_WALK = "void walk_triples(const PathStream& s, int steps, Step&& step) {\n"
+MERTON = {  # variant -> (the csrc/ file it edits, its edit)
+    "v2": ("merton_step.cuh", lambda text: text),
+    "one_call": ("path_stream.cuh", body_edit(MERTON_WALK, """  for (int t = 0; t < steps; ++t) {
+    const uint4 w = s.call(t);
+    step(t, make_uint2(w.x, w.y), w.z);
+  }""")),
+    "sfu_root": ("merton_step.cuh", lambda text: text.replace(
+        "  box_muller_pinned(d, rad, cs, sn);\n",
+        "  rad = box_muller_root(__fmul_rn(-2.0f, ln_pinned(uniform_open(d.x))));\n"
+        "  sincos_2pi_pinned(d.y, cs, sn);\n")),
+    **{f"k{k}": ("merton_step.cuh", (lambda k: lambda text: re.sub(
+        r"constexpr int kCountFirst = \d+;", f"constexpr int kCountFirst = {k};", text))(k))
+       for k in (2, 4, 16)},
+    # the walk's three calls made first, then its four steps (the packed
+    # layout; steps of a whole pass only, so T must be a multiple of 4)
+    "eager": ("path_stream.cuh", body_edit(MERTON_WALK, """  for (int t = 0; t < steps; t += 4) {
+    const int first = t / 4 * 3;
+    const uint4 a = s.call(first), b = s.call(first + 1), c = s.call(first + 2);
+    step(t, make_uint2(a.x, a.y), a.z);
+    step(t + 1, make_uint2(a.w, b.x), b.y);
+    step(t + 2, make_uint2(b.z, b.w), c.x);
+    step(t + 3, make_uint2(c.y, c.z), c.w);
+  }""")),
+}
+MERTON_CONTRACTS = (64, 256)  # the batch-64 steps that launch them, the training chunk
 
 
 def load_gbm(path: Path) -> ctypes.CDLL:
@@ -338,12 +413,183 @@ def bridge_variants(device: torch.device, built: dict[str, tuple[Path, str]]) ->
         torch.cuda.empty_cache()
 
 
+def load_merton(paths: Path, american: Path) -> tuple[ctypes.CDLL, ctypes.CDLL]:
+    """The two Merton entry points of a variant's (or the parent's) two
+    libraries, with this tree's signatures (the table and, for #9, the
+    log-price pointer) or, for ``parent``, the level table's."""
+    ll, i, vp, f = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+    lp, la = ctypes.CDLL(str(paths)), ctypes.CDLL(str(american))
+    parent = "merton_parent" in str(paths)
+    lp.merton_paths_launch.argtypes = (
+        [vp, vp, vp, vp, *([] if parent else [vp]), i, ll, ll, i, i, i, f, ll, ll, vp])
+    la.american_merton_launch.argtypes = [vp, vp, vp, vp, i, ll, ll, i, i, ll, ll, vp]
+    lp.merton_paths_launch.restype = la.american_merton_launch.restype = ctypes.c_int
+    return lp, la
+
+
+class MertonLaunch:
+    """One launch of a variant's #9 (a payoff's branch) or #10 (``every``),
+    its inputs made beforehand: ``()`` launches into the same output."""
+
+    def __init__(self, libs: tuple[ctypes.CDLL, ctypes.CDLL], parent: bool,
+                 params: torch.Tensor, keys: torch.Tensor, *, payoff: PayoffKind | None = None,
+                 barrier_rel: float | None = None, every: int = 0, half: int | None = None,
+                 out: torch.Tensor | None = None):
+        steps = cs.STEPS
+        self.libs, self.parent, self.payoff = libs, parent, payoff
+        self.every, self.half = every, half
+        self.barrier_rel = 1.0 if barrier_rel is None else barrier_rel
+        self.p, self.words, _ = gbm_cuda._device_args(params, keys, steps, 1, 1)
+        self.table = (dynamics_cuda.poisson_levels(self.p[:, 6] * (self.p[:, 2] / float(steps)))
+                      if parent else dynamics_cuda.merton_table(self.p, steps))
+        shape = (self.p.shape[0], *((steps // every,) if every else ()), cs.ROWS, cs.COLS)
+        self.out = torch.empty(shape, device=params.device) if out is None else out
+
+    def __call__(self) -> torch.Tensor:
+        c, stream = self.p.shape[0], torch.cuda.current_stream().cuda_stream
+        args = (self.p.data_ptr(), self.words.data_ptr(), self.table.data_ptr(),
+                self.out.data_ptr())
+        if self.every:
+            status = self.libs[1].american_merton_launch(
+                *args, c, cs.ROWS, cs.COLS, cs.STEPS, self.every, self.half or 0, 0, stream)
+        else:
+            branch = gbm_cuda.branch_of(self.payoff)
+            status = self.libs[0].merton_paths_launch(
+                *args, *([] if self.parent else [None]), c, cs.ROWS, cs.COLS, cs.STEPS,
+                gbm_cuda._FAMILY_CODE[branch], dynamics_cuda._variant(branch, self.payoff),
+                self.barrier_rel, self.half or 0, 0, stream)
+        if status:
+            raise RuntimeError(f"Merton variant launch failed: cudaError {status}")
+        return self.out if self.every else gbm_cuda._route_out(self.payoff, self.out, self.p)
+
+
+def one_call_words(params: torch.Tensor, keys: torch.Tensor, half: int | None) -> torch.Tensor:
+    """The words ``one_call`` reads (call t's words 0–2 for step t), laid
+    out where the v2 twin reads step t's: ``[C, ROWS, COLS, calls, 4]``."""
+    _, call = gbm_cuda._stream(params, keys, rows=cs.ROWS, cols=cs.COLS, calls=cs.STEPS,
+                               antithetic_half=half, row_offset=0, words=None)
+    flat = torch.stack([w for t in range(cs.STEPS) for w in call(t)[:3]], dim=-1)
+    calls = dynamics_cuda.merton_calls(cs.STEPS)
+    flat = torch.cat([flat, flat[..., :4 * calls - 3 * cs.STEPS]], dim=-1)
+    return flat.view(*flat.shape[:-1], calls, 4)
+
+
+def merton_sass(name: str, built: dict[str, tuple[Path, str]]) -> tuple[float, float]:
+    """``(#9 TERMINAL, #10 at every = 1)`` SASS a path-step of a variant:
+    chip_smoke.py's rule, or, for the parent (one call a step, rolled
+    monitor loops), the rule its own smoke applied."""
+    paths = cs.cuobjdump_sass(built[f"merton_{name}_paths"][0])
+    piece = {"merton_paths_kernelILi0E": "merton_terminal"}
+    american = cs.cuobjdump_sass(built[f"merton_{name}_american"][0])
+    if name == "parent":
+        counts, _ = cs.parse_instruction_counts(
+            paths, piece, {}, pick_loop=lambda loops: max(loops, key=len),
+            single_step=lambda g: False)
+        monitor, _ = cs.american_sass_count(american, "american_merton_kernel",
+                                            skip_inner=False, halve_philox=False)
+    else:
+        counts, _ = cs.parse_instruction_counts(
+            paths, piece, {}, pick_loop=cs.walk_or_longest, single_step=lambda g: True,
+            draws_per_step={"merton_terminal": cs.MERTON_DRAWS_PER_STEP})
+        monitor, _ = cs.monitor_sass_count(
+            american, "american_merton_kernel", draws_per_step=cs.MERTON_DRAWS_PER_STEP,
+            rare=True, skip_inner=False, halve_philox=False)
+    return counts["merton_terminal"], monitor
+
+
+def merton_variants(device: torch.device, max_sm_hz: float,
+                    built: dict[str, tuple[Path, str]]) -> None:
+    names = [n for n in [*MERTON, "parent"] if f"merton_{n}_paths" in built]
+    libs = {n: load_merton(built[f"merton_{n}_paths"][0], built[f"merton_{n}_american"][0])
+            for n in names}
+    for name, lib in libs.items():
+        regs = {**cs.ptxas_summary(built[f"merton_{name}_paths"][1]),
+                **cs.ptxas_summary(built[f"merton_{name}_american"][1])}
+        cs.phase("variant-merton-build", variant=name,
+                 terminal=regs.get("merton_paths_kernel<0>", "?"),
+                 american=regs.get("american_merton_kernel", "?"))
+    half = cs.ROWS // 2
+    checks = (("terminal", 8, dict(payoff=PayoffKind.TERMINAL)),
+              ("american_every1", 4, dict(every=1)),
+              ("barrier_up_out", 32, dict(payoff=PayoffKind.BARRIER_UP_OUT, barrier_rel=1.25)),
+              ("digital", 32, dict(payoff=PayoffKind.DIGITAL)))
+    for case, contracts, kw in checks:
+        past = {}
+        every_params, every_keys = cs.kernel_inputs(device, contracts, 200 + contracts, "merton")
+        for chunk in range(0, contracts, 8):  # the twin eight contracts at a time
+            params, keys = every_params[chunk:chunk + 8], every_keys[chunk:chunk + 8]
+            wants = {}  # the twin on the words each layout reads
+            for name in [n for n in names if n != "parent"]:
+                layout = "one_call" if name == "one_call" else "v2"
+                if layout not in wants:
+                    twin_kw = dict(timesteps=cs.STEPS, rows=cs.ROWS, cols=cs.COLS,
+                                   antithetic_half=half, words=(one_call_words(params, keys, half)
+                                                                if layout == "one_call" else None))
+                    if "every" in kw:
+                        wants[layout] = american_cuda.simulate_merton_american_rows_cuda_plain(
+                            params, keys, exercise_every=1, **twin_kw)
+                    else:
+                        wants[layout] = dynamics_cuda.simulate_merton_rows_cuda_plain(
+                            params, keys, payoff=kw["payoff"], barrier_rel=kw.get("barrier_rel"),
+                            **twin_kw)
+                    del twin_kw
+                want = wants[layout]
+                got = MertonLaunch(libs[name], False, params, keys, half=half, **kw)()
+                off = (got - want).abs() > 2e-5 * want.abs()
+                if "every" in kw:
+                    off = off.any(dim=1)  # a path past on any date
+                past[name] = past.get(name, 0) + int(off.sum())
+                del want, got, off
+            del wants
+            torch.cuda.empty_cache()
+        cs.phase("variant-merton-twin", case=case, steps=cs.STEPS, antithetic=True,
+                 paths=contracts * cs.ROWS * cs.COLS, past_rtol=past, rtol=2e-5)
+    sass = {name: merton_sass(name, built) for name in names}
+    path_steps_per_contract = cs.ROWS * cs.COLS * cs.STEPS
+    for kernel, kw in (("terminal", dict(payoff=PayoffKind.TERMINAL)),
+                       ("american_every1", dict(every=1))):
+        for contracts in MERTON_CONTRACTS:
+            params, keys = cs.kernel_inputs(device, contracts, 1, "merton")
+            first = MertonLaunch(libs[names[0]], names[0] == "parent", params, keys, **kw)
+            launches = {n: MertonLaunch(libs[n], n == "parent", params, keys, out=first.out, **kw)
+                        for n in names}  # one output for all
+            times = {n: [] for n in names}
+            for name in names + names[::-1]:
+                times[name].append(cs.cuda_ms(launches[name]))
+            del launches, first
+            torch.cuda.empty_cache()
+            index = 0 if kernel == "terminal" else 1
+            bound = (cs.bound_ms("merton_terminal", contracts, cs.STEPS)[0] if index == 0
+                     else cs.dynamics_bound_ms("merton", contracts, cs.STEPS)[0])
+            rate = {n: contracts * path_steps_per_contract / (min(times[n]) / 1e3) for n in names}
+            cs.phase("variant-merton-time", kernel=kernel,
+                     shape=f"{contracts}x{cs.ROWS}x{cs.COLS}x{cs.STEPS}", bound_ms=f"{bound:.3f}",
+                     **{f"{n}_ms": "/".join(f"{x:.3f}" for x in times[n]) for n in names},
+                     **{f"{n}_sass": round(sass[n][index], 2) for n in names},
+                     **{f"{n}_cap_share":
+                        f"{rate[n] / (cs.LANES_PER_CLOCK * max_sm_hz / sass[n][index]):.4f}"
+                        for n in names})
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", action="append", choices=("gbm", "walk", "bridge", "merton"),
+                        help="measure only these groups (repeatable; default all)")
+    parser.add_argument("--parent", type=Path,
+                        help="a checkout of the parent commit: its Merton kernels join the "
+                             "Merton variants")
+    args = parser.parse_args()
+    only = set(args.only or ("gbm", "walk", "bridge", "merton"))
     device, smi, max_sm_hz = cs.phase_device()
-    built = build_all()
-    gbm_variants(device, max_sm_hz, built)
-    walk_variants(device, max_sm_hz, built)
-    bridge_variants(device, built)
+    built = build_all(only, args.parent)
+    if "gbm" in only:
+        gbm_variants(device, max_sm_hz, built)
+    if "walk" in only:
+        walk_variants(device, max_sm_hz, built)
+    if "bridge" in only:
+        bridge_variants(device, built)
+    if "merton" in only:
+        merton_variants(device, max_sm_hz, built)
     print(smi)
 
 

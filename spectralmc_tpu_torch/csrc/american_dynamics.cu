@@ -16,29 +16,29 @@
 //     combine and its launch drops them; here a geometric launch writes the
 //     one output.
 // The per-step code of each is the matching European kernel's TERMINAL
-// branch, with its draws, its draw order and its roundings: Heston and the
-// basket call the very step function their European kernels call
-// (heston_step.cuh, basket_step.cuh: one Box–Muller draw a step, z_v = r·cos θ
-// driving the variance and z_s = ρ·z_v + ρ̄·r·sin θ the spot; ⌈A/2⌉ draws a
-// step mixed by the static Cholesky rows), on the same Philox stream
-// (path_stream.cuh); Merton repeats merton_paths_kernel's step (one Philox
-// call a step: the pair, then the count's uniform against the per-contract
-// cdf levels). None of the three has a pair-step shortcut, so the last
-// monitor row is the path the European TERMINAL branch walks, for any
-// `every`. After every `every` steps the kernel stores the monitor values;
-// nothing else changes. These are the american_merton_jump v1 stream and
-// american_heston and american_basket_gbm v2 (Heston's Box–Muller on fixed
-// roundings, heston_step.cuh; the basket's on the SFU). At every = 1, the
-// main path's grid, the Heston and basket kernels walk whole Philox calls
-// with every word's place fixed when compiling (walk_draws, as
-// heston_paths_kernel and basket_paths_kernel walk their steps: Heston two
-// dates a call, the basket ⌈A/2⌉ draws a date, an odd pair count two dates
-// an iteration and an odd tail date), and store through pointers that move
-// one row of paths a date. walk_draws reads the words PathStream::draw
-// reads, so the rows are the rolled loop's bit for bit. Their other grids
-// and the Merton kernel keep their date and step loops rolled (#pragma
-// unroll 1), so the SASS of one Merton date at every = 1 is one step and its
-// stores; a date of odd length takes its draws one by one (PathStream::draw).
+// branch, with its draws, its draw order and its roundings: each calls the
+// very step function its European kernel calls (heston_step.cuh: one
+// Box–Muller draw a step, z_v = r·cos θ driving the variance and z_s = ρ·z_v
+// + ρ̄·r·sin θ the spot; merton_step.cuh: three words a step, the pair and
+// then the count's uniform, the coefficients and cdf levels from the same
+// per-contract table; basket_step.cuh: ⌈A/2⌉ draws a step mixed by the
+// static Cholesky rows), on the same Philox stream (path_stream.cuh). None
+// of the three has a pair-step shortcut, so the last monitor row is the path
+// the European TERMINAL branch walks, for any `every`. After every `every`
+// steps the kernel stores the monitor values; nothing else changes. These
+// are the american_heston, american_merton_jump and american_basket_gbm v2
+// streams (Heston's and Merton's draws and steps on fixed roundings,
+// heston_step.cuh and merton_step.cuh; the basket's Box–Muller on the SFU).
+// At every = 1, the main path's grid, each kernel walks whole Philox calls
+// with every word's place fixed when compiling, as its European kernel walks
+// its steps (Heston two dates a call, walk_draws; Merton four dates on three
+// calls, walk_triples; the basket ⌈A/2⌉ draws a date, an odd pair count two
+// dates an iteration and an odd tail date), and stores through pointers that
+// move one row of paths a date. The walks read the words the rolled loops of
+// the other grids read (PathStream::draw, PathStream::triple), so the rows
+// are the rolled loop's bit for bit. The other grids keep their date and
+// step loops rolled (#pragma unroll 1); a date of odd length takes its draws
+// one by one.
 //
 // What they drop is what the TPU needed: the hardware PRNG, the VMEM block
 // budget (_monitor_block_rows), the 256x256 blocks and the polynomial sine.
@@ -50,8 +50,9 @@
 // Bound on Hopper, at every = 1: Heston by its instruction issue (the
 // European Heston step, its SASS in PERF.md §6, plus two stores a date: its
 // 2 × 4 bytes a path-date of output need 10.3 ms at 256 × 2048 × 512 × 16,
-// under the issue time); Merton by its issue too (a whole Philox call and 16
-// compares a step); the basket by its issue (⌈A/2⌉ draws and A(A+1)/2 FMAs a
+// under the issue time); Merton by its issue too (the European Merton step,
+// three quarters of a Philox call and kCountFirst compares, plus an expf and
+// a store a date); the basket by its issue (⌈A/2⌉ draws and A(A+1)/2 FMAs a
 // step, A expf a date for the arithmetic value and a logf for the
 // dispersion). Simple first: no TMA, no wgmma, no shared memory.
 //
@@ -65,12 +66,12 @@
 #include "basket_spec.cuh"
 #include "basket_step.cuh"
 #include "heston_step.cuh"
+#include "merton_step.cuh"
 #include "path_stream.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPoissonTerms = 16;
 
 // Heston: params [C, 10] = spot strike T r q v0 kappa theta xi rho; price and
 // var [C, monitors, rows·cols]. The step is heston_step.cuh's.
@@ -121,10 +122,11 @@ __global__ void american_heston_kernel(const float* __restrict__ params,
 }
 
 // Merton: params [C, 9] = spot strike T r q vol lam jump_mean jump_std;
-// levels [C, 16] the running Poisson cdf of lam·dt; price [C, monitors, n].
+// table [C, 20] merton_step.cuh's coefficients and levels; price [C,
+// monitors, n]. The step is merton_step.cuh's.
 __global__ void american_merton_kernel(const float* __restrict__ params,
                                        const uint32_t* __restrict__ keys,
-                                       const float* __restrict__ levels,
+                                       const float* __restrict__ table,
                                        float* __restrict__ price, int64_t rows, int64_t cols,
                                        int timesteps, int every, int64_t half,
                                        int64_t row_offset) {
@@ -134,41 +136,28 @@ __global__ void american_merton_kernel(const float* __restrict__ params,
   if (!path_setup(keys, rows, cols, half, row_offset, local, c, s)) return;
   const int64_t n = rows * cols;
   const float sign = s.sign;
-  const float* p = params + 9 * c;
-  const float spot = p[0], maturity = p[2], rate = p[3], div = p[4], vol = p[5], lam = p[6],
-              jump_mean = p[7], jump_std = p[8];
-  const float dt = __fdiv_rn(maturity, static_cast<float>(timesteps));
-  const float vol_sdt = __fmul_rn(vol, __fsqrt_rn(dt));
-  const float m = __fsub_rn(
-      expf(__fadd_rn(jump_mean, __fmul_rn(__fmul_rn(0.5f, jump_std), jump_std))), 1.0f);
-  const float drift = __fmul_rn(
-      __fsub_rn(__fsub_rn(__fsub_rn(rate, div), __fmul_rn(lam, m)),
-                __fmul_rn(__fmul_rn(0.5f, vol), vol)),
-      dt);
-  float lv[kPoissonTerms];
-#pragma unroll
-  for (int k = 0; k < kPoissonTerms; ++k) lv[k] = __ldg(levels + kPoissonTerms * c + k);
+  const MertonCoeffs k = merton_coeffs(table, c);
   const int monitors = timesteps / every;
   float* o = price + static_cast<int64_t>(c) * monitors * n + local;
-  float logx = logf(spot);
+  float logx = logf(params[9 * c]);
+  if (every == 1) {  // the main path's grid: a date a step, four on three Philox calls
+    walk_triples(s, timesteps, [&](int, uint2 d, uint32_t w) {
+      merton_step<false>(k, sign, d, w, logx);
+      *o = expf(logx); o += n;  // one line: chip_smoke.py's SASS split reads it as the stores
+    });
+    return;
+  }
   int t = 0;
 #pragma unroll 1
-  for (int d = 0; d < monitors; ++d) {
+  for (int m = 0; m < monitors; ++m) {
 #pragma unroll 1
     for (int q = 0; q < every; ++q, ++t) {
-      const uint4 w = philox4x32_10(make_uint4(s.c0, s.c1, t, 0u), s.k0, s.k1);
-      float rad, cs, sn;
-      box_muller_libm(make_uint2(w.x, w.y), rad, cs, sn);
-      const float z_d = sign * (rad * cs);
-      const float z_j = sign * (rad * sn);
-      const float u_c = uniform_closed(w.z);
-      float cnt = 0.0f;
-#pragma unroll
-      for (int k = 0; k < kPoissonTerms; ++k) cnt += (u_c >= lv[k]) ? 1.0f : 0.0f;
-      const float jump = cnt * jump_mean + (jump_std * sqrtf(cnt)) * z_j;
-      logx = ((logx + drift) + vol_sdt * z_d) + jump;
+      uint2 d;
+      uint32_t w;
+      s.triple(t, d, w);
+      merton_step<false>(k, sign, d, w, logx);
     }
-    o[static_cast<int64_t>(d) * n] = expf(logx);
+    *o = expf(logx); o += n;
   }
 }
 
@@ -255,14 +244,14 @@ extern "C" int american_heston_launch(const void* params, const void* keys, void
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int american_merton_launch(const void* params, const void* keys, const void* levels,
+extern "C" int american_merton_launch(const void* params, const void* keys, const void* table,
                                       void* price, int contracts, long long rows, long long cols,
                                       int timesteps, int every, long long half,
                                       long long row_offset, void* stream) {
   american_merton_kernel<<<grid_of(contracts, rows, cols, kThreads), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(params), static_cast<const uint32_t*>(keys),
-      static_cast<const float*>(levels), static_cast<float*>(price), rows, cols, timesteps,
+      static_cast<const float*>(table), static_cast<float*>(price), rows, cols, timesteps,
       every, half, row_offset);
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,15 +24,20 @@
 //     no parity test or word select; an odd step count ends in one tail
 //     step. The draw and the step run on fixed roundings that the twin
 //     repeats bit for bit (stream heston v2; heston_step.cuh says why).
-//   * _merton_block_kernel: the exact compensated Merton step. ONE Philox call
-//     per step: words 0, 1 give the Box–Muller pair (z_d = r·cos θ for the
-//     diffusion, z_j = r·sin θ for the jump size), word 2 the uniform of the
-//     Poisson count, word 3 is unused. The count is the number of the 16
-//     running-cdf levels at or below the uniform; the levels depend only on
-//     lam·dt and come in a per-contract table, so the kernel and its plain
-//     version compare one uniform against the same 16 floats and agree on
-//     every count. jump = n·μ_J + σ_J·√n·z_j. Antithetic rows flip the pair
-//     and share the counts.
+//   * _merton_block_kernel: the exact compensated Merton step of
+//     merton_step.cuh (shared with the monitor kernel), the coefficients and
+//     the 16 running-cdf levels of lam·dt from one per-contract table that
+//     torch computes and the twin reads too. A step reads three words: the
+//     Box–Muller pair (z_d = r·cos θ for the diffusion, z_j = r·sin θ for the
+//     jump size), then the Poisson count's uniform; the walk (walk_triples)
+//     takes four steps from three whole Philox calls, every word used and its
+//     place fixed when compiling. The count compares the first kCountFirst
+//     levels and the rest behind a rare branch, exactly the 16-level count.
+//     jump = n·μ_J + σ_J·√n·z_j. Antithetic rows flip the pair and share the
+//     counts. The draw and the step run on fixed roundings that the twin
+//     repeats bit for bit (stream merton_jump v2); the launch can write each
+//     path's final log-price beside its value (log_out), which the checks
+//     hold to the twin's.
 // What they drop is what the TPU needed: the hardware PRNG, the polynomial
 // sine, the 256x256 blocks, the SMEM tables and the unroll caps. One thread
 // owns one path and keeps its whole state in registers; every thread of a
@@ -41,8 +46,9 @@
 //
 // Bound on Hopper: the rate of transcendental and integer instructions, as
 // for the flat kernel. Per step the Heston and Merton kernels add a second
-// trigonometric output and a square root; Merton runs a whole Philox call per
-// step and 16 compares; Heston half a call, without the select.
+// trigonometric output and a square root; Merton runs three quarters of a
+// Philox call and kCountFirst compares (PERF.md §6 has their SASS by part);
+// Heston half a call, without the select.
 //
 // Contract: launches on the given stream, allocates nothing, does not
 // synchronise; each C entry point returns cudaGetLastError().
@@ -51,12 +57,12 @@
 #include <stdint.h>
 
 #include "heston_step.cuh"
+#include "merton_step.cuh"
 #include "path_stream.cuh"
 
 namespace {
 
 constexpr int kForward = 5;  // Heston only: spot·S_T/S_m with ln S_m captured
-constexpr int kPoissonTerms = 16;
 
 __device__ __forceinline__ bool tracks_max(int family, int variant) {
   return family == kBarrier ? variant == 1 : (variant == 0 || variant == 3);
@@ -206,57 +212,37 @@ __global__ void heston_paths_kernel(const float* __restrict__ params,
 }
 
 // The exact Merton step: params [C, 9] = spot strike T r q vol lam jump_mean
-// jump_std; levels [C, 16] the running Poisson cdf of lam·dt.
+// jump_std; table [C, 20] merton_step.cuh's coefficients and levels; log_out,
+// where not null, takes each path's final log-price.
 template <int kFamily>
 __global__ void merton_paths_kernel(const float* __restrict__ params,
                                     const uint32_t* __restrict__ keys,
-                                    const float* __restrict__ levels, float* __restrict__ out,
-                                    int64_t rows, int64_t cols, int timesteps, int variant,
-                                    float barrier_rel, int64_t half, int64_t row_offset) {
+                                    const float* __restrict__ table, float* __restrict__ out,
+                                    float* __restrict__ log_out, int64_t rows, int64_t cols,
+                                    int timesteps, int variant, float barrier_rel, int64_t half,
+                                    int64_t row_offset) {
   int64_t local;
   int c;
   PathStream s;
   if (!path_setup(keys, rows, cols, half, row_offset, local, c, s)) return;
   const float sign = s.sign;
   const float* p = params + 9 * c;
-  const float spot = p[0], strike = p[1], maturity = p[2], rate = p[3], div = p[4],
-              vol = p[5], lam = p[6], jump_mean = p[7], jump_std = p[8];
-  const float dt = __fdiv_rn(maturity, static_cast<float>(timesteps));
-  const float vol_sdt = __fmul_rn(vol, __fsqrt_rn(dt));
-  const float m = __fsub_rn(
-      expf(__fadd_rn(jump_mean, __fmul_rn(__fmul_rn(0.5f, jump_std), jump_std))), 1.0f);
-  const float drift = __fmul_rn(
-      __fsub_rn(__fsub_rn(__fsub_rn(rate, div), __fmul_rn(lam, m)),
-                __fmul_rn(__fmul_rn(0.5f, vol), vol)),
-      dt);
-  float lv[kPoissonTerms];
-#pragma unroll
-  for (int k = 0; k < kPoissonTerms; ++k) lv[k] = __ldg(levels + kPoissonTerms * c + k);
+  const float spot = p[0], strike = p[1], maturity = p[2];
+  const MertonCoeffs k = merton_coeffs(table, c);
   const bool up = tracks_max(kFamily, variant);
   float logx = logf(spot);
   float acc = (kFamily == kBarrier || kFamily == kLookback) ? logx : 0.0f;
-  for (int t = 0; t < timesteps; ++t) {
-    const uint4 w = philox4x32_10(make_uint4(s.c0, s.c1, t, 0u), s.k0, s.k1);
-    float rad, cs, sn;
-    box_muller_libm(make_uint2(w.x, w.y), rad, cs, sn);
-    const float z_d = sign * (rad * cs);
-    const float z_j = sign * (rad * sn);
-    const float u_c = uniform_closed(w.z);
-    float cnt = 0.0f;
-#pragma unroll
-    for (int k = 0; k < kPoissonTerms; ++k) cnt += (u_c >= lv[k]) ? 1.0f : 0.0f;
-    const float jump = cnt * jump_mean + (jump_std * sqrtf(cnt)) * z_j;
+  walk_triples(s, timesteps, [&](int, uint2 d, uint32_t w) {
+    const float inc = merton_step<kFamily == kVariance>(k, sign, d, w, logx);
     if constexpr (kFamily == kVariance) {
-      const float inc = (drift + vol_sdt * z_d) + jump;
-      logx = logx + inc;
-      acc = acc + inc * inc;
+      acc = __fmaf_rn(inc, inc, acc);  // nvcc's contraction, pinned
     } else {
-      logx = ((logx + drift) + vol_sdt * z_d) + jump;
       acc = observe<kFamily>(acc, logx, up, variant);
     }
-  }
-  out[static_cast<int64_t>(c) * rows * cols + local] =
-      finish<kFamily>(logx, acc, spot, strike, maturity, timesteps, variant, barrier_rel);
+  });
+  const int64_t at = static_cast<int64_t>(c) * rows * cols + local;
+  out[at] = finish<kFamily>(logx, acc, spot, strike, maturity, timesteps, variant, barrier_rel);
+  if (log_out != nullptr) log_out[at] = logx;
 }
 
 constexpr int kThreads = 256;
@@ -319,16 +305,19 @@ extern "C" int heston_paths_launch(const void* params, const void* keys, void* o
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int merton_paths_launch(const void* params, const void* keys, const void* levels,
-                                   void* out, int contracts, long long rows, long long cols,
-                                   int timesteps, int family, int variant, float barrier_rel,
-                                   long long half, long long row_offset, void* stream) {
+extern "C" int merton_paths_launch(const void* params, const void* keys, const void* table,
+                                   void* out, void* log_out, int contracts, long long rows,
+                                   long long cols, int timesteps, int family, int variant,
+                                   float barrier_rel, long long half, long long row_offset,
+                                   void* stream) {
   const dim3 grid = grid_of(contracts, rows, cols, kThreads);
   const float* pp = static_cast<const float*>(params);
   const uint32_t* kp = static_cast<const uint32_t*>(keys);
-  const float* lp = static_cast<const float*>(levels);
+  const float* tp = static_cast<const float*>(table);
   float* op = static_cast<float*>(out);
-#define MERTON_ARGS pp, kp, lp, op, rows, cols, timesteps, variant, barrier_rel, half, row_offset
+  float* lp = static_cast<float*>(log_out);
+#define MERTON_ARGS \
+  pp, kp, tp, op, lp, rows, cols, timesteps, variant, barrier_rel, half, row_offset
   switch (family) {
     LAUNCH_FAMILY(merton_paths_kernel, kTerminal, MERTON_ARGS)
     LAUNCH_FAMILY(merton_paths_kernel, kBarrier, MERTON_ARGS)

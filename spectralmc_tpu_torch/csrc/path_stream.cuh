@@ -76,6 +76,36 @@ struct PathStream {
     u1 = uniform_open(d.x);
     u2 = uniform_closed(d.y);
   }
+
+  // The pair d (words 3t, 3t + 1) and the third word c (3t + 2) of step t
+  // of a three-word walk (walk_triples' layout), called for t = 0, 1, 2, ...
+  // in order: the rolled loops of the Merton monitor kernel. Every step but
+  // each fourth starts a call.
+  __device__ __forceinline__ void triple(int t, uint2& d, uint32_t& c) {
+    const int first = (t >> 2) * 3;
+    switch (t & 3) {
+      case 0:
+        w = call(first);
+        d = make_uint2(w.x, w.y);
+        c = w.z;
+        break;
+      case 1: {
+        const uint32_t a = w.w;
+        w = call(first + 1);
+        d = make_uint2(a, w.x);
+        c = w.y;
+        break;
+      }
+      case 2:
+        d = make_uint2(w.z, w.w);
+        w = call(first + 2);
+        c = w.x;
+        break;
+      default:
+        d = make_uint2(w.y, w.z);
+        c = w.w;
+    }
+  }
 };
 
 // Sets up the thread's path; false when the thread has no path.
@@ -105,13 +135,16 @@ __device__ __forceinline__ bool path_setup(const uint32_t* __restrict__ keys, in
 }
 
 // ---------------------------------------------------------------------------
-// A walk over whole Philox calls (heston_paths_kernel, basket_paths_kernel,
-// every branch of gbm_paths_kernel, and at one date a step
-// american_gbm_kernel and american_heston_kernel) and two Box–Muller
-// transforms: libm's, of the v1 streams, and the SFU's, of the basket_gbm
-// and american_basket_gbm v2 streams and american_gbm's single steps
-// (heston_step.cuh has the Heston streams' own, and gbm_step.cuh the flat
-// GBM streams' own, which takes its root from here: box_muller_root).
+// Two walks over whole Philox calls: walk_draws, of two-word draws
+// (heston_paths_kernel, basket_paths_kernel, every branch of
+// gbm_paths_kernel, and at one date a step american_gbm_kernel,
+// american_heston_kernel and american_basket_kernel), and walk_triples, of
+// three-word steps (merton_paths_kernel, and at one date a step
+// american_merton_kernel); and two Box–Muller transforms: libm's, of the v1
+// streams, and the SFU's, of the basket_gbm and american_basket_gbm v2
+// streams and american_gbm's single steps (heston_step.cuh has the Heston and
+// Merton streams' own, and gbm_step.cuh the flat GBM streams' own, which
+// takes its root from here: box_muller_root).
 // ---------------------------------------------------------------------------
 
 // Walks `steps` steps of kP draws each in the stream's draw order (draw
@@ -151,6 +184,41 @@ __device__ __forceinline__ void walk_draws(const PathStream& s, int steps, Step&
       d[p] = p % 2 ? make_uint2(c.z, c.w) : make_uint2(c.x, c.y);
     }
     step(t, d);
+  }
+}
+
+// Walks `steps` steps of three words each in the stream's word order (step t
+// reads words 3t, 3t + 1 and 3t + 2, word i being word i % 4 of call i / 4)
+// with every word's place known when compiling: an iteration covers four
+// steps on three whole calls, each made just before the first step that
+// reads it (made all three first, ptxas split many of their products into
+// IMAD.HI and IMAD pairs: chip_variants.py's `eager`, PERF.md §6); a tail
+// of steps % 4
+// steps takes the calls it reaches, the last of them for one word where the
+// tail is three steps. step(t, d, c) advances step t on the pair d and the
+// third word c.
+template <class Step>
+__device__ __forceinline__ void walk_triples(const PathStream& s, int steps, Step&& step) {
+  int t = 0;
+  for (; t + 4 <= steps; t += 4) {
+    const int first = t / 4 * 3;
+    const uint4 a = s.call(first);
+    step(t, make_uint2(a.x, a.y), a.z);
+    const uint4 b = s.call(first + 1);
+    step(t + 1, make_uint2(a.w, b.x), b.y);
+    const uint4 c = s.call(first + 2);
+    step(t + 2, make_uint2(b.z, b.w), c.x);
+    step(t + 3, make_uint2(c.y, c.z), c.w);
+  }
+  if (t < steps) {
+    const int first = t / 4 * 3;
+    const uint4 a = s.call(first);
+    step(t, make_uint2(a.x, a.y), a.z);
+    if (t + 1 < steps) {
+      const uint4 b = s.call(first + 1);
+      step(t + 1, make_uint2(a.w, b.x), b.y);
+      if (t + 2 < steps) step(t + 2, make_uint2(b.z, b.w), s.call(first + 2).x);
+    }
   }
 }
 

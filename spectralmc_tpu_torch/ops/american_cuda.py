@@ -68,8 +68,10 @@ from spectralmc_tpu_torch.ops.basket import BasketCombine, BasketSpec, basket_ch
 from spectralmc_tpu_torch.ops.dynamics_cuda import (
     heston_coeffs_plain,
     heston_step_plain,
-    merton_levels,
-    poisson_counts,
+    merton_calls,
+    merton_step_plain,
+    merton_table,
+    merton_words,
 )
 from spectralmc_tpu_torch.ops.gbm import (
     AMERICAN_PAYOFFS,
@@ -90,8 +92,6 @@ from spectralmc_tpu_torch.ops.gbm_cuda import (
     _pair_draws,
     _sinpi,
     _stream,
-    uniform_closed,
-    uniform_open,
 )
 
 LSMC_BACKWARD_VERSIONS: dict[str, int] = {"cuda": 3, "cuda_two_state": 4}
@@ -273,34 +273,24 @@ def simulate_merton_american_rows_cuda_plain(
 ) -> torch.Tensor:
     """The Merton monitor kernel's plain twin: ``[C, timesteps // every,
     rows, cols]`` float32 prices at the monitor dates. ``params`` is ``[C,
-    9]``; the step is ``dynamics_cuda.simulate_merton_rows_cuda_plain``'s,
-    one Philox call a step (``words``, tests only, broadcastable to ``[C,
-    rows, cols, timesteps, 4]``)."""
+    9]``; the step is ``dynamics_cuda.merton_step_plain`` on the
+    ``american_merton_jump`` v2 words (the European ``merton_jump`` v2
+    layout: three words a step, ``dynamics_cuda.merton_words``), so the
+    log-price is the kernel's bit for bit and the rows ``exp`` of it.
+    ``words`` (tests only) replaces the generator: a tensor broadcastable to
+    ``[C, rows, cols, dynamics_cuda.merton_calls(timesteps), 4]``."""
     _check(params, key_words, 9)
     check_monitor_grid(timesteps, exercise_every)
     sign, call = _stream(
-        params, key_words, rows=rows, cols=cols, calls=timesteps,
+        params, key_words, rows=rows, cols=cols, calls=merton_calls(timesteps),
         antithetic_half=antithetic_half, row_offset=row_offset, words=words,
     )
-    spot, _, maturity, rate, div, vol, lam, jump_mean, jump_std = (
-        params[:, i, None, None] for i in range(9)
-    )
-    dt = maturity / float(timesteps)
-    vol_sdt = vol * torch.sqrt(dt)
-    m = torch.exp(jump_mean + 0.5 * jump_std * jump_std) - 1.0
-    drift = (rate - div - lam * m - 0.5 * vol * vol) * dt
-    levels = merton_levels(params, timesteps)[:, None, None, :]
-    logx = torch.log(spot).expand(params.shape[0], rows, cols)
+    step_words = merton_words(call)
+    table = merton_table(params, timesteps)[:, None, None, :]
+    logx = torch.log(params[:, 0, None, None]).expand(params.shape[0], rows, cols)
     price = _monitor_out(params, timesteps // exercise_every, rows, cols)
     for t in range(timesteps):
-        w = call(t)
-        rad = torch.sqrt(-2.0 * torch.log(uniform_open(w[0])))
-        u2 = uniform_closed(w[1])
-        z_d = sign * (rad * _cospi(2.0 * u2))
-        z_j = sign * (rad * _sinpi(2.0 * u2))
-        cnt = poisson_counts(uniform_closed(w[2]), levels)
-        jump = cnt * jump_mean + (jump_std * torch.sqrt(cnt)) * z_j
-        logx = ((logx + drift) + vol_sdt * z_d) + jump
+        logx, _ = merton_step_plain(table, sign, step_words(t), logx, sum_first=False)
         if (t + 1) % exercise_every == 0:
             price[:, t // exercise_every] = torch.exp(logx)
     return price
@@ -578,7 +568,8 @@ def _check_backward(price_rows: torch.Tensor, strike: torch.Tensor, disc: torch.
 # ops/_build.py::load_library's arguments for this module's kernels
 LIBRARY = ("american_paths", ("american_paths.cu",), ("gbm_step.cuh", "path_stream.cuh"))
 DYNAMICS_LIBRARY = ("american_dynamics", ("american_dynamics.cu",),
-                    ("basket_spec.cuh", "basket_step.cuh", "heston_step.cuh", "path_stream.cuh"))
+                    ("basket_spec.cuh", "basket_step.cuh", "heston_step.cuh", "merton_step.cuh",
+                     "path_stream.cuh"))
 BACKWARD_LIBRARY = ("lsmc_backward", ("lsmc_backward.cu",), ("lsmc_backward.cuh",))
 TWO_STATE_LIBRARY = ("lsmc_two_state", ("lsmc_two_state.cu",), ("lsmc_backward.cuh",))
 
@@ -687,7 +678,7 @@ def simulate_heston_american_rows_cuda(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Heston monitor-date ``(price, max(v, 0))`` rows, each ``[C, timesteps
     // every, rows, cols]`` float32, on the Philox stream
-    (``american_heston`` v1): CPU tensors run the plain twin, CUDA tensors
+    (``american_heston`` v2): CPU tensors run the plain twin, CUDA tensors
     launch the Heston monitor kernel (one launch per contract batch) or
     raise."""
     _check(params, key_words, 10)
@@ -719,10 +710,10 @@ def simulate_merton_american_rows_cuda(
     row_offset: int = 0,
 ) -> torch.Tensor:
     """Merton monitor-date prices ``[C, timesteps // every, rows, cols]``
-    float32 on the Philox stream (``american_merton_jump`` v1): CPU tensors
+    float32 on the Philox stream (``american_merton_jump`` v2): CPU tensors
     run the plain twin, CUDA tensors launch the Merton monitor kernel (one
-    launch per contract batch, after the ``[C, 16]`` level table) or
-    raise."""
+    launch per contract batch, after the ``[C, 20]`` table of
+    ``dynamics_cuda.merton_table``) or raise."""
     _check(params, key_words, 9)
     kwargs = dict(timesteps=timesteps, rows=rows, cols=cols, exercise_every=exercise_every,
                   antithetic_half=antithetic_half, row_offset=row_offset)
@@ -730,10 +721,10 @@ def simulate_merton_american_rows_cuda(
         return simulate_merton_american_rows_cuda_plain(params, key_words, **kwargs)
     p, words, monitors = _monitor_args(params, key_words, timesteps=timesteps, rows=rows,
                                        cols=cols, exercise_every=exercise_every)
-    levels = merton_levels(p, timesteps)
+    table = merton_table(p, timesteps)
     price = _written_in_full(p.shape[0], monitors, rows, cols, device=p.device)
     _launched("american_merton", _dynamics_kernel().american_merton_launch(
-        p.data_ptr(), words.data_ptr(), levels.data_ptr(), price.data_ptr(), p.shape[0], rows,
+        p.data_ptr(), words.data_ptr(), table.data_ptr(), price.data_ptr(), p.shape[0], rows,
         cols, timesteps, exercise_every, antithetic_half or 0, row_offset,
         torch.cuda.current_stream(p.device).cuda_stream,
     ))

@@ -17,8 +17,9 @@ its header states what each keeps and drops. This module holds, for each,
   kernels; the card holds the kernels against the twins.
 * what is computed outside the kernels, once per contract, in torch on the
   contracts' device: ``term_coeff_tables`` (per-step ``(drift·dt, vol·√dt)``
-  and per-pair ``(R, φ)``) and ``poisson_levels`` (the 16 running-cdf levels
-  of ``lam·dt``). Kernel and twin read the same tables.
+  and per-pair ``(R, φ)``) and ``merton_table`` (``(drift·dt, vol·√dt, μ_J,
+  σ_J)`` and ``poisson_levels``, the 16 running-cdf levels of ``lam·dt``).
+  Kernel and twin read the same tables.
 
 The streams (``gbm_cuda.CUDA_STREAM_VERSIONS``): Philox-4x32-10 keyed by the
 contract's two threefry words, counter ``(path lo, path hi, call, 0)``.
@@ -33,10 +34,18 @@ contract's two threefry words, counter ``(path lo, path hi, call, 0)``.
   that the twin repeats bit for bit (``box_muller_pinned``,
   ``heston_step_plain``). Digital transforms TERMINAL; forward start is a
   branch of its own (it captures ``ln S_m``).
-* ``merton_jump`` v1 — ONE call per step ``t``: words 0, 1 the Box–Muller
-  pair (``z_d = r·cos θ``, ``z_j = r·sin θ``), word 2 the count's uniform,
-  word 3 unused. Antithetic rows flip the pair and share the counts. Digital
-  transforms TERMINAL; forward start runs TERMINAL at the tail length.
+* ``merton_jump`` v2 — three words a step: step ``t`` reads words ``3t``,
+  ``3t+1`` and ``3t+2`` of the stream, word ``i`` being word ``i % 4`` of
+  call ``i // 4``, so four steps take three whole calls and a tail of ``T %
+  4`` steps the calls it reaches (``csrc/path_stream.cuh::walk_triples``).
+  The first two are the Box–Muller pair (``z_d = r·cos θ``, ``z_j = r·sin
+  θ``), the third the count's uniform. The draw, the count and the step run
+  on fixed roundings that the twin repeats bit for bit
+  (``csrc/merton_step.cuh``; ``box_muller_pinned``, ``merton_count``,
+  ``merton_step_plain``). Antithetic rows flip the pair and share the counts.
+  Digital transforms TERMINAL; forward start runs TERMINAL at the tail
+  length. (v1 took one whole call a step, words 0–2, word 3 unused, with
+  libm's transform and 16 compares.)
 
 Launch counts go to ``gbm_cuda.LAUNCHES`` and ``LAUNCHES_BY_BRANCH`` under
 ``term_<branch>``, ``heston_<branch>`` and ``merton_<branch>``.
@@ -46,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Callable
 
 import torch
 
@@ -59,6 +69,7 @@ from spectralmc_tpu_torch.ops.gbm import (
 from spectralmc_tpu_torch.ops.gbm_cuda import (
     _FAMILY_CODE,
     _LOOKBACK_VARIANT,
+    Words,
     _check,
     _cospi,
     _count,
@@ -74,7 +85,8 @@ from spectralmc_tpu_torch.ops.gbm_cuda import (
 )
 from spectralmc_tpu_torch.ops.rng import fma32_exact
 
-POISSON_TERMS = 16  # csrc/dynamics_paths.cu's kPoissonTerms
+POISSON_TERMS = 16  # csrc/merton_step.cuh's kPoissonTerms
+MERTON_COUNT_FIRST = 3  # csrc/merton_step.cuh's kCountFirst
 _HESTON_FORWARD = 5  # csrc/dynamics_paths.cu's kForward
 
 
@@ -138,7 +150,8 @@ def _observe(branch: str, payoff: PayoffKind, acc: torch.Tensor, logx: torch.Ten
 
 
 # ops/_build.py::load_library's arguments for this module's kernels
-LIBRARY = ("dynamics_paths", ("dynamics_paths.cu",), ("heston_step.cuh", "path_stream.cuh"))
+LIBRARY = ("dynamics_paths", ("dynamics_paths.cu",),
+           ("heston_step.cuh", "merton_step.cuh", "path_stream.cuh"))
 
 
 def _library() -> ctypes.CDLL:
@@ -148,7 +161,7 @@ def _library() -> ctypes.CDLL:
     ll, i, vp, f = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_float
     lib.gbm_term_launch.argtypes = [vp, vp, vp, vp, vp, i, ll, ll, i, i, i, f, ll, ll, vp]
     lib.heston_paths_launch.argtypes = [vp, vp, vp, i, ll, ll, i, i, i, f, i, ll, ll, vp]
-    lib.merton_paths_launch.argtypes = [vp, vp, vp, vp, i, ll, ll, i, i, i, f, ll, ll, vp]
+    lib.merton_paths_launch.argtypes = [vp, vp, vp, vp, vp, i, ll, ll, i, i, i, f, ll, ll, vp]
     for fn in (lib.gbm_term_launch, lib.heston_paths_launch, lib.merton_paths_launch):
         fn.restype = ctypes.c_int
     return lib
@@ -551,15 +564,96 @@ def poisson_levels(mu: torch.Tensor) -> torch.Tensor:
 def poisson_counts(u: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
     """Inverse-cdf Poisson counts (float32): the number of ``levels``
     (``[..., 16]``, broadcast against ``u``'s shape) at or below ``u``."""
-    cnt = torch.zeros_like(u)
+    cnt = torch.zeros(u.shape, dtype=torch.uint8, device=u.device)
     for k in range(POISSON_TERMS):
-        cnt = cnt + (u >= levels[..., k]).to(torch.float32)
-    return cnt
+        cnt += u >= levels[..., k]
+    return cnt.to(torch.float32)
 
 
-def merton_levels(params: torch.Tensor, timesteps: int) -> torch.Tensor:
-    """``poisson_levels`` of each contract's ``lam·dt``: ``[C, 16]``."""
-    return poisson_levels(params[:, 6] * (params[:, 2] / float(timesteps)))
+def merton_count(u: torch.Tensor, levels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``csrc/merton_step.cuh::merton_count`` op for op: ``(n, √n)`` float32,
+    ``n`` the index past the last of ``levels`` (``[..., 16]``, never
+    decreasing) at or below ``u``. With ``K = MERTON_COUNT_FIRST`` the first
+    ``K − 1`` levels decide ``n`` below level ``K − 1``; at or past it the
+    rest do. With levels that never decrease this is ``poisson_counts`` on
+    every ``u``. ``√n`` is the IEEE root (the kernel's constants below ``K``
+    are its values)."""
+    first = MERTON_COUNT_FIRST
+    n = torch.zeros(u.shape, dtype=torch.uint8, device=u.device)
+    for i in range(first - 1):
+        n.masked_fill_(u >= levels[..., i], i + 1)
+    rest = torch.full(u.shape, first, dtype=torch.uint8, device=u.device)
+    for i in range(first, POISSON_TERMS):
+        rest.masked_fill_(u >= levels[..., i], i + 1)
+    n = torch.where(u >= levels[..., first - 1], rest, n).to(torch.float32)
+    return n, torch.sqrt(n)
+
+
+def merton_table(params: torch.Tensor, timesteps: int) -> torch.Tensor:
+    """``[C, 20]`` float32, ``csrc/merton_step.cuh``'s per-contract table:
+    ``(drift·dt, vol·√dt, μ_J, σ_J)`` with the compensated drift ``r − q −
+    λ·(e^{μ_J + σ_J²/2} − 1) − σ²/2``, then ``poisson_levels(λ·dt)``. ``dt``
+    is divided by a tensor: on the card torch divides by a Python number as
+    a product with its reciprocal, an ulp off the quotient for a step count
+    that is not a power of two."""
+    maturity, rate, div, vol, lam, jump_mean, jump_std = (
+        params[:, i] for i in (2, 3, 4, 5, 6, 7, 8))
+    dt = maturity / torch.full_like(maturity, float(timesteps))
+    m = torch.exp(jump_mean + 0.5 * jump_std * jump_std) - 1.0
+    drift = (rate - div - lam * m - 0.5 * vol * vol) * dt
+    head = torch.stack([drift, vol * torch.sqrt(dt), jump_mean, jump_std], dim=1)
+    return torch.cat([head, poisson_levels(lam * dt)], dim=1).contiguous()
+
+
+def merton_words(call: Words) -> Callable[[int], tuple[torch.Tensor, ...]]:
+    """``words(t)``: step ``t``'s words ``3t``, ``3t+1``, ``3t+2`` of the
+    stream (word ``i`` is word ``i % 4`` of call ``i // 4``), called in order
+    ``t = 0, 1, …``: the ``merton_jump`` v2 layout."""
+    calls: dict[int, tuple[torch.Tensor, ...]] = {}
+
+    def words(t: int) -> tuple[torch.Tensor, ...]:
+        for q in [q for q in calls if q < 3 * t // 4]:
+            del calls[q]
+        out = []
+        for i in range(3 * t, 3 * t + 3):
+            if i // 4 not in calls:
+                calls[i // 4] = call(i // 4)
+            out.append(calls[i // 4][i % 4])
+        return tuple(out)
+
+    return words
+
+
+def merton_calls(timesteps: int) -> int:
+    """Philox calls a path of ``timesteps`` Merton steps reads."""
+    return -(-3 * timesteps // 4)
+
+
+def merton_step_plain(
+    table: torch.Tensor, sign: torch.Tensor, words: tuple[torch.Tensor, ...],
+    logx: torch.Tensor, *, sum_first: bool,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """``csrc/merton_step.cuh::merton_step`` op for op: ``(logx, inc)`` after
+    one step from the step's three words (``inc`` the summed increment where
+    ``sum_first``, the variance swap's order, else None). ``table`` is
+    ``merton_table`` broadcast as ``[C, 1, 1, 20]``. The draw is
+    ``box_muller_pinned``, the count ``merton_count``, each FMA of the kernel
+    rounded once and exactly (``rng.fma32_exact``), every other operation
+    alone, so from the same state the twin's ``logx`` is the kernel's bit
+    for bit."""
+    drift, vol_sdt, jump_mean, jump_std = (table[..., i] for i in range(4))
+    rad, cs, sn = box_muller_pinned(uniform_open(words[0]), uniform_closed(words[1]))
+    z_d = sign * (rad * cs)
+    z_j = sign * (rad * sn)
+    n, root = merton_count(uniform_closed(words[2]), table[..., 4:])
+    jump = fma32_exact(jump_std * root, z_j, n * jump_mean)
+    inc = None
+    if sum_first:
+        inc = fma32_exact(vol_sdt, z_d, drift) + jump
+        logx = logx + inc
+    else:
+        logx = fma32_exact(vol_sdt, z_d, logx + drift) + jump
+    return logx, inc
 
 
 def simulate_merton_rows_cuda_plain(
@@ -575,45 +669,41 @@ def simulate_merton_rows_cuda_plain(
     antithetic_half: int | None = None,
     row_offset: int = 0,
     words: torch.Tensor | None = None,
+    trace: dict[str, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """The Merton kernel's plain twin: ``[C, rows, cols]`` float32 underliers
     of any non-American, non-cliquet payoff under the exact compensated
     step. ``params`` is ``[C, 9]`` float32 in ``MertonContract`` order;
     ``words`` (tests only) replaces the generator (``[C, rows, cols,
-    timesteps, 4]``: one call per step)."""
+    merton_calls(T), 4]``). The step is ``merton_step_plain`` on the
+    ``merton_jump`` v2 words, the variance swap's sum of squares the
+    kernel's FMA: the log-price is the kernel's bit for bit on the card
+    (where torch's ``log`` of the spot is the kernel's ``logf``), the
+    epilogues' ``exp``, ``log`` and means torch's, within rtol 2e-5 of the
+    kernel's. ``trace``, when given, receives ``"log_price"``: each path's
+    final log-price."""
     _check(params, key_words, 9)
     branch = _branch(payoff, barrier_rel)
     p, steps = _route_in(payoff, params, timesteps, forward_start_step)
     sign, call = _stream(
-        p, key_words, rows=rows, cols=cols, calls=steps, antithetic_half=antithetic_half,
-        row_offset=row_offset, words=words,
+        p, key_words, rows=rows, cols=cols, calls=merton_calls(steps),
+        antithetic_half=antithetic_half, row_offset=row_offset, words=words,
     )
-    spot, strike, maturity, rate, div, vol, lam, jump_mean, jump_std = (
-        p[:, i, None, None] for i in range(9)
-    )
-    dt = maturity / float(steps)
-    vol_sdt = vol * torch.sqrt(dt)
-    m = torch.exp(jump_mean + 0.5 * jump_std * jump_std) - 1.0
-    drift = (rate - div - lam * m - 0.5 * vol * vol) * dt
-    levels = merton_levels(p, steps)[:, None, None, :]
+    step_words = merton_words(call)
+    spot, strike, maturity = (p[:, i, None, None] for i in range(3))
+    table = merton_table(p, steps)[:, None, None, :]
     shape = (p.shape[0], rows, cols)
     logx = torch.log(spot).expand(shape)
     acc = logx if branch in ("barrier", "lookback") else torch.zeros(shape, device=p.device)
     for t in range(steps):
-        w = call(t)
-        rad = torch.sqrt(-2.0 * torch.log(uniform_open(w[0])))
-        u2 = uniform_closed(w[1])
-        z_d = sign * (rad * _cospi(2.0 * u2))
-        z_j = sign * (rad * _sinpi(2.0 * u2))
-        cnt = poisson_counts(uniform_closed(w[2]), levels)
-        jump = cnt * jump_mean + (jump_std * torch.sqrt(cnt)) * z_j
+        logx, inc = merton_step_plain(table, sign, step_words(t), logx,
+                                      sum_first=branch == "variance")
         if branch == "variance":
-            inc = (drift + vol_sdt * z_d) + jump
-            logx = logx + inc
-            acc = acc + inc * inc
+            acc = fma32_exact(inc, inc, acc)
         else:
-            logx = ((logx + drift) + vol_sdt * z_d) + jump
             acc = _observe(branch, payoff, acc, logx)
+    if trace is not None:
+        trace["log_price"] = logx
     out = _finish(branch, payoff, logx, acc, spot=spot, strike=strike, maturity=maturity,
                   steps=steps, barrier_rel=barrier_rel)
     return _route_out(payoff, out, p)
@@ -631,29 +721,36 @@ def simulate_merton_rows_cuda(
     forward_start_step: int | None = None,
     antithetic_half: int | None = None,
     row_offset: int = 0,
+    trace: dict[str, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """Payoff underliers ``[C, rows, cols]`` float32 under the exact Merton
-    step on the Philox stream ``merton_jump``: CPU tensors run the plain
+    step on the Philox stream ``merton_jump`` (v2): CPU tensors run the plain
     twin, CUDA tensors launch the Merton kernel (one launch for the whole
-    contract batch, after the ``[C, 16]`` level table) or raise."""
+    contract batch, after the ``[C, 20]`` table) or raise. ``trace``, when
+    given, receives ``"log_price"``, each path's final log-price (the
+    kernel writes it beside the value)."""
     _check(params, key_words, 9)
     if params.device.type == "cpu":
         return simulate_merton_rows_cuda_plain(
             params, key_words, timesteps=timesteps, rows=rows, cols=cols, payoff=payoff,
             barrier_rel=barrier_rel, forward_start_step=forward_start_step,
-            antithetic_half=antithetic_half, row_offset=row_offset,
+            antithetic_half=antithetic_half, row_offset=row_offset, trace=trace,
         )
     branch = _branch(payoff, barrier_rel)
     p, steps = _route_in(payoff, params, timesteps, forward_start_step)
     p, words, out = _device_args(p, key_words, steps, rows, cols)
-    levels = merton_levels(p, steps)
+    table = merton_table(p, steps)
+    log_price = None if trace is None else torch.empty_like(out)
     status = _library().merton_paths_launch(
-        p.data_ptr(), words.data_ptr(), levels.data_ptr(), out.data_ptr(), p.shape[0], rows,
-        cols, steps, _FAMILY_CODE[branch], _variant(branch, payoff),
+        p.data_ptr(), words.data_ptr(), table.data_ptr(), out.data_ptr(),
+        None if log_price is None else log_price.data_ptr(), p.shape[0], rows, cols, steps,
+        _FAMILY_CODE[branch], _variant(branch, payoff),
         1.0 if barrier_rel is None else barrier_rel, antithetic_half or 0, row_offset,
         _stream_of(p.device),
     )
     if status != 0:
         raise RuntimeError(f"merton_paths_launch failed: cudaError {status}")
     _count(f"merton_{branch}")
+    if trace is not None:
+        trace["log_price"] = log_price
     return _route_out(payoff, out, p)

@@ -30,7 +30,10 @@ states what it keeps, what it drops and what bounds it. This module holds
   ``csrc/gbm_step.cuh``), ``basket_gbm`` and ``american_basket_gbm`` (their
   Box–Muller on the SFU, ``csrc/path_stream.cuh``), ``heston`` and
   ``american_heston`` (the draw and the step on fixed roundings that the
-  twins repeat bit for bit, ``csrc/heston_step.cuh``); at 3
+  twins repeat bit for bit, ``csrc/heston_step.cuh``), ``merton_jump`` and
+  ``american_merton_jump`` (three words a step, four steps on three whole
+  Philox calls, and the draw, the count and the step on fixed roundings,
+  ``csrc/merton_step.cuh``); at 3
   ``american_gbm`` (v2: the odd single step's Box–Muller on the SFU; v3:
   its pair steps are ``gbm``'s v2 pair step, so an even grid's last row is
   the TERMINAL branch's value bit for bit); the others' Box–Muller is
@@ -76,8 +79,8 @@ from spectralmc_tpu_torch.ops.gbm import (
 from spectralmc_tpu_torch.ops.rng import MASK32, philox4x32
 
 CUDA_STREAM_VERSIONS: dict[str, int] = {
-    "gbm": 2, "gbm_cliquet": 1, "gbm_term": 1, "heston": 2, "merton_jump": 1, "basket_gbm": 2,
-    "american_gbm": 3, "american_heston": 2, "american_merton_jump": 1,
+    "gbm": 2, "gbm_cliquet": 1, "gbm_term": 1, "heston": 2, "merton_jump": 2, "basket_gbm": 2,
+    "american_gbm": 3, "american_heston": 2, "american_merton_jump": 2,
     "american_basket_gbm": 2,
 }
 

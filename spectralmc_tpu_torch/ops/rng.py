@@ -126,11 +126,13 @@ def fma32_exact(a: torch.Tensor, b: torch.Tensor | float, c: torch.Tensor | floa
     the midpoints lie elsewhere in the bits — the sum is rounded to odd
     instead (Knuth's two-sum gives its error; an inexact sum with an even
     last bit moves one ulp toward the error), which the cast then rounds
-    correctly. ``b`` and ``c`` must be float32 values."""
+    correctly. An exact zero sum (``p = −c``) is the FMA's zero, sign
+    included, and needs neither. ``b`` and ``c`` must be float32 values."""
     p = a.double() * b
     s = p + c
     out = s.float()
-    suspect = ((s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000) | (s.abs() < 2.0**-125)
+    suspect = (((s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000)
+               | ((s.abs() < 2.0**-125) & (s != 0.0)))
     if bool(suspect.any()):
         s_t = s[suspect]
         p_t = p.expand(s.shape)[suspect]

@@ -338,7 +338,8 @@ def test_american_config_parity(model: str, payoff: str, market: str, sampling: 
     kernel of its dynamics on flat market data (a curved GBM config runs the
     threefry forward), the CUDA backward for the single-state classic
     estimator (GBM, Merton, the geometric basket), the torch estimator for
-    the two-state families and cross-fit, stream ``american_{model}`` v1."""
+    the two-state families and cross-fit, stream ``american_{model}`` (v3
+    for GBM, else v2)."""
     args = (model, payoff, market, sampling, estimator)
     want = jgbm.build_simulation_params(**_config_kwargs(*args, jgbm, jbasket))
     got = tgbm.build_simulation_params(**_config_kwargs(*args, tgbm, tbasket))
@@ -355,11 +356,10 @@ def test_american_config_parity(model: str, payoff: str, market: str, sampling: 
     classic = estimator == "fused" and flat and not two_state
     assert american_cuda.resolve_lsmc_backward(sim, rows=sim.batches_per_mc_run) == (
         american_cuda.LSMC_BACKWARD_VERSIONS["cuda"] if classic else 0)
-    # the Merton monitor stream is v1; GBM's is v3 (its pair steps the flat
-    # kernel's); the others are v2 (the basket's draws on the SFU, Heston's
-    # draw and step on fixed roundings)
-    assert gbm_cuda.cuda_stream_version(sim.model, sim.payoff) == (
-        1 if model.startswith("merton") else 3 if model == "gbm" else 2)
+    # GBM's monitor stream is v3 (its pair steps the flat kernel's); the
+    # others are v2 (the basket's draws on the SFU, Heston's and Merton's
+    # draws and steps on fixed roundings, Merton's three words a step)
+    assert gbm_cuda.cuda_stream_version(sim.model, sim.payoff) == (3 if model == "gbm" else 2)
 
 
 # --------------------------------------------------------------------------
@@ -415,7 +415,7 @@ def test_heston_american_put_serves_like_jax(heston_pair) -> None:
 @pytest.mark.parametrize("model", ["heston", "merton_jump", "basket_gbm"])
 def test_cuda_engine_american_pricer_records_its_kernel_and_resumes(model: str) -> None:
     """On the ``"cuda"`` engine (its twins on the CPU): the engine, the
-    stream ``american_{model}`` (v1 for Merton, else v2) and the
+    stream ``american_{model}`` (v2) and the
     family's backward are recorded,
     the mean target is None, a call pricer serves ``.call`` with the put
     NaN, and resume is bit-exact."""
@@ -444,7 +444,7 @@ def test_cuda_engine_american_pricer_records_its_kernel_and_resumes(model: str) 
     assert gbm_cuda.LAUNCHES_BY_BRANCH[branch] == 0  # the twins ran: no kernel on the CPU
     snap = a.snapshot()
     assert (snap.sim.implementation, snap.cuda_stream_version) == (
-        tgbm.SimImplementation.CUDA, 1 if model == "merton_jump" else 2)
+        tgbm.SimImplementation.CUDA, 2)
     assert snap.lsmc_backward_version == (4 if model == "heston" else 3)
     pred = a.predict_price(np.asarray(
         [[float(np.mean(v)) for v in bounds.values()]], dtype=np.float32))

@@ -17,9 +17,10 @@
   basket, the CUDA backward's twin for Merton and the geometric basket)
   give the host Bellman DP on that path (rel 1e-4, the GBM twin's gate).
 * The engine's decisions: ``resolve_lsmc_backward``, ``cuda_supported`` and
-  ``cuda_stream_version`` for every family; the twins' last row against the
-  European twins' TERMINAL value (exact: the same operations in the same
-  order) and their shard stability.
+  ``cuda_stream_version`` for every family (every stream at v2); the twins'
+  last row against the European twins' TERMINAL value (exact: the same
+  operations in the same order; for Merton also at ``every`` 1, 2, 4, 5 and
+  at T = 13 and 15, antithetic on and off) and their shard stability.
 """
 
 from __future__ import annotations
@@ -208,6 +209,32 @@ def test_monitor_twin_last_row_is_the_terminal_twin(family: str, every: int) -> 
     assert torch.equal(rows[:, -1], terminal)
 
 
+MERTON_LAST_ROW_CASES = [(16, 1), (16, 2), (16, 4), (15, 5), (13, 1)]
+
+
+@pytest.mark.parametrize("antithetic", [False, True], ids=["plain", "anti"])
+@pytest.mark.parametrize("steps,every", MERTON_LAST_ROW_CASES,
+                         ids=[f"T{t}_every{e}" for t, e in MERTON_LAST_ROW_CASES])
+def test_merton_monitor_twin_last_row_is_the_terminal_twin(steps: int, every: int,
+                                                           antithetic: bool) -> None:
+    """Tier 1, exact: the Merton monitor twin's last row is the European
+    twin's TERMINAL value bit for bit, and its rows at a coarser grid are its
+    ``every = 1`` rows on the dates they share (both walk the ``merton_jump``
+    v2 words, three a step, through ``dynamics_cuda.merton_step_plain``)."""
+    kw = dict(rows=6, cols=16, antithetic_half=3 if antithetic else None)
+    params = RANDOM["merton"]
+    rows = american_cuda.simulate_merton_american_rows_cuda_plain(
+        params, KEYS, timesteps=steps, exercise_every=every, **kw)
+    terminal = dynamics_cuda.simulate_merton_rows_cuda_plain(
+        params, KEYS, timesteps=steps, payoff=tgbm.PayoffKind.TERMINAL, **kw)
+    assert rows.shape == (2, steps // every, 6, 16)
+    assert torch.equal(rows[:, -1], terminal)
+    if every > 1:
+        fine = american_cuda.simulate_merton_american_rows_cuda_plain(
+            params, KEYS, timesteps=steps, exercise_every=1, **kw)
+        assert torch.equal(fine[:, every - 1::every], rows)
+
+
 @pytest.mark.parametrize("family", FAMILIES)
 def test_monitor_twin_rows_are_shard_stable(family: str) -> None:
     """Tier 1, exact: a row block drawn at its ``row_offset`` equals the same
@@ -272,7 +299,7 @@ def test_engine_backward_and_stream_per_family(model: str, kw: dict, engine: str
         model == "basket_gbm" and sim.basket.combine == tbasket.BasketCombine.ARITHMETIC))
     if stream is not None:
         assert gbm_cuda.cuda_stream_version(sim.model, sim.payoff) == \
-            gbm_cuda.CUDA_STREAM_VERSIONS[stream] == (1 if stream == "american_merton_jump" else 2)
+            gbm_cuda.CUDA_STREAM_VERSIONS[stream] == 2
     assert set(gbm_cuda.CUDA_STREAM_VERSIONS) >= {
         "american_heston", "american_merton_jump", "american_basket_gbm"}
 

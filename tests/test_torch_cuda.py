@@ -247,6 +247,77 @@ def test_merton_kernel_counts_equal_the_twins_on_card() -> None:
     assert float(counts[0].mean()) > 1.0 and torch.equal(counts[0][:, :64], counts[0][:, 64:])
 
 
+MERTON_LOG_CASES = [(payoff, barrier_rel, 9) for payoff, barrier_rel in
+                    [("terminal", None), *BRANCH_PAYOFFS]] + [
+                    ("terminal", None, steps) for steps in (1, 2, 3, 4, 5, 7, 8, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("payoff,barrier_rel,steps", MERTON_LOG_CASES,
+                         ids=[f"{p}_T{s}" for p, _, s in MERTON_LOG_CASES])
+def test_merton_kernel_log_price_equals_the_twins_on_card(payoff, barrier_rel, steps) -> None:
+    """Exact: the Merton kernel walks the ``merton_jump`` v2 words (four
+    steps on three Philox calls, a tail of ``T % 4`` steps) through the step
+    of ``csrc/merton_step.cuh``, whose every rounding the twin repeats, so
+    each path's final log-price is the twin's bit for bit, in every branch
+    and at every tail length, with contracts whose ``lam·dt`` reaches past
+    the count's first levels; a second launch is bit-equal to the first."""
+    device = _require_card()
+    payoff = tgbm.PayoffKind(payoff)
+    gen = np.random.default_rng(17)
+    lo, hi = np.array(FAMILY_LO["merton"]), np.array(FAMILY_HI["merton"])
+    params = (lo + (hi - lo) * gen.random((3, len(lo)))).astype(np.float32)
+    params[2, 6] = 12.0  # lam: counts past the first levels on many steps
+    c = torch.from_numpy(params).to(device)
+    keys = rng.fold_in(rng.prng_key(17), torch.arange(3)).to(device)
+    kw = dict(timesteps=steps, rows=64, cols=96, payoff=payoff, barrier_rel=barrier_rel,
+              antithetic_half=32,
+              forward_start_step=4 if payoff == tgbm.PayoffKind.FORWARD_START else None)
+    kernel, twin = FAMILY_FNS["merton"]
+    got_trace: dict[str, torch.Tensor] = {}
+    want_trace: dict[str, torch.Tensor] = {}
+    before = gbm_cuda.LAUNCHES
+    got = kernel(c, keys, trace=got_trace, **kw)
+    assert gbm_cuda.LAUNCHES == before + 1
+    assert torch.equal(kernel(c, keys, **kw), got)
+    want = twin(c, keys, trace=want_trace, **kw)
+    assert torch.equal(got_trace["log_price"], want_trace["log_price"])
+    scale = want.abs()
+    if payoff in tgbm.LOOKBACK_PAYOFFS:
+        scale = torch.maximum(scale, c[:, 1, None, None])
+    assert bool(((got - want).abs() <= 2e-5 * scale).all())
+
+
+MERTON_WALK_STEPS = [16, 15, 14, 13, 12]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", MERTON_WALK_STEPS)
+def test_american_merton_walk_equals_rolled_rows_and_terminal_on_card(steps) -> None:
+    """Exact: the Merton monitor kernel at ``every = 1`` (its walk over whole
+    Philox calls, four dates on three) equals its own rolled rows at every
+    coarser grid that divides ``T`` on the dates they share, its last row the
+    European kernel's TERMINAL value for every ``every``; tier 3 against its
+    twin (rtol 2e-5: torch's ``exp`` against ``expf``), antithetic."""
+    device = _require_card()
+    gen = np.random.default_rng(19)
+    lo, hi = np.array(FAMILY_LO["merton"]), np.array(FAMILY_HI["merton"])
+    c = torch.from_numpy((lo + (hi - lo) * gen.random((3, len(lo)))).astype(np.float32)).to(device)
+    keys = rng.fold_in(rng.prng_key(19), torch.arange(3)).to(device)
+    kw = dict(timesteps=steps, rows=64, cols=96, antithetic_half=32)
+    rows = american_cuda.simulate_merton_american_rows_cuda(c, keys, exercise_every=1, **kw)
+    terminal = dynamics_cuda.simulate_merton_rows_cuda(c, keys, payoff=tgbm.PayoffKind.TERMINAL,
+                                                       **kw)
+    assert torch.equal(rows[:, -1], terminal)
+    for every in range(2, steps // 2 + 1):
+        if steps % every == 0:
+            rolled = american_cuda.simulate_merton_american_rows_cuda(c, keys,
+                                                                      exercise_every=every, **kw)
+            assert torch.equal(rows[:, every - 1::every], rolled)
+    want = american_cuda.simulate_merton_american_rows_cuda_plain(c, keys, exercise_every=1, **kw)
+    torch.testing.assert_close(rows, want, rtol=2e-5, atol=0.0)
+
+
 def _heston_variance_f64(c: torch.Tensor, keys: torch.Tensor, *, steps: int, rows: int,
                          cols: int, half: int | None, mask: torch.Tensor) -> torch.Tensor:
     """The Heston variance swap's value in float64 on the paths of ``mask``

@@ -10,12 +10,20 @@ compared in place. Every branch, antithetic on and off, odd and even step
 counts for the pair-step branches, an unequal vol curve (φ ≠ 1/8).
 
 The Merton jump leg, which zero words cannot reach, is held on real Philox
-words against a numpy re-statement of the step from the same uniforms
-(tier 2, rtol 1e-5 of the log-price), and the count function against the JAX
-kernel's ``_poisson_counts`` bit for bit.
+words laid out as the ``merton_jump`` v2 stream lays them (three words a
+step, four steps on three calls) against a numpy re-statement of the step
+from the same uniforms (tier 2, rtol 1e-5 of the log-price) and against an
+op-for-op restatement of the kernel's step (tier 1, exact), and the count
+function against the JAX kernel's ``_poisson_counts`` bit for bit. The
+kernel's count (``merton_count``: the first levels, the rest behind a rare
+branch) equals the 16-level count on every 24-bit uniform (tier 1, exact),
+and the header's constants are the twin's.
 """
 
 from __future__ import annotations
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -209,21 +217,27 @@ def test_poisson_counts_match_the_jax_kernels_bit_for_bit(mu: float) -> None:
     assert got.max() <= dynamics_cuda.POISSON_TERMS
 
 
-def _merton_uniforms(keys: torch.Tensor, rows: int, cols: int, steps: int, half: int | None):
-    """(u1, u2, u_c) ``[steps, C, rows, cols]`` as the stream lays them out:
-    one Philox call per step, words 0, 1, 2."""
+def _merton_words(keys: torch.Tensor, rows: int, cols: int, steps: int,
+                  half: int | None) -> list[tuple[torch.Tensor, ...]]:
+    """Each step's three words ``[C, rows, cols]`` as the ``merton_jump`` v2
+    stream lays them out: step ``t`` reads words ``3t, 3t+1, 3t+2``, word
+    ``i`` being word ``i % 4`` of Philox call ``i // 4``."""
     row = torch.arange(rows)[:, None]
     if half is not None:
         row = torch.where(row >= half, row - half, row)
     path = row * cols + torch.arange(cols)[None, :]
     k0, k1 = keys[:, 0, None, None], keys[:, 1, None, None]
-    out = []
-    for t in range(steps):
-        w = rng.philox4x32((path[None], torch.zeros_like(path)[None],
-                            torch.full_like(path, t)[None], torch.zeros_like(path)[None]),
-                           (k0, k1))
-        out.append([(w[0] >> 8).double() * 2.0**-24 + 2.0**-25, (w[1] >> 8).double() * 2.0**-24,
-                    (w[2] >> 8).double() * 2.0**-24])
+    zero = torch.zeros_like(path)[None]
+    calls = [rng.philox4x32((path[None], zero, torch.full_like(path, q)[None], zero), (k0, k1))
+             for q in range(-(-3 * steps // 4))]
+    return [tuple(calls[i // 4][i % 4] for i in range(3 * t, 3 * t + 3)) for t in range(steps)]
+
+
+def _merton_uniforms(keys: torch.Tensor, rows: int, cols: int, steps: int, half: int | None):
+    """(u1, u2, u_c) ``[steps, C, rows, cols]`` float64 from ``_merton_words``."""
+    words = _merton_words(keys, rows, cols, steps, half)
+    out = [[(w[0] >> 8).double() * 2.0**-24 + 2.0**-25, (w[1] >> 8).double() * 2.0**-24,
+            (w[2] >> 8).double() * 2.0**-24] for w in words]
     return [torch.stack([o[i] for o in out]).numpy() for i in range(3)]
 
 
@@ -246,7 +260,7 @@ def test_merton_twin_jump_leg_matches_a_numpy_restatement(antithetic: bool) -> N
     spot, _, mat, r, q, vol, lam, jm, js = (cd[:, i, None, None] for i in range(9))
     dt = mat / steps
     sign = np.where(np.arange(rows) >= (half if half is not None else rows), -1.0, 1.0)[:, None]
-    levels = dynamics_cuda.merton_levels(torch.from_numpy(c), steps).double().numpy()
+    levels = dynamics_cuda.merton_table(torch.from_numpy(c), steps)[:, 4:].double().numpy()
     logx = np.log(spot) + np.zeros((2, rows, cols))
     jumps = 0
     for t in range(steps):
@@ -270,6 +284,92 @@ def test_merton_twin_jump_leg_matches_a_numpy_restatement(antithetic: bool) -> N
             payoff=tgbm.PayoffKind.TERMINAL, antithetic_half=half)
         assert torch.equal(out[:, :half], out[:, half:])
         assert len(torch.unique(out[0])) > 2  # several distinct jump totals
+
+
+@pytest.mark.parametrize("antithetic", [False, True], ids=["plain", "anti"])
+@pytest.mark.parametrize("payoff", ["terminal", "variance_swap"])
+@pytest.mark.parametrize("steps", [4, 5, 6, 7, 9])
+def test_merton_twin_log_price_is_the_step_restated_on_the_v2_words(
+    steps: int, payoff: str, antithetic: bool
+) -> None:
+    """Tier 1, exact: on real Philox words (every tail of ``T % 4`` steps),
+    the twin's final log-price and value equal a restatement of
+    ``csrc/merton_step.cuh``'s step, op by op, on the words laid out by
+    ``_merton_words``: the pinned Box–Muller pair, the 16-level count and
+    its IEEE root, the jump and update FMAs rounded once. lam·dt runs up to
+    1.6, so counts past the first levels (the kernel's rare branch) occur."""
+    rows, cols = 6, 32
+    half = rows // 2 if antithetic else None
+    c = torch.tensor([[100.0, 100.0, 1.0, 0.03, 0.01, 0.2, 2.0, -0.1, 0.2],
+                      [90.0, 95.0, 0.5, 0.01, 0.0, 0.3, 16.0, 0.05, 0.1]])
+    keys = rng.fold_in(rng.prng_key(12), torch.arange(2))
+    trace: dict[str, torch.Tensor] = {}
+    got = dynamics_cuda.simulate_merton_rows_cuda_plain(
+        c, keys, timesteps=steps, rows=rows, cols=cols, payoff=tgbm.PayoffKind(payoff),
+        antithetic_half=half, trace=trace)
+    table = dynamics_cuda.merton_table(c, steps)[:, None, None, :]
+    drift, vol_sdt, jm, js = (table[..., i] for i in range(4))
+    sign = torch.ones(rows, 1) if half is None else torch.where(
+        torch.arange(rows)[:, None] >= half, -1.0, 1.0)
+    logx = torch.log(c[:, 0, None, None]).expand(2, rows, cols)
+    acc = torch.zeros(2, rows, cols)
+    counts = []
+    for a, b, w in _merton_words(keys, rows, cols, steps, half):
+        rad, cs, sn = dynamics_cuda.box_muller_pinned(gbm_cuda.uniform_open(a),
+                                                      gbm_cuda.uniform_closed(b))
+        n = dynamics_cuda.poisson_counts(gbm_cuda.uniform_closed(w), table[..., 4:])
+        counts.append(n)
+        jump = rng.fma32_exact(js * torch.sqrt(n), sign * (rad * sn), n * jm)
+        if payoff == "variance_swap":
+            inc = rng.fma32_exact(vol_sdt, sign * (rad * cs), drift) + jump
+            logx = logx + inc
+            acc = rng.fma32_exact(inc, inc, acc)
+        else:
+            logx = rng.fma32_exact(vol_sdt, sign * (rad * cs), logx + drift) + jump
+    assert torch.equal(trace["log_price"], logx)
+    want = acc / c[:, 2, None, None] if payoff == "variance_swap" else torch.exp(logx)
+    assert torch.equal(got, want)
+    assert float(torch.stack(counts).max()) >= dynamics_cuda.MERTON_COUNT_FIRST
+
+
+@pytest.mark.parametrize("mu", [0.0, 0.03125, 0.075, 1.0, 9.9])
+def test_merton_count_equals_the_sixteen_level_count_on_every_uniform(mu: float) -> None:
+    """Tier 1, exact, over all 2^24 uniforms the stream draws: the kernel's
+    count (the first levels, the rest only at or past level
+    ``MERTON_COUNT_FIRST − 1``) is ``poisson_counts``' 16-level count, the
+    top uniform 1 − 2^-24 included (where saturated levels all count), and
+    its root the IEEE root of the count."""
+    u = torch.arange(1 << 24, dtype=torch.float32) * 2.0**-24
+    levels = dynamics_cuda.poisson_levels(torch.tensor(mu))
+    n, root = dynamics_cuda.merton_count(u, levels)
+    assert torch.equal(n, dynamics_cuda.poisson_counts(u, levels))
+    assert torch.equal(root, torch.sqrt(n))
+    if mu >= 1.0:
+        assert float(n[-1]) >= dynamics_cuda.MERTON_COUNT_FIRST
+
+
+def test_poisson_levels_never_decrease() -> None:
+    """Tier 1, exact: on a grid of 20,001 rates from 0 to 10 each level is
+    at least the one before (the count's shortcut rests on it); the first is
+    positive (a uniform of 0 counts nothing)."""
+    levels = dynamics_cuda.poisson_levels(torch.linspace(0.0, 10.0, 20001))
+    assert bool((levels[:, 1:] >= levels[:, :-1]).all())
+    assert bool((levels[:, 0] > 0.0).all())
+
+
+def test_merton_step_header_constants_are_the_twins() -> None:
+    """Tier 1, exact: ``csrc/merton_step.cuh``'s root constants are the
+    float32 IEEE roots the twin takes, and its level and count sizes are the
+    module's."""
+    header = (Path(dynamics_cuda.__file__).resolve().parent.parent / "csrc"
+              / "merton_step.cuh").read_text()
+    body = header.split("kRoots[kPoissonTerms + 1] = {")[1].split("}")[0]
+    roots = torch.tensor([float(x.rstrip("f")) for x in re.findall(r"[0-9.]+f", body)])
+    assert torch.equal(roots, torch.sqrt(torch.arange(17, dtype=torch.float32)))
+    assert int(re.search(r"kPoissonTerms = (\d+);", header).group(1)) == \
+        dynamics_cuda.POISSON_TERMS
+    assert int(re.search(r"kCountFirst = (\d+);", header).group(1)) == \
+        dynamics_cuda.MERTON_COUNT_FIRST
 
 
 def test_twins_route_digital_and_forward_start_and_refuse_what_has_no_kernel() -> None:

@@ -83,6 +83,17 @@ def test_fma32_exact_matches_exact_arithmetic_on_random_operands() -> None:
     assert got.tolist() == want
 
 
+def test_fma32_exact_keeps_the_sign_of_an_exact_zero() -> None:
+    """An exact zero sum is the FMA's zero: −0 only where both terms are
+    −0 (a Merton step without a jump: 0·μ_J with μ_J < 0, plus (σ_J·0)·z)."""
+    a = torch.tensor([0.0, 0.0, -0.0, 2.0, 0.0])
+    b = torch.tensor([-1.5, 1.5, 1.5, 3.0, -2.0])
+    c = torch.tensor([-0.0, -0.0, 0.0, -6.0, 0.0])
+    got = rng.fma32_exact(a, b, c)
+    assert got.tolist() == [0.0] * 5
+    assert torch.signbit(got).tolist() == [True, False, False, False, False]
+
+
 @pytest.fixture(autouse=True)
 def _one_torch_thread():
     """Each test on one torch thread: beside the suite's other workers the

@@ -270,7 +270,7 @@ def test_merton_slice_three_steps_match_jax() -> None:
                                     "digital", "cliquet"])
 def test_cuda_engine_resume_is_bit_exact_on_its_twin(payoff: str) -> None:
     """Tier 1, exact: snapshot → create → 2 more steps equals the continuous
-    run on the Merton twin; the stream recorded is ``merton_jump`` v1, except
+    run on the Merton twin; the stream recorded is ``merton_jump`` v2, except
     for the cliquet, which the scan runs (engine ``xla``, version 0)."""
     sim = tgbm.build_simulation_params(**_sim_kwargs(payoff), implementation="cuda").expect("s")
     bounds = {k: tsobol.BoundSpec(lower=lo, upper=hi) for k, (lo, hi) in _bounds(payoff).items()}

@@ -86,6 +86,23 @@ def test_an_if_else_arm_is_not_a_once_per_path_region() -> None:
     assert sum(w for *_, w in weights) == 29
 
 
+def test_merton_walk_covers_four_steps_and_drops_the_rare_count() -> None:
+    """The Merton walk: three calls unskipped (60 products, one hoisted) feed
+    four steps of three words (``MERTON_DRAWS_PER_STEP`` draws); the count's
+    rare branch (a skipped region of compares and loads, no else arm) never
+    runs on the bench's inputs and weighs 0, like sqrtf's fix-up."""
+    ops = ["MOV R1, R2", *["IMAD.WIDE.U32 R2, R3, R4, RZ"] * 59,
+           *["FFMA R1, R2, R3, R4"] * 8, f"@!P2 BRA 0x{16 * 74:x}",
+           "LDG.E.128.CONSTANT R8, desc[UR12][R26.64+0x20]", "FSETP.GE.AND P0, PT, R23, R8, PT",
+           "FSEL R8, R8, 5, P0", "MUFU.RSQ R9, R8", "FMUL.FTZ R11, R8, R9",
+           "FADD R1, R2, R3", "@P1 BRA 0x0"]
+    weights, steps, found = cs.loop_weights(
+        _sass(ops).split("Function : ")[1], "merton_terminal", pick_loop=cs.walk_or_longest,
+        single_step=lambda group: True, draws_per_step=cs.MERTON_DRAWS_PER_STEP)
+    assert steps == 4 and found == "76-0-5-0/2=71/4"
+    assert sum(w for *_, w in weights) == 71
+
+
 def test_nvdisasm_frames_join_an_inlined_line_and_its_call_site() -> None:
     text = (
         '\t.section\t.text._Zk,"ax",@progbits\n'
@@ -117,6 +134,32 @@ def test_parts_follow_the_stream_helpers_and_the_step_text() -> None:
     assert cs.part_of([(stream, _line("path_stream.cuh", "for (; t + kL <= steps; t += kL)")),
                        call_site], read) == "branch"
     assert cs.part_of([("/usr/local/cuda/include/crt/math.h", 9), call_site], read) == "branch"
+
+
+def test_merton_parts_follow_the_step_helpers() -> None:
+    """The Merton split: the count (its uniform included) and the jump by
+    their helpers, the draw's transform as Box–Muller, the three-word
+    accessor as Philox, the log-price update by its text and a monitor
+    kernel's exp-and-store line as the stores."""
+    read = lambda f: Path(f).read_text().splitlines()  # noqa: E731
+    step, stream = str(CSRC / "merton_step.cuh"), str(CSRC / "path_stream.cuh")
+    american = str(CSRC / "american_dynamics.cu")
+    kernel = str(CSRC / "dynamics_paths.cu")
+    call_site = (kernel, _line("dynamics_paths.cu", "merton_step<kFamily == kVariance>"))
+    uniform = (stream, _line("path_stream.cuh", "return static_cast<float>(w >> 8) * 0x1p-24f;"))
+    count = (step, _line("merton_step.cuh", "const float u = uniform_closed(w);"))
+    assert cs.part_of([uniform, count, call_site], read) == "count"
+    assert cs.part_of([(step, _line("merton_step.cuh", "n = hit ?")), call_site], read) == "count"
+    jump = (step, _line("merton_step.cuh", "return __fmaf_rn(__fmul_rn(k.jump_std, root)"))
+    assert cs.part_of([jump, call_site], read) == "jump"
+    draw = (step, _line("merton_step.cuh", "box_muller_pinned(d, rad, cs, sn);"))
+    assert cs.part_of([draw, call_site], read) == "box_muller"
+    assert cs.part_of([(step, _line("merton_step.cuh", "logx = __fadd_rn(__fmaf_rn(k.vol_sdt")),
+                       call_site], read) == "update"
+    assert cs.part_of([(stream, _line("path_stream.cuh", "w = call(first + 1);")), call_site],
+                      read) == "philox"
+    store = (american, _line("american_dynamics.cu", "*o = expf(logx); o += n;"))
+    assert cs.part_of([store], read) == "stores"
 
 
 def test_split_sums_to_the_count_and_sorts_units(tmp_path: Path) -> None:

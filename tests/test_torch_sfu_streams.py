@@ -10,7 +10,9 @@
   fixed roundings and the root on the SFU, ``csrc/gbm_step.cuh``),
   ``american_gbm`` (v2: its odd single step's draw on the SFU; v3: its
   pair steps are ``gbm``'s) and the Heston streams (draw and step on fixed
-  roundings, ``csrc/heston_step.cuh``) (``gbm_cuda.cuda_stream_version``);
+  roundings, ``csrc/heston_step.cuh``) and the Merton streams (three words a
+  step, four steps on three Philox calls, the draw and the step on fixed
+  roundings, ``csrc/merton_step.cuh``) (``gbm_cuda.cuda_stream_version``);
   a checkpoint that recorded any version before is refused mid-stream with
   ``EngineMismatch`` (the
   pattern of
@@ -85,6 +87,8 @@ MARKET = {"spot": (95.0, 105.0), "strike": (95.0, 105.0), "maturity": (0.5, 1.5)
 HESTON = {**MARKET, "v0": (0.03, 0.08), "kappa": (1.0, 2.5), "theta": (0.03, 0.08),
           "xi": (0.2, 0.5), "rho": (-0.8, -0.3)}
 BASKET = {**MARKET, "vol": (0.2, 0.3)}
+MERTON = {**MARKET, "vol": (0.15, 0.25), "lam": (0.1, 0.8), "jump_mean": (-0.15, 0.0),
+          "jump_std": (0.1, 0.25)}
 GBM = BASKET
 BASKET_SPEC = tbasket.build_basket_spec(
     weights=(0.5, 0.3, 0.2),
@@ -92,8 +96,9 @@ BASKET_SPEC = tbasket.build_basket_spec(
 # stream key -> (model, payoff, bounds, version): the basket streams and
 # american_gbm's single step, whose Box–Muller moved to the SFU, the flat
 # GBM stream, whose draws moved to whole-call walks and a new transform (and
-# american_gbm's pair steps with it), and the Heston streams, whose draw and
-# step moved to fixed roundings
+# american_gbm's pair steps with it), the Heston streams, whose draw and
+# step moved to fixed roundings, and the Merton streams, whose words moved to
+# three a step and whose draw and step moved to fixed roundings
 STREAMS = {
     "basket_gbm": ("basket_gbm", "terminal", BASKET, 2),
     "american_basket_gbm": ("basket_gbm", "american_put", BASKET, 2),
@@ -101,6 +106,8 @@ STREAMS = {
     "american_gbm": ("gbm", "american_put", GBM, 3),
     "heston": ("heston", "terminal", HESTON, 2),
     "american_heston": ("heston", "american_put", HESTON, 2),
+    "merton_jump": ("merton_jump", "terminal", MERTON, 2),
+    "american_merton_jump": ("merton_jump", "american_put", MERTON, 2),
 }
 
 
