@@ -19,8 +19,10 @@ non-zero and no result line is printed):
                   American monitor loops and of the LSMC backward's 16-path
                   block (cuobjdump) for the instruction cap of phases 2, 12,
                   17, 18, 22 and 23, and split the flat GBM TERMINAL and
-                  arithmetic-Asian, the Heston, the Merton and the 3-asset
-                  basket TERMINAL loops' SASS per path-step, and the GBM,
+                  arithmetic-Asian, the curved-term, the Heston, the Merton
+                  and the 3-asset basket TERMINAL loops' SASS per path-step,
+                  the cliquet kernel's per path (index, coefficients,
+                  Philox, transform, exp and clip, store), and the GBM,
                   Heston, Merton and 3-asset basket monitor kernels' loops
                   at every = 1, into Philox, Box–Muller, update and branch
                   (Merton also its count and jump, the monitor kernels their
@@ -34,11 +36,14 @@ non-zero and no result line is printed):
                   Philox words at C=4 x 2048 x 512 x 16: TERMINAL (and its
                   digital and forward-start routes), barrier up/down, the four
                   lookbacks, variance swap, arithmetic and geometric Asian
-                  under both schemes, and the cliquet under log-Euler; then
-                  the same payoffs on the curved-term, Heston (forward start
+                  under both schemes, and the cliquet under log-Euler at 2,
+                  3, 4 and 5 periods; then the same payoffs on the
+                  curved-term (at 16 and 15 steps), Heston (forward start
                   a branch of its own) and Merton kernels; with antithetic on
                   and off, and an odd step or period count for the pair-step
-                  branches. Continuous outputs agree to rtol 2e-5 (the
+                  branches. Every branch of the curved-term kernel and the
+                  cliquet equals its twin bit for bit on every path (0 paths
+                  unequal, printed). Continuous outputs agree to rtol 2e-5 (the
                   lookback encodings against the strike, the cliquet against
                   its cap, where they cross zero); the barrier knock and the
                   digital sign may flip on at most 1e-5 of the paths, and at
@@ -360,6 +365,7 @@ GEOMETRIC_SPEC = build_basket_spec(**BASKET_KW, combine="geometric").expect("bas
 QMC_SEED = 31  # the JAX bench's mc_seed for SOBOL_BB (bench.py:870)
 FORWARD_STEP = 6
 CLIQUET = dict(reset_every=4, floor=-0.05, cap=0.08)
+CLIQUET_STEPS = (8, 12, STEPS, 20)  # 2, 3, 4 and 5 periods
 BOUNDS = {
     "spot": BoundSpec(lower=80.0, upper=120.0),
     "strike": BoundSpec(lower=80.0, upper=120.0),
@@ -468,8 +474,8 @@ DRAW_OPS = 50
 UNIT_OPS = {"terminal": 3, "barrier": 4, "lookback": 4, "variance": 4, "asian": 5, "cliquet": 8,
             "forward": 4}
 # The term kernel draws as the flat kernel does and loads one table entry per
-# step (and one per pair): one more operation per unit; its tables add 8
-# bytes per step and per pair to each contract's input. A Heston step is one
+# step: one more operation per unit; its table adds 8 bytes per step to each
+# contract's input. A Heston step is one
 # draw with a second trigonometric output (1) plus z_s (3), v+ (1), the fused
 # root (2), the log-price update (6) and the variance update (6): 19 on top of
 # the draw, in place of the flat update's 3. A Merton step needs three of a
@@ -523,7 +529,7 @@ def bound_ms(group: str, contracts: int, steps: int) -> tuple[float, str]:
         per_unit = UNIT_OPS[branch] + (1 if family == "term" else 0)
         ops = paths * (PHILOX_KEY_OPS + draws * DRAW_OPS + units * per_unit)
         if family == "term":
-            byte_count += contracts * 8 * (steps + max(steps // 2, 1))
+            byte_count += contracts * 8 * steps
     t_ops, t_bytes = ops / FP32_OPS_PER_S * 1e3, byte_count / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -716,17 +722,20 @@ def sass_instruction_counts(flat: object, dynamics: object, basket: object) -> d
     The flat kernel's log-Euler instantiations (``gbm_paths_kernel<family,
     0>``) walk whole Philox calls, unskipped: an iteration covers the steps
     its calls' draws feed (``loop_weights``; a pair-step draw, TERMINAL's and
-    the variance swap's, feeds two). A build whose instantiation holds both
+    the variance swap's, feeds two), and so do the term kernel's
+    (``term_sass_count``). A build whose instantiation holds both
     schemes' loops and draws one by one (the rolled draw) is counted by the
-    rolled rule, as the cliquet kernel is: the log-Euler loop is the last
+    rolled rule: the log-Euler loop is the last
     loop whose body takes no absolute value (the Euler loop's reflection); of
     its N instructions, the Philox block (a skipped region with >= 16
     high-half products, PHILOX_MULTIPLY) runs every other iteration, a slow
     path holding a CALL (sqrtf's fix-up) never on these inputs, and any other
     skipped region is the branch's once-per-path single step (TERMINAL,
-    variance, cliquet: subtracted) or the arithmetic Asian's ``expf`` (kept);
+    variance: subtracted) or the arithmetic Asian's ``expf`` (kept);
     per path-step: that over the steps an iteration covers (2 for the
-    pair-steps, 2·reset_every for the cliquet's period pairs, else 1). The
+    pair-steps, else 1). The cliquet kernel is counted over a whole path
+    (``cliquet_sass_count``: its walk, four periods a call, and the code a
+    path runs once, over the steps). The
     term and Heston kernels have one loop each (the longest). The Heston
     kernel and the basket kernel's 3-asset arithmetic instantiations (one
     loop each, the longest) walk whole Philox calls; the basket forward
@@ -750,23 +759,20 @@ def sass_instruction_counts(flat: object, dynamics: object, basket: object) -> d
                         for b, code in gbm_cuda._FAMILY_CODE.items()},
             {"terminal": 2, "variance": 2}, pick_loop=last_loop_without_abs,
             single_step=lambda group: group != "asian")
-    more, found_more = parse_instruction_counts(
-        flat_sass, {"gbm_cliquet_kernel": "cliquet"}, {"cliquet": 2 * CLIQUET["reset_every"]},
-        pick_loop=last_loop_without_abs, single_step=lambda group: True)
+    more, found_more = cliquet_sass_count(flat_sass)
     counts.update(more)
     found.update(found_more)
     codes = {**gbm_cuda._FAMILY_CODE, "forward": 5}
-    dynamics_kernels = {
-        f"{kernel}ILi{code}E": f"{family}_{branch}"
-        for kernel, family in (("gbm_term_kernel", "term"), ("heston_paths_kernel", "heston"))
-        for branch, code in codes.items()
-    }
-    steps = {"term_terminal": 2, "term_variance": 2}
     dynamics_sass = cuobjdump_sass(dynamics)
+    more, found_more = term_sass_count(dynamics_sass)
+    counts.update(more)
+    found.update(found_more)
+    heston_kernels = {f"heston_paths_kernelILi{code}E": f"heston_{branch}"
+                      for branch, code in codes.items()}
     more, found_more = parse_instruction_counts(
-        dynamics_sass, dynamics_kernels, steps, pick_loop=lambda loops: max(loops, key=len),
+        dynamics_sass, heston_kernels, {}, pick_loop=lambda loops: max(loops, key=len),
         single_step=lambda group: False,
-        draws_per_step={g: 1 for g in dynamics_kernels.values() if g.startswith("heston_")})
+        draws_per_step=dict.fromkeys(heston_kernels.values(), 1))
     counts.update(more)
     found.update(found_more)
     merton_kernels = {f"merton_paths_kernelILi{code}E": f"merton_{branch}"
@@ -792,6 +798,7 @@ def sass_instruction_counts(flat: object, dynamics: object, basket: object) -> d
     for kernel, sass, library, piece, draws, pick in (
             ("gbm_terminal", flat_sass, flat, FLAT_WALKS["terminal"], 0.5, walk_loop),
             ("gbm_asian", flat_sass, flat, FLAT_WALKS["asian"], 1, walk_loop),
+            ("term_terminal", dynamics_sass, dynamics, "gbm_term_kernelILi0E", 0.5, walk_loop),
             ("heston_terminal", dynamics_sass, dynamics, "heston_paths_kernelILi0E", 1, None),
             ("merton_terminal", dynamics_sass, dynamics, "merton_paths_kernelILi0E",
              MERTON_DRAWS_PER_STEP, walk_or_longest),
@@ -807,7 +814,47 @@ def sass_instruction_counts(flat: object, dynamics: object, basket: object) -> d
                 subprocess.CalledProcessError) as err:
             split = {"error": repr(err)[:300]}
         phase("sass-split", kernel=kernel, parts="per path-step", **split)
+    try:
+        if flat_disasm is None:
+            flat_disasm = nvdisasm_text(flat)
+        split = cliquet_sass_split(flat_sass, flat_disasm)
+    except (AssertionError, OSError, StopIteration, ValueError,
+            subprocess.CalledProcessError) as err:
+        split = {"error": repr(err)[:300]}
+    phase("sass-split", kernel="cliquet", parts="per path", timesteps=STEPS, **split)
     return counts
+
+
+# The term kernel walks whole Philox calls (gbm_term v2): its TERMINAL and
+# variance-swap loops feed four steps a call (a pair draw advances two), its
+# one-draw branches two; a build that draws one by one (v1) has one loop per
+# instantiation, the longest, over the steps its draws feed (two for a pair).
+TERM_KERNELS = {f"gbm_term_kernelILi{code}E": f"term_{branch}"
+                for branch, code in gbm_cuda._FAMILY_CODE.items()}
+
+
+def term_sass_count(text: str) -> tuple[dict[str, float], dict[str, str]]:
+    """``parse_instruction_counts`` for the term kernel's five instantiations
+    in ``cuobjdump -sass`` text: per path-step of each branch group."""
+    if any(walks(body) for body in sass_loops(text, "gbm_term_kernelILi0E")):
+        return parse_instruction_counts(
+            text, TERM_KERNELS, {}, pick_loop=walk_or_longest, single_step=lambda group: False,
+            draws_per_step={g: FLAT_DRAWS_PER_STEP[g[len("term_"):]]
+                            for g in TERM_KERNELS.values()})
+    return parse_instruction_counts(
+        text, TERM_KERNELS, {"term_terminal": 2, "term_variance": 2},
+        pick_loop=lambda loops: max(loops, key=len), single_step=lambda group: False)
+
+
+def cliquet_sass_count(text: str, steps: int = STEPS) -> tuple[dict[str, float], dict[str, str]]:
+    """The cliquet kernel's SASS per path-step in ``cuobjdump -sass`` text,
+    over a whole path of ``steps`` steps (``cliquet_path_weights``: its loop
+    over the periods and the code a path runs once, over the steps)."""
+    block = next(b for b in text.split("Function : ")[1:]
+                 if "gbm_cliquet_kernel" in b.split()[0])
+    weights, info = cliquet_path_weights(block, steps)
+    found = f"{info['loop']} x {info['iterations']:g} + {info['outside_loop']}"
+    return {"cliquet": sum(w for _, _, w in weights) / steps}, {"cliquet": found}
 
 
 # draws a path-step of each flat log-Euler branch takes: a pair-step draw
@@ -838,6 +885,31 @@ def last_loop_without_abs(loops: list[list[tuple[int, str]]]) -> list[tuple[int,
                        for _, op in body)][-1]
 
 
+def block_instructions(block: str) -> list[tuple[int, str]]:
+    """``[(address, instruction)]`` of one function's ``cuobjdump -sass`` text."""
+    return [(int(a, 16), op.strip()) for a, op in re.findall(SASS_LINE, block)]
+
+
+def block_loops(block: str) -> list[list[tuple[int, str]]]:
+    """Every loop of one function's ``cuobjdump -sass`` text: the
+    instructions from a backward branch's target to the branch."""
+    ins = block_instructions(block)
+    at = {a: i for i, (a, _) in enumerate(ins)}
+    loops = []
+    for i, (addr, op) in enumerate(ins):
+        back = re.search(SASS_BRANCH, op)
+        if back and int(back.group(1), 16) < addr and int(back.group(1), 16) in at:
+            loops.append(ins[at[int(back.group(1), 16)]:i + 1])
+    return loops
+
+
+def sass_loops(text: str, piece: str) -> list[list[tuple[int, str]]]:
+    """``block_loops`` of the first function in ``cuobjdump -sass`` text whose
+    mangled name holds ``piece`` (none where no function does)."""
+    block = next((b for b in text.split("Function : ")[1:] if piece in b.split()[0]), None)
+    return [] if block is None else block_loops(block)
+
+
 def loop_weights(
     block: str, group: str, *, pick_loop: object, single_step: object,
     steps_per_iteration: int = 1, draws_per_step: int | None = None,
@@ -857,13 +929,7 @@ def loop_weights(
     call, else ``steps_per_iteration``; there a region that ends by jumping
     over an else arm is one side of a two-way branch (the Box–Muller's
     ``u1 < ½``, divergent: both sides issue), never a once-per-path one."""
-    ins = [(int(a, 16), op.strip()) for a, op in re.findall(SASS_LINE, block)]
-    at = {a: i for i, (a, _) in enumerate(ins)}
-    loops = []
-    for i, (addr, op) in enumerate(ins):
-        back = re.search(SASS_BRANCH, op)
-        if back and int(back.group(1), 16) < addr and int(back.group(1), 16) in at:
-            loops.append(ins[at[int(back.group(1), 16)]:i + 1])
+    loops = block_loops(block)
     if not loops:
         raise AssertionError(f"no loop found in the SASS of {group}")
     body = pick_loop(loops)
@@ -937,13 +1003,13 @@ SASS_HELPER_PARTS = (
     ({"uniform_open", "uniform_closed", "box_muller_libm", "box_muller_sfu", "box_muller_sfu_cos",
       "box_muller_root", "box_muller_radius", "box_muller_angle", "minus_two_log", "lg2_sfu",
       "rsqrt_sfu", "sin_sfu", "cos_sfu", "box_muller_gbm", "gbm_normal", "ln_pinned",
-      "sincos_2pi_pinned", "box_muller_pinned"}, "box_muller"),
+      "sincos_2pi_pinned", "box_muller_pinned", "term_draw"}, "box_muller"),
     ({"draw", "triple"}, "philox"),
 )
 SASS_PART_TEXT = (
     ("stores", r"^\s*\*\w+ = "),
-    ("update", r"\blogx(\[\w+\])? = |\bz_s\b|\bzm\b|v_plus|\bsv\b|\bv = |\binc\[\w+\] = "
-               r"|step_inc\[\w+\] = "),
+    ("update", r"\blogx(\[\w+\])? = |\bz_s\b|\bzm\b|\bmix\b|__fadd_rn\(logx|v_plus|\bsv\b"
+               r"|\bv = |\binc\[\w+\] = |step_inc\[\w+\] = "),
     ("philox", r"philox|umulhi|kPhilox|\.call\("),
     ("box_muller", r"uniform_open|uniform_closed|logf\(u1\)|sincospif|\brad\b|box_muller"),
 )
@@ -1058,6 +1124,109 @@ def sass_split(sass: str, disasm: str, piece: str, *, draws_per_step: int,
     return {**{k: round(v, 3) for k, v in split.items()},
             "total": round(sum(split.values()), 3), "loop": found,
             "mix": {k: round(v, 3) for k, v in mix.items()}, "update_ffma": round(update_ffma, 3)}
+
+
+# The cliquet kernel's SASS a path (``cliquet_sass_split``) at STEPS steps and
+# CLIQUET's reset_every, by part (CLIQUET_PARTS): the index (path_setup: the
+# thread's path, its counter and key), the coefficients (the contract's loads,
+# dt, the period's drift and vol), the Philox call, the transform (the
+# uniforms, the Box–Muller and the antithetic sign), the period's exp, clip
+# and sum, the store, and the rest (loop control, exit). The step loop runs
+# its ``loop_weights`` (the walk: one whole call, four periods, an
+# iteration; the rolled loop of a v1 build: a draw, two periods, its Philox
+# block every other iteration) over the periods of a path; every other
+# instruction of the kernel's own code (up to its first subroutine or the
+# parking branch) once, but the regions outside the loop that a branch
+# skips and that hold a CALL (the slow paths) or a Philox call (the walk's
+# tails, which a multiple of four periods never reaches; the tails' two
+# guards of the odd count go with them).
+CLIQUET_PARTS = ("index", "coefficients", "philox", "transform", "exp_clip", "store", "other")
+CLIQUET_PART_TEXT = (
+    ("store", r"\bout\[.*=\s*acc;"),
+    ("exp_clip", r"\bexpf\(|exp_sfu|fminf|fmaxf|clipped"),
+    ("transform", r"\brad\b|srad|sign \* rad|box_muller|uniform_open|uniform_closed|cospif"),
+    ("coefficients", r"\bp\[|params|period_drift|period_vol|\bdt\b|reset_every|maturity|"
+                     r"\brate\b|\bdiv\b"),
+)
+
+
+def cliquet_part(frames: list[tuple[str, int]], read: object) -> str:
+    names, texts = set(), []
+    for file, line in frames:
+        if "/csrc/" not in file:
+            continue
+        lines = read(file)
+        names.add(enclosing_function(lines, line - 1))
+        texts.append(lines[line - 1] if line <= len(lines) else "")
+    if "path_setup" in names:
+        return "index"
+    for helpers, part in SASS_HELPER_PARTS:
+        if names & helpers and part in ("philox", "box_muller"):
+            return "transform" if part == "box_muller" else part
+    return next((part for part, pattern in CLIQUET_PART_TEXT
+                 if any(re.search(pattern, text) for text in texts)), "other")
+
+
+def cliquet_path_weights(block: str, steps: int = STEPS) -> tuple[
+        list[tuple[int, str, float]], dict[str, object]]:
+    """Each instruction of the cliquet kernel's own code (one function's
+    ``cuobjdump -sass`` text) with the times a path of ``steps`` steps runs
+    it (the rule above), and the derivation: the loop's, its iterations and
+    the instructions counted outside it."""
+    walked = any(walks(body) for body in block_loops(block))
+    periods = steps // CLIQUET["reset_every"]
+    if walked:
+        weights, _, found = loop_weights(block, "cliquet", pick_loop=walk_loop,
+                                         single_step=lambda group: False)
+        iterations = periods // 4
+    else:
+        weights, _, found = loop_weights(block, "cliquet", pick_loop=last_loop_without_abs,
+                                         single_step=lambda group: True)
+        iterations = periods // 2
+    in_loop = {a for a, _, _ in weights}
+    ins = block_instructions(block)
+    # the kernel's own code ends where its first subroutine (a CALL's
+    # target) or the parking branch begins
+    end = min([int(m.group(1), 16) for _, op in ins
+               if (m := re.search(r"\bCALL\.\w+(?:\.\w+)* 0x([0-9a-f]+)", op))]
+              + [a for a, op in ins if re.fullmatch(rf"BRA 0x0*{a:x}", op)]
+              + [ins[-1][0] + 16])
+    skipped = set()  # the slow paths and the walk's tails, outside the loop
+    for addr, op in ins:
+        jump = re.search(SASS_BRANCH, op)
+        if not (jump and op.startswith("@") and addr < int(jump.group(1), 16) <= end):
+            continue
+        region = [(a, o) for a, o in ins if addr < a < int(jump.group(1), 16)]
+        if in_loop & {a for a, _ in region}:
+            continue
+        if (any("CALL" in o for _, o in region)
+                or sum(bool(re.search(PHILOX_MULTIPLY, o)) for _, o in region) >= 16):
+            skipped.update(a for a, _ in region)
+    outside = [(a, op, 1.0) for a, op in ins
+               if a not in in_loop and a not in skipped and a < end]
+    path = [(a, op, w * iterations) for a, op, w in weights] + outside
+    return path, {"periods": periods, "iterations": iterations, "loop": found,
+                  "outside_loop": len(outside)}
+
+
+def cliquet_sass_split(sass: str, disasm: str, steps: int = STEPS) -> dict[str, object]:
+    """The cliquet kernel's SASS a path, split into CLIQUET_PARTS (the rule
+    above), with its total, the index's share and the derivation."""
+    block = next(b for b in sass.split("Function : ")[1:]
+                 if "gbm_cliquet_kernel" in b.split()[0])
+    name = block.split()[0]
+    weights, info = cliquet_path_weights(block, steps)
+    frames = parse_nvdisasm_lines(disasm).get(name)
+    if not frames:
+        raise AssertionError(f"nvdisasm gave no line information for {name}")
+    read = functools.lru_cache(None)(lambda f: Path(f).read_text().splitlines())
+    split = dict.fromkeys(CLIQUET_PARTS, 0.0)
+    for addr, _, w in weights:
+        split[cliquet_part(frames.get(addr, []), read)] += w
+    total = sum(split.values())
+    return {**info, **{k: round(v, 3) for k, v in split.items()}, "total": round(total, 3),
+            "per_path_step": round(total / steps, 3),
+            "index_share": round(split["index"] / total, 4)}
 
 
 # The fused QMC walk's SASS a point, split into words, normal, bridge and
@@ -1327,6 +1496,11 @@ def compare(
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{family}/{payoff.value}: kernel produced non-finite values at {kw}")
+    exact = (family == "term" or payoff == PayoffKind.CLIQUET)
+    unequal = int((got != want).sum()) if exact or family == "heston" else None
+    if exact and unequal:
+        raise AssertionError(f"{family}/{payoff.value}: the kernel's value is not the twin's "
+                             f"on {unequal} paths at {kw}")
     log_unequal = None
     if traces is not None:
         log_unequal = int((traces[0]["log_price"] != traces[1]["log_price"]).sum())
@@ -1353,8 +1527,8 @@ def compare(
                  flips=flips, plain_ms=start.elapsed_time(stop))
     if log_unequal is not None:
         found["log_unequal"] = log_unequal
-    if family == "heston":
-        found["unequal"] = int((got != want).sum())
+    if unequal is not None:
+        found["unequal"] = unequal
     if family == "heston" and not jumps and flips:
         found["past_rel"] = float((err / scale)[~ok].max())
         if found["past_rel"] > HESTON_CAP_RTOL:
@@ -1390,7 +1564,9 @@ def kernel_cases() -> list[tuple[str, str, PayoffKind, dict[str, object]]]:
             for payoff in (PayoffKind.ASIAN_ARITHMETIC, PayoffKind.ASIAN_GEOMETRIC):
                 cases.append(("asian", payoff, dict(anti, timesteps=STEPS)))
     for half in (None, ROWS // 2):
-        for steps in (STEPS, 12):  # 4 periods, 3 periods (odd)
+        # 2, 3, 4 and 5 periods: the walk's half call, its single tail in the
+        # same call, one whole call, and a tail in a second call
+        for steps in CLIQUET_STEPS:
             cases.append(("cliquet", PayoffKind.CLIQUET,
                           dict(base, timesteps=steps, antithetic_half=half, **CLIQUET)))
     cases = [(group, "gbm", payoff, kw) for group, payoff, kw in cases]
@@ -1401,12 +1577,13 @@ def kernel_cases() -> list[tuple[str, str, PayoffKind, dict[str, object]]]:
     for family in FAMILIES:
         for half in (None, ROWS // 2):
             for payoff in payoffs:
-                pair_step = family == "term" and payoff in (PayoffKind.TERMINAL,
-                                                            PayoffKind.VARIANCE_SWAP)
-                # the Merton walk's tails of 3 and 1 steps (four steps a pass)
+                # the Merton walk's tails of 3 and 1 steps (four steps a pass);
+                # the term walks' tails (a single step after the pairs, or
+                # after a one-draw branch's pairs of steps) in both modes
                 tails = family == "merton" and payoff == PayoffKind.TERMINAL
-                odd = (STEPS, 15) if pair_step else (STEPS, 15, 13) if tails else (STEPS,)
-                for steps in (odd if half is None else (STEPS,)):
+                odd = (STEPS, 15, 13) if tails else (STEPS,)
+                for steps in ((STEPS, 15) if family == "term" else
+                              odd if half is None else (STEPS,)):
                     kw = dict(base, timesteps=steps, antithetic_half=half)
                     if payoff in BARRIER_PAYOFFS:
                         kw["barrier_rel"] = KNOBS[payoff]["barrier_rel"]
@@ -1470,7 +1647,8 @@ def phase_kernel(
         r.update(max_abs_err=max(r["max_abs_err"], found["max_abs_err"]),
                  max_rel=max(r["max_rel"], found["max_rel"]),
                  flips=r["flips"] + found["flips"], cases=r["cases"] + 1)
-        if "unequal" in found:  # Heston: paths whose value is not the twin's bit for bit
+        if "unequal" in found:  # paths whose value is not the twin's bit for bit (Heston;
+            # the term kernel and the cliquet: 0)
             r["not_bit_equal"] = r.get("not_bit_equal", 0) + found["unequal"]
         if "log_unequal" in found:  # Merton: paths whose log-price is not the twin's (0)
             r["log_not_bit_equal"] = r.get("log_not_bit_equal", 0) + found["log_unequal"]

@@ -1,6 +1,6 @@
 """Design variants of the port's kernels, measured on one NVIDIA GPU.
 
-    python3 chip_variants.py [--only gbm|walk|bridge|merton ...] [--parent DIR]
+    python3 chip_variants.py [--only gbm|walk|bridge|merton|term|cliquet ...] [--parent DIR]
 
 Each variant is this checkout's CUDA source with one change, built with nvcc
 beside the package's own build (``build/variants/``) and launched through the
@@ -59,6 +59,26 @@ same C entry point as the kernel it varies:
   by the rule its own smoke applied) and their share of the instruction
   cap.
 
+* the curved-term kernel (#2, ``gbm_term_kernel`` in ``csrc/dynamics_paths.cu``,
+  ``--only term``) and the cliquet kernel (#3, ``gbm_cliquet_kernel`` in
+  ``csrc/gbm_paths.cu``, ``--only cliquet``), one choice varied at a time:
+  ``v2`` (the kernels' own: whole-call walks, ``box_muller_pinned`` with
+  its IEEE root, ``expf``), ``sfu_root`` (the radius's root on the SFU,
+  ``path_stream.cuh::box_muller_root``), ``exp_sfu`` (the cliquet's period
+  return and the term arithmetic Asian's price on ``ex2.approx``,
+  ``gbm_step.cuh::exp_sfu``) and, for the cliquet, ``index64``
+  (``path_setup`` without its 32-bit route: the row, column and counter in
+  64-bit arithmetic at every shape, as before). With ``--parent DIR`` the parent's two kernels join as
+  ``parent``, the term kernel fed its ``(R, φ)`` table. Each variant is held
+  to the plain twin (the paths not bit-equal and those past rtol 2e-5):
+  term TERMINAL and arithmetic Asian at 8 x 2048 x 512 x 16, the up-and-out
+  barrier and the digital at 32, the cliquet at 32, antithetic; then every
+  term branch and the cliquet timed at 64 and 256 contracts x 2048 x 512 x
+  16 (launches only, into outputs and tables made beforehand; CUDA events,
+  in turn and then in reverse) with the package's wrapper beside them,
+  their SASS a path-step (``chip_smoke.py``'s rule) and cap share, and the
+  cliquet's SASS a path by part (``chip_smoke.py``'s ``cliquet_sass_split``).
+
 Prints one line per measurement and, last, the card's name and power limit.
 """
 
@@ -66,6 +86,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import math
 import re
 import shutil
 import subprocess
@@ -153,6 +174,14 @@ def build_all(only: set[str], parent: Path | None) -> dict[str, tuple[Path, str]
             for kernel, source in MERTON_SOURCES.items():
                 jobs[f"merton_parent_{kernel}"] = (source, source, lambda text: text,
                                                    parent / "spectralmc_tpu_torch" / "csrc")
+    for kernel in ("term", "cliquet"):
+        if kernel in only:
+            source = TC_SOURCES[kernel]
+            for name, (edited, edit) in TERM_CLIQUET[kernel].items():
+                jobs[f"{kernel}_{name}"] = (source, edited, edit)
+            if parent is not None:
+                jobs[f"{kernel}_parent"] = (source, source, lambda text: text,
+                                            parent / "spectralmc_tpu_torch" / "csrc")
     with ThreadPoolExecutor(len(jobs)) as pool:
         futures = {name: pool.submit(build, name, *job) for name, job in jobs.items()}
         return {name: future.result() for name, future in futures.items()}
@@ -211,6 +240,228 @@ MERTON = {  # variant -> (the csrc/ file it edits, its edit)
   }""")),
 }
 MERTON_CONTRACTS = (64, 256)  # the batch-64 steps that launch them, the training chunk
+
+
+TC_SOURCES = {"term": "dynamics_paths.cu", "cliquet": "gbm_paths.cu"}
+SFU_ROOT = ("heston_step.cuh", lambda text: text.replace(
+    "  rad = __fsqrt_rn(__fmul_rn(-2.0f, ln_pinned(uniform_open(d.x))));\n",
+    "  rad = box_muller_root(__fmul_rn(-2.0f, ln_pinned(uniform_open(d.x))));\n"))
+INDEX64 = ("path_stream.cuh", lambda text: text.replace(
+    "  const bool narrow = (row_offset + rows) * cols < (int64_t{1} << 31)"
+    " && half < (int64_t{1} << 31);\n",
+    "  const bool narrow = false;  // the 64-bit route only\n"))
+TERM_CLIQUET = {  # kernel -> variant -> (the csrc/ file it edits, its edit)
+    "term": {
+        "v2": ("dynamics_paths.cu", lambda text: text),
+        "sfu_root": SFU_ROOT,
+        "exp_sfu": ("dynamics_paths.cu", lambda text: text.replace(
+            "return acc + (variant ? logx : expf(logx));",
+            "return acc + (variant ? logx : exp_sfu(logx));")),
+    },
+    "cliquet": {
+        "v2": ("gbm_paths.cu", lambda text: text),
+        "sfu_root": SFU_ROOT,
+        "exp_sfu": ("gbm_paths.cu", lambda text: text.replace(
+            "__fsub_rn(expf(__fmaf_rn(period_vol, z, period_drift)), 1.0f)",
+            "__fsub_rn(exp_sfu(__fmaf_rn(period_vol, z, period_drift)), 1.0f)")),
+        "index64": INDEX64,
+    },
+}
+TC_CONTRACTS = (64, 256)  # the batch-64 steps that launch them, the training chunk
+
+
+def check_edits() -> None:
+    """Each variant's edit changes its file (a stale pattern would time the
+    kernel itself under a variant's name)."""
+    for kernel, variants in TERM_CLIQUET.items():
+        for name, (edited, edit) in variants.items():
+            text = (CSRC / edited).read_text()
+            if name != "v2" and edit(text) == text:
+                raise AssertionError(f"variant {kernel}/{name} does not apply to {edited}")
+
+
+def load_term(path: Path, parent: bool) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    ll, i, vp, f = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+    lib.gbm_term_launch.argtypes = [vp, vp, vp, *([vp] if parent else []), vp, i, ll, ll, i, i,
+                                    i, f, ll, ll, vp]
+    lib.gbm_term_launch.restype = ctypes.c_int
+    return lib
+
+
+def load_cliquet(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    ll, i, vp, f = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+    lib.gbm_cliquet_launch.argtypes = [vp, vp, vp, i, ll, ll, i, i, f, f, ll, ll, vp]
+    lib.gbm_cliquet_launch.restype = ctypes.c_int
+    return lib
+
+
+def parent_pair_table(step: torch.Tensor) -> torch.Tensor:
+    """The parent term kernel's second table, ``(R, φ)`` of each pair of
+    steps (``R = √(v_a² + v_b²)``, ``φ = atan2(v_a, v_b)/2π``), from the
+    step table as the parent's wrapper computed it."""
+    pairs = step.shape[1] // 2
+    va, vb = step[:, 0:2 * pairs:2, 1], step[:, 1:2 * pairs:2, 1]
+    phi = torch.atan2(va, vb) * torch.tensor(1.0 / (2.0 * math.pi), dtype=torch.float32)
+    return torch.stack([torch.sqrt(va * va + vb * vb), phi], dim=2).contiguous()
+
+
+class TermCliquetLaunch:
+    """One launch of a variant's #2 (a payoff's branch) or #3 (the cliquet),
+    its inputs made beforehand: ``()`` launches into the same output."""
+
+    def __init__(self, lib: ctypes.CDLL, parent: bool, params: torch.Tensor,
+                 keys: torch.Tensor, payoff: PayoffKind, half: int | None = None,
+                 out: torch.Tensor | None = None, steps: int = cs.STEPS, **knobs: object):
+        self.lib, self.parent, self.payoff = lib, parent, payoff
+        self.half, self.steps = half, steps
+        self.knobs = knobs
+        self.p, self.words, fresh = gbm_cuda._device_args(params, keys, steps, cs.ROWS, cs.COLS)
+        self.out = fresh if out is None else out
+        if payoff != PayoffKind.CLIQUET:
+            self.step = dynamics_cuda.term_coeff_tables(self.p, cs.term_of(steps).shapes(steps),
+                                                        steps)
+            self.pair = parent_pair_table(self.step) if parent else None
+
+    def __call__(self) -> torch.Tensor:
+        c, stream = self.p.shape[0], torch.cuda.current_stream().cuda_stream
+        if self.payoff == PayoffKind.CLIQUET:
+            status = self.lib.gbm_cliquet_launch(
+                self.p.data_ptr(), self.words.data_ptr(), self.out.data_ptr(), c, cs.ROWS,
+                cs.COLS, self.steps, cs.CLIQUET["reset_every"], cs.CLIQUET["floor"],
+                cs.CLIQUET["cap"], self.half or 0, 0, stream)
+        else:
+            branch = gbm_cuda.branch_of(self.payoff)
+            barrier_rel = self.knobs.get("barrier_rel")
+            status = self.lib.gbm_term_launch(
+                self.p.data_ptr(), self.words.data_ptr(), self.step.data_ptr(),
+                *([self.pair.data_ptr()] if self.parent else []), self.out.data_ptr(), c,
+                cs.ROWS, cs.COLS, self.steps, gbm_cuda._FAMILY_CODE[branch],
+                dynamics_cuda._variant(branch, self.payoff),
+                1.0 if barrier_rel is None else barrier_rel, self.half or 0, 0, stream)
+        if status:
+            raise RuntimeError(f"term/cliquet variant launch failed: cudaError {status}")
+        return gbm_cuda._route_out(self.payoff, self.out, self.p)
+
+
+def tc_twin(params: torch.Tensor, keys: torch.Tensor, payoff: PayoffKind, half: int | None,
+            **knobs: object) -> torch.Tensor:
+    """The package's plain twin of #2 or #3 on the card."""
+    kw = dict(timesteps=cs.STEPS, rows=cs.ROWS, cols=cs.COLS, antithetic_half=half)
+    if payoff == PayoffKind.CLIQUET:
+        return gbm_cuda.simulate_cliquet_rows_cuda_plain(params, keys, **kw, **cs.CLIQUET)
+    return dynamics_cuda.simulate_term_rows_cuda_plain(
+        params, keys, term=cs.term_of(cs.STEPS), payoff=payoff, **kw, **knobs)
+
+
+def tc_wrapper(params: torch.Tensor, keys: torch.Tensor, payoff: PayoffKind,
+               **knobs: object) -> torch.Tensor:
+    """The package's wrapper of #2 or #3: the main path's call."""
+    kw = dict(timesteps=cs.STEPS, rows=cs.ROWS, cols=cs.COLS)
+    if payoff == PayoffKind.CLIQUET:
+        return gbm_cuda.simulate_cliquet_rows_cuda(params, keys, **kw, **cs.CLIQUET)
+    return dynamics_cuda.simulate_term_rows_cuda(params, keys, term=cs.term_of(cs.STEPS),
+                                                 payoff=payoff, **kw, **knobs)
+
+
+def tc_sass(kernel: str, library: Path) -> dict[str, float]:
+    """A variant's SASS a path-step by ``chip_smoke.py``'s rule, per group."""
+    text = cs.cuobjdump_sass(library)
+    counts, _ = (cs.term_sass_count(text) if kernel == "term" else cs.cliquet_sass_count(text))
+    return counts
+
+
+TC_TIMED = {  # kernel -> (group, payoff, knobs) timed
+    "term": [(f"term_{g}", *cs.TIMED_PAYOFF[g]) for g in gbm_cuda.FLAT_BRANCHES],
+    "cliquet": [("cliquet", PayoffKind.CLIQUET, {})],
+}
+TC_CHECKS = {  # kernel -> (case, contracts, payoff, knobs) held to the twin
+    "term": [("terminal", 8, PayoffKind.TERMINAL, {}),
+             ("asian_arithmetic", 8, PayoffKind.ASIAN_ARITHMETIC, {}),
+             ("barrier_up_out", 32, PayoffKind.BARRIER_UP_OUT, dict(barrier_rel=1.25)),
+             ("digital", 32, PayoffKind.DIGITAL, {})],
+    "cliquet": [("cliquet", 32, PayoffKind.CLIQUET, {})],
+}
+
+
+def term_cliquet_variants(kernel: str, device: torch.device, max_sm_hz: float,
+                          built: dict[str, tuple[Path, str]]) -> None:
+    names = [n for n in [*TERM_CLIQUET[kernel], "parent"] if f"{kernel}_{n}" in built]
+    libs = {n: (load_cliquet(built[f"{kernel}_{n}"][0]) if kernel == "cliquet"
+                else load_term(built[f"{kernel}_{n}"][0], n == "parent")) for n in names}
+    piece = "gbm_term_kernel<0>" if kernel == "term" else "gbm_cliquet_kernel"
+    for name in names:
+        cs.phase(f"variant-{kernel}-build", variant=name,
+                 registers=cs.ptxas_summary(built[f"{kernel}_{name}"][1]).get(piece, "?"))
+    half = cs.ROWS // 2
+    for case, contracts, payoff, knobs in TC_CHECKS[kernel]:
+        unequal, past = {}, {}
+        every_params, every_keys = cs.kernel_inputs(device, contracts, 300 + contracts)
+        for chunk in range(0, contracts, 8):  # the twin eight contracts at a time
+            params, keys = every_params[chunk:chunk + 8], every_keys[chunk:chunk + 8]
+            want = tc_twin(params, keys, payoff, half, **knobs)
+            for name in [n for n in names if n != "parent"]:
+                got = TermCliquetLaunch(libs[name], False, params, keys, payoff, half,
+                                        **knobs)()
+                scale = torch.clamp(want.abs(), min=cs.CLIQUET["cap"]) \
+                    if payoff == PayoffKind.CLIQUET else want.abs()
+                unequal[name] = unequal.get(name, 0) + int((got != want).sum())
+                past[name] = past.get(name, 0) + int(((got - want).abs() > 2e-5 * scale).sum())
+                del got
+            del want
+            torch.cuda.empty_cache()
+        cs.phase(f"variant-{kernel}-twin", case=case, steps=cs.STEPS, antithetic=True,
+                 paths=contracts * cs.ROWS * cs.COLS, not_bit_equal=unequal, past_rtol=past,
+                 rtol=2e-5)
+    sass = {n: tc_sass(kernel, built[f"{kernel}_{n}"][0]) for n in names}
+    if kernel == "cliquet":
+        for name in names:
+            library = built[f"{kernel}_{name}"][0]
+            try:
+                split = cs.cliquet_sass_split(cs.cuobjdump_sass(library),
+                                              cs.nvdisasm_text(library))
+            except (AssertionError, OSError, StopIteration, ValueError,
+                    subprocess.CalledProcessError) as err:
+                split = {"error": repr(err)[:300]}
+            cs.phase("variant-cliquet-sass-split", variant=name, parts="per path",
+                     timesteps=cs.STEPS, **split)
+    path_steps_per_contract = cs.ROWS * cs.COLS * cs.STEPS
+    for group, payoff, knobs in TC_TIMED[kernel]:
+        for contracts in TC_CONTRACTS:
+            params, keys = cs.kernel_inputs(device, contracts, 1)
+            first = TermCliquetLaunch(libs[names[0]], names[0] == "parent", params, keys,
+                                      payoff, **knobs)
+            launches = {n: TermCliquetLaunch(libs[n], n == "parent", params, keys, payoff,
+                                             out=first.out, **knobs) for n in names}
+            times = {n: [] for n in names}
+            for name in names + names[::-1]:
+                times[name].append(cs.cuda_ms(launches[name]))
+            wrapper = cs.cuda_ms(lambda: tc_wrapper(params, keys, payoff, **knobs))
+            # the wrapper's parts beside the launch: its checked arguments and
+            # output (gbm_cuda._device_args) and, for #2, the step table
+            args = cs.cuda_ms(lambda: gbm_cuda._device_args(params, keys, cs.STEPS, cs.ROWS,
+                                                            cs.COLS))
+            split = dict(args_ms=f"{args:.3f}")
+            if payoff != PayoffKind.CLIQUET:
+                shapes = cs.term_of(cs.STEPS).shapes(cs.STEPS)
+                table = cs.cuda_ms(lambda: dynamics_cuda.term_coeff_tables(params, shapes,
+                                                                           cs.STEPS))
+                split["table_ms"] = f"{table:.3f}"
+            del launches, first
+            torch.cuda.empty_cache()
+            bound, bound_by = cs.bound_ms(group, contracts, cs.STEPS)
+            rate = {n: contracts * path_steps_per_contract / (min(times[n]) / 1e3)
+                    for n in names}
+            cs.phase(f"variant-{kernel}-time", group=group,
+                     shape=f"{contracts}x{cs.ROWS}x{cs.COLS}x{cs.STEPS}",
+                     bound_ms=f"{bound:.3f}", bound_by=bound_by, wrapper_ms=f"{wrapper:.3f}",
+                     **split,
+                     **{f"{n}_ms": "/".join(f"{x:.3f}" for x in times[n]) for n in names},
+                     **{f"{n}_sass": round(sass[n].get(group, float("nan")), 2) for n in names},
+                     **{f"{n}_cap_share":
+                        f"{rate[n] / (cs.LANES_PER_CLOCK * max_sm_hz / sass[n][group]):.4f}"
+                        for n in names if group in sass[n]})
 
 
 def load_gbm(path: Path) -> ctypes.CDLL:
@@ -561,7 +812,8 @@ def merton_variants(device: torch.device, max_sm_hz: float,
             index = 0 if kernel == "terminal" else 1
             bound = (cs.bound_ms("merton_terminal", contracts, cs.STEPS)[0] if index == 0
                      else cs.dynamics_bound_ms("merton", contracts, cs.STEPS)[0])
-            rate = {n: contracts * path_steps_per_contract / (min(times[n]) / 1e3) for n in names}
+            rate = {n: contracts * path_steps_per_contract / (min(times[n]) / 1e3)
+                    for n in names}
             cs.phase("variant-merton-time", kernel=kernel,
                      shape=f"{contracts}x{cs.ROWS}x{cs.COLS}x{cs.STEPS}", bound_ms=f"{bound:.3f}",
                      **{f"{n}_ms": "/".join(f"{x:.3f}" for x in times[n]) for n in names},
@@ -573,13 +825,15 @@ def merton_variants(device: torch.device, max_sm_hz: float,
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", action="append", choices=("gbm", "walk", "bridge", "merton"),
+    groups = ("gbm", "walk", "bridge", "merton", "term", "cliquet")
+    parser.add_argument("--only", action="append", choices=groups,
                         help="measure only these groups (repeatable; default all)")
     parser.add_argument("--parent", type=Path,
-                        help="a checkout of the parent commit: its Merton kernels join the "
-                             "Merton variants")
+                        help="a checkout of the parent commit: its Merton, term and cliquet "
+                             "kernels join those groups' variants")
     args = parser.parse_args()
-    only = set(args.only or ("gbm", "walk", "bridge", "merton"))
+    only = set(args.only or groups)
+    check_edits()
     device, smi, max_sm_hz = cs.phase_device()
     built = build_all(only, args.parent)
     if "gbm" in only:
@@ -590,6 +844,9 @@ def main() -> None:
         bridge_variants(device, built)
     if "merton" in only:
         merton_variants(device, max_sm_hz, built)
+    for kernel in ("term", "cliquet"):
+        if kernel in only:
+            term_cliquet_variants(kernel, device, max_sm_hz, built)
     print(smi)
 
 

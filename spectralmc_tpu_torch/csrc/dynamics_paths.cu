@@ -4,14 +4,22 @@
 // Replaces three kernels of the JAX package's ops/gbm_pallas.py:
 //   * _gbm_term_block_kernel: log-Euler GBM under piecewise-constant curves.
 //     The draw order per branch is the flat kernel's (gbm_paths.cu); only the
-//     coefficients come from per-contract tables computed outside the kernel:
-//     step[t] = (drift_t·dt, vol_t·√dt) and pair[p] = (R, φ) with
-//     R = √(v_a² + v_b²), φ = atan2(v_a, v_b)/2π for the steps a = 2p,
-//     b = 2p + 1. TERMINAL advances two steps per draw with one sine even
-//     though the two vols differ: v_a·r·cos θ + v_b·r·sin θ = r·R·sin(θ + 2πφ);
-//     the variance swap takes both Box–Muller outputs of a draw as the two
-//     steps' normals (r·cos θ, r·sin θ); barrier, lookback and Asian take one
-//     draw per step with z = r·cos θ. An odd tail is one single step.
+//     coefficients come from a per-contract table computed outside the
+//     kernel, step[t] = (a.x, a.y) = (drift_t·dt, vol_t·√dt). TERMINAL
+//     advances two steps a draw: logx + (a.x + b.x) + sign·r·(a.y·cos θ +
+//     b.y·sin θ) for the steps a = 2p, b = 2p + 1; the variance swap takes
+//     both Box–Muller outputs of a draw as the two steps' normals (r·cos θ,
+//     r·sin θ); barrier, lookback and Asian take one draw per step with z =
+//     r·cos θ. An odd tail is one single step. The stream (gbm_term v2)
+//     walks whole Philox calls with every word's place fixed when compiling
+//     (gbm_step.cuh's walk_pairs for the pair branches, four steps a call;
+//     walk_draws<1> for the others, two), and the draw is heston_step.cuh's
+//     box_muller_pinned, every rounding of the draw and the steps written
+//     out so that the twin repeats them bit for bit. The TPU kernel's second
+//     table, (R, φ) for r·R·sin(θ + 2πφ), saved a sine there; here the
+//     pinned transform gives cos θ and sin θ from one exact quarter-turn
+//     reduction of the 24-bit u2, which cannot take the off-grid θ + 2πφ,
+//     so the pair step reads both outputs and the table is gone.
 //   * _heston_block_kernel: full-truncation Euler Heston, the step of
 //     heston_step.cuh (shared with the monitor kernel): one draw per step,
 //     z_v = r·cos θ drives the variance, z_s = ρ·z_v + ρ̄·r·sin θ the spot, and
@@ -48,7 +56,8 @@
 // for the flat kernel. Per step the Heston and Merton kernels add a second
 // trigonometric output and a square root; Merton runs three quarters of a
 // Philox call and kCountFirst compares (PERF.md §6 has their SASS by part);
-// Heston half a call, without the select.
+// Heston half a call, the term kernel's one-draw branches half a call and
+// its pair branches a quarter, none of them a select.
 //
 // Contract: launches on the given stream, allocates nothing, does not
 // synchronise; each C entry point returns cudaGetLastError().
@@ -56,6 +65,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gbm_step.cuh"
 #include "heston_step.cuh"
 #include "merton_step.cuh"
 #include "path_stream.cuh"
@@ -108,12 +118,26 @@ __device__ __forceinline__ float observe(float acc, float logx, bool up, int var
   }
 }
 
-// Log-Euler GBM under curves: step [C, T, 2], pair [C, max(T/2, 1), 2].
+// The term kernel's draw: the radius with the antithetic sign folded in
+// (exact) and (cos 2πu2, sin 2πu2), box_muller_pinned's.
+__device__ __forceinline__ float term_draw(uint2 d, float sign, float& cs, float& sn) {
+  float rad;
+  box_muller_pinned(d, rad, cs, sn);
+  return sign * rad;
+}
+
+// One step a from one draw: logx + a.x + a.y·(sign·r·cos θ).
+__device__ __forceinline__ float term_single_step(float logx, uint2 d, float2 a, float sign) {
+  float cs, sn;
+  const float srad = term_draw(d, sign, cs, sn);
+  return __fmaf_rn(a.y, __fmul_rn(srad, cs), __fadd_rn(logx, a.x));
+}
+
+// Log-Euler GBM under curves: step [C, T, 2] = (drift_t·dt, vol_t·√dt).
 template <int kFamily>
 __global__ void gbm_term_kernel(const float* __restrict__ params,
                                 const uint32_t* __restrict__ keys,
-                                const float2* __restrict__ step,
-                                const float2* __restrict__ pair, float* __restrict__ out,
+                                const float2* __restrict__ step, float* __restrict__ out,
                                 int64_t rows, int64_t cols, int timesteps, int variant,
                                 float barrier_rel, int64_t half, int64_t row_offset) {
   int64_t local;
@@ -123,54 +147,47 @@ __global__ void gbm_term_kernel(const float* __restrict__ params,
   const float sign = s.sign;
   const float* p = params + 6 * c;
   const float spot = p[0], strike = p[1], maturity = p[2];
-  const int pairs = timesteps / 2;
   const float2* st = step + static_cast<int64_t>(c) * timesteps;
-  const float2* pr = pair + static_cast<int64_t>(c) * (pairs > 0 ? pairs : 1);
-  float u1, u2;
   float logx = logf(spot);
   float acc = (kFamily == kBarrier || kFamily == kLookback) ? logx : 0.0f;
 
   if constexpr (kFamily == kTerminal) {
-    for (int j = 0; j < pairs; ++j) {
-      s.draw(j, u1, u2);
-      const float rad = sqrtf(-2.0f * logf(u1));
-      const float2 a = __ldg(st + 2 * j), b = __ldg(st + 2 * j + 1), rp = __ldg(pr + j);
-      const float z_mix = sign * ((rad * rp.x) * sinpif(2.0f * (u2 + rp.y)));
-      logx = (logx + (a.x + b.x)) + z_mix;
-    }
-    if (timesteps & 1) {
-      s.draw(pairs, u1, u2);
-      const float2 a = __ldg(st + timesteps - 1);
-      const float z = sign * (sqrtf(-2.0f * logf(u1)) * cospif(2.0f * u2));
-      logx = (logx + a.x) + a.y * z;
-    }
+    walk_pairs(
+        s, timesteps / 2, timesteps & 1,
+        [&](uint2 d) {
+          const float2 a = __ldg(st), b = __ldg(st + 1);
+          st += 2;
+          float cs, sn;
+          const float srad = term_draw(d, sign, cs, sn);
+          const float mix = __fmaf_rn(a.y, cs, __fmul_rn(b.y, sn));
+          logx = __fmaf_rn(srad, mix, __fadd_rn(logx, __fadd_rn(a.x, b.x)));
+        },
+        [&](uint2 d) { logx = term_single_step(logx, d, __ldg(st), sign); });
   } else if constexpr (kFamily == kVariance) {
-    for (int j = 0; j < pairs; ++j) {
-      uint2 d;
-      s.draw(j, d);
-      float rad, cs, sn;
-      box_muller_libm(d, rad, cs, sn);
-      const float2 a = __ldg(st + 2 * j), b = __ldg(st + 2 * j + 1);
-      const float inc_a = a.x + a.y * (sign * (rad * cs));
-      const float inc_b = b.x + b.y * (sign * (rad * sn));
-      acc = (acc + inc_a * inc_a) + inc_b * inc_b;
-    }
-    if (timesteps & 1) {
-      s.draw(pairs, u1, u2);
-      const float2 a = __ldg(st + timesteps - 1);
-      const float z = sign * (sqrtf(-2.0f * logf(u1)) * cospif(2.0f * u2));
-      const float inc = a.x + a.y * z;
-      acc = acc + inc * inc;
-    }
+    walk_pairs(
+        s, timesteps / 2, timesteps & 1,
+        [&](uint2 d) {
+          const float2 a = __ldg(st), b = __ldg(st + 1);
+          st += 2;
+          float cs, sn;
+          const float srad = term_draw(d, sign, cs, sn);
+          const float inc_a = __fmaf_rn(a.y, __fmul_rn(srad, cs), a.x);
+          const float inc_b = __fmaf_rn(b.y, __fmul_rn(srad, sn), b.x);
+          acc = __fmaf_rn(inc_b, inc_b, __fmaf_rn(inc_a, inc_a, acc));
+        },
+        [&](uint2 d) {
+          const float2 a = __ldg(st);
+          float cs, sn;
+          const float srad = term_draw(d, sign, cs, sn);
+          const float inc = __fmaf_rn(a.y, __fmul_rn(srad, cs), a.x);
+          acc = __fmaf_rn(inc, inc, acc);
+        });
   } else {  // barrier, lookback, Asian: one draw per step
     const bool up = tracks_max(kFamily, variant);
-    for (int j = 0; j < timesteps; ++j) {
-      s.draw(j, u1, u2);
-      const float2 a = __ldg(st + j);
-      const float z = sign * (sqrtf(-2.0f * logf(u1)) * cospif(2.0f * u2));
-      logx = (logx + a.x) + a.y * z;
+    walk_draws<1>(s, timesteps, [&](int j, const uint2 (&d)[1]) {
+      logx = term_single_step(logx, d[0], __ldg(st + j), sign);
       acc = observe<kFamily>(acc, logx, up, variant);
-    }
+    });
   }
   out[static_cast<int64_t>(c) * rows * cols + local] =
       finish<kFamily>(logx, acc, spot, strike, maturity, timesteps, variant, barrier_rel);
@@ -256,17 +273,15 @@ constexpr int kThreads = 256;
     break;
 
 extern "C" int gbm_term_launch(const void* params, const void* keys, const void* step,
-                               const void* pair, void* out, int contracts, long long rows,
-                               long long cols, int timesteps, int family, int variant,
-                               float barrier_rel, long long half, long long row_offset,
-                               void* stream) {
+                               void* out, int contracts, long long rows, long long cols,
+                               int timesteps, int family, int variant, float barrier_rel,
+                               long long half, long long row_offset, void* stream) {
   const dim3 grid = grid_of(contracts, rows, cols, kThreads);
   const float* pp = static_cast<const float*>(params);
   const uint32_t* kp = static_cast<const uint32_t*>(keys);
   const float2* sp = static_cast<const float2*>(step);
-  const float2* rp = static_cast<const float2*>(pair);
   float* op = static_cast<float*>(out);
-#define TERM_ARGS pp, kp, sp, rp, op, rows, cols, timesteps, variant, barrier_rel, half, row_offset
+#define TERM_ARGS pp, kp, sp, op, rows, cols, timesteps, variant, barrier_rel, half, row_offset
   switch (family) {
     LAUNCH_FAMILY(gbm_term_kernel, kTerminal, TERM_ARGS)
     LAUNCH_FAMILY(gbm_term_kernel, kBarrier, TERM_ARGS)

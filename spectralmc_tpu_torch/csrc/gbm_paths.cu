@@ -23,7 +23,8 @@
 //   * cliquet: one Gaussian per reset period, N(k·drift, k·vol²·dt) -- the
 //     exact law of the period's log-return -- with two periods sharing one
 //     draw through z1 = r·cos θ, z2 = r·sin θ, and one extra r·cos θ draw for
-//     an odd period count; u = Σ clip(e^L − 1, floor, cap);
+//     an odd period count; u = Σ clip(e^L − 1, floor, cap), L = k·drift +
+//     √k·vol√dt·z in one FMA;
 //   * reflection-Euler: x ← |x·(1 + (r−q)dt + vol√dt·z)|, a fresh z per step;
 //   * antithetic mirroring and one float written per path.
 // What they drop is what the TPU needed: the hardware PRNG (here a
@@ -51,9 +52,12 @@
 // loop and keeps only its own state in registers (TERMINAL: log x;
 // barrier/lookback: log x and the running extreme; variance: the
 // accumulator; Asian: log x and the sum). The cliquet kernel (the
-// gbm_cliquet v1 stream) keeps the rolled loop and libm. The design keeps
-// the whole path in registers and never materializes a normals matrix in
-// device memory.
+// gbm_cliquet v2 stream) walks its period pairs with walk_pairs too, one
+// whole call feeding four periods, on heston_step.cuh's box_muller_pinned
+// (the IEEE root; ln u1 and the angle on fixed roundings) with the period's
+// return, its clip and the sum on fixed roundings, so that its twin repeats
+// every path bit for bit. The design keeps the whole path in registers and
+// never materializes a normals matrix in device memory.
 //
 // Antithetic: global row r >= half reuses row r - half's words with z negated
 // (the threefry engine's global-half convention, not the TPU's in-block mirror).
@@ -192,7 +196,8 @@ __global__ void gbm_paths_kernel(const float* __restrict__ params,
   out[static_cast<int64_t>(c) * n + local] = result;
 }
 
-// The cliquet: one Gaussian per reset period (log-Euler only).
+// The cliquet: one Gaussian per reset period (log-Euler only), two periods a
+// draw and four a Philox call (walk_pairs).
 __global__ void gbm_cliquet_kernel(const float* __restrict__ params,
                                    const uint32_t* __restrict__ keys, float* __restrict__ out,
                                    int64_t rows, int64_t cols, int timesteps, int reset_every,
@@ -212,24 +217,26 @@ __global__ void gbm_cliquet_kernel(const float* __restrict__ params,
       __fmul_rn(__fsub_rn(__fsub_rn(rate, div), __fmul_rn(__fmul_rn(0.5f, vol), vol)), dt), k);
   const float period_vol = __fmul_rn(vol, __fsqrt_rn(__fmul_rn(dt, k)));
   const int periods = timesteps / reset_every;
-  const int pairs = periods / 2;
-  const int draws = pairs + (periods & 1);
+  // the period's clipped return, every rounding written out
   auto clipped = [&](float z) {
-    return fminf(fmaxf(expf(period_drift + period_vol * z) - 1.0f, floor), cap);
+    const float ret = __fsub_rn(expf(__fmaf_rn(period_vol, z, period_drift)), 1.0f);
+    return fminf(fmaxf(ret, floor), cap);
   };
   float acc = 0.0f;
-  for (int j = 0; j < draws; ++j) {
-    uint2 d;
-    s.draw(j, d);
-    if (j < pairs) {
-      float rad, cs, sn;
-      box_muller_libm(d, rad, cs, sn);
-      acc = (acc + clipped(sign * (rad * cs))) + clipped(sign * (rad * sn));
-    } else {
-      const float rad = sqrtf(-2.0f * logf(uniform_open(d.x)));
-      acc = acc + clipped(sign * (rad * cospif(2.0f * uniform_closed(d.y))));
-    }
-  }
+  walk_pairs(
+      s, periods / 2, periods & 1,
+      [&](uint2 d) {
+        float rad, cs, sn;
+        box_muller_pinned(d, rad, cs, sn);
+        const float srad = sign * rad;
+        const float za = __fmul_rn(srad, cs), zb = __fmul_rn(srad, sn);
+        acc = __fadd_rn(__fadd_rn(acc, clipped(za)), clipped(zb));
+      },
+      [&](uint2 d) {
+        float rad, cs, sn;
+        box_muller_pinned(d, rad, cs, sn);
+        acc = __fadd_rn(acc, clipped(__fmul_rn(sign * rad, cs)));
+      });
   out[static_cast<int64_t>(c) * n + local] = acc;
 }
 

@@ -2,7 +2,9 @@
 // flat kernel (gbm_paths_kernel, gbm_paths.cu: every branch) and the GBM
 // monitor kernel's pair steps (american_gbm_kernel, american_paths.cu): one
 // place, so that with an even `every` the monitor kernel's last row stays
-// the TERMINAL branch's value bit for bit.
+// the TERMINAL branch's value bit for bit. The pair walk (walk_pairs) also
+// drives the cliquet kernel's periods (gbm_paths.cu) and the curved-term
+// kernel's pair branches (gbm_term_kernel, dynamics_paths.cu).
 //
 // The transform (the gbm v2 stream, and american_gbm v3's pair steps):
 // x = −2·ln u1 by heston_step.cuh's ln_pinned, the radius √x as x·rsqrt(x)

@@ -69,14 +69,6 @@ struct PathStream {
     d = (j & 1) ? make_uint2(w.z, w.w) : make_uint2(w.x, w.y);
   }
 
-  // Uniforms (u1, u2) of draw j.
-  __device__ __forceinline__ void draw(int j, float& u1, float& u2) {
-    uint2 d;
-    draw(j, d);
-    u1 = uniform_open(d.x);
-    u2 = uniform_closed(d.y);
-  }
-
   // The pair d (words 3t, 3t + 1) and the third word c (3t + 2) of step t
   // of a three-word walk (walk_triples' layout), called for t = 0, 1, 2, ...
   // in order: the rolled loops of the Merton monitor kernel. Every step but
@@ -108,7 +100,11 @@ struct PathStream {
   }
 };
 
-// Sets up the thread's path; false when the thread has no path.
+// Sets up the thread's path; false when the thread has no path. Where every
+// global path index of the launch fits in 31 bits (the main path's shapes),
+// the row, the column and the counter come from 32-bit arithmetic (one
+// unsigned division, no carries into a high word); otherwise from 64-bit.
+// Both give the same counter, so the stream does not depend on the route.
 __device__ __forceinline__ bool path_setup(const uint32_t* __restrict__ keys, int64_t rows,
                                            int64_t cols, int64_t half, int64_t row_offset,
                                            int64_t& local, int& c, PathStream& s) {
@@ -116,18 +112,31 @@ __device__ __forceinline__ bool path_setup(const uint32_t* __restrict__ keys, in
   local = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (local >= n) return false;
   c = blockIdx.y;
-  const int64_t lrow = local / cols;
-  const int64_t col = local - lrow * cols;
-  int64_t row = row_offset + lrow;
   s.sign = 1.0f;
-  if (half > 0 && row >= half) {
-    row -= half;
-    s.sign = -1.0f;
+  const bool narrow = (row_offset + rows) * cols < (int64_t{1} << 31) && half < (int64_t{1} << 31);
+  if (narrow) {
+    const uint32_t w = static_cast<uint32_t>(cols), l = static_cast<uint32_t>(local);
+    const uint32_t lrow = l / w;
+    uint32_t row = static_cast<uint32_t>(row_offset) + lrow;
+    if (half > 0 && row >= static_cast<uint32_t>(half)) {
+      row -= static_cast<uint32_t>(half);
+      s.sign = -1.0f;
+    }
+    s.c0 = row * w + (l - lrow * w);
+    s.c1 = 0u;
+  } else {
+    const int64_t lrow = local / cols;
+    const int64_t col = local - lrow * cols;
+    int64_t row = row_offset + lrow;
+    if (half > 0 && row >= half) {
+      row -= half;
+      s.sign = -1.0f;
+    }
+    const uint64_t path = static_cast<uint64_t>(row) * static_cast<uint64_t>(cols) +
+                          static_cast<uint64_t>(col);
+    s.c0 = static_cast<uint32_t>(path);
+    s.c1 = static_cast<uint32_t>(path >> 32);
   }
-  const uint64_t path = static_cast<uint64_t>(row) * static_cast<uint64_t>(cols) +
-                        static_cast<uint64_t>(col);
-  s.c0 = static_cast<uint32_t>(path);
-  s.c1 = static_cast<uint32_t>(path >> 32);
   s.k0 = keys[2 * c];
   s.k1 = keys[2 * c + 1];
   s.w = make_uint4(0u, 0u, 0u, 0u);
@@ -137,14 +146,15 @@ __device__ __forceinline__ bool path_setup(const uint32_t* __restrict__ keys, in
 // ---------------------------------------------------------------------------
 // Two walks over whole Philox calls: walk_draws, of two-word draws
 // (heston_paths_kernel, basket_paths_kernel, every branch of
-// gbm_paths_kernel, and at one date a step american_gbm_kernel,
-// american_heston_kernel and american_basket_kernel), and walk_triples, of
-// three-word steps (merton_paths_kernel, and at one date a step
-// american_merton_kernel); and two Box–Muller transforms: libm's, of the v1
-// streams, and the SFU's, of the basket_gbm and american_basket_gbm v2
-// streams and american_gbm's single steps (heston_step.cuh has the Heston and
-// Merton streams' own, and gbm_step.cuh the flat GBM streams' own, which
-// takes its root from here: box_muller_root).
+// gbm_paths_kernel, the one-draw branches of gbm_term_kernel, and at one
+// date a step american_gbm_kernel, american_heston_kernel and
+// american_basket_kernel), and walk_triples, of three-word steps
+// (merton_paths_kernel, and at one date a step american_merton_kernel); and
+// the SFU's Box–Muller transform, of the basket_gbm and american_basket_gbm
+// v2 streams and american_gbm's single steps (heston_step.cuh has the
+// fixed-rounding transform of the Heston, Merton, curved-term GBM and
+// cliquet streams, and gbm_step.cuh the flat GBM streams' own, which takes
+// its root from here: box_muller_root).
 // ---------------------------------------------------------------------------
 
 // Walks `steps` steps of kP draws each in the stream's draw order (draw
@@ -220,13 +230,6 @@ __device__ __forceinline__ void walk_triples(const PathStream& s, int steps, Ste
       if (t + 2 < steps) step(t + 2, make_uint2(b.z, b.w), s.call(first + 2).x);
     }
   }
-}
-
-// The Box–Muller transform of the v1 streams: libm's logf, sqrtf and
-// sincospif, the pair (cos 2πu2, sin 2πu2) of draw (a, b) and its radius.
-__device__ __forceinline__ void box_muller_libm(uint2 d, float& rad, float& cs, float& sn) {
-  rad = sqrtf(-2.0f * logf(uniform_open(d.x)));
-  sincospif(2.0f * uniform_closed(d.y), &sn, &cs);
 }
 
 // The Box–Muller transform on the SFU. u1 = uniform_open(a) lies in

@@ -10,8 +10,10 @@ in seconds with no PyTorch headers:
 SASS instruction's source line (``chip_smoke.py``'s per-part split).
 
 The library lands in ``build/kernels/`` at the repository root, named by a
-hash of the sources and flags, so an unchanged source is built once per
-checkout. Nothing here runs at import time; the first launch builds. A build
+hash of the sources, of every ``csrc/`` header they include (directly or
+through one another: ``include_closure``) and of the flags, so an unchanged
+source is built once per checkout and an edited header rebuilds every
+library that reaches it. Nothing here runs at import time; the first launch builds. A build
 that fails raises with nvcc's own error output. Libraries of different names
 may build at once from several threads (one nvcc each).
 """
@@ -21,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -62,12 +65,37 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; cannot build the CUDA kernels")
 
 
-def load_library(
-    name: str, sources: tuple[str, ...], headers: tuple[str, ...] = ()
-) -> BuiltLibrary:
-    """Build (once per content hash) and load ``csrc/<sources>`` as ``name``;
-    ``headers`` are the ``csrc/`` files the sources include (hashed with
-    them, not handed to nvcc)."""
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
+
+
+def include_closure(sources: tuple[str, ...], csrc: Path = CSRC) -> tuple[str, ...]:
+    """The ``csrc/`` files that ``sources`` include, directly or through one
+    another (the quoted ``#include`` lines; system headers are not hashed),
+    sorted."""
+    seen: set[str] = set()
+    todo = list(sources)
+    while todo:
+        for name in _INCLUDE.findall((csrc / todo.pop()).read_text()):
+            if name not in seen and name not in sources and (csrc / name).is_file():
+                seen.add(name)
+                todo.append(name)
+    return tuple(sorted(seen))
+
+
+def library_path(name: str, sources: tuple[str, ...], csrc: Path = CSRC) -> Path:
+    """Where ``load_library`` keeps library ``name``: ``build/kernels/`` named
+    by a hash of the sources, their include closure and the flags."""
+    digest = hashlib.sha256()
+    for f in (*sources, *include_closure(sources, csrc)):
+        digest.update(f.encode())
+        digest.update((csrc / f).read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def load_library(name: str, sources: tuple[str, ...]) -> BuiltLibrary:
+    """Build (once per content hash, ``library_path``) and load
+    ``csrc/<sources>`` as ``name``."""
     with _LOCKS_GUARD:
         lock = _LOCKS.setdefault(name, threading.Lock())
     with lock:
@@ -75,11 +103,7 @@ def load_library(
         if cached is not None:
             return cached
         paths = [CSRC / s for s in sources]
-        digest = hashlib.sha256()
-        for p in (*paths, *(CSRC / h for h in headers)):
-            digest.update(p.read_bytes())
-        digest.update(" ".join(NVCC_FLAGS).encode())
-        target = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+        target = library_path(name, sources)
         seconds, log = 0.0, ""
         if not target.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)

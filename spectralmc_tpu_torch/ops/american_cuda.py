@@ -566,12 +566,10 @@ def _check_backward(price_rows: torch.Tensor, strike: torch.Tensor, disc: torch.
 
 
 # ops/_build.py::load_library's arguments for this module's kernels
-LIBRARY = ("american_paths", ("american_paths.cu",), ("gbm_step.cuh", "path_stream.cuh"))
-DYNAMICS_LIBRARY = ("american_dynamics", ("american_dynamics.cu",),
-                    ("basket_spec.cuh", "basket_step.cuh", "heston_step.cuh", "merton_step.cuh",
-                     "path_stream.cuh"))
-BACKWARD_LIBRARY = ("lsmc_backward", ("lsmc_backward.cu",), ("lsmc_backward.cuh",))
-TWO_STATE_LIBRARY = ("lsmc_two_state", ("lsmc_two_state.cu",), ("lsmc_backward.cuh",))
+LIBRARY = ("american_paths", ("american_paths.cu",))
+DYNAMICS_LIBRARY = ("american_dynamics", ("american_dynamics.cu",))
+BACKWARD_LIBRARY = ("lsmc_backward", ("lsmc_backward.cu",))
+TWO_STATE_LIBRARY = ("lsmc_two_state", ("lsmc_two_state.cu",))
 
 
 def _written_in_full(*shape: int, device: torch.device) -> torch.Tensor:

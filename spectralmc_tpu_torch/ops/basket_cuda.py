@@ -245,8 +245,7 @@ def simulate_basket_rows_cuda_plain(
 
 
 # ops/_build.py::load_library's arguments for this module's kernel
-LIBRARY = ("basket_paths", ("basket_paths.cu",),
-           ("basket_spec.cuh", "basket_step.cuh", "path_stream.cuh"))
+LIBRARY = ("basket_paths", ("basket_paths.cu",))
 
 
 def _library() -> ctypes.CDLL:

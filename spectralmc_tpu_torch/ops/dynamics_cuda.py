@@ -16,19 +16,31 @@ its header states what each keeps and drops. This module holds, for each,
   ``ops/gbm_cuda.py``'s twins. The CPU tests hold the twins against the JAX
   kernels; the card holds the kernels against the twins.
 * what is computed outside the kernels, once per contract, in torch on the
-  contracts' device: ``term_coeff_tables`` (per-step ``(drift·dt, vol·√dt)``
-  and per-pair ``(R, φ)``) and ``merton_table`` (``(drift·dt, vol·√dt, μ_J,
-  σ_J)`` and ``poisson_levels``, the 16 running-cdf levels of ``lam·dt``).
-  Kernel and twin read the same tables.
+  contracts' device: ``term_coeff_tables`` (per-step ``(drift·dt, vol·√dt)``)
+  and ``merton_table`` (``(drift·dt, vol·√dt, μ_J, σ_J)`` and
+  ``poisson_levels``, the 16 running-cdf levels of ``lam·dt``). Kernel and
+  twin read the same tables.
+* the fixed-rounding Box–Muller transform (``ln_pinned``,
+  ``sincos_2pi_pinned``, ``box_muller_pinned``), re-exported from
+  ``ops/rng.py``, which ``ops/gbm_cuda.py``'s cliquet twin shares.
 
 The streams (``gbm_cuda.CUDA_STREAM_VERSIONS``): Philox-4x32-10 keyed by the
 contract's two threefry words, counter ``(path lo, path hi, call, 0)``.
 
-* ``gbm_term`` v1 — the flat kernel's draw order per branch: TERMINAL and
+* ``gbm_term`` v2 — the flat kernel's draw order per branch: TERMINAL and
   the variance swap take ``T // 2`` pair draws and one single draw when ``T``
   is odd, every other branch one draw per step; draw ``j`` is words
-  ``2(j%2), 2(j%2)+1`` of call ``j // 2``. Digital transforms the TERMINAL
-  draw; forward start runs TERMINAL on the tables sliced to the tail.
+  ``2(j%2), 2(j%2)+1`` of call ``j // 2``, walked in whole calls
+  (``csrc/gbm_step.cuh::walk_pairs``, ``csrc/path_stream.cuh::walk_draws``).
+  The draw is ``box_muller_pinned`` and every step runs on fixed roundings
+  that the twin repeats bit for bit: the TERMINAL pair step is
+  ``logx + (a.x + b.x) + sign·r·(a.y·cos θ + b.y·sin θ)``, the variance
+  pair's increments ``a.x + a.y·(sign·r·cos θ)`` and ``b.x + b.y·(sign·r·sin
+  θ)``, a single step ``logx + a.x + a.y·(sign·r·cos θ)`` (``a``, ``b`` the
+  two steps' table rows). Digital transforms the TERMINAL draw; forward
+  start runs TERMINAL on the table sliced to the tail. (v1 drew one by one
+  with libm's transform, and its pair step read a second table, ``(R, φ)``,
+  for ``r·R·sin(θ + 2πφ)``.)
 * ``heston`` v2 — one draw per step, same word layout: ``z_v = r·cos θ``,
   ``z_s = ρ z_v + ρ̄ r·sin θ``, the draw and the step on fixed roundings
   that the twin repeats bit for bit (``box_muller_pinned``,
@@ -54,7 +66,6 @@ Launch counts go to ``gbm_cuda.LAUNCHES`` and ``LAUNCHES_BY_BRANCH`` under
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Callable
 
 import torch
@@ -71,19 +82,29 @@ from spectralmc_tpu_torch.ops.gbm_cuda import (
     _LOOKBACK_VARIANT,
     Words,
     _check,
-    _cospi,
     _count,
     _device_args,
     _pair_draws,
     _route_in,
     _route_out,
-    _sinpi,
     _stream,
     branch_of,
     uniform_closed,
     uniform_open,
 )
-from spectralmc_tpu_torch.ops.rng import fma32_exact
+from spectralmc_tpu_torch.ops.rng import (  # noqa: F401 (the pinned transform, re-exported)
+    COS_C,
+    HALF_PI_HI,
+    HALF_PI_LO,
+    LN2_HI,
+    LN2_LO,
+    LN_Q,
+    SIN_S,
+    box_muller_pinned,
+    fma32_exact,
+    ln_pinned,
+    sincos_2pi_pinned,
+)
 
 POISSON_TERMS = 16  # csrc/merton_step.cuh's kPoissonTerms
 MERTON_COUNT_FIRST = 3  # csrc/merton_step.cuh's kCountFirst
@@ -150,8 +171,7 @@ def _observe(branch: str, payoff: PayoffKind, acc: torch.Tensor, logx: torch.Ten
 
 
 # ops/_build.py::load_library's arguments for this module's kernels
-LIBRARY = ("dynamics_paths", ("dynamics_paths.cu",),
-           ("heston_step.cuh", "merton_step.cuh", "path_stream.cuh"))
+LIBRARY = ("dynamics_paths", ("dynamics_paths.cu",))
 
 
 def _library() -> ctypes.CDLL:
@@ -159,7 +179,7 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library(*LIBRARY).lib
     ll, i, vp, f = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-    lib.gbm_term_launch.argtypes = [vp, vp, vp, vp, vp, i, ll, ll, i, i, i, f, ll, ll, vp]
+    lib.gbm_term_launch.argtypes = [vp, vp, vp, vp, i, ll, ll, i, i, i, f, ll, ll, vp]
     lib.heston_paths_launch.argtypes = [vp, vp, vp, i, ll, ll, i, i, i, f, i, ll, ll, vp]
     lib.merton_paths_launch.argtypes = [vp, vp, vp, vp, vp, i, ll, ll, i, i, i, f, ll, ll, vp]
     for fn in (lib.gbm_term_launch, lib.heston_paths_launch, lib.merton_paths_launch):
@@ -178,31 +198,17 @@ def _stream_of(device: torch.device) -> int:
 
 def term_coeff_tables(
     params: torch.Tensor, shapes: tuple[tuple[float, ...], ...], timesteps: int
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(step [C, T, 2], pair [C, max(T//2, 1), 2])`` float32 tables of the
-    term kernel (``gbm_pallas.py::_term_coeff_tables`` per contract).
-
-    ``step[t] = (log-drift_t·dt, vol_t·√dt)``. ``pair[p]`` packs the
-    phase-shift constants that keep the Box–Muller pair-step alive under
-    per-step vols: ``v_a·r·cos θ + v_b·r·sin θ = r·R·sin(θ + 2πφ)`` with
-    ``R = √(v_a² + v_b²)`` and ``φ = atan2(v_a, v_b)/2π`` in turns (the flat
-    kernel's ``√2·sin(θ + π/4)`` is the ``v_a = v_b`` case).
-    """
-    vsa, rsa, qsa = (torch.tensor(s, dtype=torch.float32, device=params.device) for s in shapes)
+) -> torch.Tensor:
+    """``step [C, T, 2]``, the term kernel's float32 table
+    (``gbm_pallas.py::_term_coeff_tables``' step table, per contract):
+    ``step[t] = (log-drift_t·dt, vol_t·√dt)``. The three curve shapes reach
+    the contracts' device in one copy."""
+    vsa, rsa, qsa = torch.tensor(shapes, dtype=torch.float32, device=params.device)
     maturity, rate, div, vol = (params[:, i, None] for i in (2, 3, 4, 5))
     dt = maturity / float(timesteps)
     vol_t = vol * vsa
     drift = (rate * rsa - div * qsa - 0.5 * vol_t * vol_t) * dt
-    vol_sdt = vol_t * torch.sqrt(dt)
-    step = torch.stack([drift, vol_sdt], dim=2)
-    pairs = timesteps // 2
-    if pairs == 0:
-        return step.contiguous(), torch.zeros((params.shape[0], 1, 2), dtype=torch.float32,
-                                              device=params.device)
-    va, vb = vol_sdt[:, 0:2 * pairs:2], vol_sdt[:, 1:2 * pairs:2]
-    radius = torch.sqrt(va * va + vb * vb)
-    phi = torch.atan2(va, vb) * torch.tensor(1.0 / (2.0 * math.pi), dtype=torch.float32)
-    return step.contiguous(), torch.stack([radius, phi], dim=2).contiguous()
+    return torch.stack([drift, vol_t * torch.sqrt(dt)], dim=2).contiguous()
 
 
 def _term_route(
@@ -236,11 +242,14 @@ def simulate_term_rows_cuda_plain(
     """The term kernel's plain twin: ``[C, rows, cols]`` float32 underliers of
     any non-American, non-cliquet payoff under log-Euler GBM with curves.
     ``params`` is ``[C, 6]`` float32; ``words`` (tests only) replaces the
-    generator as in ``gbm_cuda.simulate_terminal_rows_cuda_plain``."""
+    generator as in ``gbm_cuda.simulate_terminal_rows_cuda_plain``. The draw
+    (``box_muller_pinned``) and the steps take the kernel's roundings, each
+    FMA rounded once exactly (``rng.fma32_exact``), so on the card the
+    log-price and the value are the kernel's bit for bit."""
     _check(params, key_words)
     branch = _branch(payoff, barrier_rel)
     p, steps, shapes = _term_route(payoff, params, term, timesteps, forward_start_step)
-    step, pair = term_coeff_tables(p, shapes, steps)
+    step = term_coeff_tables(p, shapes, steps)
     paired = branch in ("terminal", "variance")
     pairs = steps // 2
     draws = pairs + steps % 2 if paired else steps
@@ -256,32 +265,37 @@ def simulate_term_rows_cuda_plain(
     logx = torch.log(spot).expand(shape)
     acc = logx if branch in ("barrier", "lookback") else torch.zeros(shape, device=p.device)
 
-    def single(j: int) -> torch.Tensor:
-        u1, u2 = uniforms(j)
-        return sign * (torch.sqrt(-2.0 * torch.log(u1)) * _cospi(2.0 * u2))
+    def draw(j: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Draw ``j``'s radius with the antithetic sign (exact) and its
+        ``(cos 2πu2, sin 2πu2)``: ``term_draw``."""
+        rad, cs, sn = box_muller_pinned(*uniforms(j))
+        return sign * rad, cs, sn
+
+    def single(j: int, t: int, logx: torch.Tensor) -> torch.Tensor:
+        """``term_single_step``: step ``t`` on draw ``j``."""
+        srad, cs, _ = draw(j)
+        return fma32_exact(vol_sdt(t), srad * cs, logx + drift(t))
 
     if branch == "terminal":
         for j in range(pairs):
-            u1, u2 = uniforms(j)
-            rad = torch.sqrt(-2.0 * torch.log(u1))
-            radius, phi = pair[:, j, 0, None, None], pair[:, j, 1, None, None]
-            z_mix = sign * ((rad * radius) * _sinpi(2.0 * (u2 + phi)))
-            logx = (logx + (drift(2 * j) + drift(2 * j + 1))) + z_mix
+            srad, cs, sn = draw(j)
+            mix = fma32_exact(vol_sdt(2 * j), cs, vol_sdt(2 * j + 1) * sn)
+            logx = fma32_exact(srad, mix, logx + (drift(2 * j) + drift(2 * j + 1)))
         if steps % 2:
-            logx = (logx + drift(steps - 1)) + vol_sdt(steps - 1) * single(pairs)
+            logx = single(pairs, steps - 1, logx)
     elif branch == "variance":
         for j in range(pairs):
-            u1, u2 = uniforms(j)
-            rad = torch.sqrt(-2.0 * torch.log(u1))
-            inc_a = drift(2 * j) + vol_sdt(2 * j) * (sign * (rad * _cospi(2.0 * u2)))
-            inc_b = drift(2 * j + 1) + vol_sdt(2 * j + 1) * (sign * (rad * _sinpi(2.0 * u2)))
-            acc = (acc + inc_a * inc_a) + inc_b * inc_b
+            srad, cs, sn = draw(j)
+            inc_a = fma32_exact(vol_sdt(2 * j), srad * cs, drift(2 * j))
+            inc_b = fma32_exact(vol_sdt(2 * j + 1), srad * sn, drift(2 * j + 1))
+            acc = fma32_exact(inc_b, inc_b, fma32_exact(inc_a, inc_a, acc))
         if steps % 2:
-            inc = drift(steps - 1) + vol_sdt(steps - 1) * single(pairs)
-            acc = acc + inc * inc
+            srad, cs, _ = draw(pairs)
+            inc = fma32_exact(vol_sdt(steps - 1), srad * cs, drift(steps - 1))
+            acc = fma32_exact(inc, inc, acc)
     else:
         for j in range(steps):
-            logx = (logx + drift(j)) + vol_sdt(j) * single(j)
+            logx = single(j, j, logx)
             acc = _observe(branch, payoff, acc, logx)
     out = _finish(branch, payoff, logx, acc, spot=spot, strike=strike, maturity=maturity,
                   steps=steps, barrier_rel=barrier_rel)
@@ -305,7 +319,7 @@ def simulate_term_rows_cuda(
     """Payoff underliers ``[C, rows, cols]`` float32 under log-Euler GBM with
     piecewise-constant curves, on the Philox stream ``gbm_term``: CPU tensors
     run the plain twin, CUDA tensors launch the term kernel (one launch for
-    the whole contract batch, after the two small table computations) or
+    the whole contract batch, after the step table's few torch ops) or
     raise."""
     _check(params, key_words)
     if params.device.type == "cpu":
@@ -317,9 +331,9 @@ def simulate_term_rows_cuda(
     branch = _branch(payoff, barrier_rel)
     p, steps, shapes = _term_route(payoff, params, term, timesteps, forward_start_step)
     p, words, out = _device_args(p, key_words, steps, rows, cols)
-    step, pair = term_coeff_tables(p, shapes, steps)
+    step = term_coeff_tables(p, shapes, steps)
     status = _library().gbm_term_launch(
-        p.data_ptr(), words.data_ptr(), step.data_ptr(), pair.data_ptr(), out.data_ptr(),
+        p.data_ptr(), words.data_ptr(), step.data_ptr(), out.data_ptr(),
         p.shape[0], rows, cols, steps, _FAMILY_CODE[branch], _variant(branch, payoff),
         1.0 if barrier_rel is None else barrier_rel, antithetic_half or 0, row_offset,
         _stream_of(p.device),
@@ -342,62 +356,6 @@ def _heston_branch(payoff: PayoffKind, barrier_rel: float | None, timesteps: int
             raise ValueError(f"forward start needs 1 <= forward_start_step < {timesteps}")
         return "forward"
     return _branch(payoff, barrier_rel)
-
-
-# csrc/heston_step.cuh's constants: Q's coefficients (ln), S's and C's
-# (the quarter turn's sine and cosine), highest first, and ln 2 and π/2 in
-# two parts each
-LN_Q = (0.0880836695, -0.143519357, 0.149101794, -0.165631115, 0.199621201, -0.250021279,
-        0.333339572, -0.499999851)
-SIN_S = (-0.00462198071, 0.0796870366, -0.645964026)
-COS_C = (0.000906741712, -0.0208615288, 0.253669411, -1.23370051)
-LN2_HI, LN2_LO = 0.693145752, 1.42860677e-06
-HALF_PI_HI, HALF_PI_LO = 1.57079637, -4.37113883e-08
-
-
-def _f32(x: float) -> float:
-    return float(torch.tensor(x, dtype=torch.float32))
-
-
-def _horner(x: torch.Tensor, coefficients: tuple[float, ...]) -> torch.Tensor:
-    acc = torch.full_like(x, _f32(coefficients[0]))
-    for c in coefficients[1:]:
-        acc = fma32_exact(acc, x, _f32(c))
-    return acc
-
-
-def ln_pinned(u1: torch.Tensor) -> torch.Tensor:
-    """``csrc/heston_step.cuh::ln_pinned`` op for op: float32 ``ln u1`` for
-    ``u1`` in ``[2^-25, 1]``, from the bits ``u1 = 2^k·z`` (``z`` in ``[√½,
-    √2)``), ``f = z − 1``, ``f + f²·Q(f)`` and ``k·ln 2`` in two parts."""
-    ix = u1.contiguous().view(torch.int32).to(torch.int64)
-    k = (ix - 0x3F3504F3) >> 23
-    f = (ix - (k << 23)).to(torch.int32).view(torch.float32) - 1.0
-    kf = k.to(torch.float32)
-    y = fma32_exact(f * f, _horner(f, LN_Q), f)
-    return fma32_exact(kf, _f32(LN2_HI), fma32_exact(kf, _f32(LN2_LO), y))
-
-
-def sincos_2pi_pinned(u2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``csrc/heston_step.cuh::sincos_2pi_pinned`` op for op: ``(cos 2πu2,
-    sin 2πu2)`` float32 for ``u2 = m·2^-24``, from the nearest quarter turn
-    ``q`` and the exact remainder ``r = 4u2 − q``."""
-    m = (u2 * 2.0**24).to(torch.int64)
-    q = (m + (1 << 21)) >> 22
-    r = (m - (q << 22)).to(torch.float32) * 2.0**-22
-    s = r * r
-    sin_r = fma32_exact(r, _f32(HALF_PI_HI),
-                        r * fma32_exact(s, _horner(s, SIN_S), _f32(HALF_PI_LO)))
-    cos_r = fma32_exact(s, _horner(s, COS_C), 1.0)
-    odd = (q & 1) == 1
-    c, si = torch.where(odd, sin_r, cos_r), torch.where(odd, cos_r, sin_r)
-    return (torch.where(((q + 1) & 2) != 0, -c, c), torch.where((q & 2) != 0, -si, si))
-
-
-def box_muller_pinned(u1: torch.Tensor, u2: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    """``csrc/heston_step.cuh::box_muller_pinned``: ``(r, cos 2πu2, sin
-    2πu2)`` of the draw's uniforms, bit for bit the kernel's."""
-    return (torch.sqrt(-2.0 * ln_pinned(u1)), *sincos_2pi_pinned(u2))
 
 
 def heston_coeffs_plain(params: torch.Tensor, timesteps: int) -> tuple[torch.Tensor, ...]:

@@ -33,11 +33,16 @@ states what it keeps, what it drops and what bounds it. This module holds
   twins repeat bit for bit, ``csrc/heston_step.cuh``), ``merton_jump`` and
   ``american_merton_jump`` (three words a step, four steps on three whole
   Philox calls, and the draw, the count and the step on fixed roundings,
-  ``csrc/merton_step.cuh``); at 3
-  ``american_gbm`` (v2: the odd single step's Box–Muller on the SFU; v3:
-  its pair steps are ``gbm``'s v2 pair step, so an even grid's last row is
-  the TERMINAL branch's value bit for bit); the others' Box–Muller is
-  libm's. The flat kernel's plain twins keep the v1 arithmetic (libm's
+  ``csrc/merton_step.cuh``), ``gbm_term`` (the curved-term kernel: whole
+  Philox calls, the fixed-rounding draw and steps, no ``(R, φ)`` table,
+  ``ops/dynamics_cuda.py``) and ``gbm_cliquet`` (the cliquet kernel walks
+  whole calls, four periods a call, ``csrc/gbm_step.cuh::walk_pairs``, on
+  the fixed-rounding draw, ``box_muller_pinned``, and a pinned period
+  return ``fminf(fmaxf(expf(fma(vol_k, z, drift_k)) − 1, floor), cap)``,
+  which its twin repeats bit for bit); at 3 ``american_gbm`` (v2: the odd
+  single step's Box–Muller on the SFU; v3: its pair steps are ``gbm``'s v2
+  pair step, so an even grid's last row is the TERMINAL branch's value bit
+  for bit). The flat kernel's plain twins keep the v1 arithmetic (libm's
   transform, evaluated in torch): the kernel is held to them within the
   gates, not bit for bit.
 * ``LAUNCHES`` (every launch of any entry point) and ``LAUNCHES_BY_BRANCH``
@@ -51,8 +56,9 @@ The stream: Philox-4x32-10 keyed by the contract's two threefry key words
 0)`` with ``path = base_row·cols + col``. Draw ``j`` (two words) is words
 ``2(j%2), 2(j%2)+1`` of call ``j // 2``. TERMINAL and the variance swap
 under log-Euler take ``T // 2`` pair-step draws and one single-step draw
-when ``T`` is odd; the cliquet the same over its periods; every other branch
-one draw per step.
+when ``T`` is odd; the cliquet the same over its periods (a pair draw's
+``r·cos θ`` and ``r·sin θ`` drive two periods, the odd last period
+``r·cos θ``); every other branch one draw per step.
 """
 
 from __future__ import annotations
@@ -76,10 +82,16 @@ from spectralmc_tpu_torch.ops.gbm import (
     curved,
     lookback_underlier,
 )
-from spectralmc_tpu_torch.ops.rng import MASK32, philox4x32
+from spectralmc_tpu_torch.ops.rng import (
+    MASK32,
+    box_muller_pinned,
+    fma32_exact,
+    philox4x32,
+    sqrt_rn,
+)
 
 CUDA_STREAM_VERSIONS: dict[str, int] = {
-    "gbm": 2, "gbm_cliquet": 1, "gbm_term": 1, "heston": 2, "merton_jump": 2, "basket_gbm": 2,
+    "gbm": 2, "gbm_cliquet": 2, "gbm_term": 2, "heston": 2, "merton_jump": 2, "basket_gbm": 2,
     "american_gbm": 3, "american_heston": 2, "american_merton_jump": 2,
     "american_basket_gbm": 2,
 }
@@ -517,7 +529,12 @@ def simulate_cliquet_rows_cuda_plain(
 ) -> torch.Tensor:
     """The cliquet kernel's plain twin: ``[C, rows, cols]`` float32 sums
     ``Σ_j clip(e^{L_j} − 1, floor, cap)`` with one Gaussian per reset period;
-    ``words`` as in ``simulate_terminal_rows_cuda_plain``."""
+    ``words`` as in ``simulate_terminal_rows_cuda_plain``. The draw
+    (``rng.box_muller_pinned``), the period's FMA (rounded once exactly,
+    ``rng.fma32_exact``) and every other operation take the kernel's
+    roundings, and ``dt`` is divided by a tensor (torch on the card divides
+    by a Python number as a product with its reciprocal), so on the card the
+    sums are the kernel's bit for bit."""
     _check(params, key_words)
     _check_cliquet(timesteps, reset_every, floor, cap)
     periods = timesteps // reset_every
@@ -529,27 +546,24 @@ def simulate_cliquet_rows_cuda_plain(
     )
     uniforms = _pair_draws(call)
     _, _, maturity, rate, div, vol = (params[:, i, None, None] for i in range(6))
-    dt = maturity / float(timesteps)
+    dt = maturity / torch.full_like(maturity, float(timesteps))
     k = float(reset_every)
     period_drift = (rate - div - 0.5 * vol * vol) * dt * k
-    period_vol = vol * torch.sqrt(dt * k)
-    floor_c = torch.tensor(floor, dtype=torch.float32)
-    cap_c = torch.tensor(cap, dtype=torch.float32)
+    period_vol = vol * sqrt_rn(dt * k)
+    floor_c = torch.tensor(floor, dtype=torch.float32, device=params.device)
+    cap_c = torch.tensor(cap, dtype=torch.float32, device=params.device)
 
     def clipped(z: torch.Tensor) -> torch.Tensor:
-        ret = torch.exp(period_drift + period_vol * z) - 1.0
+        ret = torch.exp(fma32_exact(period_vol, z, period_drift)) - 1.0
         return torch.minimum(torch.maximum(ret, floor_c), cap_c)
 
     acc = torch.zeros((params.shape[0], rows, cols), dtype=torch.float32, device=params.device)
     for j in range(draws):
-        u1, u2 = uniforms(j)
-        rad = torch.sqrt(-2.0 * torch.log(u1))
+        rad, cs, sn = box_muller_pinned(*uniforms(j))
+        srad = sign * rad  # the antithetic sign, exact
+        acc = acc + clipped(srad * cs)
         if j < pairs:
-            acc = (acc + clipped(sign * (rad * _cospi(2.0 * u2)))) + clipped(
-                sign * (rad * _sinpi(2.0 * u2))
-            )
-        else:
-            acc = acc + clipped(sign * (rad * _cospi(2.0 * u2)))
+            acc = acc + clipped(srad * sn)
     return acc
 
 
@@ -559,7 +573,7 @@ def simulate_cliquet_rows_cuda_plain(
 
 
 # ops/_build.py::load_library's arguments for this module's kernels
-LIBRARY = ("gbm_paths", ("gbm_paths.cu",), ("gbm_step.cuh", "path_stream.cuh"))
+LIBRARY = ("gbm_paths", ("gbm_paths.cu",))
 
 
 def _kernel() -> ctypes.CDLL:

@@ -161,7 +161,7 @@ def sparse_walk(bridge: torch.Tensor, timesteps: int) -> bool:
 
 
 # ops/_build.py::load_library's arguments for this module's kernels
-LIBRARY = ("qmc_paths", ("qmc_paths.cu",), ())
+LIBRARY = ("qmc_paths", ("qmc_paths.cu",))
 
 
 def _library() -> ctypes.CDLL:

@@ -145,6 +145,73 @@ def fma32_exact(a: torch.Tensor, b: torch.Tensor | float, c: torch.Tensor | floa
     return out
 
 
+# The Box–Muller transform of the fixed-rounding streams, op for op
+# (csrc/heston_step.cuh's ln_pinned, sincos_2pi_pinned and box_muller_pinned:
+# the Heston, Merton, curved-term GBM and cliquet kernels' draw). The
+# header's constants: Q's coefficients (ln), S's and C's (the quarter turn's
+# sine and cosine), highest first, and ln 2 and π/2 in two parts each
+LN_Q = (0.0880836695, -0.143519357, 0.149101794, -0.165631115, 0.199621201, -0.250021279,
+        0.333339572, -0.499999851)
+SIN_S = (-0.00462198071, 0.0796870366, -0.645964026)
+COS_C = (0.000906741712, -0.0208615288, 0.253669411, -1.23370051)
+LN2_HI, LN2_LO = 0.693145752, 1.42860677e-06
+HALF_PI_HI, HALF_PI_LO = 1.57079637, -4.37113883e-08
+
+
+def _f32(x: float) -> float:
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
+def _horner(x: torch.Tensor, coefficients: tuple[float, ...]) -> torch.Tensor:
+    acc = torch.full_like(x, _f32(coefficients[0]))
+    for c in coefficients[1:]:
+        acc = fma32_exact(acc, x, _f32(c))
+    return acc
+
+
+def ln_pinned(u1: torch.Tensor) -> torch.Tensor:
+    """``csrc/heston_step.cuh::ln_pinned`` op for op: float32 ``ln u1`` for
+    ``u1`` in ``[2^-25, 1]``, from the bits ``u1 = 2^k·z`` (``z`` in ``[√½,
+    √2)``), ``f = z − 1``, ``f + f²·Q(f)`` and ``k·ln 2`` in two parts."""
+    ix = u1.contiguous().view(torch.int32).to(torch.int64)
+    k = (ix - 0x3F3504F3) >> 23
+    f = (ix - (k << 23)).to(torch.int32).view(torch.float32) - 1.0
+    kf = k.to(torch.float32)
+    y = fma32_exact(f * f, _horner(f, LN_Q), f)
+    return fma32_exact(kf, _f32(LN2_HI), fma32_exact(kf, _f32(LN2_LO), y))
+
+
+def sincos_2pi_pinned(u2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``csrc/heston_step.cuh::sincos_2pi_pinned`` op for op: ``(cos 2πu2,
+    sin 2πu2)`` float32 for ``u2 = m·2^-24``, from the nearest quarter turn
+    ``q`` and the exact remainder ``r = 4u2 − q``."""
+    m = (u2 * 2.0**24).to(torch.int64)
+    q = (m + (1 << 21)) >> 22
+    r = (m - (q << 22)).to(torch.float32) * 2.0**-22
+    s = r * r
+    sin_r = fma32_exact(r, _f32(HALF_PI_HI),
+                        r * fma32_exact(s, _horner(s, SIN_S), _f32(HALF_PI_LO)))
+    cos_r = fma32_exact(s, _horner(s, COS_C), 1.0)
+    odd = (q & 1) == 1
+    c, si = torch.where(odd, sin_r, cos_r), torch.where(odd, cos_r, sin_r)
+    return (torch.where(((q + 1) & 2) != 0, -c, c), torch.where((q & 2) != 0, -si, si))
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``√x`` correctly rounded, as ``__fsqrt_rn`` rounds it, on any
+    device: the root in float64 rounded to float32 (a float64 root of a
+    float32 value is never close enough to a float32 midpoint for the second
+    rounding to miss). torch's own float32 root on the CPU can miss by an
+    ulp."""
+    return torch.sqrt(x.double()).float()
+
+
+def box_muller_pinned(u1: torch.Tensor, u2: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """``csrc/heston_step.cuh::box_muller_pinned``: ``(r, cos 2πu2, sin
+    2πu2)`` of the draw's uniforms, bit for bit the kernel's."""
+    return (sqrt_rn(-2.0 * ln_pinned(u1)), *sincos_2pi_pinned(u2))
+
+
 def _two_product(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """float64 ``a·b = p + e`` exactly (Dekker's split, no FMA needed)."""
     def split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

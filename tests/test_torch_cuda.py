@@ -124,7 +124,8 @@ def test_walk_kernel_matches_twin_at_step_counts_on_card(payoff, barrier_rel, st
     keys = rng.fold_in(rng.prng_key(10), torch.arange(2)).to(device)
     kw = dict(timesteps=steps, rows=1024, cols=512, scheme=scheme, payoff=payoff,
               barrier_rel=barrier_rel, antithetic_half=half,
-              forward_start_step=steps // 2 if payoff == tgbm.PayoffKind.FORWARD_START else None)
+              forward_start_step=(steps // 2 if payoff == tgbm.PayoffKind.FORWARD_START
+                                  else None))
     branch = gbm_cuda.branch_of(payoff)
     before = gbm_cuda.LAUNCHES_BY_BRANCH[branch]
     got = gbm_cuda.simulate_underlier_rows_cuda(c, keys, **kw)
@@ -145,8 +146,9 @@ def test_walk_kernel_matches_twin_at_step_counts_on_card(payoff, barrier_rel, st
 
 @pytest.mark.cuda
 def test_cliquet_kernel_matches_twin_on_card() -> None:
-    """Tier 3 on the card, rtol 2e-5 measured against the cap where the sum
-    of clipped returns crosses zero."""
+    """Exact on the card: the ``gbm_cliquet`` v2 kernel and its twin take the
+    same roundings (``box_muller_pinned``, the period's FMA), so the sums are
+    equal on every path."""
     device = _require_card()
     c = torch.from_numpy(_contracts(3, seed=8)).to(device)
     keys = rng.fold_in(rng.prng_key(8), torch.arange(3)).to(device)
@@ -156,7 +158,25 @@ def test_cliquet_kernel_matches_twin_on_card() -> None:
     got = gbm_cuda.simulate_cliquet_rows_cuda(c, keys, **kw)
     assert gbm_cuda.LAUNCHES_BY_BRANCH["cliquet"] == before + 1
     want = gbm_cuda.simulate_cliquet_rows_cuda_plain(c, keys, **kw)
-    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5 * kw["cap"])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("half", [None, 32], ids=["plain", "anti"])
+@pytest.mark.parametrize("periods", [2, 3, 4, 5, 6, 7, 9])
+def test_cliquet_walk_equals_twin_at_period_counts_on_card(periods, half) -> None:
+    """Exact: the walk's half call (2 periods), its single tail in the same
+    call (3), one whole call (4), a tail in a second call (5), a half call
+    after a whole one (6) with its single tail (7), and a tail in a third
+    call (9); a second launch is bit-equal to the first."""
+    device = _require_card()
+    c = torch.from_numpy(_contracts(3, seed=periods)).to(device)
+    keys = rng.fold_in(rng.prng_key(periods), torch.arange(3)).to(device)
+    kw = dict(timesteps=4 * periods, rows=64, cols=96, reset_every=4, floor=-0.05, cap=0.08,
+              antithetic_half=half)
+    got = gbm_cuda.simulate_cliquet_rows_cuda(c, keys, **kw)
+    assert torch.equal(gbm_cuda.simulate_cliquet_rows_cuda(c, keys, **kw), got)
+    assert torch.equal(got, gbm_cuda.simulate_cliquet_rows_cuda_plain(c, keys, **kw))
 
 
 # --------------------------------------------------------------------------
@@ -228,6 +248,43 @@ def test_dynamics_kernel_matches_twin_on_card(payoff, barrier_rel, family) -> No
     assert far <= int(share * got.numel())
     if not jumps:
         assert bool((err <= HESTON_CAP_RTOL * scale).all())
+
+
+TERM_EXACT_CASES = [(payoff, barrier_rel, steps) for payoff, barrier_rel in
+                    [("terminal", None), *BRANCH_PAYOFFS] for steps in (16, 15)] + [
+                    ("terminal", None, steps) for steps in (1, 2, 3, 4, 5, 7, 8)] + [
+                    ("variance_swap", None, steps) for steps in (1, 2, 3, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("half", [None, 32], ids=["plain", "anti"])
+@pytest.mark.parametrize("payoff,barrier_rel,steps", TERM_EXACT_CASES,
+                         ids=[f"{p}_T{s}" for p, _, s in TERM_EXACT_CASES])
+def test_term_kernel_equals_twin_on_card(payoff, barrier_rel, steps, half) -> None:
+    """Exact: the term kernel walks the ``gbm_term`` v2 words (the pair
+    branches four steps a whole Philox call, the others two; every tail)
+    through ``box_muller_pinned`` and steps whose every rounding the twin
+    repeats, so every branch's value is the twin's on every path, under
+    curves whose neighbouring steps differ; a second launch is bit-equal to
+    the first and counts under the branch."""
+    device = _require_card()
+    payoff = tgbm.PayoffKind(payoff)
+    c = torch.from_numpy(_contracts(3, seed=11 + steps)).to(device)
+    keys = rng.fold_in(rng.prng_key(11), torch.arange(3)).to(device)
+    term = tgbm.TermStructure(vol_shape=tuple(1.5 - i / steps for i in range(steps)),
+                              rate_shape=tuple(0.5 + i / steps for i in range(steps)),
+                              div_shape=tuple(1.2 - 0.3 * i / steps for i in range(steps)))
+    kw = dict(timesteps=steps, rows=64, cols=96, payoff=payoff, barrier_rel=barrier_rel,
+              antithetic_half=half, term=term,
+              forward_start_step=(steps // 2 if payoff == tgbm.PayoffKind.FORWARD_START
+                                  else None))
+    kernel, twin = FAMILY_FNS["term"]
+    branch = f"term_{gbm_cuda.branch_of(payoff)}"
+    before = gbm_cuda.LAUNCHES_BY_BRANCH[branch]
+    got = kernel(c, keys, **kw)
+    assert gbm_cuda.LAUNCHES_BY_BRANCH[branch] == before + 1
+    assert torch.equal(kernel(c, keys, **kw), got)
+    assert torch.equal(got, twin(c, keys, **kw))
 
 
 @pytest.mark.cuda
@@ -377,7 +434,8 @@ def test_heston_pair_walk_odd_steps_and_relaunch_on_card(payoff, steps) -> None:
         (lo + (hi - lo) * gen.random((contracts, len(lo)))).astype(np.float32)).to(device)
     keys = rng.fold_in(rng.prng_key(13), torch.arange(contracts)).to(device)
     kw = dict(timesteps=steps, rows=rows, cols=cols, payoff=payoff, antithetic_half=half,
-              forward_start_step=steps // 2 if payoff == tgbm.PayoffKind.FORWARD_START else None)
+              forward_start_step=(steps // 2 if payoff == tgbm.PayoffKind.FORWARD_START
+                                  else None))
     kernel, twin = FAMILY_FNS["heston"]
     got = kernel(c, keys, **kw)
     assert torch.equal(kernel(c, keys, **kw), got)

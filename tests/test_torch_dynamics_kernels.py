@@ -7,7 +7,7 @@ and every Merton count uniform is 0 (count 0: the diffusion leg only). The
 tolerance is the TPU polynomial sine's (< 4e-6 of z) plus libm ulps. Both
 pairing conventions mirror rows 4..7 onto 0..3 at 8 rows, so values are
 compared in place. Every branch, antithetic on and off, odd and even step
-counts for the pair-step branches, an unequal vol curve (φ ≠ 1/8).
+counts for the pair-step branches, an unequal vol curve.
 
 The Merton jump leg, which zero words cannot reach, is held on real Philox
 words laid out as the ``merton_jump`` v2 stream lays them (three words a
@@ -77,7 +77,7 @@ CASE_IDS = [f"{p}_T{t}" for p, _, t in CASES]
 
 
 def _curves(steps: int) -> dict[str, tuple[float, ...]]:
-    """Unequal neighbours in every curve, so that R ≠ √2·v and φ ≠ 1/8."""
+    """Unequal neighbours in every curve, so that a pair's two steps differ."""
     return dict(
         vol_shape=tuple(1.5 - 0.9 * i / steps for i in range(steps)),
         rate_shape=tuple(0.5 + 1.0 * i / steps for i in range(steps)),
@@ -153,20 +153,16 @@ def test_merton_twin_zero_words_matches_pallas_interpret(
 
 @pytest.mark.parametrize("steps", [1, 5, 8])
 def test_term_coeff_tables_match_jax(steps: int) -> None:
-    """Tier 2, rtol 1e-6 (atan2 and sqrt ulps): the step and pair tables."""
+    """Tier 2, rtol 1e-6 (sqrt ulps): the step table."""
     curves = _curves(steps)
     shapes = jgbm.TermStructure(**curves).shapes(steps)
     contracts = np.stack([GBM, GBM * np.float32(1.1)])
-    got_step, got_pair = dynamics_cuda.term_coeff_tables(
+    got_step = dynamics_cuda.term_coeff_tables(
         torch.from_numpy(contracts), tgbm.TermStructure(**curves).shapes(steps), steps)
-    assert got_step.shape == (2, steps, 2) and got_pair.shape == (2, max(steps // 2, 1), 2)
-    if steps == 1:
-        return  # no pair: the JAX tables have none either
+    assert got_step.shape == (2, steps, 2)
     for i, c in enumerate(contracts):
-        want_step, want_pair = jpallas._term_coeff_tables(jnp.asarray(c), shapes, steps)
+        want_step, _ = jpallas._term_coeff_tables(jnp.asarray(c), shapes, steps)
         np.testing.assert_allclose(got_step[i].numpy(), np.asarray(want_step), rtol=1e-6)
-        np.testing.assert_allclose(got_pair[i].numpy(), np.asarray(want_pair), rtol=1e-6)
-    assert not np.allclose(got_pair[..., 1].numpy(), 0.125)
 
 
 @pytest.mark.parametrize("payoff,knobs,steps", CASES, ids=CASE_IDS)
@@ -175,8 +171,8 @@ def test_term_twin_on_all_ones_curves_agrees_with_the_flat_twin(
 ) -> None:
     """Tier 2, rtol 1e-5 (counted flips for the digital and barrier jumps):
     fed all-ones shapes below the ``is_flat`` normalisation, the term twin
-    walks the flat twin's stream with (R, φ) = (√2·v√dt, 1/8) from the tables
-    in place of the flat kernel's constants."""
+    walks the flat twin's stream with the table's equal coefficients in
+    place of the flat kernel's constants."""
     c = torch.tensor([[100.0, 101.0, 1.0, 0.03, 0.01, 0.25], [90.0, 85.0, 0.5, 0.0, 0.02, 0.4]])
     keys = rng.fold_in(rng.prng_key(3), torch.arange(2))
     ones = tgbm.TermStructure(vol_shape=(1.0,) * steps)

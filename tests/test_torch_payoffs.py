@@ -230,7 +230,7 @@ def test_every_flat_payoff_builds_and_resolves_to_its_engine(payoff: str) -> Non
         euler_cliquet = payoff == "cliquet" and scheme == "euler"
         want = tgbm.SimImplementation.XLA if euler_cliquet else tgbm.SimImplementation.CUDA
         assert tgbm.resolve_implementation(sim) == want
-    want_version = 1 if payoff == "cliquet" else 2  # gbm_cliquet v1, gbm v2
+    want_version = 2  # gbm_cliquet v2 (the cliquet kernel), gbm v2 (the flat kernel)
     assert gbm_cuda.cuda_stream_version(tgbm.ModelKind.GBM, tgbm.PayoffKind(payoff)) == want_version
     assert gbm_cuda.cuda_stream_version(tgbm.ModelKind.GBM, tgbm.PayoffKind.CLIQUET) == \
         gbm_cuda.CUDA_STREAM_VERSIONS["gbm_cliquet"]

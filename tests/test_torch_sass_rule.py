@@ -284,3 +284,107 @@ def test_qmc_bridge_split_drops_the_padded_copy(monkeypatch) -> None:
     assert split["stores"] == round(1 / points, 3)
     # the branch, the kept FFMA, the store and EXIT; the padded copy and the parking branch not
     assert split["total"] == round(4 / points, 3)
+
+
+def _functions(blocks: dict[str, list[str]]) -> str:
+    """Several functions' ``cuobjdump -sass`` text."""
+    return "".join(_sass(ops).replace("_Zkernel", name) + "\n" for name, ops in blocks.items())
+
+
+CLIQUET_NAME = "_Z18gbm_cliquet_kernelPKfPKjPflliiffll"
+# a rolled loop (v1): a skipped Philox block of 22 and 5 more instructions
+ROLLED = ["MOV R1, R2", f"@P0 BRA 0x{16 * 24:x}", *["IMAD.WIDE.U32 R2, R3, R4, RZ"] * 20,
+          "LOP3.LUT R5", "LOP3.LUT R6", "FADD R1, R2, R3", "FFMA R1, R2, R3, R4", "@P1 BRA 0x0"]
+
+
+def _walk_body(calls: int, extra: int) -> list[str]:
+    """A loop that makes ``calls`` whole Philox calls unskipped (20 wide
+    products each) and ``extra`` more instructions."""
+    return ["MOV R1, R2", *["IMAD.WIDE.U32 R2, R3, R4, RZ"] * (20 * calls),
+            *["FFMA R1, R2, R3, R4"] * extra, "@P1 BRA 0x0"]
+
+
+def test_term_walks_count_four_steps_a_call_for_pairs_and_two_for_single_draws() -> None:
+    """The term kernel's v2 walks: TERMINAL and the variance swap take a
+    whole call for two pair draws, four steps; the one-draw branches two
+    steps a call."""
+    body = _walk_body(1, 37)  # 59 instructions an iteration
+    text = _functions({f"_Z15gbm_term_kernelILi{code}EEvPKfPKjPK6float2Pfllifll": body
+                       for code in range(5)})
+    counts, found = cs.term_sass_count(text)
+    assert counts["term_terminal"] == counts["term_variance"] == len(body) / 4
+    for group in ("term_barrier", "term_lookback", "term_asian"):
+        assert counts[group] == len(body) / 2
+    assert found["term_terminal"].endswith("/4") and found["term_asian"].endswith("/2")
+
+
+def test_term_rolled_draws_count_by_the_rolled_rule() -> None:
+    """A v1 term build (a parent's) draws one by one: its Philox block is
+    skipped every other draw and a pair draw covers two steps."""
+    text = _functions({"_Z15gbm_term_kernelILi0EEvPKfPKjPK6float2S4_Pfllifll": ROLLED})
+    counts, found = cs.term_sass_count(text)
+    assert found["term_terminal"] == "27-0-0-22/2=16/2" and counts["term_terminal"] == 8
+
+
+def test_cliquet_walk_counts_four_periods_a_call() -> None:
+    """The cliquet's count a path-step over a whole path: the v2 walk's loop
+    (one whole call, two pair draws, four periods an iteration) runs
+    ``periods / 4`` times, the v1 rolled loop (a draw, two periods, its
+    Philox block every other draw) ``periods / 2`` times."""
+    body = _walk_body(1, 43)
+    periods = cs.STEPS // cs.CLIQUET["reset_every"]
+    counts, found = cs.cliquet_sass_count(_functions({CLIQUET_NAME: body}))
+    assert counts["cliquet"] == len(body) * (periods // 4) / cs.STEPS
+    assert found["cliquet"] == f"{len(body)}-0-0-0/2={len(body)}/1 x {periods // 4} + 0"
+    counts, found = cs.cliquet_sass_count(_functions({CLIQUET_NAME: ROLLED}))
+    assert counts["cliquet"] == 16 * (periods // 2) / cs.STEPS
+    assert found["cliquet"] == f"27-0-0-22/2=16/1 x {periods // 2} + 0"
+
+
+def test_cliquet_split_counts_a_path_by_part(tmp_path: Path) -> None:
+    """The cliquet's split a path: the index (path_setup) and the
+    coefficients once, the walk's loop once per whole call (four periods),
+    the store once; the slow path behind a skip holding a CALL, the walk's
+    tails (Philox, transform and exp-and-clip outside the loop) and what
+    follows the parking branch never."""
+    stream, gbm = str(CSRC / "path_stream.cuh"), str(CSRC / "gbm_paths.cu")
+    at = {
+        "index": (stream, _line("path_stream.cuh", "const int64_t lrow = local / cols;")),
+        "coefficients": (gbm, _line("gbm_paths.cu", "const float period_vol = __fmul_rn(vol")),
+        "philox": (stream, _line("path_stream.cuh", "c = make_uint4(hi1 ^ c.y ^ k0")),
+        "transform": (str(CSRC / "heston_step.cuh"),
+                      _line("heston_step.cuh", "rad = __fsqrt_rn(__fmul_rn(-2.0f, ln_pinned(")),
+        "exp_clip": (gbm, _line("gbm_paths.cu", "return fminf(fmaxf(ret, floor), cap);")),
+        "store": (gbm, _line("gbm_paths.cu", "out[static_cast<int64_t>(c) * n + local] = acc")),
+    }
+    listing = [  # (op, part of its source line)
+        ("S2R R0, SR_CTAID.X", "index"), ("IMAD R0, R0, R1, R2", "index"),
+        ("FFMA R3, R4, R5, R6", "coefficients"), ("@P0 BRA 0x{skip}", "coefficients"),
+        ("CALL.REL.NOINC 0x{sub}", "coefficients"), ("MOV R7, R8", "coefficients"),
+        *[("IMAD.WIDE.U32 R2, R3, R4, RZ", "philox")] * 20, ("MUFU.RSQ R9, R9", "transform"),
+        ("FFMA R9, R9, R9, R9", "transform"), ("MUFU.EX2 R9, R9", "exp_clip"),
+        ("FMNMX R9, R9, R8, PT", "exp_clip"), ("@P1 BRA 0x{loop}", "exp_clip"),
+        ("@!P2 BRA 0x{store}", "index"),
+        *[("IMAD.WIDE.U32 R2, R3, R4, RZ", "philox")] * 20, ("MUFU.RSQ R9, R9", "transform"),
+        ("MUFU.EX2 R9, R9", "exp_clip"), ("STG.E [R2.64], R9", "store"), ("EXIT", "store"),
+        ("BRA 0x{park}", "store"), ("FFMA R1, R2, R3, R4", "coefficients"),
+        ("RET.REL", "index")]
+    loop = 6
+    skip = 6  # past the CALL region (the CALL and the MOV)
+    addr = lambda i: f"{16 * i:x}"  # noqa: E731
+    store = next(i for i, (op, _) in enumerate(listing) if op.startswith("STG"))
+    park = next(i for i, (op, _) in enumerate(listing) if op.startswith("BRA 0x{park}"))
+    ops = [op.format(skip=addr(skip), sub=addr(park + 1), loop=addr(loop), store=addr(store),
+                     park=addr(park)) for op, _ in listing]
+    name = CLIQUET_NAME
+    sass = _sass(ops).replace("_Zkernel", name)
+    disasm = f'\t.section\t.text.{name},"ax",@progbits\n' + "".join(
+        f'\t//## File "{at[part][0]}", line {at[part][1]}\n'
+        f"        /*{16 * i:04x}*/                   {op} ;\n"
+        for i, (op, (_, part)) in enumerate(zip(ops, listing)))
+    split = cs.cliquet_sass_split(sass, disasm, steps=4 * 4 * cs.CLIQUET["reset_every"])
+    assert split["iterations"] == 4.0  # 16 periods, four a call
+    assert (split["philox"], split["transform"], split["exp_clip"]) == (80.0, 8.0, 12.0)
+    # index: S2R, IMAD and the tail's guard; coefficients: the FFMA and the skip
+    assert (split["index"], split["coefficients"], split["store"]) == (3.0, 2.0, 2.0)
+    assert split["total"] == 107.0 and split["outside_loop"] == 7

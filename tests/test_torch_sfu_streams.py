@@ -12,7 +12,9 @@
   pair steps are ``gbm``'s) and the Heston streams (draw and step on fixed
   roundings, ``csrc/heston_step.cuh``) and the Merton streams (three words a
   step, four steps on three Philox calls, the draw and the step on fixed
-  roundings, ``csrc/merton_step.cuh``) (``gbm_cuda.cuda_stream_version``);
+  roundings, ``csrc/merton_step.cuh``) and the curved-term and cliquet
+  streams (whole-call walks, the draw and the steps on fixed roundings)
+  (``gbm_cuda.cuda_stream_version``);
   a checkpoint that recorded any version before is refused mid-stream with
   ``EngineMismatch`` (the
   pattern of
@@ -93,32 +95,40 @@ GBM = BASKET
 BASKET_SPEC = tbasket.build_basket_spec(
     weights=(0.5, 0.3, 0.2),
     correlation=((1.0, 0.4, 0.2), (0.4, 1.0, 0.3), (0.2, 0.3, 1.0))).expect("spec")
-# stream key -> (model, payoff, bounds, version): the basket streams and
-# american_gbm's single step, whose Box–Muller moved to the SFU, the flat
-# GBM stream, whose draws moved to whole-call walks and a new transform (and
-# american_gbm's pair steps with it), the Heston streams, whose draw and
-# step moved to fixed roundings, and the Merton streams, whose words moved to
-# three a step and whose draw and step moved to fixed roundings
+CLIQUET = {**GBM, "strike": (0.01, 0.08)}  # the cliquet's strike in return units
+# stream key -> (model, payoff, bounds, version, more of the config): the
+# basket streams and american_gbm's single step, whose Box–Muller moved to
+# the SFU, the flat GBM stream, whose draws moved to whole-call walks and a
+# new transform (and american_gbm's pair steps with it), the Heston streams,
+# whose draw and step moved to fixed roundings, the Merton streams, whose
+# words moved to three a step and whose draw and step moved to fixed
+# roundings, and the curved-term and cliquet streams, whose draws moved to
+# whole-call walks and whose draw and steps moved to fixed roundings
 STREAMS = {
-    "basket_gbm": ("basket_gbm", "terminal", BASKET, 2),
-    "american_basket_gbm": ("basket_gbm", "american_put", BASKET, 2),
-    "gbm": ("gbm", "terminal", GBM, 2),
-    "american_gbm": ("gbm", "american_put", GBM, 3),
-    "heston": ("heston", "terminal", HESTON, 2),
-    "american_heston": ("heston", "american_put", HESTON, 2),
-    "merton_jump": ("merton_jump", "terminal", MERTON, 2),
-    "american_merton_jump": ("merton_jump", "american_put", MERTON, 2),
+    "basket_gbm": ("basket_gbm", "terminal", BASKET, 2, {"basket": BASKET_SPEC}),
+    "american_basket_gbm": ("basket_gbm", "american_put", BASKET, 2, {"basket": BASKET_SPEC}),
+    "gbm": ("gbm", "terminal", GBM, 2, {}),
+    "american_gbm": ("gbm", "american_put", GBM, 3, {}),
+    "heston": ("heston", "terminal", HESTON, 2, {}),
+    "american_heston": ("heston", "american_put", HESTON, 2, {}),
+    "merton_jump": ("merton_jump", "terminal", MERTON, 2, {}),
+    "american_merton_jump": ("merton_jump", "american_put", MERTON, 2, {}),
+    "gbm_term": ("gbm", "terminal", GBM, 2,
+                 {"term": tgbm.TermStructure(vol_shape=(1.2, 1.1, 0.9, 0.8))}),
+    "gbm_cliquet": ("gbm", "cliquet", CLIQUET, 2,
+                    dict(cliquet_reset_every=2, cliquet_floor=-0.05, cliquet_cap=0.08)),
 }
 
 
 @pytest.mark.parametrize("stream", list(STREAMS))
 def test_stream_version_is_recorded_and_an_older_one_refused_mid_stream(stream: str) -> None:
-    model, payoff, bounds, version = STREAMS[stream]
+    model, payoff, bounds, version, more = STREAMS[stream]
     sim = tgbm.build_simulation_params(
         timesteps=4, network_size=16, batches_per_mc_run=8, mc_seed=2, model=model,
-        payoff=payoff, normalization="none", implementation="cuda",
-        **({"basket": BASKET_SPEC} if model == "basket_gbm" else {})).expect("sim")
-    assert gbm_cuda.cuda_stream_version(sim.model, sim.payoff) == \
+        payoff=payoff, normalization="none", implementation="cuda", **more).expect("sim")
+    assert tgbm.resolve_implementation(sim) == tgbm.SimImplementation.CUDA
+    assert gbm_cuda.cuda_stream_version(sim.model, sim.payoff,
+                                        term=tgbm.curved(sim.term) is not None) == \
         gbm_cuda.CUDA_STREAM_VERSIONS[stream] == version
     cfg = ttr.GbmCVNNPricerConfig(
         sim=sim, bounds={k: tsobol.BoundSpec(lower=lo, upper=hi) for k, (lo, hi) in bounds.items()},

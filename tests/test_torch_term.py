@@ -455,7 +455,7 @@ def test_predict_price_under_curves_matches_jax(payoff: str) -> None:
                                     "variance_swap", "forward_start", "cliquet"])
 def test_cuda_engine_resume_is_bit_exact_on_the_term_twin(payoff: str) -> None:
     """Tier 1, exact: snapshot → create → 2 more steps equals the continuous
-    run; the snapshot carries ``term`` and records ``gbm_term`` v1, except
+    run; the snapshot carries ``term`` and records ``gbm_term``'s version, except
     for the curved cliquet, which the scan runs (engine ``xla``, version 0);
     under Euler a curved term runs the scan too."""
     term = tgbm.TermStructure(**TERM4)
