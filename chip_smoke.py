@@ -229,7 +229,24 @@ non-zero and no result line is printed):
                   backward's streamed route); a curved-rate Heston American
                   config refused with the JAX package's field, value and
                   reason.
-11. profile     — only with ``--profile``, after phase 26: for the TERMINAL,
+27. checkpoint-store — for the TERMINAL pricer of phases 4-6, the American
+                  put of phase 20 and the Heston American put of phase 25:
+                  the snapshot serialized (bytes, sha256, encode and decode
+                  ms, the torch_env read back), its stream and backward
+                  versions read back; a flipped byte refused with
+                  ChecksumMismatch and the stream version one lower refused
+                  mid-stream by create; the bytes committed as the genesis of
+                  a FileSystemObjectStore chain in a temporary directory and
+                  served through InferenceClient(PinnedMode) bit-equal to the
+                  pricer at N = 1, 7, 64; 2 train steps resumed from the
+                  bytes, bit-equal to 2 resumed from the in-memory snapshot,
+                  the second committed through FinalCommit and
+                  make_commit_fn, the path's kernels launched twice a chunk;
+                  the chain verified; the head served through
+                  InferenceClient(TrackingMode) bit-equal to the in-memory
+                  resume. Host-clock commit and load ms beside the card's
+                  name and power limit.
+11. profile     — only with ``--profile``, after phase 27: for the TERMINAL,
                   the Asian, the Heston, the basket, the SOBOL_BB
                   geometric-Asian and the American put pricer, 10 warm train
                   steps timed on the host clock to a synchronised end, then
@@ -249,13 +266,17 @@ single-state backward's from phase 20, the streamed single-state
 backward's from phase 21, the Heston monitor kernel's and the resident
 two-state backward's from phase 25, the Merton and basket monitor
 kernels' and the streamed two-state backward's from phase 26, and every
-other branch's from phases 8, 10 and 16. The last lines are
+other branch's from phases 8, 10 and 16; phase 27 sets them to 0 again
+before each resume from bytes and checks that it launched its pricer's
+kernels. The last lines are
 the kernel record as JSON, the nvidia-smi line, and the result JSON.
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
+import dataclasses
 import functools
 import inspect
 import json
@@ -263,6 +284,7 @@ import math
 import re
 import statistics
 import subprocess
+import tempfile
 import time
 
 from pathlib import Path
@@ -270,6 +292,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from spectralmc_tpu_torch.core.errors.serialization import ChecksumMismatch
 from spectralmc_tpu_torch.models.factory import (
     Activation,
     CovBNCfg,
@@ -315,7 +338,19 @@ from spectralmc_tpu_torch.ops.heston import HestonContract, heston_call_price
 from spectralmc_tpu_torch.ops.merton import MertonContract, merton_call_price
 from spectralmc_tpu_torch.ops.sobol import BoundSpec, SobolConfig, SobolSampler
 from spectralmc_tpu_torch.runtime.torch_runtime import get_torch_handle
+from spectralmc_tpu_torch.serialization import deserialize_checkpoint, serialize_checkpoint
+from spectralmc_tpu_torch.storage import (
+    AsyncBlockchainModelStore,
+    ChainValid,
+    FileSystemObjectStore,
+    InferenceClient,
+    PinnedMode,
+    TrackingMode,
+    make_commit_fn,
+    verify_chain_detailed,
+)
 from spectralmc_tpu_torch.training.trainer import (
+    FinalCommit,
     GbmCVNNPricer,
     GbmCVNNPricerConfig,
     build_training_config,
@@ -3797,6 +3832,118 @@ def phase_families_american_dynamics(device: torch.device) -> None:
 # --------------------------------------------------------------------------
 
 
+# phase 27: the production pricers through their bytes (label, kernel groups, chunk)
+BYTES_PRICERS = (("terminal", ("terminal",), CHUNK),
+                 ("american", ("american_gbm", "lsmc_backward"), CHUNK),
+                 ("heston-american", ("american_heston", "lsmc_two_state"),
+                  HESTON_AMERICAN_CHUNK))
+
+
+def serve_equal(served: GbmCVNNPricer, reference: dict[int, object], rows: np.ndarray,
+                what: str) -> None:
+    """``served`` prices bit-equal to ``reference`` (its prices at each N)."""
+    for n, want in reference.items():
+        got = served.predict_price(rows[:n])
+        if not (np.array_equal(got.put, want.put, equal_nan=True)
+                and np.array_equal(got.call, want.call, equal_nan=True)):
+            raise AssertionError(f"{what}: served prices differ at N={n}")
+
+
+def load_served(store: AsyncBlockchainModelStore, mode: object) -> tuple[object, float]:
+    """The model an ``InferenceClient`` in ``mode`` loads, and the ms it took."""
+
+    async def load() -> object:
+        async with InferenceClient(store, mode, poll_interval=0.05) as client:
+            return client.get_model()
+
+    start = time.perf_counter()
+    loaded = asyncio.run(load())
+    return loaded, (time.perf_counter() - start) * 1e3
+
+
+def phase_checkpoint_store(device: torch.device, smi: str, label: str, pricer: GbmCVNNPricer,
+                           groups: tuple[str, ...], chunk: int) -> None:
+    """Phase 27 for one production pricer: its snapshot through serialized
+    bytes, a filesystem chain and the inference client, held bit for bit to
+    the in-memory path."""
+    snap = pricer.snapshot()
+    sim = snap.sim
+    rows = held_out(sim.payoff, 64, family_of(sim))
+    genesis_prices = {n: pricer.predict_price(rows[:n]) for n in (1, 7, 64)}
+    start = time.perf_counter()
+    data, digest = serialize_checkpoint(snap)
+    encode_ms = (time.perf_counter() - start) * 1e3
+    start = time.perf_counter()
+    decoded = deserialize_checkpoint(data, expected_hash=digest).expect("decode")
+    decode_ms = (time.perf_counter() - start) * 1e3
+    versions = ("cuda_stream_version", "lsmc_backward_version")
+    if any(getattr(decoded, v) != getattr(snap, v) for v in versions) or (
+            decoded.provenance != snap.provenance or decoded.provenance.jax_env is not None):
+        raise AssertionError(f"{label}: the bytes read back {decoded.cuda_stream_version}, "
+                             f"{decoded.lsmc_backward_version}, {decoded.provenance}")
+    flipped = bytes([data[0] ^ 0x01]) + data[1:]
+    flip_error = deserialize_checkpoint(flipped, expected_hash=digest)
+    if not isinstance(getattr(flip_error, "error", None), ChecksumMismatch):
+        raise AssertionError(f"{label}: a flipped byte gave {flip_error!r}")
+    older, _ = serialize_checkpoint(
+        dataclasses.replace(decoded, cuda_stream_version=decoded.cuda_stream_version - 1))
+    refused = GbmCVNNPricer.create(deserialize_checkpoint(older).expect("older"), device=device)
+    if type(getattr(refused, "error", None)).__name__ != "EngineMismatch":
+        raise AssertionError(f"{label}: stream v{decoded.cuda_stream_version - 1} gave {refused}")
+    with tempfile.TemporaryDirectory() as root:
+        store = AsyncBlockchainModelStore(FileSystemObjectStore(root, label))
+        start = time.perf_counter()
+        genesis = asyncio.run(store.commit(data, digest, "genesis")).expect("commit genesis")
+        commit_ms = [(time.perf_counter() - start) * 1e3]
+        inner_commit = make_commit_fn(store)
+
+        def timed_commit(config: GbmCVNNPricerConfig, message: str) -> None:
+            begin = time.perf_counter()
+            inner_commit(config, message)
+            commit_ms.append((time.perf_counter() - begin) * 1e3)
+
+        loaded, pinned_ms = load_served(store, PinnedMode(counter=genesis.counter))
+        serve_equal(GbmCVNNPricer.create(loaded.config, device=device).expect("pinned"),
+                    genesis_prices, rows, f"{label} pinned genesis")
+        in_memory = GbmCVNNPricer.create(snap, device=device).expect("from snapshot")
+        want, _ = train_steps(in_memory, 2, batch=BATCH, chunk=chunk)
+        from_bytes = GbmCVNNPricer.create(decoded, device=device).expect("from bytes")
+        cfg = build_training_config(num_batches=1, batch_size=BATCH, learning_rate=1e-3,
+                                    contract_chunk=chunk).expect("training config")
+        gbm_cuda.reset_launches()  # the bytes path's count starts here
+        got = [from_bytes.train(cfg).expect("step 1").final_loss,
+               from_bytes.train(cfg, commit_plan=FinalCommit(),
+                                commit_fn=timed_commit).expect("step 2").final_loss]
+        launches = {g: gbm_cuda.LAUNCHES_BY_BRANCH[g] for g in groups}
+        if not np.array_equal(want, np.asarray(got)):
+            raise AssertionError(f"{label}: resume from bytes {got} != from snapshot {want}")
+        if set(launches.values()) != {2 * BATCH // chunk}:
+            raise AssertionError(f"{label}: the bytes path launched {launches}")
+        if len(commit_ms) != 2:
+            raise AssertionError(f"{label}: FinalCommit committed {len(commit_ms) - 1} times")
+        verdict = asyncio.run(verify_chain_detailed(store)).expect("verify")
+        if verdict != ChainValid(versions=2):
+            raise AssertionError(f"{label}: chain {verdict}")
+        loaded, tracking_ms = load_served(store, TrackingMode())
+        if (loaded.version.counter, loaded.config.global_step) != (1, snap.global_step + 2):
+            raise AssertionError(f"{label}: tracking loaded {loaded.version}")
+        head_prices = {n: in_memory.predict_price(rows[:n]) for n in (1, 7, 64)}
+        serve_equal(GbmCVNNPricer.create(loaded.config, device=device).expect("tracking"),
+                    head_prices, rows, f"{label} tracking head")
+    env = decoded.provenance.torch_env
+    phase("checkpoint-store", pricer=label, model=sim.model.value, payoff=sim.payoff.value,
+          stream_version=decoded.cuda_stream_version,
+          lsmc_backward_version=decoded.lsmc_backward_version, bytes=len(data), sha256=digest,
+          encode_ms=f"{encode_ms:.3f}", decode_ms=f"{decode_ms:.3f}",
+          torch_env=repr((env.torch_version, env.cuda_version, env.device_kind,
+                          env.python_version)),
+          resumed_losses=[float(x) for x in got], resume_bit_equal=True, launches=launches,
+          commit_ms=[round(x, 3) for x in commit_ms], load_ms={"pinned": round(pinned_ms, 3),
+                                                             "tracking": round(tracking_ms, 3)},
+          served_bit_equal="N=1,7,64 pinned and tracking", checksum_refused=True,
+          older_stream_refused=True, chain="valid, 2 versions", nvidia_smi=repr(smi))
+
+
 def profiled(fn) -> tuple[float, float, int, list[tuple[str, int, float]]]:
     """Wall ms, device kernel ms, kernel launches and the heaviest kernels of ``fn()``."""
     from torch.autograd import DeviceType
@@ -3965,6 +4112,9 @@ def main() -> None:
     missing = [b for b, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"the main paths never launched the {missing} kernel branches")
+    for (label, groups, chunk), bytes_pricer in zip(BYTES_PRICERS,
+                                                    (pricer, american_pricer, heston_american)):
+        phase_checkpoint_store(device, smi, label, bytes_pricer, groups, chunk)
     if args.profile:
         phase_profile(pricer, "")
         phase_profile(asian, "-asian")

@@ -11,7 +11,9 @@ baskets), with the MC hot loop in hand-written CUDA kernels for Hopper
 (``csrc/gbm_paths.cu``, ``csrc/dynamics_paths.cu``, ``csrc/basket_paths.cu``,
 ``csrc/qmc_paths.cu``, ``csrc/american_paths.cu``,
 ``csrc/american_dynamics.cu``, and the LSMC backwards
-``csrc/lsmc_backward.cu`` and ``csrc/lsmc_two_state.cu``).
+``csrc/lsmc_backward.cu`` and ``csrc/lsmc_two_state.cu``). Checkpoints are
+the JAX package's protobuf bytes (``serialization``, ``proto``), committed
+to and served from the same content-addressed chain (``storage``).
 It imports neither JAX nor the JAX package; the tests hold it against both.
 """
 
@@ -57,6 +59,9 @@ _EXPORTS = {
     "build_training_config": "spectralmc_tpu_torch.training.trainer",
     "NoCommit": "spectralmc_tpu_torch.training.trainer",
     "FinalCommit": "spectralmc_tpu_torch.training.trainer",
+    "AsyncBlockchainModelStore": "spectralmc_tpu_torch.storage.store",
+    "FileSystemObjectStore": "spectralmc_tpu_torch.storage.object_store",
+    "InferenceClient": "spectralmc_tpu_torch.storage.inference",
 }
 
 __all__ = ["__version__", *sorted(_EXPORTS)]

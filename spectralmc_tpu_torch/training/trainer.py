@@ -2,8 +2,8 @@
 
 The port of the JAX package's ``training/trainer.py`` for the main path:
 ``TrainingConfig``, the ``NoCommit``/``FinalCommit`` plans, the checkpoint
-root ``GbmCVNNPricerConfig`` (same fields, plus ``cuda_stream_version``),
-and ``GbmCVNNPricer.create/train/snapshot/predict_price``.
+root ``GbmCVNNPricerConfig`` (same fields, plus ``cuda_stream_version`` and
+``provenance``), and ``GbmCVNNPricer.create/train/snapshot/predict_price``.
 
 * ``create`` takes an explicit ``device``; nothing is picked by default.
 * The MC engine that will run is resolved and recorded: a fresh config
@@ -48,6 +48,7 @@ from spectralmc_tpu_torch.core.errors.trainer import (
     NonFiniteLoss,
     TrainerError,
 )
+from spectralmc_tpu_torch.core.provenance import Provenance, torch_env_snapshot
 from spectralmc_tpu_torch.core.result import Failure, Result, Success
 from spectralmc_tpu_torch.models.factory import (
     CVNN,
@@ -209,7 +210,10 @@ class GbmCVNNPricerConfig:
     cannot continue a checkpoint silently. ``lsmc_backward_version`` records
     the LSMC backward that ran (``american_cuda.resolve_lsmc_backward``: 0
     the torch estimator, 3 the CUDA backward on the price alone, 4 on two
-    states; the JAX package's 1 and 2 are refused).
+    states; the JAX package's 1 and 2 are refused). ``provenance`` holds the
+    environment records the checkpoint's bytes carried (``JaxEnv``,
+    ``TorchEnv`` or none), written back unchanged when it is encoded; a
+    ``snapshot()`` carries this process's ``TorchEnv``.
     """
 
     sim: SimulationParams
@@ -223,6 +227,7 @@ class GbmCVNNPricerConfig:
     model_state: Mapping[str, np.ndarray] | None = None
     optimizer_state: AdamStateSnapshot | Mapping[str, np.ndarray] | None = None
     cuda_stream_version: int = 0
+    provenance: Provenance = Provenance()
 
 
 @dataclass(frozen=True)
@@ -298,6 +303,7 @@ class GbmCVNNPricer:
         self._normalize_inputs = config.normalize_inputs
         self._cuda_stream_version = config.cuda_stream_version
         self._lsmc_backward_version = config.lsmc_backward_version
+        self._torch_env = torch_env_snapshot(device)
         self._table = self._sobol_table()
 
     # -- construction --------------------------------------------------------
@@ -437,6 +443,7 @@ class GbmCVNNPricer:
             optimizer_state=self._opt_snapshot,
             lsmc_backward_version=self._lsmc_backward_version,
             cuda_stream_version=self._cuda_stream_version,
+            provenance=Provenance(torch_env=self._torch_env),
         )
 
     # -- train ---------------------------------------------------------------

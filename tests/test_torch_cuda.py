@@ -969,3 +969,106 @@ def test_american_basket_walk_equals_rolled_rows_on_card(assets, combine, steps,
         c, keys, spec=spec, timesteps=steps, rows=64, cols=96, payoff=tgbm.PayoffKind.TERMINAL,
         antithetic_half=32)
     assert torch.equal(price[:, -1], terminal)
+
+
+def _cuda_pricer(device: torch.device, payoff: str = "terminal"):
+    """A small ``"cuda"`` pricer, two steps in."""
+    from spectralmc_tpu_torch.models import factory as tf
+    from spectralmc_tpu_torch.ops.sobol import BoundSpec
+    from spectralmc_tpu_torch.training import trainer as ttr
+
+    sim = tgbm.build_simulation_params(
+        timesteps=8, network_size=64, batches_per_mc_run=64, mc_seed=7, implementation="cuda",
+        payoff=payoff, normalization="none" if payoff == "american_put" else "mean",
+    ).expect("sim")
+    cvnn = tf.build_cvnn_config(layers=[
+        tf.LinearCfg(width=32, activation=tf.Activation.MODRELU), tf.CovBNCfg(),
+        tf.LinearCfg(width=32, activation=tf.Activation.ZRELU)], seed=11).expect("cvnn")
+    names = ("spot", "strike", "maturity", "rate", "div_yield", "vol")
+    lo, hi = (80.0, 80.0, 0.25, 0.0, 0.0, 0.15), (120.0, 120.0, 2.0, 0.08, 0.04, 0.45)
+    bounds = {n: BoundSpec(lower=a, upper=b) for n, a, b in zip(names, lo, hi)}
+    config = ttr.GbmCVNNPricerConfig(sim=sim, bounds=bounds, cvnn=cvnn, normalize_inputs=True)
+    pricer = ttr.GbmCVNNPricer.create(config, device=device).expect("create")
+    pricer.train(_card_training(2)).expect("train")
+    return pricer
+
+
+def _card_training(n: int):
+    from spectralmc_tpu_torch.training import trainer as ttr
+
+    return ttr.build_training_config(num_batches=n, batch_size=16, learning_rate=1e-3,
+                                     contract_chunk=8).expect("training config")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("payoff", ["terminal", "american_put"])
+def test_cuda_checkpoint_bytes_resume_bit_exactly_on_card(payoff) -> None:
+    """Resuming from the serialized bytes equals resuming from the snapshot,
+    bit for bit, with the stream and backward versions kept; a stream
+    version one lower is refused mid-stream."""
+    import dataclasses
+
+    from spectralmc_tpu_torch.serialization import deserialize_checkpoint, serialize_checkpoint
+    from spectralmc_tpu_torch.training import trainer as ttr
+
+    device = _require_card()
+    snap = _cuda_pricer(device, payoff).snapshot()
+    data, digest = serialize_checkpoint(snap)
+    decoded = deserialize_checkpoint(data, expected_hash=digest).expect("decode")
+    assert decoded.cuda_stream_version == snap.cuda_stream_version > 0
+    assert decoded.lsmc_backward_version == snap.lsmc_backward_version
+    assert decoded.provenance.torch_env.device_kind == torch.cuda.get_device_name(device)
+    from_bytes = ttr.GbmCVNNPricer.create(decoded, device=device).expect("from bytes")
+    from_snapshot = ttr.GbmCVNNPricer.create(snap, device=device).expect("from snapshot")
+    a = from_bytes.train(_card_training(2)).expect("a").losses
+    b = from_snapshot.train(_card_training(2)).expect("b").losses
+    np.testing.assert_array_equal(a, b)
+    older, _ = serialize_checkpoint(
+        dataclasses.replace(decoded, cuda_stream_version=decoded.cuda_stream_version - 1))
+    refused = ttr.GbmCVNNPricer.create(deserialize_checkpoint(older).expect("older"),
+                                       device=device)
+    assert type(refused.error).__name__ == "EngineMismatch"
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_commits_and_serves_bit_exactly_on_card(tmp_path) -> None:
+    """A ``FileSystemObjectStore`` commit through ``FinalCommit``, then
+    ``InferenceClient`` loads (pinned and tracking) serve the in-memory
+    pricer's prices bit for bit."""
+    import asyncio
+
+    from spectralmc_tpu_torch.storage import (
+        AsyncBlockchainModelStore,
+        FileSystemObjectStore,
+        InferenceClient,
+        PinnedMode,
+        TrackingMode,
+        make_commit_fn,
+        verify_chain_detailed,
+    )
+    from spectralmc_tpu_torch.training import trainer as ttr
+
+    device = _require_card()
+    pricer = _cuda_pricer(device)
+    store = AsyncBlockchainModelStore(FileSystemObjectStore(tmp_path, "card"))
+    commit_fn = make_commit_fn(store)
+    commit_fn(pricer.snapshot(), "genesis")
+    contracts = _contracts(64, seed=4)
+    sizes = (1, 7, 64)  # each against the same N: the forward pads to a power of two
+    genesis = {n: pricer.predict_price(contracts[:n]) for n in sizes}
+    pricer.train(_card_training(2), commit_plan=ttr.FinalCommit(),
+                 commit_fn=commit_fn).expect("train")
+    head = {n: pricer.predict_price(contracts[:n]) for n in sizes}
+
+    async def load(mode):
+        async with InferenceClient(store, mode, poll_interval=0.05) as client:
+            return client.get_model()
+
+    assert asyncio.run(verify_chain_detailed(store)).expect("verify").versions == 2
+    for mode, want in ((PinnedMode(counter=0), genesis), (TrackingMode(), head)):
+        loaded = asyncio.run(load(mode))
+        served = ttr.GbmCVNNPricer.create(loaded.config, device=device).expect("serve")
+        for n in sizes:
+            got = served.predict_price(contracts[:n])
+            np.testing.assert_array_equal(got.put, want[n].put)
+            np.testing.assert_array_equal(got.call, want[n].call)
