@@ -246,7 +246,28 @@ non-zero and no result line is printed):
                   InferenceClient(TrackingMode) bit-equal to the in-memory
                   resume. Host-clock commit and load ms beside the card's
                   name and power limit.
-11. profile     — only with ``--profile``, after phase 27: for the TERMINAL,
+28. train-loop  — the TERMINAL pricer's snapshot (after phases 4-6), 5 steps
+                  at the production batch on the "cuda" engine: under
+                  FinalAndIntervalCommit(2) into a FileSystemObjectStore
+                  chain through make_commit_fn (segments [2, 2, 1], start
+                  steps 1, 3, 5 past the snapshot's, commits at 2, 4, 5, the
+                  chain verified, the step and segment callbacks' losses
+                  bit-equal to the result's); under NoCommit (losses and
+                  gradient norms bit-equal); through train_via_effects,
+                  plainly and from inside a running event loop (losses
+                  bit-equal, the same commit messages and checkpoint bytes);
+                  under a warmup-cosine lr_schedule (the reported rates equal
+                  schedule_rates); kernel #1 launched twice a step in each of
+                  these five runs; a NaN planted in a weight of a copy of the
+                  snapshot (NonFiniteLoss at the first segment's end, the
+                  pricer's state as before); 2 steps with profile_dir (the
+                  trace's size, its gbm_paths kernel events, one
+                  train_segment range a segment); utils/flops.py's FLOPs a
+                  step and the warm step's MFU against the H100's float32
+                  peak; host-clock warm steps under NoCommit and
+                  IntervalCommit(1) and the segment-start copy, beside the
+                  card's name and power limit.
+11. profile     — only with ``--profile``, after phase 28: for the TERMINAL,
                   the Asian, the Heston, the basket, the SOBOL_BB
                   geometric-Asian and the American put pricer, 10 warm train
                   steps timed on the host clock to a synchronised end, then
@@ -268,7 +289,8 @@ two-state backward's from phase 25, the Merton and basket monitor
 kernels' and the streamed two-state backward's from phase 26, and every
 other branch's from phases 8, 10 and 16; phase 27 sets them to 0 again
 before each resume from bytes and checks that it launched its pricer's
-kernels. The last lines are
+kernels, and phase 28 before the training loop's runs, each of which it
+checks launched kernel #1 twice a step. The last lines are
 the kernel record as JSON, the nvidia-smi line, and the result JSON.
 """
 
@@ -349,11 +371,22 @@ from spectralmc_tpu_torch.storage import (
     make_commit_fn,
     verify_chain_detailed,
 )
+from spectralmc_tpu_torch.training.adam_state import AdamState
+from spectralmc_tpu_torch.training.step import LRScheduleConfig, model_params, schedule_rates
 from spectralmc_tpu_torch.training.trainer import (
+    FinalAndIntervalCommit,
     FinalCommit,
     GbmCVNNPricer,
     GbmCVNNPricerConfig,
+    IntervalCommit,
+    SegmentStart,
     build_training_config,
+)
+from spectralmc_tpu_torch.utils.flops import (
+    fft_flops,
+    mfu,
+    sim_path_steps,
+    train_step_matmul_flops,
 )
 
 ROWS, COLS, STEPS = 2048, 512, 16
@@ -3944,6 +3977,199 @@ def phase_checkpoint_store(device: torch.device, smi: str, label: str, pricer: G
           older_stream_refused=True, chain="valid, 2 versions", nvidia_smi=repr(smi))
 
 
+# --------------------------------------------------------------------------
+# 28. the training loop: interval commits, metrics, effects, divergence, profile
+# --------------------------------------------------------------------------
+
+
+def chain_payloads(store: AsyncBlockchainModelStore) -> list[tuple[str, bytes]]:
+    async def read() -> list[tuple[str, bytes]]:
+        versions = (await store.list_versions()).expect("versions")
+        return [(v.message, (await store.load_checkpoint(v)).expect("payload"))
+                for v in versions]
+
+    return asyncio.run(read())
+
+
+def warm_step_seconds(pricer: GbmCVNNPricer, n: int, **plan: object) -> list[float]:
+    """``n`` single-step ``train`` calls under ``plan``, each on the host
+    clock to a synchronised end."""
+    cfg = build_training_config(num_batches=1, batch_size=BATCH, learning_rate=1e-3,
+                                contract_chunk=CHUNK).expect("training config")
+    seconds = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        pricer.train(cfg, **plan).expect("warm step")
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - start)
+    return seconds
+
+
+def phase_train_loop(device: torch.device, smi: str, snap: GbmCVNNPricerConfig) -> None:
+    """Phase 28: the TERMINAL pricer's snapshot driven through the rest of the
+    training loop at full width on the "cuda" engine — interval commits,
+    ``NoCommit``, ``train_via_effects`` plainly and inside a running event
+    loop, the metrics callbacks and the rates they report, a diverged run,
+    ``profile_dir``, the FLOP count and MFU, and host-clock costs."""
+    steps = 5
+    cfg = build_training_config(num_batches=steps, batch_size=BATCH, learning_rate=1e-3,
+                                contract_chunk=CHUNK).expect("training config")
+    per_step = BATCH // CHUNK  # kernel #1's launches a step
+    base = snap.global_step
+
+    def launched(fn):
+        before = gbm_cuda.LAUNCHES_BY_BRANCH["terminal"]
+        out = fn()
+        moved = gbm_cuda.LAUNCHES_BY_BRANCH["terminal"] - before
+        if moved != steps * per_step:
+            raise AssertionError(f"train-loop: kernel #1 launched {moved} times in {steps} "
+                                 f"steps, want {steps * per_step}")
+        return out
+
+    gbm_cuda.reset_launches()  # the training loop's path starts here
+    with tempfile.TemporaryDirectory() as root:
+        stores = {name: AsyncBlockchainModelStore(FileSystemObjectStore(root, name))
+                  for name in ("train", "effects", "effects-in-loop")}
+        plan = FinalAndIntervalCommit(interval=2)
+        interval = GbmCVNNPricer.create(snap, device=device).expect("interval")
+        segments, step_metrics = [], []
+        interval.set_segment_callback(segments.append)
+        interval.set_step_callback(step_metrics.append)
+        commit_steps = []
+        inner = make_commit_fn(stores["train"])
+
+        def recording_commit(config: GbmCVNNPricerConfig, message: str) -> None:
+            commit_steps.append(config.global_step - base)
+            inner(config, message)
+
+        result = launched(lambda: interval.train(cfg, commit_plan=plan,
+                                                 commit_fn=recording_commit).expect("interval"))
+        if [len(s.losses) for s in segments] != [2, 2, 1] or commit_steps != [2, 4, 5]:
+            raise AssertionError(f"train-loop: segments {[len(s.losses) for s in segments]}, "
+                                 f"commits at {commit_steps}")
+        starts = [s.start_step - base for s in segments]
+        if starts != [1, 3, 5]:
+            raise AssertionError(f"train-loop: segment start steps {starts}")
+        seg_losses = np.concatenate([s.losses for s in segments])
+        if not (np.array_equal(seg_losses, result.losses) and np.array_equal(
+                [m.loss for m in step_metrics], result.losses)):
+            raise AssertionError("train-loop: the callbacks' losses differ from the result's")
+        verdict = asyncio.run(verify_chain_detailed(stores["train"])).expect("verify")
+        if verdict != ChainValid(versions=3):
+            raise AssertionError(f"train-loop: chain {verdict}")
+        plain = launched(lambda: GbmCVNNPricer.create(snap, device=device).expect("plain")
+                         .train(cfg).expect("NoCommit"))
+        if not (np.array_equal(plain.losses, result.losses)
+                and np.array_equal(plain.grad_norms, result.grad_norms)):
+            raise AssertionError(f"train-loop: NoCommit {plain.losses} != interval "
+                                 f"{result.losses}")
+        effects = {}
+        for name, inside in (("effects", False), ("effects-in-loop", True)):
+            pricer = GbmCVNNPricer.create(snap, device=device).expect(name)
+
+            def run(pricer=pricer, name=name):
+                return pricer.train_via_effects(cfg, commit_plan=plan,
+                                                commit_fn=make_commit_fn(stores[name]))
+
+            async def in_loop(run=run):
+                return run()
+
+            effects[name] = launched(
+                lambda: (asyncio.run(in_loop()) if inside else run()).expect(name))
+        want = chain_payloads(stores["train"])
+        for name, got in effects.items():
+            if not np.array_equal(got.losses, result.losses):
+                raise AssertionError(f"train-loop: {name} losses {got.losses}")
+            if chain_payloads(stores[name]) != want:
+                raise AssertionError(f"train-loop: {name} committed other messages or bytes")
+    schedule = LRScheduleConfig(peak=2e-3, decay_steps=base + 8, warmup_steps=base + 2,
+                                end_value=1e-5)
+    scheduled = GbmCVNNPricer.create(snap, device=device).expect("scheduled")
+    rates = []
+    scheduled.set_step_callback(lambda m: rates.append(m.learning_rate))
+    launched(lambda: scheduled.train(
+        build_training_config(num_batches=steps, batch_size=BATCH, learning_rate=1e-3,
+                              contract_chunk=CHUNK, lr_schedule=schedule).expect("scheduled"),
+        commit_plan=IntervalCommit(interval=2), commit_fn=lambda c, m: None).expect("scheduled"))
+    if not np.array_equal(np.asarray(rates, np.float32), schedule_rates(schedule, base, steps)):
+        raise AssertionError(f"train-loop: reported rates {rates}")
+    model_state = {k: v.copy() for k, v in snap.model_state.items()}
+    planted = sorted(k for k in model_state if k.endswith("w_re"))[0]
+    model_state[planted].flat[0] = np.nan
+    diverged = GbmCVNNPricer.create(dataclasses.replace(snap, model_state=model_state),
+                                    device=device).expect("diverged")
+    before = diverged.snapshot()
+    failure = diverged.train(cfg, commit_plan=IntervalCommit(interval=2),
+                             commit_fn=lambda c, m: None)
+    after = diverged.snapshot()
+    same = all(np.array_equal(after.model_state[k], before.model_state[k], equal_nan=True)
+               for k in before.model_state) and all(
+        np.array_equal(after.optimizer_state.nu[k], before.optimizer_state.nu[k])
+        for k in before.optimizer_state.nu) and (
+        after.global_step, after.sobol_skip, after.sim.skip, after.optimizer_state.count) == (
+        before.global_step, before.sobol_skip, before.sim.skip, before.optimizer_state.count)
+    if type(getattr(failure, "error", None)).__name__ != "NonFiniteLoss" or not same or (
+            failure.error.step != base + 2):
+        raise AssertionError(f"train-loop: diverged run gave {failure}, state restored {same}")
+    with tempfile.TemporaryDirectory() as trace_dir:
+        profiled_pricer = GbmCVNNPricer.create(snap, device=device).expect("profiled")
+        profiled_pricer.train(
+            build_training_config(num_batches=2, batch_size=BATCH, learning_rate=1e-3,
+                                  contract_chunk=CHUNK).expect("profiled"),
+            commit_plan=IntervalCommit(interval=1), commit_fn=lambda c, m: None,
+            profile_dir=trace_dir).expect("profiled")
+        (trace,) = Path(trace_dir).glob("*.pt.trace.json")
+        trace_bytes = trace.stat().st_size
+        events = json.loads(trace.read_text())["traceEvents"]
+    kernel_events = [e for e in events if e.get("cat") == "kernel"]
+    path_events = sum("gbm_paths" in e.get("name", "") for e in kernel_events)
+    ranges = sum(e.get("name") == "train_segment" and e.get("cat") == "user_annotation"
+                 for e in events)
+    if not kernel_events or path_events != 2 * per_step or ranges != 2:
+        raise AssertionError(f"train-loop: trace holds {len(kernel_events)} kernel events, "
+                             f"{path_events} gbm_paths, {ranges} train_segment ranges")
+    warm = GbmCVNNPricer.create(snap, device=device).expect("warm")
+    warm_step_seconds(warm, 2)
+    nocommit_s = warm_step_seconds(warm, 7)
+    with tempfile.TemporaryDirectory() as root:
+        store = AsyncBlockchainModelStore(FileSystemObjectStore(root, "interval-1"))
+        interval_s = warm_step_seconds(warm, 7, commit_plan=IntervalCommit(interval=1),
+                                       commit_fn=make_commit_fn(store))
+    adam = AdamState.zeros_like(model_params(warm.model))
+    copy_ms = []
+    for _ in range(21):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        SegmentStart.take(warm.model, adam)
+        torch.cuda.synchronize()
+        copy_ms.append((time.perf_counter() - start) * 1e3)
+    copy_bytes = sum(t.numel() * t.element_size() for t in warm.model.state_dict().values())
+    matmul = train_step_matmul_flops(warm.model, BATCH)
+    step_s = statistics.median(nocommit_s)
+    tflops, share = mfu(matmul, 1.0 / step_s)
+    phase("train-loop", pricer="terminal", snapshot_step=base, steps=steps,
+          segments=[len(s.losses) for s in segments], segment_start_steps=starts,
+          commits_at=commit_steps, chain="valid, 3 versions", nocommit_bit_equal=True,
+          effects_bit_equal="plain and inside a running loop, messages and bytes equal",
+          losses=result.losses.tolist(), callbacks_bit_equal=True,
+          scheduled_rates=[float(r) for r in rates],
+          launches_per_step=per_step, launch_checked_runs=5,
+          phase_launches=gbm_cuda.LAUNCHES_BY_BRANCH["terminal"],
+          diverged=f"NonFiniteLoss at step {failure.error.step}, pre-segment state kept",
+          trace_bytes=trace_bytes, trace_kernel_events=len(kernel_events),
+          trace_gbm_paths_events=path_events, trace_train_segment_ranges=ranges,
+          matmul_flops_per_step=matmul, fft_flops_per_step=fft_flops(BATCH, COLS),
+          path_steps_per_step=sim_path_steps(BATCH, ROWS, COLS, STEPS),
+          warm_step_mfu=f"{share:.6%}", warm_step_tflops=f"{tflops:.6f}",
+          nocommit_step_s=[round(x, 5) for x in nocommit_s],
+          nocommit_median_s=f"{step_s:.5f}",
+          interval1_step_s=[round(x, 5) for x in interval_s],
+          interval1_median_s=f"{statistics.median(interval_s):.5f}",
+          segment_start_copy_ms=f"{statistics.median(copy_ms):.4f}",
+          segment_start_copy_bytes=copy_bytes, nvidia_smi=repr(smi))
+
+
 def profiled(fn) -> tuple[float, float, int, list[tuple[str, int, float]]]:
     """Wall ms, device kernel ms, kernel launches and the heaviest kernels of ``fn()``."""
     from torch.autograd import DeviceType
@@ -4115,6 +4341,7 @@ def main() -> None:
     for (label, groups, chunk), bytes_pricer in zip(BYTES_PRICERS,
                                                     (pricer, american_pricer, heston_american)):
         phase_checkpoint_store(device, smi, label, bytes_pricer, groups, chunk)
+    phase_train_loop(device, smi, pricer.snapshot())
     if args.profile:
         phase_profile(pricer, "")
         phase_profile(asian, "-asian")

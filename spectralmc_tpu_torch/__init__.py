@@ -13,7 +13,10 @@ baskets), with the MC hot loop in hand-written CUDA kernels for Hopper
 ``csrc/american_dynamics.cu``, and the LSMC backwards
 ``csrc/lsmc_backward.cu`` and ``csrc/lsmc_two_state.cu``). Checkpoints are
 the JAX package's protobuf bytes (``serialization``, ``proto``), committed
-to and served from the same content-addressed chain (``storage``).
+to and served from the same content-addressed chain (``storage``), at the
+end of a run or at an interval. A run is also described as data and
+interpreted (``effects``, ``GbmCVNNPricer.train_via_effects``); ``utils``
+holds the TensorBoard sinks, the profiler trace and the FLOP count.
 It imports neither JAX nor the JAX package; the tests hold it against both.
 """
 
@@ -59,6 +62,8 @@ _EXPORTS = {
     "build_training_config": "spectralmc_tpu_torch.training.trainer",
     "NoCommit": "spectralmc_tpu_torch.training.trainer",
     "FinalCommit": "spectralmc_tpu_torch.training.trainer",
+    "IntervalCommit": "spectralmc_tpu_torch.training.trainer",
+    "FinalAndIntervalCommit": "spectralmc_tpu_torch.training.trainer",
     "AsyncBlockchainModelStore": "spectralmc_tpu_torch.storage.store",
     "FileSystemObjectStore": "spectralmc_tpu_torch.storage.object_store",
     "InferenceClient": "spectralmc_tpu_torch.storage.inference",

@@ -1,6 +1,6 @@
 """Functional core: Result ADT, error ADTs, precision policy, validation."""
 
-from spectralmc_tpu_torch.core.precision import Precision, real_dtype_of
+from spectralmc_tpu_torch.core.precision import Precision, ReducedPrecision, real_dtype_of
 from spectralmc_tpu_torch.core.result import (
     Failure,
     Result,
@@ -15,6 +15,7 @@ from spectralmc_tpu_torch.core.validation import validate_model
 __all__ = [
     "Failure",
     "Precision",
+    "ReducedPrecision",
     "Result",
     "Success",
     "UnwrapError",

@@ -2,6 +2,8 @@
 
 * ``TensorTree`` — a nested dict of tensors (model parameters, batch-norm
   state, Adam moments) keyed by the JAX package's parameter paths.
+* ``EffectResult`` — the open union of values the effect interpreters
+  produce (a registry key, a count, a ``ModelVersion``, a counters dict).
 """
 
 from __future__ import annotations
@@ -9,5 +11,6 @@ from __future__ import annotations
 from typing import Any, TypeAlias
 
 TensorTree: TypeAlias = Any
+EffectResult: TypeAlias = Any
 
-__all__ = ["TensorTree"]
+__all__ = ["EffectResult", "TensorTree"]

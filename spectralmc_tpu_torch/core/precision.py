@@ -4,11 +4,17 @@ The same ``Precision`` enum as the JAX package's ``core/precision.py`` (so a
 checkpoint's precision field maps 1:1), with maps to ``torch`` and ``numpy``
 dtypes. PyTorch has float64 everywhere, so there is no x64 switch to check;
 ``validate_available`` is kept as the seam the builders call.
+
+``ReducedPrecision`` is the storage-only tier (``bfloat16``, ``float16``):
+legal for checkpoint payloads and activations, never as a Monte-Carlo dtype.
+numpy has no bfloat16, so a bfloat16 payload decodes to a torch tensor
+(``serialization/converters.py::tensor_from_proto``).
 """
 
 from __future__ import annotations
 
 import enum
+from typing import Union
 
 import numpy as np
 import torch
@@ -73,6 +79,19 @@ _TORCH_MAP = {
     Precision.complex64: torch.complex64,
     Precision.complex128: torch.complex128,
 }
+
+
+class ReducedPrecision(enum.Enum):
+    """Storage/activation-only dtypes; never legal as an MC dtype."""
+
+    bfloat16 = "bfloat16"
+    float16 = "float16"
+
+    def to_torch(self) -> torch.dtype:
+        return torch.bfloat16 if self is ReducedPrecision.bfloat16 else torch.float16
+
+
+AnyPrecision = Union[Precision, ReducedPrecision]
 
 
 def real_dtype_of(precision: Precision) -> torch.dtype:

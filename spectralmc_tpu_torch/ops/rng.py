@@ -22,6 +22,16 @@ from __future__ import annotations
 import math
 
 import torch
+from pydantic import BaseModel, ConfigDict
+
+from spectralmc_tpu_torch.core.errors.rng import (
+    InvalidCounter,
+    InvalidShape,
+    RngError,
+    SeedOutOfRange,
+)
+from spectralmc_tpu_torch.core.precision import Precision
+from spectralmc_tpu_torch.core.result import Failure, Result, Success
 
 MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -400,6 +410,71 @@ def normal(key: torch.Tensor, shape: tuple[int, ...],
         raise ValueError(f"normal draws float32 or float64, not {dtype}")
     u = uniform(key, shape, _NORMAL_LO, 1.0)
     return torch.tensor(math.sqrt(2.0), dtype=torch.float32, device=key.device) * erf_inv(u)
+
+# --------------------------------------------------------------------------
+# Normal-matrix streams: the JAX package's key-derivation convention
+# --------------------------------------------------------------------------
+
+_MAX_SEED = 2**63 - 1
+
+
+class NormalStreamConfig(BaseModel):
+    """Checkpointable description of a normal-matrix stream: the matrix for
+    draw ``counter`` is ``normal(fold_in(prng_key(seed), counter))``."""
+
+    model_config = ConfigDict(frozen=True, extra="forbid")
+
+    rows: int
+    cols: int
+    seed: int
+    counter: int = 0
+    precision: Precision = Precision.float32
+
+
+def build_normal_stream_config(
+    *, rows: int, cols: int, seed: int, counter: int = 0, precision: Precision = Precision.float32
+) -> Result[NormalStreamConfig, RngError]:
+    if rows <= 0 or cols <= 0:
+        return Failure(InvalidShape(rows=rows, cols=cols, reason="rows and cols must be positive"))
+    if not (0 <= seed <= _MAX_SEED):
+        return Failure(SeedOutOfRange(seed=seed, reason=f"seed must be in [0, {_MAX_SEED}]"))
+    if counter < 0:
+        return Failure(InvalidCounter(counter=counter, reason="counter must be non-negative"))
+    return Success(
+        NormalStreamConfig(rows=rows, cols=cols, seed=seed, counter=counter, precision=precision)
+    )
+
+
+def base_key(seed: int, device: torch.device | str) -> torch.Tensor:
+    """The root threefry key for a seed, on ``device``."""
+    return prng_key(seed, device)
+
+
+def draw_key(key: torch.Tensor, counter: torch.Tensor | int) -> torch.Tensor:
+    """The key for the ``counter``-th draw of a stream."""
+    return fold_in(key, counter)
+
+
+def normal_matrix(
+    key: torch.Tensor, counter: torch.Tensor | int, rows: int, cols: int, dtype: torch.dtype
+) -> torch.Tensor:
+    """Standard-normal ``[rows, cols]`` matrix for draw index ``counter``, on
+    the key's device; the same (seed, counter, shape, dtype) gives the same
+    matrix on every device."""
+    return normal(draw_key(key, counter), (rows, cols), dtype)
+
+
+def stream_normals(cfg: NormalStreamConfig, device: torch.device | str) -> torch.Tensor:
+    """Materialize the matrix for the stream's current counter on ``device``."""
+    return normal_matrix(
+        base_key(cfg.seed, device), cfg.counter, cfg.rows, cfg.cols, cfg.precision.to_torch()
+    )
+
+
+def advance(cfg: NormalStreamConfig, draws: int = 1) -> NormalStreamConfig:
+    """Pure successor state after ``draws`` matrices have been consumed."""
+    return cfg.model_copy(update={"counter": cfg.counter + draws})
+
 
 # --------------------------------------------------------------------------
 # Philox-4x32-10: the counter-based stream of the "cuda" MC engine

@@ -18,8 +18,11 @@ What differs:
   ``lsmc_backward_version`` 3 and 4. The decoder refuses nothing that the
   schema allows: whether a checkpoint can continue is the trainer's call
   (``GbmCVNNPricer.create``).
-* ``tensor_from_proto`` reads numpy dtypes only; ``bfloat16`` is a
-  ``DecodeError`` until the reduced-precision types are ported.
+* numpy has no ``bfloat16`` (the JAX package decodes it with ``ml_dtypes``,
+  which the port does not need): ``tensor_from_proto`` decodes a
+  ``bfloat16`` tensor to a CPU ``torch.bfloat16`` tensor, and
+  ``tensor_to_proto`` encodes one back to its own bytes. Widened to float32
+  its values equal the JAX package's decode.
 """
 
 from __future__ import annotations
@@ -30,13 +33,14 @@ from dataclasses import asdict, fields
 from typing import TYPE_CHECKING, Mapping
 
 import numpy as np
+import torch
 
 from spectralmc_tpu_torch.core.errors.serialization import (
     ChecksumMismatch,
     DecodeError,
     SerializationError,
 )
-from spectralmc_tpu_torch.core.precision import Precision
+from spectralmc_tpu_torch.core.precision import Precision, ReducedPrecision
 from spectralmc_tpu_torch.core.provenance import JaxEnv, Provenance, TorchEnv
 from spectralmc_tpu_torch.core.result import Failure, Result, Success
 from spectralmc_tpu_torch.models.factory import (
@@ -128,7 +132,11 @@ _ACTIVATION_FROM_PROTO = {v: k for k, v in _ACTIVATION_TO_PROTO.items()}
 # --------------------------------------------------------------------------
 
 
-def tensor_to_proto(arr: np.ndarray) -> tensors_pb2.TensorProto:
+def tensor_to_proto(arr: "np.ndarray | torch.Tensor") -> tensors_pb2.TensorProto:
+    if isinstance(arr, torch.Tensor) and arr.dtype == torch.bfloat16:
+        bits = arr.detach().cpu().contiguous().view(torch.int16).numpy()
+        return tensors_pb2.TensorProto(shape=list(arr.shape), dtype="bfloat16",
+                                       data=bits.tobytes())
     # tobytes() emits C-order for any layout; ascontiguousarray would promote
     # 0-d arrays to 1-d and lose the scalar shape.
     a = np.asarray(arr)
@@ -137,17 +145,14 @@ def tensor_to_proto(arr: np.ndarray) -> tensors_pb2.TensorProto:
     )
 
 
-def tensor_from_proto(proto: tensors_pb2.TensorProto) -> Result[np.ndarray, SerializationError]:
-    if proto.dtype == "bfloat16":  # numpy alone cannot name it
-        return Failure(
-            DecodeError(
-                what="tensor",
-                reason=f"dtype {proto.dtype!r} needs the reduced-precision types, not ported "
-                "yet (ROADMAP.md queue 1 item 13)",
-            )
-        )
+def tensor_from_proto(
+    proto: tensors_pb2.TensorProto,
+) -> "Result[np.ndarray | torch.Tensor, SerializationError]":
+    """The tensor as numpy, or as a CPU ``torch.bfloat16`` tensor for the
+    dtype numpy cannot name (its 16-bit words read as int16, then viewed)."""
+    bfloat16 = proto.dtype == ReducedPrecision.bfloat16.value
     try:
-        dtype = np.dtype(proto.dtype)
+        dtype = np.dtype(np.int16 if bfloat16 else proto.dtype)
     except (TypeError, ValueError):
         return Failure(DecodeError(what="tensor", reason=f"unknown dtype {proto.dtype!r}"))
     if dtype.hasobject:
@@ -158,16 +163,20 @@ def tensor_from_proto(proto: tensors_pb2.TensorProto) -> Result[np.ndarray, Seri
         return Failure(
             DecodeError(
                 what="tensor",
-                reason=f"payload {len(proto.data)} bytes != {expected} for {shape} {dtype}",
+                reason=f"payload {len(proto.data)} bytes != {expected} for {shape} "
+                f"{proto.dtype if bfloat16 else dtype}",
             )
         )
-    return Success(np.frombuffer(proto.data, dtype=dtype).reshape(shape).copy())
+    decoded = np.frombuffer(proto.data, dtype=dtype).reshape(shape).copy()
+    if bfloat16:
+        return Success(torch.from_numpy(decoded).view(torch.bfloat16))
+    return Success(decoded)
 
 
 def tensor_map_to_proto(flat: Mapping[str, np.ndarray]) -> tensors_pb2.TensorMapProto:
     proto = tensors_pb2.TensorMapProto()
     for key in sorted(flat):  # deterministic serialization order
-        proto.entries[key].CopyFrom(tensor_to_proto(np.asarray(flat[key])))
+        proto.entries[key].CopyFrom(tensor_to_proto(flat[key]))
     return proto
 
 

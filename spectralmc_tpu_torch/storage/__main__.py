@@ -2,9 +2,9 @@
 
 Subcommands verify / find-corruption / list-versions / inspect / gc-preview /
 gc-run (--yes) / tensorboard-log, exit codes 0 (ok) / 1 (problem found) /
-2 (usage or backend error). ``tensorboard-log`` needs the TensorBoard writer,
-which the port has not reached: it raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+2 (usage or backend error). ``tensorboard-log --logdir DIR`` writes the
+chain's history with ``utils/tensorboard_writer.py`` (exit 2 without the
+tensorboard package).
 
 Backend selection: ``--root DIR`` uses the filesystem store;
 ``--s3-endpoint URL`` (or env AWS_ENDPOINT_URL with ``--s3``) uses S3 when
@@ -22,7 +22,6 @@ import asyncio
 import json
 import sys
 
-from spectralmc_tpu_torch.core.errors import not_ported
 from spectralmc_tpu_torch.core.result import Failure
 from spectralmc_tpu_torch.storage.gc import ExecuteGC, PreviewGC, RetentionPolicy, run_gc
 from spectralmc_tpu_torch.storage.object_store import (
@@ -140,7 +139,18 @@ async def _cmd_gc(
 async def _cmd_tensorboard_log(
     store: AsyncBlockchainModelStore, args: argparse.Namespace
 ) -> int:
-    raise not_ported("tensorboard-log", "queue 1 item 13 (utils)")
+    from spectralmc_tpu_torch.utils.tensorboard_writer import log_chain_to_tensorboard
+
+    try:
+        result = await log_chain_to_tensorboard(store, args.logdir)
+    except ImportError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return EXIT_ERROR
+    if isinstance(result, Failure):
+        print(f"error: {result.error!r}", file=sys.stderr)
+        return EXIT_ERROR
+    print(f"logged {result.value} versions to {args.logdir}")
+    return EXIT_OK
 
 
 def build_parser() -> argparse.ArgumentParser:

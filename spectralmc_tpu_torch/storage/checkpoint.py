@@ -4,13 +4,16 @@ The JAX package's ``storage/checkpoint.py``:
 ``create_checkpoint_from_snapshot`` (proto bytes + sha256), ``commit_snapshot``,
 ``load_snapshot_from_checkpoint`` (rebuild the pricer config from a stored
 version), plus a synchronous ``make_commit_fn`` adapter for the trainer's
-commit-plan seam (``FinalCommit``): it runs the async commit with
-``asyncio.run``, so call ``train`` outside a running event loop.
+commit-plan seam. It runs the async commit with ``asyncio.run``; where an
+event loop is already running in the calling thread (``train`` or
+``train_via_effects`` called from async code, or the effect interpreter's own
+loop) it runs it on a side thread, so the commit reaches the store there too.
 """
 
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 from typing import TYPE_CHECKING
 
 from spectralmc_tpu_torch.core.errors.storage import StorageError
@@ -63,7 +66,16 @@ def make_commit_fn(store: AsyncBlockchainModelStore) -> "CommitFn":
     """
 
     def commit(snapshot: "GbmCVNNPricerConfig", message: str) -> None:
-        result = asyncio.run(commit_snapshot(store, snapshot, message))
+        def run() -> Result[ModelVersion, StorageError]:
+            return asyncio.run(commit_snapshot(store, snapshot, message))
+
+        try:
+            asyncio.get_running_loop()
+        except RuntimeError:
+            result = run()
+        else:  # asyncio.run would raise in this thread
+            with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+                result = pool.submit(run).result()
         if isinstance(result, Failure):
             raise RuntimeError(f"commit failed: {result.error!r}")
 

@@ -2,11 +2,15 @@
 
 from spectralmc_tpu_torch.training.trainer import (
     CommitPlan,
+    FinalAndIntervalCommit,
     FinalCommit,
     GbmCVNNPricer,
     GbmCVNNPricerConfig,
+    IntervalCommit,
     NoCommit,
     PricePrediction,
+    SegmentMetrics,
+    StepMetrics,
     TrainingConfig,
     TrainingResult,
     build_training_config,
@@ -14,11 +18,15 @@ from spectralmc_tpu_torch.training.trainer import (
 
 __all__ = [
     "CommitPlan",
+    "FinalAndIntervalCommit",
     "FinalCommit",
     "GbmCVNNPricer",
     "GbmCVNNPricerConfig",
+    "IntervalCommit",
     "NoCommit",
     "PricePrediction",
+    "SegmentMetrics",
+    "StepMetrics",
     "TrainingConfig",
     "TrainingResult",
     "build_training_config",

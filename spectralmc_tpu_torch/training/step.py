@@ -13,6 +13,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
+import numpy as np
 import torch
 from pydantic import BaseModel, ConfigDict
 
@@ -54,6 +55,15 @@ def make_optimizer(
         count, peak=s.peak, warmup_steps=s.warmup_steps, decay_steps=s.decay_steps,
         end_value=s.end_value,
     )
+
+
+def schedule_rates(lr_schedule: LRScheduleConfig, start_count: int, length: int) -> np.ndarray:
+    """The per-step learning rates for metrics: ``make_optimizer``'s own rate
+    at Adam counts ``start_count .. start_count+length-1`` (the count equals
+    the trainer's global step), as the float32 that ``adam_update_`` applies."""
+    rate = make_optimizer(lr_schedule.peak, lr_schedule)
+    return np.asarray([rate(c) for c in range(start_count, start_count + length)],
+                      dtype=np.float32)
 
 
 @dataclass(frozen=True)

@@ -1,9 +1,10 @@
 """GbmCVNNPricer — the training orchestrator on PyTorch.
 
-The port of the JAX package's ``training/trainer.py`` for the main path:
-``TrainingConfig``, the ``NoCommit``/``FinalCommit`` plans, the checkpoint
-root ``GbmCVNNPricerConfig`` (same fields, plus ``cuda_stream_version`` and
-``provenance``), and ``GbmCVNNPricer.create/train/snapshot/predict_price``.
+The port of the JAX package's ``training/trainer.py``: ``TrainingConfig``,
+the four commit plans, the checkpoint root ``GbmCVNNPricerConfig`` (same
+fields, plus ``cuda_stream_version`` and ``provenance``), ``StepMetrics`` and
+``SegmentMetrics`` with their callbacks, and
+``GbmCVNNPricer.create/train/train_via_effects/snapshot/predict_price``.
 
 * ``create`` takes an explicit ``device``; nothing is picked by default.
 * The MC engine that will run is resolved and recorded: a fresh config
@@ -13,6 +14,15 @@ root ``GbmCVNNPricerConfig`` (same fields, plus ``cuda_stream_version`` and
   backward of an American kind: a checkpoint recorded on another backward,
   or on one of the JAX package's TPU backwards, fails with
   ``EngineMismatch``.
+* ``train`` runs segments cut at the commit boundaries. A segment is its
+  batches, then one device→host copy of its losses and gradient norms, the
+  divergence check, the metrics callbacks and the commit. Cutting adds host
+  syncs and nothing else: the losses of ``IntervalCommit(k)`` equal
+  ``NoCommit``'s bit for bit. A segment whose last loss is not finite is
+  undone — weights, batch-norm buffers, Adam moments and counters go back to
+  its start (a device-side copy taken there, ``SegmentStart``) — and
+  ``train`` returns ``NonFiniteLoss``, so the pricer is left as the JAX
+  package leaves its immutable state.
 * A checkpoint carries weights, batch-norm statistics and Adam moments as
   numpy arrays under the JAX package's keys, so a JAX ``snapshot()`` resumes
   here and resume is bit-exact on one device.
@@ -31,6 +41,9 @@ root ``GbmCVNNPricerConfig`` (same fields, plus ``cuda_stream_version`` and
 
 from __future__ import annotations
 
+import asyncio
+import concurrent.futures
+import contextlib
 import logging
 import operator
 from dataclasses import dataclass, field
@@ -50,6 +63,8 @@ from spectralmc_tpu_torch.core.errors.trainer import (
 )
 from spectralmc_tpu_torch.core.provenance import Provenance, torch_env_snapshot
 from spectralmc_tpu_torch.core.result import Failure, Result, Success
+from spectralmc_tpu_torch.effects.interpreter import SpectralMCInterpreter
+from spectralmc_tpu_torch.effects.types import CommitVersion, TrainSegment
 from spectralmc_tpu_torch.models.factory import (
     CVNN,
     CVNNConfig,
@@ -78,7 +93,12 @@ from spectralmc_tpu_torch.training.adam_state import (
     AdamStateSnapshot,
     coerce_optimizer_state,
 )
+from spectralmc_tpu_torch.training.effects_builders import (
+    build_training_run_effects,
+    segment_lengths,
+)
 from spectralmc_tpu_torch.training.step import (
+    BatchFn,
     LRScheduleConfig,
     SobolTable,
     StepState,
@@ -88,6 +108,7 @@ from spectralmc_tpu_torch.training.step import (
     make_input_normalizer,
     make_mean_target,
     model_params,
+    schedule_rates,
 )
 
 IFFT_RESIDUE_WARN = 1e-6
@@ -175,7 +196,7 @@ def build_training_config(
 
 
 # --------------------------------------------------------------------------
-# Commit plans (the interval plans are not ported yet)
+# Commit plans
 # --------------------------------------------------------------------------
 
 DEFAULT_COMMIT_MESSAGE = "step={step} loss={loss:.6g} batch={batch}"
@@ -191,8 +212,47 @@ class FinalCommit:
     message_template: str = DEFAULT_COMMIT_MESSAGE
 
 
-CommitPlan = Union[NoCommit, FinalCommit]
+@dataclass(frozen=True, slots=True)
+class IntervalCommit:
+    interval: int
+    message_template: str = DEFAULT_COMMIT_MESSAGE
+
+
+@dataclass(frozen=True, slots=True)
+class FinalAndIntervalCommit:
+    interval: int
+    message_template: str = DEFAULT_COMMIT_MESSAGE
+
+
+CommitPlan = Union[NoCommit, FinalCommit, IntervalCommit, FinalAndIntervalCommit]
+# A commit hook receives (snapshot, rendered message); storage adapts its
+# async commit into this synchronous seam (storage/checkpoint.py).
 CommitFn = Callable[["GbmCVNNPricerConfig", str], None]
+
+
+def _commit_interval(plan: CommitPlan) -> int | None:
+    if isinstance(plan, (IntervalCommit, FinalAndIntervalCommit)):
+        return plan.interval
+    return None
+
+
+def _commits_final(plan: CommitPlan) -> bool:
+    return isinstance(plan, (FinalCommit, FinalAndIntervalCommit))
+
+
+def _plan_template(plan: CommitPlan) -> str:
+    return getattr(plan, "message_template", DEFAULT_COMMIT_MESSAGE)
+
+
+def _plan_error(plan: CommitPlan, commit_fn: CommitFn | None) -> TrainerError | None:
+    if not isinstance(plan, NoCommit) and commit_fn is None:
+        return CommitPlanMismatch(reason="commit plan requires a commit_fn/store")
+    if isinstance(plan, NoCommit) and commit_fn is not None:
+        return CommitPlanMismatch(reason="commit_fn provided but plan is NoCommit")
+    interval = _commit_interval(plan)
+    if interval is not None and interval <= 0:
+        return CommitPlanMismatch(reason="commit interval must be > 0")
+    return None
 
 
 # --------------------------------------------------------------------------
@@ -228,6 +288,30 @@ class GbmCVNNPricerConfig:
     optimizer_state: AdamStateSnapshot | Mapping[str, np.ndarray] | None = None
     cuda_stream_version: int = 0
     provenance: Provenance = Provenance()
+
+
+@dataclass(frozen=True, slots=True)
+class StepMetrics:
+    """Per-batch scalars for the step callback."""
+
+    step: int
+    loss: float
+    grad_norm: float
+    learning_rate: float
+
+
+@dataclass(frozen=True, slots=True)
+class SegmentMetrics:
+    """One segment's metrics in bulk — one host hand-off per segment.
+
+    ``losses[i]``/``grad_norms[i]`` belong to global step ``start_step + i``;
+    ``learning_rate`` is the rate of the segment's last step.
+    """
+
+    start_step: int
+    losses: np.ndarray
+    grad_norms: np.ndarray
+    learning_rate: float
 
 
 @dataclass(frozen=True)
@@ -275,6 +359,31 @@ def _pad_to_bucket(arr: torch.Tensor) -> tuple[torch.Tensor, int]:
     return arr, n
 
 
+class SegmentStart:
+    """The trainable state at a segment's start, kept on the device, so that
+    a diverged segment can be undone.
+
+    A batch updates the weights and batch-norm buffers in place, so they are
+    cloned; ``adam_update_`` replaces each moment tensor rather than writing
+    into it, so holding the start's moment tensors keeps them.
+    """
+
+    def __init__(self, weights: tuple[torch.Tensor, ...], adam: AdamState) -> None:
+        self._weights = weights
+        self._mu, self._nu, self._count = dict(adam.mu), dict(adam.nu), adam.count
+
+    @classmethod
+    @torch.no_grad()
+    def take(cls, model: CVNN, adam: AdamState) -> "SegmentStart":
+        return cls(tuple(t.clone() for t in model.state_dict().values()), adam)
+
+    @torch.no_grad()
+    def restore(self, model: CVNN, adam: AdamState) -> None:
+        for live, saved in zip(model.state_dict().values(), self._weights):
+            live.copy_(saved)
+        adam.mu, adam.nu, adam.count = dict(self._mu), dict(self._nu), self._count
+
+
 # --------------------------------------------------------------------------
 # The pricer
 # --------------------------------------------------------------------------
@@ -305,6 +414,9 @@ class GbmCVNNPricer:
         self._lsmc_backward_version = config.lsmc_backward_version
         self._torch_env = torch_env_snapshot(device)
         self._table = self._sobol_table()
+        self._adam: AdamState | None = None  # the live moments, from the first train call
+        self._step_callback: Callable[[StepMetrics], None] | None = None
+        self._segment_callback: Callable[[SegmentMetrics], None] | None = None
 
     # -- construction --------------------------------------------------------
 
@@ -423,6 +535,49 @@ class GbmCVNNPricer:
     def global_step(self) -> int:
         return self._global_step
 
+    def set_step_callback(self, cb: Callable[[StepMetrics], None] | None) -> None:
+        """Register a per-batch metrics hook (one Python call per batch; at
+        high step rates prefer ``set_segment_callback``)."""
+        self._step_callback = cb
+
+    def set_segment_callback(self, cb: Callable[[SegmentMetrics], None] | None) -> None:
+        """Register a per-segment bulk metrics hook (one call per segment)."""
+        self._segment_callback = cb
+
+    def _emit_metrics(
+        self,
+        base_step: int,
+        seg_losses: np.ndarray,
+        seg_gnorms: np.ndarray,
+        lr: float,
+        lr_schedule: LRScheduleConfig | None = None,
+    ) -> None:
+        # under a schedule, report the rates the optimizer applied (its count
+        # equals the global step)
+        if lr_schedule is not None:
+            rates = schedule_rates(lr_schedule, base_step, len(seg_losses))
+        else:
+            rates = np.full(len(seg_losses), lr)
+        if self._segment_callback is not None:
+            self._segment_callback(
+                SegmentMetrics(
+                    start_step=base_step + 1,
+                    losses=seg_losses,
+                    grad_norms=seg_gnorms,
+                    learning_rate=float(rates[-1]),
+                )
+            )
+        if self._step_callback is not None:
+            for i in range(len(seg_losses)):
+                self._step_callback(
+                    StepMetrics(
+                        step=base_step + i + 1,
+                        loss=float(seg_losses[i]),
+                        grad_norm=float(seg_gnorms[i]),
+                        learning_rate=float(rates[i]),
+                    )
+                )
+
     def _sobol_table(self) -> SobolTable:
         t = self._sampler.device_table(self._device)
         return SobolTable(
@@ -440,7 +595,9 @@ class GbmCVNNPricer:
             sobol_skip=self._sobol_skip,
             normalize_inputs=self._normalize_inputs,
             model_state=get_state_dict(self._model),
-            optimizer_state=self._opt_snapshot,
+            optimizer_state=(
+                self._adam.snapshot() if self._adam is not None else self._opt_snapshot
+            ),
             lsmc_backward_version=self._lsmc_backward_version,
             cuda_stream_version=self._cuda_stream_version,
             provenance=Provenance(torch_env=self._torch_env),
@@ -448,79 +605,260 @@ class GbmCVNNPricer:
 
     # -- train ---------------------------------------------------------------
 
+    def _step_state(self) -> StepState:
+        """Adam and the counters a batch advances; the live Adam moments are
+        made from the checkpoint's on first use and kept on the device."""
+        if self._adam is None:
+            params = model_params(self._model)
+            self._adam = (
+                AdamState.zeros_like(params)
+                if self._opt_snapshot is None
+                else AdamState.restore(params, self._opt_snapshot)
+            )
+        return StepState(adam=self._adam, sobol_skip=self._sobol_skip, mc_skip=self._sim.skip)
+
+    def _fused_batch(
+        self,
+        batch_size: int,
+        learning_rate: float,
+        contract_chunk: int | None,
+        lr_schedule: LRScheduleConfig | None,
+    ) -> BatchFn:
+        return make_fused_batch(
+            self._model,
+            self._sim,
+            self._table,
+            batch_size=batch_size,
+            learning_rate=learning_rate,
+            contract_chunk=contract_chunk,
+            normalize_inputs=self._normalize_inputs,
+            lr_schedule=lr_schedule,
+        )
+
+    def _segment(
+        self,
+        state: StepState,
+        one_batch: BatchFn,
+        length: int,
+        base_step: int,
+        learning_rate: float,
+        lr_schedule: LRScheduleConfig | None,
+    ) -> Result[tuple[np.ndarray, np.ndarray], TrainerError]:
+        """``length`` batches, then the segment's one device→host copy of its
+        losses and gradient norms. A non-finite last loss undoes the segment
+        (``SegmentStart``) and fails with the JAX package's step; otherwise
+        the metrics go out and the pricer absorbs the new counters."""
+        start = SegmentStart.take(self._model, state.adam)
+        counters = (state.sobol_skip, state.mc_skip)
+        losses, gnorms = [], []
+        for _ in range(length):
+            loss, gnorm = one_batch(state)
+            losses.append(loss)
+            gnorms.append(gnorm)
+        packed = torch.stack([torch.stack(losses), torch.stack(gnorms)]).cpu().numpy()
+        seg_losses, seg_gnorms = packed[0], packed[1]
+        if not np.isfinite(seg_losses[-1]):
+            start.restore(self._model, state.adam)
+            state.sobol_skip, state.mc_skip = counters
+            return Failure(
+                NonFiniteLoss(
+                    step=base_step + length, loss=float(seg_losses[-1]), reason="training diverged"
+                )
+            )
+        self._emit_metrics(base_step, seg_losses, seg_gnorms, learning_rate, lr_schedule)
+        self._absorb(state, base_step + length)
+        return Success((seg_losses, seg_gnorms))
+
     def train(
         self,
         config: TrainingConfig,
         *,
         commit_plan: CommitPlan | None = None,
         commit_fn: CommitFn | None = None,
+        profile_dir: str | None = None,
     ) -> Result[TrainingResult, TrainerError]:
-        """Run ``config.num_batches`` fused batches; losses are fetched once
-        at the end. ``FinalCommit`` hands the final snapshot to ``commit_fn``."""
+        """Run ``config.num_batches`` fused batches in segments cut at the
+        plan's commit boundaries, committing at each full interval and at the
+        end as the plan says (a final commit on an interval boundary is made
+        once). ``profile_dir`` records the call with torch.profiler
+        (``utils/profiling.py::profile_trace``), one ``train_segment`` range a
+        segment."""
         plan = commit_plan if commit_plan is not None else NoCommit()
-        if not isinstance(plan, (NoCommit, FinalCommit)):
-            raise not_ported(f"commit plan {type(plan).__name__}", "queue 1 item 10 (trainer)")
-        if isinstance(plan, FinalCommit) and commit_fn is None:
-            return Failure(CommitPlanMismatch(reason="commit plan requires a commit_fn/store"))
-        if isinstance(plan, NoCommit) and commit_fn is not None:
-            return Failure(CommitPlanMismatch(reason="commit_fn provided but plan is NoCommit"))
-
-        params = model_params(self._model)
-        adam = (
-            AdamState.zeros_like(params)
-            if self._opt_snapshot is None
-            else AdamState.restore(params, self._opt_snapshot)
+        error = _plan_error(plan, commit_fn)
+        if error is not None:
+            return Failure(error)
+        interval = _commit_interval(plan)
+        state = self._step_state()
+        one_batch = self._fused_batch(
+            config.batch_size, config.learning_rate, config.contract_chunk, config.lr_schedule
         )
-        state = StepState(adam=adam, sobol_skip=self._sobol_skip, mc_skip=self._sim.skip)
-        one_batch = make_fused_batch(
-            self._model,
-            self._sim,
-            self._table,
+        start_step = self._global_step
+        losses: list[np.ndarray] = []
+        gnorms: list[np.ndarray] = []
+        batches_done = 0
+        with contextlib.ExitStack() as stack:
+            if profile_dir:
+                from spectralmc_tpu_torch.utils.profiling import profile_trace
+
+                stack.enter_context(profile_trace(profile_dir, device=self._device))
+            for seg_len in segment_lengths(config.num_batches, interval):
+                span = (
+                    torch.profiler.record_function("train_segment")
+                    if profile_dir
+                    else contextlib.nullcontext()
+                )
+                with span:
+                    outcome = self._segment(
+                        state,
+                        one_batch,
+                        seg_len,
+                        start_step + batches_done,
+                        config.learning_rate,
+                        config.lr_schedule,
+                    )
+                batches_done += seg_len
+                if isinstance(outcome, Failure):
+                    return outcome
+                seg_losses, seg_gnorms = outcome.value
+                losses.append(seg_losses)
+                gnorms.append(seg_gnorms)
+                at_boundary = interval is not None and seg_len == interval
+                if at_boundary and (
+                    batches_done < config.num_batches or not _commits_final(plan)
+                ):
+                    self._commit(plan, commit_fn, float(seg_losses[-1]), batches_done)
+        all_losses = np.concatenate(losses)
+        all_gnorms = np.concatenate(gnorms)
+        if _commits_final(plan):
+            self._commit(plan, commit_fn, float(all_losses[-1]), batches_done)
+        return Success(self._result(config, all_losses, all_gnorms))
+
+    def _result(
+        self, config: TrainingConfig, losses: np.ndarray, gnorms: np.ndarray
+    ) -> TrainingResult:
+        return TrainingResult(
+            updated_config=self.snapshot(),
+            final_loss=float(losses[-1]),
+            total_batches=int(config.num_batches),
+            final_grad_norm=float(gnorms[-1]),
+            losses=losses,
+            grad_norms=gnorms,
+        )
+
+    def train_via_effects(
+        self,
+        config: TrainingConfig,
+        *,
+        commit_plan: CommitPlan | None = None,
+        commit_fn: CommitFn | None = None,
+    ) -> Result[TrainingResult, TrainerError]:
+        """Effect-interpreted training: description → interpreter → result.
+
+        The run is data from ``build_training_run_effects``, executed by
+        ``SpectralMCInterpreter`` on the pricer's device: ``TrainSegment``
+        resolves to ``train``'s segment on the pricer's engine, and
+        ``CommitVersion`` to the commit hook. Losses, counters and commit
+        boundaries equal ``train()``'s bit for bit. Called from inside a
+        running event loop, the interpreter runs on a side thread (which
+        uses the pricer's device explicitly), and ``make_commit_fn``'s
+        commits reach the store from there too.
+        """
+        plan = commit_plan if commit_plan is not None else NoCommit()
+        error = _plan_error(plan, commit_fn)
+        if error is not None:
+            return Failure(error)
+        sequence = build_training_run_effects(
+            num_batches=config.num_batches,
             batch_size=config.batch_size,
             learning_rate=config.learning_rate,
-            contract_chunk=config.contract_chunk,
-            normalize_inputs=self._normalize_inputs,
-            lr_schedule=config.lr_schedule,
+            commit_interval=_commit_interval(plan),
+            final_commit=_commits_final(plan),
         )
-        losses, gnorms = [], []
-        for _ in range(config.num_batches):
-            loss, gnorm = one_batch(state)
-            losses.append(loss)
-            gnorms.append(gnorm)
-        packed = torch.stack([torch.stack(losses), torch.stack(gnorms)]).cpu().numpy()
-        all_losses, all_gnorms = packed[0], packed[1]
-        # the weights were updated in place, so the counters and Adam state
-        # advance with them even when the loss diverged (the JAX trainer,
-        # whose state is immutable, keeps its pre-segment state then)
-        self._opt_snapshot = state.adam.snapshot()
+        state = self._step_state()
+        start_step = self._global_step
+        batches: dict[tuple[int, float], BatchFn] = {}
+        losses: list[np.ndarray] = []
+        gnorms: list[np.ndarray] = []
+        failure: list[TrainerError] = []
+
+        def run_train_segment(effect: TrainSegment) -> int:
+            key = (effect.batch_size, effect.learning_rate)
+            if key not in batches:
+                batches[key] = self._fused_batch(
+                    effect.batch_size, effect.learning_rate, config.contract_chunk,
+                    config.lr_schedule,
+                )
+            done = sum(len(x) for x in losses)
+            outcome = self._segment(state, batches[key], effect.length, start_step + done,
+                                    effect.learning_rate, config.lr_schedule)
+            if isinstance(outcome, Failure):
+                failure.append(outcome.error)
+                raise FloatingPointError("non-finite loss")  # surfaces as TrainingError
+            losses.append(outcome.value[0])
+            gnorms.append(outcome.value[1])
+            return done + effect.length
+
+        pricer = self
+
+        class _CommitFnInterpreter(SpectralMCInterpreter):
+            """CommitVersion → the commit hook; everything else → stock routing."""
+
+            async def interpret(self, effect: object) -> Result[object, object]:
+                if isinstance(effect, CommitVersion):
+                    last = losses[-1][-1] if losses else float("nan")
+                    done = sum(len(x) for x in losses)
+                    pricer._commit(plan, commit_fn, float(last), done)
+                    return Success(effect.message)
+                return await super().interpret(effect)
+
+        interpreter = _CommitFnInterpreter(device=self._device)
+        interpreter.registry.put_function("train_segment", run_train_segment)
+        interpreter.registry.update_metadata("sobol_skip", "set", self._sobol_skip)
+        interpreter.registry.update_metadata("mc_skip", "set", self._sim.skip)
+
+        def drive() -> Result[object, object]:
+            with self._on_device():
+                return asyncio.run(interpreter.interpret_sequence(sequence))
+
+        try:
+            asyncio.get_running_loop()
+        except RuntimeError:
+            outcome = drive()
+        else:
+            # inside an event loop asyncio.run would raise: drive the
+            # interpreter on a side thread
+            with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+                outcome = pool.submit(drive).result()
+        if isinstance(outcome, Failure):
+            if failure:
+                return Failure(failure[0])
+            return Failure(CheckpointMismatch(field="effects", reason=repr(outcome.error)))
+        return Success(self._result(config, np.concatenate(losses), np.concatenate(gnorms)))
+
+    def _on_device(self) -> contextlib.AbstractContextManager[object]:
+        """Make the pricer's card current (a side thread starts on card 0)."""
+        if self._device.type == "cuda":
+            return torch.cuda.device(self._device)
+        return contextlib.nullcontext()
+
+    def _absorb(self, state: StepState, global_step: int) -> None:
+        """Take a finished segment's counters into the pricer (the weights and
+        Adam moments are the live ones already)."""
         self._sobol_skip = state.sobol_skip
         self._sim = self._sim.model_copy(update={"skip": state.mc_skip})
         self._sampler = self._sampler.with_skip(self._sobol_skip)
-        self._global_step += config.num_batches
-        if not np.isfinite(all_losses[-1]):
-            return Failure(
-                NonFiniteLoss(
-                    step=self._global_step, loss=float(all_losses[-1]), reason="training diverged"
-                )
-            )
-        if isinstance(plan, FinalCommit):
-            message = plan.message_template.format(
-                step=self._global_step, loss=float(all_losses[-1]), batch=config.num_batches
-            )
-            try:
-                commit_fn(self.snapshot(), message)
-            except Exception:  # noqa: BLE001 — commits never kill training
-                _LOG.exception("checkpoint commit failed")
-        return Success(
-            TrainingResult(
-                updated_config=self.snapshot(),
-                final_loss=float(all_losses[-1]),
-                total_batches=int(config.num_batches),
-                final_grad_norm=float(all_gnorms[-1]),
-                losses=all_losses,
-                grad_norms=all_gnorms,
-            )
-        )
+        self._global_step = global_step
+
+    def _commit(
+        self, plan: CommitPlan, commit_fn: CommitFn | None, loss: float, batch: int
+    ) -> None:
+        if commit_fn is None:
+            return
+        message = _plan_template(plan).format(step=self._global_step, loss=loss, batch=batch)
+        try:
+            commit_fn(self.snapshot(), message)
+        except Exception:  # noqa: BLE001 — commits never kill training
+            _LOG.exception("checkpoint commit failed")
 
     # -- inference -----------------------------------------------------------
 

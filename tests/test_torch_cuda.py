@@ -1072,3 +1072,99 @@ def test_cuda_checkpoint_commits_and_serves_bit_exactly_on_card(tmp_path) -> Non
             got = served.predict_price(contracts[:n])
             np.testing.assert_array_equal(got.put, want[n].put)
             np.testing.assert_array_equal(got.call, want[n].call)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["IntervalCommit", "FinalAndIntervalCommit"])
+def test_cuda_interval_plans_and_effects_equal_nocommit_on_card(plan, tmp_path) -> None:
+    """On the ``"cuda"`` engine: 5 steps under an interval plan (commits to a
+    filesystem chain through ``make_commit_fn``) and through
+    ``train_via_effects`` (plainly and from inside a running event loop)
+    give ``NoCommit``'s losses bit for bit, the kernel launched once a chunk,
+    and the effect path commits the same messages and bytes as ``train``."""
+    import asyncio
+
+    from spectralmc_tpu_torch.storage import (
+        AsyncBlockchainModelStore,
+        FileSystemObjectStore,
+        make_commit_fn,
+    )
+    from spectralmc_tpu_torch.training import trainer as ttr
+
+    device = _require_card()
+    snap = _cuda_pricer(device).snapshot()
+    fresh = lambda: ttr.GbmCVNNPricer.create(snap, device=device).expect("create")  # noqa: E731
+    want = fresh().train(_card_training(5)).expect("NoCommit").losses
+    commit_plan = getattr(ttr, plan)(interval=2)
+    payloads = []
+    for name, inside in (("train", False), ("train_via_effects", False),
+                         ("train_via_effects", True)):
+        store = AsyncBlockchainModelStore(FileSystemObjectStore(tmp_path, f"{name}{inside}"))
+        pricer = fresh()
+        call = lambda: getattr(pricer, name)(  # noqa: E731
+            _card_training(5), commit_plan=commit_plan, commit_fn=make_commit_fn(store))
+
+        async def in_loop():
+            return call()
+
+        before = gbm_cuda.LAUNCHES_BY_BRANCH["terminal"]
+        result = (asyncio.run(in_loop()) if inside else call()).expect(name)
+        assert gbm_cuda.LAUNCHES_BY_BRANCH["terminal"] - before == 5 * 2  # 16 contracts, chunk 8
+        np.testing.assert_array_equal(result.losses, want)
+
+        async def read():
+            versions = (await store.list_versions()).expect("versions")
+            return [(v.message, (await store.load_checkpoint(v)).expect("payload"))
+                    for v in versions]
+
+        payloads.append(asyncio.run(read()))
+    assert len(payloads[0]) == (3 if plan == "FinalAndIntervalCommit" else 2)
+    assert payloads[1] == payloads[0] and payloads[2] == payloads[0]
+
+
+@pytest.mark.cuda
+def test_cuda_diverged_segment_restores_its_start_on_card() -> None:
+    """A NaN planted in a weight: ``NonFiniteLoss`` at the segment's end and
+    the pricer's state back at the segment's start, bit for bit."""
+    import dataclasses
+
+    from spectralmc_tpu_torch.training import trainer as ttr
+
+    device = _require_card()
+    snap = _cuda_pricer(device).snapshot()
+    model = {k: v.copy() for k, v in snap.model_state.items()}
+    key = sorted(k for k in model if k.endswith("w_re"))[0]
+    model[key].flat[0] = np.nan
+    pricer = ttr.GbmCVNNPricer.create(dataclasses.replace(snap, model_state=model),
+                                      device=device).expect("create")
+    before = pricer.snapshot()
+    result = pricer.train(_card_training(3), commit_plan=ttr.IntervalCommit(interval=2),
+                          commit_fn=lambda s, m: None)
+    assert type(result.error).__name__ == "NonFiniteLoss" and result.error.step == snap.global_step + 2
+    after = pricer.snapshot()
+    assert (after.global_step, after.sobol_skip, after.sim.skip) == (
+        before.global_step, before.sobol_skip, before.sim.skip)
+    for k in before.model_state:
+        np.testing.assert_array_equal(after.model_state[k], before.model_state[k])
+    for k in before.optimizer_state.mu:
+        np.testing.assert_array_equal(after.optimizer_state.nu[k], before.optimizer_state.nu[k])
+
+
+@pytest.mark.cuda
+def test_cuda_profile_dir_records_kernels_on_card(tmp_path) -> None:
+    """``profile_dir`` on the card: one ``train_segment`` range a segment and
+    the path kernel's events in the trace (a CPU-only trace fails)."""
+    import json
+
+    from spectralmc_tpu_torch.training import trainer as ttr
+
+    device = _require_card()
+    pricer = _cuda_pricer(device)
+    pricer.train(_card_training(2), commit_plan=ttr.IntervalCommit(interval=1),
+                 commit_fn=lambda s, m: None, profile_dir=str(tmp_path)).expect("train")
+    (trace,) = tmp_path.glob("*.pt.trace.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert sum(e.get("name") == "train_segment" and e.get("cat") != "gpu_user_annotation"
+               for e in events) == 2
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert sum("gbm_paths" in e.get("name", "") for e in kernels) == 2 * 2

@@ -27,6 +27,10 @@ def _port_modules() -> list[str]:
 def test_every_port_module_imports_without_jax() -> None:
     modules = _port_modules()
     assert "spectralmc_tpu_torch.training.trainer" in modules
+    for name in ("effects.interpreter", "effects.registry", "effects.mock",
+                 "training.effects_builders", "utils.flops", "utils.profiling",
+                 "utils.tensorboard_writer"):
+        assert f"spectralmc_tpu_torch.{name}" in modules
     for name in ("gbm_cuda", "dynamics_cuda", "heston", "merton", "basket", "basket_cuda", "qmc",
                  "qmc_cuda", "american", "american_cuda"):
         assert f"spectralmc_tpu_torch.ops.{name}" in modules

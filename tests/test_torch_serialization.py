@@ -573,16 +573,19 @@ def test_bad_tensor_payload_is_a_decode_error(case: str) -> None:
         "wrong_shape": lambda: _tensor(shape=[5, 3]),
         "unknown_dtype": lambda: _tensor(dtype="quaternion128"),
         "object_dtype": lambda: _tensor(dtype="object"),
-        "bfloat16": lambda: _tensor(dtype="bfloat16", data=data[:24]),
+        # 12 two-byte bfloat16 elements take 24 bytes, not the float32 array's 48
+        "bfloat16": lambda: _tensor(dtype="bfloat16"),
     }[case]()
     err = _err(tconv.tensor_from_proto(proto))
     assert isinstance(err, DecodeError) and err.what == "tensor"
-    if case in ("truncated", "padded"):
+    if case in ("truncated", "padded", "bfloat16"):
         assert "bytes" in err.reason
-    if case in ("unknown_dtype", "bfloat16"):
+    if case == "unknown_dtype":
         assert repr(proto.dtype) in err.reason
-    if case == "bfloat16":  # not silently widened: the item that ports it is named
-        assert "queue 1 item 13" in err.reason
+    if case == "bfloat16":  # sized as bfloat16, so its right-sized payload decodes
+        assert "bfloat16" in err.reason
+        back = _ok(tconv.tensor_from_proto(_tensor(dtype="bfloat16", data=data[:24])))
+        assert back.dtype == torch.bfloat16 and tuple(back.shape) == (12,)
 
 
 def test_tensor_map_failure_names_offending_key() -> None:
