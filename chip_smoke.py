@@ -267,7 +267,30 @@ non-zero and no result line is printed):
                   peak; host-clock warm steps under NoCommit and
                   IntervalCommit(1) and the segment-start copy, beside the
                   card's name and power limit.
-11. profile     — only with ``--profile``, after phase 28: for the TERMINAL,
+29. greeks      — the Greeks on the card at the production shape (2048 x 512
+                  paths, 16 steps), after phase 28: mc_greeks on the "cuda"
+                  engine for a TERMINAL put and call (kernel #1 three times a
+                  call, the engine recorded "cuda"; price, delta, vega, rho
+                  and theta within 2% (abs 0.01) of analytic_greeks, gamma
+                  within 5%), the Function's backward on #1's samples against
+                  the same rule on the twin's (same Philox words, rtol 2e-5)
+                  and its CUDA ms beside the forward's, a TERMINAL
+                  bump_greeks in one launch at C = 13 whose h = 0 row is the
+                  base's bit for bit, BlackScholes.price_to_host within 4 SE
+                  of Black with the skip advanced; a curved put (kernel #2
+                  three times; within 4% (abs 0.006) of autograd through
+                  term_effective_black; the rule on #2's samples equal to the
+                  twin's bit for bit); the SOBOL_BB geometric-Asian call
+                  (kernel #14 six times: three forwards and three backward
+                  launches at (0, 0, 1); within 1% (abs 0.002) of the closed
+                  form; walk_acc's gradient within rtol 1e-4 of autograd
+                  through the scan over qmc_effective_normals); an up-and-out
+                  call's bump_greeks and knock_in_price on "xla" within 4 SE
+                  of the discrete-barrier oracle's same differences; and
+                  predict_greeks on the TERMINAL pricer of phases 4-6 at N =
+                  1, 7, 64 (prices equal to predict_price's, the parity
+                  identity on the Jacobians, finite gammas, host-clock p50).
+11. profile     — only with ``--profile``, after phase 29: for the TERMINAL,
                   the Asian, the Heston, the basket, the SOBOL_BB
                   geometric-Asian and the American put pricer, 10 warm train
                   steps timed on the host clock to a synchronised end, then
@@ -290,7 +313,8 @@ kernels' and the streamed two-state backward's from phase 26, and every
 other branch's from phases 8, 10 and 16; phase 27 sets them to 0 again
 before each resume from bytes and checks that it launched its pricer's
 kernels, and phase 28 before the training loop's runs, each of which it
-checks launched kernel #1 twice a step. The last lines are
+checks launched kernel #1 twice a step; phase 29 sets them to 0 again and
+adds its own launches of #1, #2 and #14 to their records. The last lines are
 the kernel record as JSON, the nvidia-smi line, and the result JSON.
 """
 
@@ -330,6 +354,7 @@ from spectralmc_tpu_torch.ops import (
     basket_cuda,
     dynamics_cuda,
     gbm_cuda,
+    greeks,
     qmc,
     qmc_cuda,
     rng,
@@ -341,6 +366,7 @@ from spectralmc_tpu_torch.ops.gbm import (
     AMERICAN_PAYOFFS,
     BARRIER_PAYOFFS,
     LOOKBACK_PAYOFFS,
+    BlackScholes,
     BlackScholesContract,
     ModelKind,
     PathScheme,
@@ -4188,6 +4214,409 @@ def profiled(fn) -> tuple[float, float, int, list[tuple[str, int, float]]]:
     ]
 
 
+# --------------------------------------------------------------------------
+# 29. greeks
+# --------------------------------------------------------------------------
+
+GREEKS_CONTRACT = dict(spot=100.0, strike=100.0, maturity=1.0, rate=0.03, div_yield=0.01,
+                       vol=0.25)
+GREEKS_BARRIER_REL = 1.35
+# the discrete-barrier lattice of phase 29's six oracle prices (4097 points,
+# its error by halving: ≈ 1 s a price on the card's host where phase 3's 8193
+# take ≈ 4)
+GREEKS_BARRIER_GRID = 4097
+GREEKS_FIELDS = ("spot", "maturity", "rate", "vol")  # price and these: the 2% gate
+
+
+def greeks_sim(implementation: str = "cuda", **kw: object) -> SimulationParams:
+    """The production shape (2048 x 512 paths, 16 steps), on the "cuda" engine
+    unless said."""
+    return build_simulation_params(timesteps=STEPS, network_size=COLS, batches_per_mc_run=ROWS,
+                                   mc_seed=7, implementation=implementation, **kw).expect("sim")
+
+
+def only_launches(branch: str, fn):
+    """``(fn(), its launches of ``branch``)``; raises if it launched another
+    kernel or branch besides."""
+    out, moved = launched_by(fn)
+    if set(moved) - {branch}:
+        raise AssertionError(f"greeks: launched {moved} where only {branch} should run")
+    return out, moved.get(branch, 0)
+
+
+def host_ms(fn) -> tuple[object, float]:
+    """``(fn(), host-clock ms to a synchronised end)``."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - start) * 1e3
+
+
+def backward_ms(forward, params: torch.Tensor, cot: torch.Tensor) -> float:
+    """CUDA-event ms of the backward alone: ``forward(params)``'s graph kept,
+    ``autograd.grad`` with the cotangent ``cot`` timed."""
+    x = params.clone().requires_grad_(True)
+    out = forward(x)
+    return cuda_ms(lambda: torch.autograd.grad(out, x, grad_outputs=cot, retain_graph=True))
+
+
+def check_greeks(label: str, mc: greeks.MCGreeks, want_price: float,
+                 want: dict[str, float], *, rel: float, floor: float, price_abs: float) -> float:
+    """The largest relative miss of price and ``want``'s fields; raises past
+    ``rel`` (each against ``max(rel·|want|, floor)``, the price ``price_abs``)."""
+    worst = abs(mc.price - want_price) / abs(want_price)
+    if abs(mc.price - want_price) > max(rel * abs(want_price), price_abs):
+        raise AssertionError(f"{label}: price {mc.price} vs {want_price}")
+    for field, value in want.items():
+        miss = abs(mc.by_field[field] - value)
+        if miss > max(rel * abs(value), floor):
+            raise AssertionError(f"{label}: {field} {mc.by_field[field]} vs {value}")
+        worst = max(worst, miss / max(abs(value), 1e-12))
+    return worst
+
+
+def greeks_terminal(device: torch.device) -> dict[str, object]:
+    """TERMINAL put and call on the "cuda" engine: kernel #1 three times a
+    call, within 2% (abs 0.01) of analytic_greeks, gamma within 5%; the
+    backward on the kernel's samples against the same rule on the twin's
+    (same Philox words, rtol 2e-5); the backward's and the forward's CUDA
+    ms; a bump_greeks on 13 contracts in one launch whose base row is the
+    single contract's bit for bit; BlackScholes.price_to_host within 4 SE."""
+    sim = greeks_sim()
+    c = BlackScholesContract(**GREEKS_CONTRACT)
+    if greeks.greeks_engine(sim) != SimImplementation.CUDA:
+        raise AssertionError("greeks: TERMINAL on 'cuda' did not pick the kernel engine")
+    out: dict[str, object] = {"launches": 0}
+    for option in (greeks.OptionSide.PUT, greeks.OptionSide.CALL):
+        (mc, ms), n = only_launches("terminal", lambda: host_ms(
+            lambda: greeks.mc_greeks(sim, c, option=option, device=device)))
+        oracle = greeks.analytic_greeks(c, option=option, device=device)
+        if n != 3 or mc.engine != SimImplementation.CUDA:
+            raise AssertionError(f"greeks: {option.value} launched #1 {n} times on {mc.engine}")
+        worst = check_greeks(f"terminal {option.value}", mc, oracle.price,
+                             {f: oracle.by_field[f] for f in GREEKS_FIELDS}, rel=0.02,
+                             floor=0.01, price_abs=0.01)
+        gamma_miss = abs(mc.gamma - oracle.gamma) / oracle.gamma
+        if gamma_miss > 0.05:
+            raise AssertionError(f"greeks: {option.value} gamma {mc.gamma} vs {oracle.gamma}")
+        out["launches"] += n
+        phase("greeks", case=f"terminal-{option.value}", engine=mc.engine.value, launches=n,
+              price=round(mc.price, 5), oracle=round(oracle.price, 5),
+              delta=round(mc.delta, 5), vega=round(mc.vega, 4), rho=round(mc.rho, 4),
+              theta=round(mc.theta, 4), gamma=round(mc.gamma, 6),
+              oracle_gamma=round(oracle.gamma, 6), worst_rel_miss=f"{worst:.3e}",
+              gamma_rel_miss=f"{gamma_miss:.3e}", host_ms=round(ms, 3))
+    # the Function's backward on the kernel's samples vs on the twin's
+    params = c.as_array(torch.float32, device)[None]
+    keys = rng.fold_in(rng.prng_key(sim.mc_seed, device), sim.skip).reshape(1, 2)
+    shape = dict(timesteps=STEPS, rows=ROWS, cols=COLS)
+    with torch.no_grad():
+        values = gbm_cuda.simulate_terminal_rows_cuda_diff(params, keys, **shape)
+        twin = gbm_cuda.simulate_terminal_rows_cuda_plain(
+            params, keys, scheme=PathScheme.LOG_EULER, **shape)
+    cot = torch.rand(values.shape, device=device, generator=torch.Generator(device).manual_seed(29))
+    got = gbm_cuda.terminal_pathwise_vjp(cot, values, params)
+    want = gbm_cuda.terminal_pathwise_vjp(cot, twin, params)
+    gap = float(((got - want).abs() / want.abs().clamp(min=1e-30))[:, [0, 2, 3, 4, 5]].max())
+    if not torch.allclose(got, want, rtol=KERNEL_RTOL, atol=KERNEL_RTOL * float(want.abs().max())):
+        raise AssertionError(f"greeks: backward on #1's samples vs the twin's: {got} vs {want}")
+    fwd_ms = cuda_ms(lambda: gbm_cuda.simulate_terminal_rows_cuda_diff(params, keys, **shape))
+    bwd_ms = backward_ms(lambda x: gbm_cuda.simulate_terminal_rows_cuda_diff(x, keys, **shape),
+                         params, cot)
+    out.update(forward_ms=fwd_ms, backward_ms=bwd_ms)
+    phase("greeks-backward", kernel="gbm_terminal", shape=f"1x{ROWS}x{COLS}x{STEPS}",
+          max_rel_vs_twin=f"{gap:.3e}", forward_ms=round(fwd_ms, 4),
+          backward_ms=round(bwd_ms, 4))
+    # bump-and-reprice: the 2D+1 contracts in one launch
+    (bump, n_bump) = only_launches("terminal", lambda: greeks.bump_greeks(sim, c, device=device))
+    if n_bump != 1:
+        raise AssertionError(f"greeks: bump_greeks launched #1 {n_bump} times, want 1")
+    out["launches"] += n_bump
+    h = 1e-2 * params.abs().clamp(min=1e-3)
+    eye = torch.eye(6, device=device) * h
+    grid = torch.cat([params, params + eye, params - eye])  # what make_bump_greeks_fn prices
+    with torch.no_grad():
+        rows13 = gbm_cuda.simulate_terminal_rows_cuda_diff(grid, keys.expand(13, 2), **shape)
+    if not torch.equal(rows13[:1], values):
+        raise AssertionError("greeks: the h = 0 row of the 13-contract launch is not the base")
+    # the facade on the card: normalization none, so each payoff is one path's
+    plain_sim = greeks_sim(normalization="none")
+    engine = BlackScholes(plain_sim, device=device)
+    (host, advanced), n_host = only_launches("terminal", lambda: engine.price_to_host(c))
+    prices, _ = engine.price(c)
+    black = analytic.black_scholes_price(*GREEKS_CONTRACT.values())
+    zs = []
+    for name, pay, want_p in (("put", prices.put_payoffs, black.put),
+                              ("call", prices.call_payoffs, black.call)):
+        se = float(pay.double().std() / math.sqrt(pay.numel()))
+        zs.append(z_score(getattr(host, name), se, float(want_p), 0.0))
+    if max(zs) > 4.0 or advanced.params.skip != plain_sim.skip + 1 or n_host != 1:
+        raise AssertionError(f"greeks: price_to_host z {zs}, skip {advanced.params.skip}, "
+                             f"launches {n_host}")
+    out["launches"] += n_host
+    phase("greeks", case="bump-terminal", contracts=13, launches=n_bump, h0_row_bit_equal=True,
+          price=round(bump.price, 5), delta=round(bump.delta, 5), gamma=round(bump.gamma, 6),
+          facade_put=round(host.put, 5), facade_call=round(host.call, 5),
+          facade_z=[round(z, 3) for z in zs], facade_skip=advanced.params.skip)
+    return out
+
+
+def greeks_term(device: torch.device) -> dict[str, object]:
+    """A curved TERMINAL sim keeps the "cuda" engine: kernel #2 three times,
+    Greeks within 4% (abs 0.006; the price 2%, abs 0.01) of autograd through
+    term_effective_black; the rule on #2's samples equals it on the twin's
+    bit for bit (#2 and its twin are bit-equal)."""
+    term = term_of(STEPS)
+    sim = greeks_sim(term=term)
+    c = BlackScholesContract(**{**GREEKS_CONTRACT, "strike": 105.0})
+    (mc, n) = only_launches("term_terminal", lambda: greeks.mc_greeks(
+        sim, c, option=greeks.OptionSide.PUT, device=device))
+    if n != 3 or mc.engine != SimImplementation.CUDA:
+        raise AssertionError(f"greeks: curved TERMINAL launched #2 {n} times on {mc.engine}")
+    x = c.as_array(torch.float64, device).requires_grad_(True)
+    put = analytic.term_effective_black(*x, vol_shape=term.vol_shape, rate_shape=term.rate_shape,
+                                        div_shape=term.div_shape).put
+    (grad,) = torch.autograd.grad(put, x)
+    want = dict(zip(BlackScholesContract.model_fields, grad.tolist()))
+    worst = check_greeks("term put", mc, float(put.detach()), want, rel=0.04, floor=0.006,
+                         price_abs=0.01)
+    params = c.as_array(torch.float32, device)[None]
+    keys = rng.fold_in(rng.prng_key(sim.mc_seed, device), sim.skip).reshape(1, 2)
+    shape = dict(timesteps=STEPS, rows=ROWS, cols=COLS)
+    with torch.no_grad():
+        values = gbm_cuda.simulate_terminal_rows_cuda_diff(params, keys, term=term, **shape)
+        twin = dynamics_cuda.simulate_term_rows_cuda_plain(
+            params, keys, term=term, payoff=PayoffKind.TERMINAL, **shape)
+    factors = gbm_cuda.term_pathwise_factors(term, STEPS)
+    cot = torch.rand(values.shape, device=device, generator=torch.Generator(device).manual_seed(30))
+    if not torch.equal(gbm_cuda.terminal_pathwise_vjp(cot, values, params, factors),
+                       gbm_cuda.terminal_pathwise_vjp(cot, twin, params, factors)):
+        raise AssertionError("greeks: the rule on #2's samples differs from the twin's")
+    fwd_ms = cuda_ms(lambda: gbm_cuda.simulate_terminal_rows_cuda_diff(params, keys, term=term,
+                                                                       **shape))
+    bwd_ms = backward_ms(lambda x: gbm_cuda.simulate_terminal_rows_cuda_diff(
+        x, keys, term=term, **shape), params, cot)
+    phase("greeks", case="term-put", engine=mc.engine.value, launches=n,
+          price=round(mc.price, 5), oracle=round(float(put.detach()), 5),
+          vega=round(mc.vega, 4), oracle_vega=round(want["vol"], 4),
+          worst_rel_miss=f"{worst:.3e}", backward_bit_equal_to_twin=True)
+    phase("greeks-backward", kernel="gbm_term_terminal", shape=f"1x{ROWS}x{COLS}x{STEPS}",
+          forward_ms=round(fwd_ms, 4), backward_ms=round(bwd_ms, 4))
+    return {"launches": n, "forward_ms": fwd_ms, "backward_ms": bwd_ms}
+
+
+def greeks_qmc(device: torch.device) -> dict[str, object]:
+    """The SOBOL_BB geometric Asian: mc_greeks runs kernel #14 (each of its
+    three gradients a forward launch and the backward's launch at (0, 0,
+    1)), within 1% of the closed form (fields abs 0.002); ``walk_acc``'s
+    gradient against autograd through the torch scan over
+    ``qmc_effective_normals`` at rtol 1e-4; the backward's CUDA ms."""
+    sim = greeks_sim(payoff="asian_geometric", sampling="sobol_bb")
+    sim = sim.model_copy(update={"mc_seed": QMC_SEED})
+    c = BlackScholesContract(**GREEKS_CONTRACT)
+    (mc, n) = only_launches("qmc_walk", lambda: greeks.mc_greeks(sim, c, device=device))
+    if n != 6:
+        raise AssertionError(f"greeks: SOBOL_BB geometric Asian launched #14 {n} times, want 6")
+    oracle = greeks.analytic_greeks(c, payoff=PayoffKind.ASIAN_GEOMETRIC, timesteps=STEPS,
+                                    device=device)
+    worst = check_greeks("qmc call", mc, oracle.price, dict(oracle.by_field), rel=0.01,
+                         floor=0.002, price_abs=0.005)
+    # the Function's gradient vs autograd through the scan over the bridge kernel's normals
+    keys = rng.fold_in(rng.prng_key(QMC_SEED, device), sim.skip).reshape(1, 2)
+    dt = GREEKS_CONTRACT["maturity"] / STEPS
+    v = GREEKS_CONTRACT["vol"]
+    scalars = torch.tensor([[math.log(100.0)], [(0.03 - 0.01 - 0.5 * v * v) * dt],
+                            [v * math.sqrt(dt)]], device=device)
+    _, directions, shift, _ = qmc._draw_tables(keys, STEPS, 1, QMC_SEED)
+    bridge = torch.as_tensor(qmc.brownian_bridge_matrix(STEPS), dtype=torch.float32)
+
+    def loss(acc: torch.Tensor) -> torch.Tensor:
+        return torch.mean(torch.clamp(torch.exp(acc / STEPS) - 100.0, min=0.0))
+
+    xs = [s.clone().requires_grad_(True) for s in scalars]
+    acc = qmc_cuda.walk_acc(directions, shift, bridge, 0, *xs, timesteps=STEPS,
+                            count=ROWS * COLS)
+    got = torch.autograd.grad(loss(acc), xs)
+    eff = qmc.qmc_effective_normals(keys, timesteps=STEPS, rows=ROWS, cols=COLS,
+                                    dtype=torch.float32, mc_seed=QMC_SEED).reshape(1, STEPS, -1)
+    ys = [s.clone().requires_grad_(True) for s in scalars]
+    logx = torch.zeros((1, ROWS * COLS), device=device) + ys[0][:, None]
+    scan = torch.zeros_like(logx)
+    for t in range(STEPS):
+        logx = (logx + ys[1][:, None]) + ys[2][:, None] * eff[:, t]
+        scan = scan + logx
+    want = torch.autograd.grad(loss(scan), ys)
+    rel = max(float(((g - w).abs() / w.abs()).max()) for g, w in zip(got, want))
+    if rel > 1e-4:
+        raise AssertionError(f"greeks: walk_acc's gradient misses autograd through the scan "
+                             f"by {rel:.3e}")
+    fwd_ms = cuda_ms(lambda: qmc_cuda.walk_acc_launch(
+        directions, shift, bridge, 0, *scalars, timesteps=STEPS, count=ROWS * COLS))
+    before = gbm_cuda.LAUNCHES_BY_BRANCH["qmc_walk"]
+    acc = qmc_cuda.walk_acc(directions, shift, bridge, 0, *xs, timesteps=STEPS,
+                            count=ROWS * COLS)
+    cot = torch.full_like(acc, 1.0 / acc.numel())
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(acc, xs, grad_outputs=cot, retain_graph=True))
+    if gbm_cuda.LAUNCHES_BY_BRANCH["qmc_walk"] - before != 1 + 12:
+        raise AssertionError("greeks: walk_acc's backward is not one launch of #14")
+    phase("greeks", case="sobol-bb-geometric-call", engine=mc.engine.value, launches=n,
+          price=round(mc.price, 5), oracle=round(oracle.price, 5), delta=round(mc.delta, 5),
+          vega=round(mc.vega, 4), worst_rel_miss=f"{worst:.3e}",
+          walk_grad_max_rel_vs_scan=f"{rel:.3e}")
+    phase("greeks-backward", kernel="qmc_walk", shape=f"1x{ROWS}x{COLS}x{STEPS}",
+          forward_ms=round(fwd_ms, 4), backward_ms=round(bwd_ms, 4))
+    return {"launches": n, "forward_ms": fwd_ms, "backward_ms": bwd_ms}
+
+
+def barrier_legs(device: torch.device, sim: SimulationParams,
+                 contracts: torch.Tensor) -> torch.Tensor:
+    """Per-path discounted call payoffs ``[C, paths]`` of a barrier sim on the
+    threefry engine, all contracts on draw ``skip``'s key words."""
+    simulate = make_underlier_simulator(sim, rows=ROWS)
+    keys = rng.fold_in(rng.prng_key(sim.mc_seed, device), sim.skip).expand(contracts.shape[0], 2)
+    with torch.no_grad():
+        rows = simulate(keys, contracts).reshape(contracts.shape[0], -1)
+        return terminal_to_prices(rows, contracts, normalize=False,
+                                  dtype=torch.float32).call_payoffs
+
+
+def greeks_barrier(device: torch.device) -> None:
+    """bump_greeks on an up-and-out call and knock_in_price on "xla" (both
+    legs one threefry stream), each within 4 SE of the discrete-barrier
+    oracle's same difference (its lattice error, by halving, in quadrature);
+    the per-path legs computed here reproduce the estimators' values."""
+    sim = greeks_sim("xla", payoff="barrier_up_out", barrier_rel=GREEKS_BARRIER_REL,
+                     normalization="none")
+    c = BlackScholesContract(**GREEKS_CONTRACT)
+    s0 = c.spot
+    h = 1e-2 * s0
+    (bump, ms) = host_ms(lambda: greeks.bump_greeks(sim, c, device=device))
+    (knock_in, ki_ms) = host_ms(lambda: greeks.knock_in_price(sim, c, device=device))
+    base = c.as_array(torch.float32, device)
+    spots = torch.stack([base, base + torch.tensor([h, 0, 0, 0, 0, 0], device=device),
+                         base - torch.tensor([h, 0, 0, 0, 0, 0], device=device)])
+    pays = barrier_legs(device, sim, spots).double()
+    delta_paths = (pays[1] - pays[2]) / (2.0 * h)
+    vanilla_sim = sim.model_copy(update={"payoff": PayoffKind.TERMINAL, "barrier_rel": None})
+    simulate = make_underlier_simulator(vanilla_sim, rows=ROWS)
+    keys = rng.fold_in(rng.prng_key(sim.mc_seed, device), sim.skip).reshape(1, 2)
+    with torch.no_grad():
+        terminal = simulate(keys, base[None]).reshape(1, -1)
+        vanilla = terminal_to_prices(terminal, base[None], normalize=False,
+                                     dtype=torch.float32).call_payoffs[0].double()
+    in_paths = vanilla - pays[0]
+    for name, got, mean in (("price", bump.price, float(pays[0].mean())),
+                            ("delta", bump.delta, float(delta_paths.mean())),
+                            ("knock_in", knock_in, float(in_paths.mean()))):
+        if abs(got - mean) > 1e-4 * abs(mean) + 1e-6:
+            raise AssertionError(f"greeks: {name} {got} is not its per-path legs' {mean}")
+
+    def oracle(spot: float, grid: int) -> float:
+        return float(analytic.discrete_barrier_price(
+            spot, c.strike, c.maturity, c.rate, c.div_yield, c.vol, timesteps=STEPS,
+            barrier_rel=GREEKS_BARRIER_REL, up=True, grid_points=grid).call)
+
+    fine = {s: oracle(s, GREEKS_BARRIER_GRID) for s in (s0, s0 + h, s0 - h)}
+    coarse = {s: oracle(s, GREEKS_BARRIER_GRID // 2 + 1) for s in (s0, s0 + h, s0 - h)}
+    want_delta = (fine[s0 + h] - fine[s0 - h]) / (2.0 * h)
+    err_delta = abs(want_delta - (coarse[s0 + h] - coarse[s0 - h]) / (2.0 * h))
+    black_call = float(analytic.black_scholes_price(*GREEKS_CONTRACT.values()).call)
+    se = {name: float(x.std() / math.sqrt(x.numel()))
+          for name, x in (("price", pays[0]), ("delta", delta_paths), ("knock_in", in_paths))}
+    zs = {
+        "price": z_score(bump.price, se["price"], fine[s0], abs(fine[s0] - coarse[s0])),
+        "delta": z_score(bump.delta, se["delta"], want_delta, err_delta),
+        "knock_in": z_score(knock_in, se["knock_in"], black_call - fine[s0],
+                            abs(fine[s0] - coarse[s0])),
+    }
+    if max(zs.values()) > 4.0:
+        raise AssertionError(f"greeks: barrier bump/knock-in z-scores {zs}")
+    phase("greeks", case="barrier-bump-and-knock-in", engine="xla",
+          price=round(bump.price, 5), oracle=round(fine[s0], 5), delta=round(bump.delta, 5),
+          oracle_delta=round(want_delta, 5), knock_in=round(knock_in, 5),
+          oracle_knock_in=round(black_call - fine[s0], 5),
+          z={k: round(v, 3) for k, v in zs.items()}, bump_host_ms=round(ms, 3),
+          knock_in_host_ms=round(ki_ms, 3))
+
+
+def greeks_learned(device: torch.device, pricer: GbmCVNNPricer) -> None:
+    """predict_greeks on the TERMINAL pricer of phases 4-6 at N = 1, 7, 64:
+    prices equal to predict_price's bit for bit, call − put Jacobians equal
+    to the parity term's gradient (rtol 1e-4 against the largest of the
+    Jacobian columns), finite gammas, the host-clock p50 of 20 calls."""
+    rows = held_out(PayoffKind.TERMINAL, 64)
+    p50 = {}
+    worst = 0.0
+    for n in (1, 7, 64):
+        batch = rows[:n]
+        g = pricer.predict_greeks(batch)
+        p = pricer.predict_price(batch)
+        if not (np.array_equal(g.put, p.put) and np.array_equal(g.call, p.call)):
+            raise AssertionError(f"greeks: predict_greeks prices are not predict_price's at N={n}")
+        x = torch.from_numpy(batch).to(device).requires_grad_(True)
+        parity = torch.exp(-x[:, 3] * x[:, 2]) * (
+            make_mean_target(pricer.snapshot().sim)(x) - x[:, 1])
+        (want,) = torch.autograd.grad(parity.sum(), x)
+        want = want.cpu().numpy()
+        gap = np.abs((g.call_jacobian - g.put_jacobian) - want)
+        scale = np.maximum(np.abs(want), np.abs(g.put_jacobian)).max(axis=1, keepdims=True)
+        if not np.all(gap <= 1e-4 * scale):
+            raise AssertionError(f"greeks: Jacobian parity misses by {gap.max():.3g} at N={n}")
+        worst = max(worst, float((gap / scale).max()))
+        if not (np.all(np.isfinite(g.put_gamma)) and np.all(np.isfinite(g.call_gamma))):
+            raise AssertionError(f"greeks: non-finite gammas at N={n}")
+        times = []
+        for _ in range(20):
+            start = time.perf_counter()
+            pricer.predict_greeks(batch)
+            times.append((time.perf_counter() - start) * 1e3)
+        p50[n] = statistics.median(times)
+    phase("greeks", case="predict-greeks", pricer="terminal (phases 4-6)",
+          prices_equal_predict_price=True, jacobian_parity_max_rel=f"{worst:.3e}",
+          gamma_finite=True, p50_ms={k: round(v, 4) for k, v in p50.items()})
+
+
+def backward_of(greeks_run: dict[str, dict], group: str) -> dict[str, object]:
+    """The kernel record's ``backward`` entry for the three kernels with a
+    backward rule (phase 29's CUDA ms at 1 x 2048 x 512 x 16), else none."""
+    run = greeks_run.get(group)
+    if run is None:
+        return {}
+    return {"backward": {"rule": BACKWARD_RULES[group], "ms": run["backward_ms"],
+                         "forward_ms": run["forward_ms"], "shape": f"1x{ROWS}x{COLS}x{STEPS}"}}
+
+
+BACKWARD_RULES = {
+    "terminal": "gbm_cuda.TerminalPathwise (the pathwise rule over the kernel's samples)",
+    "term_terminal": "gbm_cuda.TerminalPathwise with the curve's effective factors",
+    "qmc_walk": "qmc_cuda.WalkAcc (the affine rule, B from a launch at (0, 0, 1))",
+}
+
+
+def phase_greeks(device: torch.device, smi: str, pricer: GbmCVNNPricer) -> dict[str, dict]:
+    """Phase 29: the Greeks on the card at the production shape; returns, per
+    kernel record (``terminal``, ``term_terminal``, ``qmc_walk``), the
+    phase's main-path launches and the backward's and forward's CUDA ms."""
+    start = time.perf_counter()
+    parts: dict[str, float] = {}
+
+    def timed(name: str, fn):
+        begin = time.perf_counter()
+        out = fn()
+        parts[name] = round(time.perf_counter() - begin, 2)
+        return out
+
+    terminal = timed("terminal", lambda: greeks_terminal(device))
+    term = timed("term", lambda: greeks_term(device))
+    walk = timed("qmc", lambda: greeks_qmc(device))
+    timed("barrier", lambda: greeks_barrier(device))
+    timed("predict", lambda: greeks_learned(device, pricer))
+    phase("greeks-done", seconds=round(time.perf_counter() - start, 2), parts_s=parts,
+          nvidia_smi=repr(smi))
+    return {"terminal": terminal, "term_terminal": term, "qmc_walk": walk}
+
+
 def phase_profile(pricer: GbmCVNNPricer, label: str) -> None:
     _, seconds = train_steps(pricer, 10)
     cfg = build_training_config(
@@ -4342,6 +4771,10 @@ def main() -> None:
                                                     (pricer, american_pricer, heston_american)):
         phase_checkpoint_store(device, smi, label, bytes_pricer, groups, chunk)
     phase_train_loop(device, smi, pricer.snapshot())
+    gbm_cuda.reset_launches()  # the Greeks' path starts here
+    greeks_run = phase_greeks(device, smi, pricer)
+    for group, run in greeks_run.items():
+        launches[group] += run["launches"]
     if args.profile:
         phase_profile(pricer, "")
         phase_profile(asian, "-asian")
@@ -4366,6 +4799,7 @@ def main() -> None:
             "bound_ms": kernel[group]["bound_ms"],
             "bound_by": kernel[group]["bound_by"],
             "library_ms": None,  # no single PyTorch call computes these functions
+            **backward_of(greeks_run, group),
         })
     for group in (*BASKET_TIMED, "qmc_bridge", "qmc_walk"):
         in_basket = group.startswith("basket_")
@@ -4378,6 +4812,7 @@ def main() -> None:
             **{k: kernel[group][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                              "bound_by")},
             "library_ms": None,  # no single PyTorch call computes these functions
+            **backward_of(greeks_run, group),
         })
     records.append({
         "name": "american_gbm",

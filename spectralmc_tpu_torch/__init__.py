@@ -16,7 +16,11 @@ the JAX package's protobuf bytes (``serialization``, ``proto``), committed
 to and served from the same content-addressed chain (``storage``), at the
 end of a run or at an interval. A run is also described as data and
 interpreted (``effects``, ``GbmCVNNPricer.train_via_effects``); ``utils``
-holds the TensorBoard sinks, the profiler trace and the FLOP count.
+holds the TensorBoard sinks, the profiler trace and the FLOP count. Greeks
+come by autograd of the MC price (``ops/greeks.py``: pathwise through the
+kernels' backward rules, bump-and-reprice, the closed forms) and of the
+learned pricer (``GbmCVNNPricer.predict_greeks``); ``BlackScholes`` is the
+one-contract pricing facade.
 It imports neither JAX nor the JAX package; the tests hold it against both.
 """
 
@@ -28,6 +32,7 @@ _EXPORTS = {
     "Success": "spectralmc_tpu_torch.core.result",
     "Failure": "spectralmc_tpu_torch.core.result",
     "Precision": "spectralmc_tpu_torch.core.precision",
+    "BlackScholes": "spectralmc_tpu_torch.ops.gbm",
     "BlackScholesContract": "spectralmc_tpu_torch.ops.gbm",
     "SimulationParams": "spectralmc_tpu_torch.ops.gbm",
     "build_simulation_params": "spectralmc_tpu_torch.ops.gbm",
@@ -49,6 +54,8 @@ _EXPORTS = {
     "lsmc_price": "spectralmc_tpu_torch.ops.american",
     "bermudan_tree_price": "spectralmc_tpu_torch.ops.american",
     "OptionSide": "spectralmc_tpu_torch.ops.american",
+    "mc_greeks": "spectralmc_tpu_torch.ops.greeks",
+    "analytic_greeks": "spectralmc_tpu_torch.ops.greeks",
     "black_scholes_price": "spectralmc_tpu_torch.ops.analytic",
     "geometric_basket_price": "spectralmc_tpu_torch.ops.analytic",
     "BoundSpec": "spectralmc_tpu_torch.ops.sobol",

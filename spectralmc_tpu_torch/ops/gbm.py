@@ -24,6 +24,10 @@ cannot run; the trainer refuses it.
 Every simulator takes a BATCH of contracts — ``[C, 6]`` contracts with
 ``[C, 2]`` key words give ``[C, rows, cols]`` — so the trainer launches one
 kernel per contract chunk, not one per contract.
+
+The one-contract facade is ``BlackScholes`` (``price`` consumes one draw and
+returns the advanced engine; ``price_to_host`` gives ``HostPrices``), with
+``simulate_terminal``, ``validate_contract`` and the contracts' ``as_array``.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from pydantic import BaseModel, ConfigDict
 
 from spectralmc_tpu_torch.core.errors.gbm import (
     GBMError,
+    InvalidContract,
     InvalidSimulationParams,
     MemoryLimitExceeded,
 )
@@ -270,8 +275,27 @@ class BlackScholesContract(BaseModel):
     div_yield: float
     vol: float
 
+    def as_array(
+        self, dtype: torch.dtype = torch.float32, device: torch.device | str = "cuda"
+    ) -> torch.Tensor:
+        """The ``[6]`` vector in field order, on ``device``."""
+        return torch.tensor(
+            [self.spot, self.strike, self.maturity, self.rate, self.div_yield, self.vol],
+            dtype=dtype, device=device,
+        )
 
-CONTRACT_DIM = len(BlackScholesContract.model_fields)
+
+CONTRACT_FIELDS: tuple[str, ...] = tuple(BlackScholesContract.model_fields.keys())
+CONTRACT_DIM = len(CONTRACT_FIELDS)
+
+
+def validate_contract(c: BlackScholesContract) -> Result[BlackScholesContract, GBMError]:
+    """Spot, strike, maturity and vol must be positive (the JAX package's check)."""
+    for field in ("spot", "strike", "maturity", "vol"):
+        value = getattr(c, field)
+        if value <= 0.0:
+            return Failure(InvalidContract(field=field, value=value, reason="must be positive"))
+    return Success(c)
 
 
 class SimulationParams(BaseModel):
@@ -1090,7 +1114,8 @@ def expected_underlier_mean(
 
 @dataclass(frozen=True)
 class SimPrices:
-    """Discounted payoff vectors + scalars, per contract."""
+    """Discounted payoff vectors + scalars, per contract (``BlackScholes.price``
+    gives one contract's: ``[total_paths]`` vectors and 0-d scalars)."""
 
     put_payoffs: torch.Tensor  # [C, total_paths] discounted
     call_payoffs: torch.Tensor  # [C, total_paths] discounted
@@ -1165,3 +1190,140 @@ def terminal_to_prices(
         forward=forward[:, 0],
         discount_factor=df[:, 0],
     )
+
+
+def simulate_terminal(
+    contract_key: torch.Tensor,
+    contract: torch.Tensor,
+    *,
+    timesteps: int,
+    batches: int,
+    network_size: int,
+    dtype: torch.dtype,
+    scheme: PathScheme,
+) -> torch.Tensor:
+    """Flat terminal values ``[batches * network_size]`` of one contract
+    (``[6]``, key ``[2]``) on the threefry stream."""
+    return simulate_terminal_rows(
+        contract_key[None], contract[None], timesteps=timesteps, rows=batches,
+        cols=network_size, dtype=dtype, scheme=scheme,
+    ).reshape(batches * network_size)
+
+
+@dataclass(frozen=True)
+class HostPrices:
+    """Host scalars incl. intrinsics and convexities (time value)."""
+
+    put: float
+    call: float
+    put_intrinsic: float
+    call_intrinsic: float
+    put_convexity: float
+    call_convexity: float
+    forward: float
+    discount_factor: float
+
+
+# --------------------------------------------------------------------------
+# Engine facade
+# --------------------------------------------------------------------------
+
+
+def resolve_device(device: torch.device | str) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device on a machine without a
+    card raises rather than carrying on on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} needs an NVIDIA GPU and none is available; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return device
+
+
+class BlackScholes:
+    """Stateless pricing engine over ``SimulationParams`` on one torch device.
+
+    Holds only the frozen params and the device. ``price`` consumes one draw
+    per call (key ``fold_in(prng_key(mc_seed), skip)``) and returns the
+    engine advanced by one ``skip`` beside the prices, so resume state stays
+    explicit. The simulator is the one ``dispatch.make_underlier_simulator``
+    picks: on ``"cuda"`` the kernel of the sim's payoff, on ``"xla"`` the
+    threefry scan.
+    """
+
+    def __init__(self, params: SimulationParams, *, device: torch.device | str = "cuda") -> None:
+        if params.model != ModelKind.GBM:
+            raise ValueError(
+                f"BlackScholes simulates GBM only; params.model={params.model.value!r}. "
+                "Heston/basket pricing goes through ops/heston.py / ops/basket.py "
+                "simulators or the trainer (ops/dispatch.py selects on ModelKind)."
+            )
+        self._params = params
+        self._device = resolve_device(device)
+        self._key = rng.prng_key(params.mc_seed, self._device)
+
+    @property
+    def params(self) -> SimulationParams:
+        return self._params
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def snapshot(self) -> SimulationParams:
+        """Checkpointable state: the params already carry the skip."""
+        return self._params
+
+    def contract_key(self, draw_index: int | torch.Tensor) -> torch.Tensor:
+        return rng.fold_in(self._key, draw_index)
+
+    def simulate_terminal(
+        self, contract: torch.Tensor, draw_index: int | torch.Tensor
+    ) -> torch.Tensor:
+        """Flat underliers ``[batches_per_mc_run * network_size]`` of one
+        contract vector on draw ``draw_index``."""
+        from spectralmc_tpu_torch.ops.dispatch import make_underlier_simulator
+
+        p = self._params
+        simulate = make_underlier_simulator(p, rows=p.batches_per_mc_run)
+        key = self.contract_key(draw_index).reshape(1, 2)
+        return simulate(key, contract[None]).reshape(p.batches_per_mc_run * p.network_size)
+
+    def price(self, contract: BlackScholesContract) -> tuple[SimPrices, "BlackScholes"]:
+        """One contract's discounted payoff vectors ``[total_paths]`` (forward
+        and discount factor 0-d) on draw ``skip``, and the advanced engine."""
+        from spectralmc_tpu_torch.ops.dispatch import make_mean_target
+
+        p = self._params
+        dtype = p.precision.to_torch()
+        arr = contract.as_array(dtype, self._device)
+        terminal = self.simulate_terminal(arr, p.skip)
+        target = make_mean_target(p)(arr[None])
+        prices = terminal_to_prices(
+            terminal[None].to(dtype), arr[None],
+            normalize=p.normalization == ForwardNormalization.MEAN, dtype=dtype,
+            mean_target=target, term=p.term,
+        )
+        one = SimPrices(put_payoffs=prices.put_payoffs[0], call_payoffs=prices.call_payoffs[0],
+                        forward=prices.forward[0], discount_factor=prices.discount_factor[0])
+        advanced = BlackScholes(p.model_copy(update={"skip": p.skip + 1}), device=self._device)
+        return one, advanced
+
+    def price_to_host(self, contract: BlackScholesContract) -> tuple[HostPrices, "BlackScholes"]:
+        prices, advanced = self.price(contract)
+        put, call, fwd, df = torch.stack([
+            torch.mean(prices.put_payoffs), torch.mean(prices.call_payoffs),
+            prices.forward.to(prices.put_payoffs.dtype),
+            prices.discount_factor.to(prices.put_payoffs.dtype),
+        ]).tolist()  # the one device->host copy
+        put_intr = df * max(contract.strike - fwd, 0.0)
+        call_intr = df * max(fwd - contract.strike, 0.0)
+        return (
+            HostPrices(
+                put=put, call=call, put_intrinsic=put_intr, call_intrinsic=call_intr,
+                put_convexity=put - put_intr, call_convexity=call - call_intr,
+                forward=fwd, discount_factor=df,
+            ),
+            advanced,
+        )

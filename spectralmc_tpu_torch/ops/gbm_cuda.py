@@ -699,3 +699,122 @@ def simulate_cliquet_rows_cuda(
         raise RuntimeError(f"gbm_cliquet_launch failed: cudaError {status}")
     _count("cliquet")
     return out
+
+
+# --------------------------------------------------------------------------
+# The differentiable TERMINAL forward: kernel #1 or #2, the pathwise rule back
+# --------------------------------------------------------------------------
+
+
+def term_pathwise_factors(term: TermStructure, timesteps: int) -> tuple[float, float, float]:
+    """``(mean vs², mean rs, mean qs)`` of a curve's shapes, in float64: the
+    effective factors of ``terminal_pathwise_vjp``."""
+    vs, rs, qs = term.shapes(timesteps)
+    n = float(timesteps)
+    return sum(v * v for v in vs) / n, sum(rs) / n, sum(qs) / n
+
+
+def terminal_pathwise_vjp(
+    g: torch.Tensor,
+    s_t: torch.Tensor,
+    contracts: torch.Tensor,
+    term_factors: tuple[float, float, float] | None = None,
+) -> torch.Tensor:
+    """Cotangent ``[C, 6]`` on the contracts from cotangent ``g`` on log-Euler
+    terminal values ``s_t`` (both ``[C, ...]``), without re-running the walk.
+
+    ``log S_T = log S0 + μT + W`` with ``μ = r − q − v²/2`` and ``W = v·√dt·Σ
+    z_t`` a function of the contract-free normals alone, so ``W`` is read off
+    the output: ``W = log(S_T/S0) − μT``. Then, elementwise,
+
+        ∂logS_T/∂S0 = 1/S0            ∂logS_T/∂K = 0
+        ∂logS_T/∂T  = μ + W/(2T)
+        ∂logS_T/∂r  = T               ∂logS_T/∂q = −T
+        ∂logS_T/∂v  = −v·T + W/v
+
+    and five reductions over the paths. ``term_factors = (mean vs², mean
+    rs, mean qs)`` (``term_pathwise_factors``) generalizes the rule to a
+    curve, whose shapes multiply every step's coefficients: ``μ = r·mr −
+    q·mq − ½v²·mv2``, ``∂/∂r = mr·T``, ``∂/∂v = −v·mv2·T + W/v``, … In the
+    output's dtype: float32 rounding in the ``W`` recovery, far below the
+    Monte-Carlo noise.
+    """
+    dtype = s_t.dtype
+    n = s_t.shape[0]
+    c = contracts.to(dtype)
+    spot, _, maturity, rate, div_yield, vol = (c[:, i] for i in range(6))
+    mv2, mr, mq = term_factors if term_factors is not None else (1.0, 1.0, 1.0)
+    mu = rate * mr - div_yield * mq - 0.5 * vol * vol * mv2
+    s = s_t.reshape(n, -1)
+    w = torch.log(s / spot[:, None]) - (mu * maturity)[:, None]
+    gs = g.reshape(n, -1) * s  # the cotangent on log S_T
+    total = torch.sum(gs, dim=1)
+    d_spot = total / spot
+    d_mat = torch.sum(gs * (mu[:, None] + w / (2.0 * maturity[:, None])), dim=1)
+    d_rate = mr * maturity * total
+    d_div = -mq * maturity * total
+    d_vol = torch.sum(gs * ((-vol * mv2 * maturity)[:, None] + w / vol[:, None]), dim=1)
+    zero = torch.zeros_like(total)
+    return torch.stack([d_spot, zero, d_mat, d_rate, d_div, d_vol], dim=1).to(contracts.dtype)
+
+
+class TerminalPathwise(torch.autograd.Function):
+    """Forward: a TERMINAL log-Euler launch (``launch(params, key_words)``:
+    kernel #1 or #2 on a CUDA tensor, their plain twin on a CPU one).
+    Backward: ``terminal_pathwise_vjp`` over the forward's own samples, so no
+    second launch and no second bit stream; the key words get no gradient."""
+
+    @staticmethod
+    def forward(  # type: ignore[override]
+        ctx: torch.autograd.function.FunctionCtx,
+        params: torch.Tensor,
+        key_words: torch.Tensor,
+        launch: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+        factors: tuple[float, float, float] | None,
+    ) -> torch.Tensor:
+        out = launch(params.detach(), key_words)
+        ctx.save_for_backward(out, params)
+        ctx.factors = factors
+        return out
+
+    @staticmethod
+    def backward(  # type: ignore[override]
+        ctx: torch.autograd.function.FunctionCtx, g: torch.Tensor
+    ) -> tuple[torch.Tensor, None, None, None]:
+        out, params = ctx.saved_tensors
+        return terminal_pathwise_vjp(g, out, params, ctx.factors), None, None, None
+
+
+def simulate_terminal_rows_cuda_diff(
+    params: torch.Tensor,
+    key_words: torch.Tensor,
+    *,
+    timesteps: int,
+    rows: int,
+    cols: int,
+    antithetic_half: int | None = None,
+    term: TermStructure | None = None,
+) -> torch.Tensor:
+    """Differentiable TERMINAL log-Euler values ``[C, rows, cols]`` float32
+    on the Philox stream: the forward is kernel #1's TERMINAL branch
+    (``simulate_underlier_rows_cuda``), or kernel #2
+    (``dynamics_cuda.simulate_term_rows_cuda``) under a curved ``term``, one
+    launch for the ``[C, 6]`` batch; the backward is the pathwise rule
+    (``TerminalPathwise``) with the curve's effective factors. A CPU tensor
+    runs the plain twin forward, a CUDA one the kernel or raises."""
+    term = curved(term)
+    shape = dict(timesteps=timesteps, rows=rows, cols=cols, antithetic_half=antithetic_half)
+    if term is None:
+        def launch(p: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+            return simulate_underlier_rows_cuda(p, k, scheme=PathScheme.LOG_EULER,
+                                                payoff=PayoffKind.TERMINAL, **shape)
+
+        factors = None
+    else:
+        from spectralmc_tpu_torch.ops.dynamics_cuda import simulate_term_rows_cuda
+
+        def launch(p: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+            return simulate_term_rows_cuda(p, k, term=term, payoff=PayoffKind.TERMINAL, **shape)
+
+        factors = term_pathwise_factors(term, timesteps)
+    return TerminalPathwise.apply(params, key_words, launch, factors)

@@ -62,6 +62,13 @@ class HestonContract(BaseModel):
     xi: float  # vol of vol
     rho: float  # spot-variance correlation
 
+    def as_array(
+        self, dtype: torch.dtype = torch.float32, device: torch.device | str = "cuda"
+    ) -> torch.Tensor:
+        """The vector in field order, on ``device``."""
+        return torch.tensor([getattr(self, f) for f in type(self).model_fields],
+                            dtype=dtype, device=device)
+
 
 HESTON_CONTRACT_FIELDS: tuple[str, ...] = tuple(HestonContract.model_fields.keys())
 HESTON_CONTRACT_DIM = len(HESTON_CONTRACT_FIELDS)

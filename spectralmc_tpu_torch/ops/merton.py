@@ -77,6 +77,13 @@ class MertonContract(BaseModel):
     jump_mean: float  # mean of the log jump size Y
     jump_std: float  # std of the log jump size Y
 
+    def as_array(
+        self, dtype: torch.dtype = torch.float32, device: torch.device | str = "cuda"
+    ) -> torch.Tensor:
+        """The vector in field order, on ``device``."""
+        return torch.tensor([getattr(self, f) for f in type(self).model_fields],
+                            dtype=dtype, device=device)
+
 
 MERTON_CONTRACT_FIELDS: tuple[str, ...] = tuple(MertonContract.model_fields.keys())
 MERTON_CONTRACT_DIM = len(MERTON_CONTRACT_FIELDS)

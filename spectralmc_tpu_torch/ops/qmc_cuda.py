@@ -14,7 +14,11 @@ drops and is bound by. This module holds, for each,
   its kernel's sparse instantiation where ``sparse_walk`` holds (T = 8, 16,
   32 or 64 and the float32 bridge's zeros exactly the pattern the kernel
   compiles, ``bridge_pattern``), its dense one elsewhere; both are the
-  twin's values bit for bit.
+  twin's values bit for bit. ``walk_acc`` is differentiable in its three
+  per-contract scalars (``WalkAcc``: the walk sum's affine rule, its ``B``
+  from a second launch at ``(0, 0, 1)``); ``walk_acc_launch`` is the bare
+  launch. The bridge's normals need no gradient: they are free of the
+  contract.
 * the plain twin (``bridge_normals_plain``, ``walk_acc_plain``): the same
   words (the defining XOR over ``gray(n)``), the same float32 inverse CDF
   (``qmc._inv_cdf``) and the bridge product accumulated level by level with
@@ -29,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Callable
 
 import torch
 
@@ -258,7 +263,7 @@ def bridge_normals(
     return out
 
 
-def walk_acc(
+def walk_acc_launch(
     directions: torch.Tensor,
     shift: torch.Tensor,
     bridge: torch.Tensor,
@@ -270,8 +275,9 @@ def walk_acc(
     timesteps: int,
     count: int,
 ) -> torch.Tensor:
-    """``[C, count]`` float32 walk sums (arguments as ``walk_acc_plain``): CPU
-    tensors run the plain twin, CUDA tensors launch kernel #14 or raise. One
+    """``[C, count]`` float32 walk sums (arguments as ``walk_acc_plain``),
+    carrying no gradient: CPU tensors run the plain twin, CUDA tensors launch
+    kernel #14 or raise (``walk_acc`` is its differentiable form). One
     factor of at most 64 unpadded steps (``qmc.qmc_walk_supported``).
     ``bridge`` may lie on the CPU while the rest lies on the card (the main
     path's way): its zeros are read there (``sparse_walk``) and its copy on
@@ -299,6 +305,73 @@ def walk_acc(
     return out
 
 
+class WalkAcc(torch.autograd.Function):
+    """Kernel #14 with its backward. The walk sum is affine in the contract's
+    three scalars: ``acc = T·log_spot + T(T+1)/2·drift + vol_sdt·B`` with
+    ``B = Σ_t Σ_{s≤t} eff[s]`` free of the contract, so ``∂acc/∂log_spot =
+    T``, ``∂acc/∂drift = T(T+1)/2`` and ``∂acc/∂vol_sdt = B``.
+
+    ``B`` comes from a second launch of the same walk at ``(log_spot, drift,
+    vol_sdt) = (0, 0, 1)``, whose sums are ``B`` in the forward's own float32
+    roundings. Reading it off the forward's output instead, ``(acc −
+    T·log_spot − T(T+1)/2·drift)/vol_sdt``, divides the float32 rounding of
+    ``acc`` by ``vol_sdt``: on a short, low-vol contract (spot 80, vol 0.15,
+    T = 0.25, 16 steps) that put the gradient's ``∂/∂vol_sdt`` 1.4e-4 from
+    autograd through ``walk_acc_plain``, past the rtol 1e-4 it is held to
+    (``tests/test_torch_greeks.py::test_walk_function_matches_autograd_through_twin``).
+    The backward's reductions run in float64."""
+
+    @staticmethod
+    def forward(  # type: ignore[override]
+        ctx: torch.autograd.function.FunctionCtx,
+        log_spot: torch.Tensor,
+        drift: torch.Tensor,
+        vol_sdt: torch.Tensor,
+        launch: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor],
+        timesteps: int,
+    ) -> torch.Tensor:
+        ctx.launch, ctx.timesteps = launch, timesteps
+        ctx.dtypes = (log_spot.dtype, drift.dtype, vol_sdt.dtype)
+        return launch(log_spot.detach(), drift.detach(), vol_sdt.detach())
+
+    @staticmethod
+    def backward(  # type: ignore[override]
+        ctx: torch.autograd.function.FunctionCtx, g: torch.Tensor
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, None, None]:
+        zero = torch.zeros(g.shape[0], dtype=torch.float32, device=g.device)
+        b = ctx.launch(zero, zero, torch.ones_like(zero))
+        t = float(ctx.timesteps)
+        gd = g.double()
+        total = torch.sum(gd, dim=1)
+        ls_t, d_t, v_t = ctx.dtypes
+        return ((t * total).to(ls_t), (t * (t + 1.0) / 2.0 * total).to(d_t),
+                torch.sum(gd * b.double(), dim=1).to(v_t), None, None)
+
+
+def walk_acc(
+    directions: torch.Tensor,
+    shift: torch.Tensor,
+    bridge: torch.Tensor,
+    start: int,
+    log_spot: torch.Tensor,
+    drift: torch.Tensor,
+    vol_sdt: torch.Tensor,
+    *,
+    timesteps: int,
+    count: int,
+) -> torch.Tensor:
+    """``walk_acc_launch`` as a ``torch.autograd.Function`` (``WalkAcc``):
+    the same launch and the same bits forward, the affine rule backward (one
+    more launch, at ``(0, 0, 1)``), so a gradient reaches ``log_spot``,
+    ``drift`` and ``vol_sdt`` on the card as it does through the plain twin
+    on the CPU."""
+    def launch(ls: torch.Tensor, d: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        return walk_acc_launch(directions, shift, bridge, start, ls, d, v,
+                               timesteps=timesteps, count=count)
+
+    return WalkAcc.apply(log_spot, drift, vol_sdt, launch, timesteps)
+
+
 __all__ = [
     "SPARSE_WALK_STEPS",
     "bridge_normals",
@@ -306,6 +379,8 @@ __all__ = [
     "bridge_pattern",
     "sobol_words",
     "sparse_walk",
+    "WalkAcc",
     "walk_acc",
+    "walk_acc_launch",
     "walk_acc_plain",
 ]

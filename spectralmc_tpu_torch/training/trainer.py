@@ -3,8 +3,8 @@
 The port of the JAX package's ``training/trainer.py``: ``TrainingConfig``,
 the four commit plans, the checkpoint root ``GbmCVNNPricerConfig`` (same
 fields, plus ``cuda_stream_version`` and ``provenance``), ``StepMetrics`` and
-``SegmentMetrics`` with their callbacks, and
-``GbmCVNNPricer.create/train/train_via_effects/snapshot/predict_price``.
+``SegmentMetrics`` with their callbacks, ``GreeksPrediction``, and
+``GbmCVNNPricer.create/train/train_via_effects/snapshot/predict_price/predict_greeks``.
 
 * ``create`` takes an explicit ``device``; nothing is picked by default.
 * The MC engine that will run is resolved and recorded: a fresh config
@@ -31,6 +31,9 @@ fields, plus ``cuda_stream_version`` and ``provenance``), ``StepMetrics`` and
   on the payoff's own underlier where ``has_closed_form_mean`` holds, and
   are NaN (with a warning) where it does not. An American kind serves its
   own side from the learned channel and NaN on the other.
+* ``predict_greeks`` differentiates the same map: ``[N, D]`` Jacobians of
+  put and call and their spot-gammas (a double backward), the prices equal
+  to ``predict_price``'s, under the same one copy each way.
 * The dynamics (GBM, Heston, Merton, baskets) and the sampling (pseudo or
   ``SOBOL_BB``) change nothing in kind: the contract class and its width
   (6, 10, 9, 6 — the CVNN's input width follows), the simulator and the mean
@@ -74,6 +77,7 @@ from spectralmc_tpu_torch.models.factory import (
 )
 from spectralmc_tpu_torch.ops.american_cuda import LSMC_BACKWARD_VERSIONS, resolve_lsmc_backward
 from spectralmc_tpu_torch.ops.gbm import (
+    AMERICAN_PAYOFFS,
     PayoffKind,
     SimImplementation,
     SimulationParams,
@@ -329,6 +333,28 @@ class PricePrediction:
     put: np.ndarray
     call: np.ndarray
     imag_residue: float
+
+
+@dataclass(frozen=True)
+class GreeksPrediction:
+    """Sensitivities of the LEARNED pricer.
+
+    The surrogate price is smooth in every contract field (IFFT∘CVNN of
+    normalized inputs), so full Jacobians and spot-gamma are plain autograd.
+    ``jacobian[:, i]`` is ∂price/∂fields[i]; call columns are NaN where the
+    payoff has no closed-form E[underlier] (calls come by parity). An
+    American kind trains ONE side: the learned channel lands on that side
+    and the other is NaN (for AMERICAN_CALL the put columns). Conventions
+    match ``ops.greeks.MCGreeks`` (market theta = −jacobian[:, maturity]).
+    """
+
+    put: np.ndarray  # [N]
+    call: np.ndarray  # [N]
+    put_jacobian: np.ndarray  # [N, D]
+    call_jacobian: np.ndarray  # [N, D]
+    put_gamma: np.ndarray  # [N] — ∂²put/∂spot²
+    call_gamma: np.ndarray  # [N]
+    fields: tuple[str, ...]
 
 
 def _contracts_to_host(
@@ -888,6 +914,115 @@ class GbmCVNNPricer:
         else:
             expected = torch.full_like(put, float("nan"))
         return torch.cat([put, expected, residue.reshape(1)])
+
+    def _greeks_packed(self, arr: torch.Tensor) -> torch.Tensor:
+        """``[put | E[u] | put_gamma | call_gamma | put_jac | call_jac]`` on
+        device for the ``[m, D]`` batch ``arr``.
+
+        The put is ``_predict_packed``'s IFFT∘CVNN map, the call adds the
+        parity term ``df·(E[u] − K)`` through the payoff's analytic mean, so
+        its Jacobian and gamma are the put's plus the parity term's. In eval
+        mode every row is its own function of its own contract, so the
+        Jacobian rows are the gradient of the row sum and gamma the
+        spot-derivative of the delta column's sum (a double backward).
+        """
+        dtype = self._sim.precision.to_torch()
+        normalize_fn = make_input_normalizer(
+            self._table, enabled=self._normalize_inputs, dtype=dtype
+        )
+        self._model.eval()
+
+        def put_of(x: torch.Tensor) -> torch.Tensor:
+            inputs = normalize_fn(x)
+            out_re, out_im = self._model(inputs, torch.zeros_like(inputs))
+            recovered = torch.fft.ifft(torch.complex(out_re, out_im), dim=1)
+            return torch.mean(recovered.real, dim=1)
+
+        def price_jac_gamma(
+            fn: Callable[[torch.Tensor], torch.Tensor],
+        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+            x = arr.detach().clone().requires_grad_(True)
+            prices = fn(x)
+            (jac,) = torch.autograd.grad(prices.sum(), x, create_graph=True)
+            (spot_row,) = torch.autograd.grad(jac[:, 0].sum(), x)
+            return prices.detach(), jac.detach(), spot_row[:, 0]
+
+        put, put_jac, put_gamma = price_jac_gamma(put_of)
+        if self._has_parity():
+            mean_target = make_mean_target(self._sim)
+            term = self._sim.term
+            rate_factor = 1.0 if term is None else term.effective_factors(self._sim.timesteps)[1]
+
+            def parity_of(x: torch.Tensor) -> torch.Tensor:
+                df = torch.exp(-x[:, 3] * rate_factor * x[:, 2])  # rate, maturity
+                return df * (mean_target(x).to(dtype) - x[:, 1])
+
+            # the call is put + parity: its derivatives add the parity term's to
+            # the put's, with no second pass through the network
+            _, parity_jac, parity_gamma = price_jac_gamma(parity_of)
+            call_jac, call_gamma = put_jac + parity_jac, put_gamma + parity_gamma
+            with torch.no_grad():
+                expected = mean_target(arr).to(put.dtype)
+        else:
+            expected = torch.full_like(put, float("nan"))
+            call_jac = torch.full_like(put_jac, float("nan"))
+            call_gamma = torch.full_like(put, float("nan"))
+        return torch.cat([put, expected, put_gamma, call_gamma,
+                          put_jac.reshape(-1), call_jac.reshape(-1)])
+
+    def predict_greeks(
+        self,
+        contracts: "Sequence[object] | np.ndarray",
+        *,
+        pad_to_bucket: bool = False,
+    ) -> GreeksPrediction:
+        """Greeks of the learned pricer for a batch of contracts: prices (the
+        same values as ``predict_price``'s, calls by the same host parity),
+        ``[N, D]`` Jacobians and spot-gammas of the put and the call.
+
+        Where no closed-form E[underlier] exists the call outputs are NaN,
+        with the same warning; an American kind serves its own side (for
+        AMERICAN_CALL the channels are swapped). One host→device copy of the
+        contracts and one device→host copy of the packed result. The batch
+        is padded to the next power of two as ``predict_price`` pads it, so
+        ``pad_to_bucket`` changes nothing.
+        """
+        del pad_to_bucket
+        np_dtype = self._sim.precision.to_np()
+        cls = contract_class(self._sim)
+        host = _contracts_to_host(contracts, cls, np_dtype)
+        arr, n = _pad_to_bucket(torch.from_numpy(host).to(self._device))
+        m, d = int(arr.shape[0]), int(arr.shape[1])
+        parity = self._has_parity()
+        if not parity and self._sim.payoff not in AMERICAN_PAYOFFS:
+            _LOG.warning(
+                "no closed-form E[underlier] for %s/%s: call greeks unavailable",
+                self._sim.model.value,
+                self._sim.payoff.value,
+            )
+        packed = self._greeks_packed(arr).cpu().numpy()  # the one device->host copy
+        put, expected = packed[:m][:n], packed[m:2 * m][:n]
+        put_gamma, call_gamma = packed[2 * m:3 * m][:n], packed[3 * m:4 * m][:n]
+        jac = packed[4 * m:]
+        put_jac = jac[:m * d].reshape(m, d)[:n]
+        call_jac = jac[m * d:].reshape(m, d)[:n]
+        if parity:
+            # the call price by predict_price's host parity, so the two agree bit for bit
+            strike, maturity, rate = host[:, 1], host[:, 2], host[:, 3]
+            term = self._sim.term
+            mean_rate = 1.0 if term is None else term.effective_factors(self._sim.timesteps)[1]
+            call = put + np.exp(-rate * mean_rate * maturity) * (expected - strike)
+        else:
+            call = np.full_like(put, np.nan)
+        if self._sim.payoff == PayoffKind.AMERICAN_CALL:
+            # the learned channel carries the CALL side
+            put, call = call, put
+            put_jac, call_jac = call_jac, put_jac
+            put_gamma, call_gamma = call_gamma, put_gamma
+        return GreeksPrediction(
+            put=put, call=call, put_jacobian=put_jac, call_jacobian=call_jac,
+            put_gamma=put_gamma, call_gamma=call_gamma, fields=tuple(cls.model_fields.keys()),
+        )
 
     def predict_price(
         self,

@@ -1168,3 +1168,73 @@ def test_cuda_profile_dir_records_kernels_on_card(tmp_path) -> None:
                for e in events) == 2
     kernels = [e for e in events if e.get("cat") == "kernel"]
     assert sum("gbm_paths" in e.get("name", "") for e in kernels) == 2 * 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curved", [False, True], ids=["flat", "term"])
+def test_pathwise_function_backward_on_card_matches_twin(curved) -> None:
+    """Tier 3 on the card: ``simulate_terminal_rows_cuda_diff`` launches kernel
+    #1 (#2 under a curve) once forward and nothing backward, and its
+    gradient — the pathwise rule over the kernel's samples — equals the same
+    rule over the twin's samples on the same Philox words at rtol 2e-5 (the
+    kernel gate; #2 and its twin are bit-equal, so exactly there)."""
+    device = _require_card()
+    c = torch.from_numpy(_contracts(3, seed=16)).to(device)
+    keys = rng.fold_in(rng.prng_key(16), torch.arange(3)).to(device)
+    term = tgbm.TermStructure(vol_shape=(1.3, 0.7) * 4, rate_shape=(1.6, 0.4) * 4) if curved \
+        else None
+    shape = dict(timesteps=8, rows=64, cols=256, antithetic_half=32)
+    branch = "term_terminal" if curved else "terminal"
+    before = gbm_cuda.LAUNCHES_BY_BRANCH[branch]
+    x = c.clone().requires_grad_(True)
+    out = gbm_cuda.simulate_terminal_rows_cuda_diff(x, keys, term=term, **shape)
+    w = torch.rand(out.shape, device=device, generator=torch.Generator(device).manual_seed(3))
+    (got,) = torch.autograd.grad(torch.sum(w * out), x)
+    assert gbm_cuda.LAUNCHES_BY_BRANCH[branch] == before + 1
+    if curved:
+        twin = dynamics_cuda.simulate_term_rows_cuda_plain(
+            c, keys, term=term, payoff=tgbm.PayoffKind.TERMINAL, **shape)
+        factors = gbm_cuda.term_pathwise_factors(term, 8)
+    else:
+        twin = gbm_cuda.simulate_terminal_rows_cuda_plain(
+            c, keys, scheme=tgbm.PathScheme.LOG_EULER, **shape)
+        factors = None
+    want = gbm_cuda.terminal_pathwise_vjp(w, twin, c, factors)
+    if curved:
+        assert torch.equal(got, want)
+    else:  # the strike column is 0 on both sides: the floor is the gate on the largest column
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_walk_function_backward_on_card_matches_autograd_through_scan() -> None:
+    """Tier 2 on the card: ``walk_acc``'s gradient (its backward a second
+    launch of kernel #14 at (0, 0, 1)) equals autograd through the torch
+    scan over the bridge kernel's normals at rtol 1e-4."""
+    device = _require_card()
+    steps, count = 16, 8192
+    _, dirs, shift, _, bridge = _qmc_inputs(device, steps, 1)
+    scalars = (torch.log(torch.tensor([100.0, 90.0], device=device)),
+               torch.tensor([0.0011, -0.0004], device=device),
+               torch.tensor([0.06, 0.09], device=device))
+    strike = torch.tensor([[100.0], [85.0]], device=device)
+
+    def loss(acc):
+        return torch.sum(torch.mean(torch.clamp(torch.exp(acc / steps) - strike, min=0.0), dim=1))
+
+    xs = [s.clone().requires_grad_(True) for s in scalars]
+    before = gbm_cuda.LAUNCHES_BY_BRANCH["qmc_walk"]
+    got = torch.autograd.grad(loss(qmc_cuda.walk_acc(dirs, shift, bridge, 0, *xs,
+                                                     timesteps=steps, count=count)), xs)
+    assert gbm_cuda.LAUNCHES_BY_BRANCH["qmc_walk"] == before + 2
+    eff = qmc_cuda.bridge_normals(dirs, shift, bridge, 0, timesteps=steps, factors=1,
+                                  count=count)[:, :, 0]
+    ys = [s.clone().requires_grad_(True) for s in scalars]
+    logx = torch.zeros((2, count), device=device) + ys[0][:, None]
+    acc = torch.zeros_like(logx)
+    for t in range(steps):
+        logx = logx + ys[1][:, None] + ys[2][:, None] * eff[:, t]
+        acc = acc + logx
+    want = torch.autograd.grad(loss(acc), ys)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=0.0)

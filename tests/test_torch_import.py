@@ -32,7 +32,7 @@ def test_every_port_module_imports_without_jax() -> None:
                  "utils.tensorboard_writer"):
         assert f"spectralmc_tpu_torch.{name}" in modules
     for name in ("gbm_cuda", "dynamics_cuda", "heston", "merton", "basket", "basket_cuda", "qmc",
-                 "qmc_cuda", "american", "american_cuda"):
+                 "qmc_cuda", "american", "american_cuda", "greeks"):
         assert f"spectralmc_tpu_torch.ops.{name}" in modules
     script = (
         "import sys\n"
@@ -65,7 +65,9 @@ def test_top_level_exports_are_the_modules_own_objects() -> None:
     import spectralmc_tpu_torch as port
 
     for name, module in (("term_effective_black", "ops.analytic"), ("lsmc_price", "ops.american"),
-                         ("bermudan_tree_price", "ops.american"), ("OptionSide", "ops.american")):
+                         ("bermudan_tree_price", "ops.american"), ("OptionSide", "ops.american"),
+                         ("BlackScholes", "ops.gbm"), ("mc_greeks", "ops.greeks"),
+                         ("analytic_greeks", "ops.greeks")):
         assert name in port.__all__
         assert getattr(port, name) is getattr(
             importlib.import_module(f"spectralmc_tpu_torch.{module}"), name)
