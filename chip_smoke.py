@@ -290,7 +290,35 @@ non-zero and no result line is printed):
                   predict_greeks on the TERMINAL pricer of phases 4-6 at N =
                   1, 7, 64 (prices equal to predict_price's, the parity
                   identity on the Jacobians, finite gammas, host-clock p50).
-11. profile     — only with ``--profile``, after phase 29: for the TERMINAL,
+30. sharded     — after phase 29, the port's sharded training (parallel/):
+                  (a) every forward kernel on the sharded path (#1 in each
+                  branch, antithetic and Euler too, #2, #3, #5, #7, #9, the
+                  QMC bridge #13 at F = 2 and walk #14 through the engine's
+                  simulator; the monitor kernels #4, #6, #8, #10 through
+                  their wrapper, antithetic) at the contracts its main path
+                  launches, split into 2 and into 4 row shards at their
+                  offsets: each shard bit-equal to the full launch's rows;
+                  (b) a (1, 1) mesh over nccl in this process, TERMINAL at
+                  phase 4's configuration for 1 + 3 steps: losses within
+                  rtol 1e-6 of the unsharded run (bit-equality printed);
+                  (c) four gloo ranks on cuda:0, spawned after the build,
+                  on a (2, 2) mesh: 4 steps under FinalAndIntervalCommit(2)
+                  with the commit hook through coordinator_only into a
+                  filesystem chain in a temporary directory, losses within
+                  rtol 2e-4 of the unsharded run, every rank's replica
+                  bytes equal, the chain verified and its head served
+                  through InferenceClient bit-equal to rank 0's prices;
+                  (d) two ranks on a (1, 2) mesh with the American put of
+                  phase 20: lsmc_backward_version 0 (the torch estimator
+                  on every chunk, no CUDA backward), losses within rtol
+                  5e-3 of one process (the gap printed). A rank that fails
+                  fails the phase. Printed beside the card's name and power
+                  limit: the warm sharded step (median of 3, host clock),
+                  the all-reduce ms a step (CUDA events around every
+                  torch.distributed.all_reduce) and each rank's start-up
+                  seconds; several ranks on one card test the wiring, not
+                  scaling.
+11. profile     — only with ``--profile``, after phase 30: for the TERMINAL,
                   the Asian, the Heston, the basket, the SOBOL_BB
                   geometric-Asian and the American put pricer, 10 warm train
                   steps timed on the host clock to a synchronised end, then
@@ -314,7 +342,9 @@ other branch's from phases 8, 10 and 16; phase 27 sets them to 0 again
 before each resume from bytes and checks that it launched its pricer's
 kernels, and phase 28 before the training loop's runs, each of which it
 checks launched kernel #1 twice a step; phase 29 sets them to 0 again and
-adds its own launches of #1, #2 and #14 to their records. The last lines are
+adds its own launches of #1, #2 and #14 to their records; phase 30 adds the
+launches of #1 on its (1, 1) nccl mesh (counts set to 0 just before) and on
+each gloo rank, and of #4 on the American ranks (each rank counts from 0). The last lines are
 the kernel record as JSON, the nvidia-smi line, and the result JSON.
 """
 
@@ -4687,6 +4717,445 @@ def phase_profile_heston_american(pricer: GbmCVNNPricer) -> None:
           kernel_launches_per_call=launches / 20, top=repr(top))
 
 
+# --------------------------------------------------------------------------
+# 30. sharded
+# --------------------------------------------------------------------------
+
+# (a): every kernel on the sharded path at the contracts its main path
+# launches it with (the training chunk, or the batch-64 steps), by the
+# engine's simulator: (label, simulation knobs, family, contracts)
+OFFSET_CASES = [
+    ("#1 terminal", dict(payoff="terminal"), "gbm", CHUNK),
+    ("#1 terminal antithetic", dict(payoff="terminal", antithetic=True), "gbm", CHUNK),
+    ("#1 asian", dict(payoff="asian_arithmetic"), "gbm", CHUNK),
+    ("#1 asian_geometric antithetic", dict(payoff="asian_geometric", antithetic=True), "gbm",
+     PAYOFF_BATCH),
+    ("#1 barrier_up_out", dict(payoff="barrier_up_out", **KNOBS[PayoffKind.BARRIER_UP_OUT]),
+     "gbm", PAYOFF_BATCH),
+    ("#1 barrier_down_out antithetic", dict(payoff="barrier_down_out", antithetic=True,
+                                            **KNOBS[PayoffKind.BARRIER_DOWN_OUT]),
+     "gbm", PAYOFF_BATCH),
+    ("#1 lookback_fixed_call", dict(payoff="lookback_fixed_call"), "gbm", PAYOFF_BATCH),
+    ("#1 lookback_float_put antithetic", dict(payoff="lookback_float_put",
+                                                 antithetic=True), "gbm", PAYOFF_BATCH),
+    ("#1 variance_swap", dict(payoff="variance_swap"), "gbm", PAYOFF_BATCH),
+    ("#1 digital", dict(payoff="digital"), "gbm", PAYOFF_BATCH),
+    ("#1 forward_start", dict(payoff="forward_start", forward_start_step=FORWARD_STEP), "gbm",
+     PAYOFF_BATCH),
+    ("#1 euler terminal", dict(payoff="terminal", scheme="euler"), "gbm", PAYOFF_BATCH),
+    ("#2 term", dict(payoff="terminal", term=term_of(STEPS)), "term", PAYOFF_BATCH),
+    ("#2 term antithetic asian", dict(payoff="asian_arithmetic", antithetic=True,
+                                      term=term_of(STEPS)), "term", PAYOFF_BATCH),
+    ("#3 cliquet", dict(payoff="cliquet", **KNOBS[PayoffKind.CLIQUET]), "gbm", PAYOFF_BATCH),
+    ("#3 cliquet antithetic", dict(payoff="cliquet", antithetic=True,
+                                   **KNOBS[PayoffKind.CLIQUET]), "gbm", PAYOFF_BATCH),
+    ("#5 heston", dict(payoff="terminal", model="heston"), "heston", CHUNK),
+    ("#5 heston antithetic", dict(payoff="terminal", model="heston", antithetic=True),
+     "heston", PAYOFF_BATCH),
+    ("#7 basket", dict(payoff="terminal", model="basket_gbm", basket=BASKET_SPEC), "basket",
+     CHUNK),
+    ("#9 merton", dict(payoff="terminal", model="merton_jump"), "merton", PAYOFF_BATCH),
+    ("#9 merton antithetic", dict(payoff="terminal", model="merton_jump", antithetic=True),
+     "merton", PAYOFF_BATCH),
+    ("#13 qmc_bridge F=2", dict(payoff="terminal", model="heston", sampling="sobol_bb",
+                                mc_seed=QMC_SEED), "heston", PAYOFF_BATCH),
+    ("#14 qmc_walk", dict(payoff="asian_geometric", sampling="sobol_bb", mc_seed=QMC_SEED),
+     "gbm", CHUNK),
+]
+# the American monitor kernels: (label, model, basket spec, contracts)
+MONITOR_OFFSET_CASES = [
+    ("#4 american_gbm", ModelKind.GBM, None, CHUNK),
+    ("#6 american_heston", ModelKind.HESTON, None, HESTON_AMERICAN_CHUNK),
+    ("#8 american_basket", ModelKind.BASKET_GBM, BASKET_SPEC, PAYOFF_BATCH),
+    ("#10 american_merton", ModelKind.MERTON_JUMP, None, PAYOFF_BATCH),
+]
+SHARD_WAYS = (2, 4)
+SHARDED_MESH = (2, 2)  # (c): four gloo ranks on the one card
+AMERICAN_MESH = (1, 2)  # (d): two ranks, the paths split
+SHARDED_WARM_STEPS = 3
+RANKS_TIMEOUT_S = 420.0
+ONE_CARD = "several ranks on one card test the wiring, not scaling"
+
+
+def shards_equal_full(run, rows_dim: int) -> tuple[int, int]:
+    """``run(row_offset, rows)`` (a tuple of row tensors) at each shard of
+    ``SHARD_WAYS`` against the full launch's rows, one shard at a time;
+    ``(shards, launches)``."""
+    before = gbm_cuda.LAUNCHES
+    full = run(0, ROWS)
+    shards = 0
+    for ways in SHARD_WAYS:
+        local = ROWS // ways
+        for j in range(ways):
+            part = run(j * local, local)
+            for got, whole in zip(part, full, strict=True):
+                if not torch.equal(got, whole.narrow(rows_dim, j * local, local)):
+                    raise AssertionError(f"shard {j} of {ways} at row offset {j * local} "
+                                         "differs from the full launch's rows")
+            shards += 1
+            del part
+    del full
+    return shards, gbm_cuda.LAUNCHES - before
+
+
+def phase_sharded_offsets(device: torch.device) -> None:
+    """30 (a): each kernel on the sharded path, split into 2 and 4 row shards
+    at their offsets, bit-equal to its full launch's rows."""
+    torch.cuda.empty_cache()
+    for label, knobs, family, contracts in OFFSET_CASES:
+        sim = build_simulation_params(
+            timesteps=STEPS, network_size=COLS, batches_per_mc_run=ROWS, implementation="cuda",
+            normalization="none", **{"mc_seed": 7, **knobs}).expect(label)
+        params, keys = kernel_inputs(device, contracts, 30, family)
+
+        def run(offset: int, rows: int) -> tuple[torch.Tensor]:
+            return (make_underlier_simulator(sim, rows=rows)(keys, params, row_offset=offset),)
+
+        shards, launched = shards_equal_full(run, rows_dim=1)
+        if launched != 1 + shards:
+            raise AssertionError(f"{label}: {launched} kernel launches for {1 + shards} calls")
+        phase("sharded-offsets", case=label, contracts=contracts, shape=f"{ROWS}x{COLS}x{STEPS}",
+              ways=list(SHARD_WAYS), shards=shards, launches=launched, bit_equal=True)
+    for label, model, spec, contracts in MONITOR_OFFSET_CASES:
+        family = {ModelKind.GBM: "gbm", ModelKind.HESTON: "heston",
+                  ModelKind.MERTON_JUMP: "merton", ModelKind.BASKET_GBM: "basket"}[model]
+        params, keys = kernel_inputs(device, contracts, 30, family)
+
+        def monitor(offset: int, rows: int) -> tuple[torch.Tensor, ...]:
+            price, extra = american_cuda.american_rows_cuda(
+                params, keys, model=model, spec=spec, timesteps=STEPS, rows=rows, cols=COLS,
+                exercise_every=1, antithetic_half=ROWS // 2, row_offset=offset)
+            return (price,) if extra is None else (price, extra)
+
+        shards, launched = shards_equal_full(monitor, rows_dim=2)
+        phase("sharded-offsets", case=label, contracts=contracts, antithetic=True,
+              shape=f"{ROWS}x{COLS}x{STEPS}", ways=list(SHARD_WAYS), shards=shards,
+              launches=launched, bit_equal=True)
+        torch.cuda.empty_cache()
+
+
+class AllReduceClock:
+    """CUDA events around every ``torch.distributed.all_reduce`` while
+    installed (the port's collectives call it through the module)."""
+
+    def __init__(self) -> None:
+        self.events: list[tuple[torch.cuda.Event, torch.cuda.Event]] = []
+
+    def __enter__(self) -> "AllReduceClock":
+        import torch.distributed as dist
+
+        self._dist, self._inner = dist, dist.all_reduce
+
+        def timed(*args: object, **kwargs: object) -> object:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self._inner(*args, **kwargs)
+            stop.record()
+            self.events.append((start, stop))
+            return out
+
+        dist.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc: object) -> None:
+        self._dist.all_reduce = self._inner
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(start.elapsed_time(stop) for start, stop in self.events)
+
+
+def sharded_steps(pricer: GbmCVNNPricer, n: int) -> tuple[list[float], list[float], list[float]]:
+    """``n`` timed single-batch steps: losses, host seconds to a synchronised
+    end, and the all-reduce ms of each (CUDA events)."""
+    losses, seconds, reduce_ms = [], [], []
+    for _ in range(n):
+        with AllReduceClock() as clock:
+            loss, [sec] = train_steps(pricer, 1)
+        losses.append(float(loss[0]))
+        seconds.append(sec)
+        reduce_ms.append(clock.ms())
+    return losses, seconds, reduce_ms
+
+
+def state_digest(pricer: GbmCVNNPricer) -> str:
+    """sha256 of a replica's weights, buffers, Adam moments and counters."""
+    import hashlib
+
+    snap = pricer.snapshot()
+    digest = hashlib.sha256()
+    opt = snap.optimizer_state
+    for named in (snap.model_state, opt.mu, opt.nu):
+        for key in sorted(named):
+            digest.update(key.encode() + named[key].tobytes())
+    digest.update(f"{snap.global_step} {snap.sobol_skip} {snap.sim.skip}".encode())
+    return digest.hexdigest()
+
+
+SPLIT_PAIRS = 5  # (b): alternating unsharded and sharded warm steps
+
+
+def step_split(unsharded: GbmCVNNPricer, sharded: GbmCVNNPricer) -> dict[str, object]:
+    """Where a sharded step's time goes beside the unsharded one's, both
+    warm and on one card: ``SPLIT_PAIRS`` alternations of one unsharded and
+    one sharded step (host clock, no CUDA events installed), then one of each
+    under torch.profiler: the device's kernel ms, and the host ops whose self
+    CPU ms differ most between the two."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    plain_s, sharded_s = [], []
+    for _ in range(SPLIT_PAIRS):
+        plain_s += train_steps(unsharded, 1)[1]
+        sharded_s += train_steps(sharded, 1)[1]
+    cfg = build_training_config(num_batches=1, batch_size=BATCH, learning_rate=1e-3,
+                                contract_chunk=CHUNK).expect("training config")
+    host: dict[str, dict[str, float]] = {}
+    device_ms: dict[str, float] = {}
+    for label, pricer in (("unsharded", unsharded), ("sharded", sharded)):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pricer.train(cfg)
+            torch.cuda.synchronize()
+        rows = prof.key_averages()
+        host[label] = {e.key: e.self_cpu_time_total / 1e3 for e in rows
+                       if e.device_type == DeviceType.CPU}
+        device_ms[label] = sum(e.self_device_time_total for e in rows
+                               if e.device_type == DeviceType.CUDA) / 1e3
+    keys = set(host["unsharded"]) | set(host["sharded"])
+    diff = {k: host["sharded"].get(k, 0.0) - host["unsharded"].get(k, 0.0) for k in keys}
+    top = sorted(diff, key=lambda k: -abs(diff[k]))[:8]
+    return {
+        "unsharded_step_s": plain_s, "sharded_step_s": sharded_s,
+        "unsharded_warm_step_s": statistics.median(plain_s),
+        "sharded_warm_step_s": statistics.median(sharded_s),
+        "profiled_host_ms": {k: round(sum(v.values()), 3) for k, v in host.items()},
+        "profiled_device_ms": {k: round(v, 3) for k, v in device_ms.items()},
+        "host_ms_sharded_minus_unsharded": [(k[:56], round(diff[k], 3)) for k in top],
+    }
+
+
+def phase_sharded_nccl(device: torch.device, smi: str, reference: np.ndarray,
+                       unsharded: GbmCVNNPricer) -> tuple[int, dict[str, object]]:
+    """30 (b): a (1, 1) mesh over nccl in this process, TERMINAL at the
+    production configuration, against the unsharded run's losses; then its
+    warm step beside the unsharded pricer's (``step_split``). The kernel #1
+    launches of the sharded run's checked steps."""
+    import socket
+
+    from spectralmc_tpu_torch.parallel.distributed import (
+        initialize_distributed,
+        shutdown_distributed,
+    )
+    from spectralmc_tpu_torch.parallel.mesh import build_mesh_spec
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    initialize_distributed(coordinator_address=f"tcp://localhost:{port}", num_processes=1,
+                           process_id=0, device_type="cuda", timeout_s=300.0).expect("nccl")
+    try:
+        spec = build_mesh_spec(batch_shards=1, paths_shards=1).expect("mesh")
+        if spec.backend != "nccl":
+            raise AssertionError(f"the (1, 1) mesh runs {spec.backend}, not nccl")
+        gbm_cuda.reset_launches()  # the sharded path's count starts here
+        pricer = GbmCVNNPricer.create(pricer_config(PayoffKind.TERMINAL), device=device,
+                                      mesh_spec=spec).expect("sharded")
+        losses, seconds, reduce_ms = sharded_steps(pricer, 1 + SHARDED_WARM_STEPS)
+        launched = gbm_cuda.LAUNCHES_BY_BRANCH["terminal"]
+        split = step_split(unsharded, pricer)
+    finally:
+        shutdown_distributed()
+    gap = float(np.max(np.abs(np.asarray(losses) / reference - 1.0)))
+    if gap > 1e-6 or launched != len(losses) * BATCH // CHUNK:
+        raise AssertionError(f"nccl (1, 1): losses {losses} vs {reference.tolist()} "
+                             f"(gap {gap:.3e}), {launched} launches of #1")
+    warm = statistics.median(seconds[1:])
+    phase("sharded-nccl", mesh="(1, 1)", backend="nccl", world=1, losses=losses,
+          unsharded=reference.tolist(), max_rel_gap=f"{gap:.3e}",
+          bit_equal=bool(np.array_equal(np.asarray(losses, np.float32), reference)),
+          launches=launched, warm_step_s=f"{warm:.4f}",
+          allreduce_ms_per_step=f"{statistics.median(reduce_ms[1:]):.4f}", card=repr(smi))
+    phase("sharded-nccl-split", mesh="(1, 1)", backend="nccl", pairs=SPLIT_PAIRS,
+          clocked_warm_step_s=f"{warm:.4f}", **{
+              k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in split.items()},
+          card=repr(smi))
+    return launched, {"warm_step_s": warm, "unsharded_warm_step_s": split["unsharded_warm_step_s"]}
+
+
+def sharded_rank(rank: int, world: int, job: str, root: str, spawned_at: float) -> None:
+    """One rank of phase 30 (c) or (d), in a spawned process on card 0: join
+    a gloo world of ``world`` ranks, train on the job's mesh and write
+    ``root/rank{rank}.json``."""
+    from spectralmc_tpu_torch.parallel.distributed import (
+        coordinator_only,
+        initialize_distributed,
+        shutdown_distributed,
+    )
+    from spectralmc_tpu_torch.parallel.mesh import build_mesh_spec
+
+    torch.cuda.set_device(0)
+    get_torch_handle()  # the parent's deterministic numerics policy
+    device = torch.device("cuda", 0)
+    initialize_distributed(coordinator_address=f"file://{root}/rendezvous",
+                           num_processes=world, process_id=rank, device_type="cuda",
+                           backend="gloo", timeout_s=300.0).expect("join")
+    joined = time.time() - spawned_at
+    shape = SHARDED_MESH if job == "terminal" else AMERICAN_MESH
+    spec = build_mesh_spec(batch_shards=shape[0], paths_shards=shape[1]).expect("mesh")
+    out: dict[str, object] = {"startup_s": joined}
+    gbm_cuda.reset_launches()  # the sharded path's count starts here
+    if job == "terminal":
+        pricer = GbmCVNNPricer.create(pricer_config(PayoffKind.TERMINAL), device=device,
+                                      mesh_spec=spec).expect("sharded")
+        store = AsyncBlockchainModelStore(FileSystemObjectStore(f"{root}/store", "sharded"))
+        cfg = build_training_config(num_batches=4, batch_size=BATCH, learning_rate=1e-3,
+                                    contract_chunk=CHUNK).expect("training config")
+        result = pricer.train(cfg, commit_plan=FinalAndIntervalCommit(interval=2),
+                              commit_fn=coordinator_only(make_commit_fn(store))).expect("train")
+        out["losses"] = [float(x) for x in result.losses]
+        if rank == 0:
+            served = pricer.predict_price(held_out(PayoffKind.TERMINAL, 7))
+            out["served_put"] = served.put.tolist()
+        _, seconds, reduce_ms = sharded_steps(pricer, SHARDED_WARM_STEPS)
+        out.update(warm_step_s=statistics.median(seconds),
+                   allreduce_ms=statistics.median(reduce_ms))
+    else:
+        pricer = GbmCVNNPricer.create(american_config(lsmc_fused_backward=False), device=device,
+                                      mesh_spec=spec).expect("sharded american")
+        losses, seconds, reduce_ms = sharded_steps(pricer, 3)
+        out.update(losses=losses, warm_step_s=statistics.median(seconds[1:]),
+                   allreduce_ms=statistics.median(reduce_ms[1:]),
+                   lsmc_backward_version=pricer.snapshot().lsmc_backward_version)
+    out["launches"] = dict(gbm_cuda.LAUNCHES_BY_BRANCH)
+    out["state"] = state_digest(pricer)
+    Path(root, f"rank{rank}.json").write_text(json.dumps(out))
+    shutdown_distributed()
+
+
+def run_ranks(job: str, world: int) -> list[dict[str, object]]:
+    """Spawn ``world`` ranks of ``job`` (the kernel libraries are built
+    already, so no rank runs nvcc) and wait for them; a rank that fails or
+    outlives ``RANKS_TIMEOUT_S`` fails the phase, and every rank is stopped."""
+    import multiprocessing
+
+    torch.cuda.empty_cache()  # the ranks share this card
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as root:
+        spawned_at = time.time()
+        procs = [ctx.Process(target=sharded_rank, args=(r, world, job, root, spawned_at))
+                 for r in range(world)]
+        for proc in procs:
+            proc.start()
+        deadline = time.monotonic() + RANKS_TIMEOUT_S
+        try:
+            for proc in procs:
+                proc.join(timeout=max(deadline - time.monotonic(), 0.1))
+                if proc.exitcode != 0:
+                    break
+        finally:
+            for proc in procs:
+                if proc.is_alive():
+                    proc.kill()
+                proc.join()
+        codes = [proc.exitcode for proc in procs]
+        if any(code != 0 for code in codes):
+            raise AssertionError(f"sharded {job}: rank exit codes {codes}")
+        runs = [json.loads(Path(root, f"rank{r}.json").read_text()) for r in range(world)]
+        if job == "terminal":
+            runs[0]["chain"] = chain_served(Path(root, "store"))
+        return runs
+
+
+def chain_served(root: Path) -> dict[str, object]:
+    """The sharded run's chain: verified, and its head's put prices on the
+    held-out contracts through ``InferenceClient``."""
+    store = AsyncBlockchainModelStore(FileSystemObjectStore(str(root), "sharded"))
+    verdict = asyncio.run(verify_chain_detailed(store)).expect("verify")
+    loaded, _ = load_served(store, TrackingMode())
+    served = GbmCVNNPricer.create(loaded.config, device=torch.device("cuda", 0)).expect("served")
+    return {"verdict": verdict, "counter": loaded.version.counter,
+            "global_step": loaded.config.global_step,
+            "put": served.predict_price(held_out(PayoffKind.TERMINAL, 7)).put.tolist()}
+
+
+def phase_sharded(device: torch.device, smi: str) -> dict[str, int]:
+    """Phase 30: (a) the kernels at row offsets; (b) nccl at world 1; (c)
+    four gloo ranks on a (2, 2) mesh; (d) two ranks on a (1, 2) mesh with
+    the American put. The launches of #1 and #4 on the sharded path."""
+    phase_sharded_offsets(device)
+    reference_pricer = GbmCVNNPricer.create(pricer_config(PayoffKind.TERMINAL),
+                                            device=device).expect("unsharded")
+    reference, _ = train_steps(reference_pricer, 1 + SHARDED_WARM_STEPS)
+    launches = {"terminal": 0, "american_gbm": 0}
+    launches["terminal"], nccl = phase_sharded_nccl(device, smi, reference, reference_pricer)
+    del reference_pricer
+
+    start = time.perf_counter()
+    ranks = run_ranks("terminal", SHARDED_MESH[0] * SHARDED_MESH[1])
+    call_s = time.perf_counter() - start
+    losses = np.asarray(ranks[0]["losses"])
+    gap = float(np.max(np.abs(losses / reference[:4] - 1.0)))
+    chain = ranks[0]["chain"]
+    if gap > 2e-4 or any(r["losses"] != ranks[0]["losses"] for r in ranks):
+        raise AssertionError(f"gloo (2, 2): losses {[r['losses'] for r in ranks]} vs "
+                             f"{reference.tolist()} (gap {gap:.3e})")
+    if len({r["state"] for r in ranks}) != 1:
+        raise AssertionError("gloo (2, 2): the replicas' state dicts differ between ranks")
+    if (chain["verdict"], chain["counter"], chain["global_step"]) != (ChainValid(versions=2), 1,
+                                                                     4):
+        raise AssertionError(f"gloo (2, 2): the chain is {chain}")
+    if chain["put"] != ranks[0]["served_put"]:
+        raise AssertionError("gloo (2, 2): InferenceClient serves other prices than rank 0")
+    terminal = [r["launches"]["terminal"] for r in ranks]
+    if set(terminal) != {4 + SHARDED_WARM_STEPS}:  # one chunk of the shard's 256 a step
+        raise AssertionError(f"gloo (2, 2): kernel #1 launches by rank {terminal}")
+    launches["terminal"] += sum(terminal)
+    phase("sharded-gloo", mesh=str(SHARDED_MESH), backend="gloo", world=len(ranks),
+          device="cuda:0 (all ranks)", losses=losses.tolist(),
+          unsharded=reference[:4].tolist(), max_rel_gap=f"{gap:.3e}", replicas_bit_equal=True,
+          commits="rank 0 only: steps 2, 4", chain=repr(chain["verdict"]),
+          served_bit_equal=True, launches_by_rank=terminal,
+          warm_step_s=f"{statistics.median(r['warm_step_s'] for r in ranks):.4f}",
+          allreduce_ms_per_step=f"{statistics.median(r['allreduce_ms'] for r in ranks):.4f}",
+          rank_startup_s=[round(r["startup_s"], 2) for r in ranks],
+          phase_s=f"{call_s:.1f}", nccl_warm_step_s=f"{nccl['warm_step_s']:.4f}",
+          unsharded_warm_step_s=f"{nccl['unsharded_warm_step_s']:.4f}",
+          note=ONE_CARD, card=repr(smi))
+
+    american_pricer = GbmCVNNPricer.create(american_config(lsmc_fused_backward=False),
+                                           device=device).expect("american unsharded")
+    single, single_s = train_steps(american_pricer, 3)
+    single_version = american_pricer.snapshot().lsmc_backward_version
+    del american_pricer
+    start = time.perf_counter()
+    ranks = run_ranks("american", AMERICAN_MESH[0] * AMERICAN_MESH[1])
+    call_s = time.perf_counter() - start
+    losses = np.asarray(ranks[0]["losses"])
+    gap = float(np.max(np.abs(losses / single - 1.0)))
+    versions = [r["lsmc_backward_version"] for r in ranks]
+    estimator = [r["launches"]["torch_estimator"] for r in ranks]
+    monitor = [r["launches"]["american_gbm"] for r in ranks]
+    if gap > 5e-3 or set(versions) != {0} or len({r["state"] for r in ranks}) != 1:
+        raise AssertionError(f"gloo (1, 2) american: gap {gap:.3e}, backward versions "
+                             f"{versions}, states {[r['state'] for r in ranks]}")
+    if min(monitor) == 0 or set(estimator) != set(monitor) or any(
+            r["launches"]["lsmc_backward"] for r in ranks):
+        raise AssertionError(f"gloo (1, 2) american: launches {[r['launches'] for r in ranks]}")
+    launches["american_gbm"] = sum(monitor)
+    phase("sharded-american", mesh=str(AMERICAN_MESH), backend="gloo", world=len(ranks),
+          lsmc_backward_version=0, single_process_backward=single_version,
+          losses=losses.tolist(), single_process=single.tolist(), max_rel_gap=f"{gap:.3e}",
+          single_process_warm_step_s=f"{statistics.median(single_s[1:]):.4f}",
+          gate=5e-3, replicas_bit_equal=True, monitor_launches_by_rank=monitor,
+          torch_estimator_by_rank=estimator,
+          warm_step_s=f"{statistics.median(r['warm_step_s'] for r in ranks):.4f}",
+          allreduce_ms_per_step=f"{statistics.median(r['allreduce_ms'] for r in ranks):.4f}",
+          rank_startup_s=[round(r["startup_s"], 2) for r in ranks], phase_s=f"{call_s:.1f}",
+          note=ONE_CARD, card=repr(smi))
+    return launches
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -4775,6 +5244,8 @@ def main() -> None:
     greeks_run = phase_greeks(device, smi, pricer)
     for group, run in greeks_run.items():
         launches[group] += run["launches"]
+    for group, n in phase_sharded(device, smi).items():
+        launches[group] += n
     if args.profile:
         phase_profile(pricer, "")
         phase_profile(asian, "-asian")

@@ -48,13 +48,5 @@ __all__ = [
     "Throttled",
     "UnknownStoreError",
     "VersionNotFound",
-    "not_ported",
 ]
 
-
-def not_ported(what: str, queue_item: str) -> NotImplementedError:
-    """The loud refusal for a JAX-package feature the port has not reached.
-
-    ``queue_item`` names the ROADMAP.md queue entry that will port it.
-    """
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {queue_item})")

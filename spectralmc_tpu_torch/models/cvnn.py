@@ -60,17 +60,19 @@ class ComplexLinear(ComplexModule):
 
     @torch.no_grad()
     def init_from_key(self, key: torch.Tensor) -> None:
-        """Glorot-uniform from ``split(key)``, the JAX init's exact draws.
+        """Glorot-uniform from ``split(key)``, the JAX init's exact draws in
+        the layer's dtype (float32 or float64).
 
-        The bound is ``sqrt(6 / (in + out))`` rounded once to float32 (the
-        JAX package computes it in float64 when x64 is on, as its tests run).
+        The bound is ``sqrt(6 / (in + out))`` in float64 rounded once to the
+        layer's dtype (the JAX package computes it in float64 when x64 is on,
+        as its tests run).
         """
         k_re, k_im = rng.split(key.cpu(), 2)
-        bound = float(torch.tensor(math.sqrt(6.0 / (self.in_dim + self.out_dim)),
-                                   dtype=torch.float32))
+        dtype = self.w_re.dtype
+        bound = float(torch.tensor(math.sqrt(6.0 / (self.in_dim + self.out_dim)), dtype=dtype))
         shape = (self.in_dim, self.out_dim)
-        self.w_re.copy_(rng.uniform(k_re, shape, -bound, bound))
-        self.w_im.copy_(rng.uniform(k_im, shape, -bound, bound))
+        self.w_re.copy_(rng.uniform(k_re, shape, -bound, bound, dtype=dtype))
+        self.w_im.copy_(rng.uniform(k_im, shape, -bound, bound, dtype=dtype))
         if self.bias:
             self.b_re.zero_()
             self.b_im.zero_()

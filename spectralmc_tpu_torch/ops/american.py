@@ -26,6 +26,9 @@ monitor grid, the classic regression estimator of Longstaff & Schwartz
   too and the arithmetic basket on its log dispersion ``ln(B_arith/B_geom)``
   (``lsmc_backward``'s ``extra_rows``); Merton and the geometric basket are
   single-state.
+* Sharded training hands the threefry simulators and ``lsmc_backward`` a
+  ``paths_group``: each rank holds a shard of the paths and the regression's
+  moment sums are all-reduced over the group (JAX's ``axis_name`` psum).
 * ``lsmc_cashflows``/``lsmc_price`` — host-facing pricing with a standard
   error, the same-path European leg and its control variate; on the
   ``"cuda"`` engine through the monitor-row and backward kernels
@@ -47,6 +50,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from spectralmc_tpu_torch.ops.basket import (
     BasketCombine,
@@ -55,6 +59,7 @@ from spectralmc_tpu_torch.ops.basket import (
     basket_component_normals,
     basket_euler_step,
 )
+from spectralmc_tpu_torch.ops.collectives import ProcessGroup, psum
 from spectralmc_tpu_torch.ops.gbm import (
     BlackScholesContract,
     PathScheme,
@@ -134,6 +139,7 @@ def lsmc_backward(
     rows_in_log_space: bool = False,
     fit_mask: torch.Tensor | None = None,  # [*path dims] 1.0 = regression half
     cross_fit_mask: torch.Tensor | None = None,  # [*path dims] 1.0 = half A
+    paths_group: ProcessGroup | None = None,
 ) -> torch.Tensor:
     """Longstaff–Schwartz backward induction → cashflows discounted to t=0,
     ``[C, *path dims]`` (the JAX package's ``_lsmc_backward``).
@@ -146,7 +152,10 @@ def lsmc_backward(
     out-of-sample recursion and returns their per-path midpoint.
     ``disc_to_prev[:, i]`` is the discount over the segment ending at date i
     (it replaces the flat ``disc``). ``rows_in_log_space``: the rows hold log
-    prices, exponentiated per date.
+    prices, exponentiated per date. ``paths_group`` (JAX's ``axis_name``):
+    the rows are this rank's shard of the paths; the path count behind
+    ``1/N`` and each date's moment sums are all-reduced over the group, so
+    every shard solves the same system and applies the same policy.
     """
     if fit_mask is not None and cross_fit_mask is not None:
         raise ValueError("fit_mask and cross_fit_mask are mutually exclusive")
@@ -189,6 +198,14 @@ def lsmc_backward(
     for d in price_rows.shape[2:]:
         n_local *= d
     inv_n = torch.tensor(1.0 / n_local, dtype=dtype, device=price_rows.device)
+    if paths_group is not None:  # the global count folds in the group's size
+        inv_n = inv_n / dist.get_world_size(paths_group)
+
+    def reduced(moments: list[torch.Tensor]) -> list[torch.Tensor]:
+        """The moment sums of every shard: one all-reduce of them all."""
+        if paths_group is None:
+            return moments
+        return list(torch.unbind(psum(torch.stack(moments), paths_group)))
 
     def date_basis(
         row_t: torch.Tensor, extra: torch.Tensor | None
@@ -226,8 +243,9 @@ def lsmc_backward(
         y = disc_step * cf_next
         w = itm if fit_mask is None else itm * fit_mask
         wy = w * y
-        moments = [moment(w, xp, vp, a, b) * inv_n for a, b in prod_exp]
-        rhs = [moment(wy, xp, vp, a, b) * inv_n for a, b in col_exp]
+        moments = reduced([moment(w, xp, vp, a, b) * inv_n for a, b in prod_exp]
+                          + [moment(wy, xp, vp, a, b) * inv_n for a, b in col_exp])
+        rhs = moments[len(prod_exp):]
         beta = _ridge_chol_solve(gram_from(moments, 0), rhs, dtype=dtype)
         take = (itm > 0.0) & (exercise_now > continuation(beta, xp, vp))
         return torch.where(take, exercise_now, y)
@@ -246,7 +264,7 @@ def lsmc_backward(
         wy_b = w_b * y_oos
         wy_full = itm * y_ins
         p_len = len(prod_exp)
-        moments = (
+        moments = reduced(
             [moment(w_a, xp, vp, a, b) * inv_n for a, b in prod_exp]
             + [moment(w_b, xp, vp, a, b) * inv_n for a, b in prod_exp]
             + [moment(wy_a, xp, vp, a, b) * inv_n for a, b in col_exp]
@@ -326,10 +344,12 @@ def encode_monitor_prices(
     df_total: torch.Tensor | None = None,  # [C] the curve's df(0, T)
     rows_in_log_space: bool = False,
     cross_fit: bool = False,
+    paths_group: ProcessGroup | None = None,
 ) -> torch.Tensor:
     """Backward induction + synthetic-underlier encode ``u = K − cf/df``,
     ``[C, *path dims]``. ``cross_fit`` splits the 2-fold out-of-sample
-    policy on the parity of the last (column) index."""
+    policy on the parity of the last (column) index; ``paths_group`` is
+    ``lsmc_backward``'s."""
     cf = lsmc_backward(
         price_rows,
         strike=strike,
@@ -344,6 +364,7 @@ def encode_monitor_prices(
             cross_fit_col_mask(price_rows.shape[-1], dtype=dtype, device=price_rows.device)
             if cross_fit else None
         ),
+        paths_group=paths_group,
     )
     like = cf
     df = torch.exp(-rate * maturity) if df_total is None else df_total
@@ -365,6 +386,7 @@ def _american_encode(
     extra_rows: torch.Tensor | None = None,
     term: TermStructure | None = None,
     cross_fit: bool = False,
+    paths_group: ProcessGroup | None = None,
 ) -> torch.Tensor:
     """The Bermudan tail of the threefry engine over its monitor-date log
     rows (the JAX package's ``_american_encode`` after its monitor slice):
@@ -396,6 +418,7 @@ def _american_encode(
         df_total=df_total,
         rows_in_log_space=True,
         cross_fit=cross_fit,
+        paths_group=paths_group,
     )
 
 
@@ -414,6 +437,7 @@ def simulate_american_underlier_rows(
     antithetic_half: int | None = None,
     term: TermStructure | None = None,
     cross_fit: bool = False,
+    paths_group: ProcessGroup | None = None,
 ) -> torch.Tensor:
     """``[C, rows, cols]`` synthetic underliers of the American payoff kinds
     on the threefry stream (the JAX package's function, batched).
@@ -421,7 +445,8 @@ def simulate_american_underlier_rows(
     The log-Euler walk draws the canonical (contract key, global row,
     timestep) normals of ``gbm.simulate_terminal_rows``; only the monitor
     dates' log rows are kept. The Bermudan cashflow cf (discounted to t=0)
-    is encoded as ``u = K − cf/df``.
+    is encoded as ``u = K − cf/df``. With ``paths_group`` the rows are one
+    shard of the paths (at ``row_offset``) and the regression spans them all.
     """
     check_monitor_grid(timesteps, exercise_every)
     term = curved(term)
@@ -456,6 +481,7 @@ def simulate_american_underlier_rows(
         basis_degree=basis_degree,
         term=term,
         cross_fit=cross_fit,
+        paths_group=paths_group,
     )
 
 
@@ -509,6 +535,7 @@ def simulate_heston_american_underlier_rows(
     row_offset: int = 0,
     antithetic_half: int | None = None,
     cross_fit: bool = False,
+    paths_group: ProcessGroup | None = None,
 ) -> torch.Tensor:
     """``[C, rows, cols]`` synthetic American underliers under Heston
     dynamics on the threefry stream (the JAX package's function, batched).
@@ -533,6 +560,7 @@ def simulate_heston_american_underlier_rows(
         strike=c[:, 1], maturity=c[:, 2], rate=c[:, 3], dt=dt[:, 0, 0], dtype=dtype,
         put=option == OptionSide.PUT, basis_degree=basis_degree,
         extra_rows=torch.clamp(_monitor(v_rows, exercise_every), min=0.0), cross_fit=cross_fit,
+        paths_group=paths_group,
     )
 
 
@@ -582,6 +610,7 @@ def simulate_merton_american_underlier_rows(
     row_offset: int = 0,
     antithetic_half: int | None = None,
     cross_fit: bool = False,
+    paths_group: ProcessGroup | None = None,
 ) -> torch.Tensor:
     """``[C, rows, cols]`` synthetic American underliers under Merton
     dynamics on the threefry stream (the JAX package's function, batched).
@@ -605,6 +634,7 @@ def simulate_merton_american_underlier_rows(
         _monitor(log_rows, exercise_every), timesteps=timesteps, exercise_every=exercise_every,
         strike=c[:, 1], maturity=c[:, 2], rate=c[:, 3], dt=dt[:, 0, 0], dtype=dtype,
         put=option == OptionSide.PUT, basis_degree=basis_degree, cross_fit=cross_fit,
+        paths_group=paths_group,
     )
 
 
@@ -663,6 +693,7 @@ def simulate_basket_american_underlier_rows(
     row_offset: int = 0,
     antithetic_half: int | None = None,
     cross_fit: bool = False,
+    paths_group: ProcessGroup | None = None,
 ) -> torch.Tensor:
     """``[C, rows, cols]`` synthetic American underliers under basket
     dynamics on the threefry stream (the JAX package's function, batched):
@@ -693,7 +724,7 @@ def simulate_basket_american_underlier_rows(
         strike=c[:, 1], maturity=c[:, 2], rate=c[:, 3], dt=dt[:, 0, 0], dtype=dtype,
         put=option == OptionSide.PUT, basis_degree=basis_degree,
         extra_rows=None if geometric else _monitor(disp_rows, exercise_every),
-        cross_fit=cross_fit,
+        cross_fit=cross_fit, paths_group=paths_group,
     )
 
 

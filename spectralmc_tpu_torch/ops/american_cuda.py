@@ -65,6 +65,7 @@ import torch
 
 from spectralmc_tpu_torch.ops.american import OptionSide, _ridge_chol_solve, check_monitor_grid
 from spectralmc_tpu_torch.ops.basket import BasketCombine, BasketSpec, basket_cholesky
+from spectralmc_tpu_torch.ops.collectives import ProcessGroup
 from spectralmc_tpu_torch.ops.dynamics_cuda import (
     heston_coeffs_plain,
     heston_step_plain,
@@ -128,7 +129,7 @@ def two_state(sim: SimulationParams) -> bool:
             and sim.basket.combine == BasketCombine.ARITHMETIC)
 
 
-def resolve_lsmc_backward(sim: SimulationParams, *, rows: int) -> int:
+def resolve_lsmc_backward(sim: SimulationParams, *, rows: int, sharded: bool = False) -> int:
     """The LSMC backward version that will ACTUALLY run for this sim — 0 =
     the torch estimator, 3 and 4 the CUDA backward on one and two states —
     for the engine's simulator (``ops/dispatch.py``) and the trainer's
@@ -138,8 +139,11 @@ def resolve_lsmc_backward(sim: SimulationParams, *, rows: int) -> int:
     version 3, Heston and arithmetic baskets 4, cross-fit 0.
     ``lsmc_fused_backward`` is the JAX package's request for its TPU
     kernels; the config gates hold it to the JAX package's rules, and it
-    routes nothing here."""
-    if sim.payoff not in AMERICAN_PAYOFFS or rows <= 0:
+    routes nothing here. On a mesh (``sharded``) it is 0, as the JAX
+    package's is: the regression all-reduces its moment sums over the paths
+    group at every date, and one cooperative launch cannot wait on a
+    collective per date."""
+    if sim.payoff not in AMERICAN_PAYOFFS or rows <= 0 or sharded:
         return 0
     if resolve_implementation(sim) != SimImplementation.CUDA:
         return 0
@@ -933,20 +937,26 @@ def monitor_underliers(
     extra_rows: torch.Tensor | None = None,
     cross_fit: bool = False,
     backward: int = 0,
+    paths_group: ProcessGroup | None = None,
 ) -> torch.Tensor:
     """``[C, rows, cols]`` synthetic American underliers ``u = K − cf/df``
     from a monitor kernel's ``[C, n_monitor, rows, cols]`` price rows (and
     its second state ``extra_rows``, if any) by ``backward``:
     ``LSMC_BACKWARD_VERSIONS["cuda"]`` (price rows alone) and
     ``["cuda_two_state"]`` (with ``extra_rows``) run the CUDA backward, 0 the
-    torch estimator (which also takes ``cross_fit``). Callers
-    pass ``cuda_backward_version``'s value; nothing here re-routes. Every
+    torch estimator (which also takes ``cross_fit`` and, for rows that are
+    one shard of the paths, ``paths_group``). Callers pass
+    ``resolve_lsmc_backward``'s value; nothing here re-routes. Every
     contract layout has strike, maturity and rate at slots 1–3."""
     from spectralmc_tpu_torch.ops.american import encode_monitor_prices
 
     disc, df = monitor_discounts(params, timesteps=timesteps, exercise_every=exercise_every)
     put = option == OptionSide.PUT
     if backward in LSMC_BACKWARD_VERSIONS.values():
+        if paths_group is not None:
+            raise ValueError(
+                f"the CUDA backward v{backward} regresses on one launch's paths; rows "
+                "sharded over a paths group run the torch estimator (backward 0)")
         two = backward == LSMC_BACKWARD_VERSIONS["cuda_two_state"]
         if cross_fit or (extra_rows is not None) != two:
             raise ValueError(
@@ -963,7 +973,7 @@ def monitor_underliers(
     return encode_monitor_prices(
         price_rows, strike=params[:, 1], maturity=params[:, 2], rate=params[:, 3],
         disc_monitor=disc, dtype=torch.float32, put=put, basis_degree=basis_degree,
-        extra_rows=extra_rows, cross_fit=cross_fit,
+        extra_rows=extra_rows, cross_fit=cross_fit, paths_group=paths_group,
     )
 
 
@@ -983,10 +993,12 @@ def simulate_american_underlier_rows_cuda(
     row_offset: int = 0,
     cross_fit: bool = False,
     backward: int = 0,
+    paths_group: ProcessGroup | None = None,
 ) -> torch.Tensor:
     """``[C, rows, cols]`` synthetic American underliers on the ``"cuda"``
     engine: the monitor kernel of ``model`` (``spec``: a basket's), then
-    ``monitor_underliers`` on its rows."""
+    ``monitor_underliers`` on its rows (``paths_group``: rows that are one
+    shard of the paths, at ``row_offset``)."""
     price_rows, extra_rows = american_rows_cuda(
         params, key_words, model=model, spec=spec, timesteps=timesteps, rows=rows, cols=cols,
         exercise_every=exercise_every, antithetic_half=antithetic_half, row_offset=row_offset,
@@ -994,7 +1006,7 @@ def simulate_american_underlier_rows_cuda(
     return monitor_underliers(
         price_rows, params, timesteps=timesteps, exercise_every=exercise_every, option=option,
         basis_degree=basis_degree, extra_rows=extra_rows, cross_fit=cross_fit,
-        backward=backward,
+        backward=backward, paths_group=paths_group,
     )
 
 

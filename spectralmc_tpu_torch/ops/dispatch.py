@@ -27,6 +27,7 @@ from spectralmc_tpu_torch.ops.basket import (
     expected_basket_underlier_mean,
     simulate_basket_underlier_rows,
 )
+from spectralmc_tpu_torch.ops.collectives import ProcessGroup
 from spectralmc_tpu_torch.ops.gbm import (
     AMERICAN_PAYOFFS,
     CONTRACT_DIM,
@@ -73,7 +74,9 @@ def contract_dim(sim: SimulationParams) -> int:
     return _CONTRACTS[sim.model][1]
 
 
-def _cuda_simulator(sim: SimulationParams, *, rows: int, anti_half: int | None) -> Simulator:
+def _cuda_simulator(
+    sim: SimulationParams, *, rows: int, anti_half: int | None, paths_group: ProcessGroup | None
+) -> Simulator:
     """The kernel wrapper ``resolve_implementation`` chose, with its knobs."""
     from spectralmc_tpu_torch.ops import american_cuda, basket_cuda, dynamics_cuda, gbm_cuda
 
@@ -83,8 +86,9 @@ def _cuda_simulator(sim: SimulationParams, *, rows: int, anti_half: int | None) 
         launch = american_cuda.simulate_american_underlier_rows_cuda
         knobs = dict(option=_option_side(sim), model=sim.model, spec=sim.basket,
                      basis_degree=sim.lsmc_basis_degree, exercise_every=sim.lsmc_exercise_every,
-                     cross_fit=sim.lsmc_cross_fit,
-                     backward=american_cuda.resolve_lsmc_backward(sim, rows=rows))
+                     cross_fit=sim.lsmc_cross_fit, paths_group=paths_group,
+                     backward=american_cuda.resolve_lsmc_backward(
+                         sim, rows=rows, sharded=paths_group is not None))
     elif sim.payoff == PayoffKind.CLIQUET:  # flat log-Euler GBM only
         launch = gbm_cuda.simulate_cliquet_rows_cuda
         knobs = dict(reset_every=sim.cliquet_reset_every, floor=sim.cliquet_floor,
@@ -119,7 +123,9 @@ def _option_side(sim: SimulationParams) -> OptionSide:
     return OptionSide.PUT if sim.payoff == PayoffKind.AMERICAN_PUT else OptionSide.CALL
 
 
-def make_underlier_simulator(sim: SimulationParams, *, rows: int) -> Simulator:
+def make_underlier_simulator(
+    sim: SimulationParams, *, rows: int, paths_group: ProcessGroup | None = None
+) -> Simulator:
     """``(key_words [C, 2], contracts [C, D], row_offset=0) -> [C, rows, network]``.
 
     The engine is the one ``resolve_implementation`` says will run, decided
@@ -130,6 +136,11 @@ def make_underlier_simulator(sim: SimulationParams, *, rows: int) -> Simulator:
     American kind its state-row simulator), with the term knob, the
     basket's spec and, for ``SOBOL_BB``, the sampling and its seed. Every
     engine keys rows by GLOBAL index, so ``row_offset`` shards are stable.
+    ``paths_group`` is the mesh's paths group when the caller simulates one
+    shard of the rows (JAX's ``axis_name``): only the American kinds use it
+    (their LSMC regression all-reduces its moment sums over it, and on the
+    ``"cuda"`` engine runs the torch estimator); the pathwise simulators
+    ignore it.
     """
     resolved = resolve_implementation(sim)
     anti_half = sim.batches_per_mc_run // 2 if sim.antithetic else None
@@ -138,7 +149,7 @@ def make_underlier_simulator(sim: SimulationParams, *, rows: int) -> Simulator:
             "the 'pallas' engine draws the TPU hardware PRNG; this package cannot run it"
         )
     if resolved == SimImplementation.CUDA:
-        return _cuda_simulator(sim, rows=rows, anti_half=anti_half)
+        return _cuda_simulator(sim, rows=rows, anti_half=anti_half, paths_group=paths_group)
 
     kwargs = dict(
         timesteps=sim.timesteps, rows=rows, cols=sim.network_size,
@@ -154,7 +165,7 @@ def make_underlier_simulator(sim: SimulationParams, *, rows: int) -> Simulator:
             timesteps=sim.timesteps, rows=rows, cols=sim.network_size,
             dtype=sim.precision.to_torch(), option=_option_side(sim),
             basis_degree=sim.lsmc_basis_degree, exercise_every=sim.lsmc_exercise_every,
-            antithetic_half=anti_half, cross_fit=sim.lsmc_cross_fit,
+            antithetic_half=anti_half, cross_fit=sim.lsmc_cross_fit, paths_group=paths_group,
         )
         if sim.model == ModelKind.HESTON:
             forward = simulate_heston_american_underlier_rows

@@ -1131,13 +1131,16 @@ def normalized_terminal(
     dtype: torch.dtype,
     mean_target: torch.Tensor | None = None,
     term: TermStructure | None = None,
+    row_mean: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(terminal', strike, forward, df)``, each batch-shaped ``[C, 1]``
     except ``terminal'`` ``[C, P]``: with ``normalize`` the sample mean of
     each contract's row is rescaled to ``mean_target`` (default: the
-    forward). ``contracts`` is ``[C, D]`` of any dynamics: the five market
-    fields lead. With a ``term``, discounting and the forward use the
-    curve-effective rates ``rate·mean(rs)`` and ``div·mean(qs)``."""
+    forward). ``row_mean`` ``[C, 1]`` replaces the row's own mean: a shard of
+    the paths passes the mean over every shard. ``contracts`` is ``[C, D]``
+    of any dynamics: the five market fields lead. With a ``term``,
+    discounting and the forward use the curve-effective rates
+    ``rate·mean(rs)`` and ``div·mean(qs)``."""
     c = contracts.to(dtype)
     spot, strike, maturity, rate, div_yield = (c[:, i, None] for i in range(5))
     if term is not None and term.n_steps() is not None:
@@ -1147,7 +1150,8 @@ def normalized_terminal(
     df = torch.exp(-rate * maturity)
     if normalize:
         target = forward if mean_target is None else mean_target.reshape(-1, 1)
-        terminal = terminal * (target / torch.mean(terminal, dim=1, keepdim=True))
+        mean = torch.mean(terminal, dim=1, keepdim=True) if row_mean is None else row_mean
+        terminal = terminal * (target / mean)
     return terminal, strike, forward, df
 
 
@@ -1159,11 +1163,14 @@ def discounted_put(
     dtype: torch.dtype,
     mean_target: torch.Tensor | None = None,
     term: TermStructure | None = None,
+    row_mean: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The put payoff vector ``[C, P]`` alone — what the training target
-    needs, without materializing the call vector."""
+    needs, without materializing the call vector (``row_mean``:
+    ``normalized_terminal``'s)."""
     terminal, strike, _, df = normalized_terminal(
-        terminal, contracts, normalize=normalize, dtype=dtype, mean_target=mean_target, term=term
+        terminal, contracts, normalize=normalize, dtype=dtype, mean_target=mean_target, term=term,
+        row_mean=row_mean,
     )
     return df * torch.clamp(strike - terminal, min=0.0)
 

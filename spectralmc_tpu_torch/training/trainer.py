@@ -7,6 +7,10 @@ fields, plus ``cuda_stream_version`` and ``provenance``), ``StepMetrics`` and
 ``GbmCVNNPricer.create/train/train_via_effects/snapshot/predict_price/predict_greeks``.
 
 * ``create`` takes an explicit ``device``; nothing is picked by default.
+  With a ``mesh_spec`` (``parallel/mesh.py``) the pricer is this rank's
+  replica: its batches are the sharded step of ``parallel/trainer.py``, its
+  LSMC backward is the torch estimator, and a partial ``contract_chunk``
+  must divide the per-shard batch. Commits go through the caller's ``coordinator_only`` hook.
 * The MC engine that will run is resolved and recorded: a fresh config
   whose engine cannot run is downgraded, a mid-stream one fails with
   ``EngineMismatch``, and a ``"pallas"`` config (the TPU hardware-PRNG
@@ -55,7 +59,6 @@ from typing import Callable, Mapping, Sequence, Union
 import numpy as np
 import torch
 
-from spectralmc_tpu_torch.core.errors import not_ported
 from spectralmc_tpu_torch.core.errors.trainer import (
     CheckpointMismatch,
     CommitPlanMismatch,
@@ -92,6 +95,8 @@ from spectralmc_tpu_torch.ops.sobol import (
     SobolSampler,
     build_domain_bounds,
 )
+from spectralmc_tpu_torch.parallel.distributed import joined_device_type
+from spectralmc_tpu_torch.parallel.mesh import MeshSpec
 from spectralmc_tpu_torch.training.adam_state import (
     AdamState,
     AdamStateSnapshot,
@@ -113,6 +118,7 @@ from spectralmc_tpu_torch.training.step import (
     make_mean_target,
     model_params,
     schedule_rates,
+    shard_shape_error,
 )
 
 IFFT_RESIDUE_WARN = 1e-6
@@ -416,7 +422,8 @@ class SegmentStart:
 
 
 class GbmCVNNPricer:
-    """Online CVNN-on-MC-spectra trainer and server on one torch device."""
+    """Online CVNN-on-MC-spectra trainer and server on one torch device (on
+    a mesh, one rank's replica)."""
 
     def __init__(
         self,
@@ -425,6 +432,7 @@ class GbmCVNNPricer:
         opt_snapshot: AdamStateSnapshot | None,
         sampler: SobolSampler[object],
         device: torch.device,
+        mesh_spec: MeshSpec | None = None,
     ) -> None:
         self._sim = config.sim
         self._bounds = dict(config.bounds)
@@ -433,6 +441,7 @@ class GbmCVNNPricer:
         self._opt_snapshot = opt_snapshot
         self._sampler = sampler
         self._device = device
+        self._mesh_spec = mesh_spec
         self._global_step = config.global_step
         self._sobol_skip = config.sobol_skip
         self._normalize_inputs = config.normalize_inputs
@@ -452,11 +461,22 @@ class GbmCVNNPricer:
         config: GbmCVNNPricerConfig,
         *,
         device: torch.device | str,
-        mesh_spec: object | None = None,
+        mesh_spec: MeshSpec | None = None,
     ) -> Result["GbmCVNNPricer", TrainerError]:
+        """The pricer for ``config`` on ``device``; with ``mesh_spec`` (built
+        on every rank, ``parallel/mesh.py``) this rank's replica of a sharded
+        pricer (on a mesh the LSMC backward is the torch estimator)."""
         device = torch.device(device)
+        if mesh_spec is not None and not isinstance(mesh_spec, MeshSpec):
+            raise TypeError(
+                f"mesh_spec must be a parallel.mesh.MeshSpec, got {type(mesh_spec).__name__}")
         if mesh_spec is not None:
-            raise not_ported("sharded training (mesh_spec)", "queue 1 item 19 (parallel)")
+            joined = joined_device_type()
+            if joined != device.type:
+                return Failure(InvalidTrainingConfig(
+                    field="mesh", value=str(device),
+                    reason=f"the world was joined for {joined} devices "
+                    f"({mesh_spec.backend}); join with device_type={device.type!r}"))
         sim = config.sim
         if sim.implementation == SimImplementation.PALLAS:
             return Failure(
@@ -499,7 +519,8 @@ class GbmCVNNPricer:
                         "was written; its bit stream cannot continue",
                     )
                 )
-        backward_version = resolve_lsmc_backward(sim, rows=sim.batches_per_mc_run)
+        backward_version = resolve_lsmc_backward(sim, rows=sim.batches_per_mc_run,
+                                                 sharded=mesh_spec is not None)
         recorded_backward = config.lsmc_backward_version
         if recorded_backward not in (0, *LSMC_BACKWARD_VERSIONS.values()) or (
             mid_stream and recorded_backward != backward_version
@@ -549,7 +570,7 @@ class GbmCVNNPricer:
             lsmc_backward_version=backward_version,
             cuda_stream_version=stream_version,
         )
-        return Success(cls(recorded_config, model, opt, sampler_res.value, device))
+        return Success(cls(recorded_config, model, opt, sampler_res.value, device, mesh_spec))
 
     # -- accessors -----------------------------------------------------------
 
@@ -650,6 +671,9 @@ class GbmCVNNPricer:
         contract_chunk: int | None,
         lr_schedule: LRScheduleConfig | None,
     ) -> BatchFn:
+        """One batch on one device, or this rank's sharded batch on a mesh
+        (its loss is the all-reduced one, so every rank takes the same
+        divergence decision)."""
         return make_fused_batch(
             self._model,
             self._sim,
@@ -659,7 +683,21 @@ class GbmCVNNPricer:
             contract_chunk=contract_chunk,
             normalize_inputs=self._normalize_inputs,
             lr_schedule=lr_schedule,
+            spec=self._mesh_spec,
         )
+
+    def _shard_mismatch(self, config: TrainingConfig) -> TrainerError | None:
+        """The batch must split over the mesh: the batch over its batch
+        axis, the rows over its paths axis, and a partial ``contract_chunk``
+        must divide the PER-SHARD batch (``build_training_config`` cannot
+        see the mesh)."""
+        error = shard_shape_error(self._mesh_spec, batch_size=config.batch_size,
+                                  rows=self._sim.batches_per_mc_run,
+                                  contract_chunk=config.contract_chunk)
+        if error is None:
+            return None
+        field, value, reason = error
+        return InvalidTrainingConfig(field=field, value=value, reason=f"{reason} on this mesh")
 
     def _segment(
         self,
@@ -710,7 +748,7 @@ class GbmCVNNPricer:
         (``utils/profiling.py::profile_trace``), one ``train_segment`` range a
         segment."""
         plan = commit_plan if commit_plan is not None else NoCommit()
-        error = _plan_error(plan, commit_fn)
+        error = _plan_error(plan, commit_fn) or self._shard_mismatch(config)
         if error is not None:
             return Failure(error)
         interval = _commit_interval(plan)
@@ -790,7 +828,7 @@ class GbmCVNNPricer:
         commits reach the store from there too.
         """
         plan = commit_plan if commit_plan is not None else NoCommit()
-        error = _plan_error(plan, commit_fn)
+        error = _plan_error(plan, commit_fn) or self._shard_mismatch(config)
         if error is not None:
             return Failure(error)
         sequence = build_training_run_effects(

@@ -32,8 +32,11 @@ def test_every_port_module_imports_without_jax() -> None:
                  "utils.tensorboard_writer"):
         assert f"spectralmc_tpu_torch.{name}" in modules
     for name in ("gbm_cuda", "dynamics_cuda", "heston", "merton", "basket", "basket_cuda", "qmc",
-                 "qmc_cuda", "american", "american_cuda", "greeks"):
+                 "qmc_cuda", "american", "american_cuda", "greeks", "collectives"):
         assert f"spectralmc_tpu_torch.ops.{name}" in modules
+    for name in ("parallel", "parallel.mesh", "parallel.trainer", "parallel.distributed",
+                 "runtime.transfer"):
+        assert f"spectralmc_tpu_torch.{name}" in modules
     script = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

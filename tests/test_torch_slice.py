@@ -239,7 +239,7 @@ def test_create_refuses_pallas_and_unported_features() -> None:
     res = ttr.GbmCVNNPricer.create(pallas, device="cpu")
     assert res.is_failure() and isinstance(res.error, EngineMismatch)
     assert res.error.requested == "pallas"
-    with pytest.raises(NotImplementedError, match="queue 1 item 19"):
+    with pytest.raises(TypeError, match="MeshSpec"):  # a mesh is a parallel.mesh.MeshSpec
         ttr.GbmCVNNPricer.create(_port_config(), device="cpu", mesh_spec=object())
     pricer = ttr.GbmCVNNPricer.create(_port_config(), device="cpu").expect("p")
     cfg = ttr.build_training_config(num_batches=1, **TRAIN).expect("cfg")
