@@ -58,7 +58,7 @@ non-zero and no result line is printed):
                   13 steps (the walk's tails).
                   Each branch group is timed at the training chunk 256 x 2048
                   x 512 x 16 (log-Euler) with CUDA events, and its twin's
-                  second call at the same shape, beside its bound_ms and its
+                  call at the same shape, beside its bound_ms and its
                   share of the SASS instruction cap; the term, Merton and
                   cliquet groups also at the 64 contracts their main path
                   launches.
@@ -107,7 +107,7 @@ non-zero and no result line is printed):
                   (the digital and the geometric forward start through
                   TERMINAL), rtol 2e-5, knocks and signs flipped on at most
                   1e-5 of the paths; each branch group timed at 32 contracts
-                  (CUDA events; the twin's second call) beside its bound and
+                  (CUDA events; the twin's call) beside its bound and
                   its SASS cap share, and TERMINAL again at the main path's
                   256 contracts (checked there too; its kernel record).
 13. qmc-kernel  — the QMC bridge kernel against its twin for F = 1, 2, 3, a
@@ -318,6 +318,36 @@ non-zero and no result line is printed):
                   torch.distributed.all_reduce) and each rank's start-up
                   seconds; several ranks on one card test the wiring, not
                   scaling.
+31. entry-points — after phase 30, the user entry points around the
+                  package: (a) each of examples/torch/01-13 through its
+                  ``run`` on the card at the JAX example's sizes (06 as four
+                  gloo ranks on cuda:0 at (2, 2), 08 as two; nccl where the
+                  machine has a card a rank), each held to this script's gate
+                  for its quantity — 01 put and call within 4 SE of Black;
+                  02's puts within 3% of Black, 07's and 12's probe within 5%
+                  of the semi-analytic and series prices; 03 the chain valid
+                  and a tampered artifact refused; 04 the resume from HEAD
+                  bit-equal; 05 the clients' bytes the committed ones and the
+                  served put equal three ways; 06 the sharded losses within
+                  rtol 2e-4 of one process, replicas bit-equal; 08 one commit,
+                  from rank 0; 09 within 2% (abs 0.01) of analytic_greeks,
+                  gamma 5%; 10 the geometric basket within 4 SE of its closed
+                  form; 11 LSMC within max(4 SE, 0.5%) of the Bermudan tree
+                  and the split-sample pair around it within 4 SE, backward 3
+                  recorded; 13 the curved put within 4% of
+                  term_effective_black — with its seconds and the kernel
+                  branches it launched, each that its path runs at least once;
+                  (b) tools/torch_model_check.py at phase 4's configuration
+                  (the production batch, chunk and head) for TERMINAL on
+                  "cuda", the SOBOL_BB geometric Asian, the American put and
+                  the Heston American put: every split schedule of 4 batches
+                  through the checkpoint bytes bit-equal to the continuous run
+                  (0 violations), engine and backward (3, 4) as recorded; (c)
+                  the float64 threefry TERMINAL pricer: 3 steps on the card
+                  and on the CPU from the same weights at 8 contracts x 64 x
+                  64 paths x 4 steps, losses within rtol 1e-9; then its rows
+                  halved from 64 until a production-batch step takes at most
+                  2 s (the cut printed) and the model check there.
 11. profile     — only with ``--profile``, after phase 30: for the TERMINAL,
                   the Asian, the Heston, the basket, the SOBOL_BB
                   geometric-Asian and the American put pricer, 10 warm train
@@ -344,8 +374,11 @@ kernels, and phase 28 before the training loop's runs, each of which it
 checks launched kernel #1 twice a step; phase 29 sets them to 0 again and
 adds its own launches of #1, #2 and #14 to their records; phase 30 adds the
 launches of #1 on its (1, 1) nccl mesh (counts set to 0 just before) and on
-each gloo rank, and of #4 on the American ranks (each rank counts from 0). The last lines are
-the kernel record as JSON, the nvidia-smi line, and the result JSON.
+each gloo rank, and of #4 on the American ranks (each rank counts from 0);
+phase 31 sets them to 0 before each example and each model check and adds
+what it launched (the ranks of examples 06 and 08 count in their own
+processes). The last lines are the kernel record as JSON, the nvidia-smi
+line, and the result JSON.
 """
 
 from __future__ import annotations
@@ -354,12 +387,14 @@ import argparse
 import asyncio
 import dataclasses
 import functools
+import importlib.util
 import inspect
 import json
 import math
 import re
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -369,6 +404,8 @@ import numpy as np
 import torch
 
 from spectralmc_tpu_torch.core.errors.serialization import ChecksumMismatch
+from spectralmc_tpu_torch.core.errors.storage import ChecksumError as StoreChecksumError
+from spectralmc_tpu_torch.core.precision import Precision
 from spectralmc_tpu_torch.models.factory import (
     Activation,
     CovBNCfg,
@@ -444,6 +481,7 @@ from spectralmc_tpu_torch.utils.flops import (
     sim_path_steps,
     train_step_matmul_flops,
 )
+from tools import torch_model_check
 
 ROWS, COLS, STEPS = 2048, 512, 16
 BATCH, CHUNK = 512, 256
@@ -631,6 +669,18 @@ def cuda_ms(fn, *, iters: int = 10, warmup: int = 2) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def cap_share(rate: float, cap: float, key: str = "share_of_instruction_cap") -> dict[str, object]:
+    """``{key: share}`` of the SASS instruction cap a kernel reached (``rate``
+    over ``cap``, both per second); a share above 1 cannot be read — the
+    count took instructions the loop does not issue — and is printed as
+    null with that reason."""
+    share = rate / cap
+    if share <= 1.0:
+        return {key: f"{share:.4f}"}
+    return {key: None, f"{key}_unread": "the SASS count takes instructions the loop does not "
+            "issue (the measured rate passes the cap it implies)"}
 
 
 def bound_ms(group: str, contracts: int, steps: int) -> tuple[float, str]:
@@ -1058,10 +1108,13 @@ def loop_weights(
         raise AssertionError(f"no loop found in the SASS of {group}")
     body = pick_loop(loops)
     share = {a: 1.0 for a, _ in body}
+    idle, switches = argument_switches(body, body[0][0], body[-1][0] + 1)
     philox = calls = single = 0
     for addr, op in body:
         skip = re.search(SASS_BRANCH, op)
         if not (skip and op.startswith("@") and addr < int(skip.group(1), 16) <= body[-1][0]):
+            continue
+        if addr in idle or addr in switches:
             continue
         inside = [a for a, o in body if addr < a < int(skip.group(1), 16)]
         region = [o for a, o in body if a in inside]
@@ -1075,13 +1128,81 @@ def loop_weights(
                                          region[-1].startswith("BRA")):
             single += len(region)
             share.update(dict.fromkeys(inside, 0.0))
+    share.update(dict.fromkeys(idle, 0.0))
     steps = steps_per_iteration
     unskipped = sum(bool(re.search(PHILOX_MULTIPLY, op)) for a, op in body if share[a] == 1.0)
     if draws_per_step and not philox and unskipped >= 16:
         steps = round(round(unskipped / 20) * 2 / draws_per_step)
-    per_iteration = len(body) - calls - single - philox / 2
-    found = f"{len(body)}-{calls}-{single}-{philox}/2={per_iteration:g}/{steps}"
+    per_iteration = len(body) - calls - single - philox / 2 - len(idle)
+    found = (f"{len(body)}-{calls}-{single}-{philox}/2" + (f"-{len(idle)}" if idle else "")
+             + f"={per_iteration:g}/{steps}")
     return [(a, op, share[a]) for a, op in body], steps, found
+
+
+# A two-way branch on a kernel argument: the compare that sets its predicate
+# reads registers the loop last loaded from the parameter bank (c[0x0]),
+# which ptxas reloads in the loop where it reuses the register, or uniform
+# registers (one value a warp) the loop never writes.
+KERNEL_ARGUMENT = r"^U?LDC(?:\.\w+)? (U?R\d+), c\[0x0\]"
+DESTINATION = r"^(?:@!?U?P\w+ )?[A-Z][\w.]* ((?:U?P|U?R)\w+)\b"
+
+
+def on_kernel_argument(body: list[tuple[int, str]], index: int) -> bool:
+    """Whether the conditional branch ``body[index]`` tests a kernel
+    argument (KERNEL_ARGUMENT), so every thread of a launch takes one arm
+    on every iteration."""
+    predicate = re.match(r"@!?(P\d+) BRA ", body[index][1])
+    if predicate is None:
+        return False
+
+    def last_write(reg: str, before: int) -> int | None:
+        return next((j for j in range(before - 1, -1, -1)
+                     if (d := re.match(DESTINATION, body[j][1])) and d.group(1) == reg), None)
+
+    def invariant(reg: str, before: int) -> bool:
+        load = last_write(reg, before)
+        if load is not None:
+            return bool(re.match(KERNEL_ARGUMENT, body[load][1]))
+        return reg.startswith("UR") and last_write(reg, len(body)) is None
+
+    compare = last_write(predicate.group(1), index)
+    if compare is None:
+        return False
+    regs = re.findall(r"\bU?R\d+\b", body[compare][1].split(",", 1)[-1])
+    return bool(regs) and all(invariant(reg, compare) for reg in regs)
+
+
+def argument_switches(body: list[tuple[int, str]], lo: int, hi: int) -> tuple[set[int], set[int]]:
+    """``(idle, switches)`` in the addresses ``[lo, hi)`` of a loop body:
+    each if/else on a kernel argument (``on_kernel_argument``; the then arm
+    ends by jumping over the else arm) runs one arm, the longer one counted
+    and the other idle (its addresses), arms nested in arms alike; the
+    switches are those branches' addresses."""
+    at = {a: i for i, (a, _) in enumerate(body)}
+    idle: set[int] = set()
+    switches: set[int] = set()
+    i = next((k for k, (a, _) in enumerate(body) if a >= lo), len(body))
+    while i < len(body) and body[i][0] < hi:
+        addr, op = body[i]
+        jump = re.search(SASS_BRANCH, op)
+        target = int(jump.group(1), 16) if jump else 0
+        last = at.get(target - 16) if addr < target <= hi else None
+        over = re.fullmatch(r"BRA 0x([0-9a-f]+)", body[last][1]) if last is not None else None
+        if op.startswith("@") and over and int(over.group(1), 16) > target \
+                and on_kernel_argument(body, i):
+            end = min(int(over.group(1), 16), hi)
+            arms = [(addr + 1, target), (target, end)]
+            inner = [argument_switches(body, a, b) for a, b in arms]
+            sizes = [sum(a <= x < b and x not in sub[0] for x, _ in body)
+                     for (a, b), sub in zip(arms, inner)]
+            keep = 0 if sizes[0] >= sizes[1] else 1
+            a, b = arms[1 - keep]
+            idle |= inner[keep][0] | {x for x, _ in body if a <= x < b}
+            switches |= {addr} | inner[keep][1]
+            i = next((k for k, (x, _) in enumerate(body) if x >= end), len(body))
+            continue
+        i += 1
+    return idle, switches
 
 
 def parse_instruction_counts(
@@ -1596,12 +1717,13 @@ def kernel_and_twin(family: str, payoff: PayoffKind, kw: dict[str, object]) -> t
 
 def compare(
     device: torch.device, payoff: PayoffKind, contracts: int = 4, family: str = "gbm",
-    warm_twin: bool = False, **kw: object,
+    **kw: object,
 ) -> dict[str, float]:
     """The kernel against its twin over ``contracts`` contracts; raises past
     the tolerances. Returns ``max_abs_err`` and ``max_rel`` over the agreeing
     paths, ``flips`` (the paths past ``KERNEL_RTOL``), ``plain_ms`` (the
-    twin's one call by CUDA events, after one more when ``warm_twin``) and,
+    twin's one call by CUDA events: it takes seconds at the timed shapes, so
+    a warm-up call would double its cost for milliseconds of set-up) and,
     for a continuous Heston payoff, ``past_rel`` (the largest scaled error
     among the paths past the tolerance) with ``past_low`` and ``all_low`` (how
     many of those paths, and what share of all paths, had a low variance).
@@ -1611,8 +1733,6 @@ def compare(
     kernel, twin = kernel_and_twin(family, payoff, kw)
     traces = ({}, {}) if family == "merton" else None
     got = kernel(params, keys) if traces is None else kernel(params, keys, trace=traces[0])
-    if warm_twin:
-        twin(params, keys)
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     want = twin(params, keys) if traces is None else twin(params, keys, trace=traces[1])
@@ -1792,8 +1912,8 @@ def phase_kernel(
         launched = {}
         if family == "gbm" and payoff != PayoffKind.CLIQUET:
             kw["scheme"] = PathScheme.LOG_EULER
-        # the timed shape, checked; the twin's second call there is its time
-        found = compare(device, payoff, CHUNK, family, warm_twin=True, **kw)
+        # the timed shape, checked; the twin's call there is its time
+        found = compare(device, payoff, CHUNK, family, **kw)
         fold(group, found)
         r, plain_ms = record[group], found["plain_ms"]
         params, keys = kernel_inputs(device, CHUNK, 1, family)
@@ -1819,7 +1939,7 @@ def phase_kernel(
               kernel_path_steps_per_s=f"{path_steps / ms * 1e3:.4e}",
               plain_path_steps_per_s=f"{path_steps / plain_ms * 1e3:.4e}",
               instruction_cap_path_steps_per_s=f"{cap:.4e}",
-              share_of_instruction_cap=f"{path_steps / ms * 1e3 / cap:.4f}", **launched)
+              **cap_share(path_steps / ms * 1e3, cap), **launched)
     # the continuous Heston payoffs' paths past KERNEL_RTOL, and their cause
     phase("kernel-heston-past-rtol", **past, max_rel_cap=HESTON_CAP_RTOL,
           share_allowed=HESTON_SHARE, low_variance_below=HESTON_LOW_VARIANCE)
@@ -2335,7 +2455,7 @@ def phase_basket_kernel(
     """The basket kernel against its twin on every case at 8 contracts of
     2048 x 512 x 16 (rtol 2e-5; knocks and signs flipped on at most 1e-5 of
     the paths), then each branch group timed at 32 contracts (CUDA events;
-    the twin's second call) beside its bound and its SASS cap share, and
+    the twin's call) beside its bound and its SASS cap share, and
     TERMINAL again at the main path's 256 contracts (checked there too; the
     kernel record keeps that shape)."""
     record = {g: {"max_abs_err": 0.0, "max_rel": 0.0, "flips": 0, "cases": 0}
@@ -2351,7 +2471,7 @@ def phase_basket_kernel(
     for group, contracts in timed:
         payoff, extra = BASKET_TIMED[group]
         kw = dict(timesteps=STEPS, rows=ROWS, cols=COLS, spec=BASKET_SPEC, **extra)
-        found = compare(device, payoff, contracts, "basket", warm_twin=True, **kw)
+        found = compare(device, payoff, contracts, "basket", **kw)
         params, keys = kernel_inputs(device, contracts, 1, "basket")
         kernel, _ = kernel_and_twin("basket", payoff, kw)
         ms = cuda_ms(lambda: kernel(params, keys))
@@ -2371,7 +2491,7 @@ def phase_basket_kernel(
               bound_ms=f"{bound:.3f}", bound_by=bound_by, share_of_bound=f"{bound / ms:.4f}",
               sass_per_path_step=round(per_step[group], 3),
               kernel_path_steps_per_s=f"{path_steps / ms * 1e3:.4e}",
-              share_of_instruction_cap=f"{path_steps / ms * 1e3 / cap:.4f}")
+              **cap_share(path_steps / ms * 1e3, cap))
         del params, keys
         torch.cuda.empty_cache()
     return record
@@ -2563,7 +2683,7 @@ def phase_qmc_kernel(device: torch.device, qmc_sass: dict[str, object],
         if factors == 1 and "total" in bridge_split:
             per_point = LANES_PER_CLOCK * max_sm_hz / bridge_split["total"]
             cap = dict(sass_per_point=bridge_split["total"],
-                       share_of_instruction_cap=f"{points / ms * 1e3 / per_point:.4f}")
+                       **cap_share(points / ms * 1e3, per_point))
         phase("kernel-qmc-time", kernel="qmc_bridge",
               shape=f"{contracts}x{ROWS}x{COLS}x{STEPS}", factors=factors, kernel_ms=f"{ms:.3f}",
               **dense, bound_ms=f"{bound:.4f}", bound_by=bound_by,
@@ -2583,7 +2703,7 @@ def phase_qmc_kernel(device: torch.device, qmc_sass: dict[str, object],
         per_point = LANES_PER_CLOCK * max_sm_hz / qmc_sass["total"]
         cap = dict(sass_per_point=qmc_sass["total"],
                    instruction_cap_points_per_s=f"{per_point:.4e}",
-                   share_of_instruction_cap=f"{points / ms * 1e3 / per_point:.4f}")
+                   **cap_share(points / ms * 1e3, per_point))
     phase("kernel-qmc-time", kernel="qmc_walk", shape=f"{CHUNK}x{ROWS}x{COLS}x{STEPS}",
           kernel_ms=f"{ms:.3f}", bound_ms=f"{bound:.3f}", bound_by=bound_by,
           share_of_bound=f"{bound / ms:.4f}", points_per_s=f"{points / ms * 1e3:.4e}", **cap)
@@ -3007,7 +3127,7 @@ def phase_kernel_american(device: torch.device, sass: tuple[float, str],
     ms = cuda_ms(lambda: american_cuda.simulate_american_rows_cuda(params, keys, **kw))
     torch.cuda.empty_cache()
     plain_ms = cuda_ms(lambda: american_cuda.simulate_american_rows_cuda_plain(params, keys, **kw),
-                       iters=1, warmup=1)
+                       iters=1, warmup=0)
     torch.cuda.empty_cache()
     bound, bound_by = american_bound_ms(CHUNK, ROWS, COLS, STEPS, 1)
     per_step, found = sass
@@ -3023,7 +3143,7 @@ def phase_kernel_american(device: torch.device, sass: tuple[float, str],
           bound_by=bound_by, share_of_bound=f"{bound / ms:.4f}",
           output_gb=round(CHUNK * ROWS * COLS * STEPS * 4 / 1e9, 3),
           sass_per_path_step=round(per_step, 3), sass_loop=found,
-          share_of_instruction_cap=f"{path_steps / ms * 1e3 / cap:.4f}",
+          **cap_share(path_steps / ms * 1e3, cap),
           every4_kernel_ms=f"{ms4:.3f}", every4_bound_ms=f"{bound4:.3f}", every4_bound_by=by4)
     return {"american_gbm": dict(worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                                  bound_by=bound_by)}
@@ -3084,7 +3204,7 @@ def time_backward(name: str, price_rows: torch.Tensor, kw: dict[str, object],
     twin: list[torch.Tensor] = []
     plain_ms = cuda_ms(lambda: twin.append(american_cuda.lsmc_backward_cuda_plain(price_rows,
                                                                                  **kw)),
-                       iters=1, warmup=1)
+                       iters=1, warmup=0)
     want = twin[-1]
     err = max(float((got - want).abs().max()), float((again - want).abs().max()))
     flips = int((got != want).sum()) + int((again != want).sum())
@@ -3109,7 +3229,7 @@ def time_backward(name: str, price_rows: torch.Tensor, kw: dict[str, object],
           schedule_bytes_per_s=f"{slabs * paths * 4 / ms * 1e3:.4e}",
           twin_bit_equal_at_shape=True, repeat_bit_equal=True, max_abs_err=err,
           block_sass_per_path_date=round(per_date, 3), sass_block=found,
-          share_of_block_instruction_cap=f"{paths * monitors / ms * 1e3 / cap:.4f}",
+          **cap_share(paths * monitors / ms * 1e3, cap, "share_of_block_instruction_cap"),
           resident_grid=f"{grid}x{slots} tiles", launches_per_backward=1, **extra)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, max_abs_err=err)
 
@@ -3559,7 +3679,7 @@ def phase_kernel_american_dynamics(
         plain = {}
         if name is not None or contracts == BASKET_TIMED_CONTRACTS:
             plain_ms = cuda_ms(lambda: dynamics_rows(case, params, keys, plain=True, **kw),
-                               iters=1, warmup=1)
+                               iters=1, warmup=0)
             plain = dict(plain_ms=f"{plain_ms:.3f}")
             torch.cuda.empty_cache()
         bound, bound_by = dynamics_bound_ms(case, contracts, STEPS)
@@ -3574,7 +3694,7 @@ def phase_kernel_american_dynamics(
               output_gb=round(outputs * path_steps * 4 / 1e9, 3),
               sass_per_path_step=round(per_step, 3), sass_loop=found,
               kernel_path_steps_per_s=f"{path_steps / ms * 1e3:.4e}",
-              share_of_instruction_cap=f"{path_steps / ms * 1e3 / cap:.4f}")
+              **cap_share(path_steps / ms * 1e3, cap))
         if name is not None:
             w = worst[case]
             if case == "basket3_arithmetic":  # the record's error covers every basket case
@@ -5156,6 +5276,238 @@ def phase_sharded(device: torch.device, smi: str) -> dict[str, int]:
     return launches
 
 
+# Phase 31: the user entry points around the package. Each example's gate is
+# the one this script holds that quantity to elsewhere; the trained models'
+# puts (02, 07, 12) are held to the verify skill's convergence figures for a
+# 600-batch run: the canonical GBM pricer within ~2-3% of Black (3%), a
+# probe at the centre of its bounds within ~3-5% (5%).
+EXAMPLES = Path(__file__).resolve().parent / "examples" / "torch"
+EXAMPLE_KERNELS = {  # example -> the kernel branches its run launches on the card
+    "01": ("terminal",), "02": ("terminal",), "03": (), "04": ("terminal",),
+    "05": ("terminal",), "06": ("terminal",), "07": ("heston_terminal",), "08": ("terminal",),
+    "09": ("terminal",), "10": ("basket_terminal",), "11": ("american_gbm", "lsmc_backward"),
+    "12": ("merton_terminal",), "13": ("term_terminal",),
+}
+TRAINED_PUT_REL = {"02": 0.03, "07": 0.05, "12": 0.05}
+SHARDED_EXAMPLE_RTOL = 2e-4  # phase 30 (c)'s gate on gloo ranks sharing the card
+
+
+def load_example(path: Path) -> object:
+    spec = importlib.util.spec_from_file_location(f"torch_example_{path.stem}", path)
+    module = sys.modules[spec.name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def example_gate(name: str, out: dict[str, object]) -> dict[str, object]:
+    """Hold example ``name``'s returned numbers to its gate; what it printed
+    against what, for the phase's line."""
+    def fail(what: str) -> None:
+        raise AssertionError(f"example {name}: {what}")
+
+    if name == "01":
+        zs = [z_score(out[side], out[f"{side}_se"], out[f"analytic_{side}"], 0.0)
+              for side in ("put", "call")]
+        if max(zs) > 4.0 or out["skip"] != 1:
+            fail(f"z {zs} against Black, skip {out['skip']}")
+        return {"z_put_call": [round(z, 3) for z in zs], "gate": "4 SE"}
+    if name in TRAINED_PUT_REL:
+        got = np.asarray(out["put"], dtype=float)
+        want = np.asarray(out["analytic_put" if name == "02" else "exact_put"], dtype=float)
+        rel = np.abs(got / want - 1.0)
+        if not np.all(np.isfinite(out["losses"])) or rel.max() > TRAINED_PUT_REL[name]:
+            fail(f"puts {got} against {want}")
+        return {"puts": np.round(got, 4).tolist(), "oracle": np.round(want, 4).tolist(),
+                "max_rel_err": f"{rel.max():.4f}", "gate": TRAINED_PUT_REL[name]}
+    if name == "03":
+        if out["verdict"] != ChainValid(versions=3) or out["tampered"] != "Failure" \
+                or not isinstance(out["tampered_error"], StoreChecksumError):
+            fail(f"chain {out['verdict']}, tampered load {out['tampered_error']!r}")
+        return {"chain": repr(out["verdict"]), "tampered": type(out["tampered_error"]).__name__}
+    if name == "04":
+        if not out["resume_equal"] or len(out["versions"]) != 3:
+            fail(f"resume {out['continued']} vs {out['resumed']}, versions {out['versions']}")
+        return {"commits": [m.split()[0] for _, m in out["versions"]], "resume_bit_equal": True}
+    if name == "05":
+        if (out["pinned_bytes"], out["tracked_bytes"]) != (out["v0_bytes"], out["v1_bytes"]) \
+                or not out["served_put"] == out["columnar_put"] == out["trainer_put"]:
+            fail("the clients served other bytes or prices than were committed")
+        return {"served": [out["pinned"], out["tracking_swapped"]],
+                "bytes_bit_equal": True, "served_put": out["served_put"]}
+    if name == "06":
+        if not out["replicas_equal"] or out["max_rel_diff"] > SHARDED_EXAMPLE_RTOL:
+            fail(f"sharded gap {out['max_rel_diff']}, replicas equal {out['replicas_equal']}")
+        return {"mesh": str(out["mesh"]), "backend": out["backend"],
+                "devices": out["devices"], "max_rel_diff": f"{out['max_rel_diff']:.3e}",
+                "gate": SHARDED_EXAMPLE_RTOL}
+    if name == "08":
+        coordinators = [r["is_coordinator"] for r in out["ranks"]]
+        if not out["replicas_equal"] or out["verdict"] != ChainValid(versions=1) \
+                or coordinators != [True, False]:
+            fail(f"chain {out['verdict']}, replicas {out['replicas_equal']}, {coordinators}")
+        return {"mesh": out["ranks"][0]["mesh"], "backend": out["backend"],
+                "devices": out["devices"], "commits": "rank 0 only",
+                "chain": repr(out["verdict"])}
+    if name == "09":
+        mc, oracle = out["mc"], out["oracle"]
+        worst = check_greeks("example 09", mc, oracle.price,
+                             {f: oracle.by_field[f] for f in GREEKS_FIELDS}, rel=0.02,
+                             floor=0.01, price_abs=0.01)
+        gamma_miss = abs(mc.gamma - oracle.gamma) / oracle.gamma
+        if gamma_miss > 0.05 or mc.engine != SimImplementation.CUDA:
+            fail(f"gamma {mc.gamma} vs {oracle.gamma} on {mc.engine}")
+        return {"engine": mc.engine.value, "worst_rel_miss": f"{worst:.3e}",
+                "gamma_rel_miss": f"{gamma_miss:.3e}", "gate": "2%, gamma 5%"}
+    if name == "10":
+        z = z_score(out["geo_call"], out["geo_se"], out["geo_closed_form"], 0.0)
+        calls = out["arithmetic_call"]
+        if z > 4.0 or not calls[0] < calls[1] < calls[2]:
+            fail(f"geometric z {z}, arithmetic calls by correlation {calls}")
+        return {"geometric_z": round(z, 3), "gate": "4 SE", "arithmetic_calls": calls}
+    if name == "11":
+        lsmc, bracket, tree = out["lsmc"], out["bracket"], out["tree"]
+        slack = 4 * bracket.std_error
+        if abs(lsmc.price - tree) > max(4 * lsmc.std_error, 0.005 * tree) \
+                or not bracket.price - slack <= tree <= bracket.in_sample_price + slack \
+                or (out["engine"], out["lsmc_backward_version"]) != (
+                    "cuda", american_cuda.LSMC_BACKWARD_VERSIONS["cuda"]):
+            fail(f"LSMC {lsmc}, bracket {bracket}, tree {tree}, engine {out['engine']} "
+                 f"v{out['lsmc_backward_version']}")
+        return {"lsmc": round(lsmc.price, 4), "se": round(lsmc.std_error, 4),
+                "tree": round(tree, 4), "bracket": [round(bracket.price, 4),
+                                                    round(bracket.in_sample_price, 4)],
+                "gate": "max(4 SE, 0.5%); bracket within 4 SE",
+                "lsmc_backward_version": out["lsmc_backward_version"]}
+    if name == "13":
+        rel = abs(out["put"] / out["effective_black_put"] - 1.0)
+        if rel > 0.04 or out["greeks"].engine != SimImplementation.CUDA:
+            fail(f"curved put {out['put']} vs {out['effective_black_put']}")
+        return {"put": round(out["put"], 4), "effective_black": round(
+            out["effective_black_put"], 4), "rel_err": f"{rel:.4f}", "gate": 0.04}
+    raise AssertionError(f"example {name} has no gate")
+
+
+def phase_examples(device: torch.device, smi: str) -> dict[str, int]:
+    """Phase 31 (a): each of examples/torch/01-13 on the card at its own
+    sizes, through ``run``, against its gate; the kernel branches it launched
+    (the ranks' own counts for 06 and 08), each expected one at least once."""
+    launches: dict[str, int] = {}
+    paths = sorted(EXAMPLES.glob("[0-9]*.py"))
+    if [p.name[:2] for p in paths] != sorted(EXAMPLE_KERNELS):
+        raise AssertionError(f"examples/torch holds {[p.name for p in paths]}")
+    for path in paths:
+        name = path.name[:2]
+        module = load_example(path)
+        gbm_cuda.reset_launches()  # this example's count starts here
+        start = time.perf_counter()
+        out = module.run(device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launched = {b: n for b, n in gbm_cuda.LAUNCHES_BY_BRANCH.items() if n}
+        for branch, n in out.get("rank_launches", {}).items():
+            launched[branch] = launched.get(branch, 0) + n
+        missing = [b for b in EXAMPLE_KERNELS[name] if not launched.get(b)]
+        if missing:
+            raise AssertionError(f"example {path.stem} launched no {missing} kernel")
+        phase("example", example=path.stem, seconds=f"{seconds:.2f}", launches=launched,
+              **example_gate(name, out), card=repr(smi))
+        for branch, n in launched.items():
+            launches[branch] = launches.get(branch, 0) + n
+    return launches
+
+
+CHECKED_PRICERS = (  # label, config, recorded engine, backward version, kernels launched
+    ("terminal", lambda: pricer_config(PayoffKind.TERMINAL), "cuda", 0, ("terminal",)),
+    ("qmc-asian", lambda: pricer_config(PayoffKind.ASIAN_GEOMETRIC, sampling="sobol_bb"),
+     "xla", 0, ("qmc_walk",)),
+    ("american", american_config, "cuda", american_cuda.LSMC_BACKWARD_VERSIONS["cuda"],
+     ("american_gbm", "lsmc_backward")),
+    ("heston-american", american_dynamics_config, "cuda",
+     american_cuda.LSMC_BACKWARD_VERSIONS["cuda_two_state"],
+     ("american_heston", "lsmc_two_state")),
+)
+CHECK_BATCHES = 4
+FLOAT64_STEP_LIMIT_S = 2.0
+# a float64 threefry step at the full 2048 rows takes over a minute on the
+# card (PERF.md), so the halving of its rows starts at 64
+FLOAT64_START_ROWS = 64
+FLOAT64_CPU_RTOL = 1e-9
+
+
+def checked(label: str, base: GbmCVNNPricerConfig, engine: str, backward: int,
+            kernels: tuple[str, ...], device: torch.device, smi: str,
+            **line: object) -> dict[str, int]:
+    """The model checker on ``base`` at the production batch: 0 violations
+    over every split schedule of CHECK_BATCHES, the recorded engine and
+    backward, the kernels launched."""
+    gbm_cuda.reset_launches()  # the checker's count starts here
+    report = torch_model_check.run_model_check(
+        base, CHECK_BATCHES, device=device, label=f"[model-check] {label}",
+        training=torch_model_check.Training(batch_size=BATCH, contract_chunk=CHUNK))
+    launched = {b: n for b, n in gbm_cuda.LAUNCHES_BY_BRANCH.items() if n}
+    if report.violations or (report.implementation, report.lsmc_backward_version) != (
+            engine, backward) or not all(launched.get(k) for k in kernels):
+        raise AssertionError(f"model check {label}: {report}, launches {launched}")
+    phase("model-check", pricer=label, schedules=report.schedules + 1,
+          split_schedules=report.schedules, violations=0, engine=report.implementation,
+          stream_version=report.cuda_stream_version,
+          lsmc_backward_version=report.lsmc_backward_version, launches=launched,
+          seconds=f"{report.seconds:.1f}", **line, card=repr(smi))
+    return launched
+
+
+def float64_card_vs_cpu(device: torch.device, smi: str) -> None:
+    """Phase 31 (c), first part: the float64 threefry TERMINAL pricer at a
+    small size, 3 steps on the card and on the CPU from the same weights,
+    losses within rtol 1e-9."""
+    sim = build_simulation_params(timesteps=4, network_size=64, batches_per_mc_run=64,
+                                  mc_seed=7, implementation="xla",
+                                  precision="float64").expect("float64 sim")
+    config = GbmCVNNPricerConfig(sim=sim, bounds=BOUNDS, normalize_inputs=True,
+                                 cvnn=torch_model_check.production_cvnn(Precision.float64))
+    cfg = build_training_config(num_batches=3, batch_size=8, learning_rate=1e-3).expect("cfg")
+    card = GbmCVNNPricer.create(config, device=device).expect("card").train(cfg).expect("t")
+    cpu = GbmCVNNPricer.create(config, device="cpu").expect("cpu").train(cfg).expect("t")
+    gap = float(np.max(np.abs(card.losses / cpu.losses - 1.0)))
+    if gap > FLOAT64_CPU_RTOL:
+        raise AssertionError(f"float64: card losses {card.losses} vs CPU {cpu.losses}")
+    phase("float64-card-vs-cpu", engine="xla", precision="float64",
+          shape="8 contracts x 64 x 64 paths x 4 steps", card=card.losses.tolist(),
+          cpu=cpu.losses.tolist(), max_rel_gap=f"{gap:.3e}", gate=FLOAT64_CPU_RTOL,
+          bit_equal=bool(np.array_equal(card.losses, cpu.losses)), nvidia_smi=repr(smi))
+
+
+def phase_entry_points(device: torch.device, smi: str) -> dict[str, int]:
+    """Phase 31: (a) the examples, (b) the model checker at the production
+    batch for four pricers, (c) the float64 threefry engine. The kernel
+    launches of its runs, by branch."""
+    start = time.perf_counter()
+    launches = phase_examples(device, smi)
+    for label, config, engine, backward, kernels in CHECKED_PRICERS:
+        for branch, n in checked(label, config(), engine, backward, kernels, device,
+                                 smi).items():
+            launches[branch] = launches.get(branch, 0) + n
+    float64_card_vs_cpu(device, smi)
+    rows = FLOAT64_START_ROWS
+    while True:
+        base, training = torch_model_check.config_for("terminal_f64", full=True, rows=rows)
+        pricer = GbmCVNNPricer.create(base, device=device).expect("float64")
+        torch.cuda.synchronize()
+        step = time.perf_counter()
+        pricer.train(training.config(1)).expect("float64 step")
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - step
+        del pricer
+        if step_s <= FLOAT64_STEP_LIMIT_S:
+            break
+        rows //= 2
+    checked("terminal-float64", base, "xla", 0, (), device, smi,
+            rows_cut=f"{ROWS} -> {rows} rows a contract (a step under {FLOAT64_STEP_LIMIT_S} s)",
+            step_s=f"{step_s:.3f}")
+    phase("entry-points", seconds=f"{time.perf_counter() - start:.1f}", card=repr(smi))
+    return launches
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -5246,6 +5598,9 @@ def main() -> None:
         launches[group] += run["launches"]
     for group, n in phase_sharded(device, smi).items():
         launches[group] += n
+    for group, n in phase_entry_points(device, smi).items():
+        if group in launches:
+            launches[group] += n
     if args.profile:
         phase_profile(pricer, "")
         phase_profile(asian, "-asian")

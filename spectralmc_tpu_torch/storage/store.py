@@ -17,6 +17,7 @@ Failures are ``Result`` ADTs, and the backend is any ``ObjectStore``
 from __future__ import annotations
 
 import asyncio
+import hashlib
 import json
 from datetime import datetime, timezone
 
@@ -30,7 +31,6 @@ from spectralmc_tpu_torch.core.errors.storage import (
 )
 from spectralmc_tpu_torch.core.errors.storage import ChecksumError as ChecksumErr
 from spectralmc_tpu_torch.core.result import Failure, Result, Success
-from spectralmc_tpu_torch.serialization import compute_sha256
 from spectralmc_tpu_torch.storage.chain import (
     ModelVersion,
     create_genesis_version,
@@ -81,6 +81,13 @@ def _parse_chain(data: bytes) -> Result[ModelVersion, StorageError]:
     return Success(version)
 
 
+
+def _sha256(data: bytes) -> str:
+    """The content hash (``serialization.compute_sha256``'s, here without
+    the serialization package, so the store loads without torch)."""
+    return hashlib.sha256(data).hexdigest()
+
+
 class AsyncBlockchainModelStore:
     """Content-addressed version chain over any ``ObjectStore``."""
 
@@ -129,9 +136,9 @@ class AsyncBlockchainModelStore:
     async def commit(
         self, checkpoint: bytes, content_hash: str, message: str
     ) -> Result[ModelVersion, StorageError]:
-        if compute_sha256(checkpoint) != content_hash:
+        if _sha256(checkpoint) != content_hash:
             return Failure(
-                ChecksumErr(expected=content_hash, actual=compute_sha256(checkpoint))
+                ChecksumErr(expected=content_hash, actual=_sha256(checkpoint))
             )
 
         # 1-2: fetch HEAD, build the candidate version
@@ -294,7 +301,7 @@ class AsyncBlockchainModelStore:
         if isinstance(result, Failure):
             return Failure(result.error)
         data, _ = result.value
-        actual = compute_sha256(data)
+        actual = _sha256(data)
         if actual != version.content_hash:
             return Failure(ChecksumErr(expected=version.content_hash, actual=actual))
         return Success(data)

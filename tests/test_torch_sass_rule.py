@@ -388,3 +388,53 @@ def test_cliquet_split_counts_a_path_by_part(tmp_path: Path) -> None:
     # index: S2R, IMAD and the tail's guard; coefficients: the FFMA and the skip
     assert (split["index"], split["coefficients"], split["store"]) == (3.0, 2.0, 2.0)
     assert split["total"] == 107.0 and split["outside_loop"] == 7
+
+
+HESTON_SASS = Path(__file__).resolve().parent / "fixtures" / "sass" / \
+    "heston_paths_lookback_barrier.sass"
+
+
+def test_heston_lookback_counts_one_arm_of_its_variant_switch() -> None:
+    """The Heston kernel's lookback loop (the card's ``cuobjdump -sass`` of
+    ``heston_paths_kernel<2>``, saved) switches three ways on the
+    ``variant`` argument, each arm two steps of the walk; the barrier's
+    two ways on it. Each path runs one arm, so the rule counts the longest
+    and the rest is idle: about the barrier's count a step, not the 195.5
+    (two arms) that put the lookback's cap share above 1."""
+    text = HESTON_SASS.read_text()
+    kernels = {"heston_paths_kernelILi2E": "heston_lookback",
+               "heston_paths_kernelILi1E": "heston_barrier"}
+    counts, found = cs.parse_instruction_counts(
+        text, kernels, {}, pick_loop=lambda loops: max(loops, key=len),
+        single_step=lambda group: False, draws_per_step=dict.fromkeys(kernels.values(), 1))
+    assert found == {"heston_lookback": "601-13-0-0/2-367=221/2",
+                     "heston_barrier": "324-13-0-0/2-92=219/2"}
+    assert counts == {"heston_lookback": 110.5, "heston_barrier": 109.5}
+
+
+@pytest.mark.parametrize("source,switch", [("LDC R9, c[0x0][0x23c]", True),
+                                           ("ULDC UR9, c[0x0][0x23c]", True),
+                                           ("FADD R9, R1, R2", False)])
+def test_only_a_switch_on_a_kernel_argument_idles_an_arm(source: str, switch: bool) -> None:
+    """An if/else whose predicate compares a register the loop loaded from
+    the parameter bank (or a uniform register it does not write) runs one
+    arm a launch; one on data is a divergent branch, both arms issue."""
+    reg = source.split()[1].rstrip(",")
+    # the compare, a branch over a 6-op then arm ending in a jump over a
+    # 4-op else arm, and the back branch
+    ops = [source, f"ISETP.NE.AND P1, PT, {reg}, 0x1, PT", f"@!P1 BRA 0x{16 * 10:x}",
+           *["FADD R1, R2, R3"] * 6, f"BRA 0x{16 * 14:x}", *["FMUL R1, R2, R3"] * 4,
+           "@P0 BRA 0x0"]
+    weights, steps, found = cs.loop_weights(
+        _sass(ops).split("Function : ")[1], "g", pick_loop=lambda loops: max(loops, key=len),
+        single_step=lambda group: False)
+    idle = sum(w == 0.0 for *_, w in weights)
+    assert idle == (4 if switch else 0)
+    assert sum(w for *_, w in weights) == len(ops) - idle
+
+
+def test_a_share_past_the_cap_is_printed_as_unread() -> None:
+    assert cs.cap_share(0.5, 1.0) == {"share_of_instruction_cap": "0.5000"}
+    unread = cs.cap_share(1.2, 1.0)
+    assert unread["share_of_instruction_cap"] is None
+    assert "instructions the loop does not issue" in unread["share_of_instruction_cap_unread"]
