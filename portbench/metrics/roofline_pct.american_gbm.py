@@ -1,0 +1,19 @@
+"""``roofline_pct.american_gbm``: path kernel #4's bound at its launched
+shape (``counts/kernels.py``, contract_chunk x rows x cols x steps, a monitor
+date every ``lsmc_exercise_every`` steps) over its mean device time a launch
+in the traced window, in percent."""
+
+from portbench.counts.kernels import american_gbm_bound_ms
+
+PATTERN = "american_gbm_kernel"
+
+
+def read(outcome, ctx):
+    t = outcome.trace
+    times = [d for name, _, d in (t.kernels if t else []) if PATTERN in name]
+    if not times:
+        return None
+    p, chunk = ctx.cell.config["pricer"], ctx.cell.config["training"]["contract_chunk"]
+    bound_ms, _ = american_gbm_bound_ms(chunk, p["batches_per_mc_run"], p["network_size"],
+                                        p["timesteps"], p["knobs"]["lsmc_exercise_every"])
+    return 100.0 * (bound_ms / 1e3) / (sum(times) / len(times))
