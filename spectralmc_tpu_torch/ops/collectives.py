@@ -14,15 +14,19 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from spectralmc_tpu_torch.utils.profiling import span
+
 ProcessGroup = dist.ProcessGroup
 
 
 def psum(tensor: torch.Tensor, group: ProcessGroup) -> torch.Tensor:
-    """``tensor`` summed over ``group``'s ranks, as a new tensor."""
-    out = tensor.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(torch.view_as_real(out) if out.is_complex() else out,
-                    op=dist.ReduceOp.SUM, group=group)
-    return out
+    """``tensor`` summed over ``group``'s ranks, as a new tensor (one
+    ``spectralmc.collective`` span: every all-reduce of this module is one)."""
+    with span("spectralmc.collective"):
+        out = tensor.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(torch.view_as_real(out) if out.is_complex() else out,
+                        op=dist.ReduceOp.SUM, group=group)
+        return out
 
 
 def pmean(tensor: torch.Tensor, group: ProcessGroup) -> torch.Tensor:

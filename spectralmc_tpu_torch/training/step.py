@@ -33,6 +33,7 @@ from spectralmc_tpu_torch.ops.gbm import ForwardNormalization, SimulationParams,
 from spectralmc_tpu_torch.ops.sobol import scale_to_bounds, sobol_unit
 from spectralmc_tpu_torch.ops.spectrum import mean_spectrum_psum, payoff_spectrum
 from spectralmc_tpu_torch.training.adam_state import AdamState, adam_update_, warmup_cosine_rate
+from spectralmc_tpu_torch.utils.profiling import span
 
 if TYPE_CHECKING:  # parallel/ builds on this module
     from spectralmc_tpu_torch.parallel.mesh import MeshSpec
@@ -105,25 +106,28 @@ def make_mc_spectrum(
     mean_target = make_mean_target(sim)
 
     def mc_spectrum(draws: torch.Tensor, contracts: torch.Tensor) -> torch.Tensor:
-        key_words = rng.fold_in(base_key, draws)
-        terminal = simulate(key_words, contracts, row_offset=row_offset)
-        flat = terminal.reshape(terminal.shape[0], -1)
-        row_mean = None
-        if normalize and paths is not None:
-            row_mean = pmean(torch.mean(flat, dim=1, keepdim=True), paths)
-        put = discounted_put(
-            flat,
-            contracts,
-            normalize=normalize,
-            dtype=dtype,
-            mean_target=mean_target(contracts),
-            term=sim.term,
-            row_mean=row_mean,
-        )
-        if paths is None:
-            return payoff_spectrum(put, batches=rows, network_size=sim.network_size)
-        return mean_spectrum_psum(put, batches=rows, network_size=sim.network_size,
-                                  group=paths, total_batches=sim.batches_per_mc_run)
+        with span("spectralmc.step.paths"):
+            key_words = rng.fold_in(base_key, draws)
+            terminal = simulate(key_words, contracts, row_offset=row_offset)
+        with span("spectralmc.step.payoff"):
+            flat = terminal.reshape(terminal.shape[0], -1)
+            row_mean = None
+            if normalize and paths is not None:
+                row_mean = pmean(torch.mean(flat, dim=1, keepdim=True), paths)
+            put = discounted_put(
+                flat,
+                contracts,
+                normalize=normalize,
+                dtype=dtype,
+                mean_target=mean_target(contracts),
+                term=sim.term,
+                row_mean=row_mean,
+            )
+        with span("spectralmc.step.fft"):
+            if paths is None:
+                return payoff_spectrum(put, batches=rows, network_size=sim.network_size)
+            return mean_spectrum_psum(put, batches=rows, network_size=sim.network_size,
+                                      group=paths, total_batches=sim.batches_per_mc_run)
 
     return mc_spectrum
 
@@ -216,36 +220,42 @@ def make_fused_batch(
     buffers = [b for _, b in model.named_buffers()]
 
     def one_batch(state: StepState) -> tuple[torch.Tensor, torch.Tensor]:
-        start = (state.sobol_skip + offset) & rng.MASK32
-        unit = sobol_unit(table.directions, table.shift, start, local_b, dtype)
-        contracts = scale_to_bounds(unit, lower, upper)  # [B, D]
-        draws = (state.mc_skip + offset + torch.arange(local_b, device=device)) & rng.MASK32
-        with torch.no_grad():
-            specs = torch.cat([
-                mc_spectrum(draws[i:i + chunk], contracts[i:i + chunk])
-                for i in range(0, local_b, chunk)
-            ])
-        inputs = normalize_fn(contracts)  # the MC keeps raw market units
-        model.train()
-        out_re, out_im = model(inputs, torch.zeros_like(inputs))
-        loss = torch.mean(torch.square(out_re - specs.real.to(dtype))) + torch.mean(
-            torch.square(out_im - specs.imag.to(dtype))
-        )
-        grad_list = list(torch.autograd.grad(loss, list(params.values())))
-        loss = loss.detach()
-        if spec is not None:
-            # one average over the batch group: the loss, the gradients and
-            # the running statistics (kept replicated across contract shards)
+        with span("spectralmc.step"):
+            with span("spectralmc.step.sample"):
+                start = (state.sobol_skip + offset) & rng.MASK32
+                unit = sobol_unit(table.directions, table.shift, start, local_b, dtype)
+                contracts = scale_to_bounds(unit, lower, upper)  # [B, D]
+                draws = (state.mc_skip + offset
+                         + torch.arange(local_b, device=device)) & rng.MASK32
             with torch.no_grad():
-                loss, *reduced = pmean_many([loss, *grad_list, *buffers], spec.batch_group)
-                grad_list = reduced[:len(params)]
-                for live, mean in zip(buffers, reduced[len(params):]):
-                    live.copy_(mean)
-        grads = dict(zip(params, grad_list))
-        grad_norm = torch.stack([g.abs().max() for g in grads.values()]).max()
-        adam_update_(params, grads, state.adam, rate(state.adam.count))
-        state.sobol_skip = (state.sobol_skip + batch_size) & rng.MASK32
-        state.mc_skip = (state.mc_skip + batch_size) & rng.MASK32
-        return loss.to(torch.float32), grad_norm.to(torch.float32)
+                specs = torch.cat([
+                    mc_spectrum(draws[i:i + chunk], contracts[i:i + chunk])
+                    for i in range(0, local_b, chunk)
+                ])
+            with span("spectralmc.step.cvnn_forward"):
+                inputs = normalize_fn(contracts)  # the MC keeps raw market units
+                model.train()
+                out_re, out_im = model(inputs, torch.zeros_like(inputs))
+                loss = torch.mean(torch.square(out_re - specs.real.to(dtype))) + torch.mean(
+                    torch.square(out_im - specs.imag.to(dtype))
+                )
+            with span("spectralmc.step.cvnn_backward"):
+                grad_list = list(torch.autograd.grad(loss, list(params.values())))
+            loss = loss.detach()
+            if spec is not None:
+                # one average over the batch group: the loss, the gradients and
+                # the running statistics (kept replicated across contract shards)
+                with torch.no_grad():
+                    loss, *reduced = pmean_many([loss, *grad_list, *buffers], spec.batch_group)
+                    grad_list = reduced[:len(params)]
+                    for live, mean in zip(buffers, reduced[len(params):]):
+                        live.copy_(mean)
+            with span("spectralmc.step.adam"):
+                grads = dict(zip(params, grad_list))
+                grad_norm = torch.stack([g.abs().max() for g in grads.values()]).max()
+                adam_update_(params, grads, state.adam, rate(state.adam.count))
+            state.sobol_skip = (state.sobol_skip + batch_size) & rng.MASK32
+            state.mc_skip = (state.mc_skip + batch_size) & rng.MASK32
+            return loss.to(torch.float32), grad_norm.to(torch.float32)
 
     return one_batch

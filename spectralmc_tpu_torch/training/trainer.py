@@ -120,6 +120,7 @@ from spectralmc_tpu_torch.training.step import (
     schedule_rates,
     shard_shape_error,
 )
+from spectralmc_tpu_torch.utils.profiling import profile_trace, span
 
 IFFT_RESIDUE_WARN = 1e-6
 _LOG = logging.getLogger(__name__)
@@ -712,26 +713,30 @@ class GbmCVNNPricer:
         losses and gradient norms. A non-finite last loss undoes the segment
         (``SegmentStart``) and fails with the JAX package's step; otherwise
         the metrics go out and the pricer absorbs the new counters."""
-        start = SegmentStart.take(self._model, state.adam)
-        counters = (state.sobol_skip, state.mc_skip)
-        losses, gnorms = [], []
-        for _ in range(length):
-            loss, gnorm = one_batch(state)
-            losses.append(loss)
-            gnorms.append(gnorm)
-        packed = torch.stack([torch.stack(losses), torch.stack(gnorms)]).cpu().numpy()
-        seg_losses, seg_gnorms = packed[0], packed[1]
-        if not np.isfinite(seg_losses[-1]):
-            start.restore(self._model, state.adam)
-            state.sobol_skip, state.mc_skip = counters
-            return Failure(
-                NonFiniteLoss(
-                    step=base_step + length, loss=float(seg_losses[-1]), reason="training diverged"
+        with span("train_segment"):
+            with span("spectralmc.train.segment_start"):
+                start = SegmentStart.take(self._model, state.adam)
+            counters = (state.sobol_skip, state.mc_skip)
+            losses, gnorms = [], []
+            for _ in range(length):
+                loss, gnorm = one_batch(state)
+                losses.append(loss)
+                gnorms.append(gnorm)
+            with span("spectralmc.train.fetch"):
+                packed = torch.stack([torch.stack(losses), torch.stack(gnorms)]).cpu().numpy()
+            seg_losses, seg_gnorms = packed[0], packed[1]
+            if not np.isfinite(seg_losses[-1]):
+                start.restore(self._model, state.adam)
+                state.sobol_skip, state.mc_skip = counters
+                return Failure(
+                    NonFiniteLoss(
+                        step=base_step + length, loss=float(seg_losses[-1]),
+                        reason="training diverged",
+                    )
                 )
-            )
-        self._emit_metrics(base_step, seg_losses, seg_gnorms, learning_rate, lr_schedule)
-        self._absorb(state, base_step + length)
-        return Success((seg_losses, seg_gnorms))
+            self._emit_metrics(base_step, seg_losses, seg_gnorms, learning_rate, lr_schedule)
+            self._absorb(state, base_step + length)
+            return Success((seg_losses, seg_gnorms))
 
     def train(
         self,
@@ -745,8 +750,8 @@ class GbmCVNNPricer:
         plan's commit boundaries, committing at each full interval and at the
         end as the plan says (a final commit on an interval boundary is made
         once). ``profile_dir`` records the call with torch.profiler
-        (``utils/profiling.py::profile_trace``), one ``train_segment`` range a
-        segment."""
+        (``utils/profiling.py::profile_trace``), with the program's spans: one
+        ``train_segment`` a segment, and the step's beneath it."""
         plan = commit_plan if commit_plan is not None else NoCommit()
         error = _plan_error(plan, commit_fn) or self._shard_mismatch(config)
         if error is not None:
@@ -760,26 +765,17 @@ class GbmCVNNPricer:
         losses: list[np.ndarray] = []
         gnorms: list[np.ndarray] = []
         batches_done = 0
-        with contextlib.ExitStack() as stack:
-            if profile_dir:
-                from spectralmc_tpu_torch.utils.profiling import profile_trace
-
-                stack.enter_context(profile_trace(profile_dir, device=self._device))
+        with (profile_trace(profile_dir, device=self._device) if profile_dir
+              else contextlib.nullcontext()):
             for seg_len in segment_lengths(config.num_batches, interval):
-                span = (
-                    torch.profiler.record_function("train_segment")
-                    if profile_dir
-                    else contextlib.nullcontext()
+                outcome = self._segment(
+                    state,
+                    one_batch,
+                    seg_len,
+                    start_step + batches_done,
+                    config.learning_rate,
+                    config.lr_schedule,
                 )
-                with span:
-                    outcome = self._segment(
-                        state,
-                        one_batch,
-                        seg_len,
-                        start_step + batches_done,
-                        config.learning_rate,
-                        config.lr_schedule,
-                    )
                 batches_done += seg_len
                 if isinstance(outcome, Failure):
                     return outcome
@@ -1085,11 +1081,21 @@ class GbmCVNNPricer:
         accepted and changes nothing.
         """
         del pad_to_bucket
-        np_dtype = self._sim.precision.to_np()
-        host = _contracts_to_host(contracts, contract_class(self._sim), np_dtype)
-        arr, n = _pad_to_bucket(torch.from_numpy(host).to(self._device))
-        m = int(arr.shape[0])
-        packed = self._predict_packed(arr).cpu().numpy()  # the one device->host copy
+        with span("spectralmc.serve"):
+            with span("spectralmc.serve.prepare"):
+                np_dtype = self._sim.precision.to_np()
+                host = _contracts_to_host(contracts, contract_class(self._sim), np_dtype)
+                arr, n = _pad_to_bucket(torch.from_numpy(host).to(self._device))
+            with span("spectralmc.serve.forward"):
+                out = self._predict_packed(arr)
+            with span("spectralmc.serve.fetch"):
+                packed = out.cpu().numpy()  # the one device->host copy
+            with span("spectralmc.serve.parity"):
+                return self._prices(packed, int(arr.shape[0]), n, host)
+
+    def _prices(self, packed: np.ndarray, m: int, n: int, host: np.ndarray) -> PricePrediction:
+        """The first ``n`` of ``m`` served rows' prices from the packed copy
+        (puts, expected underliers, the residue) and the host contracts."""
         put = packed[:m][:n]
         expected = packed[m:2 * m][:n]
         residue = float(packed[2 * m])

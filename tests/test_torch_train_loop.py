@@ -262,6 +262,91 @@ def test_profile_dir_writes_trace(start_snapshot, tmp_path) -> None:
 
 
 # --------------------------------------------------------------------------
+# the program's spans (utils/profiling.py::span)
+# --------------------------------------------------------------------------
+
+# a profiled call of 2 batches x 2 chunks, one segment: each span's count and
+# the innermost program span around it (None: no program span)
+TRAIN_SPANS = [
+    ("train_segment", 1, None),
+    ("spectralmc.train.segment_start", 1, "train_segment"),
+    ("spectralmc.train.fetch", 1, "train_segment"),
+    ("spectralmc.step", 2, "train_segment"),
+    ("spectralmc.step.sample", 2, "spectralmc.step"),
+    ("spectralmc.step.paths", 4, "spectralmc.step"),
+    ("spectralmc.step.payoff", 4, "spectralmc.step"),
+    ("spectralmc.step.fft", 4, "spectralmc.step"),
+    ("spectralmc.step.cvnn_forward", 2, "spectralmc.step"),
+    ("spectralmc.step.cvnn_backward", 2, "spectralmc.step"),
+    ("spectralmc.step.adam", 2, "spectralmc.step"),
+]
+SERVE_SPANS = [
+    ("spectralmc.serve", 1, None),
+    ("spectralmc.serve.prepare", 1, "spectralmc.serve"),
+    ("spectralmc.serve.forward", 1, "spectralmc.serve"),
+    ("spectralmc.serve.fetch", 1, "spectralmc.serve"),
+    ("spectralmc.serve.parity", 1, "spectralmc.serve"),
+]
+
+
+def _program_spans(events: list[dict]) -> list[tuple[str, str | None]]:
+    """``(name, innermost enclosing program span)`` of each program span in
+    a Chrome trace, on its own thread."""
+    spans = [(e["name"], e["tid"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+             for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+             and (e["name"].startswith("spectralmc.") or e["name"] == "train_segment")]
+    out = []
+    for i, (name, tid, lo, hi) in enumerate(spans):
+        around = [(h - l, n) for j, (n, t, l, h) in enumerate(spans)
+                  if j != i and t == tid and l <= lo and hi <= h]
+        out.append((name, min(around)[1] if around else None))
+    return out
+
+
+@pytest.fixture(scope="module", params=["plain", "capture"])
+def train_spans(request, start_snapshot, tmp_path_factory) -> list[tuple[str, str | None]]:
+    """The spans of ``train(profile_dir=...)``, plain or with the benchmark's
+    ``Capture`` wrapping ``make_mc_spectrum``."""
+    from portbench.program import Capture
+
+    pricer = _port(start_snapshot)
+    profile_dir = tmp_path_factory.mktemp("spans")
+    cfg = _cfg(ttr, 2, contract_chunk=BATCH // 2)
+    if request.param == "capture":
+        with Capture(pricer, chunks_per_step=2, steps=1) as capture:
+            pricer.train(cfg, profile_dir=str(profile_dir)).expect("train")
+        assert capture.done and len(capture.targets) == 2
+    else:
+        pricer.train(cfg, profile_dir=str(profile_dir)).expect("train")
+    (trace,) = profile_dir.glob("*.pt.trace.json")
+    return _program_spans(json.loads(trace.read_text())["traceEvents"])
+
+
+@pytest.mark.parametrize("name, count, parent", TRAIN_SPANS, ids=[s[0] for s in TRAIN_SPANS])
+def test_train_spans(train_spans, name: str, count: int, parent: str | None) -> None:
+    assert [p for n, p in train_spans if n == name] == [parent] * count
+
+
+@pytest.fixture(scope="module")
+def serve_spans(start_snapshot, tmp_path_factory) -> list[tuple[str, str | None]]:
+    """The spans of one profiled ``predict_price`` call."""
+    from spectralmc_tpu_torch.utils import profile_trace
+
+    pricer = _port(start_snapshot)
+    contracts = np.asarray([[100.0, 100.0, 1.0, 0.02, 0.01, 0.2]] * 3, dtype=np.float32)
+    profile_dir = tmp_path_factory.mktemp("serve_spans")
+    with profile_trace(str(profile_dir), device="cpu"):
+        pricer.predict_price(contracts)
+    (trace,) = profile_dir.glob("*.pt.trace.json")
+    return _program_spans(json.loads(trace.read_text())["traceEvents"])
+
+
+@pytest.mark.parametrize("name, count, parent", SERVE_SPANS, ids=[s[0] for s in SERVE_SPANS])
+def test_serve_spans(serve_spans, name: str, count: int, parent: str | None) -> None:
+    assert [p for n, p in serve_spans if n == name] == [parent] * count
+
+
+# --------------------------------------------------------------------------
 # train_via_effects
 # --------------------------------------------------------------------------
 

@@ -17,6 +17,9 @@ from __future__ import annotations
 
 import asyncio
 import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -34,7 +37,7 @@ from spectralmc_tpu_torch.storage import AsyncBlockchainModelStore, FileSystemOb
 from spectralmc_tpu_torch.storage.checkpoint import commit_snapshot
 from spectralmc_tpu_torch.training import trainer as ttr
 from spectralmc_tpu_torch.training.trainer import SegmentMetrics, StepMetrics
-from spectralmc_tpu_torch.utils import StepTimer, profile_trace
+from spectralmc_tpu_torch.utils import profile_trace, span
 from spectralmc_tpu_torch.utils import tensorboard_writer as tbw
 from spectralmc_tpu_torch.utils.flops import (
     H100_SXM_PEAK_FP32_FLOPS,
@@ -246,15 +249,57 @@ def test_profile_trace_writes_a_chrome_trace(tmp_path) -> None:
     assert any(e.get("name") == "probe" for e in json.loads(trace.read_text())["traceEvents"])
 
 
-def test_step_timer() -> None:
-    timer = StepTimer()
-    assert timer.mean == 0.0
-    for _ in range(2):
-        timer.start()
-        assert timer.stop() >= 0.0
-    assert len(timer.times) == 2 and timer.mean >= 0.0
-    with pytest.raises(AssertionError):
-        timer.stop()
+def test_span_is_the_shared_no_op_without_a_profiler(monkeypatch) -> None:
+    def refuse(name: str) -> None:
+        raise AssertionError(f"record_function({name!r}) with no profiler recording")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    first, second = span("spectralmc.step"), span("spectralmc.serve")
+    assert first is second
+    with first:
+        with second:
+            torch.ones(2).sum()
+
+
+COLLECTIVE_SPANS = """
+import json, sys
+import torch
+import torch.distributed as dist
+from spectralmc_tpu_torch.ops.collectives import pmean, pmean_many, psum
+from spectralmc_tpu_torch.utils import profile_trace
+
+dist.init_process_group("gloo", init_method="file://" + sys.argv[1] + "/rdv", rank=0,
+                        world_size=1)
+try:
+    with profile_trace(sys.argv[1], device="cpu"):
+        psum(torch.ones(3), dist.group.WORLD)
+        pmean(torch.ones(3, dtype=torch.complex64), dist.group.WORLD)
+        pmean_many([torch.ones(2), torch.zeros(3)], dist.group.WORLD)
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def test_one_collective_span_an_all_reduce(tmp_path) -> None:
+    """``psum``, ``pmean`` and ``pmean_many`` (one all-reduce each) on a
+    one-rank ``gloo`` group, in a process of its own."""
+    subprocess.run([sys.executable, "-c", COLLECTIVE_SPANS, str(tmp_path)], check=True,
+                   timeout=120, env={**os.environ, "OMP_NUM_THREADS": "1"})
+    (trace,) = tmp_path.glob("*.pt.trace.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert sum(e.get("name") == "spectralmc.collective" for e in events) == 3
+
+
+def test_span_records_a_range_while_profiled(tmp_path) -> None:
+    with profile_trace(str(tmp_path), device="cpu"):
+        assert span("spectralmc.step") is not span("spectralmc.step")
+        with span("spectralmc.step"):
+            torch.ones(8).sum()
+    (trace,) = tmp_path.glob("*.pt.trace.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert [e.get("cat") for e in events if e.get("name") == "spectralmc.step"] == [
+        "user_annotation"]
+    assert span("spectralmc.step") is span("spectralmc.serve")  # off again
 
 
 # --------------------------------------------------------------------------
